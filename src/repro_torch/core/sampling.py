@@ -1,0 +1,95 @@
+"""The ``sampling`` primitive on tensors: β peer indices per worker.
+
+The port's counterpart of the index core of :mod:`repro.core.sampling`
+(``sample_peer_indices_jax`` / ``sample_alive_peer_indices_jax``).  Both
+functions take their uniform noise as an input, so a fused kernel and
+this plain version can be held to the *identical* sample: one selects by
+sorting, the kernel by an equivalent rank test.
+
+Selection order is ``(score, index)``: the k smallest scores, ties broken
+by the lower index.  That is the order ``lax.top_k(-scores, k)`` yields;
+``torch.topk`` promises no order among ties, so the selection here is a
+stable ascending sort.  Self and dead slots carry the sentinel score 2.0
+and therefore tie with each other: compare ``take`` only where ``valid``
+is true.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = ["sample_alive_peer_indices", "sample_peer_indices"]
+
+
+def _k_smallest(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """(values, indices) of the k smallest scores per row, (score, index)
+    order — a stable sort keeps equal scores in index order."""
+    vals, idx = torch.sort(scores, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def sample_peer_indices(n: int, beta: int, *, exclude_self: bool = True,
+                        scores: torch.Tensor | None = None,
+                        u: torch.Tensor | None = None,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Peer indices for each of ``n`` workers: ``k = min(β, n)`` draws
+    without replacement, from pre-drawn uniform noise.
+
+    β = 1 (with ``exclude_self``) uses one uniform per worker, ``u`` f32[n],
+    spread over the n−1 non-self slots; larger β takes the k smallest of
+    the score matrix ``scores`` f32[n, n] (self slots excluded).
+
+    Returns:
+      take: i32[n, k] sampled peer indices.
+      valid: bool[n, k] — False where β exceeded the peer population.
+    """
+    k = min(beta, n)
+    pop = n - 1 if exclude_self else n
+    dev = (u if u is not None else scores).device
+    if k <= 0:
+        z = torch.zeros((n, 0), dtype=torch.int32, device=dev)
+        return z, z.bool()
+    if k == 1 and exclude_self:
+        draw = torch.floor(u * max(n - 1, 1)).to(torch.int32)
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        take = torch.clamp_max(draw + (draw >= iota).to(torch.int32),
+                               n - 1)[..., None]
+    else:
+        if exclude_self:
+            eye = torch.eye(n, dtype=torch.bool, device=dev)
+            scores = torch.where(eye, torch.full_like(scores, 2.0), scores)
+        _, take = _k_smallest(scores, k)
+    slot = torch.arange(k, device=dev)
+    valid = torch.broadcast_to(slot < pop, take.shape)
+    return take.to(torch.int32), valid
+
+
+def sample_alive_peer_indices(alive: torch.Tensor, beta: int, *,
+                              scores: torch.Tensor,
+                              exclude_self: bool = True,
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Membership-masked variant: up to ``min(β, n)`` **alive** peers each.
+
+    Args:
+      alive: bool[..., n] membership masks (leading dims are batched).
+      beta: sample size β ≥ 0.
+      scores: pre-drawn uniform scores f32[..., n, n].
+      exclude_self: do not let a worker sample itself.
+
+    Returns:
+      take: i32[..., n, k] peer indices, k = min(β, n).
+      valid: bool[..., n, k] — False on dead-peer / exhausted-pool slots.
+    """
+    *lead, n = alive.shape
+    k = min(beta, n)
+    if k <= 0:
+        z = torch.zeros((*lead, n, 0), dtype=torch.int32, device=alive.device)
+        return z, z.bool()
+    masked = ~alive[..., None, :]
+    if exclude_self:
+        masked = masked | torch.eye(n, dtype=torch.bool, device=alive.device)
+    scores = torch.where(masked, torch.full_like(scores, 2.0), scores)
+    vals, take = _k_smallest(scores, k)
+    return take.to(torch.int32), vals < 1.5
