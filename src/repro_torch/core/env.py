@@ -16,7 +16,7 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
-__all__ = ["EnvVar", "REGISTRY", "get_str", "get_int", "get_float", "flag"]
+__all__ = ["EnvVar", "REGISTRY", "get_str", "get_int"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +24,8 @@ class EnvVar:
     """One registered environment override."""
 
     name: str           #: full variable name (``PSP_...``)
-    kind: str           #: "str" | "int" | "float" | "flag"
-    default: Any        #: value returned when unset (flags: False)
+    kind: str           #: "str" | "int"
+    default: Any        #: value returned when unset
     help: str           #: one-line description
 
 
@@ -70,19 +70,3 @@ def get_int(name: str) -> Optional[int]:
         return int(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not an integer") from None
-
-
-def get_float(name: str) -> Optional[float]:
-    """Float-typed read; garbage raises ``ValueError`` naming the variable."""
-    raw = _raw(name)
-    if raw is None:
-        return REGISTRY[name].default
-    try:
-        return float(raw)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r} is not a number") from None
-
-
-def flag(name: str) -> bool:
-    """Flag-typed read: set to any non-empty value = True."""
-    return _raw(name) is not None

@@ -18,23 +18,25 @@
 // plane touches only (B, P) arrays and the 4 MB shared score matrix.
 //
 // What the design does about it:
-//   1. control_kernel -- one thread block per scenario row.  Row reductions
-//      (alive count, first-argmax churn victim and joiner, freshest step,
-//      row_last, min/max alive step, EMA max, ctrl) are block reductions;
-//      each node is owned by one thread.  The beta-sample runs one thread
-//      per deciding node and streams the peer axis twice: first the lowest
-//      (score, index) lagging peer, then the count of eligible peers before
-//      it -- the peer is inside the sample iff that count is below beta.
-//      No P x P tile is kept; the row's steps/alive sit in shared memory.
-//      The beta = 1 path reads the peer's step with an exact integer gather.
-//   2. resid_kernel -- one warp per (row, node): the residual
-//      resid[b,p,:] = fin * (X[p,:,:] . (pulled[b,p,:] - w_true[b,:]) -
-//      sigma_b * mb[p,:]); non-finishers write zeros without reading their
-//      view, so only finishers' views are read here.
-//   3. update_kernel -- one block per (32 model columns, 8 rows): the
-//      gradient sum over (p, m) in registers, w -= lr * sum / m, then the
-//      pull: every node view of those rows and columns is copied, the
-//      starters' replaced by the new server model.
+//   1. control_kernel -- one 1024-thread block per scenario row.  Row
+//      reductions (alive count, first-argmax churn victim and joiner,
+//      freshest step, row_last, min/max alive step, EMA max, ctrl) are
+//      block reductions; each node is owned by one thread.  The
+//      beta-sample runs one thread per deciding node and streams the peer
+//      axis twice: first the lowest (score, index) lagging peer, then the
+//      count of eligible peers before it -- the peer is inside the sample
+//      iff that count is below beta.  No P x P tile is kept; the row's
+//      steps/alive sit in shared memory, and the peer loops are branch-free
+//      and unrolled so their score loads overlap.  The beta = 1 path reads
+//      the peer's step with an exact integer gather.
+//   2. resid_kernel -- one warp per (row, node), over the whole card: the
+//      residual resid[b,p,:] = fin * (X[p,:,:] . (pulled[b,p,:] -
+//      w_true[b,:]) - sigma_b * mb[p,:]) of every finisher, and the copy of
+//      every non-starter's view into the output, in one read of the view
+//      (16-byte accesses when d is a multiple of 4).
+//   3. update_kernel -- one 1024-thread block per (32 model columns,
+//      8 rows): the gradient sum over (p, m) split over 32 warps, w -= lr * sum / m, then the
+//      starters' views are written with the new server model.
 // No atomics: every reduction runs in a fixed order, so each row's bits
 // depend on that row alone.  Built with -fmad=false and without fast math,
 // so event_time, ready, the EMA and elastic_slack's division round like
@@ -46,10 +48,14 @@
 
 namespace {
 
-constexpr int NT = 256;        // threads per block, all three kernels
-constexpr int NW = NT / 32;    // warps per block
+constexpr int NTC = 1024;      // threads per control_kernel block
+constexpr int NWC = NTC / 32;  // its warps
+constexpr int NT = 256;        // threads per resid_kernel block
+constexpr int NW = NT / 32;    // its warps
+constexpr int NTU = 1024;      // threads per update_kernel block
+constexpr int NWU = NTU / 32;  // its warps
 constexpr int MAX_M = 16;      // minibatch rows held in registers
-constexpr int RG = NW;         // rows per update_kernel block (one per warp)
+constexpr int RG = 8;          // rows per update_kernel block
 constexpr unsigned FULL = 0xffffffffu;
 
 // operand slots of `psp_tick_launch`; the wrapper builds the array in
@@ -101,7 +107,7 @@ __device__ T block_reduce(T v, Op op, T* buf) {
   if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
   __syncthreads();
   T r = buf[0];
-  for (int i = 1; i < NW; ++i) r = op(r, buf[i]);
+  for (int i = 1; i < NWC; ++i) r = op(r, buf[i]);
   return r;
 }
 
@@ -116,11 +122,11 @@ template <class Mask>
 __device__ int first_argmax(const float* u, int P, Mask mask, int* bi,
                             float* bf) {
   float best = -INFINITY;
-  for (int i = threadIdx.x; i < P; i += NT)
+  for (int i = threadIdx.x; i < P; i += NTC)
     best = fmaxf(best, mask(i) ? u[i] : -1.0f);
   const float mx = block_reduce(best, MaxF(), bf);
   int idx = P;
-  for (int i = threadIdx.x; i < P; i += NT)
+  for (int i = threadIdx.x; i < P; i += NTC)
     if ((mask(i) ? u[i] : -1.0f) == mx && i < idx) idx = i;
   return block_reduce(idx, MinI(), bi);
 }
@@ -128,10 +134,10 @@ __device__ int first_argmax(const float* u, int P, Mask mask, int* bi,
 // Control plane: one block per scenario row, one thread per node slot
 // (strided).  Every per-node value is read and written by its owning
 // thread only, through the output arrays; rows talk through reductions.
-__global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
+__global__ void __launch_bounds__(NTC) control_kernel(Slots a, Dims D) {
   extern __shared__ int smem[];            // steps, alive of the row
-  __shared__ int bi[NW];
-  __shared__ float bf[NW];
+  __shared__ int bi[NWC];
+  __shared__ float bf[NWC];
   const int P = D.P, b = blockIdx.x, tid = threadIdx.x;
   int* steps_s = smem;
   int* alive_s = smem + P;
@@ -145,7 +151,7 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
   float* o_event = F32(O_EVENT) + row;
   float* o_ready = F32(O_READY) + row;
   int* o_blocked = I32(O_BLOCKED) + row;
-  for (int i = tid; i < P; i += NT) {
+  for (int i = tid; i < P; i += NTC) {
     o_steps[i] = I32(STEPS)[row + i];
     o_alive[i] = I32(ALIVE)[row + i] != 0;
     o_comp[i] = I32(COMP)[row + i] != 0;
@@ -160,29 +166,29 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
     const int pend_l = I32(PEND_L)[b] + I32(LEAVE_N)[b];
     const int pend_j = I32(PEND_J)[b] + I32(JOIN_N)[b];
     int na = 0;
-    for (int i = tid; i < P; i += NT) na += o_alive[i];
+    for (int i = tid; i < P; i += NTC) na += o_alive[i];
     const int n_alive = block_reduce(na, Sum(), bi);
     const bool do_l = active && pend_l > 0 && n_alive > 2;
     const int vid = first_argmax(
         F32(U_LEAVE) + row, P, [&](int i) { return o_alive[i] != 0; },
         bi, bf);
     if (do_l)
-      for (int i = tid; i < P; i += NT)
+      for (int i = tid; i < P; i += NTC)
         if (i == vid) o_alive[i] = 0;
     auto pool = [&](int i) { return !o_alive[i] && valid[i]; };
     int np = 0;
-    for (int i = tid; i < P; i += NT) np += pool(i);
+    for (int i = tid; i < P; i += NTC) np += pool(i);
     const bool do_j = active && pend_j > 0 && block_reduce(np, Sum(), bi) > 0;
     const int jid = first_argmax(F32(U_JOIN) + row, P, pool, bi, bf);
     if (do_j)
-      for (int i = tid; i < P; i += NT)
+      for (int i = tid; i < P; i += NTC)
         if (i == jid) o_alive[i] = 1;
     int fr = INT32_MIN;
-    for (int i = tid; i < P; i += NT)
+    for (int i = tid; i < P; i += NTC)
       if (o_alive[i]) fr = max(fr, o_steps[i]);
     const int fresh = block_reduce(fr, MaxI(), bi);
     if (do_j)
-      for (int i = tid; i < P; i += NT)
+      for (int i = tid; i < P; i += NTC)
         if (i == jid) {
           o_steps[i] = fresh;
           o_comp[i] = 0;
@@ -202,7 +208,7 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
   // 1. finishes: advance steps, become "deciding"
   int nf = 0;
   float last = -INFINITY;
-  for (int i = tid; i < P; i += NT) {
+  for (int i = tid; i < P; i += NTC) {
     const float ev = o_event[i];
     const int fin = o_comp[i] && o_alive[i] && ev <= te && active;
     I32(O_FIN)[row + i] = fin;
@@ -224,7 +230,7 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
   const float* ema = D.adaptive ? F32(POL_EMA) + row : nullptr;
   int mn = INT32_MAX, mx = INT32_MIN, na2 = 0;
   float emx = -INFINITY;
-  for (int i = tid; i < P; i += NT) {
+  for (int i = tid; i < P; i += NTC) {
     const int s = o_steps[i], al = o_alive[i];
     steps_s[i] = s;
     alive_s[i] = al;
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
 
   // 2-3. decide, then start or re-poll, node by node
   int ctrl = 0;
-  for (int i = tid; i < P; i += NT) {
+  for (int i = tid; i < P; i += NTC) {
     const int al = alive_s[i], si = steps_s[i];
     float ev = o_event[i];
     const bool cand = !o_comp[i] && al && ev <= te && active;
@@ -287,30 +293,29 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
         const int take = min(draw + (draw >= i ? 1 : 0), P - 1);
         passed = !(P > 1 && si - steps_s[take] > st);
       } else {
-        const float* sc = samp + (D.masked ? (row + i) : i) *
-                                     static_cast<size_t>(P);
-        // pass 1: the lowest (score, index) lagging eligible peer
+        const float* __restrict__ sc =
+            samp + (D.masked ? (row + i) : i) * static_cast<size_t>(P);
+        // pass 1: the lowest (score, index) lagging eligible peer.  Loads
+        // are unconditional and the loop branch-free, so unrolled loads
+        // overlap instead of waiting one by one.
         float bs = 3.0f;
         int bj = P;
+#pragma unroll 8
         for (int j = 0; j < P; ++j) {
-          const bool elig = j != i && (!D.masked || alive_s[j]);
-          if (elig && si - steps_s[j] > st) {
-            const float v = sc[j];
-            if (v < bs) {
-              bs = v;
-              bj = j;
-            }
-          }
+          const float v = sc[j];
+          const bool lag = j != i && (!D.masked || alive_s[j]) &&
+                           si - steps_s[j] > st && v < bs;
+          bs = lag ? v : bs;
+          bj = lag ? j : bj;
         }
         // pass 2: it is sampled iff fewer than kb eligible peers precede it
         if (bj < P) {
           int before = 0;
-          for (int j = 0; j < P && before < kb; ++j) {
-            const bool elig = j != i && (!D.masked || alive_s[j]);
-            if (elig) {
-              const float v = sc[j];
-              before += (v < bs || (v == bs && j < bj)) ? 1 : 0;
-            }
+#pragma unroll 8
+          for (int j = 0; j < P; ++j) {
+            const float v = sc[j];
+            before += (j != i && (!D.masked || alive_s[j]) &&
+                       (v < bs || (v == bs && j < bj))) ? 1 : 0;
           }
           passed = before >= kb;
         }
@@ -356,7 +361,9 @@ __global__ void __launch_bounds__(NT) control_kernel(Slots a, Dims D) {
   }
 }
 
-// Residual of every finisher: one warp per (row, node).
+// Residual of every finisher and the copy of every non-starter's view:
+// one warp per (row, node).  A node that neither finished nor keeps its
+// view (a starter without a push) reads nothing.
 __global__ void __launch_bounds__(NT) resid_kernel(Slots a, Dims D) {
   const long long wi = (static_cast<long long>(blockIdx.x) * NT +
                         threadIdx.x) >> 5;
@@ -364,64 +371,102 @@ __global__ void __launch_bounds__(NT) resid_kernel(Slots a, Dims D) {
   if (wi >= static_cast<long long>(D.B) * D.P) return;   // whole warp
   const int m = D.m, d = D.d;
   const int b = static_cast<int>(wi / D.P), p = static_cast<int>(wi % D.P);
-  float* r = F32(RESID) + wi * m;
-  if (!I32(O_FIN)[wi]) {
-    if (lane < m) r[lane] = 0.0f;
-    return;
-  }
-  const float* view = F32(PULLED) + wi * d;
-  const float* wt = F32(W_TRUE) + static_cast<size_t>(b) * d;
-  const float* xp = F32(X) + static_cast<size_t>(p) * m * d;
+  const bool fin = I32(O_FIN)[wi] != 0, keep = I32(O_START)[wi] == 0;
+  float* __restrict__ r = F32(RESID) + wi * m;
+  if (!fin && lane < m) r[lane] = 0.0f;
+  if (!fin && !keep) return;
+  const float* __restrict__ view = F32(PULLED) + wi * d;
+  float* __restrict__ out = F32(O_PULLED) + wi * d;
+  const float* __restrict__ wt = F32(W_TRUE) + static_cast<size_t>(b) * d;
+  const float* __restrict__ xp = F32(X) + static_cast<size_t>(p) * m * d;
   float acc[MAX_M];
 #pragma unroll
   for (int k = 0; k < MAX_M; ++k) acc[k] = 0.0f;
-  for (int c = lane; c < d; c += 32) {
-    const float df = view[c] - wt[c];
+  const bool vec = (d & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(view) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(wt) | reinterpret_cast<uintptr_t>(xp)) &
+       15) == 0;
+  if (vec) {                           // 16-byte loads and stores
+    const int d4 = d >> 2;
+    const float4* __restrict__ v4 = reinterpret_cast<const float4*>(view);
+    const float4* __restrict__ w4 = reinterpret_cast<const float4*>(wt);
+    const float4* __restrict__ x4 = reinterpret_cast<const float4*>(xp);
+    float4* __restrict__ o4 = reinterpret_cast<float4*>(out);
+#pragma unroll 2
+    for (int c = lane; c < d4; c += 32) {
+      const float4 v = v4[c];
+      if (keep) o4[c] = v;
+      if (fin) {
+        const float4 w = w4[c];
+        const float dx = v.x - w.x, dy = v.y - w.y;
+        const float dz = v.z - w.z, dw = v.w - w.w;
 #pragma unroll
-    for (int k = 0; k < MAX_M; ++k)
-      if (k < m) acc[k] += xp[static_cast<size_t>(k) * d + c] * df;
+        for (int k = 0; k < MAX_M; ++k) {
+          if (k < m) {
+            const float4 x = x4[static_cast<size_t>(k) * d4 + c];
+            acc[k] += x.x * dx;
+            acc[k] += x.y * dy;
+            acc[k] += x.z * dz;
+            acc[k] += x.w * dw;
+          }
+        }
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float v = view[c];
+      if (keep) out[c] = v;
+      if (fin) {
+        const float df = v - wt[c];
+#pragma unroll
+        for (int k = 0; k < MAX_M; ++k)
+          if (k < m) acc[k] += xp[static_cast<size_t>(k) * d + c] * df;
+      }
+    }
   }
+  if (!fin) return;
   const float ns = F32(NOISE_STD)[b];
 #pragma unroll
   for (int k = 0; k < MAX_M; ++k) {
     if (k < m) {
-      const float v = warp_sum(acc[k]);
-      if (lane == 0) r[k] = v - ns * F32(MB)[static_cast<size_t>(p) * m + k];
+      const float s = warp_sum(acc[k]);
+      if (lane == 0) r[k] = s - ns * F32(MB)[static_cast<size_t>(p) * m + k];
     }
   }
 }
 
-// Gradient sum, server update and pull: one block per (32 columns, RG rows).
-__global__ void __launch_bounds__(NT) update_kernel(Slots a, Dims D) {
-  __shared__ float part[NW][RG][32];
+// Gradient sum, server update and the starters' pull: one block per
+// (32 columns, RG rows).  The (node, minibatch row) axis is split over the
+// block's warps, each summing its share in a fixed order; the warps'
+// partial sums are then added in warp order.
+__global__ void __launch_bounds__(NTU) update_kernel(Slots a, Dims D) {
+  __shared__ float part[NWU][RG][32];
   __shared__ float w_new[RG][32];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int B = D.B, P = D.P, d = D.d, m = D.m;
   const int col = blockIdx.x * 32 + lane;
   const int b0 = blockIdx.y * RG;
   const bool col_ok = col < d;
-  const float* X_ = F32(X);
-  const float* resid = F32(RESID);
+  const float* __restrict__ X_ = F32(X);
+  const float* __restrict__ resid = F32(RESID);
+  const long long Q = static_cast<long long>(P) * m;   // (p, k) pairs
   float acc[RG];
 #pragma unroll
   for (int r = 0; r < RG; ++r) acc[r] = 0.0f;
-  for (int p = wid; p < P; p += NW) {
-    for (int k = 0; k < m; ++k) {
-      const float x =
-          col_ok ? X_[(static_cast<size_t>(p) * m + k) * d + col] : 0.0f;
+#pragma unroll 2
+  for (long long q = wid; q < Q; q += NWU) {
+    const float x = col_ok ? X_[q * d + col] : 0.0f;
 #pragma unroll
-      for (int r = 0; r < RG; ++r)
-        if (b0 + r < B)
-          acc[r] += resid[(static_cast<size_t>(b0 + r) * P + p) * m + k] * x;
-    }
+    for (int r = 0; r < RG; ++r)
+      if (b0 + r < B) acc[r] += resid[(b0 + r) * Q + q] * x;
   }
 #pragma unroll
   for (int r = 0; r < RG; ++r) part[wid][r][lane] = acc[r];
   __syncthreads();
-  {
+  if (wid < RG) {
     const int r = wid, b = b0 + wid;      // thread (r, lane): one output
     float g = 0.0f;
-    for (int w = 0; w < NW; ++w) g += part[w][r][lane];
+    for (int w = 0; w < NWU; ++w) g += part[w][r][lane];
     if (b < B && col_ok) {
       const size_t o = static_cast<size_t>(b) * d + col;
       const float v = F32(W)[o] - F32(LR)[b] * (g / static_cast<float>(m));
@@ -430,13 +475,14 @@ __global__ void __launch_bounds__(NT) update_kernel(Slots a, Dims D) {
     }
   }
   __syncthreads();
-  const int* start = I32(O_START);
-  for (int rp = wid; rp < RG * P; rp += NW) {
+  const int* __restrict__ start = I32(O_START);
+  float* __restrict__ out = F32(O_PULLED);
+#pragma unroll 4
+  for (int rp = wid; rp < RG * P; rp += NWU) {
     const int r = rp / P, p = rp - r * P, b = b0 + r;
-    if (b >= B || !col_ok) continue;
     const size_t node = static_cast<size_t>(b) * P + p;
-    const size_t o = node * d + col;
-    F32(O_PULLED)[o] = start[node] ? w_new[r][lane] : F32(PULLED)[o];
+    if (b < B && col_ok && start[node])
+      out[node * d + col] = w_new[r][lane];
   }
 }
 
@@ -460,14 +506,14 @@ extern "C" int psp_tick_launch(void** ptrs, const int* ints,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  control_kernel<<<D.B, NT, smem, s>>>(a, D);
+  control_kernel<<<D.B, NTC, smem, s>>>(a, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const long long warps = static_cast<long long>(D.B) * D.P;
   const unsigned nb = static_cast<unsigned>((warps + NW - 1) / NW);
   resid_kernel<<<nb, NT, 0, s>>>(a, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   dim3 grid((D.d + 31) / 32, (D.B + RG - 1) / RG);
-  update_kernel<<<grid, NT, 0, s>>>(a, D);
+  update_kernel<<<grid, NTU, 0, s>>>(a, D);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -159,6 +159,23 @@ def test_injected_noise_drives_the_sweep():
     assert vector_sim_torch.ticks_to_run(sim) == plan.n_rec_live * plan.stride
 
 
+def test_env_overrides_are_typed(monkeypatch):
+    """``PSP_TICK_IMPL`` with an unknown value raises instead of running
+    the plain version; unregistered names and non-integers raise too."""
+    from repro_torch.core import env
+    cfg = tsim.SimConfig(n_nodes=4, dim=2, duration=0.1)
+    monkeypatch.setenv("PSP_TICK_IMPL", "pallas")
+    with pytest.raises(ValueError, match="unknown impl"):
+        tvs.run_sweep([cfg], device="cpu")
+    monkeypatch.setenv("PSP_SWEEP_CHUNK", "two")
+    with pytest.raises(ValueError, match="PSP_SWEEP_CHUNK"):
+        env.get_int("PSP_SWEEP_CHUNK")
+    with pytest.raises(KeyError, match="not a registered"):
+        env.get_str("PSP_SWEEP_MESH")
+    monkeypatch.setenv("PSP_TICK_IMPL", "")
+    assert env.get_str("PSP_TICK_IMPL") == "auto"
+
+
 def test_run_sweep_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tsim.SimConfig(n_nodes=4, dim=2, duration=0.1)
