@@ -88,31 +88,6 @@ def test_ref_tick_matches_reference(churn, ragged, k_max, adaptive):
         _compare(o_jax, to_numpy(o_pt), f"tick {i} out")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("churn,ragged,k_max,adaptive", CASES)
-def test_cuda_tick_matches_plain(churn, ragged, k_max, adaptive):
-    """On the card: the CUDA tick equals the plain version in the control
-    plane and within tolerance in the data plane, 5 chained ticks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from repro_torch.kernels.psp_tick import psp_tick_cuda
-    dev = torch.device("cuda", 0)
-    state, rand, params, leave_n, join_n, masked = _tick_problem(
-        0, 3, 8, churn, ragged, k_max, adaptive=adaptive)
-    kw = dict(k_max=k_max, has_churn=churn, masked=masked,
-              adaptive=adaptive)
-    s_r, _, p = tick_inputs_to_torch(state, {}, params, dev)
-    s_k = dict(s_r)
-    ln, jn = to_torch(leave_n, dev), to_torch(join_n, dev)
-    for i in range(5):
-        _, r, _ = tick_inputs_to_torch({}, _rand_for_tick(rand, i), {}, dev)
-        t = float(np.float32(0.4 * (i + 1)))
-        s_r, o_r = psp_tick_ref(s_r, r, p, t, ln, jn, **kw)
-        s_k, o_k = psp_tick_cuda(s_k, r, p, t, ln, jn, **kw)
-        _compare(to_numpy(s_r), to_numpy(s_k), f"tick {i} state")
-        _compare(to_numpy(o_r), to_numpy(o_k), f"tick {i} out")
-
-
 @pytest.mark.parametrize("adaptive", (False, True))
 def test_frozen_row_is_inert(adaptive):
     """Rows past their horizon do not move: state unchanged (policy state
