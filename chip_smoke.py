@@ -8,8 +8,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 Phases (any failure exits non-zero before the final line):
 
 1. Print the card's name and power limit; build every CUDA kernel of the
-   port from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-   all started together) and print the build seconds.
+   port from ``src/repro_torch/kernels/csrc`` and print the build seconds.
 2. Hold the fused tick kernel against its plain PyTorch version on the
    card: the nine static branch cases (5 chained ticks each, at two
    sizes) and the paper shape (B = 32, P = 1000, d = 1000, m = 8,
@@ -21,7 +20,9 @@ Phases (any failure exits non-zero before the final line):
    straggler fractions, P = 1000, d = 1000, β = 10, s = 4, 40 s, 2000
    ticks) through ``repro_torch.core.run_sweep`` on the card, with the
    kernel's launch count reset just before and read just after: it must
-   equal the ticks run.
+   equal the ticks run.  Then the same sweep once more under
+   ``torch.profiler``: the device time of every kernel it ran, against
+   the unprofiled run's wall time, gives the device's busy share.
 4. The same configs with a 5 s horizon under ``PSP_TICK_IMPL=cuda`` and
    ``ref`` (same generator seed): steps, total updates and control
    messages equal, error traces within rtol 1e-4, atol 1e-6.
@@ -56,6 +57,7 @@ CASES = [  # (churn, ragged, k_max, adaptive): the tick's static branches
     (False, True, 2, False), (True, True, 2, False),
     (False, False, 0, True), (False, False, 3, True), (True, True, 2, True),
 ]
+TICK_KERNELS = ("control_kernel", "resid_kernel", "update_kernel")
 FIVE = ("bsp", "ssp", "asp", "pbsp", "pssp")
 FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
 
@@ -183,9 +185,11 @@ def time_calls(torch, fn, n):
     return e0.elapsed_time(e1) / n
 
 
-def profile_kernels(torch, fn, n, names):
-    """Device milliseconds per call of ``fn`` in each kernel whose name
-    contains one of ``names`` (torch.profiler); {} if it sees none."""
+def profile_device(torch, fn, n=1):
+    """Device milliseconds per call of ``fn`` in each kernel or copy it
+    runs (torch.profiler), by name; {} if the profiler sees none.  Only
+    device events count: a host op's entry repeats its kernels' time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -194,13 +198,14 @@ def profile_kernels(torch, fn, n, names):
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        for name in names:
-            if name in ev.key:
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(ev, "self_cuda_time_total", 0.0)
-                out[name] = out.get(name, 0.0) + us / 1e3 / n
-    return {k: v for k, v in out.items() if v > 0}
+        if ev.device_type == DeviceType.CPU:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + us / 1e3 / n
+    return out
 
 
 def main() -> int:
@@ -277,15 +282,21 @@ def main() -> int:
     ref = lambda: pt.psp_tick_ref(**tick, **kw)
     ms_call = time_calls(torch, ker, 50)
     ms_plain = time_calls(torch, ref, 20)
-    split = profile_kernels(torch, ker, 20, ("control_kernel",
-                                             "resid_kernel",
-                                             "update_kernel"))
+    split = {name: ms for key, ms in profile_device(torch, ker, 20).items()
+             for name in TICK_KERNELS if name in key}
     ms_dev = sum(split.values()) if split else None
     _, o = ker()
-    n_fin = int(o["n_fin"].sum())
+    fin, start = o["fin"].bool(), o["start"].bool()
+    n_fin = int(fin.sum())
     n_cand_sm = int(((~s["computing"]) & p["sampled"][:, None]).sum())
-    in_bytes = sum(v.numel() * v.element_size()
-                   for group in (s, r, p) for v in group.values()
+    # f32 elements this tick's data needs read: a starter that did not
+    # push never reads its old view (its new one is the server model),
+    # and no row reads the minibatch of a node that no row pushes
+    pushed = int(fin.any(0).sum())
+    need = {"pulled": int((fin | ~start).sum()) * d, "X": pushed * m * d,
+            "mb": pushed * m}
+    in_bytes = sum(4 * need[k] if k in need else v.numel() * v.element_size()
+                   for group in (s, r, p) for k, v in group.items()
                    if isinstance(v, torch.Tensor)) + 2 * 4 * B
     out_bytes = sum(v.numel() * v.element_size()
                     for v in (*ker()[0].values(), *o.values()))
@@ -331,6 +342,22 @@ def main() -> int:
           f"{1e3 * wall / launches:.4f} ms/tick, {launches / wall:.1f} "
           f"ticks/s, {node_steps / wall:.4g} node-steps/s [{card}]",
           flush=True)
+    busy = profile_device(torch, lambda: run_sweep(cfgs))
+    if busy:
+        tick_ms = sum(ms for key, ms in busy.items()
+                      if any(name in key for name in TICK_KERNELS))
+        busy_ms = sum(busy.values())
+        print(f"[3] traced rerun: device busy {busy_ms:.3f} ms = "
+              f"{busy_ms / launches:.4f} ms/tick (tick kernels "
+              f"{tick_ms / launches:.4f} ms/tick), busy share "
+              f"{busy_ms / (1e3 * wall):.4f} of the unprofiled wall, idle "
+              f"share {1 - busy_ms / (1e3 * wall):.4f} [{card}]", flush=True)
+        for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[3]   {ms / launches:.4f} ms/tick  {key[:90]}",
+                  flush=True)
+    else:
+        print("[3] traced rerun: the profiler saw no device time; the "
+              "busy share is not measured", flush=True)
     ratios = {}
     for i, name in enumerate(FIVE):
         row = results[i * len(FRACS):(i + 1) * len(FRACS)]

@@ -202,8 +202,8 @@ def _prepare(sim, device: torch.device):
     return plan, params, carry, t_sched, lc, jc, int(seed)
 
 
-def run_batch(sim, *, device, noise: Optional[Noise] = None,
-              impl: Optional[str] = None) -> List[SimResult]:
+def run_batch(sim, *, device,
+              noise: Optional[Noise] = None) -> List[SimResult]:
     """Run a :class:`~repro_torch.core.vector_sim.VectorSimulator` batch.
 
     Args:
@@ -211,14 +211,13 @@ def run_batch(sim, *, device, noise: Optional[Noise] = None,
       device: torch device the sweep runs on.
       noise: optional replacement of the generator noise, called once
         per supertick with its index (see :class:`GeneratorNoise`).
-      impl: tick implementation; default ``PSP_TICK_IMPL``.
 
-    Executes the planned chunks with the fused tick, one trace record per
+    Executes the planned chunks with the fused tick (the implementation
+    ``PSP_TICK_IMPL`` selects), one trace record per
     supertick, copies traces and final state to the host once, writes
     the final state back into ``sim`` and returns its results.
     """
     device = torch.device(device)
-    impl = impl or tick_impl()
     B = sim.B
     k_max, masked = _static(sim)
     plan, params, carry, t_sched, lc, jc, seed = _prepare(sim, device)
@@ -228,7 +227,7 @@ def run_batch(sim, *, device, noise: Optional[Noise] = None,
                                k_max=k_max, masked=masked,
                                has_churn=sim.has_churn)
     kw = dict(k_max=k_max, has_churn=sim.has_churn, masked=masked,
-              adaptive=sim.adaptive, impl=impl)
+              adaptive=sim.adaptive, impl=tick_impl())
     state_keys = STATE_KEYS + (POLICY_STATE_KEYS if sim.adaptive else ())
     errs = torch.empty((plan.n_rec, plan.b_pad), dtype=torch.float32,
                        device=device)

@@ -8,9 +8,8 @@ flags are fixed: ``sm_90a``, ``-O3``, ``-fmad=false`` (no FMA
 contraction, so the kernels round like their plain PyTorch versions) and
 no fast math.  A failed build raises; there is no fallback.
 
-:func:`build_all` starts one ``nvcc`` per source, all together, and waits
-for them; :func:`load` returns one source's library, building it if
-needed.
+:func:`build_all` compiles every source, one after another; :func:`load`
+returns one source's library, building it if needed.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "error_string",
            "load"]
@@ -52,44 +51,36 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Optional[List[str]] = None,
-              verbose: bool = False) -> Dict[str, float]:
-    """Compile the named sources (default: every ``csrc/*.cu``) in parallel.
+def _build(name: str, verbose: bool = False) -> float:
+    """Compile ``csrc/<name>.cu`` unless its library is up to date.
 
-    Returns the seconds each build took (0.0 for an up-to-date library).
-    Raises ``RuntimeError`` with the compiler's output if any build fails.
-    With ``verbose`` the compiler runs with ``-Xptxas -v`` and its report
-    is printed.
+    Returns the seconds the build took (0.0 if it was up to date).  Raises
+    ``RuntimeError`` with the compiler's output if the build fails.  With
+    ``verbose`` the compiler runs with ``-Xptxas -v`` and its report is
+    printed.
     """
-    if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    out = _target(name)
+    if out.exists():
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, secs = {}, {}
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            secs[name] = 0.0
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        if verbose and log:
-            print(log)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return secs
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    if verbose and proc.stdout:
+        print(proc.stdout)
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+def build_all(verbose: bool = False) -> Dict[str, float]:
+    """Compile every ``csrc/*.cu``; the seconds each build took."""
+    return {p.stem: _build(p.stem, verbose) for p in sorted(CSRC.glob("*.cu"))}
 
 
 def load(name: str = "psp_tick") -> ctypes.CDLL:
@@ -97,10 +88,8 @@ def load(name: str = "psp_tick") -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = _target(name)
-    if not out.exists():
-        build_all([name])
-    lib = ctypes.CDLL(str(out))
+    _build(name)
+    lib = ctypes.CDLL(str(_target(name)))
     lib.psp_tick_launch.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.POINTER(ctypes.c_float),
