@@ -26,6 +26,27 @@ Phases (any failure exits non-zero before the final line):
 4. The same configs with a 5 s horizon under ``PSP_TICK_IMPL=cuda`` and
    ``ref`` (same generator seed): steps, total updates and control
    messages equal, error traces within rtol 1e-4, atol 1e-6.
+5. Hold the RMSNorm and flash-attention kernels against their plain
+   versions on the card: RMSNorm over rows {1, 7, 2048, 4099} × D {64,
+   896}; flash over {causal, + window 256, + softcap 50} × GQA {1, 7} ×
+   S {1, 37, 512, 1000} × hd {64, 128}; both in float32 (rtol 1e-5,
+   atol 1e-6·max(1, max|plain|)) and bfloat16 (rtol / atol 2e-2).  Time
+   each at qwen2-0.5b's serving shapes against its plain version and a
+   library call (``rms_norm``, ``scaled_dot_product_attention``), flash
+   also at a 4096-token prefill, beside its bound.
+6. The serving path: ``repro_torch.launch.serve`` serves qwen2-0.5b at
+   full width with seeded random weights, bfloat16 (8 requests, batch
+   4, prompt 512, max_len 1024, 64 new tokens, greedy), the kernels'
+   launch counts reset just before and read just after: flash must run
+   24 times per prefill call and RMSNorm 49 times per prefill call and
+   decode step.  Prints time to first token, prefill and decode
+   tokens/s; then a traced rerun gives the device's busy share; then
+   the served tokens are teacher-forced through the model under
+   ``impl="cuda"`` (its argmax must reproduce every served token) and
+   ``impl="ref"``: per-step logits within 2e-2 of max |logit|, or within
+   the plain path's own bf16 rounding error (its logits in bf16 against
+   float32 compute) where that is larger; and on the same weights in
+   float32 compute within 1e-4 at prefill and 5e-3 in decode.
 
 Then one JSON line with each kernel's launches, error and times, the
 ``nvidia-smi`` line, and the result line.  Exits non-zero without a
@@ -33,6 +54,8 @@ result when no CUDA device is visible or the port's sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import math
 import os
@@ -44,9 +67,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 FLOP/s
+#: and dense bf16 tensor-core FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+#: H100 L2 cache bytes: timed inputs rotate over more than twice this
+L2_BYTES = 50 * 2 ** 20
 
 EXACT = ("steps", "alive", "computing", "event_time", "ready", "blocked",
          "pend_leave", "pend_join", "pol_thr", "pol_beta", "fin", "start",
@@ -60,6 +87,26 @@ CASES = [  # (churn, ragged, k_max, adaptive): the tick's static branches
 TICK_KERNELS = ("control_kernel", "resid_kernel", "update_kernel")
 FIVE = ("bsp", "ssp", "asp", "pbsp", "pssp")
 FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
+
+# phase 5's case grid (also run by tests/test_torch_cuda.py)
+DTYPES = ("float32", "bfloat16")
+RMS_ROWS = (1, 7, 2048, 4099)
+RMS_DIMS = (64, 896)
+FLASH_MODES = (("causal", {}), ("window256", {"window": 256}),
+               ("softcap50", {"softcap": 50.0}))
+FLASH_GQA = (1, 7)
+FLASH_SEQ = (1, 37, 512, 1000)
+FLASH_HEAD_DIMS = (64, 128)
+#: phase 5's timed shapes: RMSNorm rows at d_model 896 (4 prompts of 512,
+#: then a decode step of 4), flash (B, S) at 14 heads / 2 KV heads / hd 64
+#: (the serving prefill, then a long one); the first of each goes into
+#: the JSON line
+RMS_TIMED_ROWS = (4 * 512, 4)
+FLASH_TIMED = ((4, 512), (1, 4096))
+#: phase 6: qwen2-0.5b's serving run
+SERVE_ARGV = ["--arch", "qwen2-0.5b", "--requests", "8", "--batch", "4",
+              "--prompt-len", "512", "--max-len", "1024", "--max-new", "64",
+              "--seed", "0"]
 
 
 def smi() -> str:
@@ -208,6 +255,275 @@ def profile_device(torch, fn, n=1):
     return out
 
 
+def rms_cases():
+    """Phase 5's RMSNorm grid: (rows, D, dtype)."""
+    return itertools.product(RMS_ROWS, RMS_DIMS, DTYPES)
+
+
+def flash_cases():
+    """Phase 5's flash grid: ((mode, kwargs), GQA ratio, S, hd, dtype)."""
+    return itertools.product(FLASH_MODES, FLASH_GQA, FLASH_SEQ,
+                             FLASH_HEAD_DIMS, DTYPES)
+
+
+def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
+    """x (rows, D) in ``dtype`` and a float32 gain w (D,), from numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, D)) * 3).astype(np.float32)
+    w = (1 + 0.5 * rng.normal(size=D)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev, getattr(torch, dtype)),
+            torch.from_numpy(w).to(dev))
+
+
+def flash_inputs(np, torch, B, S, H, KV, hd, dtype, dev, seed=0):
+    """q (B, S, H, hd) and k, v (B, S, KV, hd) in ``dtype``, from numpy."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(
+        np.float32)).to(dev, getattr(torch, dtype)) for n in (H, KV, KV))
+
+
+def check_close(np, got, want, dtype, what):
+    """Max |got - want|; raises beyond the stated tolerance (float32:
+    rtol 1e-5, atol 1e-6·max(1, max|want|); bfloat16: 2e-2 both)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    a = want.float().cpu().numpy().astype(np.float64)
+    b = got.float().cpu().numpy().astype(np.float64)
+    scale = max(1.0, float(np.abs(a).max(initial=0.0)))
+    rtol, atol = (1e-5, 1e-6 * scale) if dtype == "float32" else (2e-2, 2e-2)
+    err = float(np.abs(a - b).max(initial=0.0))
+    if not np.allclose(b, a, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max |diff| {err}")
+    return err
+
+
+def rotating(tensors):
+    """A function returning, call after call, the next of enough clones of
+    ``tensors`` that cycling through them streams more than twice the L2
+    cache (at most 64 clones), so a timed call reads its inputs from
+    device memory as a cold caller would; and the number of clones."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = min(64, max(2, 2 * L2_BYTES // max(nbytes, 1) + 1))
+    sets = [tuple(t.clone() for t in tensors) for _ in range(n)]
+    it = itertools.cycle(sets)
+    return lambda: next(it), n
+
+
+def device_ms(torch, fn, n):
+    """Device milliseconds per call of ``fn`` (all the kernels it runs,
+    torch.profiler), or CUDA-event milliseconds per call if the profiler
+    sees no device time; and which of the two it is."""
+    busy = profile_device(torch, fn, n)
+    if busy:
+        return sum(busy.values()), "device"
+    return time_calls(torch, fn, n), "events"
+
+
+def phase5(np, torch, dev, card):
+    """The RMSNorm and flash kernels against their plain versions over the
+    case grid, then timed at the serving shapes.  Returns the two
+    kernels' JSON entries without ``launches``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    err_rms = 0.0
+    for i, (rows, D, dt) in enumerate(rms_cases()):
+        x, w = rms_inputs(np, torch, rows, D, dt, dev, seed=i)
+        err_rms = max(err_rms, check_close(
+            np, rmsnorm_cuda(x, w), rmsnorm_ref(x, w), dt,
+            f"rmsnorm rows={rows} D={D} {dt}"))
+    print(f"[5] rmsnorm kernel == plain on {i + 1} cases; max |err| "
+          f"{err_rms:.3g}", flush=True)
+    err_fl = 0.0
+    for i, ((mode, kw), G, S, hd, dt) in enumerate(flash_cases()):
+        q, k, v = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev, i)
+        err_fl = max(err_fl, check_close(
+            np, flash_attention_cuda(q, k, v, causal=True, **kw),
+            attention_ref(q, k, v, causal=True, **kw), dt,
+            f"flash {mode} G={G} S={S} hd={hd} {dt}"))
+    print(f"[5] flash kernel == plain on {i + 1} cases; max |err| "
+          f"{err_fl:.3g}", flush=True)
+
+    rms = []
+    for rows in RMS_TIMED_ROWS:
+        x, w = rms_inputs(np, torch, rows, 896, "bfloat16", dev, seed=1)
+        w16 = w.to(torch.bfloat16)
+        nxt, n_sets = rotating((x,))
+        ms = {name: device_ms(torch, fn, 50) for name, fn in (
+            ("kernel", lambda: rmsnorm_cuda(nxt()[0], w)),
+            ("plain", lambda: rmsnorm_ref(nxt()[0], w)),
+            ("library", lambda: F.rms_norm(nxt()[0], (896,), w16, 1e-6)))}
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+        bound = 1e3 * nbytes / HBM_BPS
+        print(f"[5] rmsnorm ({rows}, 896) bf16: " + ", ".join(
+            f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in ms.items())
+            + f"; bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB); inputs "
+            f"rotated over {n_sets} copies [{card}]", flush=True)
+        rms.append((ms, bound))
+    flash = []
+    for B, S in FLASH_TIMED:
+        q, k, v = flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev)
+        nxt, n_sets = rotating((q, k, v))
+        sdpa = lambda q, k, v, **kw: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, **kw)
+        try:
+            sdpa(q, k, v, enable_gqa=True)
+            lib = lambda: sdpa(*nxt(), enable_gqa=True)
+        except TypeError:          # a torch without enable_gqa
+            lib = lambda: sdpa(*(t.repeat_interleave(7, dim=2) if i else t
+                                 for i, t in enumerate(nxt())))
+        ms = {name: device_ms(torch, fn, n) for name, fn, n in (
+            ("kernel", lambda: flash_attention_cuda(*nxt()), 20),
+            ("plain", lambda: attention_ref(*nxt()), 5),
+            ("library", lib, 20))}
+        flops = 2 * B * 14 * S * S * 64
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+        print(f"[5] flash B={B} S={S} H=14 KV=2 hd=64 bf16 causal: "
+              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                          for k, v in ms.items())
+              + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
+              f"GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s; inputs rotated "
+              f"over {n_sets} copies [{card}]", flush=True)
+        flash.append((ms, t_ops, t_bytes))
+
+    (ms, bound), (fms, t_ops, t_bytes) = rms[0], flash[0]
+    return [{"name": "rmsnorm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+             "replaces": "src/repro/kernels/rmsnorm.py:26",
+             "max_abs_err": err_rms, "ms": ms["kernel"][0],
+             "plain_ms": ms["plain"][0], "bound_ms": bound,
+             "bound_by": "bytes", "library_ms": ms["library"][0]},
+            {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:92",
+             "max_abs_err": err_fl, "ms": fms["kernel"][0],
+             "plain_ms": fms["plain"][0], "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": fms["library"][0]}]
+
+
+def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
+    """Per-step logits (steps, B, V) of ``toks`` (B, prompt + new) fed
+    through prefill and decode steps, as the engine feeds a group."""
+    from repro_torch.models import decode_step, prefill
+    dev = model.embed.device
+    t = torch.from_numpy(np.ascontiguousarray(toks)).to(dev)
+    logits, cache = prefill(model, t[:, :prompt_len].to(torch.int32),
+                            max_len=max_len, impl=impl)
+    steps = [logits]
+    for j in range(prompt_len, toks.shape[1] - 1):
+        logits, cache = decode_step(model, cache, t[:, j:j + 1], impl=impl)
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def phase6(np, torch, dev, card, argv):
+    """The serving path on the card; returns (flash launches, RMSNorm
+    launches)."""
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, init_model
+    a = serve.parse_args(argv)
+    torch.cuda.synchronize()
+    fa.reset_launch_count()
+    rn.reset_launch_count()
+    run = serve.one_shot(argv)
+    n_fl, n_rms = fa.launch_count(), rn.launch_count()
+    eng, cfg = run.engine, run.cfg
+    want_fl = cfg.n_layers * eng.prefill_calls
+    want_rms = (2 * cfg.n_layers + 1) * (eng.prefill_calls + eng.decode_steps)
+    if (n_fl, n_rms) != (want_fl, want_rms):
+        raise AssertionError(f"launches: flash {n_fl} (want {want_fl}), "
+                             f"rmsnorm {n_rms} (want {want_rms})")
+    for o in run.outputs:
+        if not (len(o) == a.max_new and (o >= 0).all()
+                and (o < cfg.vocab_size).all()):
+            raise AssertionError(f"malformed completion {o}")
+    st = run.stats()
+    print(f"[6] served {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{sum(p.numel() for p in run.model.parameters()) / 1e6:.1f}M "
+          f"params, {cfg.dtype}): {st['requests']} requests, "
+          f"{st['new_tokens']} new tokens, {eng.prefill_calls} prefill calls"
+          f", {eng.decode_steps} decode steps; flash launches {n_fl} = "
+          f"{cfg.n_layers} × {eng.prefill_calls}, rmsnorm launches {n_rms} "
+          f"= {2 * cfg.n_layers + 1} × "
+          f"{eng.prefill_calls + eng.decode_steps} [{card}]", flush=True)
+    print(f"[6] time to first token {st['ttft_ms_mean']:.3f} ms (mean of "
+          f"{len(run.ttft_s)} waves: {[round(1e3 * t, 3) for t in run.ttft_s]}"
+          f"), prefill {st['prefill_tok_s']:.1f} tok/s, decode "
+          f"{st['decode_tok_s']:.1f} tok/s ({run.decode_tokens} tokens in "
+          f"{run.decode_s:.4f} s), wall {st['wall_s']:.4f} s [{card}]",
+          flush=True)
+
+    init = profile_device(torch, lambda: init_model(cfg, seed=0, device=dev))
+    traced = profile_device(torch, lambda: serve.one_shot(argv))
+    if traced:
+        busy = sum(traced.values()) - sum(init.values())
+        wall_ms = 1e3 * st["wall_s"]
+        print(f"[6] traced rerun: device busy {busy:.3f} ms of the "
+              f"unprofiled {wall_ms:.3f} ms serving wall (weight init's "
+              f"{sum(init.values()):.3f} ms taken out): busy share "
+              f"{busy / wall_ms:.4f}, idle share {1 - busy / wall_ms:.4f} "
+              f"[{card}]", flush=True)
+        for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"[6]   {ms:9.3f} ms  {key[:90]}", flush=True)
+    else:
+        print("[6] traced rerun: the profiler saw no device time; the "
+              "busy share is not measured", flush=True)
+
+    # teacher-forced checks, per wave: the kernel path must reproduce the
+    # served tokens; the plain path (impl="ref") is held to it in the
+    # served bf16 compute and, on the same weights, in float32 compute
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), run.model.tree())
+    rel = lambda a, b: ((a - b).abs().amax((1, 2))
+                        / a.abs().amax((1, 2))).cpu().numpy()
+    bf16, floor, f32 = [], [], []
+    agree = 0
+    for w in range(0, len(run.prompts), a.batch):
+        toks = np.stack([np.concatenate([run.prompts[i], run.outputs[i]])
+                         for i in range(w, min(w + a.batch,
+                                               len(run.prompts)))])
+        tf = lambda m, impl: teacher_force(np, torch, m, toks, a.prompt_len,
+                                           a.max_len, impl)
+        ker, ref = tf(run.model, "cuda"), tf(run.model, "ref")
+        served = torch.from_numpy(toks[:, a.prompt_len:].T.copy()).to(dev)
+        if not torch.equal(ker.argmax(-1), served):
+            raise AssertionError("teacher-forced kernel logits do not "
+                                 "reproduce the served tokens")
+        agree += served.numel()
+        ref32 = tf(m32, "ref")
+        bf16.append(rel(ker, ref))
+        floor.append(rel(ref32, ref))
+        f32.append(rel(tf(m32, "cuda"), ref32))
+    bf16, floor, f32 = (np.stack(x) for x in (bf16, floor, f32))
+    # float32: the bounds of tests/test_torch_transformer.py (prefill 1e-4;
+    # decode 5e-3, as the bf16 caches can round a last-bit change apart)
+    if not (f32[:, 0].max() <= 1e-4 and f32[:, 1:].max() <= 5e-3):
+        raise AssertionError(f"float32 compute: impl=ref logits differ by "
+                             f"{f32[:, 0].max()} at prefill, "
+                             f"{f32[:, 1:].max()} in decode")
+    # bfloat16: 2e-2 of max |logit|, or the plain path's own bf16 rounding
+    # error (bf16 against float32 compute) where that is larger
+    bound = max(2e-2, float(floor.max()))
+    if not bf16.max() <= bound:
+        raise AssertionError(f"bf16 compute: impl=ref logits differ by "
+                             f"{bf16.max()} of max |logit| > {bound}")
+    print(f"[6] teacher-forced: kernel logits reproduce all {agree} served "
+          f"tokens; impl=ref per-step logits, as a share of max |logit|: "
+          f"bf16 max {bf16.max():.4g} (median {np.median(bf16):.4g}, "
+          f"prefill max {bf16[:, 0].max():.4g}; bound {bound:.4g}: 2e-2 or "
+          f"the plain path's bf16 rounding error, max {floor.max():.4g}, "
+          f"median {np.median(floor):.4g}); float32 compute prefill "
+          f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
+          f"{f32[:, 1:].max():.3g} (bound 5e-3)", flush=True)
+    return n_fl, n_rms
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -231,6 +547,7 @@ def main() -> int:
     from repro_torch.core.vector_sim_torch import ticks_to_run
     from repro_torch.kernels import _build, psp_tick as pt
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi()
     print(f"[1] card: {card}; torch {torch.__version__}, "
@@ -392,6 +709,17 @@ def main() -> int:
     print("[4] cuda == ref: steps, updates and control messages equal, "
           "errors within rtol 1e-4", flush=True)
 
+    # ---- 5. flash attention and RMSNorm against their plain versions --- #
+    print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    entries = phase5(np, torch, dev, card)
+
+    # ---- 6. the serving path: qwen2-0.5b through both kernels ---------- #
+    print(f"[6] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    n_fl, n_rms = phase6(np, torch, dev, card, SERVE_ARGV)
+    print(f"[6] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+    entries[0]["launches"] = n_rms
+    entries[1]["launches"] = n_fl
+
     print(json.dumps({"kernels": [{
         "name": "psp_tick", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/psp_tick.cu",
@@ -400,7 +728,7 @@ def main() -> int:
         "plain_ms": ms_plain, "bound_ms": bound, "bound_by":
             "bytes" if (in_bytes + out_bytes) / HBM_BPS >= flops / F32_FLOPS
             else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}, *entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

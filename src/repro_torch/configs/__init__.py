@@ -1,4 +1,66 @@
-"""Workload configurations of the port (the paper's PSP linear task)."""
-from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
+"""Workload and model configurations of the port.
 
-__all__ = ["CONFIG", "PSPLinearConfig"]
+The paper's PSP linear task (:mod:`~repro_torch.configs.psp_linear`) and
+the architecture registry: ``get_config("qwen2-0.5b")`` returns the
+published configuration, ``reduced(cfg)`` the CPU-smoke variant of the
+same family (the reference's ``repro.configs.reduced``, rule for rule).
+Only the architectures whose slice has been ported are registered.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
+from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
+
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [_qwen2]}
+
+
+def get_config(name: str) -> ModelConfig:
+    """The registered architecture ``name``; raises ``KeyError`` for an
+    unknown or not yet ported one."""
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def reduced(cfg: ModelConfig, *, n_layers: int = 2,
+            d_model: int = 256) -> ModelConfig:
+    """CPU-smoke variant: same family/flavour, tiny dims.
+
+    Keeps every structural switch (GQA ratio, pattern, softcaps, biases,
+    MoE top-k, SSD dims, RG-LRU) while shrinking widths, exactly as the
+    reference does, so both packages build the same reduced model.
+    """
+    n_heads = max(2, cfg.n_heads // 8)
+    ratio = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
+    n_kv = max(1, n_heads // ratio)
+    head_dim = min(64, max(16, d_model // n_heads))
+    pat = cfg.layer_pattern
+    # keep the pattern; give patterns longer than n_layers one full group
+    layers = max(n_layers, len(pat)) if len(pat) > 1 else n_layers
+    if cfg.name == "recurrentgemma-2b":
+        layers = 5                      # one (R,R,A) group + (R,R) tail
+    changes = dict(
+        n_layers=layers,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=max(1, min(cfg.d_ff, 4 * d_model)) if cfg.d_ff else 0,
+        vocab_size=512,
+        sliding_window=(64 if cfg.sliding_window else None),
+        lru_width=(d_model if cfg.lru_width else None),
+        frontend_tokens=(16 if cfg.frontend_tokens else 0),
+    )
+    if cfg.is_moe:
+        changes.update(n_experts=4, n_experts_per_token=2)
+    if cfg.family == "ssm":
+        changes.update(ssm_state=32, ssm_head_dim=16)
+    return dataclasses.replace(cfg, **changes)
+
+
+__all__ = ["ARCHS", "CONFIG", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "PSPLinearConfig", "get_config", "reduced"]

@@ -1,2 +1,7 @@
-"""Kernels of the port: the fused sweep tick (CUDA, ``csrc/psp_tick.cu``)
-with its plain PyTorch version, the ``nvcc`` build and the dispatch."""
+"""Kernels of the port, each a hand-written CUDA source under ``csrc/``
+beside its plain PyTorch version: the fused sweep tick
+(:mod:`~repro_torch.kernels.psp_tick`), flash attention
+(:mod:`~repro_torch.kernels.flash_attention`) and RMSNorm
+(:mod:`~repro_torch.kernels.rmsnorm`); the ``nvcc`` build
+(:mod:`~repro_torch.kernels._build`) and the dispatch
+(:mod:`~repro_torch.kernels.ops`)."""

@@ -517,6 +517,6 @@ extern "C" int psp_tick_launch(void** ptrs, const int* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* psp_tick_error_string(int err) {
+extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

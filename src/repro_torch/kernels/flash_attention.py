@@ -1,0 +1,162 @@
+"""Forward attention: plain PyTorch version and the CUDA flash kernel.
+
+The port's counterpart of :mod:`repro.kernels.flash_attention`
+(``flash_attention_tpu``) and of ``repro.kernels.ref.attention_ref``.
+Both compute, for queries ``q`` ``(B, Sq, H, hd)`` and keys / values
+``k``, ``v`` ``(B, Sk, KV, hd)`` with ``H`` a multiple of ``KV``,
+
+    o[b, i, h] = softmax_j(mask(cap·tanh(s / cap)))  · v[b, j, h // (H / KV)]
+    s = (q[b, i, h] · k[b, j, h // (H / KV)]) / sqrt(hd)
+
+in float32, with masked scores at -1e30 (causal: ``i >= j``; window:
+``i - j < window``; positions count from 0 in both sequences) and the
+output in q's dtype.  Grouped-query attention is native: no K/V head is
+repeated, and the layout is the model's (sequence before heads).
+
+* :func:`attention_ref` — plain PyTorch (O(Sq·Sk) scores); what CPU
+  tensors get.
+* :func:`flash_attention_cuda` — the hand-written kernel
+  (``kernels/csrc/flash_attention.cu``): online softmax over the key
+  tiles of the causal / window band, any sequence lengths (tails are
+  masked), ``hd`` 64 or 128, float32 or bfloat16.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+__all__ = ["HEAD_DIMS", "attention_ref", "flash_attention_cuda",
+           "launch_count", "reset_launch_count"]
+
+#: head dims the kernel is built for
+HEAD_DIMS = (64, 128)
+
+_LAUNCHES = 0
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NEG = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain attention, grouped-query layout (see the module docstring)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qa = torch.arange(Sq, device=q.device)[:, None]
+    ka = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qa >= ka
+    if window is not None:
+        mask &= (qa - ka) < window
+    s = s.masked_fill(~mask, _NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def launch_count() -> int:
+    """Kernel launches through :func:`flash_attention_cuda` since the last
+    reset."""
+    return _LAUNCHES
+
+
+def reset_launch_count() -> None:
+    """Set the launch count of :func:`flash_attention_cuda` to 0."""
+    global _LAUNCHES
+    _LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """``csrc/flash_attention.cu``'s library, its entry point declared
+    (once)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    lib.flash_attention_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless q, k, v fit the kernel (see :func:`flash_attention_cuda`)."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda: {name} must be a CUDA "
+                             "tensor")
+        if x.dim() != 4:
+            raise ValueError(f"flash_attention_cuda: {name} must be 4-D, "
+                             f"got shape {tuple(x.shape)}")
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_cuda: {name} is {x.dtype} on "
+                             f"{x.device}, q is {q.dtype} on {q.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"flash_attention_cuda: {name}'s head dim must "
+                             "be contiguous")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_cuda: dtype {q.dtype}, expected "
+                         "float32 or bfloat16")
+    B, Sq, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention_cuda: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention_cuda: {H} query heads are not a "
+                         f"multiple of {KV} KV heads")
+    if Sq < 1 or k.shape[1] < 1 or B > 65535 or H > 65535:
+        raise ValueError("flash_attention_cuda: empty sequence or too many "
+                         "batch rows / heads")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """The CUDA kernel: same contract as :func:`attention_ref`.
+
+    ``q``, ``k``, ``v`` are CUDA tensors of one dtype (float32 or
+    bfloat16) with a contiguous head dim of 64 or 128; other strides are
+    read as they are.  Returns a new contiguous ``(B, Sq, H, hd)``
+    tensor.  Raises on any other input and if the launch fails; there is
+    no fallback.
+    """
+    global _LAUNCHES
+    from repro_torch.kernels import _build
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_cuda: window {window} < 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention_cuda: softcap {softcap} <= 0")
+    o = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*(s for x in (q, k, v)
+                                        for s in x.stride()[:3]))
+    ints = (ctypes.c_int * 10)(B, Sq, Sk, H, KV, hd, _DTYPES[q.dtype],
+                               int(causal), window or 0,
+                               q.device.index or 0)
+    lib = _lib()
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+        ints, float(softcap or 0.0), float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_cuda: launch failed: "
+                           + _build.error_string(lib, err))
+    _LAUNCHES += 1
+    return o

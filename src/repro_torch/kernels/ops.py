@@ -1,17 +1,30 @@
-"""Dispatch of the fused sweep tick between the CUDA kernel and its plain
-version.
+"""Dispatch of the port's kernels between CUDA and their plain versions.
 
 ``impl="auto"`` sends CUDA tensors to the kernel and CPU tensors to the
 plain PyTorch version; ``"cuda"`` and ``"ref"`` force a path (``ref`` is
-how a run holds the kernel against the plain version on the card).  A
+how a run holds a kernel against its plain version on the card).  A
 CUDA tensor never reaches the plain version unless ``ref`` asks for it,
 and ``cuda`` on CPU tensors raises in the wrapper's checks.
+
+* :func:`psp_tick` — the fused PSP sweep tick
+  (:mod:`repro_torch.kernels.psp_tick`);
+* :func:`attention` — forward attention, grouped-query layout
+  (:mod:`repro_torch.kernels.flash_attention`);
+* :func:`rmsnorm` — RMSNorm over the trailing axis
+  (:mod:`repro_torch.kernels.rmsnorm`).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
+from typing import Optional
 
-__all__ = ["IMPLS", "psp_tick", "use_kernel"]
+import torch
+
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+
+__all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "use_kernel"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -42,3 +55,22 @@ def psp_tick(state, rand, params, t, leave_n, join_n, *, k_max: int,
           else psp_tick_ref)
     return fn(state, rand, params, t, leave_n, join_n, k_max=k_max,
               has_churn=has_churn, masked=masked, adaptive=adaptive)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              impl: str = "auto") -> torch.Tensor:
+    """Forward attention: q ``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)`` →
+    ``(B, Sq, H, hd)`` in q's dtype (see
+    :mod:`repro_torch.kernels.flash_attention`)."""
+    fn = flash_attention_cuda if use_kernel(impl, q.device) else attention_ref
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            impl: str = "auto") -> torch.Tensor:
+    """RMS-normalise the trailing axis of ``x`` with gain ``w`` (see
+    :mod:`repro_torch.kernels.rmsnorm`)."""
+    fn = rmsnorm_cuda if use_kernel(impl, x.device) else rmsnorm_ref
+    return fn(x, w, eps)

@@ -33,6 +33,7 @@ floats (float32 values).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -284,6 +285,20 @@ def reset_launch_count() -> None:
     _LAUNCHES = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """``csrc/psp_tick.cu``'s library, its entry point declared
+    (once)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("psp_tick")
+    lib.psp_tick_launch.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_float),
+                                    ctypes.c_void_p]
+    lib.psp_tick_launch.restype = ctypes.c_int
+    return lib
+
+
 def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...],
            dtypes: Tuple[torch.dtype, ...]) -> None:
     """Raise unless ``x`` is a contiguous CUDA tensor of shape and dtype."""
@@ -416,11 +431,11 @@ def psp_tick_cuda(state: Tensors, rand: Tensors, params: Dict, t: float,
                                   float(params["poll"]))
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.load()
+    lib = _lib()
     err = lib.psp_tick_launch(ptr_arr, ints, floats, stream)
     if err != 0:
         raise RuntimeError(f"psp_tick_cuda: launch failed: "
-                           f"{_build.error_string(err)}")
+                           f"{_build.error_string(lib, err)}")
     _LAUNCHES += 1
 
     new_state = {"steps": out["steps"], "alive": out["alive"] != 0,

@@ -1,0 +1,157 @@
+"""Serving launcher: one-shot batched generation on random weights.
+
+On the card (the default ``--device cuda``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \\
+        --batch 4 --prompt-len 512 --max-len 1024 --max-new 64
+
+On the CPU, at the reduced width::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+
+Weights come from the port's seeded initialisation (``--seed``), as the
+reference serves ``init_model`` weights.  Prompts are drawn from numpy
+with the same seed.  Requests go through
+:class:`~repro_torch.serving.ServingEngine` in batch-sized waves, as
+``ServingEngine.generate`` submits them, with every engine step timed on
+the host clock: the first step of a wave prefills it and emits its
+first tokens (time to first token), the others decode.  Without a
+visible GPU and without ``--device cpu`` it raises.  The reference's
+live ``--watch-dir`` mode waits for the server (ROADMAP queue 1,
+item 13).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.models import Model, init_model
+from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+__all__ = ["ServeRun", "main", "one_shot", "parse_args"]
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What a one-shot run served and how fast (host clock, seconds)."""
+
+    cfg: object
+    model: Model
+    engine: ServingEngine
+    prompts: List[np.ndarray]
+    outputs: List[np.ndarray]
+    ttft_s: List[float]        # per wave: submit → first tokens emitted
+    prefill_tokens: int
+    decode_tokens: int
+    decode_s: float            # steps after each wave's first
+    wall_s: float
+
+    def stats(self) -> Dict[str, float]:
+        """Time to first token, prefill and decode rates, wall."""
+        ttft = sum(self.ttft_s)
+        return {"requests": len(self.prompts),
+                "new_tokens": sum(len(o) for o in self.outputs),
+                "ttft_ms_mean": 1e3 * ttft / len(self.ttft_s),
+                "prefill_tok_s": self.prefill_tokens / ttft,
+                "decode_tok_s": (self.decode_tokens / self.decode_s
+                                 if self.decode_s else float("nan")),
+                "wall_s": self.wall_s}
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The launcher's flags (the reference's one-shot flags, plus
+    ``--device`` and ``--impl``)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=512,
+                    help="per-group cache capacity")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="top-k sampling cutoff (with --temperature > 0)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop decoding a request at this token id")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--impl", default="auto", choices=IMPLS,
+                    help="kernels (cuda), plain versions (ref), or by "
+                         "device (auto)")
+    return ap.parse_args(argv)
+
+
+def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
+    """Parse ``argv``, build the model and serve the requests once."""
+    a = parse_args(argv)
+    dev = torch.device(a.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass --device cpu "
+                           "to serve on the CPU")
+    cfg = get_config(a.arch)
+    if a.reduced:
+        cfg = make_reduced(cfg)
+    model = init_model(cfg, seed=a.seed, device=dev)
+    scfg = ServeConfig(batch=a.batch, max_len=a.max_len,
+                       max_new_tokens=a.max_new, temperature=a.temperature,
+                       top_k=a.top_k, eos_id=a.eos_id, seed=a.seed)
+    eng = ServingEngine(model, cfg, scfg, impl=a.impl)
+    rng = np.random.default_rng(a.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=a.prompt_len)
+               .astype(np.int32) for _ in range(a.requests)]
+
+    results: Dict[int, np.ndarray] = {}
+    ids: List[int] = []
+    ttft, decode_s, decode_tokens = [], 0.0, 0
+    t_start = time.perf_counter()
+    for start in range(0, len(prompts), a.batch):
+        t0 = time.perf_counter()
+        ids += [eng.submit(Request(prompt=p))
+                for p in prompts[start:start + a.batch]]
+        first = True
+        while eng.has_pending():
+            t1 = time.perf_counter()
+            res = eng.step()      # ends in a copy of the tokens to the host
+            t2 = time.perf_counter()
+            if first:
+                ttft.append(t2 - t0)
+                first = False
+            else:
+                decode_s += t2 - t1
+                decode_tokens += len(res.emitted)
+            for c in res.completions:
+                results[c.req_id] = c.tokens
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t_start
+    return ServeRun(cfg=cfg, model=model, engine=eng, prompts=prompts,
+                    outputs=[results[i] for i in ids], ttft_s=ttft,
+                    prefill_tokens=a.requests * a.prompt_len,
+                    decode_tokens=decode_tokens, decode_s=decode_s,
+                    wall_s=wall)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Serve once and print the run's rates and the first outputs."""
+    run = one_shot(argv)
+    st = run.stats()
+    print(f"arch={run.cfg.name} device={run.engine.device} "
+          + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in st.items()))
+    for i, o in enumerate(run.outputs[:4]):
+        print(f"  req{i}: {o[:12].tolist()}...")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

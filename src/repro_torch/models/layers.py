@@ -1,0 +1,110 @@
+"""Shared neural layers: RMSNorm, soft-capping, RoPE, the MLP, embedding.
+
+The port's counterpart of :mod:`repro.models.layers`, forward only (the
+custom VJP of ``rmsnorm`` comes with the training slice).  Every RMSNorm
+goes through :func:`repro_torch.kernels.ops.rmsnorm`, so on the card it
+is the CUDA kernel; see :mod:`repro_torch.kernels.rmsnorm` for how its
+bfloat16 rounding differs from the reference model's by at most one ulp.
+Weights arrive in the compute dtype (see
+:meth:`repro_torch.models.transformer.Model.weights`).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.params import ParamDef, torch_dtype
+
+__all__ = ["apply_rope", "embed_tokens", "mlp_apply", "mlp_defs", "rmsnorm",
+           "rope", "rope_angles", "softcap"]
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            gemma: bool = False, impl: str = "auto") -> torch.Tensor:
+    """RMSNorm with f32 statistics; ``gemma=True`` scales by (1 + w)."""
+    gain = 1.0 + w.float() if gemma else w
+    return ops.rmsnorm(x, gain, eps=eps, impl=impl)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap · tanh(x / cap)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE frequencies on ``device``, computed in numpy float32 as the
+    reference computes them, and copied to the device once."""
+    freq = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    return torch.from_numpy(freq).to(device)
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the f32 rotation angles, each (S, 1, hd // 2), for
+    integer ``positions`` (S,); one pair serves every layer."""
+    angles = (positions.to(torch.float32)[:, None]
+              * _rope_freq(hd // 2, float(theta), positions.device))
+    return torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (..., S, H, hd) by :func:`rope_angles`' (cos, sin),
+    half-rotation convention, in f32; returns x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, half-rotation convention, f32 angles.
+
+    x: (..., S, H, hd); positions: (S,) integer.
+    """
+    return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def mlp_defs(cfg) -> dict:
+    """Parameter definitions of the gated MLP (gate and up fused)."""
+    if cfg.mlp_type not in ("swiglu", "geglu") or not cfg.fuse_gateup:
+        raise NotImplementedError(
+            f"mlp_type={cfg.mlp_type!r} fuse_gateup={cfg.fuse_gateup}: the "
+            "port has the fused gated MLP only (ROADMAP queue 1, item 10)")
+    d, f = cfg.d_model, cfg.d_ff
+    # gate and up interleaved on a trailing axis of 2, as in the reference
+    return {"w_gu": ParamDef((d, f, 2), ("d_model_w", "d_ff_w", None)),
+            "w_down": ParamDef((f, d), ("d_ff_w", "d_model_w"))}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Gated MLP: down(act(x·gate) · (x·up)); weights in x's dtype.
+
+    ``w_gu`` is ``(d, f, 2)`` with gate and up interleaved on the last
+    axis, so they are the slices ``[..., 0]`` and ``[..., 1]`` of the
+    product, never halves of a ``(d, 2f)`` reshape.
+    """
+    d, f, _ = p["w_gu"].shape
+    gu = (x @ p["w_gu"].reshape(d, 2 * f)).view(*x.shape[:-1], f, 2)
+    g, u = gu[..., 0], gu[..., 1]
+    act = (F.silu(g) if cfg.mlp_type == "swiglu"
+           else F.gelu(g, approximate="tanh"))
+    return (act * u) @ p["w_down"]
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """Gather rows of the f32 table, then cast to the compute dtype."""
+    x = embed[tokens].to(torch_dtype(cfg.dtype))
+    if cfg.embed_scale:
+        x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype)
+    return x

@@ -1,0 +1,269 @@
+"""The decoder for ``attn`` blocks: parameters, caches, prefill, decode.
+
+The port's counterpart of :mod:`repro.models.transformer`, for stacks of
+full-attention blocks (qwen2-0.5b).  A model is ``embed → blocks → final
+norm → tied unembed``; :class:`Model` holds one :class:`Block` module
+per layer and loops over them (the reference scans a stacked layer
+axis).  Parameters keep the reference's shapes (``wq`` is
+``(d, h, hd)`` and so on) and float32, so
+:func:`repro_torch.convert.params_from_jax` only has to split the
+reference's stacked layer axis.  Matrix weights are cast once to the
+compute dtype and kept beside the parameters (:meth:`Block.weights`).
+
+Entry points, all forward only and without autograd:
+
+* :func:`forward` — hidden states for ``mode`` "train" (teacher-forced,
+  no cache), "prefill" (returns a cache) or "decode" (reads and updates
+  the cache in place);
+* :func:`prefill` / :func:`decode_step` — last-position logits (f32)
+  and the cache, as the serving engine calls them.
+
+Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
+:mod:`repro_torch.kernels.ops`).  Other block kinds, tail layers and
+modality frontends raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention
+from repro_torch.models.layers import (embed_tokens, mlp_apply, mlp_defs,
+                                       rmsnorm, rope_angles, softcap)
+from repro_torch.models.params import ParamDef, init_params, torch_dtype
+
+__all__ = ["Block", "Model", "cache_defs", "decode_step", "forward",
+           "init_cache", "init_model", "model_defs", "prefill",
+           "unembed_matrix"]
+
+Cache = Dict[str, Any]
+
+#: where each unported feature is queued
+_TODO = "ROADMAP queue 1, item 10 (models)"
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"}:
+        raise NotImplementedError(f"block kinds {sorted(kinds - {'attn'})}"
+                                  f" of {cfg.name}: {_TODO}")
+    if cfg.tail_pattern:
+        raise NotImplementedError(f"tail layers: {_TODO}")
+    if cfg.frontend_tokens:
+        raise NotImplementedError(f"modality frontends: {_TODO}")
+    if cfg.pos_embed != "rope" or cfg.post_norms:
+        raise NotImplementedError(f"pos_embed={cfg.pos_embed!r}, "
+                                  f"post_norms={cfg.post_norms}: {_TODO}")
+
+
+def _norm_def(cfg) -> ParamDef:
+    init = "zeros" if cfg.gemma_norm else "ones"   # gemma scales by (1 + w)
+    return ParamDef((cfg.d_model,), (None,), init=init)
+
+
+def block_defs(cfg) -> Dict:
+    """Parameter definitions of one ``attn`` block."""
+    return {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
+            "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
+
+
+def model_defs(cfg) -> Dict:
+    """Parameter definitions: ``embed``, ``final_norm`` and one block tree
+    per layer under ``layers`` (the reference stacks them instead)."""
+    check_supported(cfg)
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(f"untied unembedding: {_TODO}")
+    return {"embed": ParamDef((cfg.vocab_size, cfg.d_model),
+                              ("vocab_w", "d_model_w"), scale=0.02),
+            "final_norm": _norm_def(cfg),
+            "layers": [block_defs(cfg) for _ in range(cfg.n_layers)]}
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _cast_key(module: nn.Module, dtype: torch.dtype, recurse: bool):
+    """Identity of a module's parameter storage and contents for a cast
+    memo: a parameter moved or edited in place changes it."""
+    return (dtype,) + tuple((p.data_ptr(), p._version)
+                            for p in module.parameters(recurse=recurse))
+
+
+class Block(nn.Module):
+    """One pre-norm ``attn`` block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+
+    def __init__(self, cfg, tree: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _param(tree["ln1"])
+        self.ln2 = _param(tree["ln2"])
+        self.attn = nn.ParameterDict({k: _param(v)
+                                      for k, v in tree["attn"].items()})
+        self.mlp = nn.ParameterDict({k: _param(v)
+                                     for k, v in tree["mlp"].items()})
+        self._memo: Tuple[Any, Dict] = (None, {})
+
+    def weights(self, dtype: torch.dtype) -> Dict[str, Dict]:
+        """The attention and MLP weights cast to ``dtype``, made once and
+        kept until a parameter moves or changes."""
+        key = _cast_key(self, dtype, True)
+        if self._memo[0] != key:
+            self._memo = (key, {
+                "attn": {k: v.to(dtype) for k, v in self.attn.items()},
+                "mlp": {k: v.to(dtype) for k, v in self.mlp.items()}})
+        return self._memo[1]
+
+    def forward(self, x: torch.Tensor, *,
+                rot: Tuple[torch.Tensor, torch.Tensor],
+                length: Optional[int], cache: Optional[Dict], mode: str,
+                max_len: Optional[int], impl: str
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """Apply the block (``rot``: the RoPE (cos, sin) of x's
+        positions); returns (x, this layer's new cache or None)."""
+        cfg = self.cfg
+        w = self.weights(x.dtype)
+        eps, gn = cfg.norm_eps, cfg.gemma_norm
+        h = rmsnorm(x, self.ln1, eps, gn, impl)
+        a, c = attention.attn_apply(w["attn"], h, cfg=cfg, rot=rot,
+                                    length=length,
+                                    cache=cache, mode=mode, max_len=max_len,
+                                    impl=impl)
+        x = x + a
+        h = rmsnorm(x, self.ln2, eps, gn, impl)
+        return x + mlp_apply(w["mlp"], h, cfg), c
+
+
+class Model(nn.Module):
+    """The decoder: embedding, :class:`Block` per layer, final norm.
+
+    ``tree`` holds the parameter tensors in :func:`model_defs` layout
+    (from :func:`init_model`, or converted by
+    :func:`repro_torch.convert.params_from_jax`).
+    """
+
+    def __init__(self, cfg, tree: Dict[str, Any]):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = _param(tree["embed"])
+        self.final_norm = _param(tree["final_norm"])
+        self.blocks = nn.ModuleList(Block(cfg, t) for t in tree["layers"])
+        self._memo: Tuple[Any, Optional[torch.Tensor]] = (None, None)
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameter tensors in :func:`model_defs` layout (shared, not
+        copied): ``Model(other_cfg, model.tree())`` runs the same weights
+        under another configuration, e.g. another compute dtype."""
+        return {"embed": self.embed.data, "final_norm": self.final_norm.data,
+                "layers": [{"ln1": b.ln1.data, "ln2": b.ln2.data,
+                            "attn": {k: v.data for k, v in b.attn.items()},
+                            "mlp": {k: v.data for k, v in b.mlp.items()}}
+                           for b in self.blocks]}
+
+    def unembed(self, dtype: torch.dtype) -> torch.Tensor:
+        """The tied unembedding ``(d, V)`` in ``dtype``, cast once."""
+        key = _cast_key(self, dtype, False)
+        if self._memo[0] != key:
+            self._memo = (key, unembed_matrix(self).to(dtype))
+        return self._memo[1]
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, *, cache: Optional[Cache] = None,
+                mode: str = "train", max_len: Optional[int] = None,
+                impl: str = "auto") -> Tuple[torch.Tensor, Optional[Cache]]:
+        """Run the stack on ``tokens`` (B, T); returns (final hidden states
+        (B, T, D), new cache or None)."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        offset = cache["length"] if mode == "decode" else 0
+        x = embed_tokens(self.embed, tokens, self.cfg)
+        S = x.shape[1]
+        positions = torch.arange(offset, offset + S, device=x.device)
+        rot = rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        layers = []
+        for i, blk in enumerate(self.blocks):
+            x, c = blk(x, rot=rot, length=offset,
+                       cache=cache["layers"][i] if mode == "decode" else None,
+                       mode=mode, max_len=max_len, impl=impl)
+            layers.append(c)
+        new_cache = (None if mode == "train"
+                     else {"layers": layers, "length": offset + S})
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps,
+                    self.cfg.gemma_norm, impl)
+        return x, new_cache
+
+
+def init_model(cfg, *, seed: int = 0, device: Any = "cpu") -> Model:
+    """A model with the reference's initialisation law, drawn from a
+    ``torch.Generator`` on ``device`` seeded with ``seed`` (``meta``:
+    shapes only, nothing allocated)."""
+    dev = torch.device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    tree = init_params(model_defs(cfg), generator=gen, device=dev,
+                       dtype=torch_dtype(cfg.param_dtype))
+    return Model(cfg, tree)
+
+
+def unembed_matrix(model: Model) -> torch.Tensor:
+    """The unembedding ``(d, V)``: the embedding, transposed (tied)."""
+    return model.embed.T
+
+
+def cache_defs(cfg, batch: int, max_len: int) -> Dict:
+    """Cache definitions: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
+    per layer and the shared ``length``."""
+    check_supported(cfg)
+    kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                  ("cache_batch", "cache_seq", "kv_heads", None),
+                  init="zeros", dtype="bfloat16")
+    return {"layers": [{"k": kv, "v": kv} for _ in range(cfg.n_layers)],
+            "length": ParamDef((), (), init="zeros", dtype="int32")}
+
+
+def init_cache(cfg, batch: int, max_len: int, device: Any = "cpu") -> Cache:
+    """A zero cache on ``device``; ``length`` is a host int."""
+    defs = cache_defs(cfg, batch, max_len)
+    return {"layers": init_params(defs["layers"], device=device),
+            "length": 0}
+
+
+def forward(model: Model, tokens: torch.Tensor, *,
+            cache: Optional[Cache] = None, mode: str = "train",
+            max_len: Optional[int] = None, impl: str = "auto"
+            ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Run the decoder stack (see :meth:`Model.forward`)."""
+    return model(tokens, cache=cache, mode=mode, max_len=max_len, impl=impl)
+
+
+def _head(h_last: torch.Tensor, model: Model) -> torch.Tensor:
+    """Logits (f32) of the last hidden states, soft-capped if configured."""
+    logits = h_last @ model.unembed(h_last.dtype)
+    return softcap(logits.float(), model.cfg.logit_softcap)
+
+
+def prefill(model: Model, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, impl: str = "auto"
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Process a prompt; returns (last-position logits (B, V), cache).
+
+    ``max_len`` pre-sizes the caches so decode can append."""
+    h, cache = model(tokens, mode="prefill", max_len=max_len, impl=impl)
+    return _head(h[:, -1], model), cache
+
+
+def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
+                impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
+    """One decode step: tokens (B, 1) → (logits (B, V), cache).
+
+    The cache's key and value tensors are updated in place (the
+    reference's engine donates them); the returned cache holds the same
+    tensors and the advanced ``length``."""
+    h, new_cache = model(tokens, cache=cache, mode="decode", impl=impl)
+    return _head(h[:, -1], model), new_cache

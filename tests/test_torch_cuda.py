@@ -1,12 +1,14 @@
-"""The CUDA tick against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Needs an NVIDIA GPU and ``nvcc`` (the kernel builds on first use); skips
-elsewhere.  Inputs come from ``chip_smoke.tick_problem`` (numpy only, so
-this file runs where JAX is not installed): all nine static branch cases
-of the tick, 5 chained ticks each.  The control plane must match exactly;
-``w``, ``pulled`` and ``pol_ema`` within rtol 1e-5, atol
-1e-6·max(1, max|plain|), because the kernel sums the gradient in another
-order.  Run on the card with::
+Needs an NVIDIA GPU and ``nvcc`` (the kernels build on first use); skips
+elsewhere.  Inputs come from ``chip_smoke`` (numpy only, so this file
+runs where JAX is not installed).  The fused tick: all nine static
+branch cases of ``chip_smoke.tick_problem``, 5 chained ticks each.
+The tick's control plane must match exactly; ``w``, ``pulled`` and
+``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|), because the
+kernel sums the gradient in another order.  RMSNorm and flash
+attention: ``chip_smoke``'s phase 5 case grids, at its ``check_close``
+tolerances.  Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -56,3 +58,43 @@ def test_cuda_tick_matches_plain(case):
         s_k, o_k = psp_tick_cuda(s_k, r, p, t, ln, jn, **kw)
         smoke.compare(np, s_r, s_k, f"tick {i}")
         smoke.compare(np, o_r, o_k, f"tick {i} out")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_matches_plain(dtype):
+    """RMSNorm over ``chip_smoke``'s phase 5 grid (rows × D) in one dtype:
+    float32 within rtol 1e-5 / atol 1e-6·max(1, max|plain|), bfloat16
+    within 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, (rows, D, dt) in enumerate(smoke.rms_cases()):
+        if dt != dtype:
+            continue
+        x, w = smoke.rms_inputs(np, torch, rows, D, dt, dev, seed=i)
+        smoke.check_close(np, rmsnorm_cuda(x, w), rmsnorm_ref(x, w), dt,
+                          f"rows={rows} D={D}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain(dtype):
+    """Flash attention over ``chip_smoke``'s phase 5 grid (mode × GQA ×
+    S × hd) in one dtype, at the same tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, ((mode, kw), G, S, hd, dt) in enumerate(smoke.flash_cases()):
+        if dt != dtype:
+            continue
+        q, k, v = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev,
+                                     i)
+        smoke.check_close(np, flash_attention_cuda(q, k, v, **kw),
+                          attention_ref(q, k, v, **kw), dt,
+                          f"{mode} G={G} S={S} hd={hd}")

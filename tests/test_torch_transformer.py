@@ -1,0 +1,178 @@
+"""The port's qwen2 decoder against the reference's, on the same weights.
+
+``reduced(get_config("qwen2-0.5b"))`` in both packages (2 layers,
+d_model 256, GQA 2:1, hd 64, vocab 512); the reference's ``init_model``
+weights, with biases and norm gains redrawn from numpy so that they
+matter, are carried across by ``params_from_jax``.  Prefill logits and
+caches, then 4 decode steps, are held against ``repro.models.prefill`` /
+``decode_step`` on the same tokens.
+
+Tolerances, as max |Δlogits| / max |logits|:
+* float32 compute: 1e-4 at prefill; 5e-3 at decode, because the caches
+  are bfloat16 in both packages and a key or value that differs in its
+  last float32 bit can round to a neighbouring bfloat16.  The float32
+  caches agree within one bf16 ulp (rtol 2⁻⁷).
+* bfloat16 compute (the default): 2e-2, the bound of
+  ``tests/test_decode_consistency.py``; caches within 2e-2 of their
+  largest entry.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
+from repro.models import (decode_step as jdecode,  # noqa: E402
+                          init_model as jinit, prefill as jprefill)
+from repro.models.layers import rope as jrope  # noqa: E402
+from repro.models.transformer import model_defs as jmodel_defs  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
+from repro_torch.models import (decode_step, forward, init_model,  # noqa: E402
+                                prefill)
+from repro_torch.models.layers import rope  # noqa: E402
+from repro_torch.models.transformer import _head  # noqa: E402
+
+TOL = {"float32": (1e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
+B, S, N = 2, 40, 4
+
+
+def _rel(want, got):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(want - got.float().numpy()).max()
+                 / np.abs(want).max())
+
+
+def _pair(dtype, seed=0):
+    """(reference cfg, port cfg, reference params, port model)."""
+    jcfg = dataclasses.replace(jreduced(jget("qwen2-0.5b")), dtype=dtype)
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), dtype=dtype)
+    tree = jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 1)
+    g = tree["groups"]["0"]
+    for k in ("bq", "bk", "bv"):
+        g["attn"][k] = (0.1 * rng.normal(size=g["attn"][k].shape)
+                        ).astype(np.float32)
+    for k in ("ln1", "ln2"):
+        g[k] = (1 + 0.1 * rng.normal(size=g[k].shape)).astype(np.float32)
+    return jcfg, cfg, tree, params_from_jax(tree, cfg)
+
+
+def test_configs_are_the_reference_s():
+    for port, ref in ((get_config("qwen2-0.5b"), jget("qwen2-0.5b")),
+                      (reduced(get_config("qwen2-0.5b")),
+                       jreduced(jget("qwen2-0.5b")))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_matches_reference(dtype):
+    """Half rotation with f32 angles at qwen2's theta, positions up to
+    1023: float32 within 1e-5 (cos/sin of the same f32 angles may differ
+    in their last bit between libraries), bfloat16 within one bf16 ulp."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 7, 3, 64)).astype(np.float32)
+    pos = np.array([0, 1, 2, 100, 511, 512, 1023], np.int32)
+    want = jrope(jnp.asarray(x, dtype), jnp.asarray(pos), 1e6)
+    got = rope(torch.from_numpy(x).to(getattr(torch, dtype)),
+               torch.from_numpy(pos), 1e6)
+    tol = 1e-5 if dtype == "float32" else 1.6e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_params_round_trip_exactly():
+    _, _, tree, model = _pair("float32")
+    back = params_to_numpy(model)
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    assert len(leaves) == len(jax.tree.leaves(back))
+    for path, a in leaves:
+        b = back
+        for p in path:
+            b = b[p.key]
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
+def test_full_width_shapes_equal_reference_on_meta():
+    """qwen2-0.5b at full width, built on the meta device (no
+    allocation): every layer's parameter has the shape of the
+    reference's stacked leaf without its layer axis."""
+    cfg = get_config("qwen2-0.5b")
+    model = init_model(cfg, device="meta")
+    ref = jmodel_defs(jget("qwen2-0.5b"))
+    assert tuple(model.embed.shape) == ref["embed"].shape
+    assert tuple(model.final_norm.shape) == ref["final_norm"].shape
+    group = ref["groups"]["0"]
+    assert len(model.blocks) == cfg.n_layers == cfg.n_groups
+    want = {"ln1": group["ln1"].shape, "ln2": group["ln2"].shape,
+            **{f"attn.{k}": d.shape for k, d in group["attn"].items()},
+            **{f"mlp.{k}": d.shape for k, d in group["mlp"].items()}}
+    for blk in model.blocks:
+        got = {n: tuple(p.shape) for n, p in blk.named_parameters()}
+        assert got == {n: s[1:] for n, s in want.items()}
+        assert all(p.is_meta for p in blk.parameters())
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(d.shape)) for d in jax.tree.leaves(
+            ref, is_leaf=lambda x: hasattr(x, "init")))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_reference(dtype):
+    jcfg, cfg, tree, model = _pair(dtype)
+    tol_prefill, tol_decode = TOL[dtype]
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + N)).astype(np.int32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    jl, jc = jprefill(jp, jnp.asarray(toks[:, :S]), jcfg, max_len=S + N)
+    tl, tc = prefill(model, torch.from_numpy(toks[:, :S]), max_len=S + N)
+    assert tl.dtype == torch.float32 and tl.shape == (B, cfg.vocab_size)
+    assert _rel(jl, tl) <= tol_prefill
+    assert tc["length"] == int(jc["length"]) == S
+    for i, layer in enumerate(tc["layers"]):
+        for name in ("k", "v"):
+            got = layer[name]
+            assert got.dtype == torch.bfloat16
+            assert got.shape == (B, S + N, cfg.n_kv_heads, cfg.head_dim)
+            want = np.asarray(jc["groups"]["0"]["attn"][name][i], np.float32)
+            if dtype == "float32":
+                np.testing.assert_allclose(got.float().numpy(), want,
+                                           rtol=2 ** -7, atol=1e-6)
+            else:
+                assert _rel(want, got) <= 2e-2
+    for i in range(N):
+        step = toks[:, S + i:S + i + 1]
+        jl, jc = jdecode(jp, jc, jnp.asarray(step), jcfg)
+        tl, tc = decode_step(model, tc, torch.from_numpy(step))
+        assert _rel(jl, tl) <= tol_decode, i
+    assert tc["length"] == S + N
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_teacher_forced_forward_equals_prefill_plus_decode(dtype):
+    """The port's own forward over S + N tokens ≡ prefill of S and N
+    decode steps (bound 2e-2, as ``tests/test_decode_consistency.py``)."""
+    _, cfg, _, model = _pair(dtype, seed=3)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(B, S + N)).astype(np.int32))
+    h, cache = forward(model, toks)
+    assert cache is None
+    want = _head(h[:, -1], model)
+    logits, cache = prefill(model, toks[:, :S], max_len=S + N)
+    for i in range(N):
+        logits, cache = decode_step(model, cache, toks[:, S + i:S + i + 1])
+    assert float((logits - want).abs().max() / want.abs().max()) < 2e-2
+
+
+def test_unported_features_raise():
+    cfg = reduced(get_config("qwen2-0.5b"))
+    for change in ({"layer_pattern": ("ssd",)}, {"frontend_tokens": 16},
+                   {"layer_pattern": ("attn", "local"), "n_layers": 4}):
+        with pytest.raises(NotImplementedError):
+            init_model(dataclasses.replace(cfg, **change), device="meta")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba2-780m")
