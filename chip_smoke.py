@@ -26,29 +26,40 @@ Phases (any failure exits non-zero before the final line):
 4. The same configs with a 5 s horizon under ``PSP_TICK_IMPL=cuda`` and
    ``ref`` (same generator seed): steps, total updates and control
    messages equal, error traces within rtol 1e-4, atol 1e-6.
-5. Hold the RMSNorm and flash-attention kernels against their plain
-   versions on the card: RMSNorm over rows {1, 7, 2048, 4099} × D {64,
-   896}; flash over {causal, + window 256, + softcap 50} × GQA {1, 7} ×
-   S {1, 37, 512, 1000} × hd {64, 128}; both in float32 (rtol 1e-5,
-   atol 1e-6·max(1, max|plain|)) and bfloat16 (rtol / atol 2e-2).  Time
-   each at qwen2-0.5b's serving shapes against its plain version and a
-   library call (``rms_norm``, ``scaled_dot_product_attention``), flash
-   also at a 4096-token prefill, beside its bound.
-6. The serving path: ``repro_torch.launch.serve`` serves qwen2-0.5b at
+5. Hold the RMSNorm, flash-attention and SSD-scan kernels against their
+   plain versions on the card: RMSNorm over rows {1, 7, 2048, 4099} × D
+   {64, 896, 1536, 3072}; flash over {causal, + window 256, + softcap
+   50} × GQA {1, 7} × S {1, 37, 512, 1000} × hd {64, 128}; both in
+   float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and bfloat16 (rtol
+   / atol 2e-2).  SSD over S {64, 128, 512} × groups {1, 2} of 4 heads ×
+   N {64, 128} at hd 64 × decay {slow: dt·A ∈ [−0.1, 0]; model-like: dt
+   = softplus(N(0, 0.8²)), A = −1}, in float32 (rtol 1e-4, atol
+   1e-5·max(1, max|plain|), y and the final state) and bfloat16 (y rtol /
+   atol 2e-2, the final state as in float32); S 1000 must raise.  Time
+   each at its serving shapes against its plain version and a library
+   call (``rms_norm``, ``scaled_dot_product_attention``; none computes
+   the SSD scan), flash and SSD also at a 4096-token prefill, beside its
+   bound.
+6. The qwen2-0.5b serving path: ``repro_torch.launch.serve`` serves it at
    full width with seeded random weights, bfloat16 (8 requests, batch
-   4, prompt 512, max_len 1024, 64 new tokens, greedy), the kernels'
-   launch counts reset just before and read just after: flash must run
-   24 times per prefill call and RMSNorm 49 times per prefill call and
-   decode step.  Prints time to first token, prefill and decode
-   tokens/s; then a traced rerun gives the device's busy share; then
-   the served tokens are teacher-forced through the model under
+   4, prompt 512, max_len 1024, 64 new tokens, greedy), every kernel's
+   launch count reset just before and read just after: flash must run
+   24 times per prefill call, RMSNorm 49 times per prefill call and
+   decode step, SSD never.  Prints time to first token, prefill and
+   decode tokens/s; then a traced rerun of one wave with 16 new tokens,
+   against the same wave unprofiled, gives the device's busy share;
+   then the served tokens are teacher-forced through the model under
    ``impl="cuda"`` (its argmax must reproduce every served token) and
    ``impl="ref"``: per-step logits within 2e-2 of max |logit|, or within
    the plain path's own bf16 rounding error (its logits in bf16 against
    float32 compute) where that is larger; and on the same weights in
    float32 compute within 1e-4 at prefill and 5e-3 in decode.
+7. The mamba2-780m serving path, as phase 6 with the same traffic: SSD
+   must run 48 times per prefill call, RMSNorm 97 times per prefill call
+   and decode step, flash never; the same teacher-forced checks.
 
-Then one JSON line with each kernel's launches, error and times, the
+Then one JSON line with each kernel's launches (summed over the main
+paths: the sweep, and both serving runs), error and times, the
 ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -91,7 +102,7 @@ FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
 # phase 5's case grid (also run by tests/test_torch_cuda.py)
 DTYPES = ("float32", "bfloat16")
 RMS_ROWS = (1, 7, 2048, 4099)
-RMS_DIMS = (64, 896)
+RMS_DIMS = (64, 896, 1536, 3072)
 FLASH_MODES = (("causal", {}), ("window256", {"window": 256}),
                ("softcap50", {"softcap": 50.0}))
 FLASH_GQA = (1, 7)
@@ -103,10 +114,24 @@ FLASH_HEAD_DIMS = (64, 128)
 #: the JSON line
 RMS_TIMED_ROWS = (4 * 512, 4)
 FLASH_TIMED = ((4, 512), (1, 4096))
-#: phase 6: qwen2-0.5b's serving run
-SERVE_ARGV = ["--arch", "qwen2-0.5b", "--requests", "8", "--batch", "4",
-              "--prompt-len", "512", "--max-len", "1024", "--max-new", "64",
-              "--seed", "0"]
+SSD_SEQ = (64, 128, 512)
+SSD_RAGGED = 1000          # not a multiple of the 128-step chunk: raises
+SSD_GROUPS = (1, 2)        # of SSD_HEADS heads
+SSD_HEADS = 4
+SSD_STATES = (64, 128)
+SSD_DECAYS = ("slow", "model")
+#: SSD's tolerance in float32: rtol, and atol as a share of max |plain|
+SSD_F32 = (1e-4, 1e-5)
+#: SSD's timed (B, S) at mamba2-780m's 48 heads, hd 64, N 128, one group
+#: (the serving prefill, then a long one); the first goes into the line
+SSD_TIMED = ((4, 512), (1, 4096))
+#: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
+TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
+           "--max-len", "1024", "--max-new", "64", "--seed", "0"]
+SERVE_ARGV = ["--arch", "qwen2-0.5b", *TRAFFIC]
+#: new tokens of the one wave whose device busy share is traced
+TRACE_NEW = 16
+MAMBA_ARGV = ["--arch", "mamba2-780m", *TRAFFIC]
 
 
 def smi() -> str:
@@ -266,6 +291,12 @@ def flash_cases():
                              FLASH_HEAD_DIMS, DTYPES)
 
 
+def ssd_cases():
+    """Phase 5's SSD grid: (S, groups, N, decay, dtype), at hd 64."""
+    return itertools.product(SSD_SEQ, SSD_GROUPS, SSD_STATES, SSD_DECAYS,
+                             DTYPES)
+
+
 def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
     """x (rows, D) in ``dtype`` and a float32 gain w (D,), from numpy."""
     rng = np.random.default_rng(seed)
@@ -282,16 +313,38 @@ def flash_inputs(np, torch, B, S, H, KV, hd, dtype, dev, seed=0):
         np.float32)).to(dev, getattr(torch, dtype)) for n in (H, KV, KV))
 
 
-def check_close(np, got, want, dtype, what):
+def ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dtype, dev, seed=0):
+    """x (B, S, nh, hd), dt (B, S, nh), A (nh,), Bm, Cm (B, S, ng, N) from
+    numpy: x, Bm, Cm in ``dtype``, dt and A float32.  ``decay`` "slow":
+    dt ∈ [0, 0.1], A ∈ [−1, −0.5] (dt·A ∈ [−0.1, 0]: the state carries
+    across chunks); "model": dt = softplus(N(0, 0.8²)), A = −1."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, nh, hd))
+    if decay == "slow":
+        dt = rng.uniform(0.0, 0.1, size=(B, S, nh))
+        A = -rng.uniform(0.5, 1.0, size=nh)
+    else:
+        dt = np.logaddexp(rng.normal(0.0, 0.8, size=(B, S, nh)), 0.0)
+        A = -np.ones(nh)
+    Bm, Cm = (rng.normal(size=(B, S, ng, N)) for _ in range(2))
+    td = getattr(torch, dtype)
+    t = lambda a, d: torch.from_numpy(a.astype(np.float32)).to(dev, d)
+    return (t(x, td), t(dt, torch.float32), t(A, torch.float32), t(Bm, td),
+            t(Cm, td))
+
+
+def check_close(np, got, want, dtype, what, f32=(1e-5, 1e-6)):
     """Max |got - want|; raises beyond the stated tolerance (float32:
-    rtol 1e-5, atol 1e-6·max(1, max|want|); bfloat16: 2e-2 both)."""
+    rtol ``f32[0]``, atol ``f32[1]``·max(1, max|want|), by default 1e-5
+    and 1e-6; bfloat16: 2e-2 both)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
                              f"{want.dtype}{tuple(want.shape)}")
     a = want.float().cpu().numpy().astype(np.float64)
     b = got.float().cpu().numpy().astype(np.float64)
     scale = max(1.0, float(np.abs(a).max(initial=0.0)))
-    rtol, atol = (1e-5, 1e-6 * scale) if dtype == "float32" else (2e-2, 2e-2)
+    rtol, atol = ((f32[0], f32[1] * scale) if dtype == "float32"
+                  else (2e-2, 2e-2))
     err = float(np.abs(a - b).max(initial=0.0))
     if not np.allclose(b, a, rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: max |diff| {err}")
@@ -312,9 +365,10 @@ def rotating(tensors):
 
 def device_ms(torch, fn, n):
     """Device milliseconds per call of ``fn`` (all the kernels it runs,
-    torch.profiler), or CUDA-event milliseconds per call if the profiler
-    sees no device time; and which of the two it is."""
-    busy = profile_device(torch, fn, n)
+    torch.profiler, asked twice: it has come back empty once in a run),
+    or CUDA-event milliseconds per call if the profiler sees no device
+    time; and which of the two it is."""
+    busy = profile_device(torch, fn, n) or profile_device(torch, fn, n)
     if busy:
         return sum(busy.values()), "device"
     return time_calls(torch, fn, n), "events"
@@ -407,6 +461,73 @@ def phase5(np, torch, dev, card):
              "library_ms": fms["library"][0]}]
 
 
+def ssd_flops(B, S, nh, hd, N, Q=128):
+    """FLOPs of the chunked dual form: per (batch, head, chunk) C·Bᵀ
+    (2Q²N), scores·(x·dt) (2Q²hd), C·Hᵀ and the state update (2QN·hd
+    each)."""
+    Q = min(Q, S)
+    per_chunk = 2 * Q * Q * N + 2 * Q * Q * hd + 4 * Q * N * hd
+    return per_chunk * B * nh * (S // Q)
+
+
+def phase5_ssd(np, torch, dev, card):
+    """The SSD kernel against its plain version over the case grid, then
+    timed at mamba2-780m's serving shapes.  Returns its JSON entry without
+    ``launches``."""
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    err = 0.0
+    for i, (S, ng, N, decay, dt) in enumerate(ssd_cases()):
+        args = ssd_inputs(np, torch, 2, S, SSD_HEADS, ng, 64, N, decay, dt,
+                          dev, seed=i)
+        (y, h), (y_r, h_r) = ssd_cuda(*args), ssd_ref(*args)
+        what = f"ssd S={S} ng={ng} N={N} {decay} {dt}"
+        err = max(err, check_close(np, y, y_r, dt, what + " y", SSD_F32),
+                  check_close(np, h, h_r, "float32", what + " h", SSD_F32))
+    args = ssd_inputs(np, torch, 1, SSD_RAGGED, SSD_HEADS, 1, 64, 128,
+                      "slow", "float32", dev)
+    for fn in (ssd_cuda, ssd_ref):
+        try:
+            fn(*args)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__} took S={SSD_RAGGED}, which is "
+                             "not a multiple of its 128-step chunk")
+    print(f"[5] ssd kernel == plain on {i + 1} cases (y and final state); "
+          f"max |err| {err:.3g}; S={SSD_RAGGED} raises in both", flush=True)
+
+    timed = []
+    for B, S in SSD_TIMED:
+        nh, hd, N = 48, 64, 128
+        x, dt, A, Bm, Cm = ssd_inputs(np, torch, B, S, nh, 1, hd, N, "model",
+                                      "bfloat16", dev)
+        nxt, n_sets = rotating((x, dt, A, Bm, Cm))
+        ms = {name: device_ms(torch, fn, n) for name, fn, n in (
+            ("kernel", lambda: ssd_cuda(*nxt()), 10),
+            ("plain", lambda: ssd_ref(*nxt()), 3))}
+        flops = ssd_flops(B, S, nh, hd, N)
+        nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+                  + A.numel() * 4 + 2 * Bm.numel() * Bm.element_size()
+                  + B * nh * hd * N * 4)
+        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+        print(f"[5] ssd B={B} S={S} nh={nh} hd={hd} N={N} ng=1 bf16: "
+              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                          for k, v in ms.items())
+              + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
+              f"GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s; no library "
+              f"call computes the scan; inputs rotated over {n_sets} copies "
+              f"[{card}]", flush=True)
+        timed.append((ms, t_ops, t_bytes))
+    ms, t_ops, t_bytes = timed[0]
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:72",
+            "max_abs_err": err, "ms": ms["kernel"][0],
+            "plain_ms": ms["plain"][0], "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
     """Per-step logits (steps, B, V) of ``toks`` (B, prompt + new) fed
     through prefill and decode steps, as the engine feeds a group."""
@@ -422,58 +543,77 @@ def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
     return torch.stack(steps)
 
 
-def phase6(np, torch, dev, card, argv):
-    """The serving path on the card; returns (flash launches, RMSNorm
-    launches)."""
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+def serve_phase(np, torch, dev, card, argv, tag):
+    """A serving path on the card, printed as phase ``tag``: serve
+    ``argv`` through ``repro_torch.launch.serve`` with every model
+    kernel's launch count reset just before and read just after, trace a
+    rerun, and teacher-force the served tokens.  Returns the launch counts
+    by kernel name."""
+    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
+                                     ssd_scan as ss)
     from repro_torch.launch import serve
     from repro_torch.models import Model, init_model
+    t_phase = time.perf_counter()
     a = serve.parse_args(argv)
+    kernels = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss}
     torch.cuda.synchronize()
-    fa.reset_launch_count()
-    rn.reset_launch_count()
+    for m in kernels.values():
+        m.reset_launch_count()
     run = serve.one_shot(argv)
-    n_fl, n_rms = fa.launch_count(), rn.launch_count()
+    got = {name: m.launch_count() for name, m in kernels.items()}
     eng, cfg = run.engine, run.cfg
-    want_fl = cfg.n_layers * eng.prefill_calls
-    want_rms = (2 * cfg.n_layers + 1) * (eng.prefill_calls + eng.decode_steps)
-    if (n_fl, n_rms) != (want_fl, want_rms):
-        raise AssertionError(f"launches: flash {n_fl} (want {want_fl}), "
-                             f"rmsnorm {n_rms} (want {want_rms})")
+    # per prefill call: one flash launch per attn layer, one SSD launch
+    # per ssd layer; per forward: two RMSNorms per layer and the final one
+    forwards = eng.prefill_calls + eng.decode_steps
+    per = {"flash_attention": (cfg.layer_kinds().count("attn"),
+                               eng.prefill_calls),
+           "rmsnorm": (2 * cfg.n_layers + 1, forwards),
+           "ssd_scan": (cfg.layer_kinds().count("ssd"), eng.prefill_calls)}
+    want = {name: n * k for name, (n, k) in per.items()}
+    if got != want:
+        raise AssertionError(f"launches {got}, want {want}")
     for o in run.outputs:
         if not (len(o) == a.max_new and (o >= 0).all()
                 and (o < cfg.vocab_size).all()):
             raise AssertionError(f"malformed completion {o}")
     st = run.stats()
-    print(f"[6] served {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+    print(f"[{tag}] served {cfg.name} ({cfg.n_layers} layers, d="
+          f"{cfg.d_model}, "
           f"{sum(p.numel() for p in run.model.parameters()) / 1e6:.1f}M "
           f"params, {cfg.dtype}): {st['requests']} requests, "
           f"{st['new_tokens']} new tokens, {eng.prefill_calls} prefill calls"
-          f", {eng.decode_steps} decode steps; flash launches {n_fl} = "
-          f"{cfg.n_layers} × {eng.prefill_calls}, rmsnorm launches {n_rms} "
-          f"= {2 * cfg.n_layers + 1} × "
-          f"{eng.prefill_calls + eng.decode_steps} [{card}]", flush=True)
-    print(f"[6] time to first token {st['ttft_ms_mean']:.3f} ms (mean of "
+          f", {eng.decode_steps} decode steps; launches "
+          + ", ".join(f"{name} {got[name]} = {n} × {k}"
+                      for name, (n, k) in per.items())
+          + f" [{card}]", flush=True)
+    print(f"[{tag}] time to first token {st['ttft_ms_mean']:.3f} ms (mean of "
           f"{len(run.ttft_s)} waves: {[round(1e3 * t, 3) for t in run.ttft_s]}"
           f"), prefill {st['prefill_tok_s']:.1f} tok/s, decode "
           f"{st['decode_tok_s']:.1f} tok/s ({run.decode_tokens} tokens in "
           f"{run.decode_s:.4f} s), wall {st['wall_s']:.4f} s [{card}]",
           flush=True)
 
+    # the busy share of one wave of TRACE_NEW tokens (a prefill and its
+    # decode steps): tracing the whole run costs minutes of profiler time
+    # at mamba2's ≈ 3600 launches per forward
+    wave = [*argv, "--requests", str(a.batch), "--max-new", str(TRACE_NEW)]
+    wall_ms = 1e3 * serve.one_shot(wave).wall_s
     init = profile_device(torch, lambda: init_model(cfg, seed=0, device=dev))
-    traced = profile_device(torch, lambda: serve.one_shot(argv))
+    traced = profile_device(torch, lambda: serve.one_shot(wave))
     if traced:
         busy = sum(traced.values()) - sum(init.values())
-        wall_ms = 1e3 * st["wall_s"]
-        print(f"[6] traced rerun: device busy {busy:.3f} ms of the "
-              f"unprofiled {wall_ms:.3f} ms serving wall (weight init's "
+        print(f"[{tag}] traced rerun of one wave ({a.batch} requests, "
+              f"{TRACE_NEW} new tokens): "
+              f"device busy {busy:.3f} ms of the same wave's unprofiled "
+              f"{wall_ms:.3f} ms serving wall (weight init's "
               f"{sum(init.values()):.3f} ms taken out): busy share "
-              f"{busy / wall_ms:.4f}, idle share {1 - busy / wall_ms:.4f} "
+              f"{busy / wall_ms:.4f}, idle share {1 - busy / wall_ms:.4f}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase "
               f"[{card}]", flush=True)
         for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"[6]   {ms:9.3f} ms  {key[:90]}", flush=True)
+            print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
     else:
-        print("[6] traced rerun: the profiler saw no device time; the "
+        print(f"[{tag}] traced rerun: the profiler saw no device time; the "
               "busy share is not measured", flush=True)
 
     # teacher-forced checks, per wave: the kernel path must reproduce the
@@ -513,15 +653,17 @@ def phase6(np, torch, dev, card, argv):
     if not bf16.max() <= bound:
         raise AssertionError(f"bf16 compute: impl=ref logits differ by "
                              f"{bf16.max()} of max |logit| > {bound}")
-    print(f"[6] teacher-forced: kernel logits reproduce all {agree} served "
+    print(f"[{tag}] teacher-forced: kernel logits reproduce all {agree} "
+          "served "
           f"tokens; impl=ref per-step logits, as a share of max |logit|: "
           f"bf16 max {bf16.max():.4g} (median {np.median(bf16):.4g}, "
           f"prefill max {bf16[:, 0].max():.4g}; bound {bound:.4g}: 2e-2 or "
           f"the plain path's bf16 rounding error, max {floor.max():.4g}, "
           f"median {np.median(floor):.4g}); float32 compute prefill "
           f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
-          f"{f32[:, 1:].max():.3g} (bound 5e-3)", flush=True)
-    return n_fl, n_rms
+          f"{f32[:, 1:].max():.3g} (bound 5e-3); "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    return got
 
 
 def main() -> int:
@@ -709,16 +851,20 @@ def main() -> int:
     print("[4] cuda == ref: steps, updates and control messages equal, "
           "errors within rtol 1e-4", flush=True)
 
-    # ---- 5. flash attention and RMSNorm against their plain versions --- #
+    # ---- 5. RMSNorm, flash attention and SSD against their plain versions #
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
-    entries = phase5(np, torch, dev, card)
+    entries = phase5(np, torch, dev, card) + [phase5_ssd(np, torch, dev,
+                                                         card)]
 
-    # ---- 6. the serving path: qwen2-0.5b through both kernels ---------- #
-    print(f"[6] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
-    n_fl, n_rms = phase6(np, torch, dev, card, SERVE_ARGV)
-    print(f"[6] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
-    entries[0]["launches"] = n_rms
-    entries[1]["launches"] = n_fl
+    # ---- 6. and 7. the serving paths: qwen2-0.5b, then mamba2-780m ----- #
+    served = []
+    for tag, argv in ((6, SERVE_ARGV), (7, MAMBA_ARGV)):
+        print(f"[{tag}] starts at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        served.append(serve_phase(np, torch, dev, card, argv, tag))
+    print(f"[7] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+    for e in entries:
+        e["launches"] = sum(n[e["name"]] for n in served)
 
     print(json.dumps({"kernels": [{
         "name": "psp_tick", "route": "cuda",

@@ -1,9 +1,10 @@
 """Workload and model configurations of the port.
 
 The paper's PSP linear task (:mod:`~repro_torch.configs.psp_linear`) and
-the architecture registry: ``get_config("qwen2-0.5b")`` returns the
-published configuration, ``reduced(cfg)`` the CPU-smoke variant of the
-same family (the reference's ``repro.configs.reduced``, rule for rule).
+the architecture registry: ``get_config("qwen2-0.5b")`` or
+``get_config("mamba2-780m")`` returns the published configuration,
+``reduced(cfg)`` the CPU-smoke variant of the same family (the
+reference's ``repro.configs.reduced``, rule for rule).
 Only the architectures whose slice has been ported are registered.
 """
 from __future__ import annotations
@@ -12,10 +13,11 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [_qwen2]}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [_qwen2, _mamba2]}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -11,11 +11,13 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
 * :func:`attention` — forward attention, grouped-query layout
   (:mod:`repro_torch.kernels.flash_attention`);
 * :func:`rmsnorm` — RMSNorm over the trailing axis
-  (:mod:`repro_torch.kernels.rmsnorm`).
+  (:mod:`repro_torch.kernels.rmsnorm`);
+* :func:`ssd` — the Mamba-2 chunked SSD scan, with its final state
+  (:mod:`repro_torch.kernels.ssd_scan`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,8 +25,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_cuda)
 from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
 
-__all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "use_kernel"]
+__all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "ssd", "use_kernel"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -74,3 +77,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     :mod:`repro_torch.kernels.rmsnorm`)."""
     fn = rmsnorm_cuda if use_kernel(impl, x.device) else rmsnorm_ref
     return fn(x, w, eps)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: x ``(B, S, nh, hd)``, dt ``(B, S, nh)`` f32, A
+    ``(nh,)`` f32, Bm/Cm ``(B, S, ng, N)`` → (y ``(B, S, nh, hd)`` in x's
+    dtype, h_final ``(B, nh, hd, N)`` f32); raises unless
+    ``S % min(chunk, S) == 0`` (see :mod:`repro_torch.kernels.ssd_scan`)."""
+    fn = ssd_cuda if use_kernel(impl, x.device) else ssd_ref
+    return fn(x, dt, A, Bm, Cm, chunk)

@@ -9,6 +9,9 @@ On the CPU, at the reduced width::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 
+``--arch mamba2-780m`` serves the Mamba-2 stack (SSD-scan kernel) instead
+of the default qwen2-0.5b.
+
 Weights come from the port's seeded initialisation (``--seed``), as the
 reference serves ``init_model`` weights.  Prompts are drawn from numpy
 with the same seed.  Requests go through

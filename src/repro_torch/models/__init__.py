@@ -1,9 +1,11 @@
-"""Models of the port: the decoder for ``attn`` blocks (qwen2-0.5b)."""
-from repro_torch.models.transformer import (Block, Model, cache_defs,
-                                            decode_step, forward, init_cache,
-                                            init_model, model_defs, prefill,
+"""Models of the port: the decoder for ``attn`` blocks (qwen2-0.5b) and
+for Mamba-2 ``ssd`` blocks (mamba2-780m)."""
+from repro_torch.models.transformer import (Block, Model, SSDBlock,
+                                            cache_defs, decode_step, forward,
+                                            init_cache, init_model,
+                                            model_defs, prefill,
                                             unembed_matrix)
 
-__all__ = ["Block", "Model", "cache_defs", "decode_step", "forward",
-           "init_cache", "init_model", "model_defs", "prefill",
+__all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
+           "forward", "init_cache", "init_model", "model_defs", "prefill",
            "unembed_matrix"]

@@ -1,26 +1,30 @@
-"""The decoder for ``attn`` blocks: parameters, caches, prefill, decode.
+"""The decoder: parameters, caches, prefill, decode.
 
 The port's counterpart of :mod:`repro.models.transformer`, for stacks of
-full-attention blocks (qwen2-0.5b).  A model is ``embed → blocks → final
-norm → tied unembed``; :class:`Model` holds one :class:`Block` module
-per layer and loops over them (the reference scans a stacked layer
-axis).  Parameters keep the reference's shapes (``wq`` is
-``(d, h, hd)`` and so on) and float32, so
+full-attention blocks (qwen2-0.5b) or of Mamba-2 ``ssd`` blocks
+(mamba2-780m).  A model is ``embed → blocks → final norm → tied
+unembed``; :class:`Model` holds one block module per layer
+(:class:`Block` for ``attn``, :class:`SSDBlock` for ``ssd``) and loops
+over them (the reference scans a stacked layer axis).  Parameters keep
+the reference's shapes (``wq`` is ``(d, h, hd)``, ``in_proj``
+``(d, 16, width)`` and so on) and float32, so
 :func:`repro_torch.convert.params_from_jax` only has to split the
 reference's stacked layer axis.  Matrix weights are cast once to the
-compute dtype and kept beside the parameters (:meth:`Block.weights`).
+compute dtype and kept beside the parameters (``weights``).
 
 Entry points, all forward only and without autograd:
 
 * :func:`forward` — hidden states for ``mode`` "train" (teacher-forced,
-  no cache), "prefill" (returns a cache) or "decode" (reads and updates
-  the cache in place);
+  no cache), "prefill" (returns a cache) or "decode" (reads the cache;
+  attention layers update theirs in place, ``ssd`` layers return new
+  states);
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
-:mod:`repro_torch.kernels.ops`).  Other block kinds, tail layers and
-modality frontends raise ``NotImplementedError``.
+:mod:`repro_torch.kernels.ops`).  Stacks that mix block kinds, other
+block kinds, tail layers and modality frontends raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,13 +33,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import (embed_tokens, mlp_apply, mlp_defs,
                                        rmsnorm, rope_angles, softcap)
 from repro_torch.models.params import ParamDef, init_params, torch_dtype
 
-__all__ = ["Block", "Model", "cache_defs", "decode_step", "forward",
-           "init_cache", "init_model", "model_defs", "prefill",
+__all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
+           "forward", "init_cache", "init_model", "model_defs", "prefill",
            "unembed_matrix"]
 
 Cache = Dict[str, Any]
@@ -47,9 +51,10 @@ _TODO = "ROADMAP queue 1, item 10 (models)"
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
     kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"}:
-        raise NotImplementedError(f"block kinds {sorted(kinds - {'attn'})}"
-                                  f" of {cfg.name}: {_TODO}")
+    if kinds not in ({"attn"}, {"ssd"}):
+        raise NotImplementedError(f"block kinds {sorted(kinds)} of "
+                                  f"{cfg.name} (the port runs all-attn or "
+                                  f"all-ssd stacks): {_TODO}")
     if cfg.tail_pattern:
         raise NotImplementedError(f"tail layers: {_TODO}")
     if cfg.frontend_tokens:
@@ -64,8 +69,11 @@ def _norm_def(cfg) -> ParamDef:
     return ParamDef((cfg.d_model,), (None,), init=init)
 
 
-def block_defs(cfg) -> Dict:
-    """Parameter definitions of one ``attn`` block."""
+def block_defs(cfg, kind: str) -> Dict:
+    """Parameter definitions of one block of ``kind`` (``attn`` or
+    ``ssd``), as the reference's."""
+    if kind == "ssd":
+        return {"ssd": ssm.ssd_defs(cfg)}
     return {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
             "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
 
@@ -79,7 +87,7 @@ def model_defs(cfg) -> Dict:
     return {"embed": ParamDef((cfg.vocab_size, cfg.d_model),
                               ("vocab_w", "d_model_w"), scale=0.02),
             "final_norm": _norm_def(cfg),
-            "layers": [block_defs(cfg) for _ in range(cfg.n_layers)]}
+            "layers": [block_defs(cfg, k) for k in cfg.layer_kinds()]}
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -106,6 +114,12 @@ class Block(nn.Module):
         self.mlp = nn.ParameterDict({k: _param(v)
                                      for k, v in tree["mlp"].items()})
         self._memo: Tuple[Any, Dict] = (None, {})
+
+    def tree(self) -> Dict[str, Any]:
+        """This layer's parameter tensors in :func:`block_defs` layout."""
+        return {"ln1": self.ln1.data, "ln2": self.ln2.data,
+                "attn": {k: v.data for k, v in self.attn.items()},
+                "mlp": {k: v.data for k, v in self.mlp.items()}}
 
     def weights(self, dtype: torch.dtype) -> Dict[str, Dict]:
         """The attention and MLP weights cast to ``dtype``, made once and
@@ -137,8 +151,51 @@ class Block(nn.Module):
         return x + mlp_apply(w["mlp"], h, cfg), c
 
 
+#: the parameters of an ``ssd`` block that stay float32 (the reference
+#: reads them in float32: norm gains, A_log, dt_bias)
+_SSD_F32 = ("ln", "norm", "A_log", "dt_bias")
+
+
+class SSDBlock(nn.Module):
+    """One Mamba-2 block: x + ssd_apply(x) (its norm is inside)."""
+
+    def __init__(self, cfg, tree: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ssd = nn.ParameterDict({k: _param(v)
+                                     for k, v in tree["ssd"].items()})
+        self._memo: Tuple[Any, Dict] = (None, {})
+
+    def tree(self) -> Dict[str, Any]:
+        """This layer's parameter tensors in :func:`block_defs` layout."""
+        return {"ssd": {k: v.data for k, v in self.ssd.items()}}
+
+    def weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        """The block's parameters with the projections, D and the conv
+        weights cast to ``dtype`` (the rest float32), made once and kept
+        until a parameter moves or changes."""
+        key = _cast_key(self, dtype, True)
+        if self._memo[0] != key:
+            self._memo = (key, {k: v if k in _SSD_F32 else v.to(dtype)
+                                for k, v in self.ssd.items()})
+        return self._memo[1]
+
+    def forward(self, x: torch.Tensor, *, rot, length: Optional[int],
+                cache: Optional[Dict], mode: str, max_len: Optional[int],
+                impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """Apply the block (``rot``, ``length`` and ``max_len`` are unused:
+        the state carries the position); returns (x, this layer's new
+        cache or None)."""
+        o, c = ssm.ssd_apply(self.weights(x.dtype), x, cfg=self.cfg,
+                             cache=cache, mode=mode, impl=impl)
+        return x + o, c
+
+
+_BLOCK_TYPES = {"attn": Block, "ssd": SSDBlock}
+
+
 class Model(nn.Module):
-    """The decoder: embedding, :class:`Block` per layer, final norm.
+    """The decoder: embedding, one block per layer, final norm.
 
     ``tree`` holds the parameter tensors in :func:`model_defs` layout
     (from :func:`init_model`, or converted by
@@ -151,7 +208,9 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
-        self.blocks = nn.ModuleList(Block(cfg, t) for t in tree["layers"])
+        self.blocks = nn.ModuleList(
+            _BLOCK_TYPES[kind](cfg, t)
+            for kind, t in zip(cfg.layer_kinds(), tree["layers"]))
         self._memo: Tuple[Any, Optional[torch.Tensor]] = (None, None)
 
     def tree(self) -> Dict[str, Any]:
@@ -159,10 +218,7 @@ class Model(nn.Module):
         copied): ``Model(other_cfg, model.tree())`` runs the same weights
         under another configuration, e.g. another compute dtype."""
         return {"embed": self.embed.data, "final_norm": self.final_norm.data,
-                "layers": [{"ln1": b.ln1.data, "ln2": b.ln2.data,
-                            "attn": {k: v.data for k, v in b.attn.items()},
-                            "mlp": {k: v.data for k, v in b.mlp.items()}}
-                           for b in self.blocks]}
+                "layers": [b.tree() for b in self.blocks]}
 
     def unembed(self, dtype: torch.dtype) -> torch.Tensor:
         """The tied unembedding ``(d, V)`` in ``dtype``, cast once."""
@@ -182,8 +238,11 @@ class Model(nn.Module):
         offset = cache["length"] if mode == "decode" else 0
         x = embed_tokens(self.embed, tokens, self.cfg)
         S = x.shape[1]
-        positions = torch.arange(offset, offset + S, device=x.device)
-        rot = rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        rot = None
+        if "attn" in self.cfg.layer_kinds():
+            positions = torch.arange(offset, offset + S, device=x.device)
+            rot = rope_angles(positions, self.cfg.head_dim,
+                              self.cfg.rope_theta)
         layers = []
         for i, blk in enumerate(self.blocks):
             x, c = blk(x, rot=rot, length=offset,
@@ -216,14 +275,33 @@ def unembed_matrix(model: Model) -> torch.Tensor:
     return model.embed.T
 
 
+def _block_cache_defs(cfg, kind: str, batch: int, max_len: int) -> Dict:
+    """One layer's cache: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
+    for ``attn``; for ``ssd`` bf16 conv states ``(batch, K − 1, ·)`` and
+    the f32 SSM state ``(batch, nh, hd, N)``."""
+    if kind == "attn":
+        kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                      ("cache_batch", "cache_seq", "kv_heads", None),
+                      init="zeros", dtype="bfloat16")
+        return {"k": kv, "v": kv}
+    gs = cfg.ssm_groups * cfg.ssm_state
+    conv = lambda width, axis: ParamDef(
+        (batch, cfg.ssm_conv - 1, width), ("cache_batch", None, axis),
+        init="zeros", dtype="bfloat16")
+    return {"conv_x": conv(cfg.d_inner, "d_inner_act"),
+            "conv_b": conv(gs, None), "conv_c": conv(gs, None),
+            "ssm": ParamDef((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state),
+                            ("cache_batch", "ssm_heads_act", None, None),
+                            init="zeros", dtype="float32")}
+
+
 def cache_defs(cfg, batch: int, max_len: int) -> Dict:
-    """Cache definitions: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
-    per layer and the shared ``length``."""
+    """Cache definitions: one cache per layer (its block kind's) and the
+    shared ``length``."""
     check_supported(cfg)
-    kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-                  ("cache_batch", "cache_seq", "kv_heads", None),
-                  init="zeros", dtype="bfloat16")
-    return {"layers": [{"k": kv, "v": kv} for _ in range(cfg.n_layers)],
+    return {"layers": [_block_cache_defs(cfg, k, batch, max_len)
+                       for k in cfg.layer_kinds()],
             "length": ParamDef((), (), init="zeros", dtype="int32")}
 
 
@@ -262,8 +340,9 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
                 impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
     """One decode step: tokens (B, 1) → (logits (B, V), cache).
 
-    The cache's key and value tensors are updated in place (the
-    reference's engine donates them); the returned cache holds the same
-    tensors and the advanced ``length``."""
+    Attention layers update their key and value tensors in place (the
+    reference's engine donates them); ``ssd`` layers return new conv and
+    SSM states, as the reference's do.  The returned cache holds them
+    and the advanced ``length``."""
     h, new_cache = model(tokens, cache=cache, mode="decode", impl=impl)
     return _head(h[:, -1], model), new_cache

@@ -338,12 +338,13 @@ class ServingEngine:
                                   max_new=r.max_new_tokens)
 
     def _scatter(self, g: _Group, cache, logits, slots: List[int]):
-        """Write a k-row prefill (cache rows and logits rows) into the
-        group's slot rows; the ``length`` clock is shared and equal."""
+        """Write a k-row prefill (every cache leaf's rows and the logits
+        rows) into the group's slot rows, in the group cache's dtypes;
+        the ``length`` clock is shared and equal."""
         idx = torch.tensor(slots, device=self.device)
         for dst, src in zip(g.cache["layers"], cache["layers"]):
-            for name in ("k", "v"):
-                dst[name][idx] = src[name]
+            for name, t in dst.items():
+                t[idx] = src[name].to(t.dtype)
         g.cache["length"] = cache["length"]
         g.logits[idx] = logits
 

@@ -12,24 +12,27 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (_build, flash_attention, ops,  # noqa: E402
-                                 psp_tick, rmsnorm)
+                                 psp_tick, rmsnorm, ssd_scan)
 
-SOURCES = ("flash_attention", "psp_tick", "rmsnorm")
+SOURCES = ("flash_attention", "psp_tick", "rmsnorm", "ssd_scan")
+WRAPPERS = (flash_attention, psp_tick, rmsnorm, ssd_scan)
 
 
 def test_wrappers_check_before_they_build():
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == list(SOURCES)
     libs = dict(_build._LIBS)
-    counts = [m.launch_count() for m in (flash_attention, psp_tick, rmsnorm)]
+    counts = [m.launch_count() for m in WRAPPERS]
     with pytest.raises(ValueError, match="CUDA tensor"):
         rmsnorm.rmsnorm_cuda(torch.ones(2, 64), torch.ones(64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         q = torch.ones(1, 3, 2, 64)
         flash_attention.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        x, bc = torch.ones(1, 4, 2, 16), torch.ones(1, 4, 1, 32)
+        ssd_scan.ssd_cuda(x, torch.ones(1, 4, 2), -torch.ones(2), bc, bc)
     assert ops.use_kernel("auto", torch.device("cpu")) is False
     assert _build._LIBS == libs
-    assert counts == [m.launch_count()
-                      for m in (flash_attention, psp_tick, rmsnorm)]
+    assert counts == [m.launch_count() for m in WRAPPERS]
 
 
 def test_each_source_hashes_on_its_own(tmp_path, monkeypatch):

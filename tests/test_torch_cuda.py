@@ -8,7 +8,10 @@ The tick's control plane must match exactly; ``w``, ``pulled`` and
 ``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|), because the
 kernel sums the gradient in another order.  RMSNorm and flash
 attention: ``chip_smoke``'s phase 5 case grids, at its ``check_close``
-tolerances.  Run on the card with::
+tolerances.  The SSD scan: ``chip_smoke``'s phase 5 grid (S × groups ×
+N × decay), y and the final state at ``chip_smoke.SSD_F32`` in float32
+(rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16.
+Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -98,3 +101,29 @@ def test_cuda_flash_attention_matches_plain(dtype):
         smoke.check_close(np, flash_attention_cuda(q, k, v, **kw),
                           attention_ref(q, k, v, **kw), dt,
                           f"{mode} G={G} S={S} hd={hd}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_matches_plain(dtype):
+    """The SSD scan over ``chip_smoke``'s phase 5 grid in one dtype, at
+    its tolerances; a sequence that is not a multiple of the chunk
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, (S, ng, N, decay, dt) in enumerate(smoke.ssd_cases()):
+        if dt != dtype:
+            continue
+        args = smoke.ssd_inputs(np, torch, 2, S, smoke.SSD_HEADS, ng, 64, N,
+                                decay, dt, dev, seed=i)
+        (y, h), (y_r, h_r) = ssd_cuda(*args), ssd_ref(*args)
+        what = f"S={S} ng={ng} N={N} {decay}"
+        smoke.check_close(np, y, y_r, dt, what, smoke.SSD_F32)
+        smoke.check_close(np, h, h_r, "float32", what, smoke.SSD_F32)
+    args = smoke.ssd_inputs(np, torch, 1, smoke.SSD_RAGGED, 4, 1, 64, 128,
+                            "slow", dtype, dev)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ssd_cuda(*args)

@@ -1,16 +1,17 @@
 """The port's serving engine: greedy parity with the reference, the
 request lifecycle, snapshot pinning and the launcher.
 
-Parity: the reduced qwen2 model in float32, the reference's weights
-carried across by ``params_from_jax``, four prompts of mixed lengths
-(left-padded within a wave) at batch 2, greedy.  Tokens must be equal.
+Parity: the reduced qwen2 and mamba2 models in float32, the reference's
+weights carried across by ``params_from_jax``, four prompts of mixed
+lengths (left-padded within a wave) at batch 2, greedy.  Tokens must be
+equal.
 That is a fair demand only where the reference's top-1 logit leads its
 top-2 by more than the decode logits tolerance (5e-3 of max |logit|,
 ``tests/test_torch_transformer.py``), so the test first asserts that
 margin at every emitted step, recorded from the reference engine.
 
 The lifecycle tests mirror ``tests/test_serving.py::TestLifecycle`` on
-the port alone (reduced model, default bfloat16, CPU).
+the port alone (each reduced model, default bfloat16, CPU).
 """
 import dataclasses
 
@@ -32,11 +33,12 @@ from repro_torch.serving import (Request, ServeConfig,  # noqa: E402
 
 #: decode logits tolerance of the float32 parity (relative to max |logit|)
 LOGITS_TOL = 5e-3
+ARCHS = ["qwen2-0.5b", "mamba2-780m"]
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = reduced(get_config("qwen2-0.5b"))
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    cfg = reduced(get_config(request.param))
     return cfg, init_model(cfg, seed=0), init_model(cfg, seed=1)
 
 
@@ -46,10 +48,10 @@ def _scfg(**kw):
     return ServeConfig(**base)
 
 
-def test_generate_matches_reference_greedy(monkeypatch):
-    jcfg = dataclasses.replace(jreduced(jget("qwen2-0.5b")), dtype="float32")
-    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
-                              dtype="float32")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_reference_greedy(monkeypatch, arch):
+    jcfg = dataclasses.replace(jreduced(jget(arch)), dtype="float32")
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
     tree = jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
@@ -210,11 +212,13 @@ def test_sample_token_rules():
         assert int(tok) in top
 
 
-def test_launcher_on_cpu_and_without_gpu(monkeypatch, capsys):
-    argv = ["--reduced", "--requests", "3", "--batch", "2",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_on_cpu_and_without_gpu(monkeypatch, capsys, arch):
+    argv = ["--arch", arch, "--reduced", "--requests", "3", "--batch", "2",
             "--prompt-len", "5", "--max-new", "3", "--max-len", "16"]
     assert serve.main(argv + ["--device", "cpu"]) == 0
     out = capsys.readouterr().out
+    assert f"arch={arch}" in out
     assert "new_tokens=9" in out and "device=cpu" in out
     run = serve.one_shot(argv + ["--device", "cpu", "--impl", "ref"])
     assert [len(o) for o in run.outputs] == [3, 3, 3]

@@ -1,0 +1,130 @@
+"""The port's plain SSD scan (``repro_torch.kernels.ssd_scan.ssd_ref``,
+through ``ops.ssd(impl="ref")``) against the reference's.
+
+Inputs are drawn with numpy from a seed at B 2, nh 4, hd 16, N 32 and
+handed to both packages: x, B and C rounded to the dtype once, dt and A
+in float32.  Two decay regimes: slow (dt ∈ [0, 0.1], A ∈ [−1, −0.5], so
+dt·A ∈ [−0.1, 0] and the state carries across chunks) and model-like
+(dt = softplus(N(0, 0.8²)), A = −1, so the state decays within a chunk).
+
+* Against ``repro.models.ssm.ssd_chunked`` (y and the final state):
+  float32 within rtol 1e-5, atol 1e-5·max(1, max|ref|) (the same dual
+  form, products summed in another order); bfloat16 within 2e-2 (y
+  rounds to bf16 after float32 work that differs in its last bits).
+* Against the TPU kernel ``ssd_scan_tpu(..., interpret=True)`` and the
+  sequential recurrence ``repro.kernels.ref.ssd_ref``, on the same
+  inputs with B and C repeated per head, in float32 within rtol 1e-3,
+  atol 1e-4 (``tests/test_kernels.py``'s tolerance for those two).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan_tpu  # noqa: E402
+from repro.models.ssm import ssd_chunked as jssd_chunked  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref  # noqa: E402
+
+B, NH, HD, N = 2, 4, 16, 32
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+
+
+def _inputs(S, ng, decay, seed):
+    """x (B, S, nh, hd), dt (B, S, nh), A (nh,), Bm, Cm (B, S, ng, N) as
+    float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(B, S, NH, HD)) * 0.5).astype(np.float32)
+    if decay == "slow":
+        dt = rng.uniform(0.0, 0.1, size=(B, S, NH)).astype(np.float32)
+        A = -rng.uniform(0.5, 1.0, size=NH).astype(np.float32)
+    else:
+        dt = np.logaddexp(rng.normal(0.0, 0.8, size=(B, S, NH)),
+                          0.0).astype(np.float32)
+        A = -np.ones(NH, np.float32)
+    Bm = (rng.normal(size=(B, S, ng, N)) * 0.3).astype(np.float32)
+    Cm = (rng.normal(size=(B, S, ng, N)) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _both(arrs, dtype):
+    """The inputs in both packages: x, Bm, Cm rounded to ``dtype``."""
+    x, dt, A, Bm, Cm = arrs
+    jx = [jnp.asarray(a, dtype) for a in (x, Bm, Cm)]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, Bm, Cm)]
+    j = (jx[0], jnp.asarray(dt), jnp.asarray(A), jx[1], jx[2])
+    t = (tx[0], torch.from_numpy(dt), torch.from_numpy(A), tx[1], tx[2])
+    return j, t
+
+
+def _close(got, want, rtol, atol_scale):
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol_scale * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["slow", "model"])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("S", [32, 256])
+def test_ssd_ref_matches_ssd_chunked(S, chunk, ng, decay, dtype):
+    j, t = _both(_inputs(S, ng, decay, seed=S + chunk + ng), dtype)
+    jy, jh = jssd_chunked(*j, chunk=chunk)
+    y, h = ops.ssd(*t, chunk=chunk, impl="ref")
+    assert y.dtype == getattr(torch, dtype) and y.shape == (B, S, NH, HD)
+    assert h.dtype == torch.float32 and h.shape == (B, NH, HD, N)
+    rtol, atol = TOL[dtype]
+    _close(y, jy, rtol, atol)
+    _close(h, jh, *TOL["float32"])
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("S", [32, 256])
+def test_ssd_ref_matches_tpu_kernel_and_recurrence(S, chunk, ng, decay):
+    arrs = _inputs(S, ng, decay, seed=7 * S + chunk + ng)
+    x, dt, A, Bm, Cm = arrs
+    rep = NH // ng
+    Bh, Ch = (np.repeat(a, rep, axis=2) for a in (Bm, Cm))  # (B,S,nh,N)
+    heads = lambda a: np.moveaxis(a, 2, 1).reshape(B * NH, S, -1)
+    xdt = heads(x * dt[..., None])
+    dA = heads((dt * A)[..., None])[..., 0]
+    tpu = ssd_scan_tpu(jnp.asarray(xdt), jnp.asarray(dA),
+                       jnp.asarray(heads(Bh)), jnp.asarray(heads(Ch)),
+                       chunk=chunk, interpret=True)
+    seq = jref.ssd_ref(*(jnp.asarray(a) for a in (x, dt, A, Bh, Ch)))
+    y, _ = ops.ssd(*(torch.from_numpy(a) for a in arrs), chunk=chunk,
+                   impl="ref")
+    y_heads = y.permute(0, 2, 1, 3).reshape(B * NH, S, HD)
+    np.testing.assert_allclose(y_heads.numpy(), np.asarray(tpu),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(seq), rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_ssd_rejects_ragged_chunks():
+    """S must be a multiple of min(chunk, S), as the reference asserts."""
+    t = [torch.from_numpy(a) for a in _inputs(200, 1, "slow", seed=0)]
+    with pytest.raises(ValueError, match="not a multiple"):
+        ops.ssd(*t, chunk=128, impl="ref")
+    ops.ssd(*t, chunk=40, impl="ref")          # 200 = 5 chunks of 40
+    with pytest.raises(ValueError, match="not a multiple"):
+        ops.ssd(*(a[:, :7] if a.dim() > 1 else a for a in t), chunk=4)
+
+
+def test_ssd_dispatch_on_cpu():
+    """``auto`` runs the plain version on CPU tensors; ``cuda`` raises in
+    the wrapper's checks instead of falling back."""
+    t = [torch.from_numpy(a) for a in _inputs(64, 2, "model", seed=1)]
+    for got, want in zip(ops.ssd(*t), ssd_ref(*t)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.ssd(*t, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_cuda(*t)

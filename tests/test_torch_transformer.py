@@ -1,17 +1,22 @@
-"""The port's qwen2 decoder against the reference's, on the same weights.
+"""The port's decoders against the reference's, on the same weights.
 
-``reduced(get_config("qwen2-0.5b"))`` in both packages (2 layers,
-d_model 256, GQA 2:1, hd 64, vocab 512); the reference's ``init_model``
-weights, with biases and norm gains redrawn from numpy so that they
+Each test runs for both ported architectures at their reduced width in
+both packages: ``reduced(get_config("qwen2-0.5b"))`` (2 layers, d_model
+256, GQA 2:1, hd 64, vocab 512) and ``reduced(get_config("mamba2-780m"))``
+(2 ``ssd`` layers, d_model 256, d_inner 512, 32 SSM heads of 16, state
+32, one group, vocab 512).  The reference's ``init_model`` weights, with
+biases, decay parameters and norm gains redrawn from numpy so that they
 matter, are carried across by ``params_from_jax``.  Prefill logits and
 caches, then 4 decode steps, are held against ``repro.models.prefill`` /
 ``decode_step`` on the same tokens.
 
 Tolerances, as max |Δlogits| / max |logits|:
-* float32 compute: 1e-4 at prefill; 5e-3 at decode, because the caches
-  are bfloat16 in both packages and a key or value that differs in its
-  last float32 bit can round to a neighbouring bfloat16.  The float32
-  caches agree within one bf16 ulp (rtol 2⁻⁷).
+* float32 compute: 1e-4 at prefill; 5e-3 at decode, because the
+  attention caches are bfloat16 in both packages and a key or value that
+  differs in its last float32 bit can round to a neighbouring bfloat16.
+  Those caches agree within one bf16 ulp (rtol 2⁻⁷); the ``ssd`` caches
+  (conv states in the compute dtype, the float32 SSM state) within 1e-4
+  of their largest entry.
 * bfloat16 compute (the default): 2e-2, the bound of
   ``tests/test_decode_consistency.py``; caches within 2e-2 of their
   largest entry.
@@ -39,6 +44,10 @@ from repro_torch.models.transformer import _head  # noqa: E402
 
 TOL = {"float32": (1e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
 B, S, N = 2, 40, 4
+ARCHS = ["qwen2-0.5b", "mamba2-780m"]
+#: each arch's cache subtree in the reference and its leaves
+CACHE = {"qwen2-0.5b": ("attn", ("k", "v")),
+         "mamba2-780m": ("ssd", ("conv_x", "conv_b", "conv_c", "ssm"))}
 
 
 def _rel(want, got):
@@ -47,25 +56,35 @@ def _rel(want, got):
                  / np.abs(want).max())
 
 
-def _pair(dtype, seed=0):
+def _pair(arch, dtype, seed=0):
     """(reference cfg, port cfg, reference params, port model)."""
-    jcfg = dataclasses.replace(jreduced(jget("qwen2-0.5b")), dtype=dtype)
-    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")), dtype=dtype)
+    jcfg = dataclasses.replace(jreduced(jget(arch)), dtype=dtype)
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype)
     tree = jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed + 1)
     g = tree["groups"]["0"]
-    for k in ("bq", "bk", "bv"):
-        g["attn"][k] = (0.1 * rng.normal(size=g["attn"][k].shape)
-                        ).astype(np.float32)
-    for k in ("ln1", "ln2"):
-        g[k] = (1 + 0.1 * rng.normal(size=g[k].shape)).astype(np.float32)
+    draw = lambda a, mean, std: (mean + std * rng.normal(size=a.shape)
+                                 ).astype(np.float32)
+    if arch == "mamba2-780m":
+        p = g["ssd"]
+        for k in ("conv_x_b", "conv_b_b", "conv_c_b"):
+            p[k] = draw(p[k], 0.0, 0.1)
+        for k, mean, std in (("A_log", 0.0, 0.5), ("dt_bias", 0.0, 0.5),
+                             ("D", 1.0, 0.1), ("ln", 1.0, 0.1),
+                             ("norm", 1.0, 0.1)):
+            p[k] = draw(p[k], mean, std)
+    else:
+        for k in ("bq", "bk", "bv"):
+            g["attn"][k] = draw(g["attn"][k], 0.0, 0.1)
+        for k in ("ln1", "ln2"):
+            g[k] = draw(g[k], 1.0, 0.1)
     return jcfg, cfg, tree, params_from_jax(tree, cfg)
 
 
-def test_configs_are_the_reference_s():
-    for port, ref in ((get_config("qwen2-0.5b"), jget("qwen2-0.5b")),
-                      (reduced(get_config("qwen2-0.5b")),
-                       jreduced(jget("qwen2-0.5b")))):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_the_reference_s(arch):
+    for port, ref in ((get_config(arch), jget(arch)),
+                      (reduced(get_config(arch)), jreduced(jget(arch)))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
@@ -86,8 +105,9 @@ def test_rope_matches_reference(dtype):
                                rtol=tol, atol=tol)
 
 
-def test_params_round_trip_exactly():
-    _, _, tree, model = _pair("float32")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_round_trip_exactly(arch):
+    _, _, tree, model = _pair(arch, "float32")
     back = params_to_numpy(model)
     leaves = jax.tree_util.tree_leaves_with_path(tree)
     assert len(leaves) == len(jax.tree.leaves(back))
@@ -98,20 +118,29 @@ def test_params_round_trip_exactly():
         np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
-def test_full_width_shapes_equal_reference_on_meta():
-    """qwen2-0.5b at full width, built on the meta device (no
-    allocation): every layer's parameter has the shape of the
-    reference's stacked leaf without its layer axis."""
-    cfg = get_config("qwen2-0.5b")
+def _flat_shapes(tree, prefix=""):
+    """{"a.b": shape} of a nested dict of ParamDefs."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_shapes(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v.shape
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_width_shapes_equal_reference_on_meta(arch):
+    """The arch at full width, built on the meta device (no allocation):
+    every layer's parameter has the shape of the reference's stacked
+    leaf without its layer axis."""
+    cfg = get_config(arch)
     model = init_model(cfg, device="meta")
-    ref = jmodel_defs(jget("qwen2-0.5b"))
+    ref = jmodel_defs(jget(arch))
     assert tuple(model.embed.shape) == ref["embed"].shape
     assert tuple(model.final_norm.shape) == ref["final_norm"].shape
-    group = ref["groups"]["0"]
     assert len(model.blocks) == cfg.n_layers == cfg.n_groups
-    want = {"ln1": group["ln1"].shape, "ln2": group["ln2"].shape,
-            **{f"attn.{k}": d.shape for k, d in group["attn"].items()},
-            **{f"mlp.{k}": d.shape for k, d in group["mlp"].items()}}
+    want = _flat_shapes(ref["groups"]["0"])
     for blk in model.blocks:
         got = {n: tuple(p.shape) for n, p in blk.named_parameters()}
         assert got == {n: s[1:] for n, s in want.items()}
@@ -122,8 +151,9 @@ def test_full_width_shapes_equal_reference_on_meta():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_match_reference(dtype):
-    jcfg, cfg, tree, model = _pair(dtype)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(arch, dtype):
+    jcfg, cfg, tree, model = _pair(arch, dtype)
     tol_prefill, tol_decode = TOL[dtype]
     toks = np.random.default_rng(7).integers(
         0, cfg.vocab_size, size=(B, S + N)).astype(np.int32)
@@ -133,12 +163,20 @@ def test_prefill_and_decode_match_reference(dtype):
     assert tl.dtype == torch.float32 and tl.shape == (B, cfg.vocab_size)
     assert _rel(jl, tl) <= tol_prefill
     assert tc["length"] == int(jc["length"]) == S
+    kind, names = CACHE[arch]
     for i, layer in enumerate(tc["layers"]):
-        for name in ("k", "v"):
+        assert sorted(layer) == sorted(names)
+        for name in names:
             got = layer[name]
+            want = np.asarray(jc["groups"]["0"][kind][name][i], np.float32)
+            assert got.shape == want.shape
+            if kind == "ssd":
+                assert got.dtype == (torch.float32 if name == "ssm"
+                                     else getattr(torch, dtype))
+                assert _rel(want, got) <= tol_prefill, name
+                continue
             assert got.dtype == torch.bfloat16
             assert got.shape == (B, S + N, cfg.n_kv_heads, cfg.head_dim)
-            want = np.asarray(jc["groups"]["0"]["attn"][name][i], np.float32)
             if dtype == "float32":
                 np.testing.assert_allclose(got.float().numpy(), want,
                                            rtol=2 ** -7, atol=1e-6)
@@ -153,10 +191,11 @@ def test_prefill_and_decode_match_reference(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_teacher_forced_forward_equals_prefill_plus_decode(dtype):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_teacher_forced_forward_equals_prefill_plus_decode(arch, dtype):
     """The port's own forward over S + N tokens ≡ prefill of S and N
     decode steps (bound 2e-2, as ``tests/test_decode_consistency.py``)."""
-    _, cfg, _, model = _pair(dtype, seed=3)
+    _, cfg, _, model = _pair(arch, dtype, seed=3)
     toks = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab_size, size=(B, S + N)).astype(np.int32))
     h, cache = forward(model, toks)
@@ -170,9 +209,9 @@ def test_teacher_forced_forward_equals_prefill_plus_decode(dtype):
 
 def test_unported_features_raise():
     cfg = reduced(get_config("qwen2-0.5b"))
-    for change in ({"layer_pattern": ("ssd",)}, {"frontend_tokens": 16},
+    for change in ({"layer_pattern": ("rglru",)}, {"frontend_tokens": 16},
                    {"layer_pattern": ("attn", "local"), "n_layers": 4}):
         with pytest.raises(NotImplementedError):
             init_model(dataclasses.replace(cfg, **change), device="meta")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mamba2-780m")
+        get_config("gemma2-27b")
