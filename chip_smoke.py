@@ -28,10 +28,17 @@ Phases (any failure exits non-zero before the final line):
    messages equal, error traces within rtol 1e-4, atol 1e-6.
 5. Hold the RMSNorm, flash-attention and SSD-scan kernels against their
    plain versions on the card: RMSNorm over rows {1, 7, 2048, 4099} × D
-   {64, 896, 1536, 3072}; flash over {causal, + window 256, + softcap
-   50} × GQA {1, 7} × S {1, 37, 512, 1000} × hd {64, 128}; both in
-   float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and bfloat16 (rtol
-   / atol 2e-2).  SSD over S {64, 128, 512} × groups {1, 2} of 4 heads ×
+   {64, 100, 896, 1536, 3072} × its two forms (``round_scale``; D 100 in
+   bfloat16 takes the kernel's scalar path), and the scalar path once
+   more on a row that is not 16-byte aligned; flash over {causal,
+   + window 256, + softcap 50} × GQA {1, 7} × S {1, 37, 512, 1000} × hd
+   {64, 128} (bfloat16 on the tensor cores, float32 on the CUDA cores);
+   both in float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and
+   bfloat16 (rtol / atol 2e-2).  Count the tensor-core instructions
+   (``HGMMA``, ``HMMA``) in the built flash library's SASS
+   (``cuobjdump -sass``): the bfloat16 kernel must have some.  A
+   bfloat16 flash call whose strides TMA cannot take must raise.  SSD
+   over S {64, 128, 512} × groups {1, 2} of 4 heads ×
    N {64, 128} at hd 64 × decay {slow: dt·A ∈ [−0.1, 0]; model-like: dt
    = softplus(N(0, 0.8²)), A = −1}, in float32 (rtol 1e-4, atol
    1e-5·max(1, max|plain|), y and the final state) and bfloat16 (y rtol /
@@ -39,7 +46,9 @@ Phases (any failure exits non-zero before the final line):
    each at its serving shapes against its plain version and a library
    call (``rms_norm``, ``scaled_dot_product_attention``; none computes
    the SSD scan), flash and SSD also at a 4096-token prefill, beside its
-   bound.
+   bound; RMSNorm also beside a device copy of the same bytes.  Each
+   is timed twice, in mirrored order, with the SM clock read before and
+   after.
 6. The qwen2-0.5b serving path: ``repro_torch.launch.serve`` serves it at
    full width with seeded random weights, bfloat16 (8 requests, batch
    4, prompt 512, max_len 1024, 64 new tokens, greedy), every kernel's
@@ -70,6 +79,8 @@ import itertools
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -102,7 +113,8 @@ FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
 # phase 5's case grid (also run by tests/test_torch_cuda.py)
 DTYPES = ("float32", "bfloat16")
 RMS_ROWS = (1, 7, 2048, 4099)
-RMS_DIMS = (64, 896, 1536, 3072)
+RMS_DIMS = (64, 100, 896, 1536, 3072)  # 100: not a multiple of 8
+ROUND_SCALE = (False, True)
 FLASH_MODES = (("causal", {}), ("window256", {"window": 256}),
                ("softcap50", {"softcap": 50.0}))
 FLASH_GQA = (1, 7)
@@ -281,8 +293,8 @@ def profile_device(torch, fn, n=1):
 
 
 def rms_cases():
-    """Phase 5's RMSNorm grid: (rows, D, dtype)."""
-    return itertools.product(RMS_ROWS, RMS_DIMS, DTYPES)
+    """Phase 5's RMSNorm grid: (rows, D, dtype, round_scale)."""
+    return itertools.product(RMS_ROWS, RMS_DIMS, DTYPES, ROUND_SCALE)
 
 
 def flash_cases():
@@ -351,6 +363,33 @@ def check_close(np, got, want, dtype, what, f32=(1e-5, 1e-6)):
     return err
 
 
+def tensor_core_sass(lib):
+    """Counts of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) instructions in
+    each kernel of the shared library ``lib`` (``cuobjdump -sass``)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += len(re.findall(rf"\b{op}\.", line))
+    return counts
+
+
+def unaligned(torch, x):
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 def rotating(tensors):
     """A function returning, call after call, the next of enough clones of
     ``tensors`` that cycling through them streams more than twice the L2
@@ -374,47 +413,115 @@ def device_ms(torch, fn, n):
     return time_calls(torch, fn, n), "events"
 
 
+def sm_clock() -> str:
+    """The card's SM clock, as nvidia-smi prints it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def timed_rounds(torch, fns):
+    """Device milliseconds per call of each entry of ``fns`` (name →
+    (fn, calls)), by :func:`device_ms`, in two rounds of mirrored order
+    (A B C, then C B A), so that a drift of the card's clocks falls on
+    every entry alike, after one untimed call of each (the first window
+    of a cold card reads high while its clock ramps up).  Returns (name →
+    (mean ms, (round 1, round 2), how), the SM clock before → after)."""
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    before = sm_clock()
+    got = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, calls = fns[name]
+            got[name].append(device_ms(torch, fn, calls))
+    return ({name: (sum(r[0] for r in runs) / 2, tuple(r[0] for r in runs),
+                    runs[0][1]) for name, runs in got.items()},
+            f"{before} → {sm_clock()}")
+
+
+def rounds_text(ms) -> str:
+    """``name mean ms (round 1 / round 2, how)`` for each timed entry."""
+    return ", ".join(f"{k} {v[0]:.4f} ms ({v[1][0]:.4f} / {v[1][1]:.4f}, "
+                     f"{v[2]})" for k, v in ms.items())
+
+
 def phase5(np, torch, dev, card):
     """The RMSNorm and flash kernels against their plain versions over the
     case grid, then timed at the serving shapes.  Returns the two
     kernels' JSON entries without ``launches``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
     err_rms = 0.0
-    for i, (rows, D, dt) in enumerate(rms_cases()):
+    for i, (rows, D, dt, rs) in enumerate(rms_cases()):
         x, w = rms_inputs(np, torch, rows, D, dt, dev, seed=i)
         err_rms = max(err_rms, check_close(
-            np, rmsnorm_cuda(x, w), rmsnorm_ref(x, w), dt,
-            f"rmsnorm rows={rows} D={D} {dt}"))
-    print(f"[5] rmsnorm kernel == plain on {i + 1} cases; max |err| "
-          f"{err_rms:.3g}", flush=True)
-    err_fl = 0.0
+            np, rmsnorm_cuda(x, w, round_scale=rs),
+            rmsnorm_ref(x, w, round_scale=rs), dt,
+            f"rmsnorm rows={rows} D={D} {dt} round_scale={rs}"))
+    for dt, rs in itertools.product(DTYPES, ROUND_SCALE):
+        x, w = rms_inputs(np, torch, 7, 896, dt, dev, seed=99)
+        xu = unaligned(torch, x)
+        err_rms = max(err_rms, check_close(
+            np, rmsnorm_cuda(xu, w, round_scale=rs),
+            rmsnorm_ref(x, w, round_scale=rs), dt,
+            f"rmsnorm unaligned {dt} round_scale={rs}"))
+    print(f"[5] rmsnorm kernel == plain on {i + 1} cases and 4 unaligned "
+          f"ones; max |err| {err_rms:.3g}", flush=True)
+    err_fl = {dt: 0.0 for dt in DTYPES}
     for i, ((mode, kw), G, S, hd, dt) in enumerate(flash_cases()):
         q, k, v = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev, i)
-        err_fl = max(err_fl, check_close(
+        err_fl[dt] = max(err_fl[dt], check_close(
             np, flash_attention_cuda(q, k, v, causal=True, **kw),
             attention_ref(q, k, v, causal=True, **kw), dt,
             f"flash {mode} G={G} S={S} hd={hd} {dt}"))
-    print(f"[5] flash kernel == plain on {i + 1} cases; max |err| "
-          f"{err_fl:.3g}", flush=True)
+    print(f"[5] flash kernel == plain on {i + 1} cases (bf16 on the tensor "
+          "cores); max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err_fl.items()),
+          flush=True)
+    sass = tensor_core_sass(_build._target("flash_attention"))
+    tc = {op: sum(c[op] for fn, c in sass.items() if "flash_tc_kernel" in fn)
+          for op in ("HGMMA", "HMMA")}
+    print("[5] flash library SASS: " + "; ".join(
+        f"{fn[:60]}… HGMMA {c['HGMMA']}, HMMA {c['HMMA']}"
+        for fn, c in sorted(sass.items())), flush=True)
+    if not (tc["HGMMA"] or tc["HMMA"]):
+        raise AssertionError("the bf16 flash kernel has no tensor-core "
+                             f"instruction in its SASS: {tc}")
+    q, k, v = flash_inputs(np, torch, 1, 64, 14, 2, 64, "bfloat16", dev)
+    bad = torch.zeros(1, 64, 14 * 64 + 4, dtype=torch.bfloat16, device=dev)
+    bad = bad[..., :14 * 64].unflatten(-1, (14, 64))  # seq stride 900
+    bad.copy_(q)
+    try:
+        flash_attention_cuda(bad, k, v)
+    except ValueError as e:
+        print(f"[5] flash bf16 with seq stride 900 raises: {e}", flush=True)
+    else:
+        raise AssertionError("flash_attention_cuda took a bf16 q whose "
+                             "strides TMA cannot describe")
 
     rms = []
     for rows in RMS_TIMED_ROWS:
         x, w = rms_inputs(np, torch, rows, 896, "bfloat16", dev, seed=1)
         w16 = w.to(torch.bfloat16)
         nxt, n_sets = rotating((x,))
-        ms = {name: device_ms(torch, fn, 50) for name, fn in (
-            ("kernel", lambda: rmsnorm_cuda(nxt()[0], w)),
-            ("plain", lambda: rmsnorm_ref(nxt()[0], w)),
-            ("library", lambda: F.rms_norm(nxt()[0], (896,), w16, 1e-6)))}
+        y = torch.empty_like(x)
+        ms, clocks = timed_rounds(torch, {
+            "kernel": (lambda: rmsnorm_cuda(nxt()[0], w, round_scale=True),
+                       50),
+            "plain": (lambda: rmsnorm_ref(nxt()[0], w, round_scale=True), 50),
+            "library": (lambda: F.rms_norm(nxt()[0], (896,), w16, 1e-6), 50),
+            "copy of x": (lambda: y.copy_(nxt()[0]), 50)})
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
         bound = 1e3 * nbytes / HBM_BPS
-        print(f"[5] rmsnorm ({rows}, 896) bf16: " + ", ".join(
-            f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in ms.items())
-            + f"; bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB); inputs "
-            f"rotated over {n_sets} copies [{card}]", flush=True)
+        print(f"[5] rmsnorm ({rows}, 896) bf16 (the model's form): "
+              + rounds_text(ms) + f"; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.3f} MB); inputs rotated over {n_sets} "
+              f"copies; SM clock {clocks} [{card}]", flush=True)
         rms.append((ms, bound))
     flash = []
     for B, S in FLASH_TIMED:
@@ -429,20 +536,20 @@ def phase5(np, torch, dev, card):
         except TypeError:          # a torch without enable_gqa
             lib = lambda: sdpa(*(t.repeat_interleave(7, dim=2) if i else t
                                  for i, t in enumerate(nxt())))
-        ms = {name: device_ms(torch, fn, n) for name, fn, n in (
-            ("kernel", lambda: flash_attention_cuda(*nxt()), 20),
-            ("plain", lambda: attention_ref(*nxt()), 5),
-            ("library", lib, 20))}
+        ms, clocks = timed_rounds(torch, {
+            "kernel": (lambda: flash_attention_cuda(*nxt()), 20),
+            "plain": (lambda: attention_ref(*nxt()), 5),
+            "library": (lib, 20)})
         flops = 2 * B * 14 * S * S * 64
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
         t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
         print(f"[5] flash B={B} S={S} H=14 KV=2 hd=64 bf16 causal: "
-              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
-                          for k, v in ms.items())
+              + rounds_text(ms)
               + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
               f"GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
-              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s; inputs rotated "
-              f"over {n_sets} copies [{card}]", flush=True)
+              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library at "
+              f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+              f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
         flash.append((ms, t_ops, t_bytes))
 
     (ms, bound), (fms, t_ops, t_bytes) = rms[0], flash[0]
@@ -455,7 +562,7 @@ def phase5(np, torch, dev, card):
             {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:92",
-             "max_abs_err": err_fl, "ms": fms["kernel"][0],
+             "max_abs_err": max(err_fl.values()), "ms": fms["kernel"][0],
              "plain_ms": fms["plain"][0], "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": fms["library"][0]}]

@@ -2,44 +2,70 @@
 // src/repro/kernels/flash_attention.py:flash_attention_tpu (_kernel).
 //
 // o[b, i, h] = sum_j softmax_j(mask(cap·tanh(s/cap) or s)) v[b, j, kvh]
-// with s = (scale·q[b, i, h]) · k[b, j, kvh], kvh = h / (H / KV): grouped
-// query attention read natively, no repeated K/V.  Masks: causal
+// with s = scale · (q[b, i, h] · k[b, j, kvh]), kvh = h / (H / KV):
+// grouped-query attention read natively, no repeated K/V.  Masks: causal
 // (i >= j), sliding window (i - j < window); masked scores are -1e30 as
-// on the TPU, keys past the end of the sequence contribute nothing.
-//
-// Layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), read through their batch,
-// sequence and head strides (the head dim must be contiguous); o is
-// (B, Sq, H, hd) contiguous in q's dtype.  hd is 64 or 128 (a template
-// parameter); float32 or bfloat16.
-//
-// Design (first, simple): one block of 256 threads per (64-query tile,
-// head, batch).  The block keeps its query tile, pre-scaled, in shared
-// memory in f32 and walks the 64-key tiles of the causal / window band
-// only (the TPU kernel's tile skipping), each staged in shared memory in
-// f32.  Four threads own one query row: each scores 16 of the tile's
-// keys, the four meet through warp shuffles for the row max and sum
-// (online softmax, m and l in f32, expf), park the probabilities in
-// shared memory, and accumulate hd/4 output dims each.  Products run on
-// the CUDA cores in f32 (fmaf), the TPU kernel's arithmetic; the
-// output is acc / max(l, 1e-30), rounded once.
+// on the TPU, keys past the end of the sequence weigh exactly 0, and key
+// tiles outside the causal / window band are skipped.  Layout: q
+// (B, Sq, H, hd), k/v (B, Sk, KV, hd), the model's; o is (B, Sq, H, hd)
+// contiguous in q's dtype.  hd is 64 or 128.
 //
 // Bound on the H100: operations.  A causal prefill does 2·B·H·S²·hd
-// multiply-adds' worth of FLOPs on S·(H + 2·KV)·hd inputs, far above the
-// card's ~295 FLOP/byte balance for S in the hundreds, so the limit is
-// the tensor cores' rate; this design runs on the CUDA cores instead and
-// is fed from shared memory at about four fmaf per 16-byte load, so it
-// reaches only a fraction of even their rate.  Tensor cores (mma/wgmma)
-// and TMA-fed tile rings are the next designs.
+// FLOPs on S·(H + 2·KV)·hd inputs, far above the card's ~295 FLOP/byte
+// balance for S in the hundreds, so the limit is the tensor cores' rate.
+//
+// bfloat16 (flash_tc_kernel; both serving prefills run it): Hopper's
+// tensor cores, fed by TMA.
+// * One block per (64-row query tile, head, batch): one consumer
+//   warpgroup and one producer warp (64-row tiles measured faster than
+//   128-row tiles of two consumer warpgroups at both timed shapes).  The
+//   grid walks the query tiles last, from the last tile down, so the
+//   causal tiles with the most keys start first.
+// * The producer loads the block's Q once and the K/V tiles of the band
+//   (64 keys each) by TMA into a ring of stages, one mbarrier pair
+//   (full / empty) per stage, so the next tiles are in flight while the
+//   consumer warpgroup computes.  Tiles land 128-byte swizzled: one hd-64 bf16 row
+//   is one 128-byte swizzle row; hd 128 takes two 64-column atoms.  Rows
+//   past the end of q, k or v arrive as zeros.
+// * S = Q·Kᵀ with wgmma m64n64k16 (bf16 in, f32 accumulated), A and B
+//   from shared memory; then the scale hd^-0.5 in f32 (the TPU kernel
+//   scales f32(q); q is never rounded after scaling).
+// * The online softmax runs on the accumulator fragment in registers: a
+//   thread holds rows r = 16·warp + lane/4 (+8) and columns
+//   8·i + 2·(lane%4) (+1); row max and sum go over the 4 lanes of a row
+//   by shuffles.  2^x (ex2.approx, MUFU.EX2, within 2 ulp) of scores
+//   pre-multiplied by log2(e) replaces expf.  A tile that the whole
+//   warpgroup sees unmasked (no softcap) skips the masks and folds the
+//   scale into one fmaf per score; the softmax is the kernel's largest
+//   cost in instructions, ahead of the products.
+// * O += P·V with wgmma, P from registers as the A operand (the S
+//   fragment re-read as A fragments after rounding P to bf16: the one
+//   rounding the TPU kernel does not make) and V from shared memory
+//   through a transposed (MN-major) B descriptor, 64 output columns per
+//   instruction.  O stays in registers in f32; the epilogue divides by
+//   max(l, 1e-30) and stores bf16, rows past Sq masked.
+// * Within a warpgroup, S of tile j + 1 and P·V of tile j are issued
+//   together, and the softmax of tile j + 1 runs on the CUDA cores while
+//   P·V of tile j runs on the tensor cores.  Each consumer warp releases
+//   a stage with one arrival once its products have read it.  A barrier
+//   wait that lasts seconds traps rather than hang the card.
+//
+// float32 (flash_fwd_kernel): the first design, kept for the f32 checks
+// that need f32 products.  One block of 256 threads per (64-query tile,
+// head, batch) walks the band's 64-key tiles staged in shared memory;
+// four threads own a query row; products on the CUDA cores in f32
+// (fmaf), expf, one rounding at the end.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block: 4 per query row
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const void* q;
@@ -55,18 +81,13 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ====================================================================== //
+// float32: CUDA cores                                                     //
+// ====================================================================== //
+
+constexpr int BQ = 64;   // queries per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block: 4 per query row
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -75,7 +96,7 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(BK) * HD + static_cast<size_t>(BQ) * (BK + 1));
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   constexpr int QS = HD + 4;   // padded row strides: conflict-free float4
   constexpr int KS = HD + 4;
@@ -95,13 +116,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   const int r = tid >> 2, c = tid & 3;  // query row in the tile; key group
   const int qi = q0 + r;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh;
+  const float* qp = static_cast<const float*>(a.q) + b * a.sqb + h * a.sqh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.skb + kvh * a.skh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.svb + kvh * a.svh;
 
   for (int idx = tid; idx < BQ * HD; idx += NT) {
     const int rr = idx / HD, d = idx % HD, qq = q0 + rr;
-    Qs[rr * QS + d] = qq < a.Sq ? to_f(qp[qq * a.sqs + d]) * a.scale : 0.f;
+    Qs[rr * QS + d] = qq < a.Sq ? qp[qq * a.sqs + d] * a.scale : 0.f;
   }
 
   // the band of keys this tile can see, in whole key tiles
@@ -120,8 +141,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     for (int idx = tid; idx < BK * HD; idx += NT) {
       const int j = idx / HD, d = idx % HD, kk = k0 + j;
       const bool in = kk < a.Sk;
-      Ks[j * KS + d] = in ? to_f(kp[kk * a.sks + d]) : 0.f;
-      Vs[j * HD + d] = in ? to_f(vp[kk * a.svs + d]) : 0.f;
+      Ks[j * KS + d] = in ? kp[kk * a.sks + d] : 0.f;
+      Vs[j * HD + d] = in ? vp[kk * a.svs + d] : 0.f;
     }
     __syncthreads();
 
@@ -154,8 +175,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       s[jj] = kk < a.Sk ? x : -INFINITY;  // past the end: weight 0
       mt = fmaxf(mt, s[jj]);
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
     const float m_new = fmaxf(m, mt);
     const float corr = expf(m - m_new);
     float ls = 0.f;
@@ -165,8 +186,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
       ls += p;
       Ps[r * PS + c + 4 * jj] = p;
     }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ls += __shfl_xor_sync(FULL, ls, 1);
+    ls += __shfl_xor_sync(FULL, ls, 2);
     l = l * corr + ls;
     m = m_new;
 #pragma unroll
@@ -190,25 +211,521 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
 
   if (qi < a.Sq) {
     const float den = fmaxf(l, 1e-30f);
-    T* op = static_cast<T*>(a.o) +
-            ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * HD;
+    float* op = static_cast<float*>(a.o) +
+                ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * HD;
 #pragma unroll
     for (int qd = 0; qd < HD / 16; ++qd)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        op[16 * qd + 4 * c + e] = from_f<T>(acc[4 * qd + e] / den);
+        op[16 * qd + 4 * c + e] = acc[4 * qd + e] / den;
   }
 }
 
-template <int HD, typename T>
-cudaError_t launch(const Args& a, int B, cudaStream_t s) {
+template <int HD>
+cudaError_t launch_f32(const Args& a, int B, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<HD, T><<<grid, NT, smem, s>>>(a);
+  flash_fwd_kernel<HD><<<grid, NT, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// ====================================================================== //
+// bfloat16: tensor cores (wgmma) fed by TMA                               //
+// ====================================================================== //
+
+constexpr int TC_BK = 64;             // keys per tile
+constexpr int ATOM_BYTES = 64 * 128;  // 64 rows of one 128-byte swizzle atom
+
+constexpr int TC_THREADS = 128 + 32;  // a consumer warpgroup, a producer warp
+
+template <int HD>
+struct Tc {
+  static constexpr int ATOMS = HD / 64;  // 64-column atoms across hd
+  // K/V stages in the ring: the consumer holds two tiles at a time; hd 64
+  // keeps a third in flight (3 measured faster than 2 at S 4096), hd 128
+  // stays at 2 so that two blocks fit an SM
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int TILE_BYTES = ATOMS * ATOM_BYTES;  // Q, K or V tile
+  static constexpr int SMEM =
+      1024 + (1 + 2 * STAGES) * TILE_BYTES + 8 * (2 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// arrive, and expect `bytes` of TMA transactions in the current phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of more than ~2^34 cycles (seconds) is a pipeline fault and traps
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile whose rows
+// are 128 bytes: start address, leading offset 16 B (unused by this
+// layout), stride 1024 B between groups of 8 rows, swizzle mode 1
+// (128 B).  The same descriptor serves K-major operands (Q, K: hd along
+// the row) and the transposed V (N = hd along the row, K = keys down).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// and the A fragments that an asynchronous wgmma reads from registers
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i >> 2][i & 3])::"memory");
+}
+
+// 2^x (MUFU.EX2; subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define WG_D32                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define WG_R32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}"
+
+// d (64×64 f32 fragment) = A·B (+ d if accumulate): A 64×16 and B 64×16
+// bf16, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A·B: A 64×16 bf16 from registers (4 × bf16x2 a thread, the layout
+// of a 64×16 slice of the f32 accumulator), B 16×64 bf16 in shared
+// memory with N contiguous (transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a) {
+  using C = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles want 1024-byte alignment
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + C::TILE_BYTES;
+  uint8_t* sV = sK + C::STAGES * C::TILE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + C::STAGES * C::TILE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;  // most keys first
+  const int kvh = h / (a.H / a.KV);
+  // the band of keys this tile can see, in whole key tiles
+  const int q_last = min(q0 + 64, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  const int k_begin =
+      a.window > 0 ? (max(0, q0 - a.window + 1) / TC_BK) * TC_BK : 0;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + TC_BK - 1) / TC_BK : 0;
+  // the warp index through a shuffle, so the compiler knows it is the
+  // same across the warp (the branches on it hold no wgmma divergence)
+  const int warp = __shfl_sync(FULL, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: one thread issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(qbar, C::TILE_BYTES);
+      for (int at = 0; at < C::ATOMS; ++at)
+        tma_load_4d(sQ + at * ATOM_BYTES, &tq, qbar, 64 * at, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % C::STAGES;
+        if (j >= C::STAGES)  // the consumers released this stage's last use
+          mbar_wait(&empty[s], ((j / C::STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::TILE_BYTES);
+        const int k0 = k_begin + j * TC_BK;
+        for (int at = 0; at < C::ATOMS; ++at) {
+          tma_load_4d(sK + s * C::TILE_BYTES + at * ATOM_BYTES, &tk, &full[s],
+                      64 * at, kvh, k0, b);
+          tma_load_4d(sV + s * C::TILE_BYTES + at * ATOM_BYTES, &tv, &full[s],
+                      64 * at, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread holds rows r0 and r0 + 8 of
+  // every fragment
+  const int r0 = q0 + 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);  // first column in each group of 8
+  const float sc_log2 = a.scale * LOG2E;
+  const uint32_t qa = smem_u32(sQ);
+
+  float o[C::ATOMS][32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = 0.f;
+#pragma unroll
+    for (int at = 0; at < C::ATOMS; ++at) o[at][i] = 0.f;
+  }
+  uint32_t p0[4][4], p1[4][4];  // P of alternate tiles, as A fragments
+  float m0 = NEG, m1 = NEG;     // row maxima, in log2 units
+  float l0 = 0.f, l1 = 0.f;     // row sums over this thread's columns
+  float c0 = 1.f, c1 = 1.f;     // O's rescaling for the next tile
+
+  // S = Q·Kᵀ for key tile j, 16 of hd per instruction (issue only)
+  auto issue_qk = [&](int j) {
+    const uint32_t ka = smem_u32(sK + (j % C::STAGES) * C::TILE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(sc, sw128_desc(qa + (kk >> 2) * ATOM_BYTES + (kk & 3) * 32),
+               sw128_desc(ka + (kk >> 2) * ATOM_BYTES + (kk & 3) * 32),
+               kk > 0);
+  };
+  // O += P·V for key tile j, 64 output columns and 16 keys per
+  // instruction (issue only)
+  auto issue_pv = [&](int j, const uint32_t (&pa)[4][4]) {
+    const uint32_t va = smem_u32(sV + (j % C::STAGES) * C::TILE_BYTES);
+#pragma unroll
+    for (int at = 0; at < C::ATOMS; ++at)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[at], pa[kk], sw128_desc(va + at * ATOM_BYTES + kk * 2048));
+  };
+  // The online softmax of key tile j on S: the new row maxima, O's
+  // rescaling (c0, c1), the row sums, and P in bf16 as the A fragments
+  // of P·V (the accumulator's columns 16kk .. 16kk + 15 are its registers
+  // 8kk .. 8kk + 7, in the order the A operand takes them).  A tile that
+  // every row of the block sees whole, with no softcap, skips the
+  // masks and folds the scale into exp2's argument.
+  auto softmax = [&](int j, uint32_t (&pn)[4][4]) {
+    const int k0 = k_begin + j * TC_BK;
+    const bool whole = a.softcap <= 0.f && k0 + TC_BK <= a.Sk &&
+                       (!a.causal || q0 >= k0 + TC_BK - 1) &&
+                       (a.window <= 0 || q0 + 63 - k0 < a.window);
+    float mx0 = NEG, mx1 = NEG;
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) mx1 = fmaxf(mx1, sc[i]); else mx0 = fmaxf(mx0, sc[i]);
+      }
+    } else {
+      // element i sits at row r0 + 8·((i >> 1) & 1), column
+      // k0 + cl + 8·(i >> 2) + (i & 1): its row minus its column is
+      // dq plus a constant, and it is past the end when that constant
+      // reaches end
+      const int dq = r0 - k0 - cl, end = a.Sk - k0 - cl;
+      const int win = a.window > 0 ? a.window : 0x7fffffff;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int off = 8 * (i >> 2) + (i & 1);
+        const int d = dq + ((i & 2) ? 8 : 0) - off;
+        float x;
+        if (a.softcap > 0.f)
+          x = a.softcap * tanhf(sc[i] * a.scale / a.softcap) * LOG2E;
+        else
+          x = sc[i] * sc_log2;
+        x = (!a.causal || d >= 0) && d < win ? x : NEG;
+        x = off < end ? x : -INFINITY;  // past the end: weight 0
+        sc[i] = x;
+        if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+    if (whole) {  // the order of the raw scores is the scaled scores'
+      mx0 *= sc_log2;
+      mx1 *= sc_log2;
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    c0 = ex2(m0 - mn0);
+    c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float mm = (i & 2) ? mn1 : mn0;
+      const float e0 = whole ? ex2(fmaf(sc[i], sc_log2, -mm)) : ex2(sc[i] - mm);
+      const float e1 =
+          whole ? ex2(fmaf(sc[i + 1], sc_log2, -mm)) : ex2(sc[i + 1] - mm);
+      if (i & 2) ls1 += e0 + e1; else ls0 += e0 + e1;
+      pn[i >> 3][(i & 7) >> 1] = pack_bf16(e0, e1);
+    }
+    l0 = l0 * c0 + ls0;
+    l1 = l1 * c1 + ls1;
+  };
+
+  // Tile j: S of tile j + 1 and P·V of tile j go to the tensor cores
+  // together; the softmax of tile j + 1 runs while P·V of tile j does.
+  // The loop takes two tiles a turn, so P alternates between two
+  // buffers with no copy between the products (a copy there makes the
+  // compiler serialize the wgmmas).
+  auto wait_full = [&](int j) {
+    mbar_wait(&full[j % C::STAGES], (j / C::STAGES) & 1);
+    __syncwarp();
+  };
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int at = 0; at < C::ATOMS; ++at) fence_regs(o[at]);
+  };
+  auto release = [&](int j, uint32_t (&pa)[4][4]) {
+    fence_regs(pa);  // this warp's products no longer read tile j
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % C::STAGES]);
+  };
+  // tile j whose P is in pa, while the next tile's P goes to pn
+  auto step = [&](int j, uint32_t (&pa)[4][4], uint32_t (&pn)[4][4]) {
+    wait_full(j + 1);
+    fence_regs(sc);
+    fence_o();
+    fence_regs(pa);
+    wg_fence();
+    issue_qk(j + 1);
+    wg_commit();
+    issue_pv(j, pa);
+    wg_commit();
+    wg_wait<1>();  // S of tile j + 1 is in; P·V of tile j may run on
+    fence_regs(sc);
+    softmax(j + 1, pn);
+    wg_wait<0>();
+    fence_o();
+    release(j, pa);
+#pragma unroll
+    for (int at = 0; at < C::ATOMS; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[at][i] *= (i & 2) ? c1 : c0;
+  };
+  auto last = [&](int j, uint32_t (&pa)[4][4]) {
+    fence_o();
+    fence_regs(pa);
+    wg_fence();
+    issue_pv(j, pa);
+    wg_commit();
+    wg_wait<0>();
+    fence_o();
+    release(j, pa);
+  };
+
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    wait_full(0);
+    fence_regs(sc);
+    wg_fence();
+    issue_qk(0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    softmax(0, p0);
+    int j = 0;
+    for (; j + 2 < n_tiles; j += 2) {  // P alternates between p0 and p1
+      step(j, p0, p1);
+      step(j + 1, p1, p0);
+    }
+    if (j + 1 < n_tiles) {
+      step(j, p0, p1);
+      last(j + 1, p1);
+    } else {
+      last(j, p0);
+    }
+  }
+
+  // the row sums over the 4 lanes of a row; o / max(l, 1e-30) in bf16
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o);
+  const long long row0 = (static_cast<long long>(b) * a.Sq + r0) * a.H + h;
+  const long long row1 = row0 + 8LL * a.H;
+#pragma unroll
+  for (int at = 0; at < C::ATOMS; ++at)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * at + 8 * jj + cl;
+      if (r0 < a.Sq)
+        *reinterpret_cast<uint32_t*>(op + row0 * HD + col) =
+            pack_bf16(o[at][4 * jj] / d0, o[at][4 * jj + 1] / d0);
+      if (r0 + 8 < a.Sq)
+        *reinterpret_cast<uint32_t*>(op + row1 * HD + col) =
+            pack_bf16(o[at][4 * jj + 2] / d1, o[at][4 * jj + 3] / d1);
+    }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor (batch, seq, heads, hd) with element strides (sb, ss, sh)
+// and a contiguous hd, as a 4-D map (hd, heads, seq, batch) whose boxes
+// are 64 columns of hd × `rows` positions of one head, 128-byte swizzled.
+// Positions past `seq` read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+                int heads, int hd, long long sb, long long ss, long long sh,
+                int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_tc(const Args& a, int B, cudaStream_t s) {
+  using C = Tc<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, a.q, B, a.Sq, a.H, HD, a.sqb, a.sqs, a.sqh, 64) ||
+      !tensor_map(&tk, a.k, B, a.Sk, a.KV, HD, a.skb, a.sks, a.skh, TC_BK) ||
+      !tensor_map(&tv, a.v, B, a.Sk, a.KV, HD, a.svb, a.svs, a.svh, TC_BK))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (a.Sq + 63) / 64;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  dim3 grid(a.H, B, static_cast<unsigned>(tiles));
+  flash_tc_kernel<HD><<<grid, TC_THREADS, C::SMEM, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -216,8 +733,9 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
 
 // strides: the element strides (batch, seq, head) of q, k and v, in that
 // order.  ints: B, Sq, Sk, H, KV, hd, dtype (0 = float32, 1 = bfloat16),
-// causal, window (<= 0: none), device.  softcap <= 0: none.  Returns a
-// cudaError_t (0 on success).
+// causal, window (<= 0: none), device.  softcap <= 0: none.  The bf16 path needs 16-byte
+// aligned q, k, v and strides that are multiples of 8 elements (TMA).
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides,
@@ -238,10 +756,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaError_t e = cudaSetDevice(ints[9]);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64 && dtype == 0) e = launch<64, float>(a, B, s);
-  else if (hd == 64 && dtype == 1) e = launch<64, __nv_bfloat16>(a, B, s);
-  else if (hd == 128 && dtype == 0) e = launch<128, float>(a, B, s);
-  else if (hd == 128 && dtype == 1) e = launch<128, __nv_bfloat16>(a, B, s);
+  if (dtype == 0 && hd == 64) e = launch_f32<64>(a, B, s);
+  else if (dtype == 0 && hd == 128) e = launch_f32<128>(a, B, s);
+  else if (dtype == 1 && hd == 64) e = launch_tc<64>(a, B, s);
+  else if (dtype == 1 && hd == 128) e = launch_tc<128>(a, B, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

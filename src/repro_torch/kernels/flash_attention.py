@@ -18,18 +18,23 @@ repeated, and the layout is the model's (sequence before heads).
 * :func:`flash_attention_cuda` — the hand-written kernel
   (``kernels/csrc/flash_attention.cu``): online softmax over the key
   tiles of the causal / window band, any sequence lengths (tails are
-  masked), ``hd`` 64 or 128, float32 or bfloat16.
+  masked), ``hd`` 64 or 128, float32 or bfloat16.  In bfloat16 it runs
+  on the tensor cores (``wgmma``, tiles brought by TMA) and rounds the
+  softmax weights P to bfloat16 before P·V, where the plain version and
+  the TPU kernel keep them in float32 (a relative error of about 2⁻⁹
+  per weight); in float32 it runs on the CUDA cores in float32.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
 
 __all__ = ["HEAD_DIMS", "attention_ref", "flash_attention_cuda",
-           "launch_count", "reset_launch_count"]
+           "launch_count", "reset_launch_count", "tma_strides"]
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128)
@@ -123,6 +128,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "batch rows / heads")
 
 
+def tma_strides(name: str, x: torch.Tensor):
+    """The element strides (batch, seq, head) under which the bfloat16
+    kernel's TMA copies read ``x`` ``(B, S, heads, hd)``.
+
+    TMA needs a 16-byte aligned base and strides that are multiples of 16
+    bytes (8 elements); the stride of a dim of size 1 is never used, so
+    it is replaced by its contiguous value.  Raises ``ValueError`` on any
+    other layout: the kernel takes no other path.
+    """
+    if x.data_ptr() % 16:
+        raise ValueError(f"flash_attention_cuda: bf16 {name} must start on "
+                         "a 16-byte boundary (TMA)")
+    out = []
+    for d in range(3):
+        st = x.stride(d)
+        if x.shape[d] == 1:
+            st = math.prod(x.shape[d + 1:])
+        if st % 8 or not 0 < st < 2 ** 39:
+            raise ValueError(
+                f"flash_attention_cuda: bf16 {name} has strides "
+                f"{tuple(x.stride())}; TMA needs batch, seq and head "
+                "strides that are positive multiples of 8 elements")
+        out.append(st)
+    return tuple(out)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, *, causal: bool = True,
                          window: Optional[int] = None,
@@ -130,10 +161,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     """The CUDA kernel: same contract as :func:`attention_ref`.
 
     ``q``, ``k``, ``v`` are CUDA tensors of one dtype (float32 or
-    bfloat16) with a contiguous head dim of 64 or 128; other strides are
-    read as they are.  Returns a new contiguous ``(B, Sq, H, hd)``
-    tensor.  Raises on any other input and if the launch fails; there is
-    no fallback.
+    bfloat16) with a contiguous head dim of 64 or 128.  In float32 the
+    other strides are read as they are.  In bfloat16 (the tensor-core
+    kernel, fed by TMA) each tensor must start on a 16-byte boundary and
+    its batch, seq and head strides must be multiples of 8 elements, as
+    the model's contiguous q, k and v are (see :func:`tma_strides`);
+    other strides raise instead of taking a slower path.  Returns a new
+    contiguous ``(B, Sq, H, hd)`` tensor.  Raises on any other input and
+    if the launch fails; there is no fallback.
     """
     global _LAUNCHES
     from repro_torch.kernels import _build
@@ -144,9 +179,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention_cuda: softcap {softcap} <= 0")
+    if q.dtype == torch.bfloat16:
+        st = [s for name, x in (("q", q), ("k", k), ("v", v))
+              for s in tma_strides(name, x)]
+    else:
+        st = [s for x in (q, k, v) for s in x.stride()[:3]]
     o = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*(s for x in (q, k, v)
-                                        for s in x.stride()[:3]))
+    strides = (ctypes.c_longlong * 9)(*st)
     ints = (ctypes.c_int * 10)(B, Sq, Sk, H, KV, hd, _DTYPES[q.dtype],
                                int(causal), window or 0,
                                q.device.index or 0)

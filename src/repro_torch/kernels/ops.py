@@ -10,8 +10,10 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
   (:mod:`repro_torch.kernels.psp_tick`);
 * :func:`attention` — forward attention, grouped-query layout
   (:mod:`repro_torch.kernels.flash_attention`);
-* :func:`rmsnorm` — RMSNorm over the trailing axis
-  (:mod:`repro_torch.kernels.rmsnorm`);
+* :func:`rmsnorm` — RMSNorm over the trailing axis in either of its two
+  forms: ``round_scale=False`` the TPU kernel's (one rounding),
+  ``round_scale=True`` the reference model's (in bfloat16 the scale is
+  rounded before the product) (:mod:`repro_torch.kernels.rmsnorm`);
 * :func:`ssd` — the Mamba-2 chunked SSD scan, with its final state
   (:mod:`repro_torch.kernels.ssd_scan`).
 """
@@ -72,11 +74,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
-            impl: str = "auto") -> torch.Tensor:
-    """RMS-normalise the trailing axis of ``x`` with gain ``w`` (see
+            round_scale: bool = False, impl: str = "auto") -> torch.Tensor:
+    """RMS-normalise the trailing axis of ``x`` with gain ``w``;
+    ``round_scale`` picks the form (see
     :mod:`repro_torch.kernels.rmsnorm`)."""
     fn = rmsnorm_cuda if use_kernel(impl, x.device) else rmsnorm_ref
-    return fn(x, w, eps)
+    return fn(x, w, eps, round_scale)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

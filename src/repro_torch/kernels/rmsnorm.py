@@ -1,23 +1,26 @@
 """RMSNorm over the trailing axis: plain PyTorch version and CUDA kernel.
 
 The port's counterpart of :mod:`repro.kernels.rmsnorm` (``rmsnorm_tpu``)
-and of ``repro.kernels.ref.rmsnorm_ref``.  Both compute
+and of ``repro.kernels.ref.rmsnorm_ref``.  With ``m = rsqrt(mean(f32(x)²)
++ eps)`` in float32, it has two forms:
 
-    y = cast(f32(x) · rsqrt(mean(f32(x)²) + eps) · f32(w))
+* ``round_scale=False`` (the default), the TPU kernel's:
+  ``y = cast(f32(x) · m · f32(w))``, one rounding to x's dtype;
+* ``round_scale=True``, the reference model's norm
+  (``repro.models.layers._rms_fwd``): in bfloat16
+  ``y = cast(x · cast(m · f32(w)))``, the scale rounded to x's dtype
+  before the product (two roundings).  In float32 it is the first form.
 
-with one rounding to x's dtype at the end.
+:func:`repro_torch.models.layers.rmsnorm` takes the second, so the
+port's model norm rounds as the reference model's does.
 
 * :func:`rmsnorm_ref` — plain PyTorch; what CPU tensors get.
 * :func:`rmsnorm_cuda` — the hand-written kernel
-  (``kernels/csrc/rmsnorm.cu``): one warp per row, any row count, float32
-  or bfloat16.
-
-The reference *model* normalises differently in bfloat16
-(``repro/models/layers.py:52-54`` multiplies x by ``bf16(m·w)`` in
-bfloat16, two roundings); the kernel follows the TPU kernel's single
-rounding, so in bfloat16 the two differ by up to one bf16 ulp, which the
-model-level parity tolerance covers.  In float32 they agree up to the
-reduction order of the mean.
+  (``kernels/csrc/rmsnorm.cu``): 16-byte loads, each row held in
+  registers between its sum of squares and its scaling, one to eight
+  warps per row, a scalar path for a D that is not a multiple of the
+  vector width or an unaligned pointer; any row count, float32 or
+  bfloat16.
 """
 from __future__ import annotations
 
@@ -33,12 +36,15 @@ _LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
-    """Plain RMSNorm over the trailing axis (float32 statistics)."""
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+                round_scale: bool = False) -> torch.Tensor:
+    """Plain RMSNorm over the trailing axis (float32 statistics); see the
+    module docstring for ``round_scale``."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    m = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if round_scale and x.dtype != torch.float32:
+        return (xf * (m * w.float()).to(x.dtype).float()).to(x.dtype)
+    return (xf * m * w.float()).to(x.dtype)
 
 
 def launch_count() -> int:
@@ -61,14 +67,14 @@ def _lib() -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.rmsnorm_launch.restype = ctypes.c_int
     return lib
 
 
-def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
-                 eps: float = 1e-6) -> torch.Tensor:
-    """The CUDA kernel: same contract as :func:`rmsnorm_ref`.
+def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+                 round_scale: bool = False) -> torch.Tensor:
+    """The CUDA kernel: same contract as :func:`rmsnorm_ref`, both forms.
 
     ``x`` is a contiguous CUDA tensor ``(..., D)`` of float32 or
     bfloat16; ``w`` is ``(D,)`` on the same device (cast to float32 here
@@ -99,8 +105,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor,
     lib = _lib()
     err = lib.rmsnorm_launch(
         x.data_ptr(), w32.data_ptr(), y.data_ptr(), rows, D,
-        _DTYPES[x.dtype], float(eps), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], float(eps), int(round_scale),
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("rmsnorm_cuda: launch failed: "
                            + _build.error_string(lib, err))

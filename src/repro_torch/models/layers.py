@@ -2,9 +2,10 @@
 
 The port's counterpart of :mod:`repro.models.layers`, forward only (the
 custom VJP of ``rmsnorm`` comes with the training slice).  Every RMSNorm
-goes through :func:`repro_torch.kernels.ops.rmsnorm`, so on the card it
-is the CUDA kernel; see :mod:`repro_torch.kernels.rmsnorm` for how its
-bfloat16 rounding differs from the reference model's by at most one ulp.
+goes through :func:`repro_torch.kernels.ops.rmsnorm` in the reference
+model's form (``round_scale=True``: in bfloat16 the scale is rounded
+before the product, as ``repro.models.layers._rms_fwd`` rounds it), so
+on the card it is the CUDA kernel.
 Weights arrive in the compute dtype (see
 :meth:`repro_torch.models.transformer.Model.weights`).
 """
@@ -26,9 +27,11 @@ __all__ = ["apply_rope", "embed_tokens", "mlp_apply", "mlp_defs", "rmsnorm",
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             gemma: bool = False, impl: str = "auto") -> torch.Tensor:
-    """RMSNorm with f32 statistics; ``gemma=True`` scales by (1 + w)."""
+    """RMSNorm with f32 statistics; ``gemma=True`` scales by (1 + w).
+    In bfloat16 it computes ``cast(x · cast(m · gain))``, the reference
+    model's two roundings."""
     gain = 1.0 + w.float() if gemma else w
-    return ops.rmsnorm(x, gain, eps=eps, impl=impl)
+    return ops.rmsnorm(x, gain, eps=eps, round_scale=True, impl=impl)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

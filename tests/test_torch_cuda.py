@@ -8,7 +8,9 @@ The tick's control plane must match exactly; ``w``, ``pulled`` and
 ``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|), because the
 kernel sums the gradient in another order.  RMSNorm and flash
 attention: ``chip_smoke``'s phase 5 case grids, at its ``check_close``
-tolerances.  The SSD scan: ``chip_smoke``'s phase 5 grid (S × groups ×
+tolerances (RMSNorm in both forms, and on an unaligned row; flash
+bfloat16 on the tensor cores, where strides that TMA cannot take
+raise).  The SSD scan: ``chip_smoke``'s phase 5 grid (S × groups ×
 N × decay), y and the final state at ``chip_smoke.SSD_F32`` in float32
 (rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16.
 Run on the card with::
@@ -66,20 +68,28 @@ def test_cuda_tick_matches_plain(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_matches_plain(dtype):
-    """RMSNorm over ``chip_smoke``'s phase 5 grid (rows × D) in one dtype:
-    float32 within rtol 1e-5 / atol 1e-6·max(1, max|plain|), bfloat16
-    within 2e-2."""
+    """RMSNorm over ``chip_smoke``'s phase 5 grid (rows × D × form) in
+    one dtype, and on a row that is not 16-byte aligned (the scalar
+    path): float32 within rtol 1e-5 / atol 1e-6·max(1, max|plain|),
+    bfloat16 within 2e-2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
     smoke = _smoke()
     dev = torch.device("cuda", 0)
-    for i, (rows, D, dt) in enumerate(smoke.rms_cases()):
+    for i, (rows, D, dt, rs) in enumerate(smoke.rms_cases()):
         if dt != dtype:
             continue
         x, w = smoke.rms_inputs(np, torch, rows, D, dt, dev, seed=i)
-        smoke.check_close(np, rmsnorm_cuda(x, w), rmsnorm_ref(x, w), dt,
-                          f"rows={rows} D={D}")
+        smoke.check_close(np, rmsnorm_cuda(x, w, round_scale=rs),
+                          rmsnorm_ref(x, w, round_scale=rs), dt,
+                          f"rows={rows} D={D} round_scale={rs}")
+    x, w = smoke.rms_inputs(np, torch, 7, 896, dtype, dev, seed=99)
+    for rs in smoke.ROUND_SCALE:
+        smoke.check_close(np, rmsnorm_cuda(smoke.unaligned(torch, x), w,
+                                           round_scale=rs),
+                          rmsnorm_ref(x, w, round_scale=rs), dtype,
+                          f"unaligned round_scale={rs}")
 
 
 @pytest.mark.cuda
@@ -101,6 +111,14 @@ def test_cuda_flash_attention_matches_plain(dtype):
         smoke.check_close(np, flash_attention_cuda(q, k, v, **kw),
                           attention_ref(q, k, v, **kw), dt,
                           f"{mode} G={G} S={S} hd={hd}")
+    if dtype == "bfloat16":
+        q, k, v = smoke.flash_inputs(np, torch, 1, 64, 14, 2, 64, dtype,
+                                     dev)
+        bad = torch.zeros(1, 64, 14 * 64 + 4, dtype=q.dtype, device=dev)
+        bad = bad[..., :14 * 64].unflatten(-1, (14, 64))
+        bad.copy_(q)
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention_cuda(bad, k, v)
 
 
 @pytest.mark.cuda

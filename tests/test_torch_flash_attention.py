@@ -22,7 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention_cuda)
+    attention_ref, flash_attention_cuda, tma_strides)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -84,3 +84,24 @@ def test_dispatch_on_cpu():
         ops.attention(q, k, k, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, k, k)
+
+
+def test_tma_stride_rule():
+    """The bf16 kernel's TMA layout rule: the model's contiguous
+    ``(B, S, heads, hd)`` passes with its own strides, a size-1 dim takes
+    its contiguous stride, and a stride that is not a multiple of 8
+    elements or a base off a 16-byte boundary raises."""
+    x = torch.zeros(2, 37, 14, 64, dtype=torch.bfloat16)
+    assert tma_strides("q", x) == x.stride()[:3]
+    one = torch.zeros(1, 200, 1, 64, dtype=torch.bfloat16)[:, :, :, :]
+    assert tma_strides("k", one.as_strided(one.shape, (3, 64, 5, 1))) == (
+        200 * 64, 64, 64)
+    wide = torch.zeros(2, 9, 14 * 64 + 8, dtype=torch.bfloat16)
+    assert tma_strides("q", wide[..., :14 * 64].unflatten(-1, (14, 64))) == (
+        9 * (14 * 64 + 8), 14 * 64 + 8, 64)
+    odd = torch.zeros(1, 9, 14 * 64 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        tma_strides("q", odd[..., :14 * 64].unflatten(-1, (14, 64)))
+    flat = torch.zeros(9 * 2 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tma_strides("v", flat[1:].view(1, 9, 2, 64))
