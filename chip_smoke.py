@@ -10,12 +10,18 @@ Phases (any failure exits non-zero before the final line):
 1. Print the card's name and power limit; build every CUDA kernel of the
    port from ``src/repro_torch/kernels/csrc`` and print the build seconds.
 2. Hold the fused tick kernel against its plain PyTorch version on the
-   card: the nine static branch cases (5 chained ticks each, at two
+   card: the nine static branch cases (5 chained ticks each, at three
    sizes) and the paper shape (B = 32, P = 1000, d = 1000, m = 8,
-   β = 10).  The control plane must match exactly; ``w``, ``pulled`` and
-   ``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|) (the
-   kernel sums the gradient in another order).  Time both at the paper
-   shape.
+   β = 10), each tick run twice (``w`` and ``pulled`` updated in place,
+   every other input left unwritten, the two runs bit for bit alike),
+   and a tick in which every alive node finishes and starts at once (its
+   residual must read the old view).  The control plane must match
+   exactly; ``w``, ``pulled`` and ``pol_ema`` within rtol 1e-5, atol
+   1e-6·max(1, max|plain|) (the kernel sums the gradient in another
+   order).  Time the kernel and the plain version at the paper shape,
+   with the split over the five launches and the host time per wrapper
+   call, beside the in-place bound and that of a tick returning new
+   views (``kernels.psp_tick.tick_bytes``).
 3. The main path: the paper-scale Fig 2 straggler sweep (5 barriers × 5
    straggler fractions, P = 1000, d = 1000, β = 10, s = 4, 40 s, 2000
    ticks) through ``repro_torch.core.run_sweep`` on the card, with the
@@ -106,7 +112,12 @@ CASES = [  # (churn, ragged, k_max, adaptive): the tick's static branches
     (False, True, 2, False), (True, True, 2, False),
     (False, False, 0, True), (False, False, 3, True), (True, True, 2, True),
 ]
-TICK_KERNELS = ("control_kernel", "resid_kernel", "update_kernel")
+TICK_KERNELS = ("prologue_kernel", "decide_kernel", "resid_kernel",
+                "grad_kernel", "finish_kernel")
+#: phase 2's small (B, P, d, m) sizes (the paper shape follows); the
+#: third takes the kernel's m <= 16 build and its views in three column
+#: chunks, over two rounds of rows per node where every node finishes
+TICK_SIZES = ((3, 8, 5, 4), (5, 300, 40, 8), (12, 70, 1100, 12))
 FIVE = ("bsp", "ssp", "asp", "pbsp", "pssp")
 FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
 
@@ -254,6 +265,95 @@ def compare(np, ref, ker, what):
                     f"{what}: {k} max |diff| {np.abs(a64 - b64).max()}")
             worst = max(worst, float(np.abs(a64 - b64).max(initial=0.0)))
     return worst
+
+
+def identical(torch, a, b, what):
+    """Raise unless the tensors of ``a`` and ``b`` are equal bit for bit."""
+    for k, v in a.items():
+        if not torch.equal(v, b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def check_tick_case(np, torch, pt, dev, case, B, P, d, m, n_ticks=5,
+                    fully_alive=False, seed=0):
+    """Hold the CUDA tick to its plain version over ``n_ticks`` chained
+    ticks of one static branch case.
+
+    Each tick the kernel runs twice on the same inputs, first on its
+    chain's state with the plain params dict, then on a clone of that
+    state with the staged :class:`TickParams`.  The first run must
+    return its input's ``w`` and ``pulled`` (updated in place) and leave
+    every other input unwritten; the two runs must agree bit for bit.
+    Control plane exact against the plain version; data plane within
+    :func:`compare`'s tolerance.  Returns (max data-plane error, the
+    problem's (state, noise shapes, params, leave_n, join_n, static
+    kwargs)).
+    """
+    from repro_torch.convert import tick_inputs_to_torch, to_torch
+    churn, ragged, k_max, adaptive = case
+    st, shapes, prm, ln, jn, masked = tick_problem(
+        np, seed, B, P, churn, ragged, k_max, d, m, adaptive, fully_alive)
+    kw = dict(k_max=k_max, has_churn=churn, masked=masked,
+              adaptive=adaptive)
+    s_r, _, p = tick_inputs_to_torch(st, {}, prm, dev)
+    staged = pt.stage_params(p, adaptive=adaptive)
+    s_k = {k: v.clone() for k, v in s_r.items()}     # the kernel's chain
+    ln_t, jn_t = to_torch(ln, dev), to_torch(jn, dev)
+    worst = 0.0
+    for i in range(n_ticks):
+        _, r, _ = tick_inputs_to_torch({}, draw(np, shapes, 100 + i), {},
+                                       dev)
+        t = float(np.float32(0.4 * (i + 1)))
+        what = f"{case} at {(B, P, d, m)} tick {i}"
+        s_2 = {k: v.clone() for k, v in s_k.items()}
+        before = {k: v.clone() for k, v in (*s_k.items(), *r.items(),
+                                            ("ln", ln_t), ("jn", jn_t))
+                  if k not in ("w", "pulled")}
+        ptrs = (s_k["w"].data_ptr(), s_k["pulled"].data_ptr())
+        n_k, o_k = pt.psp_tick_cuda(s_k, r, p, t, ln_t, jn_t, **kw)
+        n_2, o_2 = pt.psp_tick_cuda(s_2, r, staged, t, ln_t, jn_t, **kw)
+        s_r, o_r = pt.psp_tick_ref(s_r, r, p, t, ln_t, jn_t, **kw)
+        torch.cuda.synchronize()
+        if (n_k["w"].data_ptr(), n_k["pulled"].data_ptr()) != ptrs:
+            raise AssertionError(f"{what}: w and pulled were not updated "
+                                 "in place")
+        identical(torch, before, {**s_k, **r, "ln": ln_t, "jn": jn_t},
+                  f"{what}: input written")
+        identical(torch, n_k, n_2, f"{what}: second run, state")
+        identical(torch, o_k, o_2, f"{what}: second run, out")
+        worst = max(worst, compare(np, s_r, n_k, what),
+                    compare(np, o_r, o_k, f"{what} out"))
+        s_k = n_k
+    return worst, (st, shapes, prm, ln_t, jn_t, kw)
+
+
+def check_finish_start(np, torch, pt, dev, B, P, d, m, seed=3):
+    """One tick in which every alive node finishes and starts
+    (every row ASP, every node computing and due): each residual must
+    read its node's old view before the pull overwrites it, so ``w`` is
+    held to the plain version.  Returns the count of such nodes."""
+    from repro_torch.convert import tick_inputs_to_torch, to_torch
+    st, shapes, prm, ln, jn, masked = tick_problem(
+        np, seed, B, P, False, False, 0, d, m)
+    st["computing"][:] = True
+    st["event_time"][:] = 0.0
+    prm["horizon"][:] = 10.0
+    prm.update(is_asp=np.ones(B, bool), full_view=np.zeros(B, bool),
+               sampled=np.zeros(B, bool))
+    kw = dict(k_max=0, has_churn=False, masked=masked)
+    s, r, p = tick_inputs_to_torch(st, draw(np, shapes, 11), prm, dev)
+    s_d = {k: v.clone() for k, v in s.items()}
+    ln, jn = to_torch(ln, dev), to_torch(jn, dev)
+    s_k, o_k = pt.psp_tick_cuda(s_d, r, p, 0.4, ln, jn, **kw)
+    s_r, o_r = pt.psp_tick_ref(s, r, p, 0.4, ln, jn, **kw)
+    torch.cuda.synchronize()
+    both = int((o_k["fin"] & o_k["start"]).sum())
+    if both != int(s["alive"].sum()) or both == 0:
+        raise AssertionError(f"finish-and-start: {both} nodes of "
+                             f"{int(s['alive'].sum())} alive")
+    compare(np, s_r, s_k, f"finish-and-start at {(B, P, d, m)}")
+    compare(np, o_r, o_k, f"finish-and-start at {(B, P, d, m)} out")
+    return both
 
 
 def time_calls(torch, fn, n):
@@ -790,7 +890,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.convert import tick_inputs_to_torch, to_torch
+    from repro_torch.convert import tick_inputs_to_torch
     from repro_torch.core import SimConfig, make_barrier, run_sweep
     from repro_torch.core.vector_sim import VectorSimulator
     from repro_torch.core.vector_sim_torch import ticks_to_run
@@ -807,77 +907,62 @@ def main() -> int:
           flush=True)
 
     # ---- 2. kernel against the plain version ---------------------------- #
-    def run_case(case, B, P, d, m, n_ticks=5, fully_alive=False, seed=0):
-        churn, ragged, k_max, adaptive = case
-        st, shapes, prm, ln, jn, masked = tick_problem(
-            np, seed, B, P, churn, ragged, k_max, d, m, adaptive,
-            fully_alive)
-        kw = dict(k_max=k_max, has_churn=churn, masked=masked,
-                  adaptive=adaptive)
-        s_r, _, p = tick_inputs_to_torch(st, {}, prm, dev)
-        s_k = dict(s_r)
-        ln, jn = to_torch(ln, dev), to_torch(jn, dev)
-        worst = 0.0
-        for i in range(n_ticks):
-            _, r, _ = tick_inputs_to_torch({}, draw(np, shapes, 100 + i), {},
-                                           dev)
-            t = float(np.float32(0.4 * (i + 1)))
-            s_r, o_r = pt.psp_tick_ref(s_r, r, p, t, ln, jn, **kw)
-            s_k, o_k = pt.psp_tick_cuda(s_k, r, p, t, ln, jn, **kw)
-            torch.cuda.synchronize()
-            worst = max(worst, compare(np, s_r, s_k, f"{case} tick {i}"),
-                        compare(np, o_r, o_k, f"{case} tick {i} out"))
-        return worst, (st, shapes, prm, ln, jn, kw)
-
-    for size in ((3, 8, 5, 4), (5, 300, 40, 8)):
+    for size in TICK_SIZES:
         for case in CASES:
-            run_case(case, *size)
+            check_tick_case(np, torch, pt, dev, case, *size)
+        fs = check_finish_start(np, torch, pt, dev, *size)
         print(f"[2] kernel == plain on all 9 branch cases at (B, P, d, m) = "
-              f"{size}, 5 chained ticks", flush=True)
+              f"{size}, 5 chained ticks, w and pulled updated in place, "
+              f"other inputs unwritten, two runs bit for bit alike; {fs} "
+              "nodes finishing and starting in one tick", flush=True)
     B, P, d, m, beta = 32, 1000, 1000, 8, 10
-    err, (st, shapes, prm, ln, jn, kw) = run_case(
-        (False, False, beta, False), B, P, d, m, fully_alive=True)
+    err, (st, shapes, prm, ln, jn, kw) = check_tick_case(
+        np, torch, pt, dev, (False, False, beta, False), B, P, d, m,
+        fully_alive=True)
+    fs = check_finish_start(np, torch, pt, dev, B, P, d, m)
     print(f"[2] kernel == plain at the paper shape (B, P, d, m, beta) = "
-          f"{(B, P, d, m, beta)}, 5 chained ticks; data-plane max |err| "
-          f"{err:.3g}", flush=True)
+          f"{(B, P, d, m, beta)}, 5 chained ticks, in place, two runs bit "
+          f"for bit alike; data-plane max |err| {err:.3g}; {fs} nodes "
+          "finishing and starting in one tick", flush=True)
 
     s, _, p = tick_inputs_to_torch(st, {}, prm, dev)
+    staged = pt.stage_params(p, adaptive=False)
     _, r, _ = tick_inputs_to_torch({}, draw(np, shapes, 7), {}, dev)
-    tick = dict(state=s, rand=r, params=p, t=0.8, leave_n=ln, join_n=jn)
-    ker = lambda: pt.psp_tick_cuda(**tick, **kw)
-    ref = lambda: pt.psp_tick_ref(**tick, **kw)
-    ms_call = time_calls(torch, ker, 50)
+    s_k = {k: v.clone() for k, v in s.items()}    # w, pulled: in place
+    tick = dict(rand=r, t=0.8, leave_n=ln, join_n=jn, **kw)
+    kernel = lambda: pt.psp_tick_cuda(s_k, params=staged, **tick)
+    ref = lambda: pt.psp_tick_ref(s, params=p, **tick)
+    ms_call = time_calls(torch, kernel, 50)
     ms_plain = time_calls(torch, ref, 20)
-    split = {name: ms for key, ms in profile_device(torch, ker, 20).items()
-             for name in TICK_KERNELS if name in key}
-    ms_dev = sum(split.values()) if split else None
-    _, o = ker()
-    fin, start = o["fin"].bool(), o["start"].bool()
-    n_fin = int(fin.sum())
+    split = {n: ms for key, ms in profile_device(torch, kernel, 20).items()
+             for n in TICK_KERNELS if n in key}
+    ms_dev = sum(split.values()) or None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernel()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    _, o = kernel()
+    n_fin, n_start = int(o["fin"].sum()), int(o["start"].sum())
     n_cand_sm = int(((~s["computing"]) & p["sampled"][:, None]).sum())
-    # f32 elements this tick's data needs read: a starter that did not
-    # push never reads its old view (its new one is the server model),
-    # and no row reads the minibatch of a node that no row pushes
-    pushed = int(fin.any(0).sum())
-    need = {"pulled": int((fin | ~start).sum()) * d, "X": pushed * m * d,
-            "mb": pushed * m}
-    in_bytes = sum(4 * need[k] if k in need else v.numel() * v.element_size()
-                   for group in (s, r, p) for k, v in group.items()
-                   if isinstance(v, torch.Tensor)) + 2 * 4 * B
-    out_bytes = sum(v.numel() * v.element_size()
-                    for v in (*ker()[0].values(), *o.values()))
+    nbytes = {c: sum(pt.tick_bytes(s, r, p, o["fin"], o["start"],
+                                   in_place=c)) for c in (True, False)}
     flops = 4 * n_fin * m * d + 2 * 2 * n_cand_sm * P
-    bound = 1e3 * max((in_bytes + out_bytes) / HBM_BPS, flops / F32_FLOPS)
+    bound = 1e3 * max(nbytes[True] / HBM_BPS, flops / F32_FLOPS)
+    bound_fresh = 1e3 * max(nbytes[False] / HBM_BPS, flops / F32_FLOPS)
     ms_kernel = ms_dev if ms_dev is not None else ms_call
-    print(f"[2] paper-shape tick: kernel {ms_kernel:.4f} ms "
+    print(f"[2] paper-shape tick, in place: kernels {ms_kernel:.4f} ms "
           f"({'profiler device time' if ms_dev else 'CUDA events'}; "
           f"{ms_call:.4f} ms per wrapper call with events), plain "
-          f"{ms_plain:.4f} ms, bound {bound:.4f} ms "
-          f"({(in_bytes + out_bytes) / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)"
-          f" [{card}]", flush=True)
-    print("[2] per launch: " + ", ".join(f"{k} {v:.4f} ms"
-                                         for k, v in split.items()),
-          flush=True)
+          f"{ms_plain:.4f} ms; bound {bound:.4f} ms "
+          f"({nbytes[True] / 1e6:.1f} MB: {n_fin} of {B * P} slots finish, "
+          f"{n_start} start; {flops / 1e9:.3f} GFLOP); the fresh-output "
+          f"contract's bound {bound_fresh:.4f} ms "
+          f"({nbytes[False] / 1e6:.1f} MB) [{card}]", flush=True)
+    print("[2] per launch: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; host {host_us:.1f} us per wrapper call", flush=True)
 
     # ---- 3. the main path: paper-scale Fig 2 sweep ---------------------- #
     def fig2(duration):
@@ -918,6 +1003,9 @@ def main() -> int:
               f"{tick_ms / launches:.4f} ms/tick), busy share "
               f"{busy_ms / (1e3 * wall):.4f} of the unprofiled wall, idle "
               f"share {1 - busy_ms / (1e3 * wall):.4f} [{card}]", flush=True)
+        print("[3]   tick kernels per tick: " + ", ".join(
+            f"{n} {sum(ms for k, ms in busy.items() if n in k) / launches:.4f}"
+            " ms" for n in TICK_KERNELS), flush=True)
         for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
             print(f"[3]   {ms / launches:.4f} ms/tick  {key[:90]}",
                   flush=True)
@@ -979,7 +1067,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/psp_tick.py:862",
         "launches": launches, "max_abs_err": err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound, "bound_by":
-            "bytes" if (in_bytes + out_bytes) / HBM_BPS >= flops / F32_FLOPS
+            "bytes" if nbytes[True] / HBM_BPS >= flops / F32_FLOPS
             else "operations",
         "library_ms": None}, *entries]}))
     print(card)

@@ -11,8 +11,10 @@ device, its plain PyTorch version on the CPU (``PSP_TICK_IMPL`` = ``auto``
 of ``stride`` ticks, each drawing its whole noise block at once and
 recording one trace point, grouped into chunks; the loop stops once every
 row is past its horizon.  Inputs are staged on the device once by
-:func:`_prepare`, the state stays there, and the traces and final state
-come back to the host once at the end.
+:func:`_prepare` (and the params checked once for the kernel), the state
+stays there and is donated to every tick (the kernel updates the server
+models and node views in place), and the traces and final state come
+back to the host once at the end.
 
 Noise: per supertick, the same quantities in the same layout as the
 reference (minibatch features and label noise per node, step-duration
@@ -35,7 +37,8 @@ from repro_torch.core import env
 from repro_torch.core.simulator import SimResult
 from repro_torch.core.sweep_plan import SweepPlan, plan_sweep
 from repro_torch.kernels import ops
-from repro_torch.kernels.psp_tick import POLICY_STATE_KEYS, STATE_KEYS
+from repro_torch.kernels.psp_tick import (POLICY_STATE_KEYS, STATE_KEYS,
+                                          stage_params)
 
 __all__ = ["GeneratorNoise", "run_batch", "tick_impl", "ticks_to_run"]
 
@@ -226,8 +229,13 @@ def run_batch(sim, *, device,
                                Bp=plan.b_pad, P=sim.P, m=sim.batch, d=sim.d,
                                k_max=k_max, masked=masked,
                                has_churn=sim.has_churn)
+    impl = tick_impl()
+    if ops.use_kernel(impl, device):
+        params = stage_params(params, adaptive=sim.adaptive)
+    # the carry is donated to each tick, as the reference donates it to
+    # each chunk scan: the kernel updates w and the views in place
     kw = dict(k_max=k_max, has_churn=sim.has_churn, masked=masked,
-              adaptive=sim.adaptive, impl=tick_impl())
+              adaptive=sim.adaptive, impl=impl)
     state_keys = STATE_KEYS + (POLICY_STATE_KEYS if sim.adaptive else ())
     errs = torch.empty((plan.n_rec, plan.b_pad), dtype=torch.float32,
                        device=device)

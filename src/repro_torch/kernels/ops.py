@@ -54,7 +54,9 @@ def psp_tick(state, rand, params, t, leave_n, join_n, *, k_max: int,
     """One fused PSP sweep-grid tick (see :mod:`repro_torch.kernels.psp_tick`).
 
     Both paths consume the same pre-drawn noise in ``rand``, so a sweep's
-    noise stream is independent of ``impl``.
+    noise stream is independent of ``impl``.  The kernel updates
+    ``state["w"]`` and ``state["pulled"]`` in place; the plain version
+    never writes its inputs.
     """
     fn = (psp_tick_cuda if use_kernel(impl, state["steps"].device)
           else psp_tick_ref)

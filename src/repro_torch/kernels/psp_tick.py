@@ -13,9 +13,16 @@ Two implementations with one contract:
 * :func:`psp_tick_ref` — plain PyTorch, phase by phase as the reference's
   ``psp_tick_ref``; it runs on any device and is what CPU tensors get.
 * :func:`psp_tick_cuda` — the hand-written CUDA tick
-  (``kernels/csrc/psp_tick.cu``) in three launches: the whole control
-  plane (one block per scenario row), the residual, and the gradient sum
-  with the server update and the pull.
+  (``kernels/csrc/psp_tick.cu``) in five launches: a per-row prologue
+  (churn, finishes, row scalars, the finisher lists), the decisions over
+  (row, node tile) blocks, the finishers' residuals, the gradient's
+  partial sums, and the server update with the starters' pull.  It
+  updates ``state["w"]`` and ``state["pulled"]`` in place (the sweep's
+  carry is donated to every tick, as the reference donates it to each
+  chunk scan); every other input stays as it was.
+
+:func:`stage_params` checks a batch's params once for the kernel;
+:func:`tick_bytes` counts the bytes a tick must move, for its bound.
 
 All randomness (step-duration jitter, β-sample scores or the β = 1
 uniforms, churn uniforms, the minibatch blob) is an input, so both
@@ -34,15 +41,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import barrier_kernel
 
 __all__ = ["DATA_PLANE_BLOCK", "POLICY_STATE_KEYS", "STATE_KEYS",
-           "psp_tick_cuda", "psp_tick_ref", "launch_count",
-           "reset_launch_count"]
+           "TickParams", "launch_count", "psp_tick_cuda", "psp_tick_ref",
+           "reset_launch_count", "stage_params", "tick_bytes"]
 
 #: data-plane row-block width of the plain version: the SGD push runs on
 #: fixed blocks of this many scenario rows (batches pad with zero rows), so
@@ -97,6 +104,9 @@ def psp_tick_ref(state: Tensors, rand: Tensors, params: Dict,
                  k_max: int, has_churn: bool, masked: bool,
                  adaptive: bool = False) -> Tuple[Tensors, Tensors]:
     """One full tick, batched over B scenario rows (plain PyTorch).
+
+    It never writes its inputs: every output is a new tensor (the CUDA
+    tick, :func:`psp_tick_cuda`, writes ``w`` and ``pulled`` in place).
 
     Args:
       state: the tick state (:data:`STATE_KEYS`, plus
@@ -266,6 +276,53 @@ def psp_tick_ref(state: Tensors, rand: Tensors, params: Dict,
 
 
 # --------------------------------------------------------------------------- #
+# Bytes a tick must move
+# --------------------------------------------------------------------------- #
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def tick_bytes(state: Tensors, rand: Tensors, params: Dict,
+               fin: torch.Tensor, start: torch.Tensor, *,
+               in_place: bool) -> Tuple[int, int]:
+    """(read, written) bytes one tick must move on these inputs: each
+    input read once, each output written once, counting what this tick's
+    data needs (the least any implementation could move).
+
+    Both contracts read every tensor of ``state``/``rand``/``params``
+    once, plus ``leave_n``/``join_n``, except the node views and the
+    minibatch: ``X``/``mb`` only for nodes that some row pushed.
+
+    * ``in_place=True`` — :func:`psp_tick_cuda`'s contract: a view is
+      read only if its node finished and written only if it started; the
+      outputs are the (B, P) and (B,) arrays, ``w``, and the scratch the
+      data plane needs (a residual of ``m`` floats per finisher).
+    * ``in_place=False`` — a tick that returns its views as a new tensor
+      (as :func:`psp_tick_ref` does): a view is read if its node finished
+      (its residual) or keeps its view (a non-starter, copied to the
+      output), and every output is written whole, all ``B·P·d`` views
+      included.
+    """
+    B, P, d = state["pulled"].shape
+    m = rand["X"].shape[1]
+    n_fin = int(fin.sum())
+    pushed = int(fin.any(0).sum())
+    views = n_fin if in_place else int((fin | ~start).sum())
+    need = {"pulled": 4 * views * d, "X": 4 * pushed * m * d,
+            "mb": 4 * pushed * m}
+    read = sum(need[k] if k in need else _nbytes(v)
+               for group in (state, rand, params) for k, v in group.items()
+               if isinstance(v, torch.Tensor)) + 2 * 4 * B
+    out = 2 * B * P + 2 * 4 * B           # fin, start; n_fin, ctrl
+    if in_place:
+        written = (sum(_nbytes(v) for k, v in state.items() if k != "pulled")
+                   + 4 * int(start.sum()) * d + out + 4 * n_fin * m)
+    else:
+        written = sum(_nbytes(v) for v in state.values()) + out
+    return read, written
+
+
+# --------------------------------------------------------------------------- #
 # CUDA kernel wrapper
 # --------------------------------------------------------------------------- #
 _LAUNCHES = 0
@@ -287,7 +344,7 @@ def reset_launch_count() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """``csrc/psp_tick.cu``'s library, its entry point declared
+    """``csrc/psp_tick.cu``'s library, its entry points declared
     (once)."""
     from repro_torch.kernels import _build
     lib = _build.load("psp_tick")
@@ -296,157 +353,215 @@ def _lib() -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_float),
                                     ctypes.c_void_p]
     lib.psp_tick_launch.restype = ctypes.c_int
+    lib.psp_tick_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.psp_tick_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _check(name: str, x: torch.Tensor, shape: Tuple[int, ...],
-           dtypes: Tuple[torch.dtype, ...]) -> None:
-    """Raise unless ``x`` is a contiguous CUDA tensor of shape and dtype."""
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(B: int, P: int, d: int, m: int) -> int:
+    return int(_lib().psp_tick_scratch_bytes(B, P, d, m))
+
+
+def _require_cuda(dev: torch.device, what: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"psp_tick_cuda: {what} must be a CUDA tensor")
+
+
+def _check(name: str, x, shape: Tuple[int, ...], dtype: torch.dtype,
+           dev: torch.device) -> int:
+    """``x``'s data pointer; raises unless ``x`` is a contiguous tensor of
+    ``shape`` and ``dtype`` on ``dev``."""
+    if (type(x) is torch.Tensor and x.dtype is dtype and x.shape == shape
+            and x.is_contiguous() and x.device == dev):
+        return x.data_ptr()
+    if not isinstance(x, torch.Tensor) or x.device.type != dev.type:
         raise ValueError(f"psp_tick_cuda: {name} must be a CUDA tensor")
+    if x.device != dev:
+        raise ValueError(f"psp_tick_cuda: {name} is on {x.device}, "
+                         f"state on {dev}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"psp_tick_cuda: {name} has shape "
                          f"{tuple(x.shape)}, expected {tuple(shape)}")
-    if x.dtype not in dtypes:
+    if x.dtype != dtype:
         raise ValueError(f"psp_tick_cuda: {name} has dtype {x.dtype}, "
-                         f"expected one of {dtypes}")
-    if not x.is_contiguous():
-        raise ValueError(f"psp_tick_cuda: {name} must be contiguous")
+                         f"expected {dtype}")
+    raise ValueError(f"psp_tick_cuda: {name} must be contiguous")
 
 
-# operand order of the C entry point ``psp_tick_launch`` (see the source's
-# ``enum Ptr``); booleans travel as int32
-_IN_KEYS = (
-    ("state", "steps"), ("state", "alive"), ("state", "computing"),
-    ("state", "event_time"), ("state", "ready"), ("state", "blocked"),
-    ("state", "pend_leave"), ("state", "pend_join"), ("state", "w"),
-    ("state", "pulled"), ("state", "pol_thr"), ("state", "pol_beta"),
-    ("state", "pol_ema"),
-    ("arg", "leave_n"), ("arg", "join_n"),
-    ("rand", "dur"), ("rand", "samp"), ("rand", "leave"), ("rand", "join"),
-    ("rand", "X"), ("rand", "mb"),
-    ("params", "compute_time"), ("params", "valid_slot"),
-    ("params", "staleness"), ("params", "beta_clip"), ("params", "is_asp"),
-    ("params", "full_view"), ("params", "sampled"), ("params", "dist_hops"),
-    ("params", "is_dssp"), ("params", "is_ebsp"), ("params", "is_anneal"),
-    ("params", "pol_lo"), ("params", "beta_lo"), ("params", "ebsp_range"),
-    ("params", "ebsp_alpha"), ("params", "w_true"), ("params", "lr"),
-    ("params", "noise_std"), ("params", "horizon"),
-)
+_B, _BP, _BD = "B", "BP", "Bd"
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+#: the per-batch params in the C entry point's operand order (the
+#: source's ``enum Slot``, ``CT_`` to ``HORIZON``): shape and dtype
+_PARAM_SPEC = (
+    ("compute_time", _BP, _F32), ("valid_slot", _BP, _BOOL),
+    ("staleness", _B, _I32), ("beta_clip", _B, _I32),
+    ("is_asp", _B, _BOOL), ("full_view", _B, _BOOL),
+    ("sampled", _B, _BOOL), ("dist_hops", _B, _I32),
+    ("is_dssp", _B, _BOOL), ("is_ebsp", _B, _BOOL),
+    ("is_anneal", _B, _BOOL), ("pol_lo", _B, _I32),
+    ("beta_lo", _B, _I32), ("ebsp_range", _B, _F32),
+    ("ebsp_alpha", _B, _F32), ("w_true", _BD, _F32), ("lr", _B, _F32),
+    ("noise_std", _B, _F32), ("horizon", _B, _F32))
+_ADAPTIVE_PARAMS = frozenset({"is_dssp", "is_ebsp", "is_anneal", "pol_lo",
+                              "beta_lo", "ebsp_range", "ebsp_alpha"})
+
+
+class TickParams(dict):
+    """A batch's params, checked and staged for :func:`psp_tick_cuda`.
+
+    The same mapping as the plain dict (so :func:`psp_tick_ref` takes it
+    too), plus the data pointers of the per-row tensors in the C entry
+    point's order and the host floats ``eps`` and ``poll``; ``key`` =
+    (B, P, d, adaptive, device) is what it was staged for.  It holds
+    its tensors, so the pointers stay valid while it lives.
+    """
+    key: tuple
+    ptrs: Tuple[Optional[int], ...]
+    eps: float
+    poll: float
+
+
+def stage_params(params: Dict, *, adaptive: bool) -> TickParams:
+    """Check a batch's params once and stage them for the kernel: every
+    tick of the batch then passes the returned :class:`TickParams`
+    (:func:`repro_torch.core.vector_sim_torch.run_batch` does)."""
+    B, d = params["w_true"].shape
+    P = params["compute_time"].shape[-1]
+    dev = params["w_true"].device
+    _require_cuda(dev, "w_true")
+    shapes = {_B: (B,), _BP: (B, P), _BD: (B, d)}
+    ptrs = []
+    for key, kind, dtype in _PARAM_SPEC:
+        if key in _ADAPTIVE_PARAMS and not adaptive:
+            ptrs.append(None)
+        else:
+            ptrs.append(_check(key, params[key], shapes[kind], dtype, dev))
+    staged = TickParams(params)
+    staged.key = (B, P, d, adaptive, dev)
+    staged.ptrs = tuple(ptrs)
+    staged.eps = float(params["eps"])
+    staged.poll = float(params["poll"])
+    return staged
+
+
+#: the C entry point's argument arrays: operand pointers (per-tick
+#: operands, params, outputs, scratch), dims and host floats
+_PTRS = ctypes.c_void_p * (21 + len(_PARAM_SPEC) + 16)
+_INTS = ctypes.c_int * 9
+_FLOATS = ctypes.c_float * 3
+
+#: outputs of the C entry point in its operand order (``O_STEPS`` to
+#: ``O_BETA``); the scratch buffer follows
 _OUT_KEYS = ("steps", "alive", "computing", "event_time", "ready", "blocked",
-             "pend_leave", "pend_join", "w", "pulled", "fin", "start",
-             "n_fin", "ctrl", "pol_thr", "pol_ema", "pol_beta", "resid")
-_BOOL_KEYS = frozenset({"alive", "computing", "blocked", "valid_slot",
-                        "is_asp", "full_view", "sampled", "is_dssp",
-                        "is_ebsp", "is_anneal"})
+             "pend_leave", "pend_join", "fin", "start", "n_fin", "ctrl",
+             "pol_thr", "pol_ema", "pol_beta")
 
 
 def psp_tick_cuda(state: Tensors, rand: Tensors, params: Dict, t: float,
                   leave_n: torch.Tensor, join_n: torch.Tensor, *,
                   k_max: int, has_churn: bool, masked: bool,
                   adaptive: bool = False) -> Tuple[Tensors, Tensors]:
-    """The hand-written CUDA tick: same contract as :func:`psp_tick_ref`.
+    """The hand-written CUDA tick: same function as :func:`psp_tick_ref`,
+    with ``w`` and ``pulled`` updated in place.
 
-    Checks device, dtype, shape and contiguity of every operand, allocates
-    the outputs with ``torch.empty``, launches the kernel's three passes
-    on the current stream and raises if the launch failed.  Booleans
-    travel as int32.  ``t``, ``eps`` and ``poll`` are host floats.
+    Checks device, dtype, shape and contiguity of every per-tick operand
+    (``params`` once per batch, when a :class:`TickParams` staged for
+    these dims is passed; a plain dict is staged on every call),
+    allocates the outputs with ``torch.empty``, launches the kernel's
+    five passes on the current stream and raises if a launch failed.
+    Booleans are ``torch.bool``; ``t``, ``eps`` and ``poll`` are host
+    floats.
+
+    It writes ``state["w"]`` and ``state["pulled"]``: the returned ``w``
+    and ``pulled`` are those tensors, updated in place.  Every other
+    input stays as it was.  A caller that needs the old model or views
+    clones them first.
     """
     global _LAUNCHES
     from repro_torch.kernels import _build
-    B, P = state["steps"].shape
+    steps = state["steps"]
+    dev = steps.device
+    _require_cuda(dev, "steps")
+    B, P = steps.shape
     d = state["w"].shape[-1]
     m = rand["X"].shape[1]
     if m > MAX_M:
         raise ValueError(f"psp_tick_cuda: minibatch {m} > {MAX_M}")
-    dev = state["steps"].device
-    i32, f32 = torch.int32, torch.float32
-    use_u1 = k_max == 1 and not masked
-    samp = None
-    if k_max > 0:
-        samp = rand["u1"] if use_u1 else rand["scores"]
-        samp_shape = (P,) if use_u1 else ((B, P, P) if masked else (P, P))
-    src = {"state": state, "rand": {**rand, "samp": samp}, "params": params,
-           "arg": {"leave_n": leave_n, "join_n": join_n}}
-    shapes = {"steps": (B, P), "alive": (B, P), "computing": (B, P),
-              "event_time": (B, P), "ready": (B, P), "blocked": (B, P),
-              "pend_leave": (B,), "pend_join": (B,), "w": (B, d),
-              "pulled": (B, P, d), "pol_thr": (B,), "pol_beta": (B,),
-              "pol_ema": (B, P), "leave_n": (B,), "join_n": (B,),
-              "dur": (B, P), "leave": (B, P), "join": (B, P),
-              "X": (P, m, d), "mb": (P, m), "compute_time": (B, P),
-              "valid_slot": (B, P), "w_true": (B, d)}
-    f32_keys = {"event_time", "ready", "w", "pulled", "pol_ema", "dur",
-                "samp", "leave", "join", "X", "mb", "compute_time",
-                "ebsp_range", "ebsp_alpha", "w_true", "lr", "noise_std",
-                "horizon"}
-    needed = set(k for _, k in _IN_KEYS)
-    if not adaptive:
-        needed -= {"pol_thr", "pol_beta", "pol_ema", "is_dssp", "is_ebsp",
-                   "is_anneal", "pol_lo", "beta_lo", "ebsp_range",
-                   "ebsp_alpha"}
-    if not has_churn:
-        needed -= {"leave", "join"}
-    if k_max == 0:
-        needed.discard("samp")
-    keep = []                      # holds converted operands alive
-    ptrs = []
-    for group, key in _IN_KEYS:
-        if key not in needed:
-            ptrs.append(None)
-            continue
-        x = src[group][key]
-        shape = samp_shape if key == "samp" else shapes.get(key, (B,))
-        if key in f32_keys:
-            _check(key, x, shape, (f32,))
-        else:
-            _check(key, x, shape,
-                   (torch.bool, i32) if key in _BOOL_KEYS else (i32,))
-            if x.dtype == torch.bool:
-                x = x.to(i32)
-        if x.device != dev:
-            raise ValueError(f"psp_tick_cuda: {key} is on {x.device}, "
-                             f"state on {dev}")
-        keep.append(x)
-        ptrs.append(x.data_ptr())
-
-    def empty(*shape, dtype=i32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = {"steps": empty(B, P), "alive": empty(B, P),
-           "computing": empty(B, P), "event_time": empty(B, P, dtype=f32),
-           "ready": empty(B, P, dtype=f32), "blocked": empty(B, P),
-           "pend_leave": empty(B), "pend_join": empty(B),
-           "w": empty(B, d, dtype=f32), "pulled": empty(B, P, d, dtype=f32),
-           "fin": empty(B, P), "start": empty(B, P), "n_fin": empty(B),
-           "ctrl": empty(B), "resid": empty(B, P, m, dtype=f32)}
+    if not (isinstance(params, TickParams)
+            and params.key == (B, P, d, adaptive, dev)):
+        params = stage_params(params, adaptive=adaptive)
+    w, pulled = state["w"], state["pulled"]
+    bp, b1 = (B, P), (B,)
+    ptrs = [_check("steps", steps, bp, _I32, dev),
+            _check("alive", state["alive"], bp, _BOOL, dev),
+            _check("computing", state["computing"], bp, _BOOL, dev),
+            _check("event_time", state["event_time"], bp, _F32, dev),
+            _check("ready", state["ready"], bp, _F32, dev),
+            _check("blocked", state["blocked"], bp, _BOOL, dev),
+            _check("pend_leave", state["pend_leave"], b1, _I32, dev),
+            _check("pend_join", state["pend_join"], b1, _I32, dev),
+            _check("w", w, (B, d), _F32, dev),
+            _check("pulled", pulled, (B, P, d), _F32, dev)]
     if adaptive:
-        out.update(pol_thr=empty(B), pol_ema=empty(B, P, dtype=f32),
-                   pol_beta=empty(B))
-    ptrs += [out[k].data_ptr() if k in out else None for k in _OUT_KEYS]
+        ptrs += [_check("pol_thr", state["pol_thr"], b1, _I32, dev),
+                 _check("pol_beta", state["pol_beta"], b1, _I32, dev),
+                 _check("pol_ema", state["pol_ema"], bp, _F32, dev)]
+    else:
+        ptrs += [None, None, None]
+    ptrs += [_check("leave_n", leave_n, b1, _I32, dev),
+             _check("join_n", join_n, b1, _I32, dev),
+             _check("dur", rand["dur"], bp, _F32, dev)]
+    if k_max == 0:
+        ptrs.append(None)
+    elif k_max == 1 and not masked:
+        ptrs.append(_check("u1", rand["u1"], (P,), _F32, dev))
+    else:
+        ptrs.append(_check("scores", rand["scores"],
+                           (B, P, P) if masked else (P, P), _F32, dev))
+    if has_churn:
+        ptrs += [_check("leave", rand["leave"], bp, _F32, dev),
+                 _check("join", rand["join"], bp, _F32, dev)]
+    else:
+        ptrs += [None, None]
+    ptrs += [_check("X", rand["X"], (P, m, d), _F32, dev),
+             _check("mb", rand["mb"], (P, m), _F32, dev)]
+    ptrs += params.ptrs
 
-    ints = (ctypes.c_int * 9)(B, P, d, m, k_max, int(has_churn),
-                              int(masked), int(adaptive), dev.index or 0)
-    floats = (ctypes.c_float * 3)(float(t), float(params["eps"]),
-                                  float(params["poll"]))
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the outputs, one allocation per dtype and shape
+    nf = 3 if adaptive else 2
+    out = dict(zip(("alive", "computing", "blocked", "fin", "start"),
+                   torch.empty((5, B, P), dtype=_BOOL, device=dev).unbind()))
+    out.update(zip(("event_time", "ready", "pol_ema")[:nf],
+                   torch.empty((nf, B, P), dtype=_F32, device=dev).unbind()))
+    out.update(zip(("pend_leave", "pend_join", "n_fin", "ctrl", "pol_thr",
+                    "pol_beta"),
+                   torch.empty((6, B), dtype=_I32, device=dev).unbind()))
+    out["steps"] = torch.empty((B, P), dtype=_I32, device=dev)
+    scratch = torch.empty(_scratch_bytes(B, P, d, m), dtype=torch.uint8,
+                          device=dev)
+    if not adaptive:
+        out["pol_thr"] = out["pol_beta"] = None
+    ptrs += [None if out.get(k) is None else out[k].data_ptr()
+             for k in _OUT_KEYS]
+    ptrs.append(scratch.data_ptr())
+
+    ints = _INTS(B, P, d, m, k_max, int(has_churn), int(masked),
+                 int(adaptive), dev.index or 0)
+    floats = _FLOATS(float(t), params.eps, params.poll)
     lib = _lib()
-    err = lib.psp_tick_launch(ptr_arr, ints, floats, stream)
+    err = lib.psp_tick_launch(_PTRS(*ptrs), ints, floats,
+                              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"psp_tick_cuda: launch failed: "
                            f"{_build.error_string(lib, err)}")
     _LAUNCHES += 1
 
-    new_state = {"steps": out["steps"], "alive": out["alive"] != 0,
-                 "computing": out["computing"] != 0,
-                 "event_time": out["event_time"], "ready": out["ready"],
-                 "blocked": out["blocked"] != 0,
-                 "pend_leave": out["pend_leave"],
-                 "pend_join": out["pend_join"], "w": out["w"],
-                 "pulled": out["pulled"]}
+    new_state = {k: out[k] for k in STATE_KEYS if k in out}
+    new_state.update(w=w, pulled=pulled)
     if adaptive:
         new_state.update(pol_thr=out["pol_thr"], pol_ema=out["pol_ema"],
                          pol_beta=out["pol_beta"])
-    return new_state, {"fin": out["fin"] != 0, "start": out["start"] != 0,
-                       "n_fin": out["n_fin"], "ctrl": out["ctrl"]}
+    return new_state, {k: out[k] for k in ("fin", "start", "n_fin", "ctrl")}
+

@@ -3,7 +3,10 @@
 Needs an NVIDIA GPU and ``nvcc`` (the kernels build on first use); skips
 elsewhere.  Inputs come from ``chip_smoke`` (numpy only, so this file
 runs where JAX is not installed).  The fused tick: all nine static
-branch cases of ``chip_smoke.tick_problem``, 5 chained ticks each.
+branch cases of ``chip_smoke.tick_problem``, 5 chained ticks each at
+``chip_smoke.TICK_SIZES`` (``w`` and ``pulled`` updated in place, every
+other input unwritten, two runs bit for bit alike), and a tick in which
+every node finishes and starts.
 The tick's control plane must match exactly; ``w``, ``pulled`` and
 ``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|), because the
 kernel sums the gradient in another order.  RMSNorm and flash
@@ -41,28 +44,31 @@ def _smoke():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(9))
 def test_cuda_tick_matches_plain(case):
+    """One branch case, 5 chained ticks at ``chip_smoke``'s small sizes,
+    against the plain version: ``w`` and ``pulled`` returned in the
+    input's storage, every other input unwritten, two runs on the same
+    inputs bit for bit alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.convert import tick_inputs_to_torch, to_torch
-    from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
+    from repro_torch.kernels import psp_tick as pt
     smoke = _smoke()
-    churn, ragged, k_max, adaptive = smoke.CASES[case]
     dev = torch.device("cuda", 0)
-    st, shapes, prm, ln, jn, masked = smoke.tick_problem(
-        np, 0, 3, 8, churn, ragged, k_max, 5, 4, adaptive)
-    kw = dict(k_max=k_max, has_churn=churn, masked=masked,
-              adaptive=adaptive)
-    s_r, _, p = tick_inputs_to_torch(st, {}, prm, dev)
-    s_k = dict(s_r)
-    ln, jn = to_torch(ln, dev), to_torch(jn, dev)
-    for i in range(5):
-        _, r, _ = tick_inputs_to_torch({}, smoke.draw(np, shapes, 100 + i),
-                                       {}, dev)
-        t = float(np.float32(0.4 * (i + 1)))
-        s_r, o_r = psp_tick_ref(s_r, r, p, t, ln, jn, **kw)
-        s_k, o_k = psp_tick_cuda(s_k, r, p, t, ln, jn, **kw)
-        smoke.compare(np, s_r, s_k, f"tick {i}")
-        smoke.compare(np, o_r, o_k, f"tick {i} out")
+    for size in smoke.TICK_SIZES:
+        smoke.check_tick_case(np, torch, pt, dev, smoke.CASES[case], *size)
+
+
+@pytest.mark.cuda
+def test_cuda_tick_finish_and_start():
+    """Every alive node finishes and starts in one tick: the
+    residuals read the old views before the pull overwrites them, so
+    ``w`` agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import psp_tick as pt
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for size in smoke.TICK_SIZES:
+        assert smoke.check_finish_start(np, torch, pt, dev, *size) > 0
 
 
 @pytest.mark.cuda

@@ -21,7 +21,7 @@ jax = pytest.importorskip("jax")
 from repro.kernels.psp_tick import psp_tick_ref as jax_tick  # noqa: E402
 from repro_torch.convert import (tick_inputs_to_torch, to_numpy,  # noqa: E402
                                  to_torch)
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, psp_tick  # noqa: E402
 from repro_torch.kernels.psp_tick import psp_tick_ref  # noqa: E402
 from test_kernels import _tick_problem  # noqa: E402
 
@@ -144,3 +144,83 @@ def test_dispatch():
         call(impl="cuda")
     assert not ops.use_kernel("auto", torch.device("cpu"))
     assert ops.use_kernel("auto", torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("churn,ragged,k_max,adaptive", CASES)
+def test_plain_tick_leaves_inputs_unwritten(churn, ragged, k_max, adaptive):
+    """Through ``ops.psp_tick`` on CPU tensors (the plain version) the
+    tick writes none of its inputs, ``w`` and ``pulled`` included
+    (bitwise against copies taken before), and two calls on the same
+    inputs give identical outputs."""
+    B, P = 3, 8
+    state, rand, params, leave_n, join_n, masked = _tick_problem(
+        4, B, P, churn, ragged, k_max, adaptive=adaptive)
+    s, r, p = tick_inputs_to_torch(state, rand, params)
+    ln, jn = to_torch(leave_n), to_torch(join_n)
+    inputs = (s, r, {k: v for k, v in p.items()
+                     if isinstance(v, torch.Tensor)}, {"ln": ln, "jn": jn})
+    before = [{k: v.clone() for k, v in d.items()} for d in inputs]
+    kw = dict(k_max=k_max, has_churn=churn, masked=masked,
+              adaptive=adaptive)
+    got = [ops.psp_tick(s, r, p, 0.4, ln, jn, **kw) for _ in range(2)]
+    for part in range(2):
+        a, b = got[0][part], got[1][part]
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for was, now in zip(before, inputs):
+        for k, v in was.items():
+            assert torch.equal(v, now[k]), f"input {k} written"
+
+
+def test_tick_bytes_hand_counted():
+    """``tick_bytes`` on a one-row, three-node tick, counted by hand.
+
+    d = 4, m = 2; fin = [T, F, F], start = [T, T, F]: one finisher (it
+    starts too), two starters, one pushed node.
+    """
+    f32, i32 = torch.float32, torch.int32
+    state = {"steps": torch.zeros((1, 3), dtype=i32),          # 12 B
+             "alive": torch.ones((1, 3), dtype=torch.bool),     # 3 B
+             "w": torch.zeros((1, 4), dtype=f32),               # 16 B
+             "pulled": torch.zeros((1, 3, 4), dtype=f32)}       # 48 B
+    rand = {"X": torch.zeros((3, 2, 4), dtype=f32),             # 96 B
+            "mb": torch.zeros((3, 2), dtype=f32),               # 24 B
+            "dur": torch.zeros((1, 3), dtype=f32)}              # 12 B
+    params = {"lr": torch.zeros(1, dtype=f32), "eps": 1e-4}     # 4 B
+    fin = torch.tensor([[True, False, False]])
+    start = torch.tensor([[True, True, False]])
+    # both read: steps 12 + alive 3 + w 16 + dur 12 + lr 4 + leave_n and
+    # join_n 8, and X and mb of the one pushed node: 2·4·4 + 2·4 = 40
+    common = 12 + 3 + 16 + 12 + 4 + 8 + 40
+    # in place: reads the finisher's view (16); writes steps, alive, w
+    # (31), the two starters' views (32), fin and start (6), n_fin and
+    # ctrl (8), the finisher's residual (4·2 = 8)
+    assert psp_tick.tick_bytes(state, rand, params, fin, start,
+                               in_place=True) == (common + 16,
+                                                 31 + 32 + 6 + 8 + 8)
+    # fresh output: reads the views of the finisher and of the one
+    # non-starter (32); writes every state tensor (79), fin, start, n_fin
+    # and ctrl (14)
+    assert psp_tick.tick_bytes(state, rand, params, fin, start,
+                               in_place=False) == (common + 32, 79 + 14)
+
+
+def test_params_staging_is_for_the_kernel():
+    """``stage_params`` (the kernel's staging) raises on CPU tensors, and
+    a staged ``TickParams`` is still the same mapping, which the plain
+    version takes as it takes the dict."""
+    B, P = 3, 8
+    state, rand, params, leave_n, join_n, masked = _tick_problem(
+        5, B, P, False, False, 2)
+    s, r, p = tick_inputs_to_torch(state, rand, params)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        psp_tick.stage_params(p, adaptive=False)
+    staged = psp_tick.TickParams(p)
+    assert dict(staged) == p
+    kw = dict(k_max=2, has_churn=False, masked=masked)
+    a, _ = psp_tick_ref(s, r, p, 0.4, to_torch(leave_n), to_torch(join_n),
+                        **kw)
+    b, _ = psp_tick_ref(s, r, staged, 0.4, to_torch(leave_n),
+                        to_torch(join_n), **kw)
+    assert all(torch.equal(a[k], b[k]) for k in a)
