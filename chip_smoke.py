@@ -41,20 +41,24 @@ Phases (any failure exits non-zero before the final line):
    {64, 128} (bfloat16 on the tensor cores, float32 on the CUDA cores);
    both in float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and
    bfloat16 (rtol / atol 2e-2).  Count the tensor-core instructions
-   (``HGMMA``, ``HMMA``) in the built flash library's SASS
-   (``cuobjdump -sass``): the bfloat16 kernel must have some.  A
-   bfloat16 flash call whose strides TMA cannot take must raise.  SSD
-   over S {64, 128, 512} × groups {1, 2} of 4 heads ×
-   N {64, 128} at hd 64 × decay {slow: dt·A ∈ [−0.1, 0]; model-like: dt
-   = softplus(N(0, 0.8²)), A = −1}, in float32 (rtol 1e-4, atol
-   1e-5·max(1, max|plain|), y and the final state) and bfloat16 (y rtol /
-   atol 2e-2, the final state as in float32); S 1000 must raise.  Time
-   each at its serving shapes against its plain version and a library
-   call (``rms_norm``, ``scaled_dot_product_attention``; none computes
-   the SSD scan), flash and SSD also at a 4096-token prefill, beside its
-   bound; RMSNorm also beside a device copy of the same bytes.  Each
-   is timed twice, in mirrored order, with the SM clock read before and
-   after.
+   (``HGMMA``, ``HMMA``) in the built flash and SSD libraries' SASS
+   (``cuobjdump -sass``): the bfloat16 flash kernel and both bfloat16
+   SSD kernels must have some.  A bfloat16 flash call whose strides TMA
+   cannot take must raise.  SSD over S {64, 128, 512} × groups {1, 2} of
+   4 heads × N {64, 128} at hd 64, then ``SSD_EXTRA`` (the serving
+   prefill, 32 chunks, a head tile that does not divide the group, hd 16
+   with N and Q not multiples of 16), each × decay {slow: dt·A ∈ [−0.1,
+   0]; model-like: dt = softplus(N(0, 0.8²)), A = −1}, in float32 (rtol
+   1e-4, atol 1e-5·max(1, max|plain|), y and the final state) and
+   bfloat16 (y rtol / atol 2e-2, the final state as in float32); S 1000
+   must raise.  Time each at its serving shapes against its plain
+   version and a library call (``rms_norm``,
+   ``scaled_dot_product_attention``; none computes the SSD scan), flash
+   and SSD also at a 4096-token prefill, beside its bound (the SSD with
+   the split over its two launches and its time at each number of heads
+   per output block); RMSNorm also beside a device copy of the same
+   bytes.  Each is timed twice, in mirrored order, with the SM clock read
+   before and after.
 6. The qwen2-0.5b serving path: ``repro_torch.launch.serve`` serves it at
    full width with seeded random weights, bfloat16 (8 requests, batch
    4, prompt 512, max_len 1024, 64 new tokens, greedy), every kernel's
@@ -143,11 +147,20 @@ SSD_GROUPS = (1, 2)        # of SSD_HEADS heads
 SSD_HEADS = 4
 SSD_STATES = (64, 128)
 SSD_DECAYS = ("slow", "model")
+#: SSD shapes beyond the product grid, each in both decays and dtypes:
+#: (B, S, nh, ng, hd, N, chunk)
+SSD_EXTRA = (
+    (4, 512, 48, 1, 64, 128, 128),  # mamba2-780m's serving prefill
+    (1, 4096, 8, 2, 64, 128, 128),  # 32 chunks
+    (2, 512, 20, 1, 64, 128, 128),  # 20 heads: a last head tile of 2
+    (2, 240, 6, 2, 16, 36, 48),     # hd 16; N and Q not multiples of 16
+)
 #: SSD's tolerance in float32: rtol, and atol as a share of max |plain|
 SSD_F32 = (1e-4, 1e-5)
 #: SSD's timed (B, S) at mamba2-780m's 48 heads, hd 64, N 128, one group
 #: (the serving prefill, then a long one); the first goes into the line
 SSD_TIMED = ((4, 512), (1, 4096))
+SSD_KERNELS = ("scan_kernel", "out_kernel")
 #: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
 TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
            "--max-len", "1024", "--max-new", "64", "--seed", "0"]
@@ -404,9 +417,14 @@ def flash_cases():
 
 
 def ssd_cases():
-    """Phase 5's SSD grid: (S, groups, N, decay, dtype), at hd 64."""
-    return itertools.product(SSD_SEQ, SSD_GROUPS, SSD_STATES, SSD_DECAYS,
-                             DTYPES)
+    """Phase 5's SSD grid: (B, S, nh, ng, hd, N, chunk, decay, dtype); the
+    product of S × groups × N × decay × dtype at B 2, 4 heads, hd 64,
+    then ``SSD_EXTRA`` × decay × dtype."""
+    grid = [((2, S, SSD_HEADS, ng, 64, N, 128), d, dt)
+            for S, ng, N, d, dt in itertools.product(
+                SSD_SEQ, SSD_GROUPS, SSD_STATES, SSD_DECAYS, DTYPES)]
+    grid += list(itertools.product(SSD_EXTRA, SSD_DECAYS, DTYPES))
+    return [(*shape, d, dt) for shape, d, dt in grid]
 
 
 def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
@@ -668,26 +686,30 @@ def phase5(np, torch, dev, card):
              "library_ms": fms["library"][0]}]
 
 
-def ssd_flops(B, S, nh, hd, N, Q=128):
-    """FLOPs of the chunked dual form: per (batch, head, chunk) C·Bᵀ
-    (2Q²N), scores·(x·dt) (2Q²hd), C·Hᵀ and the state update (2QN·hd
-    each)."""
+def ssd_flops(B, S, nh, ng, hd, N, Q=128):
+    """FLOPs the chunked dual form needs: per (batch, group, chunk) C·Bᵀ
+    (2Q²N, shared by the group's heads); per (batch, head, chunk)
+    scores·(x·dt) (2Q²hd), C·Hᵀ and the state update (2QN·hd each)."""
     Q = min(Q, S)
-    per_chunk = 2 * Q * Q * N + 2 * Q * Q * hd + 4 * Q * N * hd
-    return per_chunk * B * nh * (S // Q)
+    return B * (S // Q) * (ng * 2 * Q * Q * N
+                           + nh * (2 * Q * Q * hd + 4 * Q * N * hd))
 
 
 def phase5_ssd(np, torch, dev, card):
-    """The SSD kernel against its plain version over the case grid, then
-    timed at mamba2-780m's serving shapes.  Returns its JSON entry without
+    """The SSD kernels against their plain version over the case grid,
+    the bfloat16 library's tensor-core instructions, then timed at
+    mamba2-780m's serving shapes.  Returns its JSON entry without
     ``launches``."""
-    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import scan_rows, ssd_cuda, ssd_ref
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
-    for i, (S, ng, N, decay, dt) in enumerate(ssd_cases()):
-        args = ssd_inputs(np, torch, 2, S, SSD_HEADS, ng, 64, N, decay, dt,
-                          dev, seed=i)
-        (y, h), (y_r, h_r) = ssd_cuda(*args), ssd_ref(*args)
-        what = f"ssd S={S} ng={ng} N={N} {decay} {dt}"
+    for i, (B, S, nh, ng, hd, N, chunk, decay, dt) in enumerate(ssd_cases()):
+        args = ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dt, dev,
+                          seed=i)
+        (y, h), (y_r, h_r) = ssd_cuda(*args, chunk), ssd_ref(*args, chunk)
+        what = (f"ssd B={B} S={S} nh={nh} ng={ng} hd={hd} N={N} "
+                f"chunk={chunk} {decay} {dt}")
         err = max(err, check_close(np, y, y_r, dt, what + " y", SSD_F32),
                   check_close(np, h, h_r, "float32", what + " h", SSD_F32))
     args = ssd_inputs(np, torch, 1, SSD_RAGGED, SSD_HEADS, 1, 64, 128,
@@ -699,31 +721,46 @@ def phase5_ssd(np, torch, dev, card):
             continue
         raise AssertionError(f"{fn.__name__} took S={SSD_RAGGED}, which is "
                              "not a multiple of its 128-step chunk")
-    print(f"[5] ssd kernel == plain on {i + 1} cases (y and final state); "
-          f"max |err| {err:.3g}; S={SSD_RAGGED} raises in both", flush=True)
+    print(f"[5] ssd kernel == plain on {i + 1} cases (y and final state; "
+          f"bf16 on the tensor cores); max |err| {err:.3g}; S={SSD_RAGGED} raises in both",
+          flush=True)
+    sass = tensor_core_sass(_build._target("ssd_scan"))
+    print("[5] ssd library SASS: " + "; ".join(
+        f"{fn[:60]}… HGMMA {c['HGMMA']}, HMMA {c['HMMA']}"
+        for fn, c in sorted(sass.items())), flush=True)
+    for name in SSD_KERNELS:
+        tc = [c["HGMMA"] + c["HMMA"] for fn, c in sass.items() if name in fn]
+        if not tc or not all(tc):
+            raise AssertionError(f"the bf16 ssd {name} has no tensor-core "
+                                 f"instruction in its SASS: {sass}")
 
     timed = []
     for B, S in SSD_TIMED:
-        nh, hd, N = 48, 64, 128
-        x, dt, A, Bm, Cm = ssd_inputs(np, torch, B, S, nh, 1, hd, N, "model",
+        nh, ng, hd, N = 48, 1, 64, 128
+        x, dt, A, Bm, Cm = ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model",
                                       "bfloat16", dev)
         nxt, n_sets = rotating((x, dt, A, Bm, Cm))
-        ms = {name: device_ms(torch, fn, n) for name, fn, n in (
-            ("kernel", lambda: ssd_cuda(*nxt()), 10),
-            ("plain", lambda: ssd_ref(*nxt()), 3))}
-        flops = ssd_flops(B, S, nh, hd, N)
+        ms, clocks = timed_rounds(torch, {
+            "kernel": (lambda: ssd_cuda(*nxt()), 20),
+            "plain": (lambda: ssd_ref(*nxt()), 3)})
+        split = {n: v for key, v in profile_device(
+            torch, lambda: ssd_cuda(*nxt()), 20).items()
+            for n in SSD_KERNELS if n in key}
+        flops = ssd_flops(B, S, nh, ng, hd, N)
         nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
                   + A.numel() * 4 + 2 * Bm.numel() * Bm.element_size()
                   + B * nh * hd * N * 4)
         t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
-        print(f"[5] ssd B={B} S={S} nh={nh} hd={hd} N={N} ng=1 bf16: "
-              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
-                          for k, v in ms.items())
+        print(f"[5] ssd B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
+              f"({scan_rows(B, nh, hd, sms)} state rows per scan block): "
+              + rounds_text(ms)
+              + "; per launch " + ", ".join(f"{n} {v:.4f} ms"
+                                            for n, v in split.items())
               + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
               f"GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
               f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s; no library "
-              f"call computes the scan; inputs rotated over {n_sets} copies "
-              f"[{card}]", flush=True)
+              f"call computes the scan; inputs rotated over {n_sets} copies;"
+              f" SM clock {clocks} [{card}]", flush=True)
         timed.append((ms, t_ops, t_bytes))
     ms, t_ops, t_bytes = timed[0]
     return {"name": "ssd_scan", "route": "cuda",

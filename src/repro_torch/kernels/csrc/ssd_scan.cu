@@ -10,39 +10,65 @@
 //   y   = ((C Bᵀ) ⊙ L)·xdt + (C·Hᵀ) ⊙ exp(cum)
 //   H   ← H·exp(cum_Q) + (xdt ⊙ exp(cum_Q − cum))ᵀ B
 //
-// with the state H (hd × N) carried from chunk to chunk and written out
-// once at the end.  Layout: x (B, S, nh, hd), dt (B, S, nh) f32, A (nh,)
+// with the state H (hd × N) carried from chunk to chunk; the final state
+// is written out.  Layout: x (B, S, nh, hd), dt (B, S, nh) f32, A (nh,)
 // f32, B/C (B, S, ng, N), read through their batch, step and head/group
 // strides (the trailing dim must be contiguous; no group is repeated);
 // y is (B, S, nh, hd) contiguous in x's dtype, rounded once; h_final is
 // (B, nh, hd, N) f32 contiguous.  hd is 16 or 64 (a template parameter),
-// N a multiple of 4 up to 128, Q up to 128 with S % Q == 0;
-// x, B and C float32 or bfloat16.
-//
-// Design (first, simple): one block of 256 threads per (head, batch)
-// walks the chunks in order, as the TPU grid's sequential chunk axis
-// does.  Shared memory holds, in f32: the chunk's B rows and x·dt rows,
-// the state (transposed, N × hd), the C rows of a 32-row strip and that
-// strip's scores (173 KB at Q 128, N 128, hd 64).  Per strip, each warp
-// scores 4 rows against the lanes' keys (4 × 4 register tile over N,
-// skipping key blocks above the diagonal); the decay exp(cum_i − cum_j)
-// is computed only where i ≥ j, so the values above the diagonal, which
-// overflow, are never formed.  Then each thread accumulates one float4
-// of head dims for its rows over the keys (the intra-chunk term) and over
-// N (the carried state's term).  After the chunk's strips each thread
-// updates its own float4 of the state for a few state rows.  Products
-// are fmaf on the CUDA cores; exp is expf.
+// N a multiple of 4 up to 128, Q up to 128 with S % Q == 0.
 //
 // Bound on the H100: bytes.  At the serving shape (B 4, S 512, nh 48,
-// hd 64, N 128, bf16) one call moves 32.9 MB (x, dt, B, C in; y and the
-// f32 state out), 9.8 µs at 3.35 TB/s, against 8.05 GFLOP of products,
-// 8.1 µs at the bf16 tensor-core rate.  This design runs its products
-// on the CUDA cores with one block per SM (192 blocks on 132 SMs), so it
-// is far from either bound; tensor-core tiles (mma/wgmma) over several
-// heads per block are the next design.
+// hd 64, N 128, one group, bf16) one call moves 32.9 MB (x, dt, B, C in;
+// y and the f32 state out), 9.8 µs at 3.35 TB/s, against 4.9 GFLOP of
+// products (C·Bᵀ once per group and chunk), 5.0 µs at the bf16
+// tensor-core rate.
+//
+// bfloat16: two launches on the tensor cores (mma.sync m16n8k16, bf16 in,
+// f32 accumulated):
+//
+//   scan_kernel  one block per (32 or 64 state rows, or 16 at hd 16; head;
+//                batch) walks the chunks in order with the rows of H
+//                (× N) in its MMA accumulators, so the chunk states never
+//                reach memory: per chunk
+//                H ← H·exp(seg) + (x ⊙ dt·exp(seg − cum))ᵀ·B, and H, now
+//                H_in[c+1], goes to scratch as bf16 hi and lo in the
+//                accumulators' fragment order.  One warp forms the next
+//                chunk's cum by a warp scan (written to scratch, the one
+//                copy out_kernel reads) while the next chunk's B, x and
+//                dt are copied in.  The last H is h_final.
+//   out_kernel   one block per (batch, chunk, tile of OUT_HEADS heads of
+//                one group), two to an SM: G = C·Bᵀ once for the tile (lower
+//                triangle, 16-row blocks, kept in shared memory in
+//                fragment order); per head y = exp(cum) ⊙ (C·H_inᵀ) + P·x
+//                with P = G ⊙ exp(cum_i − cum_j)[i ≥ j] ⊙ dt_j formed in
+//                registers, y rounded to bf16 once and stored as 16-byte
+//                rows.
+//
+// A first design had three launches (chunk states to f32 scratch, a pass
+// of the state recurrence over them, then the output): it moved the f32
+// chunk states through memory three times and measured slower at both
+// timed shapes in the same calls on the H100 (PERF.md §6, the SSD
+// redesign's findings).
+//
+// Precision: x, B and C are exact bf16 operands.  The three products with
+// an f32 operand (x·dt·decay against B, P against x, C against H_in) split
+// that operand into hi = bf16(a) and lo = bf16(a − hi) and run two MMAs
+// into one f32 accumulator: single bf16 rounding of the state operand
+// misses the final state's 1e-5 tolerance by two orders of magnitude
+// (tests/test_torch_ssd.py).  exp(cum_i − cum_j) is selected only where
+// i ≥ j (above the diagonal it overflows).
+//
+// float32: the first design, products in f32 on the CUDA cores: one block
+// of 256 threads per (head, batch) walks the chunks in order, as the TPU
+// grid's sequential chunk axis does.  Shared memory holds, in f32: the
+// chunk's B rows and x·dt rows, the state (transposed, N × hd), the C rows
+// of a 32-row strip and that strip's scores (173 KB at Q 128, N 128,
+// hd 64).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -50,6 +76,12 @@ constexpr int NT = 256;    // threads per block
 constexpr int R = 32;      // chunk rows per score strip (8 warps × 4)
 constexpr int QMAX = 128;  // longest chunk
 constexpr int NMAX = 128;  // largest state size
+// heads per out_kernel block (a group's last tile may hold fewer): the
+// fastest of 1..8 at mamba2-780m's serving prefill on the H100 (PERF.md
+// §6, the SSD redesign's findings)
+constexpr int OUT_HEADS = 3;
+
+typedef __nv_bfloat16 bf16;
 
 struct Args {
   const void* x;
@@ -59,25 +91,20 @@ struct Args {
   const void* c;
   void* y;
   float* h;
+  float* cum;  // bfloat16 path's scratch: (B, nc, nh, Q) prefix sums
+  float* st;   // and (B, nc, nh, hd, N) chunk states, then H_in
   long long sxb, sxs, sxh;  // element strides of x: batch, step, head
   long long sdb, sds, sdh;  // of dt
   long long sbb, sbs, sbg;  // of B: batch, step, group
   long long scb, scs, scg;  // of C
   int S, nh, ng, N, Q;
+  int nc, tpg;     // chunks; out_kernel head tiles per group
+  int QP;          // Q rounded up to 16
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ---------------------------------------------------------------------------
+// float32: the first design
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void fma4(float s, const float4& v, float4& acc) {
   acc.x = fmaf(s, v.x, acc.x);
@@ -97,8 +124,8 @@ __host__ __device__ constexpr size_t smem_floats(int HD, int N, int Q) {
          static_cast<size_t>(R) * (Q + 4) + 4 * QMAX;
 }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
+template <int HD>
+__global__ void __launch_bounds__(NT) ssd_f32_kernel(Args a) {
   constexpr int HP = HD + 4;
   constexpr int D4 = HD / 4;                  // float4 columns of a head row
   constexpr int RG = NT / D4;                 // rows side by side
@@ -120,12 +147,12 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
   const int g = h / (a.nh / a.ng);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d4 = tid % D4, rg = tid / D4;  // this thread's float4 column, row
-  const T* xp = static_cast<const T*>(a.x) + bb * a.sxb + h * a.sxh;
+  const float* xp = static_cast<const float*>(a.x) + bb * a.sxb + h * a.sxh;
   const float* dtp = a.dt + bb * a.sdb + h * a.sdh;
-  const T* bp = static_cast<const T*>(a.b) + bb * a.sbb + g * a.sbg;
-  const T* cp = static_cast<const T*>(a.c) + bb * a.scb + g * a.scg;
-  T* yp = static_cast<T*>(a.y) +
-          (static_cast<long long>(bb) * a.S * a.nh + h) * HD;
+  const float* bp = static_cast<const float*>(a.b) + bb * a.sbb + g * a.sbg;
+  const float* cp = static_cast<const float*>(a.c) + bb * a.scb + g * a.scg;
+  float* yp = static_cast<float*>(a.y) +
+              (static_cast<long long>(bb) * a.S * a.nh + h) * HD;
   const long long ys = static_cast<long long>(a.nh) * HD;  // y's step stride
   const float A = a.A[h];
 
@@ -144,11 +171,11 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
     }
     for (int i = tid; i < Q * N; i += NT) {
       const int j = i / N, n = i % N;
-      Bs[j * NP + n] = to_f(bp[(t0 + j) * a.sbs + n]);
+      Bs[j * NP + n] = bp[(t0 + j) * a.sbs + n];
     }
     for (int i = tid; i < Q * HD; i += NT) {
       const int j = i / HD, d = i % HD;
-      Xs[j * HP + d] = to_f(xp[(t0 + j) * a.sxs + d]) * dts[j];
+      Xs[j * HP + d] = xp[(t0 + j) * a.sxs + d] * dts[j];
     }
     __syncthreads();
     const float seg = cum[Q - 1];
@@ -160,8 +187,7 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
     for (int r0 = 0; r0 < Q; r0 += R) {
       for (int i = tid; i < R * N; i += NT) {
         const int r = i / N, n = i % N;
-        Cs[r * NP + n] =
-            r0 + r < Q ? to_f(cp[(t0 + r0 + r) * a.scs + n]) : 0.f;
+        Cs[r * NP + n] = r0 + r < Q ? cp[(t0 + r0 + r) * a.scs + n] : 0.f;
       }
       __syncthreads();
 
@@ -243,11 +269,11 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
             const int r = rg + RG * k, i = r0 + r;
             if (r >= R || i >= Q) continue;
             const float e = ec[i];
-            T* out = yp + (t0 + i) * ys + 4 * d4;
-            out[0] = from_f<T>(yi[k].x + yh[k].x * e);
-            out[1] = from_f<T>(yi[k].y + yh[k].y * e);
-            out[2] = from_f<T>(yi[k].z + yh[k].z * e);
-            out[3] = from_f<T>(yi[k].w + yh[k].w * e);
+            float* out = yp + (t0 + i) * ys + 4 * d4;
+            out[0] = yi[k].x + yh[k].x * e;
+            out[1] = yi[k].y + yh[k].y * e;
+            out[2] = yi[k].z + yh[k].z * e;
+            out[3] = yi[k].w + yh[k].w * e;
           }
         }
       }
@@ -292,15 +318,687 @@ __global__ void __launch_bounds__(NT) ssd_kernel(Args a) {
   for (int i = tid; i < HD * N; i += NT) hp[i] = Hs[(i % N) * HP + i / N];
 }
 
-template <int HD, typename T>
-cudaError_t launch(const Args& a, int B, cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// PTX helpers: ldmatrix, mma.sync, cp.async
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8×8 bf16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8, and receives (row l / 4, columns 2(l % 4), +1) of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The same, transposed: lane l receives (rows 2(l % 4), +1, column l / 4).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a·b on a 16×8 tile, depth 16, bf16 in, f32 accumulated
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// end of PTX helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// (a0, a1) = hi + lo, each a bf16 pair (a0 in the low half): hi is the
+// rounded value, lo the rounded remainder, so hi + lo carries 16 bits
+__device__ __forceinline__ void split2(float a0, float a1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a0 - hf.x, a1 - hf.y));
+}
+
+// The tile of heads an out_kernel block serves: group g, first head h0,
+// nT heads.
+struct Tile {
+  int g, h0, nT;
+};
+
+__device__ __forceinline__ Tile head_tile(const Args& a) {
+  const int rep = a.nh / a.ng;
+  Tile t;
+  t.g = blockIdx.x / a.tpg;
+  t.h0 = t.g * rep + (blockIdx.x % a.tpg) * OUT_HEADS;
+  t.nT = min(OUT_HEADS, (t.g + 1) * rep - t.h0);
+  return t;
+}
+
+// Copy `rows` global rows of n bf16 (n a multiple of 4; row stride ss
+// elements) into shared rows of stride sp, 16 bytes a copy (8 when n is
+// not a multiple of 8).  The published state size takes constant shifts.
+__device__ __forceinline__ void stage_rows(bf16* dst, int sp, const bf16* src,
+                                           long long ss, int rows, int n) {
+  if (n == NMAX) {
+    for (int i = threadIdx.x; i < rows * (NMAX / 8); i += NT) {
+      const int j = i / (NMAX / 8), k = i % (NMAX / 8);
+      cp_async16(dst + j * sp + 8 * k, src + j * ss + 8 * k);
+    }
+  } else if (n % 8 == 0) {
+    const int k8 = n / 8;
+    for (int i = threadIdx.x; i < rows * k8; i += NT) {
+      const int j = i / k8, k = i % k8;
+      cp_async16(dst + j * sp + 8 * k, src + j * ss + 8 * k);
+    }
+  } else {
+    const int k4 = n / 4;
+    for (int i = threadIdx.x; i < rows * k4; i += NT) {
+      const int j = i / k4, k = i % k4;
+      cp_async8(dst + j * sp + 4 * k, src + j * ss + 4 * k);
+    }
+  }
+}
+
+// Zero rows [q, qp) of a staged bf16 tile and, in rows [0, q), its
+// columns [n, w).
+__device__ __forceinline__ void zero_pad(bf16* tile, int sp, int q, int qp,
+                                         int n, int w) {
+  uint16_t* t = reinterpret_cast<uint16_t*>(tile);
+  for (int i = threadIdx.x; i < (qp - q) * w; i += NT)
+    t[(q + i / w) * sp + i % w] = 0;
+  const int e = w - n;
+  if (e > 0)
+    for (int i = threadIdx.x; i < q * e; i += NT) t[(i / e) * sp + n + i % e] = 0;
+}
+
+constexpr int BW = NMAX + 8;  // row stride (bf16) of staged B tiles
+
+// Bytes of scan_kernel's shared memory, for R state rows: B (two buffers,
+// QMAX × BW bf16), the R columns of x (two buffers, QMAX × (R+8) bf16),
+// dt and w (two buffers each, QMAX f32) and exp(seg) (two).  Rows are
+// padded by 16 bytes, so ldmatrix's eight rows fall in distinct banks.
+__host__ __device__ constexpr size_t scan_smem(int rows) {
+  return 4 * static_cast<size_t>(QMAX) * BW +
+         4 * static_cast<size_t>(QMAX) * (rows + 8) + 16 * QMAX + 16;
+}
+
+// cum of one chunk by one warp: lane l sums steps 4l .. 4l+3 of dt·A in
+// order, a warp scan adds the lanes before it.  Writes w = dt·exp(seg −
+// cum) (0 past Q) and exp(seg), and cum to global when `cg` is set.
+__device__ __forceinline__ void chunk_cum(const float* ds, float A, int Q,
+                                          float* ws, float* es, float* cg) {
+  const int lane = threadIdx.x & 31;
+  float dtv[4], cs[4];
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dtv[k] = ds[4 * lane + k];  // 0 past Q
+    sum += dtv[k] * A;
+    cs[k] = sum;
+  }
+  float incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const float excl = incl - sum;
+  const int last = Q - 1;
+  const float c3 = (last & 3) == 0   ? cs[0]
+                   : (last & 3) == 1 ? cs[1]
+                   : (last & 3) == 2 ? cs[2]
+                                     : cs[3];
+  const float seg = __shfl_sync(0xffffffffu, excl + c3, last >> 2);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    const float cj = excl + cs[k];
+    if (j < Q && cg) cg[j] = cj;
+    ws[j] = j < Q ? dtv[k] * expf(seg - cj) : 0.f;
+  }
+  if (lane == 0) *es = expf(seg);
+}
+
+// One block per (R state rows, head, batch) walks the chunks in order,
+// the state rows H (R × N, f32) in the MMA accumulators: per chunk
+// H ← H·exp(seg) + (x ⊙ dt·exp(seg − cum))ᵀ·B on the tensor cores, then
+// H_in[c+1] = H goes to scratch in the accumulators' fragment order, the
+// one out_kernel reads its B operand in: the (b, c+1, h) slot holds, per
+// 16-row tile and n-tile of 8, 16 bytes a lane (bf16 hi of its rows g
+// and g+8, then lo), a 512-byte store a warp; the last H is h_final.
+// A software pipeline keeps the chain to one barrier a chunk: B and x
+// are copied in one chunk ahead and dt two (cp.async), one warp forms
+// the next chunk's cum and w while the others start this chunk's
+// products, each warp forms its x·w fragments in registers, and the MMA
+// loop runs unrolled over a chunk of QMAX steps (zero past Q) with
+// separate accumulators for the hi and lo products.  cum goes to scratch
+// from the block of rows 0: the one copy out_kernel reads.
+template <int HD, int R>
+__global__ void __launch_bounds__(NT) scan_kernel(Args a) {
+  constexpr int XP = R + 8;        // x and x·w row stride (bf16)
+  constexpr int MT = R / 16;       // 16-row tiles of H
+  constexpr int NTW = 2 * MT;      // n-tiles (of 8) per warp
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Q = a.Q, nc = a.nc;
+  bf16* Bs = reinterpret_cast<bf16*>(smem4);
+  bf16* Xs = Bs + 2 * QMAX * BW;
+  float* Ds = reinterpret_cast<float*>(Xs + 2 * QMAX * XP);
+  float* Ws = Ds + 2 * QMAX;
+  float* Es = Ws + 2 * QMAX;
+
+  const int h = blockIdx.y, bb = blockIdx.z, d0 = blockIdx.x * R;
+  const int g = h / (a.nh / a.ng);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, tq = lane & 3;
+  const bf16* bsrc = static_cast<const bf16*>(a.b) + bb * a.sbb + g * a.sbg;
+  const bf16* xsrc =
+      static_cast<const bf16*>(a.x) + bb * a.sxb + h * a.sxh + d0;
+  const float* dsrc = a.dt + bb * a.sdb + h * a.sdh;
+  const float A = a.A[h];
+  const int n8 = (N + 7) / 8;  // n-tiles of the state
+  const long long slot = static_cast<long long>(HD) * 8 * n8;
+  float* cum0 = a.cum + (static_cast<long long>(bb) * nc * a.nh + h) * Q;
+  const long long cums = static_cast<long long>(a.nh) * Q;  // per chunk
+
+  for (int buf = 0; buf < 2; ++buf) {  // pads: cp.async never writes them
+    zero_pad(Bs + buf * QMAX * BW, BW, Q, QMAX, N, NMAX);
+    zero_pad(Xs + buf * QMAX * XP, XP, Q, QMAX, R, R);
+  }
+  for (int j = Q + tid; j < QMAX; j += NT) Ds[j] = Ds[QMAX + j] = 0.f;
+
+  auto load_bx = [&](int c) {  // B and x of chunk c
+    const long long t0 = static_cast<long long>(c) * Q;
+    const int buf = c & 1;
+    stage_rows(Bs + buf * QMAX * BW, BW, bsrc + t0 * a.sbs, a.sbs, Q, N);
+    bf16* xs = Xs + buf * QMAX * XP;
+    for (int i = tid; i < Q * (R / 8); i += NT) {
+      const int j = i / (R / 8), k = i % (R / 8);
+      cp_async16(xs + j * XP + 8 * k, xsrc + (t0 + j) * a.sxs + 8 * k);
+    }
+  };
+  auto load_dt = [&](int c) {
+    const long long t0 = static_cast<long long>(c) * Q;
+    for (int j = tid; j < Q; j += NT)
+      cp_async4(Ds + (c & 1) * QMAX + j, dsrc + (t0 + j) * a.sds);
+  };
+
+  load_dt(0);
+  cp_async_commit();
+  load_bx(0);
+  if (nc > 1) load_dt(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (warp == 0) chunk_cum(Ds, A, Q, Ws, Es, d0 == 0 ? cum0 : nullptr);
+
+  const int mt = warp % MT, nt0 = (warp / MT) * NTW, r0 = 16 * mt + g4;
+  float ah[NTW][4], al[NTW][4];  // H = ah + al: the hi and lo products
+#pragma unroll
+  for (int s = 0; s < NTW; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ah[s][e] = al[s][e] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const int buf = c & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // B, x of chunk c, dt of c+1, w of c are in; the
+                      // buffers of chunk c − 1 are free
+    if (c + 1 < nc) load_bx(c + 1);
+    if (c + 2 < nc) load_dt(c + 2);
+    cp_async_commit();
+    if (warp == NT / 32 - 1 && c + 1 < nc)  // the next chunk's cum and w
+      chunk_cum(Ds + (buf ^ 1) * QMAX, A, Q, Ws + (buf ^ 1) * QMAX,
+                Es + (buf ^ 1), d0 == 0 ? cum0 + (c + 1) * cums : nullptr);
+    const float es = Es[buf];
+#pragma unroll
+    for (int s = 0; s < NTW; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[s][e] *= es;
+        al[s][e] *= es;
+      }
+    const bf16* bs = Bs + buf * QMAX * BW;
+    const bf16* xs = Xs + buf * QMAX * XP;
+    const float* ws = Ws + buf * QMAX;
+#pragma unroll
+    for (int k0 = 0; k0 < QMAX; k0 += 16) {
+      // A = (x ⊙ w)ᵀ: x fragments by ldmatrix.trans, times w, split
+      uint32_t xa[4], fh[4], fl[4], bq[NTW / 2][4];
+      ldsm_x4_t(xa, xs + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * XP +
+                        16 * mt + ((lane >> 3) & 1) * 8);
+      const float2 w0 = *reinterpret_cast<const float2*>(ws + k0 + 2 * tq);
+      const float2 w8 = *reinterpret_cast<const float2*>(ws + k0 + 8 + 2 * tq);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // fragments 0, 1: steps 2tq, +1; 2, 3: +8
+        const float2 xv = unpack(xa[r]);
+        const float2 wv = r < 2 ? w0 : w8;
+        split2(xv.x * wv.x, xv.y * wv.y, fh[r], fl[r]);
+      }
+#pragma unroll
+      for (int q = 0; q < NTW / 2; ++q)
+        ldsm_x4_t(bq[q], bs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * BW +
+                             8 * (nt0 + 2 * q) + (lane >> 4) * 8);
+#pragma unroll
+      for (int q = 0; q < NTW / 2; ++q) {
+        mma_bf16(ah[2 * q], fh, bq[q][0], bq[q][1]);
+        mma_bf16(ah[2 * q + 1], fh, bq[q][2], bq[q][3]);
+        mma_bf16(al[2 * q], fl, bq[q][0], bq[q][1]);
+        mma_bf16(al[2 * q + 1], fl, bq[q][2], bq[q][3]);
+      }
+    }
+    if (c + 1 < nc) {  // H_in[c+1], this warp's tiles in fragment order
+      uint4* hg = reinterpret_cast<uint4*>(
+                      a.st + ((static_cast<long long>(bb) * nc + c + 1) * a.nh +
+                              h) * slot) + (d0 / 16 + mt) * n8 * 32 + lane;
+#pragma unroll
+      for (int s = 0; s < NTW; ++s) {
+        if (nt0 + s >= n8) break;  // warp-uniform
+        uint32_t h01, l01, h23, l23;
+        split2(ah[s][0] + al[s][0], ah[s][1] + al[s][1], h01, l01);
+        split2(ah[s][2] + al[s][2], ah[s][3] + al[s][3], h23, l23);
+        hg[(nt0 + s) * 32] = make_uint4(h01, h23, l01, l23);
+      }
+    }
+  }
+  float* hp = a.h + ((static_cast<long long>(bb) * a.nh + h) * HD + d0) * N;
+#pragma unroll
+  for (int s = 0; s < NTW; ++s) {
+    const int n = 8 * (nt0 + s) + 2 * tq;
+    if (n >= N) continue;
+    *reinterpret_cast<float2*>(hp + r0 * N + n) =
+        make_float2(ah[s][0] + al[s][0], ah[s][1] + al[s][1]);
+    *reinterpret_cast<float2*>(hp + (r0 + 8) * N + n) =
+        make_float2(ah[s][2] + al[s][2], ah[s][3] + al[s][3]);
+  }
+}
+
+// Bytes of out_kernel's shared memory, two blocks to an SM:
+//   one region that holds B (QP × BW bf16) until C·Bᵀ is formed, then a
+//   head's H_in (in scan_kernel's fragment order, HD/16 × NMAX/8 tiles of
+//   512 bytes);
+//   G (RB(RB+1) 16×8 tiles in fragment order, RB = QP/16: a float4 per
+//   lane and tile);
+//   x, two buffers (QP × (HD+8) bf16; a head's y is staged in its x
+//   buffer once P·x has read it);
+//   of OUT_HEADS heads: cum, dt·exp(cum_b − cum) with b the last step of the
+//   16-step block, and dt (QP f32 each).
+__host__ __device__ constexpr size_t bh_bytes(int HD, int QP) {
+  return 2 * static_cast<size_t>(QP) * BW > 4 * static_cast<size_t>(HD) * NMAX
+             ? 2 * static_cast<size_t>(QP) * BW
+             : 4 * static_cast<size_t>(HD) * NMAX;
+}
+
+__host__ __device__ constexpr size_t out_smem(int HD, int QP) {
+  return bh_bytes(HD, QP) +
+         16 * 32 * static_cast<size_t>(QP / 16) * (QP / 16 + 1) +
+         4 * static_cast<size_t>(QP) * (HD + 8) +
+         3 * 4 * static_cast<size_t>(OUT_HEADS) * QP;
+}
+
+// P·x over this warp's column blocks: P = G ⊙ exp(cum_i − cum_j) ⊙ dt_j,
+// split into hi + lo, two MMAs per n-tile of y.
+template <int DT>
+__device__ __forceinline__ void p_mma(float (&acc)[DT][4], const float4& ga,
+                                      const float4& gb, float pa0, float pa1,
+                                      float pa2, float pa3, float pb0,
+                                      float pb1, float pb2, float pb3,
+                                      const uint32_t (&xb)[DT / 2][4]) {
+  uint32_t ahi[4], alo[4];
+  split2(ga.x * pa0, ga.y * pa1, ahi[0], alo[0]);
+  split2(ga.z * pa2, ga.w * pa3, ahi[1], alo[1]);
+  split2(gb.x * pb0, gb.y * pb1, ahi[2], alo[2]);
+  split2(gb.z * pb2, gb.w * pb3, ahi[3], alo[3]);
+#pragma unroll
+  for (int q = 0; q < DT / 2; ++q) {
+    mma_bf16(acc[2 * q], ahi, xb[q][0], xb[q][1]);
+    mma_bf16(acc[2 * q + 1], ahi, xb[q][2], xb[q][3]);
+  }
+#pragma unroll
+  for (int q = 0; q < DT / 2; ++q) {
+    mma_bf16(acc[2 * q], alo, xb[q][0], xb[q][1]);
+    mma_bf16(acc[2 * q + 1], alo, xb[q][2], xb[q][3]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2) out_kernel(Args a) {
+  constexpr int XP = HD + 8;   // x and y staging row stride (bf16)
+  constexpr int DT = HD / 8;   // n-tiles of y's head dims
+  constexpr int KMAX = NMAX / 16;
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Q = a.Q, QP = a.QP;
+  const int RB = QP / 16;
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  bf16* Bs = reinterpret_cast<bf16*>(base);       // then H_in
+  uint4* Hf = reinterpret_cast<uint4*>(base);     // H_in's fragments
+  float4* Gs = reinterpret_cast<float4*>(base + bh_bytes(HD, QP));
+  bf16* Xs = reinterpret_cast<bf16*>(Gs + 32 * RB * (RB + 1));  // two
+  float* Cm = reinterpret_cast<float*>(Xs + 2 * QP * XP);
+  float* Dm = Cm + OUT_HEADS * QP;
+  float* Tm = Dm + OUT_HEADS * QP;
+
+  const Tile tl = head_tile(a);
+  const int c = blockIdx.y, bb = blockIdx.z, t0 = c * Q;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, tq = lane & 3;
+  const int n8 = (N + 7) / 8;  // n-tiles of the state
+  const long long slot = static_cast<long long>(HD) * 8 * n8;
+
+  auto load_x = [&](int t) {  // head t's x, into buffer t & 1
+    const bf16* xg = static_cast<const bf16*>(a.x) + bb * a.sxb + t0 * a.sxs +
+                     (tl.h0 + t) * a.sxh;
+    bf16* xs = Xs + (t & 1) * QP * XP;
+    for (int i = tid; i < Q * (HD / 8); i += NT) {
+      const int j = i / (HD / 8), k = i % (HD / 8);
+      cp_async16(xs + j * XP + 8 * k, xg + j * a.sxs + 8 * k);
+    }
+  };
+  auto load_h = [&](int t) {  // head t's H_in, into the B region (c > 0);
+    if (c == 0) return;       // its n-tiles past N (N < NMAX) are zero
+    const uint4* hg = reinterpret_cast<const uint4*>(
+        a.st + ((static_cast<long long>(bb) * a.nc + c) * a.nh + tl.h0 + t) *
+                   slot);
+    if (n8 == NMAX / 8) {
+      for (int i = tid; i < HD / 16 * (NMAX / 8) * 32; i += NT)
+        cp_async16(Hf + i, hg + i);
+    } else {
+      for (int i = tid; i < HD / 16 * (NMAX / 8) * 32; i += NT) {
+        const int mt = i / ((NMAX / 8) * 32), nt = (i / 32) % (NMAX / 8);
+        if (nt < n8)
+          cp_async16(Hf + i, hg + (mt * n8 + nt) * 32 + i % 32);
+        else
+          Hf[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+
+  zero_pad(Bs, BW, Q, QP, N, NMAX);
+  zero_pad(Xs, XP, Q, QP, HD, HD);
+  zero_pad(Xs + QP * XP, XP, Q, QP, HD, HD);
+  stage_rows(Bs, BW,
+             static_cast<const bf16*>(a.b) + bb * a.sbb + t0 * a.sbs +
+                 tl.g * a.sbg,
+             a.sbs, Q, N);
+  load_x(0);
+  cp_async_commit();
+  for (int i = tid; i < tl.nT * QP; i += NT) {
+    const int t = i / QP, j = i % QP, h = tl.h0 + t;
+    float cv = 0.f, dv = 0.f, tv = 0.f;
+    if (j < Q) {
+      const float* cg =
+          a.cum + ((static_cast<long long>(bb) * a.nc + c) * a.nh + h) * Q;
+      cv = cg[j];
+      tv = a.dt[bb * a.sdb + (t0 + j) * a.sds + h * a.sdh];
+      dv = tv * expf(cg[min(j | 15, Q - 1)] - cv);
+    }
+    Cm[t * QP + j] = cv;
+    Dm[t * QP + j] = dv;
+    Tm[t * QP + j] = tv;
+  }
+
+  // this warp's 16 rows of C as A fragments, over all of N
+  const int i0 = 16 * warp + g4;
+  uint32_t cr[KMAX][4];
+  {
+    const bf16* cg = static_cast<const bf16*>(a.c) + bb * a.scb +
+                     t0 * a.scs + tl.g * a.scg;
+#pragma unroll
+    for (int ks = 0; ks < KMAX; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + (r & 1) * 8, n = 16 * ks + 2 * tq + (r >> 1) * 8;
+        cr[ks][r] = (warp < RB && i < Q && n < N)
+                        ? *reinterpret_cast<const uint32_t*>(cg + i * a.scs + n)
+                        : 0u;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // G = C·Bᵀ: row block `warp`, column blocks p ≤ warp (two n-tiles
+  // each), two column blocks at a time
+  float4* gw = Gs + 32 * warp * (warp + 1) + lane;
+  if (warp < RB) {
+    const int bo = ((lane & 7) + ((lane >> 4) & 1) * 8) * BW +
+                   ((lane >> 3) & 1) * 8;
+    int p = 0;
+    for (; p + 1 <= warp; p += 2) {
+      float g[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KMAX; ++ks) {
+        uint32_t b0[4], b1[4];
+        ldsm_x4(b0, Bs + 16 * p * BW + bo + 16 * ks);
+        ldsm_x4(b1, Bs + 16 * (p + 1) * BW + bo + 16 * ks);
+        mma_bf16(g[0], cr[ks], b0[0], b0[1]);
+        mma_bf16(g[1], cr[ks], b0[2], b0[3]);
+        mma_bf16(g[2], cr[ks], b1[0], b1[1]);
+        mma_bf16(g[3], cr[ks], b1[2], b1[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        gw[32 * (2 * p + k)] = make_float4(g[k][0], g[k][1], g[k][2], g[k][3]);
+    }
+    if (p <= warp) {
+      float g[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KMAX; ++ks) {
+        uint32_t b0[4];
+        ldsm_x4(b0, Bs + 16 * p * BW + bo + 16 * ks);
+        mma_bf16(g[0], cr[ks], b0[0], b0[1]);
+        mma_bf16(g[1], cr[ks], b0[2], b0[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        gw[32 * (2 * p + k)] = make_float4(g[k][0], g[k][1], g[k][2], g[k][3]);
+    }
+  }
+
+  __syncthreads();  // B is no longer read: the first head's H_in may land
+  load_h(0);
+  cp_async_commit();
+
+  for (int t = 0; t < tl.nT; ++t) {
+    const int h = tl.h0 + t;
+    const bf16* xs = Xs + (t & 1) * QP * XP;
+    cp_async_wait<0>();
+    __syncthreads();  // this head's x and H_in have landed; the last
+                      // head's y staging is read
+    float acc[DT][4];
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    if (warp < RB && c > 0) {  // exp(cum) ⊙ (C·H_inᵀ); H_in is 0 before chunk 1
+      {
+        // rows d of H_in are this product's columns: the fragment of
+        // 16-row tile q and n-tiles 2ks, 2ks+1 is the B operand of y's
+        // n-tiles 2q (rows g) and 2q + 1 (rows g + 8) at depth step ks
+#pragma unroll
+        for (int ks = 0; ks < KMAX; ++ks) {
+          uint4 f0[DT / 2], f1[DT / 2];
+#pragma unroll
+          for (int q = 0; q < DT / 2; ++q) {
+            f0[q] = Hf[(q * (NMAX / 8) + 2 * ks) * 32 + lane];
+            f1[q] = Hf[(q * (NMAX / 8) + 2 * ks + 1) * 32 + lane];
+          }
+#pragma unroll
+          for (int q = 0; q < DT / 2; ++q) {  // hi
+            mma_bf16(acc[2 * q], cr[ks], f0[q].x, f1[q].x);
+            mma_bf16(acc[2 * q + 1], cr[ks], f0[q].y, f1[q].y);
+          }
+#pragma unroll
+          for (int q = 0; q < DT / 2; ++q) {  // lo
+            mma_bf16(acc[2 * q], cr[ks], f0[q].z, f1[q].z);
+            mma_bf16(acc[2 * q + 1], cr[ks], f0[q].w, f1[q].w);
+          }
+        }
+        const float e0 = expf(Cm[t * QP + i0]), e8 = expf(Cm[t * QP + i0 + 8]);
+#pragma unroll
+        for (int nt = 0; nt < DT; ++nt) {
+          acc[nt][0] *= e0;
+          acc[nt][1] *= e0;
+          acc[nt][2] *= e8;
+          acc[nt][3] *= e8;
+        }
+      }
+    }
+    __syncthreads();  // H_in is read: the next head's x and H_in may land
+    if (t + 1 < tl.nT) {  // the next head's x and H_in land during P·x
+      load_x(t + 1);
+      load_h(t + 1);
+    }
+    cp_async_commit();
+    if (warp < RB) {
+      const float* cm = Cm + t * QP;
+      const float* dm = Dm + t * QP;
+      const float* tm = Tm + t * QP;
+      const float ci0 = cm[i0], ci8 = cm[i0 + 8];
+
+      // + P·x.  Below the diagonal block, exp(cum_i − cum_j) =
+      // exp(cum_i − cum_b)·exp(cum_b − cum_j) with b the last step of
+      // column block p: two factors ≤ 1, the second (times dt_j) staged
+      // per head, the first two exps a lane per block (__expf: its error,
+      // ≈ 1e-6 relative at a chunk's decays, is far below y's bf16
+      // rounding).
+      const int xo = ((lane & 7) + ((lane >> 3) & 1) * 8) * XP + (lane >> 4) * 8;
+      for (int p = 0; p <= warp; ++p) {
+        uint32_t xb[DT / 2][4];
+#pragma unroll
+        for (int q = 0; q < DT / 2; ++q)
+          ldsm_x4_t(xb[q], xs + 16 * p * XP + xo + 16 * q);
+        const float4 ga = gw[32 * (2 * p)], gb = gw[32 * (2 * p + 1)];
+        const int j0 = 16 * p + 2 * tq;
+        if (p < warp) {
+          const float cb = cm[min(16 * p + 15, Q - 1)];
+          const float r0 = __expf(ci0 - cb), r8 = __expf(ci8 - cb);
+          const float2 d0 = *reinterpret_cast<const float2*>(dm + j0);
+          const float2 d8 = *reinterpret_cast<const float2*>(dm + j0 + 8);
+          p_mma<DT>(acc, ga, gb, r0 * d0.x, r0 * d0.y, r8 * d0.x, r8 * d0.y,
+                    r0 * d8.x, r0 * d8.y, r8 * d8.x, r8 * d8.y, xb);
+        } else {  // the diagonal block: exp formed at i ≥ j only
+          const float2 c0 = *reinterpret_cast<const float2*>(cm + j0);
+          const float2 c8 = *reinterpret_cast<const float2*>(cm + j0 + 8);
+          const float2 t0v = *reinterpret_cast<const float2*>(tm + j0);
+          const float2 t8v = *reinterpret_cast<const float2*>(tm + j0 + 8);
+          // selected, never multiplied: above the diagonal the argument
+          // is clamped to 0 and the product replaced by 0
+          auto l = [](bool on, float ci, float cj, float dtj) {
+            const float v = __expf(fminf(ci - cj, 0.f)) * dtj;
+            return on ? v : 0.f;
+          };
+          p_mma<DT>(acc, ga, gb, l(j0 <= i0, ci0, c0.x, t0v.x),
+                    l(j0 + 1 <= i0, ci0, c0.y, t0v.y),
+                    l(j0 <= i0 + 8, ci8, c0.x, t0v.x),
+                    l(j0 + 1 <= i0 + 8, ci8, c0.y, t0v.y),
+                    l(j0 + 8 <= i0, ci0, c8.x, t8v.x),
+                    l(j0 + 9 <= i0, ci0, c8.y, t8v.y),
+                    l(j0 + 8 <= i0 + 8, ci8, c8.x, t8v.x),
+                    l(j0 + 9 <= i0 + 8, ci8, c8.y, t8v.y), xb);
+        }
+      }
+    }
+    __syncthreads();  // x is read: y is staged in its buffer
+    if (warp < RB) {  // y: rounded once, staged, stored as 16-byte rows
+      bf16* ys = Xs + (t & 1) * QP * XP + warp * 16 * XP;
+#pragma unroll
+      for (int nt = 0; nt < DT; ++nt) {
+        *reinterpret_cast<__nv_bfloat162*>(ys + g4 * XP + 8 * nt + 2 * tq) =
+            __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(ys + (g4 + 8) * XP + 8 * nt +
+                                           2 * tq) =
+            __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+      }
+      __syncwarp();
+      bf16* yg = static_cast<bf16*>(a.y) +
+                 ((static_cast<long long>(bb) * a.S + t0) * a.nh + h) * HD;
+      const long long ysz = static_cast<long long>(a.nh) * HD;
+#pragma unroll
+      for (int k = 0; k < (16 * DT + 31) / 32; ++k) {
+        const int v = lane + 32 * k, r = v / DT, ch = v % DT;
+        const int i = 16 * warp + r;
+        if (v < 16 * DT && i < Q)
+          *reinterpret_cast<uint4*>(yg + i * ysz + 8 * ch) =
+              *reinterpret_cast<const uint4*>(ys + r * XP + 8 * ch);
+      }
+    }
+  }
+}
+
+template <int HD, int R>
+cudaError_t launch_bf16(Args a, int B, cudaStream_t s) {
+  const size_t s1 = scan_smem(R);
+  const size_t s3 = out_smem(HD, a.QP);
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_kernel<HD, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(s1));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(out_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(s3));
+  if (e != cudaSuccess) return e;
+  scan_kernel<HD, R><<<dim3(HD / R, a.nh, B), NT, s1, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  out_kernel<HD><<<dim3(a.ng * a.tpg, a.nc, B), NT, s3, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(const Args& a, int B, cudaStream_t s) {
   const size_t smem = sizeof(float) * smem_floats(HD, a.N, a.Q);
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid(a.nh, B);
-  ssd_kernel<HD, T><<<grid, NT, smem, s>>>(a);
+  ssd_f32_kernel<HD><<<grid, NT, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -308,31 +1006,45 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
 
 // strides: the element strides (batch, step, head) of x and dt, then
 // (batch, step, group) of B and C, in that order.  ints: B, S, nh, ng,
-// hd, N, Q, dtype of x/B/C (0 = float32, 1 = bfloat16), device.  Returns
-// a cudaError_t (0 on success).
+// hd, N, Q, dtype of x/B/C (0 = float32, 1 = bfloat16), device, and for
+// bfloat16 the state rows per scan_kernel block: 16 at hd 16, 32 or 64
+// at hd 64.  cum (B, S/Q, nh, Q) and st (B, S/Q, nh, hd, N rounded up
+// to 8) are float32 scratch for bfloat16 (unused for float32); bfloat16
+// rows of x, B and C must start on 16-byte boundaries.  Returns a
+// cudaError_t (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const void* b, const void* c, void* y, float* h,
+                               float* cum, float* st,
                                const long long* strides, const int* ints,
                                void* stream) {
   Args a;
   a.x = x; a.dt = dt; a.A = A; a.b = b; a.c = c; a.y = y; a.h = h;
+  a.cum = cum; a.st = st;
   a.sxb = strides[0]; a.sxs = strides[1]; a.sxh = strides[2];
   a.sdb = strides[3]; a.sds = strides[4]; a.sdh = strides[5];
   a.sbb = strides[6]; a.sbs = strides[7]; a.sbg = strides[8];
   a.scb = strides[9]; a.scs = strides[10]; a.scg = strides[11];
   const int B = ints[0], hd = ints[4], dtype = ints[7];
   a.S = ints[1]; a.nh = ints[2]; a.ng = ints[3]; a.N = ints[5]; a.Q = ints[6];
+  const int rows = ints[9];
   if (B < 1 || B > 65535 || a.S < 1 || a.nh < 1 || a.ng < 1 ||
       a.nh % a.ng != 0 || a.N < 4 || a.N > NMAX || a.N % 4 != 0 ||
-      a.Q < 1 || a.Q > QMAX || a.S % a.Q != 0)
+      a.Q < 1 || a.Q > QMAX || a.S % a.Q != 0 || a.S / a.Q > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.nc = a.S / a.Q;
+  a.tpg = (a.nh / a.ng + OUT_HEADS - 1) / OUT_HEADS;
+  a.QP = (a.Q + 15) / 16 * 16;
   cudaError_t e = cudaSetDevice(ints[8]);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 16 && dtype == 0) e = launch<16, float>(a, B, s);
-  else if (hd == 16 && dtype == 1) e = launch<16, __nv_bfloat16>(a, B, s);
-  else if (hd == 64 && dtype == 0) e = launch<64, float>(a, B, s);
-  else if (hd == 64 && dtype == 1) e = launch<64, __nv_bfloat16>(a, B, s);
+  if (dtype == 0 && hd == 16) e = launch_f32<16>(a, B, s);
+  else if (dtype == 0 && hd == 64) e = launch_f32<64>(a, B, s);
+  else if (dtype == 1 && cum && st && hd == 16 && rows == 16)
+    e = launch_bf16<16, 16>(a, B, s);
+  else if (dtype == 1 && cum && st && hd == 64 && rows == 32)
+    e = launch_bf16<64, 32>(a, B, s);
+  else if (dtype == 1 && cum && st && hd == 64 && rows == 64)
+    e = launch_bf16<64, 64>(a, B, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

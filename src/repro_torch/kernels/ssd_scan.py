@@ -17,10 +17,18 @@ in float32: per chunk ``((C Bᵀ) ⊙ L)(x·dt)`` with
 
 * :func:`ssd_ref` — plain PyTorch, written as ``ssd_chunked`` writes it;
   what CPU tensors get.
-* :func:`ssd_cuda` — the hand-written kernel (``kernels/csrc/ssd_scan.cu``):
-  one block per (head, batch) walking the chunks in order, groups read
-  through strides, hd 16 or 64 (the reduced and the published
-  mamba2-780m), N ≤ 128, Q ≤ 128, float32 or bfloat16.
+* :func:`ssd_cuda` — the hand-written kernels (``kernels/csrc/ssd_scan.cu``),
+  groups read through strides, hd 16 or 64 (the reduced and the published
+  mamba2-780m), N ≤ 128, Q ≤ 128.  The route is fixed by the dtype:
+  every bfloat16 call runs two launches on the tensor cores — a scan over
+  the chunks in order per (``scan_rows`` state rows, head, batch), the
+  state in the MMA accumulators, writing each chunk's entering state;
+  then the output per (batch, chunk, three heads of a group sharing
+  the block's B, C and C·Bᵀ; a constant of the CUDA source, chosen on
+  the H100 at mamba2-780m's serving prefill), the chunk axis spread across
+  the card — and every float32 call one launch on the CUDA cores (a block
+  per (head, batch) walking the chunks in order), products in float32.
+  There is no other route and no fallback.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["HEAD_DIMS", "chunk_len", "launch_count", "reset_launch_count",
-           "ssd_cuda", "ssd_ref"]
+__all__ = ["HEAD_DIMS", "chunk_len", "launch_count",
+           "reset_launch_count", "scan_rows", "ssd_cuda", "ssd_ref"]
 
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 64)
@@ -121,11 +129,32 @@ def _lib() -> ctypes.CDLL:
     """``csrc/ssd_scan.cu``'s library, its entry point declared (once)."""
     from repro_torch.kernels import _build
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def scan_rows(B: int, nh: int, hd: int, sms: int) -> int:
+    """State rows per bfloat16 scan block: the whole head (hd ≤ 64) when
+    the (batch, head) pairs fill the SMs, else 32 (hd when it is 16)."""
+    return hd if B * nh >= sms or hd < 32 else 32
+
+
+def _aligned(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """``t``, or a contiguous copy of it where its data or its strides
+    are not multiples of ``elems`` elements (the bfloat16 kernels copy
+    rows in 16- or 8-byte pieces)."""
+    if (t.data_ptr() % (elems * t.element_size()) == 0
+            and all(st % elems == 0 for st in t.stride()[:-1])):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
@@ -171,32 +200,47 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel: same contract as :func:`ssd_ref`.
+    """The CUDA kernels: same contract as :func:`ssd_ref`.
 
-    ``x``, ``Bm``, ``Cm`` are CUDA tensors of one dtype (float32 or
-    bfloat16) with contiguous trailing dims, read through their other
-    strides; ``dt`` and ``A`` are cast to float32 here if they are not
-    already.  Returns new contiguous ``y`` and ``h_final``.  Raises on
-    any other input and if the launch fails; there is no fallback.
+    ``x``, ``Bm``, ``Cm`` are CUDA tensors of one dtype with contiguous
+    trailing dims, read through their other strides; ``dt`` and ``A`` are
+    cast to float32 here if they are not already.  bfloat16 runs on the
+    tensor cores (a bfloat16 operand whose data or strides are not
+    16-byte aligned — 8 for Bm, Cm when N is not a multiple of 8 — is
+    copied to contiguous storage first), with scratch allocated here: cum
+    (B, S/Q, nh, Q) float32 and each chunk's entering state (B, S/Q, nh,
+    hd, N rounded up to 8), 4 bytes an element (its bf16 hi and lo, in
+    the kernels' fragment order).  float32 runs on the CUDA cores.
+    Returns new contiguous ``y`` and ``h_final``.  Raises on any other
+    input and if a launch fails; there is no fallback.
     """
     global _LAUNCHES
     from repro_torch.kernels import _build
     Q = _check(x, dt, A, Bm, Cm, chunk)
     B, S, nh, hd = x.shape
     ng, N = Bm.shape[2], Bm.shape[3]
+    R = scan_rows(B, nh, hd, _sm_count(x.device.index or 0))
     dt32 = dt.to(torch.float32)
     A32 = A.to(torch.float32).contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cum = st = None
+    if x.dtype == torch.bfloat16:
+        x = _aligned(x, 8)
+        Bm, Cm = (_aligned(t, 8 if N % 8 == 0 else 4) for t in (Bm, Cm))
+        cum = torch.empty(B, S // Q, nh, Q, **f32)
+        st = torch.empty(B, S // Q, nh, hd, -(-N // 8) * 8, **f32)
     y = torch.empty(B, S, nh, hd, dtype=x.dtype, device=x.device)
-    h = torch.empty(B, nh, hd, N, dtype=torch.float32, device=x.device)
+    h = torch.empty(B, nh, hd, N, **f32)
     strides = (ctypes.c_longlong * 12)(
         *x.stride()[:3], *dt32.stride(), *Bm.stride()[:3], *Cm.stride()[:3])
-    ints = (ctypes.c_int * 9)(B, S, nh, ng, hd, N, Q, _DTYPES[x.dtype],
-                              x.device.index or 0)
+    ints = (ctypes.c_int * 10)(B, S, nh, ng, hd, N, Q, _DTYPES[x.dtype],
+                               x.device.index or 0, R)
     lib = _lib()
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt32.data_ptr(), A32.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), strides, ints,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        Cm.data_ptr(), y.data_ptr(), h.data_ptr(), ptr(cum), ptr(st),
+        strides, ints, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("ssd_cuda: launch failed: "
                            + _build.error_string(lib, err))

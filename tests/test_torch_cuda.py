@@ -14,8 +14,11 @@ attention: ``chip_smoke``'s phase 5 case grids, at its ``check_close``
 tolerances (RMSNorm in both forms, and on an unaligned row; flash
 bfloat16 on the tensor cores, where strides that TMA cannot take
 raise).  The SSD scan: ``chip_smoke``'s phase 5 grid (S × groups ×
-N × decay), y and the final state at ``chip_smoke.SSD_F32`` in float32
-(rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16.
+N × decay, then ``SSD_EXTRA``: the serving prefill, 32 chunks, a head
+tile that does not divide the group, hd 16 with N and Q not multiples
+of 16), y and the final state at ``chip_smoke.SSD_F32`` in float32
+(rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16
+(the final state as in float32).
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -138,13 +141,14 @@ def test_cuda_ssd_scan_matches_plain(dtype):
     from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
     smoke = _smoke()
     dev = torch.device("cuda", 0)
-    for i, (S, ng, N, decay, dt) in enumerate(smoke.ssd_cases()):
+    for i, (B, S, nh, ng, hd, N, chunk, decay, dt) in enumerate(
+            smoke.ssd_cases()):
         if dt != dtype:
             continue
-        args = smoke.ssd_inputs(np, torch, 2, S, smoke.SSD_HEADS, ng, 64, N,
-                                decay, dt, dev, seed=i)
-        (y, h), (y_r, h_r) = ssd_cuda(*args), ssd_ref(*args)
-        what = f"S={S} ng={ng} N={N} {decay}"
+        args = smoke.ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dt,
+                                dev, seed=i)
+        (y, h), (y_r, h_r) = ssd_cuda(*args, chunk), ssd_ref(*args, chunk)
+        what = f"B={B} S={S} nh={nh} ng={ng} hd={hd} N={N} chunk={chunk} {decay}"
         smoke.check_close(np, y, y_r, dt, what, smoke.SSD_F32)
         smoke.check_close(np, h, h_r, "float32", what, smoke.SSD_F32)
     args = smoke.ssd_inputs(np, torch, 1, smoke.SSD_RAGGED, 4, 1, 64, 128,

@@ -15,7 +15,19 @@ dt·A ∈ [−0.1, 0] and the state carries across chunks) and model-like
   sequential recurrence ``repro.kernels.ref.ssd_ref``, on the same
   inputs with B and C repeated per head, in float32 within rtol 1e-3,
   atol 1e-4 (``tests/test_kernels.py``'s tolerance for those two).
+
+The bfloat16 CUDA route's precision plan, emulated here in float32 at
+mamba2-780m's hd 64 and N 128 (S 512, 4 heads, one group, inputs from
+``chip_smoke.ssd_inputs``): x, B and C are exact bf16 operands; the three
+f32 operands (x·dt·decay against B, P against x, H_in against C) are
+split into bf16 hi + lo; sums in f32.  Held to ``ssd_ref`` under
+``chip_smoke``'s phase 5 tolerances (the final state rtol 1e-4, atol
+1e-5·max(1, max|h|); y 2e-2); and a single bf16 rounding of the state
+operand is shown to miss the final state's tolerance.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -128,3 +140,81 @@ def test_ssd_dispatch_on_cpu():
         ops.ssd(*t, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_cuda(*t)
+
+
+def _smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _emulate_bf16_route(x, dt, A, Bm, Cm, chunk, split_state=True):
+    """The bfloat16 kernels' arithmetic (``kernels/csrc/ssd_scan.cu``) in
+    float32 on the CPU: chunk states, the f32 recurrence across chunks,
+    then y.  Each f32 operand of a product is rounded to bf16 hi + lo
+    (``split_state=False``: the state operand x·dt·decay to hi alone)."""
+    f32, bf = torch.float32, torch.bfloat16
+    rnd = lambda a: a.to(bf).to(f32)
+
+    def parts(a, split=True):
+        hi = rnd(a)
+        return (hi, rnd(a - hi)) if split else (hi,)
+
+    Bsz, S, nh, hd = x.shape
+    ng, N = Bm.shape[2], Bm.shape[3]
+    Q, rep = min(chunk, S), nh // ng
+    nc = S // Q
+    xc = x.to(f32).reshape(Bsz, nc, Q, nh, hd)
+    dtc = dt.reshape(Bsz, nc, Q, nh)
+    Bh, Ch = (t.to(f32).reshape(Bsz, nc, Q, ng, N).repeat_interleave(rep, 3)
+              for t in (Bm, Cm))
+    cum = torch.cumsum(dtc * A, dim=2)                     # (B, nc, Q, nh)
+    seg = cum[:, :, -1]
+    xw = xc * (dtc * torch.exp(seg[:, :, None] - cum))[..., None]
+    states = sum(torch.einsum("bcqhd,bcqhn->bchdn", p, Bh)
+                 for p in parts(xw, split_state))
+    h = torch.zeros(Bsz, nh, hd, N, dtype=f32)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(seg[:, c])[:, :, None, None] + states[:, c]
+    G = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(cum[:, :, :, None] - cum[:, :, None]),
+                    torch.zeros((), dtype=f32))
+    P = G * L * dtc[:, :, None]
+    y = sum(torch.einsum("bcijh,bcjhd->bcihd", p, xc) for p in parts(P))
+    y = y + torch.exp(cum)[..., None] * sum(
+        torch.einsum("bcihn,bchdn->bcihd", Ch, p)
+        for p in parts(torch.stack(h_in, dim=1)))
+    return y.reshape(Bsz, S, nh, hd).to(x.dtype), h
+
+
+def _precision_case(decay, split_state):
+    """(emulated y, h), (plain y, h), chip_smoke at hd 64, N 128, S 512."""
+    smoke = _smoke()
+    args = smoke.ssd_inputs(np, torch, 1, 512, 4, 1, 64, 128, decay,
+                            "bfloat16", torch.device("cpu"), seed=5)
+    return (_emulate_bf16_route(*args, 128, split_state),
+            ssd_ref(*args, 128), smoke)
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+def test_bf16_route_split_operands_hold_phase5_tolerances(decay):
+    (y, h), (y_r, h_r), smoke = _precision_case(decay, split_state=True)
+    smoke.check_close(np, y, y_r, "bfloat16", f"{decay} y", smoke.SSD_F32)
+    err = smoke.check_close(np, h, h_r, "float32", f"{decay} h",
+                            smoke.SSD_F32)
+    assert err < 1e-5 * float(h_r.abs().max())
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+def test_bf16_route_single_rounded_state_operand_misses_h_tolerance(decay):
+    """Why the kernels split: one bf16 rounding of x·dt·decay puts the
+    final state outside phase 5's tolerance."""
+    (_, h), (_, h_r), smoke = _precision_case(decay, split_state=False)
+    with pytest.raises(AssertionError, match="max \\|diff\\|"):
+        smoke.check_close(np, h, h_r, "float32", f"{decay} h",
+                          smoke.SSD_F32)
