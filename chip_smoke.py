@@ -76,10 +76,48 @@ Phases (any failure exits non-zero before the final line):
 7. The mamba2-780m serving path, as phase 6 with the same traffic: SSD
    must run 48 times per prefill call, RMSNorm 97 times per prefill call
    and decode step, flash never; the same teacher-forced checks.
+8. PSP training of qwen2-0.5b at full width (494,032,768 f32 params,
+   bf16 compute), built from the library calls ``repro_torch.launch.train``
+   makes (``init_model``, ``adamw(warmup_cosine(3e-3, 3, 24))``,
+   ``psp_init``, ``make_psp_train_step``): W 4, ``pbsp``, β 2, s 3,
+   stragglers 0.25, 2 sequences of 512 tokens per worker per tick (drawn
+   from a pool of 8 fixed random ones), 24 ticks.  Tick 0's per-worker
+   losses and clipped gradients under the kernels against ``impl="ref"``
+   on the same inputs: ‖Δg‖/‖g‖ within 2e-2 or the plain path's own
+   spread between bf16 and float32 compute, whichever is larger (the
+   loss likewise), and in float32 compute (the f32 kernels) ‖Δg‖/‖g‖
+   within 1e-3 and the loss within 1e-5 relative; the control plane after tick 0 (step, pushed, alive,
+   total_pushes, busy_until, now) bit for bit the plain trainer's; the
+   launches exactly 2·24·W per tick for the flash forward (remat
+   recomputes it), 24·W for its backward, 97·W for the RMSNorm forward
+   and 49·W for its backward; the mean loss over the last 4 pushing ticks
+   below that over the first 4.  Prints the wall per tick and training
+   tokens/s over ticks 2..24 (their summed wall over their count, all
+   their tokens over that wall; the median beside), the busy share of one traced tick with its ten largest
+   device items, peak device memory, and the wall and device time of a
+   worker's loss and gradients (with and without remat), its forward
+   and the AdamW update; then runs
+   ``python -m repro_torch.launch.train --reduced --barrier pbsp --steps
+   5`` on the card.
+
+Phase 5 also holds the two backward kernels (flash attention's and
+RMSNorm's) against their plain versions: flash over FLASH_MODES × G {1,
+7} × S {37, 512, 1000} × hd {64, 128} × {float32, bfloat16} on the plain
+forward's o and lse (float32 rtol 1e-4, atol 1e-5·max(1, max|plain|);
+bfloat16 2e-2·max|plain|), with the forward kernel's lse against the
+plain one and its o unchanged by writing lse; RMSNorm over rows {7,
+1024, 4099} × D {100, 896} and an unaligned row (dx in bfloat16 within
+one bf16 ulp, dw at the float32 tolerance); two runs of each bit for bit
+alike.  It times them at the training shapes (flash backward B 2, S 512,
+14 / 2 heads, hd 64, bf16 causal; RMSNorm backward (1024, 896) bf16)
+against their plain versions and the backward of
+``scaled_dot_product_attention`` / ``F.rms_norm`` through autograd, and
+the flash forward with and without its lse output at the serving
+prefill.
 
 Then one JSON line with each kernel's launches (summed over the main
-paths: the sweep, and both serving runs), error and times, the
-``nvidia-smi`` line, and the result line.  Exits non-zero without a
+paths: the sweep, both serving runs and the training run), error and
+times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
 from __future__ import annotations
@@ -161,6 +199,25 @@ SSD_F32 = (1e-4, 1e-5)
 #: (the serving prefill, then a long one); the first goes into the line
 SSD_TIMED = ((4, 512), (1, 4096))
 SSD_KERNELS = ("scan_kernel", "out_kernel")
+#: phase 5's backward grids: flash over FLASH_MODES × FLASH_GQA × these S
+#: (37 and 1000 are not multiples of the 64-row tile) × FLASH_HEAD_DIMS ×
+#: DTYPES; RMSNorm over rows × D × DTYPES, then an unaligned row
+FLASH_BWD_SEQ = (37, 512, 1000)
+RMS_BWD_ROWS = (7, 1024, 4099)
+RMS_BWD_DIMS = (100, 896)
+#: the backward kernels' float32 tolerance: rtol, and atol as a share of
+#: max(1, max |plain|)
+BWD_F32 = (1e-4, 1e-5)
+#: the training shapes the backward kernels are timed at: flash (B, S) at
+#: 14 heads / 2 KV heads / hd 64, bf16 causal; RMSNorm (rows, D) bf16
+FLASH_BWD_TIMED = (2, 512)
+RMS_BWD_TIMED = (1024, 896)
+#: phase 8: PSP training of full-width qwen2-0.5b (W workers, B sequences
+#: of S tokens each per tick, drawn from a pool of POOL fixed sequences)
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_TICKS = 24
+TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
+TRAIN_ARGV = ["--reduced", "--barrier", "pbsp", "--steps", "5"]
 #: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
 TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
            "--max-len", "1024", "--max-new", "64", "--seed", "0"]
@@ -656,6 +713,8 @@ def phase5(np, torch, dev, card):
                                  for i, t in enumerate(nxt())))
         ms, clocks = timed_rounds(torch, {
             "kernel": (lambda: flash_attention_cuda(*nxt()), 20),
+            "kernel + lse": (lambda: flash_attention_cuda(
+                *nxt(), return_lse=True), 20),
             "plain": (lambda: attention_ref(*nxt()), 5),
             "library": (lib, 20)})
         flops = 2 * B * 14 * S * S * 64
@@ -770,6 +829,216 @@ def phase5_ssd(np, torch, dev, card):
             "plain_ms": ms["plain"][0], "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
+
+
+def flash_bwd_cases():
+    """Phase 5's flash backward grid: ((mode, kwargs), GQA ratio, S, hd,
+    dtype)."""
+    return itertools.product(FLASH_MODES, FLASH_GQA, FLASH_BWD_SEQ,
+                             FLASH_HEAD_DIMS, DTYPES)
+
+
+def rms_bwd_cases():
+    """Phase 5's RMSNorm backward grid: (rows, D, dtype)."""
+    return itertools.product(RMS_BWD_ROWS, RMS_BWD_DIMS, DTYPES)
+
+
+def bf16_ulp(np, a):
+    """The spacing of bfloat16 values at magnitude ``a``."""
+    a = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+def check_bwd(np, got, want, dtype, what):
+    """Max |got - want| of a backward output; raises beyond float32 rtol
+    ``BWD_F32[0]``, atol ``BWD_F32[1]``·max(1, max|want|), or in bfloat16
+    beyond 2e-2·max|want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    a = want.float().cpu().numpy().astype(np.float64)
+    b = got.float().cpu().numpy().astype(np.float64)
+    top = float(np.abs(a).max(initial=0.0))
+    rtol, atol = ((BWD_F32[0], BWD_F32[1] * max(1.0, top))
+                  if dtype == "float32" else (0.0, 2e-2 * top))
+    err = float(np.abs(a - b).max(initial=0.0))
+    if not np.allclose(b, a, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max |diff| {err} (max |plain| {top})")
+    return err
+
+
+def check_flash_bwd(np, torch, case, dev, seed):
+    """One flash backward case: the kernel against ``attention_bwd_ref``
+    on the same q, k, v, do and the plain forward's o and lse, two
+    kernel runs bit for bit alike; and the forward kernel's lse against
+    the plain one (float32 rtol 1e-5; bfloat16, whose softmax runs on
+    exp2.approx, 1e-3) with its o bit for bit the o of a call without
+    lse.  Returns the max |err| of dq, dk, dv."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda,
+        flash_attention_cuda)
+    (mode, kw), G, S, hd, dt = case
+    q, k, v = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev, seed)
+    do = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev,
+                      seed + 1000)[0]
+    what = f"flash bwd {mode} G={G} S={S} hd={hd} {dt}"
+    o, lse = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=True, **kw)
+    err = max(check_bwd(np, g, w, dt, f"{what} {n}")
+              for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    ko, klse = flash_attention_cuda(q, k, v, causal=True, return_lse=True,
+                                    **kw)
+    if not torch.equal(ko, flash_attention_cuda(q, k, v, causal=True, **kw)):
+        raise AssertionError(f"{what}: o with lse differs from o without")
+    tol = 1e-5 if dt == "float32" else 1e-3
+    lerr = float((klse - lse).abs().max())
+    if not lerr <= tol * max(1.0, float(lse.abs().max())):
+        raise AssertionError(f"{what}: forward lse off by {lerr}")
+    return err
+
+
+def check_rms_bwd(np, torch, rows, D, dt, dev, seed, shift=False):
+    """One RMSNorm backward case: the kernel against ``rmsnorm_bwd_ref``
+    on the same x, w, g and the plain forward's m (``shift``: x and g one
+    element past a 16-byte boundary), two runs bit for bit alike.
+    float32: dx and dw at ``BWD_F32``; bfloat16: dx within one bf16 ulp
+    of the larger of |dx| and its rounded term |cast(coeff)·x| (the
+    kernel sums the row's inner product in another order, which can
+    round ``cast(coeff)`` the other way), dw at ``BWD_F32`` (the same m:
+    the rows' ``cast(g·m)`` are equal).  Returns max |err| of dx, dw."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
+                                             rmsnorm_bwd_ref, rmsnorm_ref)
+    x, w = rms_inputs(np, torch, rows, D, dt, dev, seed=seed)
+    g, _ = rms_inputs(np, torch, rows, D, dt, dev, seed=seed + 1000)
+    if shift:
+        x, g = unaligned(torch, x), unaligned(torch, g)
+    what = f"rmsnorm bwd rows={rows} D={D} {dt}" + (" unaligned" * shift)
+    _, m = rmsnorm_ref(x, w, round_scale=True, return_m=True)
+    dx, dw = rmsnorm_bwd_cuda(x, w, g, m)
+    dx2, dw2 = rmsnorm_bwd_cuda(x, w, g, m)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"{what}: two runs differ")
+    rdx, rdw = rmsnorm_bwd_ref(x, w, g, m)
+    err_w = check_bwd(np, dw, rdw, "float32", f"{what} dw")
+    if dt == "float32":
+        return max(check_bwd(np, dx, rdx, dt, f"{what} dx"), err_w)
+    a = rdx.float().cpu().numpy()
+    b = dx.float().cpu().numpy()
+    xf, gf = x.float(), g.float()
+    coeff = (m[:, None] ** 3 / D) * (gf * w).to(x.dtype).float().mul(
+        xf).sum(-1, keepdim=True)
+    term = np.maximum(np.maximum(np.abs(a), np.abs(b)),
+                      (coeff * xf).abs().cpu().numpy())
+    err = float(np.abs(a - b).max())
+    if not (np.abs(a - b) <= bf16_ulp(np, term)).all():
+        raise AssertionError(f"{what} dx: beyond one bf16 ulp, max |diff| "
+                             f"{err}")
+    return max(err, err_w)
+
+
+def phase5_bwd(np, torch, dev, card):
+    """The two backward kernels against their plain versions over their
+    case grids, then timed at the training shapes.  Returns their JSON
+    entries without ``launches``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda)
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
+                                             rmsnorm_bwd_ref, rmsnorm_ref)
+    err_fl = {dt: 0.0 for dt in DTYPES}
+    for i, case in enumerate(flash_bwd_cases()):
+        err_fl[case[-1]] = max(err_fl[case[-1]],
+                               check_flash_bwd(np, torch, case, dev, i))
+    print(f"[5] flash backward kernel == plain on {i + 1} cases, two runs "
+          "bit for bit alike, forward lse == plain; max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err_fl.items()),
+          flush=True)
+    err_rms = {dt: 0.0 for dt in DTYPES}
+    cases = [(*c, False) for c in rms_bwd_cases()]
+    cases += [(7, 896, dt, True) for dt in DTYPES]
+    for i, (rows, D, dt, shift) in enumerate(cases):
+        err_rms[dt] = max(err_rms[dt], check_rms_bwd(
+            np, torch, rows, D, dt, dev, seed=i, shift=shift))
+    print(f"[5] rmsnorm backward kernel == plain on {len(cases)} cases "
+          "(2 unaligned), two runs bit for bit alike; max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err_rms.items()),
+          flush=True)
+
+    B, S = FLASH_BWD_TIMED
+    q, k, v = flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev)
+    do = flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev, 1)[0]
+    o, lse = attention_ref(q, k, v, causal=True, return_lse=True)
+    nxt, n_sets = rotating((q, k, v, o, lse, do))
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    except TypeError:              # a torch without enable_gqa
+        leaves = [t if i == 0 else t.repeat_interleave(7, dim=1)
+                  .detach().requires_grad_(True)
+                  for i, t in enumerate(leaves)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    dout = do.transpose(1, 2)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: flash_attention_bwd_cuda(*nxt()), 20),
+        "plain": (lambda: attention_bwd_ref(*nxt()), 5),
+        "library": (lambda: torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True), 20)})
+    flops = 5 * B * 14 * S * S * 64          # 5 causal products of S·S·hd
+    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, lse,
+                                                          do))
+              + sum(t.numel() * t.element_size() for t in (q, k, v)))
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] flash backward B={B} S={S} H=14 KV=2 hd=64 bf16 causal "
+          f"(the training shape; {24 * TRAIN_W} calls per tick): "
+          + rounds_text(ms)
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP "
+          f"at the bf16 tensor-core rate, {nbytes / 1e6:.2f} MB); kernel at "
+          f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library (SDPA "
+          f"backward through autograd) at "
+          f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    fl = {"name": "flash_attention_bwd", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+          "replaces": "src/repro/models/flash.py:240",
+          "max_abs_err": max(err_fl.values()), "ms": ms["kernel"][0],
+          "plain_ms": ms["plain"][0], "bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "library_ms": ms["library"][0]}
+
+    rows, D = RMS_BWD_TIMED
+    x, w = rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=1)
+    g, _ = rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=2)
+    _, m = rmsnorm_ref(x, w, round_scale=True, return_m=True)
+    nxt, n_sets = rotating((x, w, g, m))
+    xl = x.detach().requires_grad_(True)
+    wl = w.to(torch.bfloat16).requires_grad_(True)
+    y = F.rms_norm(xl, (D,), wl, 1e-6)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: rmsnorm_bwd_cuda(*nxt()), 50),
+        "plain": (lambda: rmsnorm_bwd_ref(*nxt()), 50),
+        "library": (lambda: torch.autograd.grad(y, (xl, wl), g,
+                                                retain_graph=True), 50)})
+    nbytes = (3 * x.numel() * x.element_size() + m.numel() * 4
+              + 2 * D * 4)
+    bound = 1e3 * nbytes / HBM_BPS
+    print(f"[5] rmsnorm backward ({rows}, {D}) bf16 (the training shape; "
+          f"{49 * TRAIN_W} calls per tick): " + rounds_text(ms)
+          + f"; bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB); library: "
+          f"F.rms_norm's backward through autograd; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    rn = {"name": "rmsnorm_bwd", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+          "replaces": "src/repro/models/layers.py:58",
+          "max_abs_err": max(err_rms.values()), "ms": ms["kernel"][0],
+          "plain_ms": ms["plain"][0], "bound_ms": bound, "bound_by": "bytes",
+          "library_ms": ms["library"][0]}
+    return [fl, rn]
 
 
 def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
@@ -907,6 +1176,234 @@ def serve_phase(np, torch, dev, card, argv, tag):
           f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
           f"{f32[:, 1:].max():.3g} (bound 5e-3); "
           f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    return got
+
+
+def train_batches(torch, dev, vocab, ticks, seed=0):
+    """Per tick, each worker's ``TRAIN_B`` sequences, drawn (seeded) from
+    a pool of ``TRAIN_POOL`` fixed random sequences of ``TRAIN_S`` tokens,
+    so that a model can learn them: a list of int32 (W, B, S)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pool = torch.randint(0, vocab, (TRAIN_POOL, TRAIN_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    idx = torch.randint(0, TRAIN_POOL, (ticks, TRAIN_W, TRAIN_B),
+                        generator=gen, device=dev)
+    return [pool[idx[t]] for t in range(ticks)]
+
+
+#: the control plane compared between the kernel and plain trainers
+CONTROL = ("step", "pushed", "alive", "total_pushes", "busy_until", "now")
+
+
+def tree_rel(torch, got, want):
+    """‖got − want‖ / ‖want‖ over all leaves of two trees (float64)."""
+    from repro_torch.tree import tree_leaves
+    num = den = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        num += float((a.double() - b.double()).square().sum())
+        den += float(b.double().square().sum())
+    return math.sqrt(num / den)
+
+
+def phase8(np, torch, dev, card):
+    """PSP training of full-width qwen2-0.5b on the card, built from the
+    library calls that ``repro_torch.launch.train`` makes; see the module
+    docstring.  Returns the model kernels' launch counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.spmd_psp import (GeneratorNoise, PSPConfig,
+                                           psp_init)
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    from repro_torch.launch.steps import make_grad_fn, make_psp_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(TRAIN_ARCH)
+    ticks, W = TRAIN_TICKS, TRAIN_W
+    opt = adamw(warmup_cosine(3e-3, ticks // 10 + 1, ticks))
+    params = init_model(cfg, seed=0, device=dev).tree()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    pcfg = PSPConfig(barrier="pbsp", n_workers=W, sample_size=2,
+                     staleness=3, straggler_frac=0.25)
+    batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1)
+
+    def trainer(impl):
+        noise = GeneratorNoise(1, dev)
+        return (psp_init(pcfg, params, opt.init, noise),
+                make_psp_train_step(cfg, pcfg, opt, noise, impl=impl))
+
+    # (a) the first tick's per-worker losses and (clipped) gradients: the
+    # kernels against the plain path in bf16 compute, beside the plain
+    # path's own spread between float32 and bf16 compute; and the kernels
+    # against the plain path in float32 compute (the f32 kernels), where
+    # rounding is not amplified past a tight bound
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fns = {"cuda": make_grad_fn(cfg, 1.0, "cuda"),
+           "ref": make_grad_fn(cfg, 1.0, "ref"),
+           "ref32": make_grad_fn(cfg32, 1.0, "ref"),
+           "cuda32": make_grad_fn(cfg32, 1.0, "cuda")}
+    errs = []
+    for i in range(W):
+        got = {k: fn(params, batches[0][i]) for k, fn in fns.items()}
+        (lk, gk), (lr, gr), (l32, g32), (lk32, gk32) = (got[k] for k in fns)
+        errs.append((abs(float(lk) - float(lr)), abs(float(l32) - float(lr)),
+                     tree_rel(torch, gk, gr), tree_rel(torch, gr, g32),
+                     abs(float(lk32) - float(l32)) / abs(float(l32)),
+                     tree_rel(torch, gk32, g32)))
+        del got, gk, gr, g32, gk32
+    errs = np.array(errs)
+    bound = max(2e-2, float(errs[:, 3].max()))
+    print(f"[8] tick 0, per worker (W={W}): |loss kernels − plain| "
+          f"{errs[:, 0].max():.4g} (plain bf16 − f32: {errs[:, 1].max():.4g});"
+          f" ‖g kernels − g plain‖/‖g plain‖ {errs[:, 2].max():.4g} against "
+          f"the plain path's ‖g bf16 − g f32‖/‖g f32‖ "
+          f"{errs[:, 3].max():.4g} (bound {bound:.4g}: 2e-2 or that "
+          f"spread); in float32 compute, loss {errs[:, 4].max():.3g} "
+          f"relative (bound 1e-5), ‖Δg‖/‖g‖ {errs[:, 5].max():.3g} (bound "
+          "1e-3)", flush=True)
+    if not (errs[:, 2].max() <= bound
+            and errs[:, 0].max() <= max(2e-2, errs[:, 1].max())
+            and errs[:, 4].max() <= 1e-5 and errs[:, 5].max() <= 1e-3):
+        raise AssertionError(f"kernel and plain tick 0 differ: {errs}")
+
+    # (b) one tick on the plain path: its control plane
+    st, step = trainer("ref")
+    st, _ = step(st, batches[0])
+    ctrl_ref = {f: getattr(st, f).clone() for f in CONTROL}
+    del st, step
+
+    # (c) the main path: TICK ticks through the kernels
+    torch.cuda.synchronize()
+    for m in (fa, rn):
+        m.reset_launch_count()
+    st, step = trainer("auto")
+    walls, losses, pushes = [], [], []
+    for t in range(ticks):
+        t0 = time.perf_counter()
+        st, met = step(st, batches[t])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(met["loss"])
+        pushes.append(met["pushes"])
+        if t == 0:
+            ctrl = {f: getattr(st, f).clone() for f in CONTROL}
+    got = {"flash_attention": fa.launch_count(),
+           "flash_attention_bwd": fa.bwd_launch_count(),
+           "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
+           "ssd_scan": 0}
+    L = cfg.n_layers
+    per = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+           "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1, "ssd_scan": 0}
+    want = {k: n * W * ticks for k, n in per.items()}
+    if got != want:
+        raise AssertionError(f"training launches {got}, want {want}")
+    for f in CONTROL:
+        if not torch.equal(ctrl[f], ctrl_ref[f]):
+            raise AssertionError(f"control plane {f} differs after tick 0:"
+                                 f" {ctrl[f]} vs {ctrl_ref[f]}")
+    losses = [float(x) for x in losses]
+    pushes = [int(x) for x in pushes]
+    pushed = [lo for lo, p in zip(losses, pushes) if p > 0]
+    first, last = np.mean(pushed[:4]), np.mean(pushed[-4:])
+    if not (len(pushed) >= 8 and all(map(math.isfinite, losses))
+            and last < first):
+        raise AssertionError(f"the loss did not fall: {losses}, pushes "
+                             f"{pushes}")
+    steady = walls[1:]
+    wall = sum(steady) / len(steady)
+    tokens = W * TRAIN_B * TRAIN_S
+    print(f"[8] PSP training of {cfg.name} at full width ({L} layers, d="
+          f"{cfg.d_model}, {n_params:,} params f32, {cfg.dtype} compute): "
+          f"W={W} pbsp beta=2 s=3 stragglers 0.25, {TRAIN_B}×{TRAIN_S} "
+          f"tokens per worker per tick, {ticks} ticks; launches "
+          + ", ".join(f"{k} {got[k]} = {per[k]} × {W} × {ticks}"
+                      for k in per if per[k]) + f" [{card}]", flush=True)
+    print(f"[8] loss per tick {[round(x, 4) for x in losses]}; pushes "
+          f"{pushes}; mean over the first 4 pushing ticks {first:.4f}, "
+          f"over the last 4 {last:.4f}; control plane after tick 0 == the "
+          "plain path's", flush=True)
+    median = 1e3 * float(np.median(steady))
+    print(f"[8] wall per tick {1e3 * wall:.2f} ms (ticks 2..{ticks}: their"
+          f" summed wall over their count; median {median:.2f} ms, first "
+          f"tick {1e3 * walls[0]:.2f} ms), training "
+          f"{tokens / wall:.1f} tokens/s (their {tokens * len(steady)} "
+          f"tokens over their summed wall); peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
+          f"GB [{card}]", flush=True)
+
+    # (d) the device busy share of one traced tick, against an unprofiled
+    # tick's wall
+    box = {"st": st}
+
+    def one_tick():
+        box["st"], _ = step(box["st"], batches[ticks])
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    one_tick()
+    tick_ms = 1e3 * (time.perf_counter() - t0)
+    traced = profile_device(torch, one_tick)
+    if traced:
+        busy = sum(traced.values())
+        print(f"[8] traced tick: device busy {busy:.3f} ms of an unprofiled "
+              f"tick's {tick_ms:.3f} ms wall: busy share "
+              f"{busy / tick_ms:.4f}, idle share {1 - busy / tick_ms:.4f} "
+              f"[{card}]", flush=True)
+        for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"[8]   {ms:9.3f} ms  {key[:90]}", flush=True)
+    else:
+        print("[8] traced tick: the profiler saw no device time; the busy "
+              "share is not measured", flush=True)
+    del box, st, step
+
+    # (e) where a tick's host time goes: one worker's loss and clipped
+    # gradients as trained (remat on), the same without remat, its
+    # forward alone, and the AdamW update, each on the host clock ending
+    # in a synchronize, beside the device time torch.profiler sees
+    from repro_torch.models import loss_fn
+    tok = batches[0][0]
+    grads = make_grad_fn(cfg, 1.0, "cuda")(params, tok)[1]
+    ostate = opt.init(params)
+
+    def forward():
+        with torch.no_grad():
+            loss_fn(params, {"tokens": tok}, cfg, impl="cuda")
+
+    parts = {"worker loss+grad (remat)":
+             lambda: make_grad_fn(cfg, 1.0, "cuda")(params, tok),
+             "worker loss+grad (no remat)":
+             lambda: make_grad_fn(dataclasses.replace(cfg, remat=False),
+                                  1.0, "cuda")(params, tok),
+             "worker forward": forward,
+             "AdamW update": lambda: opt.update(grads, ostate, params)}
+    split = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0)
+        dev_ms = sum(profile_device(torch, fn).values())
+        split.append(f"{name} {host:.2f} ms wall / {dev_ms:.2f} ms device")
+    print("[8] one worker's pieces: " + "; ".join(split) + f" [{card}]",
+          flush=True)
+    del grads, ostate
+
+    # (f) the launcher itself, reduced, on the card
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_ARGV], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    if run.returncode != 0 or "tick" not in run.stdout:
+        raise AssertionError(f"launch.train {TRAIN_ARGV} failed "
+                             f"({run.returncode}): {run.stderr[-2000:]}")
+    print(f"[8] python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}: "
+          f"{run.stdout.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase",
+          flush=True)
     return got
 
 
@@ -1085,18 +1582,23 @@ def main() -> int:
 
     # ---- 5. RMSNorm, flash attention and SSD against their plain versions #
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
-    entries = phase5(np, torch, dev, card) + [phase5_ssd(np, torch, dev,
-                                                         card)]
+    entries = (phase5(np, torch, dev, card)
+               + [phase5_ssd(np, torch, dev, card)]
+               + phase5_bwd(np, torch, dev, card))
 
     # ---- 6. and 7. the serving paths: qwen2-0.5b, then mamba2-780m ----- #
-    served = []
+    paths = []
     for tag, argv in ((6, SERVE_ARGV), (7, MAMBA_ARGV)):
         print(f"[{tag}] starts at {time.perf_counter() - t_start:.1f} s",
               flush=True)
-        served.append(serve_phase(np, torch, dev, card, argv, tag))
-    print(f"[7] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+        paths.append(serve_phase(np, torch, dev, card, argv, tag))
+
+    # ---- 8. PSP training of qwen2-0.5b --------------------------------- #
+    print(f"[8] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    paths.append(phase8(np, torch, dev, card))
+    print(f"[8] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
-        e["launches"] = sum(n[e["name"]] for n in served)
+        e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 
     print(json.dumps({"kernels": [{
         "name": "psp_tick", "route": "cuda",

@@ -16,5 +16,7 @@ Entry point::
 The fused sweep tick runs as a hand-written CUDA kernel
 (``kernels/csrc/psp_tick.cu``) on CUDA tensors and as its plain PyTorch
 version (:func:`repro_torch.kernels.psp_tick.psp_tick_ref`) on CPU
-tensors.
+tensors.  The LM tier serves (``python -m repro_torch.launch.serve``)
+and trains under the PSP barrier (``python -m
+repro_torch.launch.train``; :mod:`repro_torch.core.spmd_psp`).
 """

@@ -17,6 +17,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 __all__ = ["params_from_jax", "params_to_numpy", "tick_inputs_to_torch",
            "to_numpy", "to_torch"]
 
@@ -49,13 +51,6 @@ def to_numpy(tree: Dict) -> Dict[str, np.ndarray]:
                 else np.asarray(v)) for k, v in tree.items()}
 
 
-def _map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(tree: Dict, cfg, device: Any = "cpu"):
     """The reference's parameter tree → the port's model on ``device``.
 
@@ -68,7 +63,7 @@ def params_from_jax(tree: Dict, cfg, device: Any = "cpu"):
     from repro_torch.models import Model
     n_pat = len(cfg.layer_pattern)
     conv = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
-    layers = [_map(lambda a, i=i: conv(np.asarray(a)[i // n_pat]),
+    layers = [tree_map(lambda a, i=i: conv(np.asarray(a)[i // n_pat]),
                    tree["groups"][str(i % n_pat)])
               for i in range(cfg.n_layers)]
     return Model(cfg, {"embed": conv(tree["embed"]),
@@ -82,8 +77,8 @@ def params_to_numpy(model) -> Dict:
     n_pat = len(model.cfg.layer_pattern)
     num = lambda t: t.detach().cpu().numpy()
     tree = model.tree()
-    layers = [_map(num, layer) for layer in tree.pop("layers")]
-    return {**_map(num, tree),
+    layers = [tree_map(num, layer) for layer in tree.pop("layers")]
+    return {**tree_map(num, tree),
             "groups": {str(j): _stack(layers[j::n_pat])
                        for j in range(n_pat)}}
 

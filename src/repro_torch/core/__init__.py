@@ -1,5 +1,5 @@
 """PSP core of the port: barrier controls, sampling, the barrier model,
-scenario configs and the tensor sweep engine.
+scenario configs, the tensor sweep engine and the PSP trainer.
 
 * :mod:`repro_torch.core.barriers` — BSP/SSP/ASP/pBSP/pSSP and the
   adaptive policies (declarations)
@@ -10,6 +10,8 @@ scenario configs and the tensor sweep engine.
 * :mod:`repro_torch.core.sweep_plan` — stride and chunk schedule
 * :mod:`repro_torch.core.vector_sim` — batching, static state, ``run_sweep``
 * :mod:`repro_torch.core.vector_sim_torch` — the tick loop on the device
+* :mod:`repro_torch.core.spmd_psp` — PSP as a training feature: the
+  trainer's tick over W worker views
 """
 from repro_torch.core.barriers import (ASP, BSP, PBSP, PSSP, SSP,
                                        BarrierControl, make_barrier)

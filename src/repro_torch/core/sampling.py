@@ -1,7 +1,8 @@
 """The ``sampling`` primitive on tensors: β peer indices per worker.
 
 The port's counterpart of the index core of :mod:`repro.core.sampling`
-(``sample_peer_indices_jax`` / ``sample_alive_peer_indices_jax``).  Both
+(``sample_peer_indices_jax`` / ``sample_alive_peer_indices_jax`` /
+``sample_steps_jax``).  Both
 functions take their uniform noise as an input, so a fused kernel and
 this plain version can be held to the *identical* sample: one selects by
 sorting, the kernel by an equivalent rank test.
@@ -19,7 +20,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["sample_alive_peer_indices", "sample_peer_indices"]
+__all__ = ["sample_alive_peer_indices", "sample_peer_indices",
+           "sample_steps"]
 
 
 def _k_smallest(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,
@@ -93,3 +95,29 @@ def sample_alive_peer_indices(alive: torch.Tensor, beta: int, *,
     scores = torch.where(masked, torch.full_like(scores, 2.0), scores)
     vals, take = _k_smallest(scores, k)
     return take.to(torch.int32), vals < 1.5
+
+
+def sample_steps(steps: torch.Tensor, beta: int, *,
+                 exclude_self: bool = True,
+                 scores: torch.Tensor | None = None,
+                 u: torch.Tensor | None = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The β-sampled step counters of every worker, from pre-drawn noise.
+
+    ``steps`` is i32[W] or a scenario batch i32[B, W]; one index draw
+    (:func:`sample_peer_indices` on ``scores`` f32[W, W], or ``u`` f32[W]
+    when β = 1) serves every row, and the steps are gathered per row.
+
+    Returns:
+      sampled_steps: i32[W, k] (or i32[B, W, k]), k = min(β, W).
+      valid: bool of the same shape — False where β exceeded the peer
+        population.
+    """
+    W = steps.shape[-1]
+    if min(beta, W) <= 0:
+        empty = steps.new_zeros(steps.shape + (0,))
+        return empty, empty.bool()
+    take, valid = sample_peer_indices(W, beta, exclude_self=exclude_self,
+                                      scores=scores, u=u)
+    peer = steps[..., take.long()]
+    return peer, torch.broadcast_to(valid, peer.shape)

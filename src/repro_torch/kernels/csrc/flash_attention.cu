@@ -1,5 +1,8 @@
 // Flash attention, forward: the port's twin of the TPU kernel
-// src/repro/kernels/flash_attention.py:flash_attention_tpu (_kernel).
+// src/repro/kernels/flash_attention.py:flash_attention_tpu (_kernel);
+// and backward (the second half of this file): the hand-written
+// counterpart of the reference's custom VJP
+// src/repro/models/flash.py:_bwd / _bwd_triangular.
 //
 // o[b, i, h] = sum_j softmax_j(mask(cap·tanh(s/cap) or s)) v[b, j, kvh]
 // with s = scale · (q[b, i, h] · k[b, j, kvh]), kvh = h / (H / KV):
@@ -50,6 +53,12 @@
 //   a stage with one arrival once its products have read it.  A barrier
 //   wait that lasts seconds traps rather than hang the card.
 //
+// Both forward kernels write the row log-sum-exp lse (f32, (B, H, Sq),
+// natural log) when the caller passes a buffer, as the training forward
+// does for its backward: the bf16 kernel is instantiated twice (LSE = 0
+// for serving, which runs the kernel it always ran; LSE = 1 adds the
+// store after the last wgmma), the f32 kernel tests the pointer.
+//
 // float32 (flash_fwd_kernel): the first design, kept for the f32 checks
 // that need f32 products.  One block of 256 threads per (64-query tile,
 // head, batch) walks the band's 64-key tiles staged in shared memory;
@@ -65,6 +74,7 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
@@ -72,6 +82,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or nullptr
   long long sqb, sqs, sqh;  // element strides of q: batch, seq, head
   long long skb, sks, skh;
   long long svb, svs, svh;
@@ -209,6 +220,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     }
   }
 
+  if (qi < a.Sq && c == 0 && a.lse != nullptr)
+    a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qi] =
+        m + logf(fmaxf(l, 1e-30f));
   if (qi < a.Sq) {
     const float den = fmaxf(l, 1e-30f);
     float* op = static_cast<float*>(a.o) +
@@ -396,7 +410,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
           << 16);
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -642,6 +656,13 @@ __global__ void __launch_bounds__(TC_THREADS)
   l1 += __shfl_xor_sync(FULL, l1, 1);
   l1 += __shfl_xor_sync(FULL, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if constexpr (LSE) {  // m is in log2 units: lse = m·ln 2 + ln l
+    if ((lane & 3) == 0) {
+      float* lr = a.lse + (static_cast<long long>(b) * a.H + h) * a.Sq;
+      if (r0 < a.Sq) lr[r0] = m0 * LN2 + logf(d0);
+      if (r0 + 8 < a.Sq) lr[r0 + 8] = m1 * LN2 + logf(d1);
+    }
+  }
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o);
   const long long row0 = (static_cast<long long>(b) * a.Sq + r0) * a.H + h;
   const long long row1 = row0 + 8LL * a.H;
@@ -710,7 +731,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int seq,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool LSE>
 cudaError_t launch_tc(const Args& a, int B, cudaStream_t s) {
   using C = Tc<HD>;
   CUtensorMap tq, tk, tv;
@@ -719,13 +740,13 @@ cudaError_t launch_tc(const Args& a, int B, cudaStream_t s) {
       !tensor_map(&tv, a.v, B, a.Sk, a.KV, HD, a.svb, a.svs, a.svh, TC_BK))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (e != cudaSuccess) return e;
   const long long tiles = (a.Sq + 63) / 64;
   if (tiles > 65535) return cudaErrorInvalidValue;
   dim3 grid(a.H, B, static_cast<unsigned>(tiles));
-  flash_tc_kernel<HD><<<grid, TC_THREADS, C::SMEM, s>>>(tq, tk, tv, a);
+  flash_tc_kernel<HD, LSE><<<grid, TC_THREADS, C::SMEM, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -733,16 +754,18 @@ cudaError_t launch_tc(const Args& a, int B, cudaStream_t s) {
 
 // strides: the element strides (batch, seq, head) of q, k and v, in that
 // order.  ints: B, Sq, Sk, H, KV, hd, dtype (0 = float32, 1 = bfloat16),
-// causal, window (<= 0: none), device.  softcap <= 0: none.  The bf16 path needs 16-byte
-// aligned q, k, v and strides that are multiples of 8 elements (TMA).
-// Returns a cudaError_t (0 on success).
+// causal, window (<= 0: none), device.  softcap <= 0: none.  lse: a
+// float32 (B, H, Sq) buffer for the row log-sum-exp, or null.  The bf16
+// path needs 16-byte aligned q, k, v and strides that are multiples of 8
+// elements (TMA).  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, void* lse,
                                       const long long* strides,
                                       const int* ints, float softcap,
                                       float scale, void* stream) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.sqb = strides[0]; a.sqs = strides[1]; a.sqh = strides[2];
   a.skb = strides[3]; a.sks = strides[4]; a.skh = strides[5];
   a.svb = strides[6]; a.svs = strides[7]; a.svh = strides[8];
@@ -758,8 +781,396 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) e = launch_f32<64>(a, B, s);
   else if (dtype == 0 && hd == 128) e = launch_f32<128>(a, B, s);
-  else if (dtype == 1 && hd == 64) e = launch_tc<64>(a, B, s);
-  else if (dtype == 1 && hd == 128) e = launch_tc<128>(a, B, s);
+  else if (dtype == 1 && hd == 64)
+    e = a.lse ? launch_tc<64, true>(a, B, s) : launch_tc<64, false>(a, B, s);
+  else if (dtype == 1 && hd == 128)
+    e = a.lse ? launch_tc<128, true>(a, B, s)
+              : launch_tc<128, false>(a, B, s);
+  else e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// ====================================================================== //
+// Backward                                                                //
+// ====================================================================== //
+//
+// Given q, k, v, the forward's output o and row log-sum-exp lse, and the
+// cotangent do (layout as the forward's), with s_raw = scale·(q·k):
+//   Δ_i  = Σ_d do_i·o_i                          (f32)
+//   s    = cap·tanh(s_raw/cap) (softcap) or s_raw; masked: −1e30
+//   p    = exp(s − lse_i)
+//   dp   = do_i·v_j
+//   ds   = p·(dp − Δ_i) [·(1 − tanh²)] ; masked: 0
+//   dq_i = scale·Σ_j ds·k_j ;  dk_j = scale·Σ_i ds·q_i ;  dv_j = Σ_i p·do_i
+// summed over the G = H/KV query heads of a group for dk and dv (the
+// gradient of the reference's K/V repeat).  Every product in f32 on the
+// CUDA cores; dq, dk, dv in the input dtype.
+//
+// Bound on the H100: operations (2.5× the forward's products).  This is
+// the first, simple design: no tensor cores, no atomics (two runs give
+// the same bits).  Four launches:
+// * bwd_delta_kernel: Δ, one warp per (batch, query, head) row;
+// * bwd_dkdv_kernel: one block per (64-key tile, head, batch) walks the
+//   query tiles of its causal / window band, recomputing S and dP for
+//   each, and holds its keys' dk and dv for that one head in registers
+//   (f32); it writes them to per-head f32 partials (B, Sk, H, hd), so
+//   the grid has H blocks per key tile instead of KV;
+// * bwd_dq_kernel: one block per (64-query tile, head, batch) walks the
+//   key tiles of its band, recomputing S and dP, with dq in registers;
+// * bwd_reduce_kernel: dk, dv = the partials summed over each group's G
+//   heads in order, cast to the input dtype.
+// Tiles are staged in shared memory in f32 (rows padded to hd + 4 floats:
+// conflict-free float4 reads); in the products a thread owns one row of
+// the 64 × 64 score tile and every fourth column (S, dP), or one row and
+// hd / 4 columns of a 64 × hd accumulator (dq, dk, dv).
+
+namespace {
+
+constexpr int BT = 64;    // queries or keys per tile
+constexpr int BNT = 256;  // threads per block
+
+struct BwdArgs {
+  const void* q;     // (B, Sq, H, hd) contiguous
+  const void* k;     // (B, Sk, KV, hd) contiguous
+  const void* v;
+  const void* o;     // (B, Sq, H, hd)
+  const void* dout;  // (B, Sq, H, hd)
+  const float* lse;  // (B, H, Sq)
+  float* delta;      // (B, H, Sq)
+  void* dq;          // (B, Sq, H, hd)
+  float* dkp;        // (B, Sk, H, hd) f32 partials
+  float* dvp;
+  void* dk;          // (B, Sk, KV, hd)
+  void* dv;
+  int B, Sq, Sk, H, KV;
+  int causal, window;  // window <= 0: none
+  float softcap;       // <= 0: none
+  float scale;
+};
+
+__device__ __forceinline__ float ldf(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void stf(float* p, long long i, float x) { p[i] = x; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, long long i, float x) {
+  p[i] = __float2bfloat16_rn(x);
+}
+
+template <int HD>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (4 * static_cast<size_t>(BT) * (HD + 4) +
+                          2 * static_cast<size_t>(BT) * (BT + 1) + 2 * BT);
+}
+
+// rows [r0, r0 + BT) of a (batch, seq, heads, HD) tensor's head `hh`,
+// as f32, into `dst` (row stride HD + 4); rows past `seq` are zeros
+template <typename T, int HD>
+__device__ __forceinline__ void stage(float* dst, const T* src, int b,
+                                      int r0, int seq, int heads, int hh) {
+  for (int idx = threadIdx.x; idx < BT * HD; idx += BNT) {
+    const int rr = idx / HD, d = idx % HD, row = r0 + rr;
+    dst[rr * (HD + 4) + d] =
+        row < seq ? ldf(src, ((static_cast<long long>(b) * seq + row) * heads +
+                              hh) * HD + d)
+                  : 0.f;
+  }
+}
+
+// S and dP of query row `r` of the Q / dO tile against keys c + 4·jj of
+// the K / V tile; then p and ds, written to P[r][·] and dS[r][·].
+// q_i, k_j: the positions of the tile's first query and key.
+template <int HD>
+__device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
+                                       const float* dOs, const float* Ks,
+                                       const float* Vs, float lse_r,
+                                       float del_r, int q_i, int k_j, int r,
+                                       int c, float* Ps, float* dSs) {
+  constexpr int RS = HD + 4;
+  float s[BT / 4], dp[BT / 4];
+#pragma unroll
+  for (int jj = 0; jj < BT / 4; ++jj) s[jj] = dp[jj] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * RS + d]);
+    const float4 gv = *reinterpret_cast<const float4*>(&dOs[r * RS + d]);
+#pragma unroll
+    for (int jj = 0; jj < BT / 4; ++jj) {
+      const int j = c + 4 * jj;
+      const float4 kv = *reinterpret_cast<const float4*>(&Ks[j * RS + d]);
+      const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * RS + d]);
+      s[jj] = fmaf(qv.x, kv.x, s[jj]);
+      s[jj] = fmaf(qv.y, kv.y, s[jj]);
+      s[jj] = fmaf(qv.z, kv.z, s[jj]);
+      s[jj] = fmaf(qv.w, kv.w, s[jj]);
+      dp[jj] = fmaf(gv.x, vv.x, dp[jj]);
+      dp[jj] = fmaf(gv.y, vv.y, dp[jj]);
+      dp[jj] = fmaf(gv.z, vv.z, dp[jj]);
+      dp[jj] = fmaf(gv.w, vv.w, dp[jj]);
+    }
+  }
+  const int qi = q_i + r;
+#pragma unroll
+  for (int jj = 0; jj < BT / 4; ++jj) {
+    const int j = c + 4 * jj, kj = k_j + j;
+    const bool vis = qi < a.Sq && kj < a.Sk && (!a.causal || qi >= kj) &&
+                     (a.window <= 0 || qi - kj < a.window);
+    float x = s[jj] * a.scale, t = 0.f;
+    if (a.softcap > 0.f) {
+      t = tanhf(x / a.softcap);
+      x = a.softcap * t;
+    }
+    const float p = vis ? expf(x - lse_r) : 0.f;
+    float ds = p * (dp[jj] - del_r);
+    if (a.softcap > 0.f) ds = ds * (1.f - t * t);
+    Ps[r * (BT + 1) + j] = p;
+    dSs[r * (BT + 1) + j] = vis ? ds : 0.f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (BNT / 32) + (threadIdx.x >> 5);
+  const long long n = static_cast<long long>(a.B) * a.Sq * a.H;
+  if (row >= n) return;
+  const T* o = static_cast<const T*>(a.o);
+  const T* g = static_cast<const T*>(a.dout);
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32) acc += ldf(g, row * HD + d) * ldf(o, row * HD + d);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+  if (lane == 0) {  // row = (b·Sq + i)·H + h  →  delta[(b·H + h)·Sq + i]
+    const long long h = row % a.H, bi = row / a.H;
+    const long long b = bi / a.Sq, i = bi % a.Sq;
+    a.delta[(b * a.H + h) * a.Sq + i] = acc;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
+  constexpr int RS = HD + 4;
+  constexpr int DPT = HD / 4;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BT * RS;
+  float* Qs = Vs + BT * RS;
+  float* dOs = Qs + BT * RS;
+  float* Ps = dOs + BT * RS;
+  float* dSs = Ps + BT * (BT + 1);
+  float* lse_s = dSs + BT * (BT + 1);
+  float* del_s = lse_s + BT;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int k0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
+  stage<T, HD>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh);
+  stage<T, HD>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh);
+
+  float dk[DPT], dv[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) dk[i] = dv[i] = 0.f;
+
+  // the queries that see some key of this tile
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window > 0 ? min(a.Sq, k0 + BT - 1 + a.window) : a.Sq;
+  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  for (int q0 = (q_lo / BT) * BT; q0 < q_hi; q0 += BT) {
+    __syncthreads();  // the last tile's Q, dO, P, dS are no longer read
+    stage<T, HD>(Qs, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h);
+    stage<T, HD>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h);
+    if (tid < BT) {
+      const int qi = q0 + tid;
+      lse_s[tid] = qi < a.Sq ? a.lse[lrow + qi] : 0.f;
+      del_s[tid] = qi < a.Sq ? a.delta[lrow + qi] : 0.f;
+    }
+    __syncthreads();
+    scores<HD>(a, Qs, dOs, Ks, Vs, lse_s[r], del_s[r], q0, k0, r, c, Ps, dSs);
+    __syncthreads();
+    // this thread's key row r: dv += Σ_i p[i][r]·do[i], dk += Σ_i ds[i][r]·q[i]
+    for (int i = 0; i < BT; ++i) {
+      const float p = Ps[i * (BT + 1) + r], ds = dSs[i * (BT + 1) + r];
+#pragma unroll
+      for (int qd = 0; qd < HD / 16; ++qd) {
+        const float4 gv =
+            *reinterpret_cast<const float4*>(&dOs[i * RS + 16 * qd + 4 * c]);
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&Qs[i * RS + 16 * qd + 4 * c]);
+        dv[4 * qd + 0] = fmaf(p, gv.x, dv[4 * qd + 0]);
+        dv[4 * qd + 1] = fmaf(p, gv.y, dv[4 * qd + 1]);
+        dv[4 * qd + 2] = fmaf(p, gv.z, dv[4 * qd + 2]);
+        dv[4 * qd + 3] = fmaf(p, gv.w, dv[4 * qd + 3]);
+        dk[4 * qd + 0] = fmaf(ds, qv.x, dk[4 * qd + 0]);
+        dk[4 * qd + 1] = fmaf(ds, qv.y, dk[4 * qd + 1]);
+        dk[4 * qd + 2] = fmaf(ds, qv.z, dk[4 * qd + 2]);
+        dk[4 * qd + 3] = fmaf(ds, qv.w, dk[4 * qd + 3]);
+      }
+    }
+  }
+  const int kj = k0 + r;
+  if (kj < a.Sk) {
+    const long long base =
+        ((static_cast<long long>(b) * a.Sk + kj) * a.H + h) * HD;
+#pragma unroll
+    for (int qd = 0; qd < HD / 16; ++qd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a.dkp[base + 16 * qd + 4 * c + e] = dk[4 * qd + e] * a.scale;
+        a.dvp[base + 16 * qd + 4 * c + e] = dv[4 * qd + e];
+      }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
+  constexpr int RS = HD + 4;
+  constexpr int DPT = HD / 4;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BT * RS;
+  float* Qs = Vs + BT * RS;
+  float* dOs = Qs + BT * RS;
+  float* Ps = dOs + BT * RS;
+  float* dSs = Ps + BT * (BT + 1);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int q0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
+  stage<T, HD>(Qs, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h);
+  stage<T, HD>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h);
+  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const int qi = q0 + r;
+  const float lse_r = qi < a.Sq ? a.lse[lrow + qi] : 0.f;
+  const float del_r = qi < a.Sq ? a.delta[lrow + qi] : 0.f;
+
+  float dq[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) dq[i] = 0.f;
+
+  // the band of keys this tile can see, in whole key tiles
+  const int q_last = min(q0 + BT, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  const int k_begin = a.window > 0 ? (max(0, q0 - a.window + 1) / BT) * BT : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += BT) {
+    __syncthreads();  // the last tile's K, V are no longer read
+    stage<T, HD>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh);
+    stage<T, HD>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh);
+    __syncthreads();
+    scores<HD>(a, Qs, dOs, Ks, Vs, lse_r, del_r, q0, k0, r, c, Ps, dSs);
+    __syncwarp();  // row r's dS is written and read by its own warp
+    for (int j = 0; j < BT; ++j) {
+      const float ds = dSs[r * (BT + 1) + j];
+#pragma unroll
+      for (int qd = 0; qd < HD / 16; ++qd) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(&Ks[j * RS + 16 * qd + 4 * c]);
+        dq[4 * qd + 0] = fmaf(ds, kv.x, dq[4 * qd + 0]);
+        dq[4 * qd + 1] = fmaf(ds, kv.y, dq[4 * qd + 1]);
+        dq[4 * qd + 2] = fmaf(ds, kv.z, dq[4 * qd + 2]);
+        dq[4 * qd + 3] = fmaf(ds, kv.w, dq[4 * qd + 3]);
+      }
+    }
+  }
+  if (qi < a.Sq) {
+    T* out = static_cast<T*>(a.dq);
+    const long long base =
+        ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * HD;
+#pragma unroll
+    for (int qd = 0; qd < HD / 16; ++qd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        stf(out, base + 16 * qd + 4 * c + e, dq[4 * qd + e] * a.scale);
+  }
+}
+
+// dk, dv (B, Sk, KV, HD) = the per-head partials summed over each
+// group's G heads in order
+template <typename T, int HD>
+__global__ void __launch_bounds__(BNT) bwd_reduce_kernel(BwdArgs a) {
+  const int G = a.H / a.KV;
+  const long long n = static_cast<long long>(a.B) * a.Sk * a.KV * HD;
+  for (long long idx = static_cast<long long>(blockIdx.x) * BNT + threadIdx.x;
+       idx < n; idx += static_cast<long long>(gridDim.x) * BNT) {
+    const long long d = idx % HD, rest = idx / HD;
+    const long long kvh = rest % a.KV, bs = rest / a.KV;
+    const long long src = (bs * a.H + kvh * G) * HD + d;
+    float sk = 0.f, sv = 0.f;
+    for (int g = 0; g < G; ++g) {
+      sk += a.dkp[src + static_cast<long long>(g) * HD];
+      sv += a.dvp[src + static_cast<long long>(g) * HD];
+    }
+    stf(static_cast<T*>(a.dk), idx, sk);
+    stf(static_cast<T*>(a.dv), idx, sv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
+  constexpr size_t smem = bwd_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_dq_kernel<T, HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
+  const long long dblocks = (rows + BNT / 32 - 1) / (BNT / 32);
+  if (dblocks > 2147483647LL) return cudaErrorInvalidValue;
+  bwd_delta_kernel<T, HD><<<static_cast<unsigned>(dblocks), BNT, 0, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dkdv_kernel<T, HD>
+      <<<dim3((a.Sk + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dq_kernel<T, HD>
+      <<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_reduce_kernel<T, HD><<<264, BNT, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: q, k, v, o, do, lse, delta (scratch), dq, dk_partial, dv_partial
+// (scratch), dk, dv.  q, o, do, dq: (B, Sq, H, hd) contiguous; k, v, dk,
+// dv: (B, Sk, KV, hd) contiguous; lse, delta: (B, H, Sq) float32; the
+// partials (B, Sk, H, hd) float32.  ints: B, Sq, Sk, H, KV, hd, dtype
+// (0 = float32, 1 = bfloat16), causal, window (<= 0: none), device.
+// softcap <= 0: none.  Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_bwd_launch(void* const* ptrs, const int* ints,
+                                          float softcap, float scale,
+                                          void* stream) {
+  BwdArgs a;
+  a.q = ptrs[0]; a.k = ptrs[1]; a.v = ptrs[2]; a.o = ptrs[3];
+  a.dout = ptrs[4];
+  a.lse = static_cast<const float*>(ptrs[5]);
+  a.delta = static_cast<float*>(ptrs[6]);
+  a.dq = ptrs[7];
+  a.dkp = static_cast<float*>(ptrs[8]);
+  a.dvp = static_cast<float*>(ptrs[9]);
+  a.dk = ptrs[10]; a.dv = ptrs[11];
+  a.B = ints[0]; a.Sq = ints[1]; a.Sk = ints[2]; a.H = ints[3];
+  a.KV = ints[4];
+  const int hd = ints[5], dtype = ints[6];
+  a.causal = ints[7]; a.window = ints[8];
+  a.softcap = softcap; a.scale = scale;
+  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.KV < 1 || a.H % a.KV != 0 ||
+      a.B > 65535 || a.H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(ints[9]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 64) e = launch_bwd<float, 64>(a, s);
+  else if (dtype == 0 && hd == 128) e = launch_bwd<float, 128>(a, s);
+  else if (dtype == 1 && hd == 64) e = launch_bwd<__nv_bfloat16, 64>(a, s);
+  else if (dtype == 1 && hd == 128) e = launch_bwd<__nv_bfloat16, 128>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -1,5 +1,9 @@
-// RMSNorm over the trailing axis, forward: the port's twin of the TPU
-// kernel src/repro/kernels/rmsnorm.py:rmsnorm_tpu (_kernel).
+// RMSNorm over the trailing axis, forward and backward.  The forward is
+// the port's twin of the TPU kernel
+// src/repro/kernels/rmsnorm.py:rmsnorm_tpu (_kernel); the backward
+// (rmsnorm_bwd_launch, at the end of this file) is the hand-written
+// counterpart of the reference model's custom VJP
+// src/repro/models/layers.py:_rms_bwd.
 //
 //   m = 1 / sqrt(mean(f32(x)^2) + eps)
 //   y = cast(f32(x) * m * f32(w))                   (round_scale = 0)
@@ -124,8 +128,8 @@ __device__ __forceinline__ uint4 scale_vec(const uint4& u, const Gain<T>& g,
 template <typename T, int NV>
 __global__ void __launch_bounds__(THREADS)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ y, long long rows, int D, int wpr, float eps,
-               int round_scale) {
+               T* __restrict__ y, float* __restrict__ mout, long long rows,
+               int D, int wpr, float eps, int round_scale) {
   constexpr int VEC = 16 / sizeof(T);
   __shared__ float part[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -172,6 +176,7 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
   if (!live) return;
   const float m = 1.0f / sqrtf(ss / static_cast<float>(D) + eps);
+  if (mout != nullptr && t == 0) mout[row] = m;  // for the backward
 
   if constexpr (NV > 0) {
     const int nvec = D / VEC;
@@ -192,21 +197,23 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 template <typename T, int NV>
-cudaError_t go(const void* x, const void* w, void* y, long long rows, int D,
-               int wpr, float eps, int round_scale, cudaStream_t s) {
+cudaError_t go(const void* x, const void* w, void* y, float* mout,
+               long long rows, int D, int wpr, float eps, int round_scale,
+               cudaStream_t s) {
   const long long per = WARPS / wpr;
   const long long blocks = (rows + per - 1) / per;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   rmsnorm_kernel<T, NV><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<T*>(y), rows, D, wpr, eps, round_scale);
+      static_cast<T*>(y), mout, rows, D, wpr, eps, round_scale);
   return cudaGetLastError();
 }
 
 // Choose warps per row and vectors per thread, then launch.
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* y, long long rows,
-                   int D, float eps, int round_scale, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* w, void* y, float* mout,
+                   long long rows, int D, float eps, int round_scale,
+                   cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
@@ -224,20 +231,22 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
     nv = (nvec + 32 * wpr - 1) / (32 * wpr);
   }
   if (!aligned || nv > NV_MAX)
-    return go<T, 0>(x, w, y, rows, D, wpr, eps, round_scale, s);
-  if (nv <= 1) return go<T, 1>(x, w, y, rows, D, wpr, eps, round_scale, s);
-  if (nv <= 2) return go<T, 2>(x, w, y, rows, D, wpr, eps, round_scale, s);
-  if (nv <= 4) return go<T, 4>(x, w, y, rows, D, wpr, eps, round_scale, s);
-  if (nv <= 8) return go<T, 8>(x, w, y, rows, D, wpr, eps, round_scale, s);
-  return go<T, 16>(x, w, y, rows, D, wpr, eps, round_scale, s);
+    return go<T, 0>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
+  if (nv <= 1) return go<T, 1>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
+  if (nv <= 2) return go<T, 2>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
+  if (nv <= 4) return go<T, 4>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
+  if (nv <= 8) return go<T, 8>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
+  return go<T, 16>(x, w, y, mout, rows, D, wpr, eps, round_scale, s);
 }
 
 }  // namespace
 
 // x, y: (rows, D) contiguous, dtype 0 = float32, 1 = bfloat16; w: (D,)
 // float32; round_scale: 0 the TPU kernel's form, 1 the reference model's
-// (see the header).  Returns a cudaError_t (0 on success).
-extern "C" int rmsnorm_launch(const void* x, const void* w, void* y,
+// (see the header); m: a float32 (rows,) buffer for each row's m (the
+// backward's residual, as _rms_fwd saves it), or null.  Returns a
+// cudaError_t (0 on success).
+extern "C" int rmsnorm_launch(const void* x, const void* w, void* y, void* m,
                               long long rows, int D, int dtype, float eps,
                               int round_scale, int device, void* stream) {
   if (rows < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -245,11 +254,147 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* y,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(x, w, y, rows, D, eps,
-                                          round_scale, s));
+    return static_cast<int>(launch<float>(x, w, y, static_cast<float*>(m),
+                                          rows, D, eps, round_scale, s));
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(x, w, y, rows, D, eps,
-                                                  round_scale, s));
+    return static_cast<int>(launch<__nv_bfloat16>(
+        x, w, y, static_cast<float*>(m), rows, D, eps, round_scale, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+// ====================================================================== //
+// Backward (the reference model's _rms_bwd, round_scale form)             //
+// ====================================================================== //
+//
+// With the forward's m (its residual, as _rms_fwd saves it) and
+// gs = f32(g)·w:
+//   inner = Σ_j f32(cast(gs_j))·f32(x_j)            (f32)
+//   coeff = (m·m·m / D)·inner                        (f32)
+//   dx    = cast(m·gs) − cast(cast(coeff)·x)         (bf16: each op rounds)
+//   dx    = m·gs − coeff·x                           (float32)
+//   dw    = Σ_rows f32(cast(f32(g)·m))·f32(x)        (f32)
+// exactly the roundings of _rms_bwd (the products of two bf16 values are
+// exact in f32).
+//
+// Bound on the H100: bytes.  dx reads x and g once and writes dx once;
+// dw is a column sum over all rows of the same inputs.  The design, simple
+// and deterministic (no atomics, the same bits every run):
+// * bwd_rows_kernel: 4 warps a block, one row at a time per warp, RPB
+//   rows a block; a row is read twice (its inner sum, then dx), the
+//   second time from L1/L2; each warp adds its rows' t·x into its own f32 row of dw in
+//   shared memory (a lane owns columns lane, lane + 32, ...), then the
+//   block sums its 4 warp rows in order into partial[block] (f32);
+// * bwd_cols_kernel: dw[c] = Σ_block partial[block][c] in block order.
+
+constexpr int BWD_WARPS = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
+bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                const T* __restrict__ g, const float* __restrict__ mrow,
+                T* __restrict__ dx, float* __restrict__ partial,
+                long long rows, int D, int rpb) {
+  extern __shared__ float acc[];  // [BWD_WARPS][D]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* mine = acc + static_cast<long long>(warp) * D;
+  for (int c = lane; c < D; c += 32) mine[c] = 0.f;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rpb;
+  const long long r1 = min(r0 + rpb, rows);
+  for (long long r = r0 + warp; r < r1; r += BWD_WARPS) {
+    const T* xr = x + r * D;
+    const T* gr = g + r * D;
+    T* dr = dx + r * D;
+    float inner = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float gs = to_f(gr[c]) * w[c];
+      inner += to_f(from_f<T>(gs)) * to_f(xr[c]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) inner += __shfl_xor_sync(FULL, inner, o);
+    const float m = mrow[r];
+    const float coeff = (m * m * m / static_cast<float>(D)) * inner;
+    for (int c = lane; c < D; c += 32) {
+      const float xv = to_f(xr[c]);
+      const float gv = to_f(gr[c]);
+      const float gs = gv * w[c];
+      if constexpr (sizeof(T) == 2) {
+        const float a = to_f(from_f<T>(m * gs));
+        const float b = to_f(from_f<T>(to_f(from_f<T>(coeff)) * xv));
+        dr[c] = from_f<T>(a - b);
+      } else {
+        dr[c] = from_f<T>(m * gs - coeff * xv);
+      }
+      mine[c] += to_f(from_f<T>(gv * m)) * xv;
+    }
+  }
+  __syncthreads();
+  float* out = partial + static_cast<long long>(blockIdx.x) * D;
+  for (int c = threadIdx.x; c < D; c += 32 * BWD_WARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < BWD_WARPS; ++j) s += acc[j * D + c];
+    out[c] = s;
+  }
+}
+
+__global__ void bwd_cols_kernel(const float* __restrict__ partial,
+                                float* __restrict__ dw, int nblocks, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  for (int j = 0; j < nblocks; ++j)
+    s += partial[static_cast<long long>(j) * D + c];
+  dw[c] = s;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* g,
+                       const void* m, void* dx, void* partial, void* dw,
+                       long long rows, int D, int rpb, cudaStream_t s) {
+  const long long blocks = (rows + rpb - 1) / rpb;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * BWD_WARPS * static_cast<size_t>(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  bwd_rows_kernel<T><<<static_cast<unsigned>(blocks), 32 * BWD_WARPS, smem,
+                       s>>>(static_cast<const T*>(x),
+                            static_cast<const float*>(w),
+                            static_cast<const T*>(g),
+                            static_cast<const float*>(m), static_cast<T*>(dx),
+                            static_cast<float*>(partial), rows, D, rpb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_cols_kernel<<<(D + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw),
+      static_cast<int>(blocks), D);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Backward of the round_scale form.  x, g, dx: (rows, D) contiguous, dtype
+// 0 = float32, 1 = bfloat16; w: (D,) float32; m: (rows,) float32, the
+// forward's; partial: ceil(rows / rpb) × D float32 scratch; dw: (D,)
+// float32.  rpb: rows per block.  Returns a cudaError_t (0 on success).
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* g,
+                                  const void* m, void* dx, void* partial,
+                                  void* dw, long long rows, int D, int rpb,
+                                  int dtype, int device, void* stream) {
+  if (rows < 1 || D < 1 || rpb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_bwd<float>(x, w, g, m, dx, partial, dw,
+                                              rows, D, rpb, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_bwd<__nv_bfloat16>(x, w, g, m, dx, partial,
+                                                      dw, rows, D, rpb, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,6 +23,26 @@ repeated, and the layout is the model's (sequence before heads).
   softmax weights P to bfloat16 before P·V, where the plain version and
   the TPU kernel keep them in float32 (a relative error of about 2⁻⁹
   per weight); in float32 it runs on the CUDA cores in float32.
+
+Both take ``return_lse=True`` (the training forward): they then also
+return the row log-sum-exp ``lse`` (float32 ``(B, H, Sq)``) that the
+backward reads.  Serving passes no ``lse`` buffer and runs the kernel it
+always ran.
+
+The backward (the reference's custom VJP ``repro.models.flash._bwd`` /
+``_bwd_triangular``), given o, lse and the cotangent ``do``: with
+``Δ = rowsum(do ⊙ o)``, ``p = exp(s − lse)``, ``ds = p ⊙ (do·vᵀ − Δ)``
+(times ``1 − tanh²(s_raw/cap)`` under a softcap, 0 where masked),
+``dq = scale·ds·k``, ``dk = scale·dsᵀ·q`` and ``dv = pᵀ·do``, dk and dv
+summed over each group's query heads, all in float32 and returned in
+q's dtype:
+
+* :func:`attention_bwd_ref` — plain PyTorch; what CPU tensors get.
+* :func:`flash_attention_bwd_cuda` — the hand-written kernel (second
+  half of ``kernels/csrc/flash_attention.cu``): Δ, then dk/dv per
+  (key tile, head) over the query tiles of the band, dq per (query
+  tile, head) over the key tiles, then dk/dv summed over the group's
+  heads in order; f32 on the CUDA cores, no atomics.
 """
 from __future__ import annotations
 
@@ -33,21 +53,39 @@ from typing import Optional
 
 import torch
 
-__all__ = ["HEAD_DIMS", "attention_ref", "flash_attention_cuda",
-           "launch_count", "reset_launch_count", "tma_strides"]
+__all__ = ["HEAD_DIMS", "attention_bwd_ref", "attention_ref",
+           "bwd_launch_count", "flash_attention_bwd_cuda",
+           "flash_attention_cuda", "launch_count", "reset_launch_count",
+           "tma_strides"]
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128)
 
 _LAUNCHES = 0
+_BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
 
+def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """bool (Sq, Sk): which keys each query sees."""
+    qa = torch.arange(Sq, device=device)[:, None]
+    ka = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= qa >= ka
+    if window is not None:
+        mask &= (qa - ka) < window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  softcap: Optional[float] = None) -> torch.Tensor:
-    """Plain attention, grouped-query layout (see the module docstring)."""
+                  softcap: Optional[float] = None,
+                  return_lse: bool = False):
+    """Plain attention, grouped-query layout (see the module docstring);
+    with ``return_lse`` also the row log-sum-exp (f32 ``(B, H, Sq)``)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -55,17 +93,47 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qa = torch.arange(Sq, device=q.device)[:, None]
-    ka = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qa >= ka
-    if window is not None:
-        mask &= (qa - ka) < window
-    s = s.masked_fill(~mask, _NEG)
+    s = s.masked_fill(~_mask(Sq, Sk, causal, window, q.device), _NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    o = o.reshape(B, Sq, H, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None):
+    """Plain backward (see the module docstring): (dq, dk, dv) in q's
+    dtype, from the forward's output ``o`` and ``lse`` (f32
+    ``(B, H, Sq)``) and the cotangent ``do`` of o."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    dog = do.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    s = s.masked_fill(~mask, _NEG)
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    delta = (dog * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds.masked_fill(~mask, 0.0)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def launch_count() -> int:
@@ -74,10 +142,17 @@ def launch_count() -> int:
     return _LAUNCHES
 
 
+def bwd_launch_count() -> int:
+    """Calls of :func:`flash_attention_bwd_cuda` (four launches each)
+    since the last reset."""
+    return _BWD_LAUNCHES
+
+
 def reset_launch_count() -> None:
-    """Set the launch count of :func:`flash_attention_cuda` to 0."""
-    global _LAUNCHES
-    _LAUNCHES = 0
+    """Set the launch counts of :func:`flash_attention_cuda` and
+    :func:`flash_attention_bwd_cuda` to 0."""
+    global _LAUNCHES, _BWD_LAUNCHES
+    _LAUNCHES = _BWD_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,9 +163,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.flash_attention_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -157,7 +237,8 @@ def tma_strides(name: str, x: torch.Tensor):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, *, causal: bool = True,
                          window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
+                         softcap: Optional[float] = None,
+                         return_lse: bool = False):
     """The CUDA kernel: same contract as :func:`attention_ref`.
 
     ``q``, ``k``, ``v`` are CUDA tensors of one dtype (float32 or
@@ -167,8 +248,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     its batch, seq and head strides must be multiples of 8 elements, as
     the model's contiguous q, k and v are (see :func:`tma_strides`);
     other strides raise instead of taking a slower path.  Returns a new
-    contiguous ``(B, Sq, H, hd)`` tensor.  Raises on any other input and
-    if the launch fails; there is no fallback.
+    contiguous ``(B, Sq, H, hd)`` tensor, and with ``return_lse`` the
+    row log-sum-exp (float32 ``(B, H, Sq)``) too.  Raises on any other
+    input and if the launch fails; there is no fallback.
     """
     global _LAUNCHES
     from repro_torch.kernels import _build
@@ -185,17 +267,72 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     else:
         st = [s for x in (q, k, v) for s in x.stride()[:3]]
     o = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_longlong * 9)(*st)
     ints = (ctypes.c_int * 10)(B, Sq, Sk, H, KV, hd, _DTYPES[q.dtype],
                                int(causal), window or 0,
                                q.device.index or 0)
     lib = _lib()
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if return_lse else None, strides,
         ints, float(softcap or 0.0), float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention_cuda: launch failed: "
                            + _build.error_string(lib, err))
     _LAUNCHES += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None):
+    """The backward kernel: same contract as :func:`attention_bwd_ref`.
+
+    q, k, v, o, do are CUDA tensors of one dtype (float32 or bfloat16,
+    made contiguous here) with a head dim of 64 or 128; ``lse`` float32
+    ``(B, H, Sq)``.  Returns new (dq, dk, dv).  Raises on any other input
+    and if a launch fails; there is no fallback.
+    """
+    global _BWD_LAUNCHES
+    from repro_torch.kernels import _build
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} "
+                             f"{x.dtype}{tuple(x.shape)} does not fit q")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError("flash_attention_bwd_cuda: lse must be float32 "
+                         f"{(B, H, Sq)} on {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_bwd_cuda: window {window} < 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention_bwd_cuda: softcap {softcap} <= 0")
+    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty(B, H, Sq, **f32)
+    dkp = torch.empty(B, Sk, H, hd, **f32)
+    dvp = torch.empty(B, Sk, H, hd, **f32)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in (
+        q, k, v, o, do, lse, delta, dq, dkp, dvp, dk, dv)))
+    ints = (ctypes.c_int * 10)(B, Sq, Sk, H, KV, hd, _DTYPES[q.dtype],
+                               int(causal), window or 0, q.device.index or 0)
+    lib = _lib()
+    err = lib.flash_attention_bwd_launch(
+        ptrs, ints, float(softcap or 0.0), float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd_cuda: launch failed: "
+                           + _build.error_string(lib, err))
+    _BWD_LAUNCHES += 1
+    return dq, dk, dv

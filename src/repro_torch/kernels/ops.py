@@ -16,6 +16,15 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
   rounded before the product) (:mod:`repro_torch.kernels.rmsnorm`);
 * :func:`ssd` — the Mamba-2 chunked SSD scan, with its final state
   (:mod:`repro_torch.kernels.ssd_scan`).
+
+:func:`attention` and :func:`rmsnorm` (its ``round_scale=True`` form)
+are differentiable: when autograd records (grad enabled and an input
+requires grad) they run as a ``torch.autograd.Function`` whose forward
+is the kernel or plain version above (the attention forward then also
+returns the row log-sum-exp) and whose backward is the backward kernel
+(``flash_attention_bwd_cuda``, ``rmsnorm_bwd_cuda``) or its plain
+version, chosen by the same rule.  Otherwise (serving) they are the
+forward alone, as before.  ``round_scale=False`` has no backward.
 """
 from __future__ import annotations
 
@@ -23,10 +32,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_ref,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
+                                         rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
 
 __all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "ssd", "use_kernel"]
@@ -64,14 +76,63 @@ def psp_tick(state, rand, params, t, leave_n, join_n, *, k_max: int,
               has_churn=has_churn, masked=masked, adaptive=adaptive)
 
 
+def _records(*xs: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``xs``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with the flash backward (kernel or plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kernel):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        fn = flash_attention_cuda if kernel else attention_ref
+        o, lse = fn(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.kernel = kw, kernel
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        fn = flash_attention_bwd_cuda if ctx.kernel else attention_bwd_ref
+        dq, dk, dv = fn(*ctx.saved_tensors, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The model's RMSNorm (``round_scale=True``) with the reference
+    model's VJP (kernel or plain version); the forward keeps each row's
+    m for it, as ``_rms_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, kernel):
+        fn = rmsnorm_cuda if kernel else rmsnorm_ref
+        y, m = fn(x, w, eps, True, return_m=True)
+        ctx.save_for_backward(x, w, m)
+        ctx.kernel = kernel
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, m = ctx.saved_tensors
+        fn = rmsnorm_bwd_cuda if ctx.kernel else rmsnorm_bwd_ref
+        dx, dw = fn(x, w, g, m)
+        return dx, dw.to(w.dtype), None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
               impl: str = "auto") -> torch.Tensor:
-    """Forward attention: q ``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)`` →
+    """Attention: q ``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)`` →
     ``(B, Sq, H, hd)`` in q's dtype (see
-    :mod:`repro_torch.kernels.flash_attention`)."""
-    fn = flash_attention_cuda if use_kernel(impl, q.device) else attention_ref
+    :mod:`repro_torch.kernels.flash_attention`); differentiable when
+    autograd records."""
+    kernel = use_kernel(impl, q.device)
+    if _records(q, k, v):
+        return _Attention.apply(q, k, v, causal, window, softcap, kernel)
+    fn = flash_attention_cuda if kernel else attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
@@ -79,8 +140,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             round_scale: bool = False, impl: str = "auto") -> torch.Tensor:
     """RMS-normalise the trailing axis of ``x`` with gain ``w``;
     ``round_scale`` picks the form (see
-    :mod:`repro_torch.kernels.rmsnorm`)."""
-    fn = rmsnorm_cuda if use_kernel(impl, x.device) else rmsnorm_ref
+    :mod:`repro_torch.kernels.rmsnorm`); the ``round_scale=True`` form is
+    differentiable when autograd records."""
+    kernel = use_kernel(impl, x.device)
+    if _records(x, w):
+        if not round_scale:
+            raise NotImplementedError("rmsnorm(round_scale=False) has no "
+                                      "backward (the reference model's VJP "
+                                      "is the round_scale=True form's)")
+        return _RMSNorm.apply(x, w, eps, kernel)
+    fn = rmsnorm_cuda if kernel else rmsnorm_ref
     return fn(x, w, eps, round_scale)
 
 

@@ -2,10 +2,10 @@
 for Mamba-2 ``ssd`` blocks (mamba2-780m)."""
 from repro_torch.models.transformer import (Block, Model, SSDBlock,
                                             cache_defs, decode_step, forward,
-                                            init_cache, init_model,
-                                            model_defs, prefill,
-                                            unembed_matrix)
+                                            forward_train, init_cache,
+                                            init_model, loss_fn, model_defs,
+                                            prefill, unembed_matrix)
 
 __all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
-           "forward", "init_cache", "init_model", "model_defs", "prefill",
-           "unembed_matrix"]
+           "forward", "forward_train", "init_cache", "init_model",
+           "loss_fn", "model_defs", "prefill", "unembed_matrix"]

@@ -1,13 +1,15 @@
-"""Shared neural layers: RMSNorm, soft-capping, RoPE, the MLP, embedding.
+"""Shared neural layers: RMSNorm, soft-capping, RoPE, the MLP, embedding,
+the chunked cross-entropy.
 
-The port's counterpart of :mod:`repro.models.layers`, forward only (the
-custom VJP of ``rmsnorm`` comes with the training slice).  Every RMSNorm
+The port's counterpart of :mod:`repro.models.layers`.  Every RMSNorm
 goes through :func:`repro_torch.kernels.ops.rmsnorm` in the reference
 model's form (``round_scale=True``: in bfloat16 the scale is rounded
 before the product, as ``repro.models.layers._rms_fwd`` rounds it), so
-on the card it is the CUDA kernel.
+on the card it is the CUDA kernel, and under autograd its backward is
+the reference's custom VJP (``_rms_bwd``) as a CUDA kernel too.
 Weights arrive in the compute dtype (see
-:meth:`repro_torch.models.transformer.Model.weights`).
+:meth:`repro_torch.models.transformer.Model.weights` and the training
+forward).
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef, torch_dtype
 
-__all__ = ["apply_rope", "embed_tokens", "mlp_apply", "mlp_defs", "rmsnorm",
-           "rope", "rope_angles", "softcap"]
+__all__ = ["apply_rope", "chunked_cross_entropy", "embed_tokens",
+           "mlp_apply", "mlp_defs", "rmsnorm", "rope", "rope_angles",
+           "softcap"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
@@ -111,3 +115,39 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=x.dtype)
     return x
+
+
+def _ce_chunk(hb: torch.Tensor, lb: torch.Tensor, unembed: torch.Tensor,
+              cap: Optional[float]) -> torch.Tensor:
+    """Σ of (logsumexp − gold logit) over one chunk's valid labels (f32)."""
+    logits = softcap((hb @ unembed).float(), cap)           # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lb.clamp_min(0).long()[..., None])[..., 0]
+    return torch.where(lb >= 0, logz - gold, 0.0).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, labels: torch.Tensor,
+                          unembed: torch.Tensor, cfg,
+                          chunk: int = 512) -> torch.Tensor:
+    """Causal-LM loss without materialising the full (B, S, V) logits.
+
+    h: (B, S, D) hidden states aligned so h[:, i] predicts labels[:, i];
+    unembed: (D, V), cast to h's dtype.  S is padded to a chunk multiple
+    with label −1 (masked out); each chunk's logits (optionally
+    soft-capped) are recomputed in the backward (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint``), so at most one chunk's are alive.
+    Returns the mean over B·S (f32).
+    """
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    u = unembed.to(h.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S + pad, chunk):
+        total = total + checkpoint(_ce_chunk, h[:, i:i + chunk],
+                                   labels[:, i:i + chunk], u,
+                                   cfg.logit_softcap, use_reentrant=False)
+    return total / (B * S)

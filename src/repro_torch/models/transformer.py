@@ -12,7 +12,7 @@ the reference's shapes (``wq`` is ``(d, h, hd)``, ``in_proj``
 reference's stacked layer axis.  Matrix weights are cast once to the
 compute dtype and kept beside the parameters (``weights``).
 
-Entry points, all forward only and without autograd:
+Serving entry points, forward only and without autograd:
 
 * :func:`forward` — hidden states for ``mode`` "train" (teacher-forced,
   no cache), "prefill" (returns a cache) or "decode" (reads the cache;
@@ -20,6 +20,20 @@ Entry points, all forward only and without autograd:
   states);
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
+
+Training entry points, functional and differentiable (``attn`` stacks;
+training an ``ssd`` stack needs the SSD backward, still to port):
+
+* :func:`forward_train` — hidden states of a **parameter tree** of
+  tensors (:meth:`Model.tree` layout), so that a worker's view goes
+  straight in, as in the reference.  Weights are cast to the compute
+  dtype on every call, inside the autograd graph: the serving memo
+  (``weights``, ``unembed``) holds detached casts, whose gradient would
+  silently be zero, and never serves this path.  With ``cfg.remat``
+  each block is recomputed in the backward (``torch.utils.checkpoint``,
+  the reference's ``jax.checkpoint`` of its layer body);
+* :func:`loss_fn` — the causal-LM loss over it (chunked cross-entropy
+  against the tied unembedding).
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
 :mod:`repro_torch.kernels.ops`).  Stacks that mix block kinds, other
@@ -32,15 +46,17 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, ssm
-from repro_torch.models.layers import (embed_tokens, mlp_apply, mlp_defs,
-                                       rmsnorm, rope_angles, softcap)
+from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
+                                       mlp_apply, mlp_defs, rmsnorm,
+                                       rope_angles, softcap)
 from repro_torch.models.params import ParamDef, init_params, torch_dtype
 
 __all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
-           "forward", "init_cache", "init_model", "model_defs", "prefill",
-           "unembed_matrix"]
+           "forward", "forward_train", "init_cache", "init_model",
+           "loss_fn", "model_defs", "prefill", "unembed_matrix"]
 
 Cache = Dict[str, Any]
 
@@ -138,17 +154,25 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Apply the block (``rot``: the RoPE (cos, sin) of x's
         positions); returns (x, this layer's new cache or None)."""
-        cfg = self.cfg
-        w = self.weights(x.dtype)
-        eps, gn = cfg.norm_eps, cfg.gemma_norm
-        h = rmsnorm(x, self.ln1, eps, gn, impl)
-        a, c = attention.attn_apply(w["attn"], h, cfg=cfg, rot=rot,
-                                    length=length,
-                                    cache=cache, mode=mode, max_len=max_len,
-                                    impl=impl)
-        x = x + a
-        h = rmsnorm(x, self.ln2, eps, gn, impl)
-        return x + mlp_apply(w["mlp"], h, cfg), c
+        return _attn_block(x, self.ln1, self.ln2, self.weights(x.dtype),
+                           self.cfg, rot=rot, length=length, cache=cache,
+                           mode=mode, max_len=max_len, impl=impl)
+
+
+def _attn_block(x: torch.Tensor, ln1: torch.Tensor, ln2: torch.Tensor,
+                w: Dict[str, Dict], cfg, *, rot, length: Optional[int],
+                cache: Optional[Dict], mode: str, max_len: Optional[int],
+                impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x + attn(ln1(x)); x + mlp(ln2(x)), with the attention and MLP
+    weights ``w`` in x's dtype; returns (x, the layer's new cache)."""
+    eps, gn = cfg.norm_eps, cfg.gemma_norm
+    h = rmsnorm(x, ln1, eps, gn, impl)
+    a, c = attention.attn_apply(w["attn"], h, cfg=cfg, rot=rot,
+                                length=length, cache=cache, mode=mode,
+                                max_len=max_len, impl=impl)
+    x = x + a
+    h = rmsnorm(x, ln2, eps, gn, impl)
+    return x + mlp_apply(w["mlp"], h, cfg), c
 
 
 #: the parameters of an ``ssd`` block that stay float32 (the reference
@@ -346,3 +370,49 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
     and the advanced ``length``."""
     h, new_cache = model(tokens, cache=cache, mode="decode", impl=impl)
     return _head(h[:, -1], model), new_cache
+
+
+def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg,
+                 impl: str) -> torch.Tensor:
+    """One ``attn`` block on layer parameters ``lp`` (f32), the matrix
+    weights cast to x's dtype here, in the graph."""
+    w = {g: {k: v.to(x.dtype) for k, v in lp[g].items()}
+         for g in ("attn", "mlp")}
+    return _attn_block(x, lp["ln1"], lp["ln2"], w, cfg, rot=rot, length=None,
+                       cache=None, mode="train", max_len=None, impl=impl)[0]
+
+
+def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """Final hidden states (B, T, D) of ``tokens`` (B, T) under the
+    parameter tree ``params``, differentiable (see the module
+    docstring)."""
+    check_supported(cfg)
+    if "ssd" in cfg.layer_kinds():
+        raise NotImplementedError("training an ssd stack needs the SSD "
+                                  f"backward: {_TODO}")
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    for lp in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(_train_block, lp, x, rot, cfg, impl,
+                           use_reentrant=False)
+        else:
+            x = _train_block(lp, x, rot, cfg, impl)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.gemma_norm,
+                   impl)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg, *,
+            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+    """Causal-LM loss of ``batch = {"tokens": (B, S)}`` (f32), and
+    ``{"ce", "aux"}``; as ``repro.models.transformer.loss_fn``."""
+    if batch.get("embeds") is not None:
+        raise NotImplementedError(f"modality frontends: {_TODO}")
+    tokens = batch["tokens"]
+    h = forward_train(params, tokens, cfg, impl=impl)
+    ce = chunked_cross_entropy(h[:, :-1], tokens[:, 1:],
+                               params["embed"].T, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -18,7 +18,9 @@ N × decay, then ``SSD_EXTRA``: the serving prefill, 32 chunks, a head
 tile that does not divide the group, hd 16 with N and Q not multiples
 of 16), y and the final state at ``chip_smoke.SSD_F32`` in float32
 (rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16
-(the final state as in float32).
+(the final state as in float32).  The two backward kernels (flash attention's,
+RMSNorm's): ``chip_smoke``'s phase 5 backward grids at its tolerances
+(``check_flash_bwd``, ``check_rms_bwd``).
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -155,3 +157,36 @@ def test_cuda_ssd_scan_matches_plain(dtype):
                             "slow", dtype, dev)
     with pytest.raises(ValueError, match="not a multiple"):
         ssd_cuda(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_bwd_matches_plain(dtype):
+    """The flash backward kernel over ``chip_smoke``'s phase 5 backward
+    grid (mode × GQA × S × hd) in one dtype, at its tolerances
+    (``chip_smoke.check_flash_bwd``: two runs bit for bit alike, the
+    forward's lse against the plain one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, case in enumerate(smoke.flash_bwd_cases()):
+        if case[-1] == dtype:
+            smoke.check_flash_bwd(np, torch, case, dev, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_bwd_matches_plain(dtype):
+    """The RMSNorm backward kernel over ``chip_smoke``'s phase 5 backward
+    grid and an unaligned row, in one dtype (``chip_smoke.check_rms_bwd``:
+    dx within one bf16 ulp in bfloat16, dw at the float32 tolerance, two
+    runs bit for bit alike)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, (rows, D, dt) in enumerate(smoke.rms_bwd_cases()):
+        if dt == dtype:
+            smoke.check_rms_bwd(np, torch, rows, D, dt, dev, seed=i)
+    smoke.check_rms_bwd(np, torch, 7, 896, dtype, dev, seed=99, shift=True)

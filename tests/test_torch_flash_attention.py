@@ -105,3 +105,78 @@ def test_tma_stride_rule():
     flat = torch.zeros(9 * 2 * 64 + 1, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte"):
         tma_strides("v", flat[1:].view(1, 9, 2, 64))
+
+
+# --------------------------------------------------------------------- #
+# the backward: attention_bwd_ref against jax.vjp of the reference's    #
+# own composition (_repeat_pad_kv, then repro.models.flash's custom VJP) #
+# --------------------------------------------------------------------- #
+from repro.models.attention import _repeat_pad_kv  # noqa: E402
+from repro.models.flash import flash_attention as jflash  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_bwd_ref, flash_attention_bwd_cuda)
+
+#: (causal, window, softcap, block_q, block_k) of the reference's flash:
+#: equal square blocks over a causal band take its triangular pair scan,
+#: the rest its rectangular band scan
+BWD_CASES = {"tri": (True, None, None, 16, 16),
+             "tri_softcap": (True, None, 5.0, 16, 16),
+             "rect_causal": (True, None, None, 16, 8),
+             "window": (True, 12, None, 16, 16),
+             "window_softcap": (True, 12, 5.0, 16, 8)}
+#: float32: rtol 1e-4, atol 1e-5·max(1, max|g|) (sums in another order);
+#: bfloat16 2e-2 of max|g| (the reference rounds its dq blocks and the
+#: cotangent products to bf16 where the plain version stays in f32)
+BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.0, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_attention_bwd_ref_matches_reference_vjp(case, G, dtype):
+    causal, window, cap, bq, bk = BWD_CASES[case]
+    B, S, KV, hd = 2, 48, 2, 16
+    H = KV * G
+    rng = np.random.default_rng(len(case) + 10 * G)
+    arrs = [rng.normal(size=(B, S, n, hd)).astype(np.float32)
+            for n in (H, KV, KV, H)]
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in arrs)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(getattr(torch, dtype))
+                       for a in arrs)
+
+    def f(q, k, v):
+        return jflash(q, _repeat_pad_kv(k, H, H), _repeat_pad_kv(v, H, H),
+                      causal, window, cap, bq, bk)
+
+    jo, vjp = jax.vjp(f, jq, jk, jv)
+    want = vjp(jdo)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = attention_ref(tq, tk, tv, return_lse=True, **kw)
+    _compare(o, jo, dtype)
+    got = attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    rtol, atol = BWD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tq.dtype and g.shape == tuple(w.shape)
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(
+            g.float().numpy(), w, rtol=rtol,
+            atol=atol * max(1.0, float(np.abs(w).max())), err_msg=name)
+
+
+def test_attention_is_differentiable_on_cpu():
+    """``ops.attention`` under autograd: the custom backward (plain on CPU
+    tensors) gives autograd-through-``attention_ref``'s gradients; with
+    no input requiring grad it is the forward alone."""
+    _, (q, k, v), _ = _inputs(37, 7, "float32", seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ops.attention(*leaves, window=16, softcap=20.0)
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, leaves, do)
+    leaves2 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        attention_ref(*leaves2, window=16, softcap=20.0), leaves2, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert not ops.attention(q, k, v).requires_grad
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 14, 37), q)

@@ -147,3 +147,72 @@ def test_dispatch_on_cpu():
         rmsnorm_cuda(x, w)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.rmsnorm(x, w, impl="pallas")
+
+
+# --------------------------------------------------------------------- #
+# the backward: rmsnorm_bwd_ref against jax.vjp of the reference        #
+# model's rmsnorm (its custom VJP _rms_bwd)                             #
+# --------------------------------------------------------------------- #
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,  # noqa: E402
+                                         rmsnorm_bwd_ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 896])
+@pytest.mark.parametrize("rows", list(ROWS))
+def test_rmsnorm_bwd_ref_matches_reference_vjp(rows, D, dtype):
+    """dx and dw of the model's norm (the plain forward's ``m``, then the
+    plain backward) against ``jax.vjp`` of ``repro.models.layers.rmsnorm``.
+    float32: rtol 1e-5, atol 1e-6·max|dx| (dx) and 1e-5·max|dw| (dw).
+    bfloat16: ``m`` is summed in another order than the reference's, and
+    a one-ulp change of it can round a bf16 term of a row the other way:
+    dx within two bf16 ulps of the largest of its two rounded terms and
+    its two values (each term can round one ulp apart), and equal on at
+    least 98 % of the entries; dw within one bf16 ulp of
+    Σ_rows |g·m·x| per column (each row's rounded ``cast(g·m)`` may be
+    one ulp apart)."""
+    jx, jw, tx, tw = _inputs(ROWS[rows], D, dtype, seed=D + len(rows) + 1)
+    g = np.random.default_rng(D).normal(size=ROWS[rows] + (D,)).astype(
+        np.float32)
+    jg, tg = jnp.asarray(g, dtype), torch.from_numpy(g).to(tx.dtype)
+    _, vjp = jax.vjp(lambda x, w: jlayers.rmsnorm(x, w, 1e-6, False), jx, jw)
+    wdx, wdw = (np.asarray(a, np.float32) for a in vjp(jg))
+    _, m = rmsnorm_ref(tx, tw, 1e-6, round_scale=True, return_m=True)
+    dx, dw = rmsnorm_bwd_ref(tx, tw, tg, m)
+    assert dx.dtype == tx.dtype and dw.dtype == torch.float32
+    dx, dw = dx.float().numpy(), dw.numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(dx, wdx, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(wdx).max()))
+        np.testing.assert_allclose(dw, wdw, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(wdw).max()))
+        return
+    xf, gf, m = tx.float(), tg.float(), m[..., None]
+    term = torch.maximum((m * gf * tw).abs(),
+                         (m ** 3 * xf.abs() * (gf * tw * xf).sum(
+                             -1, keepdim=True).abs() / D)).numpy()
+    term = np.maximum(term, np.maximum(np.abs(dx), np.abs(wdx)))
+    assert (np.abs(dx - wdx) <= 2 * _bf16_ulp(term)).all()
+    assert (dx == wdx).mean() >= 0.98
+    col = (gf * m * xf).abs().reshape(-1, D).sum(0).numpy()
+    assert (np.abs(dw - wdw) <= _bf16_ulp(col)).all()
+
+
+def test_rmsnorm_is_differentiable_on_cpu():
+    """``ops.rmsnorm(round_scale=True)`` under autograd runs the custom
+    VJP (the plain backward on CPU tensors): in float32 it equals
+    autograd through ``rmsnorm_ref``; ``round_scale=False`` has no
+    backward; the kernel raises on CPU tensors."""
+    _, _, tx, tw = _inputs((3, 5), 64, "float32", seed=11)
+    x, w = tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)
+    g = torch.randn(3, 5, 64)
+    got = torch.autograd.grad(ops.rmsnorm(x, w, round_scale=True), (x, w), g)
+    x2, w2 = tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)
+    want = torch.autograd.grad(rmsnorm_ref(x2, w2, round_scale=True),
+                               (x2, w2), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    with pytest.raises(NotImplementedError):
+        ops.rmsnorm(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_bwd_cuda(tx, tw, g, torch.ones(3, 5))

@@ -1,0 +1,167 @@
+"""The port's LM training path against the reference's: ``SyntheticLM``,
+``loss_fn`` and its gradients, PSP ticks of the reduced LM, and the
+training launcher.
+
+Models: ``reduced(get_config("qwen2-0.5b"))`` in float32 compute (GQA
+2:1, hd 64 or 32 at d_model 256 or 64, vocab 512), remat on as in the
+config, on the reference's ``init_model`` weights (norm gains and QKV
+biases redrawn from numpy so that they matter) carried across by
+``params_from_jax``.  Tolerances (float32 sums in another order): the
+loss rtol 1e-5; every gradient and parameter leaf rtol 1e-4, atol
+1e-5·max(1, max|leaf|).  PSP ticks run the reference's tick unjitted, op by
+op (only its gradient function is compiled), and replay its draws into
+the port (as ``tests/test_torch_spmd_psp.py`` does); their control
+plane must be equal bit for bit.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+from repro import optim as jopt  # noqa: E402
+from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
+from repro.core import spmd_psp as jsp  # noqa: E402
+from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.models import init_model as jinit, loss_fn as jloss  # noqa: E402
+from repro_torch import optim as topt  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core import spmd_psp as sp  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.steps import (make_grad_fn,  # noqa: E402
+                                      make_psp_train_step)
+from repro_torch.models import loss_fn  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+from test_torch_spmd_psp import CONTROL, _init_record, _tick_record  # noqa: E402,E501
+
+ARCH = "qwen2-0.5b"
+
+
+def _pair(d_model=256, seed=0):
+    """(reference cfg, port cfg, reference params (numpy), port tree)."""
+    jcfg = dataclasses.replace(jreduced(jget(ARCH), d_model=d_model),
+                               dtype="float32")
+    cfg = dataclasses.replace(reduced(get_config(ARCH), d_model=d_model),
+                              dtype="float32")
+    assert cfg.remat and jcfg.remat
+    tree = jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 1)
+    g = tree["groups"]["0"]
+    for k in ("bq", "bk", "bv"):
+        g["attn"][k] = (0.1 * rng.normal(size=g["attn"][k].shape)).astype(
+            np.float32)
+    for k in ("ln1", "ln2"):
+        g[k] = (1 + 0.1 * rng.normal(size=g[k].shape)).astype(np.float32)
+    return jcfg, cfg, tree, params_from_jax(tree, cfg).tree()
+
+
+def _as_port(jtree, cfg):
+    """A tree in the reference's layout (stacked groups) → the port's."""
+    return params_from_jax(jax.tree.map(np.asarray, jtree), cfg).tree()
+
+
+def _close_trees(got, want, what):
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        w = w.numpy()
+        np.testing.assert_allclose(
+            g.detach().numpy(), w, rtol=1e-4,
+            atol=1e-5 * max(1.0, float(np.abs(w).max())),
+            err_msg=f"{what}: leaf {i}")
+
+
+def test_synthetic_lm_replays_reference_tokens():
+    """Same seed, same shard: the same int32 tokens, batch after batch."""
+    want = iter(JSyntheticLM(512, 24, 3, seed=4, n_shards=2, shard=1))
+    got = iter(SyntheticLM(512, 24, 3, seed=4, n_shards=2, shard=1))
+    for _ in range(3):
+        w, g = next(want)["tokens"], next(got)["tokens"]
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_loss_and_grads_match_reference():
+    """``loss_fn`` and its gradients (remat on, chunked CE) against
+    ``jax.value_and_grad(repro.models.loss_fn)``."""
+    jcfg, cfg, tree, params = _pair()
+    toks = np.random.default_rng(7).integers(0, 512, size=(2, 40)).astype(
+        np.int32)
+    (jl, _), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(toks)}, jcfg)
+    grad_fn = make_grad_fn(cfg, clip_norm=None)
+    loss, grads = grad_fn(params, torch.from_numpy(toks))
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    _close_trees(grads, _as_port(jg, cfg), "grads")
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            float(loss_fn(params, {"tokens": torch.from_numpy(toks)},
+                          cfg)[0]), float(jl), rtol=1e-5)
+
+
+def test_psp_ticks_of_reduced_lm_match_reference():
+    """Three PSP ticks of a reduced LM (W 3, pbsp, AdamW on a warm-up
+    cosine, clipped grads): the control plane bit for bit, the server
+    parameters and AdamW moments within tolerance."""
+    jcfg, cfg, tree, params = _pair(d_model=64)
+    kw = dict(barrier="pbsp", n_workers=3, sample_size=2, staleness=1,
+              straggler_frac=0.34)
+    jp, tp = jsp.PSPConfig(**kw), sp.PSPConfig(**kw)
+    jo = jopt.adamw(jopt.warmup_cosine(3e-3, 2, 10))
+    to = topt.adamw(topt.warmup_cosine(3e-3, 2, 10))
+    toks = np.random.default_rng(3).integers(0, 512, size=(3, 3, 2, 16))
+
+    @jax.jit
+    def jgrad(p, t):
+        (loss, _), g = jax.value_and_grad(jloss, has_aux=True)(
+            p, {"tokens": t}, jcfg)
+        return loss, jopt.clip_by_norm(g, 1.0)
+
+    # the tick itself unjitted, op by op (no contraction into an FMA);
+    # only the gradient function is compiled
+    js = jsp.psp_init(jp, jax.tree.map(jnp.asarray, tree), jo.init,
+                      jax.random.PRNGKey(1))
+    recs, states = [], []
+    for t in range(3):
+        recs.append(_tick_record(tp, js.key))
+        js, _ = jsp.psp_train_step(jp, jgrad, jo.update, js,
+                                   jnp.asarray(toks[t], jnp.int32))
+        states.append(js)
+    noise = sp.ReplayNoise(_init_record(3), recs)
+    st = sp.psp_init(tp, params, to.init, noise)
+    step = make_psp_train_step(cfg, tp, to, noise)
+    for t in range(3):
+        st, m = step(st, torch.from_numpy(toks[t].astype(np.int32)))
+        js = states[t]
+        for f in CONTROL:
+            np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                          np.asarray(getattr(js, f)),
+                                          err_msg=f"{f} after tick {t}")
+        _close_trees(st.server_params, _as_port(js.server_params, cfg),
+                     f"server params after tick {t}")
+    assert int(st.total_pushes) > 0 and int(st.opt_state["step"]) > 0
+    _close_trees(st.opt_state["mu"], _as_port(js.opt_state["mu"], cfg),
+                 "AdamW mu")
+
+
+SMALL = ["--device", "cpu", "--reduced", "--d-model", "64", "--steps", "2",
+         "--seq", "16", "--batch", "2"]
+
+
+@pytest.mark.parametrize("barrier", ["none", "pbsp"])
+def test_launcher_runs_on_cpu(barrier, capsys):
+    assert train.main([*SMALL, "--barrier", barrier]) == 0
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and ("tick" in out or "step" in out)
+
+
+def test_launcher_raises_on_unported_flags():
+    for flag in (["--ckpt-dir", "ck"], ["--resume"], ["--publish-dir", "p"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train.main([*SMALL, *flag])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train.main(["--reduced", "--steps", "1"])
