@@ -70,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEG = -1e30f;
@@ -794,6 +796,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // Backward                                                                //
 // ====================================================================== //
 //
+// The hand-written counterpart of the reference's custom VJP
+// src/repro/models/flash.py:_bwd (:240) and _bwd_triangular (:127).
 // Given q, k, v, the forward's output o and row log-sum-exp lse, and the
 // cotangent do (layout as the forward's), with s_raw = scale·(q·k):
 //   Δ_i  = Σ_d do_i·o_i                          (f32)
@@ -803,31 +807,75 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 //   ds   = p·(dp − Δ_i) [·(1 − tanh²)] ; masked: 0
 //   dq_i = scale·Σ_j ds·k_j ;  dk_j = scale·Σ_i ds·q_i ;  dv_j = Σ_i p·do_i
 // summed over the G = H/KV query heads of a group for dk and dv (the
-// gradient of the reference's K/V repeat).  Every product in f32 on the
-// CUDA cores; dq, dk, dv in the input dtype.
+// gradient of the reference's K/V repeat); dq, dk, dv in the input dtype.
 //
-// Bound on the H100: operations (2.5× the forward's products).  This is
-// the first, simple design: no tensor cores, no atomics (two runs give
-// the same bits).  Four launches:
-// * bwd_delta_kernel: Δ, one warp per (batch, query, head) row;
-// * bwd_dkdv_kernel: one block per (64-key tile, head, batch) walks the
-//   query tiles of its causal / window band, recomputing S and dP for
-//   each, and holds its keys' dk and dv for that one head in registers
-//   (f32); it writes them to per-head f32 partials (B, Sk, H, hd), so
-//   the grid has H blocks per key tile instead of KV;
-// * bwd_dq_kernel: one block per (64-query tile, head, batch) walks the
-//   key tiles of its band, recomputing S and dP, with dq in registers;
-// * bwd_reduce_kernel: dk, dv = the partials summed over each group's G
-//   heads in order, cast to the input dtype.
-// Tiles are staged in shared memory in f32 (rows padded to hd + 4 floats:
-// conflict-free float4 reads); in the products a thread owns one row of
-// the 64 × 64 score tile and every fourth column (S, dP), or one row and
-// hd / 4 columns of a 64 × hd accumulator (dq, dk, dv).
+// Bound on the H100: operations.  Five S×S×hd products (S, dP, dV, dK,
+// dQ: 5·B·H·S²·hd FLOPs causal, 2.349 GFLOP at the training shape B 2,
+// S 512, 14 heads, hd 64) against ≈ 8.5 MB of inputs and outputs, about
+// the card's balance; as executed (dq recomputes S and dP: 7 products,
+// 3.29 GFLOP) the tensor cores' rate is the limit.  The design puts every
+// product on the tensor cores and keeps S, P, dP and dS out of memory.
+//
+// Three launches in bfloat16, four in float32; no atomics (two runs give
+// the same bits):
+// * bwd_delta_kernel: Δ from 16-byte loads (one row per hd/8 or hd/4
+//   lanes), written with lse in log2 units into (B, H, Sqp) rows padded
+//   to whole 64-row tiles; a pad row gets Δ = 0 and lse = +inf, so its
+//   p is 0;
+// * dk/dv: one block per (64-key tile, head, batch) walks the query tiles
+//   of its causal / window band and writes per-head f32 partials
+//   (B, Sk, H, hd), so the grid has H blocks per key tile instead of KV
+//   (224 blocks at the training shape instead of 32);
+// * dq: one block per (64-query tile, head, batch) walks the key tiles of
+//   its band, recomputing S and dP (the price of a dq with no atomics);
+// * the group sum (group_sum): dk, dv = the partials summed over each
+//   group's G heads in order, cast to the input dtype (float4 loads); in
+//   bfloat16 the dq launch's later half of blocks (the query tiles with
+//   the fewest keys under causal) runs it after their dq, in float32 a
+//   fourth launch (bwd_reduce_kernel).
+//
+// bfloat16 (bwd_dkdv_tc_kernel, bwd_dq_tc_kernel): the forward's pieces.
+// * A producer warp loads the block's resident tiles once by TMA (K and V
+//   for dk/dv; Q and dO for dq) and streams the band's other two tiles
+//   (Q and dO, with their 64 lse and Δ values by a bulk copy; or K and V)
+//   through a ring of two stages, a full / empty mbarrier pair each.
+//   Rows past Sq or Sk arrive as zeros.
+// * dk/dv, per query tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ by wgmma with both
+//   operands K-major in shared memory, as the forward forms S; Pᵀ and dSᵀ
+//   in registers (2^x of the score in log2 units less lse; lse and Δ are
+//   per column here), the masks only on tiles the band's edge cuts (keys
+//   past Sk need none: their rows are never stored); then dV += Pᵀ·dO and
+//   dK += dSᵀ·Q by wgmma, Pᵀ and dSᵀ as register A fragments (the
+//   accumulator fragment rounded to bf16) and dO, Q through the transposed
+//   (MN-major) descriptor, as the forward's P·V.  dK and dV stay in f32
+//   registers over the band; dK is scaled in the epilogue.  Key tile 0,
+//   the one with the most queries under causal, starts first.
+// * The 32 scores a thread holds are formed in one branch-free stretch:
+//   the softcap and the masks are chosen once a tile (`dispatch`), not
+//   per score, so the compiler interleaves the scores' dependent chains
+//   (ex2, products) instead of running them one after another.
+// * dq, per key tile: S = Q·Kᵀ and dP = dO·Vᵀ, dS in registers, dQ +=
+//   dS·K with K through the transposed descriptor.  The query tiles with
+//   the most keys start first.
+// * hd 128: the dk/dv kernel runs two consumer warpgroups, each owning 64
+//   columns of dK and dV (one warpgroup's registers cannot hold all 128)
+//   and each forming the whole Sᵀ and dPᵀ over both 64-column swizzle
+//   atoms of hd; the dq kernel keeps one warpgroup.
+// * Roundings the plain version does not make: Pᵀ and dSᵀ (dS in dq)
+//   rounded to bf16 as wgmma operands, and exp taken as 2^x (ex2.approx).
+//   The products accumulate in f32; dq, dk, dv are stored in bf16.
+//
+// float32 (bwd_dkdv_kernel, bwd_dq_kernel): the first design, kept for
+// the f32 checks that need f32 products.  Tiles staged in shared memory
+// as f32 (rows padded to hd + 4 floats: conflict-free float4 reads); a
+// thread owns one row of the 64 × 64 score tile and every fourth column
+// (S, dP), or one row and hd / 4 columns of a 64 × hd accumulator (dq,
+// dk, dv); products as fmaf on the CUDA cores.
 
 namespace {
 
 constexpr int BT = 64;    // queries or keys per tile
-constexpr int BNT = 256;  // threads per block
+constexpr int BNT = 256;  // threads per block (CUDA-core kernels, Δ, sum)
 
 struct BwdArgs {
   const void* q;     // (B, Sq, H, hd) contiguous
@@ -836,26 +884,72 @@ struct BwdArgs {
   const void* o;     // (B, Sq, H, hd)
   const void* dout;  // (B, Sq, H, hd)
   const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq)
+  float* delta;      // (B, H, Sqp)
+  float* lse2;       // (B, H, Sqp): lse·log2(e)
   void* dq;          // (B, Sq, H, hd)
   float* dkp;        // (B, Sk, H, hd) f32 partials
   float* dvp;
   void* dk;          // (B, Sk, KV, hd)
   void* dv;
   int B, Sq, Sk, H, KV;
+  int Sqp;             // Sq rounded up to whole 64-row tiles
   int causal, window;  // window <= 0: none
   float softcap;       // <= 0: none
   float scale;
 };
 
-__device__ __forceinline__ float ldf(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ bool visible(const BwdArgs& a, int qi, int kj) {
+  return (!a.causal || qi >= kj) && (a.window <= 0 || qi - kj < a.window);
 }
-__device__ __forceinline__ void stf(float* p, long long i, float x) { p[i] = x; }
-__device__ __forceinline__ void stf(__nv_bfloat16* p, long long i, float x) {
-  p[i] = __float2bfloat16_rn(x);
+
+// element e of a 16-byte vector of T, widened to f32 (exact)
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& u, int e);
+template <>
+__device__ __forceinline__ float elem<float>(const uint4& u, int e) {
+  return __uint_as_float(e == 0 ? u.x : e == 1 ? u.y : e == 2 ? u.z : u.w);
 }
+template <>
+__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& u, int e) {
+  const int j = e >> 1;
+  const uint32_t w = j == 0 ? u.x : j == 1 ? u.y : j == 2 ? u.z : u.w;
+  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// Δ and lse·log2(e) into (B, H, Sqp), row (b·H + h)·Sqp + i; pads (i >=
+// Sq): Δ = 0, lse = +inf.  One row per HD / VEC lanes, each lane one
+// 16-byte vector of o and of do.
+template <typename T, int HD>
+__global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int L = HD / VEC;  // lanes per row: 8, 16 or 32
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * BNT + threadIdx.x) / L;
+  const long long n = static_cast<long long>(a.B) * a.H * a.Sqp;
+  const long long i = row % a.Sqp, bh = row / a.Sqp;
+  float acc = 0.f;
+  if (row < n && i < a.Sq) {
+    const long long b = bh / a.H, h = bh % a.H;
+    const long long off = ((b * a.Sq + i) * a.H + h) * HD + (lane % L) * VEC;
+    const uint4 u =
+        __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + off));
+    const uint4 w = __ldg(
+        reinterpret_cast<const uint4*>(static_cast<const T*>(a.dout) + off));
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc += elem<T>(w, e) * elem<T>(u, e);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+  if (row < n && lane % L == 0) {
+    a.delta[row] = acc;
+    a.lse2[row] = i < a.Sq ? a.lse[bh * a.Sq + i] * LOG2E : INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// float32: CUDA cores                                                     //
+// ---------------------------------------------------------------------- //
 
 template <int HD>
 constexpr size_t bwd_smem_bytes() {
@@ -863,16 +957,16 @@ constexpr size_t bwd_smem_bytes() {
                           2 * static_cast<size_t>(BT) * (BT + 1) + 2 * BT);
 }
 
-// rows [r0, r0 + BT) of a (batch, seq, heads, HD) tensor's head `hh`,
-// as f32, into `dst` (row stride HD + 4); rows past `seq` are zeros
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src, int b,
+// rows [r0, r0 + BT) of a (batch, seq, heads, HD) tensor's head `hh`
+// into `dst` (row stride HD + 4); rows past `seq` are zeros
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int b,
                                       int r0, int seq, int heads, int hh) {
   for (int idx = threadIdx.x; idx < BT * HD; idx += BNT) {
     const int rr = idx / HD, d = idx % HD, row = r0 + rr;
     dst[rr * (HD + 4) + d] =
-        row < seq ? ldf(src, ((static_cast<long long>(b) * seq + row) * heads +
-                              hh) * HD + d)
+        row < seq ? src[((static_cast<long long>(b) * seq + row) * heads +
+                         hh) * HD + d]
                   : 0.f;
   }
 }
@@ -913,8 +1007,7 @@ __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
 #pragma unroll
   for (int jj = 0; jj < BT / 4; ++jj) {
     const int j = c + 4 * jj, kj = k_j + j;
-    const bool vis = qi < a.Sq && kj < a.Sk && (!a.causal || qi >= kj) &&
-                     (a.window <= 0 || qi - kj < a.window);
+    const bool vis = qi < a.Sq && kj < a.Sk && visible(a, qi, kj);
     float x = s[jj] * a.scale, t = 0.f;
     if (a.softcap > 0.f) {
       t = tanhf(x / a.softcap);
@@ -928,27 +1021,7 @@ __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (BNT / 32) + (threadIdx.x >> 5);
-  const long long n = static_cast<long long>(a.B) * a.Sq * a.H;
-  if (row >= n) return;
-  const T* o = static_cast<const T*>(a.o);
-  const T* g = static_cast<const T*>(a.dout);
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32) acc += ldf(g, row * HD + d) * ldf(o, row * HD + d);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
-  if (lane == 0) {  // row = (b·Sq + i)·H + h  →  delta[(b·H + h)·Sq + i]
-    const long long h = row % a.H, bi = row / a.H;
-    const long long b = bi / a.Sq, i = bi % a.Sq;
-    a.delta[(b * a.H + h) * a.Sq + i] = acc;
-  }
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
   constexpr int RS = HD + 4;
   constexpr int DPT = HD / 4;
@@ -966,8 +1039,10 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
   const int kvh = h / (a.H / a.KV);
   const int k0 = blockIdx.x * BT;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  stage<T, HD>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh);
-  stage<T, HD>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh);
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
+  stage<HD>(Ks, static_cast<const float*>(a.k), b, k0, a.Sk, a.KV, kvh);
+  stage<HD>(Vs, static_cast<const float*>(a.v), b, k0, a.Sk, a.KV, kvh);
 
   float dk[DPT], dv[DPT];
 #pragma unroll
@@ -977,14 +1052,15 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
   const int q_lo = a.causal ? k0 : 0;
   const int q_hi = a.window > 0 ? min(a.Sq, k0 + BT - 1 + a.window) : a.Sq;
   const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const long long drow = (static_cast<long long>(b) * a.H + h) * a.Sqp;
   for (int q0 = (q_lo / BT) * BT; q0 < q_hi; q0 += BT) {
     __syncthreads();  // the last tile's Q, dO, P, dS are no longer read
-    stage<T, HD>(Qs, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h);
-    stage<T, HD>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h);
+    stage<HD>(Qs, q, b, q0, a.Sq, a.H, h);
+    stage<HD>(dOs, dout, b, q0, a.Sq, a.H, h);
     if (tid < BT) {
       const int qi = q0 + tid;
       lse_s[tid] = qi < a.Sq ? a.lse[lrow + qi] : 0.f;
-      del_s[tid] = qi < a.Sq ? a.delta[lrow + qi] : 0.f;
+      del_s[tid] = qi < a.Sq ? a.delta[drow + qi] : 0.f;
     }
     __syncthreads();
     scores<HD>(a, Qs, dOs, Ks, Vs, lse_s[r], del_s[r], q0, k0, r, c, Ps, dSs);
@@ -1023,7 +1099,7 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
   constexpr int RS = HD + 4;
   constexpr int DPT = HD / 4;
@@ -1039,12 +1115,12 @@ __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
   const int kvh = h / (a.H / a.KV);
   const int q0 = blockIdx.x * BT;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  stage<T, HD>(Qs, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h);
-  stage<T, HD>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h);
-  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  stage<HD>(Qs, static_cast<const float*>(a.q), b, q0, a.Sq, a.H, h);
+  stage<HD>(dOs, static_cast<const float*>(a.dout), b, q0, a.Sq, a.H, h);
   const int qi = q0 + r;
-  const float lse_r = qi < a.Sq ? a.lse[lrow + qi] : 0.f;
-  const float del_r = qi < a.Sq ? a.delta[lrow + qi] : 0.f;
+  const float lse_r =
+      qi < a.Sq ? a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + qi] : 0.f;
+  const float del_r = a.delta[(static_cast<long long>(b) * a.H + h) * a.Sqp + qi];
 
   float dq[DPT];
 #pragma unroll
@@ -1056,8 +1132,8 @@ __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
   const int k_begin = a.window > 0 ? (max(0, q0 - a.window + 1) / BT) * BT : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BT) {
     __syncthreads();  // the last tile's K, V are no longer read
-    stage<T, HD>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh);
-    stage<T, HD>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh);
+    stage<HD>(Ks, static_cast<const float*>(a.k), b, k0, a.Sk, a.KV, kvh);
+    stage<HD>(Vs, static_cast<const float*>(a.v), b, k0, a.Sk, a.KV, kvh);
     __syncthreads();
     scores<HD>(a, Qs, dOs, Ks, Vs, lse_r, del_r, q0, k0, r, c, Ps, dSs);
     __syncwarp();  // row r's dS is written and read by its own warp
@@ -1075,75 +1151,562 @@ __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
     }
   }
   if (qi < a.Sq) {
-    T* out = static_cast<T*>(a.dq);
+    float* out = static_cast<float*>(a.dq);
     const long long base =
         ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * HD;
 #pragma unroll
     for (int qd = 0; qd < HD / 16; ++qd)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        stf(out, base + 16 * qd + 4 * c + e, dq[4 * qd + e] * a.scale);
+        out[base + 16 * qd + 4 * c + e] = dq[4 * qd + e] * a.scale;
   }
+}
+
+// ---------------------------------------------------------------------- //
+// bfloat16: tensor cores (wgmma) fed by TMA                               //
+// ---------------------------------------------------------------------- //
+
+constexpr int BWD_STAGES = 2;  // streamed tile pairs in the ring
+
+template <int HD>
+struct TcBwd {
+  static constexpr int NWG = HD / 64;  // dk/dv consumer warpgroups
+  static constexpr int TILE = (HD / 64) * ATOM_BYTES;  // a 64-row tile
+  static constexpr int ROW = 64 * 4;  // the lse or Δ values of a query tile
+  static constexpr int BARS = 8 * (2 * BWD_STAGES + 1);
+  static constexpr int DKDV_THREADS = 128 * NWG + 32;
+  // 1024 for alignment, two resident tiles, two streamed tiles a stage
+  static constexpr int DKDV_SMEM =
+      1024 + (2 + 2 * BWD_STAGES) * TILE + 2 * BWD_STAGES * ROW + BARS;
+  static constexpr int DQ_SMEM = 1024 + (2 + 2 * BWD_STAGES) * TILE + BARS;
+};
+
+// four values at float4 index i4 of p, as float32 or rounded to bf16
+__device__ __forceinline__ void store4(float* p, long long i4, float4 v) {
+  reinterpret_cast<float4*>(p)[i4] = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, long long i4,
+                                       float4 v) {
+  reinterpret_cast<uint2*>(p)[i4] =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
 
 // dk, dv (B, Sk, KV, HD) = the per-head partials summed over each
-// group's G heads in order
+// group's G heads in order, four columns a thread: float4 columns first,
+// first + stride, ...
 template <typename T, int HD>
-__global__ void __launch_bounds__(BNT) bwd_reduce_kernel(BwdArgs a) {
+__device__ __forceinline__ void group_sum(const BwdArgs& a, long long first,
+                                          long long stride) {
+  constexpr int Q4 = HD / 4;
   const int G = a.H / a.KV;
-  const long long n = static_cast<long long>(a.B) * a.Sk * a.KV * HD;
-  for (long long idx = static_cast<long long>(blockIdx.x) * BNT + threadIdx.x;
-       idx < n; idx += static_cast<long long>(gridDim.x) * BNT) {
-    const long long d = idx % HD, rest = idx / HD;
+  const float4* kp = reinterpret_cast<const float4*>(a.dkp);
+  const float4* vp = reinterpret_cast<const float4*>(a.dvp);
+  const long long n = static_cast<long long>(a.B) * a.Sk * a.KV * Q4;
+  for (long long idx = first; idx < n; idx += stride) {
+    const long long d4 = idx % Q4, rest = idx / Q4;
     const long long kvh = rest % a.KV, bs = rest / a.KV;
-    const long long src = (bs * a.H + kvh * G) * HD + d;
-    float sk = 0.f, sv = 0.f;
+    const long long src = (bs * a.H + kvh * G) * Q4 + d4;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
     for (int g = 0; g < G; ++g) {
-      sk += a.dkp[src + static_cast<long long>(g) * HD];
-      sv += a.dvp[src + static_cast<long long>(g) * HD];
+      const float4 x = kp[src + static_cast<long long>(g) * Q4];
+      const float4 y = vp[src + static_cast<long long>(g) * Q4];
+      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
     }
-    stf(static_cast<T*>(a.dk), idx, sk);
-    stf(static_cast<T*>(a.dv), idx, sv);
+    store4(static_cast<T*>(a.dk), idx, sk);
+    store4(static_cast<T*>(a.dv), idx, sv);
   }
 }
 
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// p and ds of one score from its accumulator (q·k, unscaled), dp, the
+// row's lse in log2 units and its Δ; CAP: under a softcap
+template <bool CAP>
+__device__ __forceinline__ void grad(const BwdArgs& a, float sc2, float s,
+                                     float dp, float l2, float del, float& p,
+                                     float& ds) {
+  if constexpr (CAP) {
+    const float t = tanhf(s * a.scale / a.softcap);
+    p = ex2(a.softcap * t * LOG2E - l2);
+    ds = p * (dp - del) * (1.f - t * t);
+  } else {
+    p = ex2(fmaf(s, sc2, -l2));
+    ds = p * (dp - del);
+  }
+}
+
+// f(cap, masked) with both flags as compile-time constants
+template <bool B>
+using Flag = std::integral_constant<bool, B>;
+template <typename F>
+__device__ __forceinline__ void dispatch(bool cap, bool masked, F&& f) {
+  if (cap) {
+    if (masked) f(Flag<true>{}, Flag<true>{});
+    else f(Flag<true>{}, Flag<false>{});
+  } else {
+    if (masked) f(Flag<false>{}, Flag<true>{});
+    else f(Flag<false>{}, Flag<false>{});
+  }
+}
+
+// the K-major descriptor of k-step kk (16 of hd) of a 64-row tile
+__device__ __forceinline__ uint64_t kstep(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * ATOM_BYTES + (kk & 3) * 32);
+}
+
+// dk/dv of key tile blockIdx.z (key tile 0 first) for head blockIdx.x,
+// batch blockIdx.y
+template <int HD>
+__global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
+    bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const BwdArgs a) {
+  using C = TcBwd<HD>;
+  const int kt = blockIdx.z;
+  constexpr int NS = BWD_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sV = sK + C::TILE;
+  uint8_t* sQ = sV + C::TILE;          // NS stages of Q
+  uint8_t* sG = sQ + NS * C::TILE;     // NS stages of dO
+  float* sL = reinterpret_cast<float*>(sG + NS * C::TILE);  // lse·log2 e
+  float* sD = sL + NS * 64;                                 // Δ
+  uint64_t* full = reinterpret_cast<uint64_t*>(sD + NS * 64);
+  uint64_t* empty = full + NS;
+  uint64_t* kvbar = empty + NS;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = kt * 64;
+  const int kvh = h / (a.H / a.KV);
+  // the query tiles that see some key of this tile
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window > 0 ? min(a.Sq, k0 + 63 + a.window) : a.Sq;
+  const int n_tiles = q_hi > q_lo ? (q_hi - q_lo + 63) / 64 : 0;
+  const long long srow = (static_cast<long long>(b) * a.H + h) * a.Sqp;
+  // the warp index through a shuffle (see flash_tc_kernel)
+  const int warp = __shfl_sync(FULL, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::NWG);  // one arrival per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * C::NWG) {  // the producer warp
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(kvbar, 2 * C::TILE);
+      for (int at = 0; at < C::NWG; ++at) {
+        tma_load_4d(sK + at * ATOM_BYTES, &tk, kvbar, 64 * at, kvh, k0, b);
+        tma_load_4d(sV + at * ATOM_BYTES, &tv, kvbar, 64 * at, kvh, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) mbar_wait(&empty[s], ((j / NS) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::ROW);
+        const int q0 = q_lo + 64 * j;
+        for (int at = 0; at < C::NWG; ++at) {
+          tma_load_4d(sQ + s * C::TILE + at * ATOM_BYTES, &tq, &full[s],
+                      64 * at, h, q0, b);
+          tma_load_4d(sG + s * C::TILE + at * ATOM_BYTES, &tdo, &full[s],
+                      64 * at, h, q0, b);
+        }
+        bulk_load(sL + 64 * s, a.lse2 + srow + q0, C::ROW, &full[s]);
+        bulk_load(sD + 64 * s, a.delta + srow + q0, C::ROW, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns dK and dV columns [64·wg, 64·wg + 64); this
+  // thread holds key rows kr and kr + 8 of every fragment, and query
+  // columns cl + 8·i (+1)
+  const int wg = warp >> 2;
+  const int kr = 16 * (warp & 3) + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  const float sc2 = a.scale * LOG2E;
+  const uint32_t ka = smem_u32(sK), va = smem_u32(sV);
+  float dk[32], dv[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = st[i] = dpt[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];  // Pᵀ and dSᵀ as A fragments
+
+  if (n_tiles > 0) mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    mbar_wait(&full[s], (j / NS) & 1);
+    __syncwarp();
+    const int q0 = q_lo + 64 * j;
+    const uint32_t qa = smem_u32(sQ + s * C::TILE);
+    const uint32_t ga = smem_u32(sG + s * C::TILE);
+    fence_regs(st);
+    fence_regs(dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(st, kstep(ka, kk), kstep(qa, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dpt, kstep(va, kk), kstep(ga, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // element i: key row kr + 8·((i >> 1) & 1), query column
+    // cl + 8·(i >> 2) + (i & 1)
+    const bool edge = (a.causal && q0 < k0 + 63) ||
+                      (a.window > 0 && q0 + 63 - k0 >= a.window);
+    const float* ls = sL + 64 * s;
+    const float* dl = sD + 64 * s;
+    // the 32 scores in one branch-free stretch (the softcap and the masks
+    // chosen once a tile), so the compiler interleaves their chains
+    auto scores = [&](auto cap, auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int c = cl + 8 * (i >> 2);
+        const float2 l = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d = *reinterpret_cast<const float2*>(dl + c);
+        float p0, p1, g0, g1;
+        grad<decltype(cap)::value>(a, sc2, st[i], dpt[i], l.x, d.x, p0, g0);
+        grad<decltype(cap)::value>(a, sc2, st[i + 1], dpt[i + 1], l.y, d.y,
+                                   p1, g1);
+        if constexpr (decltype(masked)::value) {
+          const int kj = k0 + kr + ((i & 2) ? 8 : 0), qi = q0 + c;
+          if (!visible(a, qi, kj)) p0 = g0 = 0.f;
+          if (!visible(a, qi + 1, kj)) p1 = g1 = 0.f;
+        }
+        pa[i >> 3][(i & 7) >> 1] = pack_bf16(p0, p1);
+        da[i >> 3][(i & 7) >> 1] = pack_bf16(g0, g1);
+      }
+    };
+    dispatch(a.softcap > 0.f, edge, scores);
+
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dv, pa[kk], sw128_desc(ga + wg * ATOM_BYTES + kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dk, da[kk], sw128_desc(qa + wg * ATOM_BYTES + kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);  // this warp's products no longer read stage s
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const int kj = k0 + kr;
+  const long long base0 =
+      ((static_cast<long long>(b) * a.Sk + kj) * a.H + h) * HD;
+  const long long base1 = base0 + 8LL * a.H * HD;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int col = 64 * wg + 8 * jj + cl;
+    if (kj < a.Sk) {
+      *reinterpret_cast<float2*>(a.dkp + base0 + col) =
+          make_float2(dk[4 * jj] * a.scale, dk[4 * jj + 1] * a.scale);
+      *reinterpret_cast<float2*>(a.dvp + base0 + col) =
+          make_float2(dv[4 * jj], dv[4 * jj + 1]);
+    }
+    if (kj + 8 < a.Sk) {
+      *reinterpret_cast<float2*>(a.dkp + base1 + col) =
+          make_float2(dk[4 * jj + 2] * a.scale, dk[4 * jj + 3] * a.scale);
+      *reinterpret_cast<float2*>(a.dvp + base1 + col) =
+          make_float2(dv[4 * jj + 2], dv[4 * jj + 3]);
+    }
+  }
+}
+
+// dq of query tile gridDim.z − 1 − blockIdx.z (the last, with the most
+// keys under causal, first) for head blockIdx.x, batch blockIdx.y
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+    bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const BwdArgs a) {
+  using C = TcBwd<HD>;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  constexpr int NS = BWD_STAGES;
+  constexpr int ATOMS = HD / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sG = sQ + C::TILE;
+  uint8_t* sK = sG + C::TILE;       // NS stages of K
+  uint8_t* sV = sK + NS * C::TILE;  // NS stages of V
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * C::TILE);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = qt * 64;
+  const int kvh = h / (a.H / a.KV);
+  // the band of keys this tile can see, in whole key tiles
+  const int q_last = min(q0 + 64, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  const int k_begin = a.window > 0 ? (max(0, q0 - a.window + 1) / 64) * 64 : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + 63) / 64 : 0;
+  const int warp = __shfl_sync(FULL, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(qbar, 2 * C::TILE);
+      for (int at = 0; at < ATOMS; ++at) {
+        tma_load_4d(sQ + at * ATOM_BYTES, &tq, qbar, 64 * at, h, q0, b);
+        tma_load_4d(sG + at * ATOM_BYTES, &tdo, qbar, 64 * at, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) mbar_wait(&empty[s], ((j / NS) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::TILE);
+        const int k0 = k_begin + 64 * j;
+        for (int at = 0; at < ATOMS; ++at) {
+          tma_load_4d(sK + s * C::TILE + at * ATOM_BYTES, &tk, &full[s],
+                      64 * at, kvh, k0, b);
+          tma_load_4d(sV + s * C::TILE + at * ATOM_BYTES, &tv, &full[s],
+                      64 * at, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // this thread holds query rows r0 and r0 + 8, key columns cl + 8·i (+1)
+  const int r0 = q0 + 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  const float sc2 = a.scale * LOG2E;
+  const long long srow = (static_cast<long long>(b) * a.H + h) * a.Sqp;
+  const float l0 = a.lse2[srow + r0], l1 = a.lse2[srow + r0 + 8];
+  const float d0 = a.delta[srow + r0], d1 = a.delta[srow + r0 + 8];
+  const uint32_t qa = smem_u32(sQ), ga = smem_u32(sG);
+  float dq[ATOMS][32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at) dq[at][i] = 0.f;
+  }
+  uint32_t da[4][4];  // dS as A fragments
+
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    mbar_wait(&full[s], (j / NS) & 1);
+    __syncwarp();
+    const int k0 = k_begin + 64 * j;
+    const uint32_t ka = smem_u32(sK + s * C::TILE);
+    const uint32_t va = smem_u32(sV + s * C::TILE);
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(sc, kstep(qa, kk), kstep(ka, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dp, kstep(ga, kk), kstep(va, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // element i: query row r0 + 8·((i >> 1) & 1), key column
+    // k0 + cl + 8·(i >> 2) + (i & 1)
+    const bool edge = k0 + 64 > a.Sk || (a.causal && q0 < k0 + 63) ||
+                      (a.window > 0 && q0 + 63 - k0 >= a.window);
+    // branch-free, as in the dk/dv kernel
+    auto scores = [&](auto cap, auto masked) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const bool hi = i & 2;
+        float p0, p1, g0, g1;
+        grad<decltype(cap)::value>(a, sc2, sc[i], dp[i], hi ? l1 : l0,
+                                   hi ? d1 : d0, p0, g0);
+        grad<decltype(cap)::value>(a, sc2, sc[i + 1], dp[i + 1],
+                                   hi ? l1 : l0, hi ? d1 : d0, p1, g1);
+        if constexpr (decltype(masked)::value) {
+          const int qi = r0 + (hi ? 8 : 0), kj = k0 + cl + 8 * (i >> 2);
+          if (!(kj < a.Sk && visible(a, qi, kj))) g0 = 0.f;
+          if (!(kj + 1 < a.Sk && visible(a, qi, kj + 1))) g1 = 0.f;
+        }
+        da[i >> 3][(i & 7) >> 1] = pack_bf16(g0, g1);
+      }
+    };
+    dispatch(a.softcap > 0.f, edge, scores);
+
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at) fence_regs(dq[at]);
+    fence_regs(da);
+    wg_fence();
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dq[at], da[kk], sw128_desc(ka + at * ATOM_BYTES + kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int at = 0; at < ATOMS; ++at) fence_regs(dq[at]);
+    fence_regs(da);  // this warp's products no longer read stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq);
+  const long long row0 = (static_cast<long long>(b) * a.Sq + r0) * a.H + h;
+  const long long row1 = row0 + 8LL * a.H;
+#pragma unroll
+  for (int at = 0; at < ATOMS; ++at)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * at + 8 * jj + cl;
+      if (r0 < a.Sq)
+        *reinterpret_cast<uint32_t*>(out + row0 * HD + col) = pack_bf16(
+            dq[at][4 * jj] * a.scale, dq[at][4 * jj + 1] * a.scale);
+      if (r0 + 8 < a.Sq)
+        *reinterpret_cast<uint32_t*>(out + row1 * HD + col) = pack_bf16(
+            dq[at][4 * jj + 2] * a.scale, dq[at][4 * jj + 3] * a.scale);
+    }
+
+  // The group sum of dk and dv (the dk/dv launch left its partials
+  // complete), by the consumer threads of the later half of the grid:
+  // the query tiles with the fewest keys under causal, which finish
+  // first, so that the blocks with the most keys end no later.
+  const unsigned half = gridDim.z / 2;
+  if (blockIdx.z >= half) {
+    const long long helpers =
+        static_cast<long long>(gridDim.z - half) * gridDim.y * gridDim.x;
+    const long long me =
+        (static_cast<long long>(blockIdx.z - half) * gridDim.y + blockIdx.y) *
+            gridDim.x + blockIdx.x;
+    group_sum<__nv_bfloat16, HD>(a, me * 128 + threadIdx.x, helpers * 128);
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// the group sum and the launchers                                         //
+// ---------------------------------------------------------------------- //
+
+// the group sum as its own launch (float32)
 template <typename T, int HD>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t s) {
+__global__ void __launch_bounds__(BNT) bwd_reduce_kernel(BwdArgs a) {
+  group_sum<T, HD>(a, static_cast<long long>(blockIdx.x) * BNT + threadIdx.x,
+                   static_cast<long long>(gridDim.x) * BNT);
+}
+
+template <typename T, int HD>
+cudaError_t launch_delta(const BwdArgs& a, cudaStream_t s) {
+  constexpr int L = HD / (16 / sizeof(T));
+  const long long threads = static_cast<long long>(a.B) * a.H * a.Sqp * L;
+  const long long blocks = (threads + BNT - 1) / BNT;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  bwd_delta_kernel<T, HD><<<static_cast<unsigned>(blocks), BNT, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_reduce(const BwdArgs& a, cudaStream_t s) {
+  bwd_reduce_kernel<T, HD><<<264, BNT, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
   constexpr size_t smem = bwd_smem_bytes<HD>();
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_dq_kernel<T, HD>,
+  e = cudaFuncSetAttribute(bwd_dq_kernel<HD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
-  const long long dblocks = (rows + BNT / 32 - 1) / (BNT / 32);
-  if (dblocks > 2147483647LL) return cudaErrorInvalidValue;
-  bwd_delta_kernel<T, HD><<<static_cast<unsigned>(dblocks), BNT, 0, s>>>(a);
-  e = cudaGetLastError();
+  if ((e = launch_delta<float, HD>(a, s)) != cudaSuccess) return e;
+  bwd_dkdv_kernel<HD><<<dim3((a.Sk + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_dq_kernel<HD><<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return launch_reduce<float, HD>(a, s);
+}
+
+template <int HD>
+cudaError_t launch_bwd_tc(const BwdArgs& a, cudaStream_t s) {
+  using C = TcBwd<HD>;
+  const long long hq = static_cast<long long>(a.H) * HD;
+  const long long hk = static_cast<long long>(a.KV) * HD;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!tensor_map(&tq, a.q, a.B, a.Sq, a.H, HD, a.Sq * hq, hq, HD, 64) ||
+      !tensor_map(&tdo, a.dout, a.B, a.Sq, a.H, HD, a.Sq * hq, hq, HD, 64) ||
+      !tensor_map(&tk, a.k, a.B, a.Sk, a.KV, HD, a.Sk * hk, hk, HD, 64) ||
+      !tensor_map(&tv, a.v, a.B, a.Sk, a.KV, HD, a.Sk * hk, hk, HD, 64))
+    return cudaErrorInvalidValue;
+  const long long kt = (a.Sk + 63) / 64, qt = (a.Sq + 63) / 64;
+  if (kt > 65535 || qt > 65535) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = launch_delta<__nv_bfloat16, HD>(a, s)) != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_dkdv_tc_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::DKDV_SMEM);
   if (e != cudaSuccess) return e;
-  bwd_dkdv_kernel<T, HD>
-      <<<dim3((a.Sk + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
-  e = cudaGetLastError();
+  e = cudaFuncSetAttribute(bwd_dq_tc_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::DQ_SMEM);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<T, HD>
-      <<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_reduce_kernel<T, HD><<<264, BNT, 0, s>>>(a);
+  bwd_dkdv_tc_kernel<HD>
+      <<<dim3(a.H, a.B, static_cast<unsigned>(kt)), C::DKDV_THREADS,
+         C::DKDV_SMEM, s>>>(tq, tdo, tk, tv, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_dq_tc_kernel<HD><<<dim3(a.H, a.B, static_cast<unsigned>(qt)),
+                         TC_THREADS, C::DQ_SMEM, s>>>(tq, tdo, tk, tv, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// ptrs: q, k, v, o, do, lse, delta (scratch), dq, dk_partial, dv_partial
-// (scratch), dk, dv.  q, o, do, dq: (B, Sq, H, hd) contiguous; k, v, dk,
-// dv: (B, Sk, KV, hd) contiguous; lse, delta: (B, H, Sq) float32; the
-// partials (B, Sk, H, hd) float32.  ints: B, Sq, Sk, H, KV, hd, dtype
-// (0 = float32, 1 = bfloat16), causal, window (<= 0: none), device.
-// softcap <= 0: none.  Returns a cudaError_t (0 on success).
+// ptrs: q, k, v, o, do, lse, delta, lse2 (scratch), dq, dk_partial,
+// dv_partial (scratch), dk, dv.  q, o, do, dq: (B, Sq, H, hd) contiguous;
+// k, v, dk, dv: (B, Sk, KV, hd) contiguous; all of them 16-byte aligned;
+// lse: (B, H, Sq) float32; delta, lse2: (B, H, Sqp) float32 with Sqp = Sq
+// rounded up to a multiple of 64; the partials (B, Sk, H, hd) float32.
+// ints: B, Sq, Sk, H, KV, hd, dtype (0 = float32, 1 = bfloat16), causal,
+// window (<= 0: none), device.  softcap <= 0: none.  Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_launch(void* const* ptrs, const int* ints,
                                           float softcap, float scale,
                                           void* stream) {
@@ -1152,25 +1715,27 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const int* ints,
   a.dout = ptrs[4];
   a.lse = static_cast<const float*>(ptrs[5]);
   a.delta = static_cast<float*>(ptrs[6]);
-  a.dq = ptrs[7];
-  a.dkp = static_cast<float*>(ptrs[8]);
-  a.dvp = static_cast<float*>(ptrs[9]);
-  a.dk = ptrs[10]; a.dv = ptrs[11];
+  a.lse2 = static_cast<float*>(ptrs[7]);
+  a.dq = ptrs[8];
+  a.dkp = static_cast<float*>(ptrs[9]);
+  a.dvp = static_cast<float*>(ptrs[10]);
+  a.dk = ptrs[11]; a.dv = ptrs[12];
   a.B = ints[0]; a.Sq = ints[1]; a.Sk = ints[2]; a.H = ints[3];
   a.KV = ints[4];
   const int hd = ints[5], dtype = ints[6];
   a.causal = ints[7]; a.window = ints[8];
   a.softcap = softcap; a.scale = scale;
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.KV < 1 || a.H % a.KV != 0 ||
-      a.B > 65535 || a.H > 65535)
+      a.B > 65535 || a.H > 65535 || a.Sq > 2147483647 - 63)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.Sqp = (a.Sq + 63) / 64 * 64;
   cudaError_t e = cudaSetDevice(ints[9]);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64) e = launch_bwd<float, 64>(a, s);
-  else if (dtype == 0 && hd == 128) e = launch_bwd<float, 128>(a, s);
-  else if (dtype == 1 && hd == 64) e = launch_bwd<__nv_bfloat16, 64>(a, s);
-  else if (dtype == 1 && hd == 128) e = launch_bwd<__nv_bfloat16, 128>(a, s);
+  if (dtype == 0 && hd == 64) e = launch_bwd_f32<64>(a, s);
+  else if (dtype == 0 && hd == 128) e = launch_bwd_f32<128>(a, s);
+  else if (dtype == 1 && hd == 64) e = launch_bwd_tc<64>(a, s);
+  else if (dtype == 1 && hd == 128) e = launch_bwd_tc<128>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -268,107 +268,361 @@ namespace {
 // Backward (the reference model's _rms_bwd, round_scale form)             //
 // ====================================================================== //
 //
-// With the forward's m (its residual, as _rms_fwd saves it) and
-// gs = f32(g)·w:
+// The hand-written counterpart of the reference model's custom VJP
+// src/repro/models/layers.py:_rms_bwd (:58).  With the forward's m (its
+// residual, as _rms_fwd saves it) and gs = f32(g)·w:
 //   inner = Σ_j f32(cast(gs_j))·f32(x_j)            (f32)
 //   coeff = (m·m·m / D)·inner                        (f32)
 //   dx    = cast(m·gs) − cast(cast(coeff)·x)         (bf16: each op rounds)
 //   dx    = m·gs − coeff·x                           (float32)
 //   dw    = Σ_rows f32(cast(f32(g)·m))·f32(x)        (f32)
-// exactly the roundings of _rms_bwd (the products of two bf16 values are
-// exact in f32).
+// with every rounding of _rms_bwd (the products of two bf16 values are
+// exact in f32); only the order of the f32 sums (inner, dw) differs from
+// the plain version.
 //
-// Bound on the H100: bytes.  dx reads x and g once and writes dx once;
-// dw is a column sum over all rows of the same inputs.  The design, simple
-// and deterministic (no atomics, the same bits every run):
-// * bwd_rows_kernel: 4 warps a block, one row at a time per warp, RPB
-//   rows a block; a row is read twice (its inner sum, then dx), the
-//   second time from L1/L2; each warp adds its rows' t·x into its own f32 row of dw in
-//   shared memory (a lane owns columns lane, lane + 32, ...), then the
-//   block sums its 4 warp rows in order into partial[block] (f32);
-// * bwd_cols_kernel: dw[c] = Σ_block partial[block][c] in block order.
+// Bound on the H100: bytes.  It reads x and g once and writes dx once (w,
+// m and dw are small): 5.52 MB at the training shape (1024, 896) bf16,
+// 0.0016 ms at 3.35 TB/s.  So each row is read from device memory once,
+// and the loads of every row are in flight together:
+// * bwd_rows_kernel, the forward's layout: 8 warps a block; as many warps
+//   per row as keep about BWD_FILL warps busy on each SM (at the training
+//   shape 4 warps per row, one 16-byte vector a lane: measured faster
+//   than 1 or 2), more for a row longer than a warp's registers hold;
+//   each thread holds NV 16-byte vectors of x and g of its row, and the
+//   gains of its columns, in registers; the inner sum by shuffles and,
+//   when a row spans warps, shared memory; dx from the registers;
+// * dw: each thread keeps f32 sums for the columns it owns over every row
+//   its row group visits (rows per group chosen so that at most `cap`
+//   blocks run; while a thread holds few elements, a row's loads are
+//   issued while the row before it is worked); the block adds its
+//   groups' sums in order, through shared memory, into partial[block];
+// * a scalar path in the same kernel (VECT = false) for a D that is not a
+//   multiple of the vector width or a pointer that is not 16-byte
+//   aligned: the same, one element per unit;
+// * bwd_cols_kernel: dw[c] = Σ_block partial[block][c], each of 32 warps
+//   summing every 32nd block in order (its loads all in flight at once),
+//   then the 32 sums in order.  A fold of the partials by the row pass's
+//   last blocks, in the same launch, was measured slower than this
+//   second launch.
+// No atomics: two runs give the same bits.
 
-constexpr int BWD_WARPS = 4;
+constexpr int BWD_FILL = 16;        // busy warps per SM the launcher aims for
+constexpr int BWD_VEC_CAP = 8;      // 16-byte vectors a thread holds at most
+constexpr int BWD_SCALAR_CAP = 48;  // scalar elements a thread holds at most
 
+// x[k][e], unit k's element e, as f32
+template <typename T, bool VECT>
+struct Units;
 template <typename T>
-__global__ void __launch_bounds__(32 * BWD_WARPS)
+struct Units<T, true> {
+  static constexpr int E = 16 / sizeof(T);
+  template <int NV>
+  struct Held {
+    uint4 v[NV];
+    __device__ __forceinline__ void load(const T* row, int t, int tpr,
+                                         int units, bool live) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int i = t + k * tpr;
+        v[k] = live && i < units ? __ldg(reinterpret_cast<const uint4*>(row) + i)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    __device__ __forceinline__ float at(int k, int e) const {
+      return elem<T>(v[k], e);
+    }
+  };
+};
+template <typename T>
+struct Units<T, false> {
+  static constexpr int E = 1;
+  template <int NV>
+  struct Held {
+    float v[NV];
+    __device__ __forceinline__ void load(const T* row, int t, int tpr,
+                                         int units, bool live) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int i = t + k * tpr;
+        v[k] = live && i < units ? to_f(row[i]) : 0.f;
+      }
+    }
+    __device__ __forceinline__ float at(int k, int) const { return v[k]; }
+  };
+};
+
+// dx of one element: x, gs = g·w, the row's m and coeff
+template <typename T>
+__device__ __forceinline__ float dx_elem(float xv, float gs, float m,
+                                         float coeff) {
+  if constexpr (sizeof(T) == 2) {
+    const float a = to_f(from_f<T>(m * gs));
+    const float b = to_f(from_f<T>(to_f(from_f<T>(coeff)) * xv));
+    return a - b;
+  } else {
+    return m * gs - coeff * xv;
+  }
+}
+
+// Rows of x, g (rows, D); `wpr` warps per row (1, 2, 4 or 8), WARPS / wpr
+// row groups a block, each visiting `rpg` rows; each thread holds NV
+// units (16-byte vectors if VECT, else elements) of its row: unit i of
+// the row goes to thread i % (32·wpr).
+template <typename T, int NV, bool VECT>
+__global__ void __launch_bounds__(THREADS)
 bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const T* __restrict__ g, const float* __restrict__ mrow,
                 T* __restrict__ dx, float* __restrict__ partial,
-                long long rows, int D, int rpb) {
-  extern __shared__ float acc[];  // [BWD_WARPS][D]
+                long long rows, int D, int wpr, int rpg) {
+  using U = Units<T, VECT>;
+  using Held = typename U::template Held<NV>;
+  constexpr int E = U::E;
+  __shared__ float part[2][WARPS];
+  extern __shared__ float4 red4[];  // [groups][D]: each group's dw sums
+  float* red = reinterpret_cast<float*>(red4);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* mine = acc + static_cast<long long>(warp) * D;
-  for (int c = lane; c < D; c += 32) mine[c] = 0.f;
-  const long long r0 = static_cast<long long>(blockIdx.x) * rpb;
-  const long long r1 = min(r0 + rpb, rows);
-  for (long long r = r0 + warp; r < r1; r += BWD_WARPS) {
-    const T* xr = x + r * D;
-    const T* gr = g + r * D;
-    T* dr = dx + r * D;
-    float inner = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float gs = to_f(gr[c]) * w[c];
-      inner += to_f(from_f<T>(gs)) * to_f(xr[c]);
+  const int groups = WARPS / wpr, grp = warp / wpr;
+  const int t = (warp % wpr) * 32 + lane, tpr = 32 * wpr;
+  const int units = D / E;
+
+  // the dw sums of my columns, and (vector path) their gains; the
+  // scalar path reads its gains from L1 instead, to stay within registers
+  float acc[NV * E], wv[VECT ? NV * E : 1];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = t + k * tpr;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[k * E + e] = 0.f;
+    if constexpr (VECT) {
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const float4 v = i < units
+            ? __ldg(reinterpret_cast<const float4*>(w) + i * (E / 4) + q)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        wv[k * E + 4 * q] = v.x; wv[k * E + 4 * q + 1] = v.y;
+        wv[k * E + 4 * q + 2] = v.z; wv[k * E + 4 * q + 3] = v.w;
+      }
     }
+  }
+  auto gain = [&](int k, int e) -> float {
+    if constexpr (VECT) return wv[k * E + e];
+    const int i = t + k * tpr;
+    return i < units ? __ldg(w + i) : 0.f;
+  };
+
+  // round n's row; with PREFETCH its loads are issued one round ahead
+  const long long r0 = static_cast<long long>(blockIdx.x) * groups * rpg;
+  auto row = [&](int n) { return r0 + static_cast<long long>(n) * groups + grp; };
+  auto fetch = [&](int n, Held& xh, Held& gh, float& mh) {
+    const long long r = row(n);
+    const bool live = r < rows;
+    const long long base = (live ? r : 0) * static_cast<long long>(D);
+    xh.load(x + base, t, tpr, units, live);
+    gh.load(g + base, t, tpr, units, live);
+    mh = live ? mrow[r] : 0.f;
+  };
+  // a second row in flight only while a thread holds at most 32 elements
+  // of one (more would spill)
+  constexpr bool PREFETCH = NV * E <= 32;
+  Held xv, gv, xn, gn;
+  float m, mn = 0.f;
+  fetch(0, xv, gv, m);
+  for (int n = 0; n < rpg; ++n) {
+    if (PREFETCH && n + 1 < rpg) fetch(n + 1, xn, gn, mn);
+    const long long r = row(n);
+    const bool live = r < rows;
+    const long long base = (live ? r : 0) * static_cast<long long>(D);
+
+    float inner = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        inner += to_f(from_f<T>(gv.at(k, e) * gain(k, e))) * xv.at(k, e);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) inner += __shfl_xor_sync(FULL, inner, o);
-    const float m = mrow[r];
+    if (wpr > 1) {  // block-uniform; part alternates between rounds
+      if (lane == 0) part[n & 1][warp] = inner;
+      __syncthreads();
+      inner = 0.f;
+      for (int j = 0; j < wpr; ++j) inner += part[n & 1][grp * wpr + j];
+    }
     const float coeff = (m * m * m / static_cast<float>(D)) * inner;
-    for (int c = lane; c < D; c += 32) {
-      const float xv = to_f(xr[c]);
-      const float gv = to_f(gr[c]);
-      const float gs = gv * w[c];
-      if constexpr (sizeof(T) == 2) {
-        const float a = to_f(from_f<T>(m * gs));
-        const float b = to_f(from_f<T>(to_f(from_f<T>(coeff)) * xv));
-        dr[c] = from_f<T>(a - b);
-      } else {
-        dr[c] = from_f<T>(m * gs - coeff * xv);
+
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = t + k * tpr;
+      if (live && i < units) {
+        float f[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          f[e] = dx_elem<T>(xv.at(k, e), gv.at(k, e) * gain(k, e), m, coeff);
+        if constexpr (!VECT) {
+          dx[base + i] = from_f<T>(f[0]);
+        } else if constexpr (E == 4) {
+          reinterpret_cast<uint4*>(dx + base)[i] =
+              make_uint4(bits(f[0]), bits(f[1]), bits(f[2]), bits(f[3]));
+        } else {
+          reinterpret_cast<uint4*>(dx + base)[i] = make_uint4(
+              bits2(from_f<T>(f[0]), from_f<T>(f[1])),
+              bits2(from_f<T>(f[2]), from_f<T>(f[3])),
+              bits2(from_f<T>(f[4]), from_f<T>(f[5])),
+              bits2(from_f<T>(f[6]), from_f<T>(f[7])));
+        }
       }
-      mine[c] += to_f(from_f<T>(gv * m)) * xv;
+    }
+    // dw: a unit past the row or a row past the end holds zeros and adds 0
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[k * E + e] += to_f(from_f<T>(gv.at(k, e) * m)) * xv.at(k, e);
+    if (n + 1 == rpg) break;
+    if (PREFETCH) {
+      xv = xn;
+      gv = gn;
+      m = mn;
+    } else {
+      fetch(n + 1, xv, gv, m);
     }
   }
-  __syncthreads();
+
+  // the block's dw: its groups' sums added in group order
   float* out = partial + static_cast<long long>(blockIdx.x) * D;
-  for (int c = threadIdx.x; c < D; c += 32 * BWD_WARPS) {
-    float s = 0.f;
+  float* mine = groups > 1 ? red + static_cast<long long>(grp) * D : out;
 #pragma unroll
-    for (int j = 0; j < BWD_WARPS; ++j) s += acc[j * D + c];
-    out[c] = s;
+  for (int k = 0; k < NV; ++k) {
+    const int i = t + k * tpr;
+    if (i < units) {
+      if constexpr (VECT) {
+#pragma unroll
+        for (int q = 0; q < E / 4; ++q)
+          reinterpret_cast<float4*>(mine)[i * (E / 4) + q] =
+              make_float4(acc[k * E + 4 * q], acc[k * E + 4 * q + 1],
+                          acc[k * E + 4 * q + 2], acc[k * E + 4 * q + 3]);
+      } else {
+        mine[i] = acc[k];
+      }
+    }
+  }
+  if (groups > 1) {
+    __syncthreads();
+    if constexpr (VECT) {  // D is a multiple of 4
+      const float4* r4 = red4;
+      for (int c = threadIdx.x; c < D / 4; c += THREADS) {
+        float4 s = r4[c];
+        for (int j = 1; j < groups; ++j) {
+          const float4 v = r4[static_cast<long long>(j) * (D / 4) + c];
+          s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        }
+        reinterpret_cast<float4*>(out)[c] = s;
+      }
+    } else {
+      for (int c = threadIdx.x; c < D; c += THREADS) {
+        float s = red[c];
+        for (int j = 1; j < groups; ++j) s += red[static_cast<long long>(j) * D + c];
+        out[c] = s;
+      }
+    }
   }
 }
 
-__global__ void bwd_cols_kernel(const float* __restrict__ partial,
-                                float* __restrict__ dw, int nblocks, int D) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
+constexpr int COLS_WARPS = 32;  // warps of the column pass's blocks
+constexpr int COLS_BATCH = 9;   // rows a lane loads at once (9·32 >= 264)
+
+// dw[c] = Σ_j partial[j][c] over the nblocks rows of partial in a fixed
+// order: 32 columns a block; warp k sums rows k, k + 32, ... in order,
+// loading COLS_BATCH of them at once, then the 32 sums in order
+__global__ void __launch_bounds__(32 * COLS_WARPS)
+bwd_cols_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                int nblocks, int D) {
+  __shared__ float sums[COLS_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int j = 0; j < nblocks; ++j)
-    s += partial[static_cast<long long>(j) * D + c];
-  dw[c] = s;
+  for (int j0 = warp; j0 < nblocks; j0 += COLS_WARPS * COLS_BATCH) {
+    float v[COLS_BATCH];
+#pragma unroll
+    for (int u = 0; u < COLS_BATCH; ++u) {
+      const int j = j0 + u * COLS_WARPS;
+      v[u] = c < D && j < nblocks ? partial[static_cast<long long>(j) * D + c]
+                                  : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < COLS_BATCH; ++u) s += v[u];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < COLS_WARPS; ++k) tot += sums[k][lane];
+    dw[c] = tot;
+  }
 }
 
+template <typename T, int NV, bool VECT>
+cudaError_t go_bwd(const void* x, const void* w, const void* g, const void* m,
+                   void* dx, void* partial, long long rows, int D, int wpr,
+                   int rpg, long long blocks, cudaStream_t s) {
+  const int groups = WARPS / wpr;
+  const int smem = groups > 1 ? static_cast<int>(sizeof(float)) * groups * D : 0;
+  if (smem > 47 * 1024) {  // beside the kernel's static bytes
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_rows_kernel<T, NV, VECT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  bwd_rows_kernel<T, NV, VECT><<<static_cast<unsigned>(blocks), THREADS,
+                                 smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const T*>(g), static_cast<const float*>(m),
+      static_cast<T*>(dx), static_cast<float*>(partial), rows, D, wpr, rpg);
+  return cudaGetLastError();
+}
+
+// Choose the path, warps per row and rows per group, then launch both
+// passes; `cap` is the number of rows of `partial`.
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* g,
                        const void* m, void* dx, void* partial, void* dw,
-                       long long rows, int D, int rpb, cudaStream_t s) {
-  const long long blocks = (rows + rpb - 1) / rpb;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * BWD_WARPS * static_cast<size_t>(D);
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                       long long rows, int D, int cap, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  bool vect =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx)) &
+       15) == 0 &&
+      D % VEC == 0 && D / VEC <= 32 * WARPS * BWD_VEC_CAP;
+  const int units = vect ? D / VEC : D;
+  const int ucap = vect ? BWD_VEC_CAP : BWD_SCALAR_CAP;
+  if (units > 32 * WARPS * ucap) return cudaErrorInvalidValue;
+  // one warp per row while the rows fill the card (about BWD_FILL busy
+  // warps per SM of 132); more for few rows, never giving a warp nothing
+  // to load, or for a row longer than a warp holds
+  int wpr = 1;
+  while (wpr < WARPS && ((rows * wpr < 132LL * BWD_FILL && 32 * wpr < units) ||
+                         units > 32 * wpr * ucap))
+    wpr *= 2;
+  const int nv = (units + 32 * wpr - 1) / (32 * wpr);
+  const long long groups = WARPS / wpr;
+  const long long rpg = (rows + groups * cap - 1) / (groups * cap);
+  const long long blocks = (rows + groups * rpg - 1) / (groups * rpg);
+  if (rpg > 2147483647LL || blocks > cap) return cudaErrorInvalidValue;
+  const int r = static_cast<int>(rpg);
+  cudaError_t e;
+  if (!vect)
+    e = nv <= 8 ? go_bwd<T, 8, false>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s)
+                : go_bwd<T, 48, false>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s);
+  else if (nv <= 1)
+    e = go_bwd<T, 1, true>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s);
+  else if (nv <= 2)
+    e = go_bwd<T, 2, true>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s);
+  else if (nv <= 4)
+    e = go_bwd<T, 4, true>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s);
+  else
+    e = go_bwd<T, 8, true>(x, w, g, m, dx, partial, rows, D, wpr, r, blocks, s);
   if (e != cudaSuccess) return e;
-  bwd_rows_kernel<T><<<static_cast<unsigned>(blocks), 32 * BWD_WARPS, smem,
-                       s>>>(static_cast<const T*>(x),
-                            static_cast<const float*>(w),
-                            static_cast<const T*>(g),
-                            static_cast<const float*>(m), static_cast<T*>(dx),
-                            static_cast<float*>(partial), rows, D, rpb);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_cols_kernel<<<(D + 255) / 256, 256, 0, s>>>(
+  bwd_cols_kernel<<<(D + 31) / 32, 32 * COLS_WARPS, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw),
       static_cast<int>(blocks), D);
   return cudaGetLastError();
@@ -378,23 +632,24 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* g,
 
 // Backward of the round_scale form.  x, g, dx: (rows, D) contiguous, dtype
 // 0 = float32, 1 = bfloat16; w: (D,) float32; m: (rows,) float32, the
-// forward's; partial: ceil(rows / rpb) × D float32 scratch; dw: (D,)
-// float32.  rpb: rows per block.  Returns a cudaError_t (0 on success).
+// forward's; partial: cap × D float32 scratch (cap >= 1; the kernel runs
+// at most cap blocks); dw: (D,) float32.  Returns a cudaError_t (0 on
+// success).
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* g,
                                   const void* m, void* dx, void* partial,
-                                  void* dw, long long rows, int D, int rpb,
+                                  void* dw, long long rows, int D, int cap,
                                   int dtype, int device, void* stream) {
-  if (rows < 1 || D < 1 || rpb < 1)
+  if (rows < 1 || D < 1 || cap < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return static_cast<int>(launch_bwd<float>(x, w, g, m, dx, partial, dw,
-                                              rows, D, rpb, s));
+                                              rows, D, cap, s));
   if (dtype == 1)
     return static_cast<int>(launch_bwd<__nv_bfloat16>(x, w, g, m, dx, partial,
-                                                      dw, rows, D, rpb, s));
+                                                      dw, rows, D, cap, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

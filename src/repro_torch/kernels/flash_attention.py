@@ -39,10 +39,20 @@ q's dtype:
 
 * :func:`attention_bwd_ref` — plain PyTorch; what CPU tensors get.
 * :func:`flash_attention_bwd_cuda` — the hand-written kernel (second
-  half of ``kernels/csrc/flash_attention.cu``): Δ, then dk/dv per
-  (key tile, head) over the query tiles of the band, dq per (query
-  tile, head) over the key tiles, then dk/dv summed over the group's
-  heads in order; f32 on the CUDA cores, no atomics.
+  half of ``kernels/csrc/flash_attention.cu``): Δ; dk/dv per (64-key
+  tile, head) over the query tiles of the band into per-head float32
+  partials; dq per (64-query tile, head) over the key tiles, recomputing
+  S and dP; then dk/dv summed over the group's heads in order, by the
+  dq launch's blocks with the fewest keys in bfloat16 (three launches)
+  and by a fourth launch in float32 (no atomics: two runs give the same
+  bits).  Its bound is
+  operations (five S×S×hd products), so in bfloat16 every product runs
+  on the tensor cores (``wgmma``, tiles brought by TMA, as the forward):
+  S and dP (Sᵀ and dPᵀ in the dk/dv kernel) from shared memory, P and
+  dS formed in registers and fed back as register operands of dV, dK
+  and dQ.  It rounds P and dS to bfloat16 as operands, where the plain
+  version keeps them in float32, and takes exp as 2^x.  float32 runs on
+  the CUDA cores in float32.
 """
 from __future__ import annotations
 
@@ -143,8 +153,8 @@ def launch_count() -> int:
 
 
 def bwd_launch_count() -> int:
-    """Calls of :func:`flash_attention_bwd_cuda` (four launches each)
-    since the last reset."""
+    """Calls of :func:`flash_attention_bwd_cuda` (three launches each in
+    bfloat16, four in float32) since the last reset."""
     return _BWD_LAUNCHES
 
 
@@ -295,9 +305,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel: same contract as :func:`attention_bwd_ref`.
 
     q, k, v, o, do are CUDA tensors of one dtype (float32 or bfloat16,
-    made contiguous here) with a head dim of 64 or 128; ``lse`` float32
-    ``(B, H, Sq)``.  Returns new (dq, dk, dv).  Raises on any other input
-    and if a launch fails; there is no fallback.
+    made contiguous here) with a head dim of 64 or 128, each starting on
+    a 16-byte boundary (the TMA copies and 16-byte loads need it);
+    ``lse`` float32 ``(B, H, Sq)``.  Returns new (dq, dk, dv).  Raises on
+    any other input and if a launch fails; there is no fallback.
     """
     global _BWD_LAUNCHES
     from repro_torch.kernels import _build
@@ -316,15 +327,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd_cuda: window {window} < 1")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention_bwd_cuda: softcap {softcap} <= 0")
-    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} must start "
+                             "on a 16-byte boundary")
+    lse = lse.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty(B, H, Sq, **f32)
+    # Δ and lse·log2(e) per query row, rows padded to whole 64-row tiles
+    stats = torch.empty(2, B, H, -(-Sq // 64) * 64, **f32)
     dkp = torch.empty(B, Sk, H, hd, **f32)
     dvp = torch.empty(B, Sk, H, hd, **f32)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in (
-        q, k, v, o, do, lse, delta, dq, dkp, dvp, dk, dv)))
+    ptrs = (ctypes.c_void_p * 13)(*(x.data_ptr() for x in (
+        q, k, v, o, do, lse, stats[0], stats[1], dq, dkp, dvp, dk, dv)))
     ints = (ctypes.c_int * 10)(B, Sq, Sk, H, KV, hd, _DTYPES[q.dtype],
                                int(causal), window or 0, q.device.index or 0)
     lib = _lib()

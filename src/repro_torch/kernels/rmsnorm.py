@@ -37,9 +37,18 @@ identity), dx in x's dtype, dw float32.
 
 * :func:`rmsnorm_bwd_ref` — plain PyTorch; what CPU tensors get.
 * :func:`rmsnorm_bwd_cuda` — the hand-written kernel beside the forward
-  in ``kernels/csrc/rmsnorm.cu``: a row pass for dx that also sums each
-  block's rows of dw in f32, then a column pass over the blocks, in a
-  fixed order (no atomics: two runs give the same bits).
+  in ``kernels/csrc/rmsnorm.cu``.  Its bound is bytes (x and g read
+  once, dx written once), so it takes the forward's layout: each thread
+  holds 16-byte vectors of x and g of its row in registers, the row's
+  inner sum goes by shuffles, and dx is written from the registers, so
+  each row is read from device memory once; each thread also sums dw in
+  f32 for the columns it owns over the rows its warp visits, the block
+  adds its warps' sums in a fixed order into one partial row, and a
+  second, column pass adds the blocks' rows in a fixed order (no
+  atomics: two runs give the same bits).  A D that is not a multiple of
+  the vector width or an unaligned pointer takes a scalar path of the
+  same shape.  Its roundings are the plain version's; only the order of
+  the float32 sums (the inner sum, dw) differs.
 """
 from __future__ import annotations
 
@@ -54,7 +63,8 @@ __all__ = ["bwd_launch_count", "launch_count", "reset_launch_count",
 
 _LAUNCHES = 0
 _BWD_LAUNCHES = 0
-#: blocks the backward's row pass aims for (two per SM of an H100)
+#: the most blocks the backward's row pass runs (two per SM of an H100):
+#: the rows of its per-block dw partials
 _BWD_BLOCKS = 264
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -177,10 +187,9 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
     ``x`` and ``g`` are CUDA tensors ``(..., D)`` of one dtype (float32
     or bfloat16; made contiguous here), ``w`` is ``(D,)``, ``m`` float32
-    of x's leading shape; D is at most 12288 (the row pass keeps 4 f32
-    rows of dw in shared memory).
-    Raises on any other input and if a launch fails; there is no
-    fallback.
+    of x's leading shape; D is at most 12288 (the row pass holds a row in
+    the registers of at most 8 warps).  Raises on any other input and if
+    a launch fails; there is no fallback.
     """
     global _BWD_LAUNCHES
     from repro_torch.kernels import _build
@@ -204,17 +213,17 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     x, g, m = x.contiguous(), g.contiguous(), m.contiguous()
     w32 = w.float().contiguous()
     dx = torch.empty_like(x)
-    dw = torch.zeros(D, dtype=torch.float32, device=x.device)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
     rows = x.numel() // D
     if rows == 0:
-        return dx, dw
-    rpb = 4 * max(1, -(-rows // (4 * _BWD_BLOCKS)))
-    partial = torch.empty(-(-rows // rpb), D, dtype=torch.float32,
+        return dx, dw.zero_()
+    partial = torch.empty(min(rows, _BWD_BLOCKS), D, dtype=torch.float32,
                           device=x.device)
     lib = _lib()
     err = lib.rmsnorm_bwd_launch(
         x.data_ptr(), w32.data_ptr(), g.data_ptr(), m.data_ptr(),
-        dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), rows, D, rpb,
+        dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), rows, D,
+        partial.shape[0],
         _DTYPES[x.dtype], x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -20,7 +20,9 @@ of 16), y and the final state at ``chip_smoke.SSD_F32`` in float32
 (rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16
 (the final state as in float32).  The two backward kernels (flash attention's,
 RMSNorm's): ``chip_smoke``'s phase 5 backward grids at its tolerances
-(``check_flash_bwd``, ``check_rms_bwd``).
+(``check_flash_bwd``, ``check_rms_bwd``), and the bfloat16 flash
+backward's dk/dv and dq kernels must show ``HGMMA`` (``wgmma``) in the
+built library's SASS (``chip_smoke.flash_bwd_sass``).
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -190,3 +192,18 @@ def test_cuda_rmsnorm_bwd_matches_plain(dtype):
         if dt == dtype:
             smoke.check_rms_bwd(np, torch, rows, D, dt, dev, seed=i)
     smoke.check_rms_bwd(np, torch, 7, 896, dtype, dev, seed=99, shift=True)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_on_tensor_cores():
+    """The bfloat16 flash backward's two tensor-core kernels
+    (``chip_smoke.FLASH_BWD_TC``) each have ``HGMMA`` instructions in the
+    SASS of the built flash library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import _build
+    smoke = _smoke()
+    _build.load("flash_attention")
+    counts = smoke.flash_bwd_sass(_build._target("flash_attention"))
+    assert set(counts) == set(smoke.FLASH_BWD_TC)
+    assert all(n > 0 for n in counts.values())

@@ -163,6 +163,83 @@ def test_attention_bwd_ref_matches_reference_vjp(case, G, dtype):
             atol=atol * max(1.0, float(np.abs(w).max())), err_msg=name)
 
 
+# --------------------------------------------------------------------- #
+# the bf16 tensor-core backward's roundings, written plainly: it holds  #
+# attention_bwd_ref to chip_smoke's bf16 tolerance                       #
+# --------------------------------------------------------------------- #
+def _smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bwd_as_the_kernel_rounds(q, k, v, o, lse, do, *, window=None,
+                              softcap=None):
+    """The causal backward with the roundings of the bf16 kernel
+    (``csrc/flash_attention.cu``, ``bwd_dkdv_tc_kernel`` and
+    ``bwd_dq_tc_kernel``): products of bf16 operands accumulated in f32,
+    p as 2^x of the score in log2 units less lse·log2(e), and P and dS
+    rounded to bf16 before the products that take them (dV = Pᵀ·dO,
+    dK = dSᵀ·Q, dQ = dS·K); dk scaled per head before the group sum."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale, log2e = hd ** -0.5, 1.4426950408889634
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    dog = do.float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    l2 = (lse * log2e).reshape(B, KV, G, Sq)[..., None]
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s * scale / softcap)
+        p = torch.exp2(softcap * t * log2e - l2)
+    else:
+        p = torch.exp2(s * (scale * log2e) - l2)
+    qa = torch.arange(Sq)[:, None]
+    ka = torch.arange(Sk)[None, :]
+    vis = qa >= ka
+    if window is not None:
+        vis &= (qa - ka) < window
+    delta = (dog * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    p, ds = (torch.where(vis, x, 0.0).to(torch.bfloat16).float()
+             for x in (p, ds))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = (torch.einsum("bkgqs,bqkgd->bskgd", ds, qg) * scale).sum(3)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("S", [37, 130])
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("mode", ["causal", "window256", "softcap50"])
+def test_kernel_roundings_fit_the_chip_tolerance(mode, G, S):
+    """On bf16 inputs of ``chip_smoke.flash_inputs`` (hd 64), the bf16
+    kernel's roundings (:func:`_bwd_as_the_kernel_rounds`) land within
+    ``chip_smoke.check_bwd``'s bf16 tolerance (2e-2·max|plain|) of
+    ``attention_bwd_ref``: the tolerance the card holds the kernel to
+    leaves room for the design's own rounding."""
+    smoke = _smoke()
+    kw = dict(smoke.FLASH_MODES)[mode]
+    q, k, v = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, 64, "bfloat16",
+                                 "cpu", seed=S + G)
+    do = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, 64, "bfloat16",
+                            "cpu", seed=S + G + 1000)[0]
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = _bwd_as_the_kernel_rounds(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        smoke.check_bwd(np, g, w, "bfloat16", f"{mode} G={G} S={S} {name}")
+
+
 def test_attention_is_differentiable_on_cpu():
     """``ops.attention`` under autograd: the custom backward (plain on CPU
     tensors) gives autograd-through-``attention_ref``'s gradients; with
