@@ -97,9 +97,42 @@ Phases (any failure exits non-zero before the final line):
    device items and the device time of the two backward wrappers'
    kernels, peak device memory, and the wall and device time of a
    worker's loss and gradients (with and without remat), its forward
-   and the AdamW update; then runs
-   ``python -m repro_torch.launch.train --reduced --barrier pbsp --steps
-   5`` on the card.
+   and the AdamW update; then runs the launchers on the card, reduced
+   (``LAUNCHER_RUNS``): ``repro_torch.launch.train --barrier pbsp`` with
+   ``--ckpt-dir`` and ``--publish-dir``, again with ``--resume``, and
+   ``repro_torch.launch.serve --watch-dir`` on its snapshots.
+9. The trainer → bus → live server loop at full width.  A fresh child
+   interpreter (``chip_smoke.py --loop-trainer DIR``) trains qwen2-0.5b
+   as phase 8 does for 8 ticks and publishes its f32 server params
+   through ``SnapshotPublisher`` (version 0 first, then every 2 ticks,
+   keep 2; the last one blocking); meanwhile an ``InferenceServer`` over
+   a bf16 ``ServingEngine`` (batch 4, max_len 1024, polling its
+   ``SnapshotWatcher`` every 4 steps) serves waves of 4 greedy requests
+   of 512 random tokens and 64 new ones: at least 16, and more (up to
+   48) until they span two versions with a swap landing while requests
+   are in flight.  Every version is read from disk as it appears; the
+   server's loaded leaves must equal it bit for bit, and each completion
+   is teacher-forced on the version it reports (its decode group's
+   blocks admitted at their recorded clocks): every served token
+   reproduced.  Launches exact: the server's flash and RMSNorm forwards,
+   the trainer's four kernels as phase 8 counts them.  Prints the
+   trainer's wall per tick with publishing on, a snapshot's bytes and
+   the seconds per publication, the swaps, ``swap_stall``, time to first
+   token and decode tokens/s.
+10. Kill-and-resume at full width, depth cut to 2 layers: 6 straight
+    PSP ticks against 3 ticks, a blocking ``CheckpointManager`` save,
+    every device tensor dropped, ``launch.train.restore_psp`` into a
+    fresh template and 3 more ticks; every leaf of the final state
+    (params, AdamW moments, views, control plane) and the noise
+    generator's state equal bit for bit.  Prints the bytes and the save
+    and restore seconds.
+11. The multi-process cluster (``launch.cluster.run_cluster``) on the
+    card: 3 worker subprocesses, the ``kill-one`` plan, 30 ticks at
+    d = 1000 with a 0.75 s tick floor; it must complete with exactly the
+    victim respawned (epoch 1) and rejoined, and the recorded events
+    replayed through ``external_drive`` on the card must give its final
+    params bit for bit.  Prints the recovery latency.  It runs no model
+    kernel.
 
 Phase 5 also holds the two backward kernels (flash attention's and
 RMSNorm's) against their plain versions: flash over FLASH_MODES × G {1,
@@ -121,13 +154,15 @@ the flash forward with and without its lse output at the serving
 prefill.
 
 Then one JSON line with each kernel's launches (summed over the main
-paths: the sweep, both serving runs and the training run), error and
+paths: the sweep, both serving runs, the training run, the loop's server
+and trainer, and the resumed runs), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -232,7 +267,20 @@ RMS_BWD_TIMED = (1024, 896)
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_TICKS = 24
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
-TRAIN_ARGV = ["--reduced", "--barrier", "pbsp", "--steps", "5"]
+#: phase 8's reduced launcher runs on the card, each (module of
+#: repro_torch.launch, argv, what its output must hold): train with
+#: checkpoints and snapshots, resume it, serve its snapshots live
+LAUNCHER_RUNS = (
+    ("train", ["--reduced", "--barrier", "pbsp", "--steps", "4",
+               "--ckpt-dir", "{ck}", "--save-every", "2",
+               "--publish-dir", "{snaps}", "--publish-every", "2"],
+     ("tick", "checkpoint: step 4", "published 3 snapshots")),
+    ("train", ["--reduced", "--barrier", "pbsp", "--steps", "6",
+               "--ckpt-dir", "{ck}", "--resume"],
+     ("resumed step 4", "checkpoint: step 6")),
+    ("serve", ["--reduced", "--watch-dir", "{snaps}", "--requests", "4"],
+     ("loaded snapshot v4", "versions=[4]")),
+)
 #: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
 TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
            "--max-len", "1024", "--max-new", "64", "--seed", "0"]
@@ -240,6 +288,23 @@ SERVE_ARGV = ["--arch", "qwen2-0.5b", *TRAFFIC]
 #: new tokens of the one wave whose device busy share is traced
 TRACE_NEW = 16
 MAMBA_ARGV = ["--arch", "mamba2-780m", *TRAFFIC]
+#: phase 9: the trainer → bus → live server loop at full width; the
+#: trainer (phase 8's PSP config and token pool) runs in a child
+#: interpreter started with LOOP_CHILD and publishes every
+#: LOOP_PUBLISH_EVERY ticks, keeping LOOP_KEEP snapshots
+LOOP_CHILD = "--loop-trainer"
+LOOP_TICKS, LOOP_PUBLISH_EVERY, LOOP_KEEP = 8, 2, 2
+LOOP_BATCH, LOOP_PROMPT, LOOP_NEW, LOOP_MAX_LEN = 4, 512, 64, 1024
+LOOP_POLL_EVERY = 4
+#: requests served at least, and at most while waiting for the traffic to
+#: span two versions with a swap in flight (waves of LOOP_BATCH)
+LOOP_REQUESTS, LOOP_MAX_REQUESTS = 16, 48
+#: phase 10: kill-and-resume at full width, depth cut to RESUME_LAYERS;
+#: RESUME_TICKS straight against half, save, restore, half
+RESUME_LAYERS, RESUME_TICKS = 2, 6
+#: phase 11: the multi-process cluster on the card at the paper's d
+CLUSTER_WORKERS, CLUSTER_TICKS, CLUSTER_DIM, CLUSTER_BATCH = 3, 30, 1000, 16
+CLUSTER_PLAN, CLUSTER_MIN_WALL = "kill-one", 0.75
 
 
 def smi() -> str:
@@ -1260,28 +1325,18 @@ def phase8(np, torch, dev, card):
     library calls that ``repro_torch.launch.train`` makes; see the module
     docstring.  Returns the model kernels' launch counts of the run."""
     from repro_torch.configs import get_config
-    from repro_torch.core.spmd_psp import (GeneratorNoise, PSPConfig,
-                                           psp_init)
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
-    from repro_torch.launch.steps import make_grad_fn, make_psp_train_step
+    from repro_torch.launch.steps import make_grad_fn
     from repro_torch.models import init_model
-    from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config(TRAIN_ARCH)
     ticks, W = TRAIN_TICKS, TRAIN_W
-    opt = adamw(warmup_cosine(3e-3, ticks // 10 + 1, ticks))
+    opt = psp_optimizer(ticks)
     params = init_model(cfg, seed=0, device=dev).tree()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    pcfg = PSPConfig(barrier="pbsp", n_workers=W, sample_size=2,
-                     staleness=3, straggler_frac=0.25)
     batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1)
-
-    def trainer(impl):
-        noise = GeneratorNoise(1, dev)
-        return (psp_init(pcfg, params, opt.init, noise),
-                make_psp_train_step(cfg, pcfg, opt, noise, impl=impl))
+    trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl)[:2]
 
     # (a) the first tick's per-worker losses and (clipped) gradients: the
     # kernels against the plain path in bf16 compute, beside the plain
@@ -1324,9 +1379,7 @@ def phase8(np, torch, dev, card):
     del st, step
 
     # (c) the main path: TICK ticks through the kernels
-    torch.cuda.synchronize()
-    for m in (fa, rn):
-        m.reset_launch_count()
+    reset_launch_counts(torch)
     st, step = trainer("auto")
     walls, losses, pushes = [], [], []
     for t in range(ticks):
@@ -1338,13 +1391,9 @@ def phase8(np, torch, dev, card):
         pushes.append(met["pushes"])
         if t == 0:
             ctrl = {f: getattr(st, f).clone() for f in CONTROL}
-    got = {"flash_attention": fa.launch_count(),
-           "flash_attention_bwd": fa.bwd_launch_count(),
-           "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
-           "ssd_scan": 0}
+    got = launch_counts()
     L = cfg.n_layers
-    per = {"flash_attention": 2 * L, "flash_attention_bwd": L,
-           "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1, "ssd_scan": 0}
+    per = train_launches(cfg)
     want = {k: n * W * ticks for k, n in per.items()}
     if got != want:
         raise AssertionError(f"training launches {got}, want {want}")
@@ -1448,19 +1497,534 @@ def phase8(np, torch, dev, card):
           flush=True)
     del grads, ostate
 
-    # (f) the launcher itself, reduced, on the card
+    # (f) the launchers themselves, reduced, on the card: train with
+    # checkpoints and snapshots, resume, serve the snapshots live
     env = {**os.environ, "PYTHONPATH": str(SRC)}
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *TRAIN_ARGV], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=300)
-    if run.returncode != 0 or "tick" not in run.stdout:
-        raise AssertionError(f"launch.train {TRAIN_ARGV} failed "
-                             f"({run.returncode}): {run.stderr[-2000:]}")
-    print(f"[8] python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}: "
-          f"{run.stdout.strip().splitlines()[-1]}; "
-          f"{time.perf_counter() - t_phase:.1f} s into the phase",
-          flush=True)
+    where = ROOT / "build" / "launchers"
+    shutil.rmtree(where, ignore_errors=True)
+    dirs = {"ck": str(where / "ck"), "snaps": str(where / "snaps")}
+    for module, argv, expect in LAUNCHER_RUNS:
+        argv = [x.format(**dirs) for x in argv]
+        run = subprocess.run([sys.executable, "-m",
+                              f"repro_torch.launch.{module}", *argv],
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=300)
+        if run.returncode != 0 or not all(e in run.stdout for e in expect):
+            raise AssertionError(f"launch.{module} {argv} failed "
+                                 f"({run.returncode}): {run.stdout[-1500:]}"
+                                 f"{run.stderr[-2000:]}")
+        print(f"[8] python -m repro_torch.launch.{module} {' '.join(argv)}: "
+              f"{run.stdout.strip().splitlines()[-1]}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase",
+              flush=True)
+    shutil.rmtree(where, ignore_errors=True)
     return got
+
+
+def psp_optimizer(ticks):
+    """The launcher's optimizer for a run of ``ticks`` ticks."""
+    from repro_torch.optim import adamw, warmup_cosine
+    return adamw(warmup_cosine(3e-3, ticks // 10 + 1, ticks))
+
+
+def psp_trainer(cfg, params, opt, dev, impl="auto"):
+    """The launcher's PSP trainer (W TRAIN_W, ``pbsp``, β 2, s 3,
+    stragglers 0.25, noise seeded 1) on the parameter tree ``params``,
+    built from the library calls ``repro_torch.launch.train`` makes:
+    (state, step function, noise source)."""
+    from repro_torch.core.spmd_psp import GeneratorNoise, PSPConfig, psp_init
+    from repro_torch.launch.steps import make_psp_train_step
+    pcfg = PSPConfig(barrier="pbsp", n_workers=TRAIN_W, sample_size=2,
+                     staleness=3, straggler_frac=0.25)
+    noise = GeneratorNoise(1, dev)
+    return (psp_init(pcfg, params, opt.init, noise),
+            make_psp_train_step(cfg, pcfg, opt, noise, impl=impl), noise)
+
+
+def psp_run(torch, dev, cfg, ticks):
+    """:func:`psp_trainer` on fresh seed-0 weights of ``cfg``, for a run
+    of ``ticks`` ticks."""
+    from repro_torch.models import init_model
+    return psp_trainer(cfg, init_model(cfg, seed=0, device=dev).tree(),
+                       psp_optimizer(ticks), dev)
+
+
+def train_launches(cfg):
+    """The model kernels' launches per worker and PSP tick of ``cfg``
+    (remat recomputes each block's attention forward and its two
+    norms)."""
+    L = cfg.n_layers
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+            "ssd_scan": 0}
+
+
+def train_total(cfg, ticks):
+    """:func:`train_launches` over TRAIN_W workers and ``ticks`` ticks."""
+    return {k: n * TRAIN_W * ticks for k, n in train_launches(cfg).items()}
+
+
+def launch_counts():
+    """The model kernels' launch counts since their last reset."""
+    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
+                                     ssd_scan as ss)
+    return {"flash_attention": fa.launch_count(),
+            "flash_attention_bwd": fa.bwd_launch_count(),
+            "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
+            "ssd_scan": ss.launch_count()}
+
+
+def reset_launch_counts(torch):
+    """Set the model kernels' launch counts to 0 (after a synchronize)."""
+    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
+                                     ssd_scan as ss)
+    torch.cuda.synchronize()
+    for m in (fa, rn, ss):
+        m.reset_launch_count()
+
+
+def loop_trainer(torch, dev, out_dir) -> int:
+    """Phase 9's trainer, run in a child interpreter (``python3
+    chip_smoke.py --loop-trainer DIR``): phase 8's PSP run of full-width
+    qwen2-0.5b for LOOP_TICKS ticks, publishing its server params to
+    ``DIR`` as version 0 before the first tick, every LOOP_PUBLISH_EVERY
+    ticks asynchronously and after the last tick blocking.  Prints
+    ``published <version>`` as each publication is handed over, then one
+    JSON line: the kernels' launches, the wall per tick (publishing
+    included), the trainer thread's seconds per async publication and
+    per blocking one, a snapshot's bytes and the peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import SnapshotPublisher
+    cfg = get_config(TRAIN_ARCH)
+    st, step, _ = psp_run(torch, dev, cfg, LOOP_TICKS)
+    batches = train_batches(torch, dev, cfg.vocab_size, LOOP_TICKS)
+    pub = SnapshotPublisher(out_dir, cfg, every_steps=LOOP_PUBLISH_EVERY,
+                            keep=LOOP_KEEP)
+    blocking, sync, walls = [], [], []
+    t0 = time.perf_counter()
+    pub.publish(0, st.server_params, block=True)
+    blocking.append(time.perf_counter() - t0)
+    print("published 0", flush=True)
+    reset_launch_counts(torch)
+    for t in range(LOOP_TICKS):
+        t0 = time.perf_counter()
+        st, _ = step(st, batches[t])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        last = t + 1 == LOOP_TICKS
+        if last:
+            pub.publish(t + 1, st.server_params, block=True)
+        published = last or pub.maybe_publish(t + 1, st.server_params)
+        if published:
+            (blocking if last else sync).append(time.perf_counter() - t1)
+        walls.append(time.perf_counter() - t0)
+        if published:
+            print(f"published {t + 1}", flush=True)
+    counts = launch_counts()
+    pub.close()
+    nbytes = os.path.getsize(os.path.join(out_dir,
+                                          f"step_{LOOP_TICKS:08d}.npz"))
+    print(json.dumps({"launches": counts, "walls": walls, "sync_s": sync,
+                      "blocking_s": blocking, "bytes": nbytes,
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}),
+          flush=True)
+    return 0
+
+
+def replay_group(np, torch, model, cfg, scfg, blocks, served):
+    """Teacher-force one decode group of phase 9's traffic on ``model``:
+    its blocks of requests admitted at their recorded clocks by the
+    engine's own admission (the same prefill shapes, left padding and
+    slots as served), then decode steps of the whole group, where every
+    live slot's argmax must be the token it served.  Returns the tokens
+    checked."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(model, cfg, scfg)
+    g = eng._new_group()
+    todo, live, checked = list(blocks), {}, 0
+    while todo or live:
+        if todo and (g.length is None or g.length == todo[0][0]):
+            clock, reqs = todo.pop(0)
+            slots = g.free()[:len(reqs)]
+            eng._admit_block(g, [Request(prompt=p, req_id=rid,
+                                         max_new_tokens=len(served[rid]))
+                                 for rid, p in reqs])
+            if g.length != clock:
+                raise AssertionError(f"replayed clock {g.length} != {clock}")
+            live.update({s: [rid, 0] for s, (rid, _) in zip(slots, reqs)})
+        tok = torch.argmax(g.logits, dim=-1)
+        got = tok.cpu().numpy()
+        for s, (rid, j) in list(live.items()):
+            if got[s] != served[rid][j]:
+                raise AssertionError(f"request {rid}: teacher-forced token "
+                                     f"{j} is {got[s]}, served "
+                                     f"{served[rid][j]}")
+            checked += 1
+            live[s][1] += 1
+            if live[s][1] == len(served[rid]):
+                del live[s]
+                g.slots[s] = None
+        if not live:
+            if todo:
+                raise AssertionError("a block joined a finished group")
+            break
+        g.logits, g.cache = decode_step(g.params, g.cache, tok[:, None],
+                                        impl=eng.impl)
+        g.length += 1
+    return checked
+
+
+def phase9(np, torch, dev, card):
+    """The trainer → bus → live server loop at full width; see the module
+    docstring.  Returns the model kernels' launch counts of the loop (the
+    server's and the trainer child's)."""
+    import queue
+    import threading
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (from_reference_layout, params_from_jax,
+                                     params_to_numpy)
+    from repro_torch.models import init_model
+    from repro_torch.serving import (InferenceServer, Request, ServeConfig,
+                                     ServingEngine, SnapshotWatcher)
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    out = ROOT / "build" / "phase9"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    template = params_to_numpy(init_model(cfg, seed=0, device=dev))
+    torch.cuda.empty_cache()
+    lines: "queue.Queue[str]" = queue.Queue()
+    with open(out / "trainer.err", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), LOOP_CHILD,
+             str(out)], stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=ROOT)
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in
+                                              child.stdout], daemon=True)
+    reader.start()
+
+    def child_failed():
+        if child.poll() not in (None, 0):
+            raise AssertionError(f"the trainer child failed ({child.returncode}"
+                                 f"): {(out / 'trainer.err').read_text()[-3000:]}")
+
+    copies = {}               # version → its snapshot as read from disk
+
+    def copy_new():
+        for v in sorted(int(m.group(1)) for fn in os.listdir(out)
+                        if (m := re.match(r"step_(\d+)\.npz$", fn))):
+            if v not in copies and (out / f"step_{v:08d}.npz.json").exists():
+                try:
+                    copies[v], _ = restore_checkpoint(str(out), template, v)
+                except (OSError, ValueError, KeyError):
+                    pass      # removed under us: no server can load it now
+
+    deadline = time.monotonic() + 600
+    while latest_step(str(out)) is None:
+        child_failed()
+        if time.monotonic() > deadline:
+            raise AssertionError("the trainer published no version 0")
+        time.sleep(0.05)
+    t_v0 = time.perf_counter() - t_phase
+    watcher = SnapshotWatcher(str(out), template, cfg=cfg, device=dev)
+    model0, v0 = watcher.poll()
+    scfg = ServeConfig(batch=LOOP_BATCH, max_len=LOOP_MAX_LEN,
+                       max_new_tokens=LOOP_NEW)
+    eng = ServingEngine(model0, cfg, scfg, version=v0)
+    # observe the engine: every swap (in flight or idle) with the model
+    # it loaded, and every admitted block with its group and clock
+    swaps = [(v0, False, model0)]
+    set_params, admit_block = eng.set_params, eng._admit_block
+    serial = itertools.count()
+    blocks = []
+
+    def spy_set(params, version=None):
+        swaps.append((version, eng.has_pending(), params))
+        return set_params(params, version)
+
+    def spy_admit(g, reqs):
+        admit_block(g, reqs)
+        if not hasattr(g, "serial"):
+            g.serial = next(serial)
+        blocks.append((g.serial, g.version, g.length,
+                       [(r.req_id, r.prompt) for r in reqs]))
+
+    eng.set_params, eng._admit_block = spy_set, spy_admit
+    rng = np.random.default_rng(0)
+    futs, wave = [], []
+    reset_launch_counts(torch)
+    t_serve = time.perf_counter()
+    srv = InferenceServer(eng, watcher=watcher, poll_every=LOOP_POLL_EVERY)
+    try:
+        while True:
+            copy_new()
+            child_failed()
+            if wave and not all(f.done() for f in wave):
+                time.sleep(0.02)
+                continue
+            versions = {f.result().snapshot_version for f in futs}
+            inflight = any(s[1] for s in swaps[1:])
+            if len(futs) >= LOOP_REQUESTS and len(versions) >= 2 \
+                    and inflight or len(futs) >= LOOP_MAX_REQUESTS:
+                break
+            wave = [srv.submit(Request(prompt=rng.integers(
+                0, cfg.vocab_size, LOOP_PROMPT).astype(np.int32)))
+                for _ in range(LOOP_BATCH)]
+            futs += wave
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    served_counts = launch_counts()
+    comps = [f.result() for f in futs]
+    child.wait(timeout=900)
+    child_failed()
+    reader.join(timeout=60)
+    copy_new()
+    got = []
+    while not lines.empty():
+        got.append(lines.get())
+    trainer = json.loads(next(x for x in reversed(got) if x.startswith("{")))
+    published = [int(x.split()[1]) for x in got if x.startswith("published")]
+
+    # what the phase checks: versions, a swap in flight, exact launches
+    versions = sorted({c.snapshot_version for c in comps})
+    n_inflight = sum(s[1] for s in swaps[1:])
+    if len(versions) < 2 or n_inflight < 1:
+        raise AssertionError(f"the traffic spans versions {versions} with "
+                             f"{n_inflight} swaps in flight")
+    forwards = eng.prefill_calls + eng.decode_steps
+    want = {"flash_attention": cfg.n_layers * eng.prefill_calls,
+            "flash_attention_bwd": 0, "rmsnorm": (2 * cfg.n_layers + 1)
+            * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0}
+    if served_counts != want:
+        raise AssertionError(f"server launches {served_counts}, want {want}")
+    if trainer["launches"] != train_total(cfg, LOOP_TICKS):
+        raise AssertionError(f"trainer launches {trainer['launches']}, want "
+                             f"{train_total(cfg, LOOP_TICKS)}")
+    counts = {k: served_counts[k] + trainer["launches"][k]
+              for k in served_counts}
+    if not all(counts[k] > 0 for k in counts if k != "ssd_scan"):
+        raise AssertionError(f"a kernel of the loop never ran: {counts}")
+
+    # the server's loaded leaves against the published arrays, bit for bit
+    for v, _, model in swaps:
+        if v not in copies:
+            raise AssertionError(f"version {v} was never read from disk")
+        for a, b in zip(tree_leaves(model.tree()), tree_leaves(
+                from_reference_layout(copies[v], cfg))):
+            if not torch.equal(a, torch.from_numpy(
+                    np.ascontiguousarray(b)).to(dev)):
+                raise AssertionError(f"served version {v} differs from its "
+                                     "published snapshot")
+    swapped = [(v, inflight) for v, inflight, _ in swaps]
+    stats = srv.stats
+    del swaps, model0, model, eng, srv, watcher, spy_set, spy_admit, \
+        set_params, admit_block
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each completion reproduced on the version it reports, from disk
+    served = {c.req_id: c.tokens for c in comps}
+    groups = {}
+    for serial_, v, clock, reqs in blocks:
+        groups.setdefault((v, serial_), []).append((clock, reqs))
+    checked = 0
+    for v in versions:
+        model = params_from_jax(copies[v], cfg, dev)
+        for (gv, _), bl in sorted(groups.items(), key=lambda kv: kv[0]):
+            if gv == v:
+                checked += replay_group(np, torch, model, cfg, scfg, bl,
+                                        served)
+        del model
+        torch.cuda.empty_cache()
+    n_tokens = sum(len(t) for t in served.values())
+    if checked != n_tokens:
+        raise AssertionError(f"replayed {checked} of {n_tokens} tokens")
+
+    walls = 1e3 * np.array(trainer["walls"][1:])
+    stalls = np.array(stats.swap_stalls)
+    ttft = 1e3 * np.array(stats.first_token_lat)
+    times = np.array(stats.token_times)
+    n_dec = len(times) - len(ttft)
+    print(f"[9] trainer (a child interpreter on the same card): "
+          f"{LOOP_TICKS} PSP ticks of {cfg.name} at full width (phase 8's "
+          f"config, W={TRAIN_W}), versions {published} published (every "
+          f"{LOOP_PUBLISH_EVERY} ticks, keep {LOOP_KEEP}); version 0 on "
+          f"disk {t_v0:.1f} s into the phase; wall per tick with "
+          f"publishing on {walls.mean():.2f} ms (ticks 2..{LOOP_TICKS}: "
+          f"their summed wall over their count; median "
+          f"{np.median(walls):.2f} ms); a snapshot {trainer['bytes']:,} "
+          f"bytes, the trainer's thread {np.mean(trainer['sync_s']):.3f} s "
+          f"per asynchronous publication (device → host copy, layout, "
+          f"enqueue; {[round(x, 3) for x in trainer['sync_s']]}) and "
+          f"{[round(x, 3) for x in trainer['blocking_s']]} s per blocking one "
+          f"(the write included); peak device memory "
+          f"{trainer['peak_gb']:.3f} GB [{card}]", flush=True)
+    print(f"[9] server ({cfg.dtype}, batch {LOOP_BATCH}, max_len "
+          f"{LOOP_MAX_LEN}, poll every {LOOP_POLL_EVERY} steps): "
+          f"{len(comps)} greedy requests of {LOOP_PROMPT} tokens + "
+          f"{LOOP_NEW} new in waves of {LOOP_BATCH} over {serve_s:.2f} s, "
+          f"completed on versions {versions}; swaps (version, in flight) "
+          f"{swapped[1:]}: swap_stall max {stalls.max():.3f} s, median "
+          f"{np.median(stalls):.3f} s; time to first token mean "
+          f"{ttft.mean():.1f} ms, median {np.median(ttft):.1f} ms; decode "
+          f"{n_dec / (times.max() - times.min()):.1f} tokens/s ({n_dec} "
+          f"tokens after each request's first, over the span of the token "
+          f"stamps) [{card}]", flush=True)
+    print(f"[9] launches: the server {served_counts}, the trainer "
+          f"{trainer['launches']} (= {train_launches(cfg)} × {TRAIN_W} × "
+          f"{LOOP_TICKS} ticks); the server's leaves equal the published "
+          f"arrays bit for bit for versions {[v for v, _ in swapped]}; "
+          f"teacher-forced on the versions they report, read from disk: "
+          f"all {checked} served tokens reproduced; "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def phase10(np, torch, dev, card):
+    """Kill-and-resume at full width (depth RESUME_LAYERS): RESUME_TICKS
+    straight PSP ticks against half of them, a blocking checkpoint, every
+    device tensor dropped, a restore into a fresh template and the other
+    half; every leaf of the final state and the noise generator's state
+    must be equal bit for bit.  Returns the kernels' launch counts."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import _flatten as flat
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import psp_archive, restore_psp
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    half = RESUME_TICKS // 2
+    batches = train_batches(torch, dev, cfg.vocab_size, RESUME_TICKS)
+    ck = ROOT / "build" / "phase10"
+    shutil.rmtree(ck, ignore_errors=True)
+    reset_launch_counts(torch)
+    st, step, noise = psp_run(torch, dev, cfg, RESUME_TICKS)
+    n_params = sum(p.numel() for p in tree_leaves(st.server_params))
+    for t in range(RESUME_TICKS):
+        st, _ = step(st, batches[t])
+    want = flat(psp_archive(st, noise, cfg))
+    del st, step, noise
+
+    st, step, noise = psp_run(torch, dev, cfg, RESUME_TICKS)
+    for t in range(half):
+        st, _ = step(st, batches[t])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CheckpointManager(str(ck), keep=1) as mgr:
+        mgr.save(half, psp_archive(st, noise, cfg), {"data_step": half},
+                 block=True)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(ck / f"step_{half:08d}.npz")
+    del st, step, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    st, step, noise = psp_run(torch, dev, cfg, RESUME_TICKS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, at = restore_psp(str(ck), st, noise, cfg, reseed=1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for t in range(at, RESUME_TICKS):
+        st, _ = step(st, batches[t])
+    got = flat(psp_archive(st, noise, cfg))
+    counts = launch_counts()
+    del st, step, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck, ignore_errors=True)
+    if counts != train_total(cfg, 2 * RESUME_TICKS):
+        raise AssertionError(f"launches {counts}, want "
+                             f"{train_total(cfg, 2 * RESUME_TICKS)}")
+    if set(got) != set(want):
+        raise AssertionError(f"leaves {sorted(set(got) ^ set(want))} differ")
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise AssertionError("the resumed run differs from the straight one "
+                             "in " + ", ".join(
+                                 f"{k} (max |Δ| {np.abs(got[k].astype(np.float64) - want[k]).max():.3g})"
+                                 for k in bad[:12]))
+    print(f"[10] kill-and-resume of {cfg.name} at full width, {cfg.n_layers} "
+          f"layers ({n_params:,} params, W={TRAIN_W}): {RESUME_TICKS} "
+          f"straight ticks == {half} + checkpoint + restore + "
+          f"{RESUME_TICKS - half}, every one of {len(want)} leaves bit for "
+          f"bit (params, AdamW moments, views, control plane, noise "
+          f"state); launches {counts}; checkpoint {nbytes:,} bytes, save "
+          f"(host copy + blocking write) {save_s:.2f} s, restore (template, "
+          f"read, to the card) {restore_s:.2f} s; {left:,} bytes of device "
+          f"memory left allocated between save and restore; "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase [{card}]",
+          flush=True)
+    return counts
+
+
+def phase11(np, torch, dev, card):
+    """The multi-process PSP cluster on the card: CLUSTER_WORKERS worker
+    subprocesses, CLUSTER_PLAN, CLUSTER_TICKS ticks at d = CLUSTER_DIM;
+    completed, one respawned worker and no live one restarted, and the
+    recorded events replayed through ``external_drive`` on the card give
+    ``final_params`` bit for bit.  Runs no model kernel."""
+    from repro_torch.core.faults import make_plan
+    from repro_torch.core.spmd_psp import PSPConfig, external_drive
+    from repro_torch.launch.cluster import run_cluster
+    t_phase = time.perf_counter()
+    cfg = PSPConfig(barrier="pbsp", n_workers=CLUSTER_WORKERS, sample_size=2,
+                    staleness=3, straggler_frac=0.0)
+    plan = make_plan(CLUSTER_PLAN, n_workers=CLUSTER_WORKERS,
+                     ticks=CLUSTER_TICKS)
+    (victim,) = [e.worker for e in plan.events if e.kind == "kill"]
+    work = ROOT / "build" / "phase11"
+    shutil.rmtree(work, ignore_errors=True)
+    res = run_cluster(cfg, CLUSTER_DIM, CLUSTER_TICKS, str(work),
+                      batch=CLUSTER_BATCH, plan=plan,
+                      tick_min_wall=CLUSTER_MIN_WALL, device=dev)
+    epochs = {int(w): e for w, e in res["epochs"].items()}
+    want_epochs = {w: int(w == victim) for w in range(CLUSTER_WORKERS)}
+    kinds = [(kind, w) for _t, kind, w in res["events"]]
+    rec = res["recovery"].get(str(victim), {})
+    if not (res["completed"] and epochs == want_epochs
+            and ("leave", victim) in kinds and ("join", victim) in kinds
+            and "latency_s" in rec):
+        for log in sorted((work / "logs").glob("*.log")):
+            print(f"[11] {log.name}: {log.read_text()[-1500:]}", flush=True)
+        raise AssertionError(f"cluster run: completed {res['completed']}, "
+                             f"epochs {epochs} (want {want_epochs}), events "
+                             f"{res['events']}, recovery {res['recovery']}")
+    events = {}
+    for t, kind, w in res["events"]:
+        lv, jn = events.setdefault(t, ([], []))
+        (lv if kind == "leave" else jn).append(w)
+    _, it = external_drive(cfg, CLUSTER_DIM, CLUSTER_TICKS,
+                           {t: (tuple(lv), tuple(jn))
+                            for t, (lv, jn) in events.items()},
+                           batch=CLUSTER_BATCH, device=dev)
+    for ref, _ in it:
+        pass
+    if not (np.array_equal(ref.server_params["w"].cpu().numpy(),
+                           res["final_params"]["w"])
+            and int(ref.total_pushes) == res["total_pushes"]
+            and ref.alive.cpu().numpy().tolist() == res["alive"]):
+        raise AssertionError("replaying the cluster's events does not "
+                             "reproduce its final params bit for bit")
+    print(f"[11] cluster on the card: {CLUSTER_WORKERS} worker processes, "
+          f"plan {plan.name} (worker {victim} SIGKILLed at tick "
+          f"{plan.events[0].tick}), {CLUSTER_TICKS} ticks at d="
+          f"{CLUSTER_DIM}, batch {CLUSTER_BATCH}, tick_min_wall "
+          f"{CLUSTER_MIN_WALL} s: completed, events {res['events']}, epochs "
+          f"{res['epochs']}; recovery latency (kill → rejoin → first push) "
+          f"{rec['latency_s']:.3f} s (kill {rec['t_kill']:.3f} s, rejoin "
+          f"{rec['t_rejoin']:.3f} s, push {rec['t_push']:.3f} s into the "
+          f"run); {res['total_pushes']} pushes in {res['wall_s']:.2f} s; "
+          f"replayed through external_drive on the card: final params bit "
+          f"for bit; {time.perf_counter() - t_phase:.1f} s into the phase "
+          f"[{card}]", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1480,6 +2044,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == [LOOP_CHILD]:
+        return loop_trainer(torch, torch.device("cuda", 0), sys.argv[2])
     from repro_torch.convert import tick_inputs_to_torch
     from repro_torch.core import SimConfig, make_barrier, run_sweep
     from repro_torch.core.vector_sim import VectorSimulator
@@ -1652,7 +2218,17 @@ def main() -> int:
     # ---- 8. PSP training of qwen2-0.5b --------------------------------- #
     print(f"[8] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     paths.append(phase8(np, torch, dev, card))
-    print(f"[8] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 9.–11. the trainer → server loop, resume, the cluster --------- #
+    for tag, phase in ((9, phase9), (10, phase10), (11, phase11)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] starts at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        counts = phase(np, torch, dev, card)
+        if counts is not None:
+            paths.append(counts)
+    print(f"[11] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -5,10 +5,22 @@ tensors.  :func:`tick_inputs_to_torch` maps the reference's sweep-tick
 ``state`` / ``rand`` / ``params`` dicts onto the port's, dtype for dtype
 (bool, int32, float32; 0-d scalars become host floats, as the port keeps
 ``eps`` and ``poll``), and :func:`to_numpy` maps results back.
-:func:`params_from_jax` turns the reference's ``init_model`` parameter
-tree (as numpy arrays) into the port's :class:`~repro_torch.models.Model`
-by splitting its stacked layer axis, and :func:`params_to_numpy` is the
-inverse, so both packages can compute on the same inputs and weights.
+
+Model trees.  The port keeps one block tree per layer in a ``layers``
+list (:meth:`repro_torch.models.Model.tree`); the reference stacks the
+blocks of pattern position ``j`` along a leading group axis under
+``groups[str(j)]``, layer ``g·len(pattern) + j`` being slice ``g``.
+:func:`to_reference_layout` and :func:`from_reference_layout` convert
+any tree between the two (every dict holding a ``layers`` list is a
+model tree, or one shaped like it: AdamW's moments, the PSP worker
+views), on numpy arrays or tensors alike.  Checkpoints and snapshots are
+written in the reference's layout, so both packages read each other's
+archives; :func:`state_to_reference` / :func:`state_from_reference` do
+it for a whole PSP state, whose views carry the worker axis W in front
+(``[W, G, …]`` in the reference).  :func:`params_from_jax` turns the
+reference's ``init_model`` tree (numpy) into the port's
+:class:`~repro_torch.models.Model` and :func:`params_to_numpy` is the
+inverse, so both packages can compute on the same weights.
 """
 from __future__ import annotations
 
@@ -19,8 +31,10 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_jax", "params_to_numpy", "tick_inputs_to_torch",
-           "to_numpy", "to_torch"]
+__all__ = ["from_reference_layout", "params_from_jax", "params_to_numpy",
+           "state_from_reference", "state_to_reference",
+           "tick_inputs_to_torch", "to_numpy", "to_reference_layout",
+           "to_torch"]
 
 _DTYPES = {np.dtype(bool): torch.bool, np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32}
@@ -51,41 +65,92 @@ def to_numpy(tree: Dict) -> Dict[str, np.ndarray]:
                 else np.asarray(v)) for k, v in tree.items()}
 
 
+def to_reference_layout(tree: Any, cfg, axis: int = 0) -> Any:
+    """``tree`` with every ``layers`` list restacked into the reference's
+    ``groups`` (see the module docstring), along ``axis`` of each leaf
+    (0, or 1 behind the views' worker axis).  Numpy leaves stack with
+    numpy, tensors with torch; nothing else changes."""
+    if not isinstance(tree, dict):
+        return tree
+    layers = tree.get("layers")
+    if not isinstance(layers, list):
+        return {k: to_reference_layout(v, cfg, axis) for k, v in tree.items()}
+    n_pat = len(cfg.layer_pattern)
+    out = {k: to_reference_layout(v, cfg, axis) for k, v in tree.items()
+           if k != "layers"}
+    out["groups"] = {str(j): _stack(layers[j::n_pat], axis)
+                     for j in range(n_pat)}
+    return out
+
+
+def from_reference_layout(tree: Any, cfg, axis: int = 0) -> Any:
+    """Inverse of :func:`to_reference_layout`: every ``groups`` dict
+    split back into ``cfg.n_layers`` per-layer trees (tensor slices made
+    contiguous; numpy slices stay views)."""
+    if not isinstance(tree, dict):
+        return tree
+    groups = tree.get("groups")
+    if not isinstance(groups, dict):
+        return {k: from_reference_layout(v, cfg, axis)
+                for k, v in tree.items()}
+    n_pat = len(cfg.layer_pattern)
+    out = {k: from_reference_layout(v, cfg, axis) for k, v in tree.items()
+           if k != "groups"}
+    out["layers"] = [tree_map(lambda a, g=i // n_pat: _take(a, g, axis),
+                              groups[str(i % n_pat)])
+                     for i in range(cfg.n_layers)]
+    return out
+
+
+def state_to_reference(tree: Dict, cfg) -> Dict:
+    """A PSP state tree (:func:`~repro_torch.core.spmd_psp.state_to_tree`)
+    in the reference's layout; the views' layers stack behind W."""
+    return {k: to_reference_layout(v, cfg, 1 if k == "views" else 0)
+            for k, v in tree.items()}
+
+
+def state_from_reference(tree: Dict, cfg) -> Dict:
+    """Inverse of :func:`state_to_reference`."""
+    return {k: from_reference_layout(v, cfg, 1 if k == "views" else 0)
+            for k, v in tree.items()}
+
+
 def params_from_jax(tree: Dict, cfg, device: Any = "cpu"):
     """The reference's parameter tree → the port's model on ``device``.
 
-    ``tree`` is ``repro.models.init_model``'s output with its leaves as
-    numpy arrays.  The reference stacks the blocks of pattern position
-    ``j`` along a leading group axis under ``tree["groups"][str(j)]``;
-    layer ``g·len(pattern) + j`` is slice ``g`` of it.  Shapes are
-    otherwise the port's own, so nothing but that axis is split.
+    ``tree`` is ``repro.models.init_model``'s output (or a snapshot of
+    it) with its leaves as numpy arrays; every leaf becomes a float32
+    tensor on ``device``.
     """
     from repro_torch.models import Model
-    n_pat = len(cfg.layer_pattern)
-    conv = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
-    layers = [tree_map(lambda a, i=i: conv(np.asarray(a)[i // n_pat]),
-                   tree["groups"][str(i % n_pat)])
-              for i in range(cfg.n_layers)]
-    return Model(cfg, {"embed": conv(tree["embed"]),
-                       "final_norm": conv(tree["final_norm"]),
-                       "layers": layers})
+
+    def conv(a):
+        a = np.asarray(a, np.float32)
+        if not a.flags.writeable:        # torch.from_numpy wants to own it
+            a = a.copy()
+        return torch.from_numpy(a).to(device, copy=True)
+    return Model(cfg, tree_map(conv, from_reference_layout(tree, cfg)))
 
 
 def params_to_numpy(model) -> Dict:
     """The port's model → the reference's parameter tree (numpy, layers
     stacked per pattern position under ``groups``)."""
-    n_pat = len(model.cfg.layer_pattern)
     num = lambda t: t.detach().cpu().numpy()
-    tree = model.tree()
-    layers = [tree_map(num, layer) for layer in tree.pop("layers")]
-    return {**tree_map(num, tree),
-            "groups": {str(j): _stack(layers[j::n_pat])
-                       for j in range(n_pat)}}
+    return to_reference_layout(tree_map(num, model.tree()), model.cfg)
 
 
-def _stack(trees):
+def _stack(trees, axis: int):
     """Stack the leaves of nested dicts of one structure along a new
-    leading axis."""
+    ``axis``."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], axis) for k in trees[0]}
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees, axis)
+    return np.stack(trees, axis)
+
+
+def _take(a, g: int, axis: int):
+    """Slice ``g`` of ``a`` along ``axis``."""
+    if isinstance(a, torch.Tensor):
+        return a.select(axis, g).contiguous()
+    return a[(slice(None),) * axis + (g,)]

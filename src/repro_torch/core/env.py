@@ -16,7 +16,7 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
-__all__ = ["EnvVar", "REGISTRY", "get_str", "get_int"]
+__all__ = ["EnvVar", "REGISTRY", "get_float", "get_int", "get_str"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,7 +24,7 @@ class EnvVar:
     """One registered environment override."""
 
     name: str           #: full variable name (``PSP_...``)
-    kind: str           #: "str" | "int"
+    kind: str           #: "str" | "int" | "float"
     default: Any        #: value returned when unset
     help: str           #: one-line description
 
@@ -43,6 +43,25 @@ REGISTRY: Dict[str, EnvVar] = _reg(
     EnvVar("PSP_SWEEP_CHUNK", "int", None,
            "force a uniform sweep chunk length in records "
            "(default: greedy pow2 schedule)"),
+    EnvVar("PSP_FAULT_PLAN", "str", None,
+           "default fault plan for the cluster harness: a registry spec "
+           "(`standard:seed=7`) or a plan-JSON path"),
+    EnvVar("PSP_BUS_BACKOFF_BASE", "float", 0.25,
+           "snapshot-watcher retry backoff base seconds for a bad "
+           "step (doubles per failure, jittered)"),
+    EnvVar("PSP_BUS_BACKOFF_MAX", "float", 8.0,
+           "snapshot-watcher retry backoff ceiling in seconds"),
+    EnvVar("PSP_BUS_BLACKLIST_MAX", "int", 64,
+           "max bad-step entries the snapshot watcher remembers "
+           "(oldest evicted beyond the cap)"),
+    EnvVar("PSP_BUS_BLACKLIST_TTL", "float", 300.0,
+           "seconds a bad-step entry stays blacklisted before eviction "
+           "(the retention window)"),
+    EnvVar("PSP_HB_INTERVAL", "float", 0.25,
+           "cluster worker heartbeat-sidecar write cadence in seconds"),
+    EnvVar("PSP_HB_TIMEOUT", "float", 10.0,
+           "heartbeat staleness after which the cluster coordinator "
+           "SIGKILLs a hung worker and treats it as departed"),
 )
 
 
@@ -70,3 +89,14 @@ def get_int(name: str) -> Optional[int]:
         return int(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
+def get_float(name: str) -> Optional[float]:
+    """Float-typed read; garbage raises ``ValueError`` naming the variable."""
+    raw = _raw(name)
+    if raw is None:
+        return REGISTRY[name].default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None

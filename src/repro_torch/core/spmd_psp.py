@@ -584,7 +584,8 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
                   lr: float = 0.1, task_seed: int = 0, init_seed: int = 1,
                   batch_seed: int = 2, noise=None, xs=None,
                   w_true: Optional[torch.Tensor] = None,
-                  device: Any = "cpu", events: Optional[dict] = None):
+                  device: Any = "cpu", events: Optional[dict] = None,
+                  state: Optional[PSPState] = None, start_tick: int = 0):
     """Drive the trainer on the linear task for ``ticks`` ticks.
 
     ``noise`` defaults to :class:`GeneratorNoise` seeded ``init_seed``;
@@ -592,6 +593,12 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
     normal draws seeded ``batch_seed``.  ``events`` maps a tick to
     ``(leave_ids, join_ids)``, applied by :func:`apply_external_churn`
     just before that tick (see :func:`external_drive`).
+
+    Resume: pass a restored ``state``, the ``noise`` source in the state
+    it was checkpointed with, and the ``start_tick`` it was checkpointed
+    at; the minibatch stream is fast-forwarded by ``start_tick`` draws,
+    so ticks ``start_tick..ticks-1`` consume exactly what the
+    uninterrupted run would have.
 
     Returns (w_true, an iterator of ``(state, metrics)`` after each tick).
     """
@@ -601,9 +608,13 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
     data = (iter((x, x @ w_true) for x in xs) if xs is not None
             else _batches(cfg, w_true, batch, batch_seed))
     step = make_psp_step_fn(cfg, grad_fn, opt_update, noise)
+    if state is None:
+        state = linear_psp_state(cfg, dim, noise, device)
+    for _ in range(start_tick):
+        next(data)
 
     def _ticks(state):
-        for t in range(ticks):
+        for t in range(start_tick, ticks):
             if events and t in events:
                 leave, join = events[t]
                 state = apply_external_churn(cfg, state, leave=tuple(leave),
@@ -611,7 +622,7 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
             state, m = step(state, next(data))
             yield state, m
 
-    return w_true, _ticks(linear_psp_state(cfg, dim, noise, device))
+    return w_true, _ticks(state)
 
 
 def external_drive(cfg: PSPConfig, dim: int, ticks: int, events: dict,

@@ -1,4 +1,5 @@
-"""Serving launcher: one-shot batched generation on random weights.
+"""Serving launcher: one-shot batched generation on random weights, or a
+live hot-swapping server.
 
 On the card (the default ``--device cuda``)::
 
@@ -19,9 +20,19 @@ with the same seed.  Requests go through
 ``ServingEngine.generate`` submits them, with every engine step timed on
 the host clock: the first step of a wave prefills it and emits its
 first tokens (time to first token), the others decode.  Without a
-visible GPU and without ``--device cpu`` it raises.  The reference's
-live ``--watch-dir`` mode waits for the server (ROADMAP queue 1,
-item 13).
+visible GPU and without ``--device cpu`` it raises.
+
+Live mode watches a snapshot directory that a trainer publishes into
+(``python -m repro_torch.launch.train --publish-dir``) and hot-swaps the
+model under traffic::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --reduced --watch-dir /tmp/snaps --requests 32
+
+Requests then flow through the
+:class:`~repro_torch.serving.InferenceServer` admission queue, every
+completion reports the snapshot version it was decoded on, and in-flight
+requests are never disturbed by a swap.
 """
 from __future__ import annotations
 
@@ -34,9 +45,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.convert import params_to_numpy
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import Model, init_model
-from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.serving import (InferenceServer, Request, ServeConfig,
+                                 ServingEngine, SnapshotWatcher)
 
 __all__ = ["ServeRun", "main", "one_shot", "parse_args"]
 
@@ -69,8 +82,8 @@ class ServeRun:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """The launcher's flags (the reference's one-shot flags, plus
-    ``--device`` and ``--impl``)."""
+    """The launcher's flags (the reference's, plus ``--device`` and
+    ``--impl``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -91,12 +104,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--impl", default="auto", choices=IMPLS,
                     help="kernels (cuda), plain versions (ref), or by "
                          "device (auto)")
+    ap.add_argument("--watch-dir", default=None,
+                    help="serve live: hot-swap snapshots published here")
+    ap.add_argument("--poll-every", type=int, default=8,
+                    help="live mode: poll --watch-dir every N decode ticks")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="live mode: per-request completion timeout (s)")
     return ap.parse_args(argv)
 
 
-def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
-    """Parse ``argv``, build the model and serve the requests once."""
-    a = parse_args(argv)
+def _setup(a):
+    """(cfg, seeded model on ``--device``, ServeConfig) of the flags."""
     dev = torch.device(a.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --device cpu "
@@ -108,6 +126,45 @@ def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
     scfg = ServeConfig(batch=a.batch, max_len=a.max_len,
                        max_new_tokens=a.max_new, temperature=a.temperature,
                        top_k=a.top_k, eos_id=a.eos_id, seed=a.seed)
+    return cfg, model, scfg
+
+
+def _serve_live(a) -> int:
+    """Live mode: serve ``--requests`` random prompts through an
+    :class:`~repro_torch.serving.InferenceServer` that hot-swaps the
+    snapshots published in ``--watch-dir`` (starting from the newest one
+    there, else the seeded model as version 0), and print the rates."""
+    cfg, model, scfg = _setup(a)
+    watcher = SnapshotWatcher(a.watch_dir, params_to_numpy(model), cfg,
+                              model.embed.device)
+    loaded = watcher.poll()
+    version = 0
+    if loaded is not None:
+        model, version = loaded
+        print(f"loaded snapshot v{version} from {a.watch_dir}")
+    eng = ServingEngine(model, cfg, scfg, version=version, impl=a.impl)
+    rng = np.random.default_rng(a.seed)
+    t0 = time.perf_counter()
+    with InferenceServer(eng, watcher=watcher,
+                         poll_every=a.poll_every) as srv:
+        futs = [srv.submit(Request(prompt=rng.integers(
+            0, cfg.vocab_size, size=a.prompt_len).astype(np.int32)))
+            for _ in range(a.requests)]
+        comps = [f.result(timeout=a.timeout) for f in futs]
+    dt = time.perf_counter() - t0
+    total_new = sum(len(c.tokens) for c in comps)
+    versions = sorted({c.snapshot_version for c in comps})
+    print(f"arch={cfg.name} requests={a.requests} new_tokens={total_new} "
+          f"wall={dt:.2f}s ({total_new / dt:.1f} tok/s) "
+          f"swaps={srv.stats.swaps} versions={versions}")
+    return 0
+
+
+def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
+    """Parse ``argv``, build the model and serve the requests once."""
+    a = parse_args(argv)
+    cfg, model, scfg = _setup(a)
+    dev = model.embed.device
     eng = ServingEngine(model, cfg, scfg, impl=a.impl)
     rng = np.random.default_rng(a.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=a.prompt_len)
@@ -145,7 +202,10 @@ def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """Serve once and print the run's rates and the first outputs."""
+    """Serve once, or live with ``--watch-dir``, and print the rates."""
+    a = parse_args(argv)
+    if a.watch_dir:
+        return _serve_live(a)
     run = one_shot(argv)
     st = run.stats()
     print(f"arch={run.cfg.name} device={run.engine.device} "

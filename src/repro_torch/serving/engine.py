@@ -12,7 +12,9 @@ request and token for token:
 * :meth:`ServingEngine.drain` — step until queue and slots are empty;
 * :meth:`ServingEngine.set_params` — hot-swap the model between decode
   steps.  In-flight groups keep the model (and version) they pinned at
-  creation; only newly admitted work sees the new one.
+  creation; only newly admitted work sees the new one
+  (:meth:`~ServingEngine.request_versions` and
+  :meth:`~ServingEngine.live_versions` say which versions are pinned).
 
 Slots live in fixed-width decode groups (``ServeConfig.batch`` slots,
 ``ServeConfig.max_len`` cache capacity) sharing one cache clock, so
@@ -76,11 +78,15 @@ class ServeConfig:
 @dataclasses.dataclass
 class Request:
     """One generation request; ``max_new_tokens=None`` takes the engine
-    default, and :meth:`ServingEngine.submit` assigns ``req_id``."""
+    default, and :meth:`ServingEngine.submit` assigns ``req_id``.
+    ``deadline_s`` is a wall-clock budget from submission that the
+    engine ignores: :class:`~repro_torch.serving.server.InferenceServer`
+    enforces it."""
 
     prompt: np.ndarray
     max_new_tokens: Optional[int] = None
     req_id: Optional[int] = None
+    deadline_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -207,6 +213,21 @@ class ServingEngine:
                     g.slots[i] = None
                     return True
         return False
+
+    def request_versions(self) -> Dict[int, Optional[int]]:
+        """Every live request id → its pinned snapshot version (``None``
+        while still queued); the server's worker-death re-admission reads
+        it to rebuild version cohorts."""
+        out: Dict[int, Optional[int]] = {r.req_id: None for r in self._queue}
+        for g in self._groups:
+            for s in g.slots:
+                if s is not None:
+                    out[s.req_id] = g.version
+        return out
+
+    def live_versions(self) -> List[int]:
+        """Snapshot versions still pinned by some decode group."""
+        return sorted({g.version for g in self._groups if g.active()})
 
     def reset(self) -> List[int]:
         """Drop every queued and in-flight request; returns their ids.

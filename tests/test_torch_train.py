@@ -14,6 +14,7 @@ the port (as ``tests/test_torch_spmd_psp.py`` does); their control
 plane must be equal bit for bit.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -158,10 +159,38 @@ def test_launcher_runs_on_cpu(barrier, capsys):
     assert "device=cpu" in out and ("tick" in out or "step" in out)
 
 
-def test_launcher_raises_on_unported_flags():
-    for flag in (["--ckpt-dir", "ck"], ["--resume"], ["--publish-dir", "p"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main([*SMALL, *flag])
+def test_launcher_raises_on_unported_flags(tmp_path, capsys):
+    """Every flag of the reference's launcher is ported: the checkpoint
+    and publish flags run on the CPU (none raises NotImplementedError);
+    only a CUDA run without a card raises."""
+    ck, pub = str(tmp_path / "ck"), str(tmp_path / "pub")
+    assert train.main([*SMALL, "--barrier", "pbsp", "--ckpt-dir", ck,
+                       "--save-every", "1", "--keep", "1", "--resume",
+                       "--publish-dir", pub, "--publish-every", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "checkpoint: step 2" in out and "published 3 snapshots" in out
+    assert sorted(os.listdir(ck)) == ["step_00000002.npz",
+                                      "step_00000002.npz.json"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--reduced", "--steps", "1"])
+
+
+@pytest.mark.parametrize("barrier", ["none", "pbsp"])
+def test_launcher_resume_continues_the_run(barrier, tmp_path, capsys):
+    """``--resume`` in-process: 2 steps, then 2 more from the checkpoint,
+    end where 4 uninterrupted steps end, leaf for leaf."""
+    mode = ["--barrier", barrier, "--save-every", "2"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    four = [*SMALL, *mode, "--steps", "4"]
+    assert train.main([*four, "--ckpt-dir", a]) == 0
+    # the first leg runs the same schedule (--steps 4), killed after 2
+    assert train.main([*four, "--ckpt-dir", b]) == 0
+    os.remove(os.path.join(b, "step_00000004.npz"))
+    assert train.main([*four, "--ckpt-dir", b, "--resume"]) == 0
+    assert "resumed step 2" in capsys.readouterr().out
+    with np.load(os.path.join(a, "step_00000004.npz")) as x, \
+            np.load(os.path.join(b, "step_00000004.npz")) as y:
+        assert set(x.files) == set(y.files)
+        for k in x.files:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
