@@ -133,10 +133,23 @@ Phases (any failure exits non-zero before the final line):
     replayed through ``external_drive`` on the card must give its final
     params bit for bit.  Prints the recovery latency.  It runs no model
     kernel.
+12. PSP training of mamba2-780m at full width (780,148,992 f32 params,
+    bf16 compute, remat on), as phase 8 trains qwen2-0.5b: the same PSP
+    settings, token pool and 24 ticks, the same checks (tick 0 against
+    the plain path; also leaf by leaf, each leaf's max |Δg| over its max
+    |g|: in bf16 compute within the largest such deviation that bf16
+    rounding gives a leaf of the plain path against float32 compute, or
+    2e-2; in float32 compute within 1e-3; the control plane; the loss
+    falling) and the same report, with the SSD backward's share of the
+    traced tick's device time.  Launches exact per tick: the SSD forward
+    2·48·W (remat recomputes it), its backward 48·W, RMSNorm 193·W and
+    its backward 97·W.  Then ``repro_torch.launch.train --arch
+    mamba2-780m --reduced --barrier pbsp`` on the card.
 
-Phase 5 also holds the two backward kernels (flash attention's and
-RMSNorm's) against their plain versions: flash over FLASH_MODES × G {1,
-7} × S {1, 37, 64, 512, 1000} × hd {64, 128} × {float32, bfloat16} on
+Phase 5 also holds the three backward kernels (flash attention's,
+RMSNorm's and the SSD scan's) against their plain versions: flash over
+FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 128} ×
+{float32, bfloat16} on
 the plain forward's o and lse (float32 rtol 1e-4, atol 1e-5·max(1,
 max|plain|); bfloat16 2e-2·max|plain|, but at S 1, where dq and dk are
 exactly 0 and both versions return rounding noise, dq and dk at the
@@ -145,8 +158,15 @@ one and its o unchanged by writing lse; the bfloat16 backward's two
 tensor-core kernels must show ``HGMMA`` in their SASS, and a q off a
 16-byte boundary must raise; RMSNorm over rows {7, 1024, 4099} × D {64, 100, 896,
 3072, 12288} and an unaligned row (dx in bfloat16 within one bf16 ulp,
-dw at the float32 tolerance); two runs of each bit for bit alike.  It
-times them at the training shapes (flash backward B 2, S 512,
+dw at the float32 tolerance); the SSD backward over the forward's SSD
+grid (64 cases; the kernel on the kernel forward's cum and states, the
+plain version on the plain forward's; the final state's cotangent random
+or none; float32 dx, dB, dC at rtol 1e-4, atol 1e-5·max(1, max|plain|),
+bf16 ones within 2e-2·max|plain|, ddt and dA at rtol 1e-4, atol
+1e-4·max(1, max|plain|)); two runs of each bit for bit alike.  It
+times them at the training shapes (SSD backward B 2, S 512, 48 heads of
+64, N 128, bf16, with the split over its three launches and the bound
+from ``ssd_scan.bwd_bytes`` / ``bwd_flops``; flash backward B 2, S 512,
 14 / 2 heads, hd 64, bf16 causal; RMSNorm backward (1024, 896) bf16)
 against their plain versions and the backward of
 ``scaled_dot_product_attention`` / ``F.rms_norm`` through autograd, and
@@ -154,8 +174,8 @@ the flash forward with and without its lse output at the serving
 prefill.
 
 Then one JSON line with each kernel's launches (summed over the main
-paths: the sweep, both serving runs, the training run, the loop's server
-and trainer, and the resumed runs), error and
+paths: the sweep, both serving runs, both training runs, the loop's
+server and trainer, and the resumed runs), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -239,6 +259,19 @@ SSD_F32 = (1e-4, 1e-5)
 #: (the serving prefill, then a long one); the first goes into the line
 SSD_TIMED = ((4, 512), (1, 4096))
 SSD_KERNELS = ("scan_kernel", "out_kernel")
+#: the SSD backward's three kernels, by name (its split per launch, and
+#: phase 12's traced tick sums them)
+SSD_BWD_KERNELS = ("bwd_state_kernel", "bwd_strip_kernel",
+                   "bwd_finish_kernel")
+#: the SSD backward's training shape at mamba2-780m's 48 heads, hd 64,
+#: N 128, one group, bf16: (B, S)
+SSD_BWD_TIMED = (2, 512)
+#: the SSD backward's tolerances: rtol, and atol as a share of max(1,
+#: max |plain|), of dx, dB, dC in float32, and of the float32 ddt and dA
+#: in both dtypes (dA sums B·S terms that cancel, and the bf16 route's
+#: states carry 16 bits, hi + lo); bf16 dx, dB, dC within 2e-2·max|plain|
+SSD_BWD_F32 = (1e-4, 1e-5)
+SSD_BWD_DT = (1e-4, 1e-4)
 #: phase 5's backward grids: flash over FLASH_MODES × FLASH_GQA × these S
 #: (1: a lone row; 64: exactly one tile; 37 and 1000 are not multiples of
 #: the 64-row tile) × FLASH_HEAD_DIMS × DTYPES (at S 1 dq and dk are
@@ -263,8 +296,10 @@ BWD_F32 = (1e-4, 1e-5)
 FLASH_BWD_TIMED = (2, 512)
 RMS_BWD_TIMED = (1024, 896)
 #: phase 8: PSP training of full-width qwen2-0.5b (W workers, B sequences
-#: of S tokens each per tick, drawn from a pool of POOL fixed sequences)
+#: of S tokens each per tick, drawn from a pool of POOL fixed sequences);
+#: phase 12 trains MAMBA_TRAIN_ARCH the same way
 TRAIN_ARCH = "qwen2-0.5b"
+MAMBA_TRAIN_ARCH = "mamba2-780m"
 TRAIN_TICKS = 24
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
 #: phase 8's reduced launcher runs on the card, each (module of
@@ -281,6 +316,8 @@ LAUNCHER_RUNS = (
     ("serve", ["--reduced", "--watch-dir", "{snaps}", "--requests", "4"],
      ("loaded snapshot v4", "versions=[4]")),
 )
+#: phase 12's reduced launcher run on the card (after the arch)
+MAMBA_LAUNCHER = ["--reduced", "--barrier", "pbsp", "--steps", "4"]
 #: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
 TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
            "--max-len", "1024", "--max-new", "64", "--seed", "0"]
@@ -911,6 +948,120 @@ def phase5_ssd(np, torch, dev, card):
             "library_ms": None}
 
 
+def ssd_bwd_cases():
+    """Phase 5's SSD backward grid: the forward's (:func:`ssd_cases`)."""
+    return ssd_cases()
+
+
+def check_ssd_bwd(np, torch, case, dev, seed):
+    """One SSD backward case: ``ssd_bwd_cuda`` on the kernel forward's cum
+    and states against ``ssd_bwd_ref`` on the plain forward's, on the same
+    inputs and cotangents (dy in x's dtype; the final state's cotangent
+    random at an even ``seed``, None at an odd one, as in training), two
+    kernel runs bit for bit alike.  Tolerances: ``SSD_BWD_F32`` (dx, dB,
+    dC in float32), 2e-2·max|plain| (them in bfloat16), ``SSD_BWD_DT``
+    (ddt, dA).  Returns the max |err| over the five."""
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
+                                              ssd_cuda, ssd_ref)
+    B, S, nh, ng, hd, N, chunk, decay, dt = case
+    args = ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dt, dev, seed)
+    dy = ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dt, dev,
+                    seed + 1000)[0]
+    dh = None
+    if seed % 2 == 0:
+        rng = np.random.default_rng(seed + 2000)
+        dh = torch.from_numpy(rng.normal(size=(B, nh, hd, N)).astype(
+            np.float32)).to(dev)
+    what = (f"ssd bwd B={B} S={S} nh={nh} ng={ng} hd={hd} N={N} "
+            f"chunk={chunk} {decay} {dt} dh="
+            + ("none" if dh is None else "random"))
+    _, _, cum, st = ssd_cuda(*args, chunk, return_states=True)
+    got = ssd_bwd_cuda(*args, dy, cum, st, dh, chunk)
+    again = ssd_bwd_cuda(*args, dy, cum, st, dh, chunk)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    _, _, cum_r, st_r = ssd_ref(*args, chunk, return_states=True)
+    want = ssd_bwd_ref(*args, dy, cum_r, st_r, dh, chunk)
+    err = 0.0
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {name}: {g.dtype}{tuple(g.shape)}"
+                                 f" != {w.dtype}{tuple(w.shape)}")
+        a = w.float().cpu().numpy().astype(np.float64)
+        b = g.float().cpu().numpy().astype(np.float64)
+        top = float(np.abs(a).max(initial=0.0))
+        if name in ("ddt", "dA"):
+            rtol, atol = SSD_BWD_DT[0], SSD_BWD_DT[1] * max(1.0, top)
+        elif dt == "float32":
+            rtol, atol = SSD_BWD_F32[0], SSD_BWD_F32[1] * max(1.0, top)
+        else:
+            rtol, atol = 0.0, 2e-2 * top
+        e = float(np.abs(a - b).max(initial=0.0))
+        if not (np.isfinite(b).all() and np.allclose(b, a, rtol=rtol,
+                                                     atol=atol)):
+            raise AssertionError(f"{what} {name}: max |diff| {e} (max "
+                                 f"|plain| {top})")
+        err = max(err, e)
+    return err
+
+
+def phase5_ssd_bwd(np, torch, dev, card):
+    """The SSD backward kernels against their plain version over the
+    forward's case grid, then timed at mamba2-780m's training shape.
+    Returns its JSON entry without ``launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import (bwd_bytes, bwd_flops,
+                                              ssd_bwd_cuda, ssd_bwd_ref,
+                                              ssd_cuda, ssd_ref)
+    err = {dt: 0.0 for dt in DTYPES}
+    for i, case in enumerate(ssd_bwd_cases()):
+        err[case[-1]] = max(err[case[-1]],
+                            check_ssd_bwd(np, torch, case, dev, i))
+    print(f"[5] ssd backward kernel == plain on {i + 1} cases (dx, ddt, dA,"
+          " dB, dC; the final state's cotangent random or none), two runs "
+          "bit for bit alike; max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err.items()), flush=True)
+
+    B, S = SSD_BWD_TIMED
+    nh, ng, hd, N = 48, 1, 64, 128
+    args = ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                      dev)
+    dy = ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                    dev, 1)[0]
+    _, _, cum, st = ssd_cuda(*args, return_states=True)
+    _, _, cum_r, st_r = ssd_ref(*args, return_states=True)
+    nxt, n_sets = rotating((*args, dy, cum, st))
+    nxt_r, _ = rotating((*args, dy, cum_r, st_r))
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: ssd_bwd_cuda(*nxt()), 20),
+        "plain": (lambda: ssd_bwd_ref(*nxt_r()), 3)})
+    split = {n: v for key, v in profile_device(
+        torch, lambda: ssd_bwd_cuda(*nxt()), 20).items()
+        for n in SSD_BWD_KERNELS if n in key}
+    flops = bwd_flops(B, S, nh, ng, hd, N)
+    nbytes = bwd_bytes(B, S, nh, ng, hd, N, 2, split=True)
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    calls = train_launches(get_config(MAMBA_TRAIN_ARCH))["ssd_scan_bwd"]
+    print(f"[5] ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
+          f"(the training shape; {calls * TRAIN_W} calls per tick): "
+          + rounds_text(ms)
+          + "; per launch " + ", ".join(f"{n} {v:.4f} ms"
+                                        for n, v in split.items())
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP "
+          f"at the bf16 tensor-core rate, {1e3 * flops / F32_FLOPS:.4f} ms at"
+          f" the f32 rate; {nbytes / 1e6:.2f} MB; ssd_scan.bwd_bytes / "
+          f"bwd_flops); kernel at {flops / ms['kernel'][0] / 1e9:.2f} "
+          f"TFLOP/s; no library call computes it; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/models/ssm.py:100",
+            "max_abs_err": max(err.values()), "ms": ms["kernel"][0],
+            "plain_ms": ms["plain"][0], "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def flash_bwd_cases():
     """Phase 5's flash backward grid: ((mode, kwargs), GQA ratio, S, hd,
     dtype)."""
@@ -1320,35 +1471,49 @@ def tree_rel(torch, got, want):
     return math.sqrt(num / den)
 
 
-def phase8(np, torch, dev, card):
-    """PSP training of full-width qwen2-0.5b on the card, built from the
-    library calls that ``repro_torch.launch.train`` makes; see the module
-    docstring.  Returns the model kernels' launch counts of the run."""
+def leaf_rel(torch, got, want):
+    """Per leaf of two trees, max |got − want| / max |want| (float64)."""
+    from repro_torch.tree import tree_leaves
+    return [float((a.double() - b.double()).abs().max())
+            / max(float(b.double().abs().max()), 1e-30)
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def train_phase(np, torch, dev, card, arch, tag):
+    """PSP training of full-width ``arch`` on the card, built from the
+    library calls that ``repro_torch.launch.train`` makes: tick 0 against
+    the plain path, TRAIN_TICKS ticks through the kernels, one traced
+    tick; see the module docstring (phases 8 and 12).  Returns (the model
+    kernels' launch counts of the run, cfg, params, optimizer, batches,
+    the phase's start)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.models import init_model
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     ticks, W = TRAIN_TICKS, TRAIN_W
     opt = psp_optimizer(ticks)
     params = init_model(cfg, seed=0, device=dev).tree()
     n_params = sum(p.numel() for p in tree_leaves(params))
     batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1)
     trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl)[:2]
+    ssd = "ssd" in cfg.layer_kinds()
 
     # (a) the first tick's per-worker losses and (clipped) gradients: the
     # kernels against the plain path in bf16 compute, beside the plain
     # path's own spread between float32 and bf16 compute; and the kernels
     # against the plain path in float32 compute (the f32 kernels), where
-    # rounding is not amplified past a tight bound
+    # rounding is not amplified past a tight bound.  qwen2 is held over
+    # the whole tree (‖Δg‖/‖g‖), mamba2 leaf by leaf (max |Δg| over each
+    # leaf's max |g|)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     fns = {"cuda": make_grad_fn(cfg, 1.0, "cuda"),
            "ref": make_grad_fn(cfg, 1.0, "ref"),
            "ref32": make_grad_fn(cfg32, 1.0, "ref"),
            "cuda32": make_grad_fn(cfg32, 1.0, "cuda")}
-    errs = []
+    errs, leaf = [], []
     for i in range(W):
         got = {k: fn(params, batches[0][i]) for k, fn in fns.items()}
         (lk, gk), (lr, gr), (l32, g32), (lk32, gk32) = (got[k] for k in fns)
@@ -1356,10 +1521,13 @@ def phase8(np, torch, dev, card):
                      tree_rel(torch, gk, gr), tree_rel(torch, gr, g32),
                      abs(float(lk32) - float(l32)) / abs(float(l32)),
                      tree_rel(torch, gk32, g32)))
+        if ssd:
+            leaf.append((leaf_rel(torch, gk, gr), leaf_rel(torch, gr, g32),
+                         leaf_rel(torch, gk32, g32)))
         del got, gk, gr, g32, gk32
     errs = np.array(errs)
     bound = max(2e-2, float(errs[:, 3].max()))
-    print(f"[8] tick 0, per worker (W={W}): |loss kernels − plain| "
+    print(f"[{tag}] tick 0, per worker (W={W}): |loss kernels − plain| "
           f"{errs[:, 0].max():.4g} (plain bf16 − f32: {errs[:, 1].max():.4g});"
           f" ‖g kernels − g plain‖/‖g plain‖ {errs[:, 2].max():.4g} against "
           f"the plain path's ‖g bf16 − g f32‖/‖g f32‖ "
@@ -1367,9 +1535,26 @@ def phase8(np, torch, dev, card):
           f"spread); in float32 compute, loss {errs[:, 4].max():.3g} "
           f"relative (bound 1e-5), ‖Δg‖/‖g‖ {errs[:, 5].max():.3g} (bound "
           "1e-3)", flush=True)
-    if not (errs[:, 2].max() <= bound
-            and errs[:, 0].max() <= max(2e-2, errs[:, 1].max())
-            and errs[:, 4].max() <= 1e-5 and errs[:, 5].max() <= 1e-3):
+    ok = (errs[:, 0].max() <= max(2e-2, errs[:, 1].max())
+          and errs[:, 4].max() <= 1e-5 and errs[:, 2].max() <= bound
+          and errs[:, 5].max() <= 1e-3)
+    if ssd:
+        # leaf by leaf, relative to each leaf's max |g|: in bf16 compute
+        # the kernels within the largest deviation that bf16 rounding
+        # itself gives a leaf of the plain path (against float32 compute),
+        # or 2e-2; in float32 compute within 1e-3
+        leaf = np.array(leaf)                     # (W, 3, leaves)
+        lbound = max(2e-2, float(leaf[:, 1].max()))
+        top = leaf[:, 0].max(0)
+        print(f"[{tag}] tick 0 leaf by leaf (max |Δg| / max |g|, "
+              f"{leaf.shape[2]} leaves): kernels − plain up to "
+              f"{top.max():.4g} (leaf {int(np.argmax(top))}; median over "
+              f"leaves {float(np.median(top)):.4g}), the plain path's bf16 − "
+              f"f32 up to {leaf[:, 1].max():.4g} (the bound); in float32 "
+              f"compute up to {leaf[:, 2].max():.3g} (bound 1e-3)",
+              flush=True)
+        ok = ok and top.max() <= lbound and leaf[:, 2].max() <= 1e-3
+    if not ok:
         raise AssertionError(f"kernel and plain tick 0 differ: {errs}")
 
     # (b) one tick on the plain path: its control plane
@@ -1412,20 +1597,20 @@ def phase8(np, torch, dev, card):
     steady = walls[1:]
     wall = sum(steady) / len(steady)
     tokens = W * TRAIN_B * TRAIN_S
-    print(f"[8] PSP training of {cfg.name} at full width ({L} layers, d="
+    print(f"[{tag}] PSP training of {cfg.name} at full width ({L} layers, d="
           f"{cfg.d_model}, {n_params:,} params f32, {cfg.dtype} compute): "
           f"W={W} pbsp beta=2 s=3 stragglers 0.25, {TRAIN_B}×{TRAIN_S} "
           f"tokens per worker per tick, {ticks} ticks; launches "
           + ", ".join(f"{k} {got[k]} = {per[k]} × {W} × {ticks}"
                       for k in per if per[k]) + f" [{card}]", flush=True)
-    print(f"[8] loss per tick {[round(x, 4) for x in losses]}; pushes "
+    print(f"[{tag}] loss per tick {[round(x, 4) for x in losses]}; pushes "
           f"{pushes}; mean over the first 4 pushing ticks {first:.4f}, "
           f"over the last 4 {last:.4f}; control plane after tick 0 == the "
           "plain path's", flush=True)
     median = 1e3 * float(np.median(steady))
-    print(f"[8] wall per tick {1e3 * wall:.2f} ms (ticks 2..{ticks}: their"
-          f" summed wall over their count; median {median:.2f} ms, first "
-          f"tick {1e3 * walls[0]:.2f} ms), training "
+    print(f"[{tag}] wall per tick {1e3 * wall:.2f} ms (ticks 2..{ticks}: "
+          f"their summed wall over their count; median {median:.2f} ms, "
+          f"first tick {1e3 * walls[0]:.2f} ms), training "
           f"{tokens / wall:.1f} tokens/s (their {tokens * len(steady)} "
           f"tokens over their summed wall); peak "
           f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
@@ -1445,23 +1630,58 @@ def phase8(np, torch, dev, card):
     traced = profile_device(torch, one_tick)
     if traced:
         busy = sum(traced.values())
-        print(f"[8] traced tick: device busy {busy:.3f} ms of an unprofiled "
-              f"tick's {tick_ms:.3f} ms wall: busy share "
+        print(f"[{tag}] traced tick: device busy {busy:.3f} ms of an "
+              f"unprofiled tick's {tick_ms:.3f} ms wall: busy share "
               f"{busy / tick_ms:.4f}, idle share {1 - busy / tick_ms:.4f} "
               f"[{card}]", flush=True)
         for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"[8]   {ms:9.3f} ms  {key[:90]}", flush=True)
+            print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
         for what, names in (("flash", FLASH_BWD_KERNELS),
-                            ("rmsnorm", RMS_BWD_KERNELS)):
+                            ("rmsnorm", RMS_BWD_KERNELS),
+                            ("ssd", SSD_BWD_KERNELS)):
             ms = sum(v for key, v in traced.items()
                      if any(n in key for n in names))
-            print(f"[8] traced tick: the {what} backward's kernels "
-                  f"{ms:.3f} ms, {ms / busy:.4f} of the device time",
-                  flush=True)
+            if ms:
+                print(f"[{tag}] traced tick: the {what} backward's kernels "
+                      f"{ms:.3f} ms, {ms / busy:.4f} of the device time",
+                      flush=True)
     else:
-        print("[8] traced tick: the profiler saw no device time; the busy "
-              "share is not measured", flush=True)
+        print(f"[{tag}] traced tick: the profiler saw no device time; the "
+              "busy share is not measured", flush=True)
     del box, st, step
+    return got, cfg, params, opt, batches, t_phase
+
+
+def phase12(np, torch, dev, card):
+    """PSP training of full-width mamba2-780m on the card (phase 8's
+    settings and token pool; see the module docstring).  Returns the
+    model kernels' launch counts of the run."""
+    got, *_, t_phase = train_phase(np, torch, dev, card, MAMBA_TRAIN_ARCH,
+                                   12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER]
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *argv], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(SRC)},
+                         cwd=ROOT, timeout=300)
+    if run.returncode != 0 or "tick" not in run.stdout:
+        raise AssertionError(f"launch.train {argv} failed ({run.returncode}):"
+                             f" {run.stdout[-1500:]}{run.stderr[-2000:]}")
+    print(f"[12] python -m repro_torch.launch.train {' '.join(argv)}: "
+          f"{run.stdout.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    return got
+
+
+def phase8(np, torch, dev, card):
+    """PSP training of full-width qwen2-0.5b on the card, built from the
+    library calls that ``repro_torch.launch.train`` makes, then where a
+    worker's time goes and the reduced launchers; see the module
+    docstring.  Returns the model kernels' launch counts of the run."""
+    from repro_torch.launch.steps import make_grad_fn
+    got, cfg, params, opt, batches, t_phase = train_phase(
+        np, torch, dev, card, TRAIN_ARCH, 8)
 
     # (e) where a tick's host time goes: one worker's loss and clipped
     # gradients as trained (remat on), the same without remat, its
@@ -1551,12 +1771,14 @@ def psp_run(torch, dev, cfg, ticks):
 
 def train_launches(cfg):
     """The model kernels' launches per worker and PSP tick of ``cfg``
-    (remat recomputes each block's attention forward and its two
-    norms)."""
+    (remat recomputes each block's attention or SSD scan forward and its
+    two norms: ``ln1``/``ln2``, or ``ln`` and the gated ``norm``)."""
     L = cfg.n_layers
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+    ssd = "ssd" in cfg.layer_kinds()
+    return {"flash_attention": 0 if ssd else 2 * L,
+            "flash_attention_bwd": 0 if ssd else L,
             "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
-            "ssd_scan": 0}
+            "ssd_scan": 2 * L if ssd else 0, "ssd_scan_bwd": L if ssd else 0}
 
 
 def train_total(cfg, ticks):
@@ -1571,7 +1793,8 @@ def launch_counts():
     return {"flash_attention": fa.launch_count(),
             "flash_attention_bwd": fa.bwd_launch_count(),
             "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
-            "ssd_scan": ss.launch_count()}
+            "ssd_scan": ss.launch_count(),
+            "ssd_scan_bwd": ss.bwd_launch_count()}
 
 
 def reset_launch_counts(torch):
@@ -1799,7 +2022,7 @@ def phase9(np, torch, dev, card):
     forwards = eng.prefill_calls + eng.decode_steps
     want = {"flash_attention": cfg.n_layers * eng.prefill_calls,
             "flash_attention_bwd": 0, "rmsnorm": (2 * cfg.n_layers + 1)
-            * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0}
+            * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     if served_counts != want:
         raise AssertionError(f"server launches {served_counts}, want {want}")
     if trainer["launches"] != train_total(cfg, LOOP_TICKS):
@@ -1807,7 +2030,8 @@ def phase9(np, torch, dev, card):
                              f"{train_total(cfg, LOOP_TICKS)}")
     counts = {k: served_counts[k] + trainer["launches"][k]
               for k in served_counts}
-    if not all(counts[k] > 0 for k in counts if k != "ssd_scan"):
+    if not all(counts[k] > 0 for k in counts
+               if k not in ("ssd_scan", "ssd_scan_bwd")):
         raise AssertionError(f"a kernel of the loop never ran: {counts}")
 
     # the server's loaded leaves against the published arrays, bit for bit
@@ -2205,7 +2429,8 @@ def main() -> int:
     # ---- 5. RMSNorm, flash attention and SSD against their plain versions #
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     entries = (phase5(np, torch, dev, card)
-               + [phase5_ssd(np, torch, dev, card)]
+               + [phase5_ssd(np, torch, dev, card),
+                  phase5_ssd_bwd(np, torch, dev, card)]
                + phase5_bwd(np, torch, dev, card))
 
     # ---- 6. and 7. the serving paths: qwen2-0.5b, then mamba2-780m ----- #
@@ -2219,8 +2444,10 @@ def main() -> int:
     print(f"[8] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     paths.append(phase8(np, torch, dev, card))
 
-    # ---- 9.–11. the trainer → server loop, resume, the cluster --------- #
-    for tag, phase in ((9, phase9), (10, phase10), (11, phase11)):
+    # ---- 9.–12. the trainer → server loop, resume, the cluster, mamba2
+    # PSP training
+    for tag, phase in ((9, phase9), (10, phase10), (11, phase11),
+                       (12, phase12)):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[{tag}] starts at {time.perf_counter() - t_start:.1f} s",
@@ -2228,7 +2455,7 @@ def main() -> int:
         counts = phase(np, torch, dev, card)
         if counts is not None:
             paths.append(counts)
-    print(f"[11] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[12] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -59,6 +59,22 @@
 // (tests/test_torch_ssd.py).  exp(cum_i − cum_j) is selected only where
 // i ≥ j (above the diagonal it overflows).
 //
+// The backward (ssd_bwd_launch, after the forward below): the VJP of
+// the chunked form, replacing the reference's XLA autodiff of
+// src/repro/models/ssm.py:ssd_chunked, on the forward's cum and entering
+// states (the bfloat16 route's hi + lo, or the float32 route's plain
+// copy).  Three launches in float32 on the CUDA cores, no atomics:
+// bwd_state_kernel scans the state gradient over the chunks in reverse;
+// bwd_strip_kernel forms each chunk's duals S = (C·Bᵀ) ⊙ L and dy·xdtᵀ
+// tile by tile for a strip of 32 steps, as rows (→ dC) or columns (→ dB,
+// dx); bwd_finish_kernel scans dcum within each chunk (→ ddt, dA) and
+// sums dB and dC over each group's heads in order.  Bound on the H100 at
+// mamba2-780m's training shape (B 2, S 512, nh 48, hd 64, N 128, bf16):
+// 33.10 MB, 9.9 µs at 3.35 TB/s, against 5.67 GFLOP over the causal
+// pairs (5.7 µs on the bf16 tensor cores, 85 µs on the f32 cores).  This
+// first design runs on the f32 cores and forms each chunk's duals twice,
+// for its row strips and again for its column strips (PERF.md §6).
+//
 // float32: the first design, products in f32 on the CUDA cores: one block
 // of 256 threads per (head, batch) walks the chunks in order, as the TPU
 // grid's sequential chunk axis does.  Shared memory holds, in f32: the
@@ -91,8 +107,11 @@ struct Args {
   const void* c;
   void* y;
   float* h;
-  float* cum;  // bfloat16 path's scratch: (B, nc, nh, Q) prefix sums
-  float* st;   // and (B, nc, nh, hd, N) chunk states, then H_in
+  float* cum;  // (B, nc, nh, Q) prefix sums: bfloat16 scratch; float32's
+               // optional residual for the backward (null: not written)
+  float* st;   // each chunk's entering state: bfloat16 (B, nc, nh, hd, N
+               // rounded to 8) as hi + lo in fragment order; float32
+               // (B, nc, nh, hd, N) plain, optional like cum
   long long sxb, sxs, sxh;  // element strides of x: batch, step, head
   long long sdb, sds, sdh;  // of dt
   long long sbb, sbs, sbg;  // of B: batch, step, group
@@ -178,6 +197,14 @@ __global__ void __launch_bounds__(NT) ssd_f32_kernel(Args a) {
       Xs[j * HP + d] = xp[(t0 + j) * a.sxs + d] * dts[j];
     }
     __syncthreads();
+    if (a.st) {  // the backward's residuals: this chunk's entering state
+                 // (hd × N, plain f32) and cum
+      const long long slot =
+          (static_cast<long long>(bb) * a.nc + t0 / Q) * a.nh + h;
+      float* sp = a.st + slot * HD * N;
+      for (int i = tid; i < HD * N; i += NT) sp[i] = Hs[(i % N) * HP + i / N];
+      for (int j = tid; j < Q; j += NT) a.cum[slot * Q + j] = cum[j];
+    }
     const float seg = cum[Q - 1];
     for (int j = tid; j < Q; j += NT) {
       ec[j] = expf(cum[j]);
@@ -1002,6 +1029,543 @@ cudaError_t launch_f32(const Args& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the VJP of the chunked SSD (ssd_chunked's, which the
+// reference gets from XLA's autodiff), in float32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int TS = 32;  // rows of a strip and of a tile of the Q × Q duals
+
+struct BwdArgs {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* b;
+  const void* c;
+  const void* dy;
+  const float* cum;  // the forward's (B, nc, nh, Q) prefix sums
+  const float* st;   // its entering states (Args::st's layout, by `split`)
+  const float* dh;   // (B, nh, hd, N) cotangent of h_final, or null (zeros)
+  void* dx;          // (B, S, nh, hd) in x's dtype
+  float* ddt;        // (B, S, nh); first Σ_d dxdt·x, then the whole ddt
+  float* dA;         // (nh,)
+  void* db;          // (B, S, ng, N) in B's dtype
+  void* dc;
+  // float32 scratch
+  float* gst;   // (B, nc, nh, hd, N): dL/dH of the state each chunk leaves
+  float* hdot;  // (B, nc, nh, hd/16): <H_in, gst> per 16 state rows
+  float* dbh;   // (B, S, nh, N): dB and dC of each head, before the sum
+  float* dch;   //   over a group's heads
+  float* dcr;   // (B, nc, nh, Q): dcum from the rows of L and from y_inter
+  float* dcc;   //   from the columns of L and from the state a chunk leaves
+  float* sgp;   //   that last term again, for dseg
+  long long sxb, sxs, sxh;  // element strides of x: batch, step, head
+  long long sdb, sds, sdh;  // of dt
+  long long sbb, sbs, sbg;  // of B: batch, step, group
+  long long scb, scs, scg;  // of C
+  long long syb, sys, syh;  // of dy
+  int B, S, nh, ng, N, Q, nc, split;
+};
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// acc + a·b, four fused multiply-adds in order
+__device__ __forceinline__ float dot4(float acc, const float4& a,
+                                      const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// (row, column) of a flat index over rows of n columns, advanced by NT
+__device__ __forceinline__ void step_index(int& row, int& col, int n) {
+  col += NT % n;
+  row += NT / n;
+  if (col >= n) {
+    col -= n;
+    ++row;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Sum over the 8 lanes of an aligned group (lanes 8k .. 8k+7), a fixed
+// butterfly: every lane of the group gets the same bits.
+__device__ __forceinline__ float sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  return v;
+}
+
+__device__ __forceinline__ float sum32(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Element (d, n) of the state entering the chunk of `slot` ((b·nc + c)·nh
+// + h): plain float32, or the bfloat16 route's hi + lo in scan_kernel's
+// fragment order (16-row tile d/16 and n-tile n/8 hold 32 lanes of 16
+// bytes: bf16 hi of rows g, g+8, then lo, each a pair of columns).
+template <int HD>
+__device__ __forceinline__ float state_at(const BwdArgs& a, long long slot,
+                                          int d, int n) {
+  if (!a.split) return a.st[(slot * HD + d) * a.N + n];
+  const int n8 = (a.N + 7) / 8;
+  const uint16_t* s = reinterpret_cast<const uint16_t*>(a.st) +
+                      slot * HD * 16 * n8;
+  const int mt = d >> 4, g4 = d & 7, hh = (d >> 3) & 1;
+  const int u = (((mt * n8 + (n >> 3)) * 32 + g4 * 4 + ((n & 7) >> 1)) * 8) +
+                2 * hh + (n & 1);
+  return __uint_as_float(static_cast<uint32_t>(s[u]) << 16) +
+         __uint_as_float(static_cast<uint32_t>(s[u + 4]) << 16);
+}
+
+// Bytes of bwd_state_kernel's shared memory: a chunk's C rows (Q × (N+4))
+// and its dy·exp(cum) for the block's 16 state rows (Q × 16), f32.
+__host__ __device__ constexpr size_t state_smem(int N, int Q) {
+  return 4 * (static_cast<size_t>(Q) * (N + 4) + static_cast<size_t>(Q) * 16);
+}
+
+// The state gradient, chunks in reverse: one block per (16 state rows,
+// head, batch) holds its rows of G = dL/dH (16 × N) in registers, thread
+// (warp w, lane q) rows w and w + 8, columns 4q .. 4q+3.  G starts at
+// dh (or 0) for the state the last chunk leaves; per chunk c it is
+// written to gst, its inner product with the state entering c goes to
+// hdot, and then G ← exp(seg_c)·G + Σ_i exp(cum_i) dy_i ⊗ C_i.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT) bwd_state_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[NT / 32];
+  const int N = a.N, Q = a.Q, NP = N + 4;
+  float* Cs = reinterpret_cast<float*>(smem4);
+  float* Ys = Cs + Q * NP;
+  const int rb = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
+  const int d0 = 16 * rb, g = h / (a.nh / a.ng);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = d0 + warp, r1 = r0 + 8, n = 4 * lane;
+  const bool on = n < N;
+  const T* cp = static_cast<const T*>(a.c) + bb * a.scb + g * a.scg;
+  const T* yp = static_cast<const T*>(a.dy) + bb * a.syb + h * a.syh + d0;
+  float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0;
+  if (a.dh && on) {
+    const float* dp = a.dh + (static_cast<long long>(bb) * a.nh + h) * HD * N;
+    g0 = ld4(dp + r0 * N + n);
+    g1 = ld4(dp + r1 * N + n);
+  }
+  for (int c = a.nc - 1; c >= 0; --c) {
+    const long long slot = (static_cast<long long>(bb) * a.nc + c) * a.nh + h;
+    if (on) {
+      float* gp = a.gst + slot * HD * N;
+      *reinterpret_cast<float4*>(gp + r0 * N + n) = g0;
+      *reinterpret_cast<float4*>(gp + r1 * N + n) = g1;
+    }
+    float part = 0.f;  // <H_in, G> over this thread's 8 elements
+    if (c > 0 && on) {
+      const float e0[4] = {g0.x, g0.y, g0.z, g0.w};
+      const float e1[4] = {g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        part += state_at<HD>(a, slot, r0, n + k) * e0[k] +
+                state_at<HD>(a, slot, r1, n + k) * e1[k];
+    }
+    part = sum32(part);
+    __syncthreads();  // red and the last chunk's tiles are no longer read
+    if (lane == 0) red[warp] = part;
+    const float* cg = a.cum + slot * Q;
+    if (c > 0) {
+      const long long t0 = static_cast<long long>(c) * Q;
+      for (int i = tid, j = tid / N, k = tid % N; i < Q * N; i += NT) {
+        Cs[j * NP + k] = ldf(cp + (t0 + j) * a.scs + k);
+        step_index(j, k, N);
+      }
+      for (int i = tid; i < Q * 16; i += NT) {
+        const int j = i / 16, r = i % 16;
+        Ys[i] = ldf(yp + (t0 + j) * a.sys + r) * expf(cg[j]);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < NT / 32; ++w) s += red[w];
+      a.hdot[slot * (HD / 16) + rb] = s;
+    }
+    if (c == 0) break;
+    if (on) {
+      float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+      for (int j = 0; j < Q; ++j) {
+        const float4 cv = ld4(Cs + j * NP + n);
+        const float y0 = Ys[j * 16 + warp], y1 = Ys[j * 16 + warp + 8];
+        fma4(y0, cv, a0);
+        fma4(y1, cv, a1);
+      }
+      const float es = expf(cg[Q - 1]);
+      g0 = make_float4(g0.x * es + a0.x, g0.y * es + a0.y, g0.z * es + a0.z,
+                       g0.w * es + a0.w);
+      g1 = make_float4(g1.x * es + a1.x, g1.y * es + a1.y, g1.z * es + a1.z,
+                       g1.w * es + a1.w);
+    }
+  }
+}
+
+// Floats of bwd_strip_kernel's shared memory: the own strip's N-wide and
+// hd-wide rows (TS × (N+4), TS × (HD+4)); a region holding first the
+// state matrix (HD × (N+4)), then the other side's tile (TS × (N+4),
+// TS × (HD+4)) and the S and D tiles (TS × (TS+1) each); cum and dt.
+__host__ __device__ constexpr size_t strip_region(int HD, int N) {
+  return static_cast<size_t>(HD) * (N + 4) >
+                 static_cast<size_t>(TS) * (N + 4 + HD + 4 + 2 * (TS + 1))
+             ? static_cast<size_t>(HD) * (N + 4)
+             : static_cast<size_t>(TS) * (N + 4 + HD + 4 + 2 * (TS + 1));
+}
+
+__host__ __device__ constexpr size_t strip_smem(int HD, int N) {
+  return 4 * (static_cast<size_t>(TS) * (N + 4 + HD + 4) +
+              strip_region(HD, N) + 2 * QMAX);
+}
+
+// One strip of TS rows of one (chunk, head, batch).  COLS false: the
+// strip holds steps i (C, dy: "own"), the tiles walk steps j ≤ i (B and
+// x·dt: "other"), and the strip's dC (per head) and its dcum terms come
+// out.  COLS true: the strip holds steps j (B, x·dt), the tiles walk
+// i ≥ j (C, dy), and dB (per head), dxdt (→ dx and Σ_d dxdt·x) and the
+// dcum terms come out.  Per tile, in f32:
+//   S = (own_N · other_Nᵀ) ⊙ L,  dsc = own_hd · other_hdᵀ   (= dy_i·xdt_j)
+//   D = dsc ⊙ L,  M = dsc ⊙ S,   L = exp(cum_i − cum_j)·[i ≥ j] (selected)
+//   own dN += D · other_N;  COLS: dxdt += S · dy
+// first seeded by the state terms, with Hm the state entering the chunk
+// (rows) or the gradient of the one it leaves (cols):
+//   dN = e ⊙ (own_hd · Hm),  COLS: dxdt = e ⊙ (B · Hmᵀ),
+//   e = exp(cum_i) (rows) or exp(seg − cum_j) (cols).
+// Thread (r, l) = (tid / 8, tid % 8) owns strip row r: columns 4(l + 8k)
+// .. +3 of dN, head dims l + 8k of dxdt, tile entries (r, l + 8k); every
+// sum runs in a fixed order (no atomics).
+template <typename T, int HD, bool COLS>
+__device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
+                                           int strip) {
+  constexpr int HP = HD + 4, TP = TS + 1;
+  constexpr int NQ = NMAX / 32;  // float4 columns of dN per thread
+  constexpr int DK = HD / 8;     // head dims of dxdt per thread
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Q = a.Q, NP = N + 4;
+  float* Po = reinterpret_cast<float*>(smem4);
+  float* Qo = Po + TS * NP;
+  float* Hm = Qo + TS * HP;
+  float* Pt = Hm;
+  float* Qt = Pt + TS * NP;
+  float* St = Qt + TS * HP;
+  float* Dt = St + TS * TP;
+  float* cm = Hm + strip_region(HD, N);
+  float* dtm = cm + QMAX;
+
+  const int h = blockIdx.y, bb = blockIdx.z, g = h / (a.nh / a.ng);
+  const int tid = threadIdx.x, r = tid >> 3, l8 = tid & 7;
+  const long long t0 = static_cast<long long>(c) * Q;
+  const int o0 = strip * TS, no = min(TS, Q - o0);
+  const long long slot = (static_cast<long long>(bb) * a.nc + c) * a.nh + h;
+  const T* xp = static_cast<const T*>(a.x) + bb * a.sxb + h * a.sxh;
+  const T* yp = static_cast<const T*>(a.dy) + bb * a.syb + h * a.syh;
+  const T* bp = static_cast<const T*>(a.b) + bb * a.sbb + g * a.sbg;
+  const T* cp = static_cast<const T*>(a.c) + bb * a.scb + g * a.scg;
+  const T* pn = COLS ? bp : cp;  // the own side's N-wide rows
+  const T* qn = COLS ? cp : bp;  // the other side's
+  const long long spn = COLS ? a.sbs : a.scs, sqn = COLS ? a.scs : a.sbs;
+
+  for (int j = tid; j < Q; j += NT) {
+    cm[j] = a.cum[slot * Q + j];
+    dtm[j] = a.dt[bb * a.sdb + (t0 + j) * a.sds + h * a.sdh];
+  }
+  __syncthreads();
+  // rows [p0, p0 + np) of x·dt (hd) or dy into dst, zero up to TS rows
+  auto stage_hd = [&](float* dst, bool xdt, int p0, int np) {
+    for (int i = tid; i < TS * HD; i += NT) {
+      const int q = i / HD, d = i % HD;
+      float v = 0.f;
+      if (q < np)
+        v = xdt ? ldf(xp + (t0 + p0 + q) * a.sxs + d) * dtm[p0 + q]
+                : ldf(yp + (t0 + p0 + q) * a.sys + d);
+      dst[q * HP + d] = v;
+    }
+  };
+  auto stage_n = [&](float* dst, const T* src, long long ss, int p0, int np) {
+    for (int i = tid, q = tid / N, k = tid % N; i < TS * N; i += NT) {
+      dst[q * NP + k] = q < np ? ldf(src + (t0 + p0 + q) * ss + k) : 0.f;
+      step_index(q, k, N);
+    }
+  };
+  stage_n(Po, pn, spn, o0, no);
+  stage_hd(Qo, COLS, o0, no);
+  for (int i = tid; i < HD * N; i += NT) {
+    const int d = i / N, k = i % N;
+    Hm[d * NP + k] = COLS ? a.gst[slot * HD * N + i]
+                          : (c > 0 ? state_at<HD>(a, slot, d, k) : 0.f);
+  }
+  __syncthreads();
+
+  // the state terms
+  const bool mine = r < no;
+  const float e = mine ? expf(COLS ? cm[Q - 1] - cm[o0 + r] : cm[o0 + r])
+                       : 0.f;
+  float4 an[NQ];
+  float ah[DK];
+#pragma unroll
+  for (int k = 0; k < NQ; ++k) an[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < DK; ++k) ah[k] = 0.f;
+  for (int d = 0; d < HD; ++d) {
+    const float cf = Qo[r * HP + d];
+#pragma unroll
+    for (int k = 0; k < NQ; ++k) {
+      const int n = 4 * (l8 + 8 * k);
+      if (n < N) {
+        fma4(cf, ld4(Hm + d * NP + n), an[k]);
+      }
+    }
+  }
+  float stt = 0.f;  // own_N · (state part of dN)
+#pragma unroll
+  for (int k = 0; k < NQ; ++k) {
+    const int n = 4 * (l8 + 8 * k);
+    an[k].x *= e; an[k].y *= e; an[k].z *= e; an[k].w *= e;
+    if (n < N) stt = dot4(stt, ld4(Po + r * NP + n), an[k]);
+  }
+  stt = sum8(stt);
+  if (COLS) {
+    for (int n = 0; n < N; n += 4) {
+      const float4 pv = ld4(Po + r * NP + n);
+#pragma unroll
+      for (int k = 0; k < DK; ++k)
+        ah[k] = dot4(ah[k], pv, ld4(Hm + (l8 + 8 * k) * NP + n));
+    }
+#pragma unroll
+    for (int k = 0; k < DK; ++k) ah[k] *= e;
+  }
+  __syncthreads();  // Hm is no longer read: the tiles may overwrite it
+
+  float msum = 0.f;
+  const int p_end = COLS ? Q : o0 + 1;
+  for (int p0 = COLS ? o0 : 0; p0 < p_end; p0 += TS) {
+    const int np = min(TS, Q - p0);
+    stage_n(Pt, qn, sqn, p0, np);
+    stage_hd(Qt, !COLS, p0, np);
+    __syncthreads();
+    float sv[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int n = 0; n < N; n += 4) {
+      const float4 pv = ld4(Po + r * NP + n);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        sv[k] = dot4(sv[k], pv, ld4(Pt + (l8 + 8 * k) * NP + n));
+    }
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      const float4 qv = ld4(Qo + r * HP + d);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dv[k] = dot4(dv[k], qv, ld4(Qt + (l8 + 8 * k) * HP + d));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ok = l8 + 8 * k, o = p0 + ok, w = o0 + r;
+      const int i = COLS ? o : w, j = COLS ? w : o;
+      const bool on = mine && ok < np && i >= j;
+      // selected, never multiplied: above the diagonal the exp overflows
+      const float L = on ? expf(cm[i] - cm[j]) : 0.f;
+      const float s = on ? sv[k] * L : 0.f;
+      const float m = on ? dv[k] * s : 0.f;
+      msum += m;
+      St[r * TP + ok] = s;
+      Dt[r * TP + ok] = on ? dv[k] * L : 0.f;
+    }
+    __syncthreads();
+    for (int o = 0; o < np; ++o) {
+      const float dd = Dt[r * TP + o];
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) {
+        const int n = 4 * (l8 + 8 * k);
+        if (n < N) fma4(dd, ld4(Pt + o * NP + n), an[k]);
+      }
+      if (COLS) {
+        const float ss = St[r * TP + o];
+#pragma unroll
+        for (int k = 0; k < DK; ++k)
+          ah[k] = fmaf(ss, Qt[o * HP + l8 + 8 * k], ah[k]);
+      }
+    }
+    __syncthreads();  // the tiles are read: the next may land
+  }
+  msum = sum8(msum);
+
+  const int w = o0 + r;
+  const long long t = t0 + w;
+  if (mine) {
+    float* dn = (COLS ? a.dbh : a.dch) +
+                ((static_cast<long long>(bb) * a.S + t) * a.nh + h) * N;
+#pragma unroll
+    for (int k = 0; k < NQ; ++k) {
+      const int n = 4 * (l8 + 8 * k);
+      if (n < N) *reinterpret_cast<float4*>(dn + n) = an[k];
+    }
+  }
+  if (COLS) {
+    float xd = 0.f;
+    if (mine) {
+      T* dxp = static_cast<T*>(a.dx) +
+               ((static_cast<long long>(bb) * a.S + t) * a.nh + h) * HD;
+      const float dtw = dtm[w];
+#pragma unroll
+      for (int k = 0; k < DK; ++k) {
+        const int d = l8 + 8 * k;
+        stf(dxp + d, ah[k] * dtw);
+        xd += ah[k] * ldf(xp + t * a.sxs + d);
+      }
+    }
+    xd = sum8(xd);
+    if (mine && l8 == 0) {
+      a.ddt[(static_cast<long long>(bb) * a.S + t) * a.nh + h] = xd;
+      a.dcc[slot * Q + w] = -msum - stt;
+      a.sgp[slot * Q + w] = stt;
+    }
+  } else if (mine && l8 == 0) {
+    a.dcr[slot * Q + w] = msum + stt;
+  }
+}
+
+// blockIdx.x = (chunk · 2 + side) · strips + strip: each chunk's row and
+// column strips.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT) bwd_strip_kernel(BwdArgs a) {
+  const int ns = (a.Q + TS - 1) / TS;
+  const int c = blockIdx.x / (2 * ns), side = (blockIdx.x / ns) % 2;
+  if (side) strip_body<T, HD, true>(a, c, blockIdx.x % ns);
+  else strip_body<T, HD, false>(a, c, blockIdx.x % ns);
+}
+
+// Blocks [0, nh): one per head.  Each warp takes chunks w, w + 8, ... of
+// the (batch, chunk) pairs in order: dcum = rows + columns, plus dseg =
+// Σ sgp + exp(seg)·Σ hdot at the chunk's last step; ddA = its reverse
+// cumulative sum (each lane 4 steps, then a warp scan); ddt += ddA·A and
+// the chunk's Σ ddA·dt, added per warp in chunk order, then over the
+// warps in order into dA.  Blocks [nh, ...): dB and dC, each element the
+// sum of its group's heads in head order, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(NT) bwd_finish_kernel(BwdArgs a, int hd) {
+  __shared__ float wsum[NT / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Q = a.Q, N = a.N;
+  if (blockIdx.x < a.nh) {
+    const int h = blockIdx.x;
+    const float A = a.A[h];
+    float acc = 0.f;
+    for (int k = warp; k < a.B * a.nc; k += NT / 32) {
+      const int bb = k / a.nc, c = k % a.nc;
+      const long long slot = static_cast<long long>(k) * a.nh + h;
+      const long long base = slot * Q;
+      float v[4], sg = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        v[e] = j < Q ? a.dcr[base + j] + a.dcc[base + j] : 0.f;
+        sg += j < Q ? a.sgp[base + j] : 0.f;
+      }
+      sg = sum32(sg);
+      float hs = 0.f;
+      for (int rb = 0; rb < hd / 16; ++rb) hs += a.hdot[slot * (hd / 16) + rb];
+      const float dseg = sg + expf(a.cum[base + Q - 1]) * hs;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * lane + e == Q - 1) v[e] += dseg;
+      float s[4];
+      s[3] = v[3];
+      s[2] = v[2] + s[3];
+      s[1] = v[1] + s[2];
+      s[0] = v[0] + s[1];
+      float incl = s[0];
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += u;
+      }
+      const float after = incl - s[0];  // the lanes above this one
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        if (j < Q) {
+          const float dd = s[e] + after;
+          const long long t = static_cast<long long>(c) * Q + j;
+          float* p = a.ddt + (static_cast<long long>(bb) * a.S + t) * a.nh + h;
+          *p = dd * A + *p;
+          part += dd * a.dt[bb * a.sdb + t * a.sds + h * a.sdh];
+        }
+      }
+      acc += sum32(part);
+    }
+    if (lane == 0) wsum[warp] = acc;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < NT / 32; ++w) s += wsum[w];
+      a.dA[h] = s;
+    }
+    return;
+  }
+  const int rep = a.nh / a.ng;
+  const long long per = static_cast<long long>(a.B) * a.S * a.ng * N;
+  for (long long i = (blockIdx.x - a.nh) * static_cast<long long>(NT) + tid;
+       i < 2 * per; i += static_cast<long long>(gridDim.x - a.nh) * NT) {
+    const bool isc = i >= per;
+    const long long e = isc ? i - per : i;
+    const long long bs = e / (a.ng * N);
+    const int gg = static_cast<int>((e / N) % a.ng);
+    const int n = static_cast<int>(e % N);
+    const float* src = (isc ? a.dch : a.dbh) + (bs * a.nh + gg * rep) * N + n;
+    float s = 0.f;
+    for (int k = 0; k < rep; ++k) s += src[static_cast<long long>(k) * N];
+    stf(static_cast<T*>(isc ? a.dc : a.db) + e, s);
+  }
+}
+
+// Floats of the backward's scratch, each piece rounded up to 4 floats.
+__host__ __device__ constexpr long long up4(long long n) {
+  return (n + 3) / 4 * 4;
+}
+
+long long bwd_scratch_floats(int B, int S, int nh, int hd, int N, int Q) {
+  const long long nc = S / Q, bcn = static_cast<long long>(B) * nc * nh;
+  const long long bsh = static_cast<long long>(B) * S * nh;
+  return up4(bcn * hd * N) + up4(bcn * (hd / 16)) + 2 * up4(bsh * N) +
+         3 * up4(bsh);
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(BwdArgs a, cudaStream_t s) {
+  const size_t s1 = state_smem(a.N, a.Q), s2 = strip_smem(HD, a.N);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_state_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(s1));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_strip_kernel<T, HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(s2));
+  if (e != cudaSuccess) return e;
+  bwd_state_kernel<T, HD><<<dim3(HD / 16, a.nh, a.B), NT, s1, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int ns = (a.Q + TS - 1) / TS;
+  bwd_strip_kernel<T, HD><<<dim3(a.nc * 2 * ns, a.nh, a.B), NT, s2, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long per = 2LL * a.B * a.S * a.ng * a.N;
+  const int nred = static_cast<int>(
+      per / NT + 1 < 4096 ? per / NT + 1 : 4096);
+  bwd_finish_kernel<T><<<a.nh + nred, NT, 0, s>>>(a, HD);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: the element strides (batch, step, head) of x and dt, then
@@ -1045,6 +1609,65 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
     e = launch_bf16<64, 32>(a, B, s);
   else if (dtype == 1 && cum && st && hd == 64 && rows == 64)
     e = launch_bf16<64, 64>(a, B, s);
+  else e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The backward.  strides: the element strides (batch, step, head) of x,
+// dt, then (batch, step, group) of B and C, then (batch, step, head) of
+// dy; the trailing dims are contiguous.  ints: B, S, nh, ng, hd, N, Q,
+// dtype of x/B/C/dy (0 = float32, 1 = bfloat16), device, and whether st
+// holds the bfloat16 route's split states (1) or plain float32 ones (0).
+// cum and st are the forward's (ssd_scan_launch); dh may be null (zeros).
+// dx (B, S, nh, hd) and dB, dC (B, S, ng, N) are written contiguous in
+// the inputs' dtype, ddt (B, S, nh) and dA (nh,) in float32; scratch holds
+// ssd_bwd_scratch_floats(ints) floats.  Three launches, no atomics: two
+// calls give the same bits.  Returns a cudaError_t (0 on success).
+extern "C" long long ssd_bwd_scratch_floats(const int* ints) {
+  return bwd_scratch_floats(ints[0], ints[1], ints[2], ints[4], ints[5],
+                            ints[6]);
+}
+
+extern "C" int ssd_bwd_launch(const void* x, const float* dt, const float* A,
+                              const void* b, const void* c, const void* dy,
+                              const float* cum, const float* st,
+                              const float* dh, void* dx, float* ddt,
+                              float* dA, void* db, void* dc, float* scratch,
+                              const long long* strides, const int* ints,
+                              void* stream) {
+  BwdArgs a;
+  a.x = x; a.dt = dt; a.A = A; a.b = b; a.c = c; a.dy = dy;
+  a.cum = cum; a.st = st; a.dh = dh;
+  a.dx = dx; a.ddt = ddt; a.dA = dA; a.db = db; a.dc = dc;
+  a.sxb = strides[0]; a.sxs = strides[1]; a.sxh = strides[2];
+  a.sdb = strides[3]; a.sds = strides[4]; a.sdh = strides[5];
+  a.sbb = strides[6]; a.sbs = strides[7]; a.sbg = strides[8];
+  a.scb = strides[9]; a.scs = strides[10]; a.scg = strides[11];
+  a.syb = strides[12]; a.sys = strides[13]; a.syh = strides[14];
+  a.B = ints[0]; a.S = ints[1]; a.nh = ints[2]; a.ng = ints[3];
+  const int hd = ints[4], dtype = ints[7];
+  a.N = ints[5]; a.Q = ints[6]; a.split = ints[9];
+  if (a.B < 1 || a.B > 65535 || a.S < 1 || a.nh < 1 || a.ng < 1 ||
+      a.nh % a.ng != 0 || a.N < 4 || a.N > NMAX || a.N % 4 != 0 ||
+      a.Q < 1 || a.Q > QMAX || a.S % a.Q != 0 || !cum || !st)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.nc = a.S / a.Q;
+  const long long nc = a.nc, bcn = static_cast<long long>(a.B) * nc * a.nh;
+  const long long bsh = static_cast<long long>(a.B) * a.S * a.nh;
+  a.gst = scratch;
+  a.hdot = a.gst + up4(bcn * hd * a.N);
+  a.dbh = a.hdot + up4(bcn * (hd / 16));
+  a.dch = a.dbh + up4(bsh * a.N);
+  a.dcr = a.dch + up4(bsh * a.N);
+  a.dcc = a.dcr + up4(bsh);
+  a.sgp = a.dcc + up4(bsh);
+  cudaError_t e = cudaSetDevice(ints[8]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 16) e = launch_bwd<float, 16>(a, s);
+  else if (dtype == 0 && hd == 64) e = launch_bwd<float, 64>(a, s);
+  else if (dtype == 1 && hd == 16) e = launch_bwd<bf16, 16>(a, s);
+  else if (dtype == 1 && hd == 64) e = launch_bwd<bf16, 64>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

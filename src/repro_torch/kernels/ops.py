@@ -17,14 +17,16 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
 * :func:`ssd` — the Mamba-2 chunked SSD scan, with its final state
   (:mod:`repro_torch.kernels.ssd_scan`).
 
-:func:`attention` and :func:`rmsnorm` (its ``round_scale=True`` form)
-are differentiable: when autograd records (grad enabled and an input
-requires grad) they run as a ``torch.autograd.Function`` whose forward
-is the kernel or plain version above (the attention forward then also
-returns the row log-sum-exp) and whose backward is the backward kernel
-(``flash_attention_bwd_cuda``, ``rmsnorm_bwd_cuda``) or its plain
-version, chosen by the same rule.  Otherwise (serving) they are the
-forward alone, as before.  ``round_scale=False`` has no backward.
+:func:`attention`, :func:`rmsnorm` (its ``round_scale=True`` form) and
+:func:`ssd` are differentiable: when autograd records (grad enabled and
+an input requires grad) they run as a ``torch.autograd.Function`` whose
+forward is the kernel or plain version above (the attention forward then
+also returns the row log-sum-exp, RMSNorm's each row's m, the SSD scan
+cum and each chunk's entering state) and whose backward is the backward
+kernel (``flash_attention_bwd_cuda``, ``rmsnorm_bwd_cuda``,
+``ssd_bwd_cuda``) or its plain version, chosen by the same rule.
+Otherwise (serving) they are the forward alone, as before.
+``round_scale=False`` has no backward.
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
 from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
-from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
+                                          ssd_cuda, ssd_ref)
 
 __all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "ssd", "use_kernel"]
 
@@ -121,6 +124,32 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw.to(w.dtype), None, None
 
 
+class _SSD(torch.autograd.Function):
+    """The chunked SSD scan with its VJP (kernel or plain version); the
+    forward keeps cum and each chunk's entering state for it.  An unused
+    output's cotangent arrives as None (h_final's, in training): the
+    backward then takes it as zeros without making them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, kernel):
+        ctx.set_materialize_grads(False)
+        fn = ssd_cuda if kernel else ssd_ref
+        y, h, cum, st = fn(x, dt, A, Bm, Cm, chunk, return_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, cum, st)
+        ctx.chunk, ctx.kernel = chunk, kernel
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, cum, st = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        fn = ssd_bwd_cuda if ctx.kernel else ssd_bwd_ref
+        dx, ddt, dA, dB, dC = fn(x, dt, A, Bm, Cm, dy, cum, st, dh,
+                                 ctx.chunk)
+        return dx, ddt, dA.to(A.dtype), dB, dC, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
@@ -159,6 +188,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD: x ``(B, S, nh, hd)``, dt ``(B, S, nh)`` f32, A
     ``(nh,)`` f32, Bm/Cm ``(B, S, ng, N)`` → (y ``(B, S, nh, hd)`` in x's
     dtype, h_final ``(B, nh, hd, N)`` f32); raises unless
-    ``S % min(chunk, S) == 0`` (see :mod:`repro_torch.kernels.ssd_scan`)."""
-    fn = ssd_cuda if use_kernel(impl, x.device) else ssd_ref
+    ``S % min(chunk, S) == 0`` (see :mod:`repro_torch.kernels.ssd_scan`);
+    differentiable when autograd records."""
+    kernel = use_kernel(impl, x.device)
+    if _records(x, dt, A, Bm, Cm):
+        return _SSD.apply(x, dt, A, Bm, Cm, chunk, kernel)
+    fn = ssd_cuda if kernel else ssd_ref
     return fn(x, dt, A, Bm, Cm, chunk)

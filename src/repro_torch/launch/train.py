@@ -37,7 +37,8 @@ On the CPU, at the reduced width::
     # ... killed mid-run, then the same command with --resume
 
 On the card (the default ``--device cuda``; raises without a GPU), the
-attention and RMSNorm forward and backward run as the port's CUDA
+attention (qwen2) or SSD scan (mamba2, ``--arch mamba2-780m``) and the
+RMSNorm forward and backward run as the port's CUDA
 kernels.  Weights come from the port's seeded initialisation
 (``--seed``), tokens from :class:`~repro_torch.data.SyntheticLM` (whose
 ``vocab²`` host table limits it to small vocabularies, as in the

@@ -1,7 +1,7 @@
 """Mamba-2 block with SSD (state-space duality) sequence mixing.
 
-The port's counterpart of :mod:`repro.models.ssm` (arXiv:2405.21060),
-forward only.  The block::
+The port's counterpart of :mod:`repro.models.ssm` (arXiv:2405.21060).
+The block::
 
     x ─ RMSNorm ─ in_proj ─▶ [z | x_in | B | C | dt]   (blocked layout)
                   x_in,B,C ─ causal-conv(4) ─ SiLU
@@ -12,19 +12,22 @@ The fused in_proj keeps the reference's blocked layout: its output is
 16 blocks of ``[z | x | B | C | dt]`` (``_BLOCKS``), so converted
 weights mean the same in both packages.  Prefill and train run SSD in
 the chunked dual form through :func:`repro_torch.kernels.ops.ssd`, so on
-the card it is the hand-written SSD-scan kernel; decode is the O(1)
-recurrence h ← h·exp(dt·A) + dt·B⊗x in plain PyTorch, as in the
-reference.  The reference's ``ssd_chunked`` is
-:func:`repro_torch.kernels.ssd_scan.ssd_ref`, the plain version beside
-the kernel.  Both RMSNorms go through the port's RMSNorm kernel.
+the card it is the hand-written SSD-scan kernel, and in training its
+gradient the hand-written SSD backward; decode is the O(1) recurrence
+h ← h·exp(dt·A) + dt·B⊗x in plain PyTorch, as in the reference.  The
+reference's ``ssd_chunked`` is :func:`repro_torch.kernels.ssd_scan.ssd_ref`,
+the plain version beside the kernel.  Both RMSNorms go through the
+port's RMSNorm kernel.
 
 Dtypes are the reference's: A = −exp(A_log) and dt = softplus(dt +
 dt_bias) in float32; the projections, D and the conv weights in the
 compute dtype (cast once by
-:meth:`repro_torch.models.transformer.SSDBlock.weights`);
-the SSM state float32.  The caches a call returns are new tensors, as
-the reference's are: conv states (the trailing K−1 inputs) in the
-compute dtype, the state in float32.
+:meth:`repro_torch.models.transformer.SSDBlock.weights` for serving, and
+in the autograd graph on every training call, where the reference casts
+them); the SSM state float32.  softplus has the reference's gradient
+(sigmoid, 0.5 at 0: ``dt_bias`` starts at zeros).  The caches a call
+returns are new tensors, as the reference's are: conv states (the
+trailing K−1 inputs) in the compute dtype, the state in float32.
 """
 from __future__ import annotations
 
@@ -99,10 +102,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, new_state
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
+class _Softplus(torch.autograd.Function):
     """softplus as the reference's ``jax.nn.softplus`` (``logaddexp(x,
-    0)``) evaluates it: max(x, 0) + log1p(exp(−|x|))."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    0)``) evaluates it, max(x, 0) + log1p(exp(−|x|)), with its gradient
+    exp(x − softplus(x)) (= sigmoid(x); 0.5 at 0, where autograd of the
+    expression above would give 1)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus with the reference's value and gradient (``_Softplus``)."""
+    return _Softplus.apply(x)
 
 
 def ssd_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, cfg,
@@ -112,7 +132,8 @@ def ssd_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, cfg,
     the residual add.
 
     ``p`` holds the block's parameters with ``in_proj``, ``out_proj``,
-    ``D`` and the conv weights in x's dtype.  mode: "train" (no cache),
+    ``D`` and the conv weights in x's dtype; differentiable (the training
+    forward casts them in the graph).  mode: "train" (no cache),
     "prefill" (returns the conv states and the final SSM state), "decode"
     (x is (B, 1, D); reads ``cache`` and returns a new one).
     """

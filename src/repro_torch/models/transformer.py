@@ -21,8 +21,8 @@ Serving entry points, forward only and without autograd:
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
 
-Training entry points, functional and differentiable (``attn`` stacks;
-training an ``ssd`` stack needs the SSD backward, still to port):
+Training entry points, functional and differentiable (``attn`` and
+``ssd`` stacks; an ``ssd`` block's scan runs with its backward kernel):
 
 * :func:`forward_train` — hidden states of a **parameter tree** of
   tensors (:meth:`Model.tree` layout), so that a worker's view goes
@@ -61,7 +61,7 @@ __all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
 Cache = Dict[str, Any]
 
 #: where each unported feature is queued
-_TODO = "ROADMAP queue 1, item 10 (models)"
+_TODO = "ROADMAP queue 1, item 10 (the other model kinds)"
 
 
 def check_supported(cfg) -> None:
@@ -374,8 +374,14 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
 
 def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg,
                  impl: str) -> torch.Tensor:
-    """One ``attn`` block on layer parameters ``lp`` (f32), the matrix
-    weights cast to x's dtype here, in the graph."""
+    """One block on layer parameters ``lp`` (f32), its weights cast to
+    x's dtype here, in the graph, where the reference casts them: an
+    ``attn`` block's matrices; an ``ssd`` block's projections, conv
+    weights and D (``_SSD_F32`` stay float32)."""
+    if "ssd" in lp:
+        w = {k: v if k in _SSD_F32 else v.to(x.dtype)
+             for k, v in lp["ssd"].items()}
+        return x + ssm.ssd_apply(w, x, cfg=cfg, mode="train", impl=impl)[0]
     w = {g: {k: v.to(x.dtype) for k, v in lp[g].items()}
          for g in ("attn", "mlp")}
     return _attn_block(x, lp["ln1"], lp["ln2"], w, cfg, rot=rot, length=None,
@@ -388,12 +394,11 @@ def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
     parameter tree ``params``, differentiable (see the module
     docstring)."""
     check_supported(cfg)
-    if "ssd" in cfg.layer_kinds():
-        raise NotImplementedError("training an ssd stack needs the SSD "
-                                  f"backward: {_TODO}")
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)
-    rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    rot = None
+    if "attn" in cfg.layer_kinds():
+        positions = torch.arange(x.shape[1], device=x.device)
+        rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for lp in params["layers"]:
         if cfg.remat:
             x = checkpoint(_train_block, lp, x, rot, cfg, impl,

@@ -18,9 +18,10 @@ N × decay, then ``SSD_EXTRA``: the serving prefill, 32 chunks, a head
 tile that does not divide the group, hd 16 with N and Q not multiples
 of 16), y and the final state at ``chip_smoke.SSD_F32`` in float32
 (rtol 1e-4, atol 1e-5·max(1, max|plain|)), y within 2e-2 in bfloat16
-(the final state as in float32).  The two backward kernels (flash attention's,
-RMSNorm's): ``chip_smoke``'s phase 5 backward grids at its tolerances
-(``check_flash_bwd``, ``check_rms_bwd``), and the bfloat16 flash
+(the final state as in float32).  The three backward kernels (flash
+attention's, RMSNorm's, the SSD scan's): ``chip_smoke``'s phase 5
+backward grids at its tolerances (``check_flash_bwd``, ``check_rms_bwd``,
+``check_ssd_bwd``), and the bfloat16 flash
 backward's dk/dv and dq kernels must show ``HGMMA`` (``wgmma``) in the
 built library's SASS (``chip_smoke.flash_bwd_sass``).
 Run on the card with::
@@ -159,6 +160,23 @@ def test_cuda_ssd_scan_matches_plain(dtype):
                             "slow", dtype, dev)
     with pytest.raises(ValueError, match="not a multiple"):
         ssd_cuda(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_bwd_matches_plain(dtype):
+    """``ssd_bwd_cuda`` (on the kernel forward's cum and states) against
+    ``ssd_bwd_ref`` (on the plain forward's) over ``chip_smoke``'s phase 5
+    SSD grid in one dtype, at its tolerances
+    (``chip_smoke.check_ssd_bwd``: two runs bit for bit alike, the final
+    state's cotangent random or none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, case in enumerate(smoke.ssd_bwd_cases()):
+        if case[-1] == dtype:
+            smoke.check_ssd_bwd(np, torch, case, dev, i)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The port's plain SSD scan (``repro_torch.kernels.ssd_scan.ssd_ref``,
-through ``ops.ssd(impl="ref")``) against the reference's.
+through ``ops.ssd(impl="ref")``) and its plain backward (``ssd_bwd_ref``)
+against the reference's.
 
 Inputs are drawn with numpy from a seed at B 2, nh 4, hd 16, N 32 and
 handed to both packages: x, B and C rounded to the dtype once, dt and A
@@ -24,6 +25,13 @@ split into bf16 hi + lo; sums in f32.  Held to ``ssd_ref`` under
 ``chip_smoke``'s phase 5 tolerances (the final state rtol 1e-4, atol
 1e-5·max(1, max|h|); y 2e-2); and a single bf16 rounding of the state
 operand is shown to miss the final state's tolerance.
+
+The backward (``ssd_bwd_ref``, on ``ssd_ref``'s cum and entering states)
+against ``jax.vjp`` of ``ssd_chunked`` over the same grid, with a
+nonzero cotangent of the final state, and against ``torch.autograd``
+through ``ssd_ref`` (tolerances at ``BWD_TOL`` and the tests); the
+entering states against the reference's scan; ``ops.ssd`` under
+autograd on the CPU.
 """
 import importlib.util
 import pathlib
@@ -39,7 +47,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_tpu  # noqa: E402
 from repro.models.ssm import ssd_chunked as jssd_chunked  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_bwd_ref, ssd_cuda,  # noqa: E402
+                                          ssd_ref)
 
 B, NH, HD, N = 2, 4, 16, 32
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
@@ -218,3 +227,138 @@ def test_bf16_route_single_rounded_state_operand_misses_h_tolerance(decay):
     with pytest.raises(AssertionError, match="max \\|diff\\|"):
         smoke.check_close(np, h, h_r, "float32", f"{decay} h",
                           smoke.SSD_F32)
+
+
+# --------------------------------------------------------------------------
+# The backward
+# --------------------------------------------------------------------------
+
+#: the backward's tolerance in float32: rtol, and atol as a share of
+#: max(1, max |ref|) (float32 sums in another order; dA sums B·S terms)
+BWD_TOL = (1e-5, 2e-5)
+GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _overflows(S, chunk, decay):
+    """Whether a chunk's decay exp(cum_i − cum_j) overflows float32 above
+    the diagonal (the model-like regime over 128 steps: −cum reaches
+    ≈ 91, past log(float32 max) ≈ 88.7)."""
+    return decay == "model" and min(S, chunk) == 128
+
+
+def _cotangents(S, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, NH, HD)).astype(np.float32),
+            rng.normal(size=(B, NH, HD, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["slow", "model"])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("S", [32, 256])
+def test_ssd_bwd_ref_matches_vjp_of_ssd_chunked(S, chunk, ng, decay, dtype):
+    """``ssd_bwd_ref`` on ``ssd_ref``'s cum and states against
+    ``jax.vjp`` of the reference's ``ssd_chunked``, with a nonzero
+    cotangent of the final state.  float32 within ``BWD_TOL``; with
+    bf16 x, B, C (and dy) the bf16 gradients dx, dB, dC within 2e-2 (one
+    bf16 rounding of float32 values that differ in their last bits), ddt
+    and dA within ``BWD_TOL``.  Where the decay overflows above the
+    diagonal the reference's dt and A gradients are NaN (its mask
+    multiplies the overflowed exp by a zero cotangent: 0·inf); there they
+    are held to float64 autograd through ``ssd_ref`` (whose mask selects
+    before the exp) within ``BWD_TOL``."""
+    arrs = _inputs(S, ng, decay, seed=S + chunk + ng)
+    dy, dh = _cotangents(S, seed=3 * S + chunk + ng)
+    j, t = _both(arrs, dtype)
+    jdy = jnp.asarray(dy, dtype)
+    _, vjp = jax.vjp(lambda *a: jssd_chunked(*a, chunk=chunk), *j)
+    want = vjp((jdy, jnp.asarray(dh)))
+    tdy = torch.from_numpy(dy).to(getattr(torch, dtype))
+    _, _, cum, st = ssd_ref(*t, chunk, return_states=True)
+    got = ssd_bwd_ref(*t, tdy, cum, st, torch.from_numpy(dh), chunk)
+    f64 = None
+    if _overflows(S, chunk, decay):
+        leaves = [a.double().requires_grad_(True) for a in t]
+        y64, h64 = ssd_ref(*leaves, chunk)
+        f64 = torch.autograd.grad(
+            (y64 * tdy.double()).sum()
+            + (h64 * torch.from_numpy(dh).double()).sum(), leaves)
+    for i, (name, g, w) in enumerate(zip(GRADS, got, want)):
+        assert g.dtype == t[i].dtype and g.shape == t[i].shape, name
+        w = np.asarray(w, np.float32)
+        if name in ("ddt", "dA") and f64 is not None:
+            assert not np.isfinite(w).all(), name
+            w = f64[i].numpy()
+        tol = (TOL[dtype] if name in ("dx", "dB", "dC") else BWD_TOL)
+        _close(g, w, *tol)
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("S", [32, 256])
+def test_ssd_bwd_ref_matches_autograd_of_ssd_ref(S, chunk, ng, decay):
+    """``ssd_bwd_ref`` against ``torch.autograd`` through ``ssd_ref`` on
+    the same float32 inputs and cotangents, within ``BWD_TOL``."""
+    t = [torch.from_numpy(a) for a in _inputs(S, ng, decay, seed=S + ng)]
+    dy, dh = (torch.from_numpy(a) for a in _cotangents(S, seed=S + chunk))
+    leaves = [a.clone().requires_grad_(True) for a in t]
+    y, h = ssd_ref(*leaves, chunk)
+    want = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves)
+    _, _, cum, st = ssd_ref(*t, chunk, return_states=True)
+    got = ssd_bwd_ref(*t, dy, cum, st, dh, chunk)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        _close(g, w, *BWD_TOL)
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+@pytest.mark.parametrize("ng", [1, 2])
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("S", [32, 256])
+def test_return_states_match_reference_scan(S, chunk, ng, decay):
+    """``ssd_ref(..., return_states=True)``: y and h as without it; each
+    chunk's entering state equal to the state the reference's scan
+    carries into it (``ssd_chunked``'s final state over the chunks before
+    it; zeros for the first) within the float32 tolerance, and cum the
+    prefix sums of dt·A within each chunk."""
+    arrs = _inputs(S, ng, decay, seed=5 * S + chunk + ng)
+    x, dt, A, Bm, Cm = arrs
+    t = [torch.from_numpy(a) for a in arrs]
+    y, h, cum, st = ssd_ref(*t, chunk, return_states=True)
+    y0, h0 = ssd_ref(*t, chunk)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    Q = min(chunk, S)
+    nc = S // Q
+    assert cum.shape == (B, nc, NH, Q) and st.shape == (B, nc, NH, HD, N)
+    assert not st[:, 0].any()
+    for c in range(1, nc):
+        _, jh = jssd_chunked(*(jnp.asarray(a[:, :c * Q]) if a.ndim > 1
+                               else jnp.asarray(a) for a in arrs),
+                             chunk=chunk)
+        _close(st[:, c], jh, *TOL["float32"])
+    dA = (dt * A).reshape(B, nc, Q, NH)
+    _close(cum, np.moveaxis(np.asarray(jnp.cumsum(jnp.asarray(dA), axis=2)),
+                            2, 3), *TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_differentiable_on_cpu(dtype):
+    """``ops.ssd`` under autograd on CPU tensors: the plain forward, and
+    gradients bit for bit ``ssd_bwd_ref``'s (an unused h_final's
+    cotangent taken as zeros); ``impl="cuda"`` still raises."""
+    arrs = _inputs(64, 2, "model", seed=11)
+    _, t = _both(arrs, dtype)
+    leaves = [a.clone().requires_grad_(True) for a in t]
+    y, h = ops.ssd(*leaves, chunk=32)
+    assert y.grad_fn is not None and h.grad_fn is not None
+    y_r, h_r, cum, st = ssd_ref(*t, 32, return_states=True)
+    assert torch.equal(y.detach(), y_r) and torch.equal(h.detach(), h_r)
+    dy = torch.from_numpy(_cotangents(64, seed=2)[0]).to(y.dtype)
+    got = torch.autograd.grad(y, leaves, dy)
+    want = ssd_bwd_ref(*t, dy, cum, st, None, 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.ssd(*leaves, chunk=32, impl="cuda")

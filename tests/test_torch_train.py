@@ -1,12 +1,17 @@
 """The port's LM training path against the reference's: ``SyntheticLM``,
-``loss_fn`` and its gradients, PSP ticks of the reduced LM, and the
-training launcher.
+``loss_fn`` and its gradients, PSP ticks of the reduced LM, the
+reference layout of the trees, softplus's gradient, and the training
+launcher.
 
-Models: ``reduced(get_config("qwen2-0.5b"))`` in float32 compute (GQA
-2:1, hd 64 or 32 at d_model 256 or 64, vocab 512), remat on as in the
-config, on the reference's ``init_model`` weights (norm gains and QKV
-biases redrawn from numpy so that they matter) carried across by
-``params_from_jax``.  Tolerances (float32 sums in another order): the
+Models (``ARCHS``): ``reduced(get_config("qwen2-0.5b"))`` (GQA 2:1, hd 64
+or 32 at d_model 256 or 64) and ``reduced(get_config("mamba2-780m"))``
+(SSD heads of hd 16, N 32, one group; 32 or 8 heads at d_model 256 or
+64; one chunk of the 40- or 16-step sequence), vocab 512, in float32
+compute, remat on as in the configs, on the reference's ``init_model``
+weights carried across by ``params_from_jax``, with the parameters the
+init leaves constant redrawn from numpy so that they matter: qwen2's
+norm gains and QKV biases; mamba2's norm gains (``ln``, ``norm``),
+``dt_bias`` and ``D``.  Tolerances (float32 sums in another order): the
 loss rtol 1e-5; every gradient and parameter leaf rtol 1e-4, atol
 1e-5·max(1, max|leaf|).  PSP ticks run the reference's tick unjitted, op by
 op (only its gradient function is compiled), and replay its draws into
@@ -30,34 +35,46 @@ from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
 from repro.models import init_model as jinit, loss_fn as jloss  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import (from_reference_layout,  # noqa: E402
+                                 params_from_jax, to_reference_layout)
 from repro_torch.core import spmd_psp as sp  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import (make_grad_fn,  # noqa: E402
                                       make_psp_train_step)
 from repro_torch.models import loss_fn  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.models.ssm import _softplus  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from test_torch_spmd_psp import CONTROL, _init_record, _tick_record  # noqa: E402,E501
 
 ARCH = "qwen2-0.5b"
+ARCHS = ("qwen2-0.5b", "mamba2-780m")
+#: the small width per arch (mamba2's 16 projection blocks need 16 SSM
+#: heads of 16: d_inner 256)
+SMALL_D = {"qwen2-0.5b": 64, "mamba2-780m": 128}
 
 
-def _pair(d_model=256, seed=0):
+def _pair(d_model=256, seed=0, arch=ARCH):
     """(reference cfg, port cfg, reference params (numpy), port tree)."""
-    jcfg = dataclasses.replace(jreduced(jget(ARCH), d_model=d_model),
+    jcfg = dataclasses.replace(jreduced(jget(arch), d_model=d_model),
                                dtype="float32")
-    cfg = dataclasses.replace(reduced(get_config(ARCH), d_model=d_model),
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=d_model),
                               dtype="float32")
     assert cfg.remat and jcfg.remat
     tree = jax.tree.map(np.asarray, jinit(jcfg, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed + 1)
     g = tree["groups"]["0"]
-    for k in ("bq", "bk", "bv"):
-        g["attn"][k] = (0.1 * rng.normal(size=g["attn"][k].shape)).astype(
-            np.float32)
-    for k in ("ln1", "ln2"):
-        g[k] = (1 + 0.1 * rng.normal(size=g[k].shape)).astype(np.float32)
+    noise = lambda a, base: (base + 0.1 * rng.normal(size=a.shape)).astype(
+        np.float32)
+    if "ssd" in g:
+        for k in ("dt_bias", "D", "ln", "norm"):
+            g["ssd"][k] = noise(g["ssd"][k], 1.0 if k in ("ln", "norm")
+                                else g["ssd"][k])
+    else:
+        for k in ("bq", "bk", "bv"):
+            g["attn"][k] = noise(g["attn"][k], 0.0)
+        for k in ("ln1", "ln2"):
+            g[k] = noise(g[k], 1.0)
     return jcfg, cfg, tree, params_from_jax(tree, cfg).tree()
 
 
@@ -85,10 +102,12 @@ def test_synthetic_lm_replays_reference_tokens():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_loss_and_grads_match_reference():
-    """``loss_fn`` and its gradients (remat on, chunked CE) against
-    ``jax.value_and_grad(repro.models.loss_fn)``."""
-    jcfg, cfg, tree, params = _pair()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_reference(arch):
+    """``loss_fn`` and its gradients (remat on, chunked CE; mamba2's SSD
+    through ``ops.ssd``'s autograd Function and the plain backward)
+    against ``jax.value_and_grad(repro.models.loss_fn)``."""
+    jcfg, cfg, tree, params = _pair(arch=arch)
     toks = np.random.default_rng(7).integers(0, 512, size=(2, 40)).astype(
         np.int32)
     (jl, _), jg = jax.value_and_grad(jloss, has_aux=True)(
@@ -103,11 +122,12 @@ def test_loss_and_grads_match_reference():
                           cfg)[0]), float(jl), rtol=1e-5)
 
 
-def test_psp_ticks_of_reduced_lm_match_reference():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_psp_ticks_of_reduced_lm_match_reference(arch):
     """Three PSP ticks of a reduced LM (W 3, pbsp, AdamW on a warm-up
     cosine, clipped grads): the control plane bit for bit, the server
     parameters and AdamW moments within tolerance."""
-    jcfg, cfg, tree, params = _pair(d_model=64)
+    jcfg, cfg, tree, params = _pair(d_model=SMALL_D[arch], arch=arch)
     kw = dict(barrier="pbsp", n_workers=3, sample_size=2, staleness=1,
               straggler_frac=0.34)
     jp, tp = jsp.PSPConfig(**kw), sp.PSPConfig(**kw)
@@ -148,23 +168,69 @@ def test_psp_ticks_of_reduced_lm_match_reference():
                  "AdamW mu")
 
 
-SMALL = ["--device", "cpu", "--reduced", "--d-model", "64", "--steps", "2",
-         "--seq", "16", "--batch", "2"]
+def test_reference_layout_restacks_ssd_trees():
+    """``to_reference_layout`` stacks a mamba2 tree's ``layers`` into the
+    reference's ``groups`` (and behind a views axis), leaf for leaf the
+    reference's tree; ``from_reference_layout`` undoes it."""
+    _, cfg, tree, params = _pair(d_model=SMALL_D["mamba2-780m"],
+                                 arch="mamba2-780m")
+    got = to_reference_layout(params, cfg)
+    assert set(got) == set(tree) and set(got["groups"]["0"]["ssd"]) == set(
+        tree["groups"]["0"]["ssd"])
+    for a, b in zip(jax.tree.leaves(tree), tree_leaves(got)):
+        np.testing.assert_array_equal(b.numpy(), a)
+    views = tree_map(lambda t: torch.stack([t, 2 * t]), params)
+    stacked = to_reference_layout(views, cfg, axis=1)
+    for a, b in zip(jax.tree.leaves(tree), tree_leaves(stacked)):
+        np.testing.assert_array_equal(b[1].numpy(), 2 * a)
+    back = from_reference_layout(got, cfg)
+    for a, b in zip(tree_leaves(params), tree_leaves(back)):
+        assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("x", [0.0, -30.0, -3.5, -1e-3, 1e-3, 0.7, 3.5,
+                               30.0])
+def test_softplus_gradient_matches_reference(x):
+    """The port's softplus (mamba2's dt) against ``jax.nn.softplus``:
+    the value, and the gradient ``jax.grad`` gives (sigmoid; 0.5 at 0,
+    where autograd of max(x, 0) + log1p(exp(−|x|)) would give 1), within
+    four float32 ulps (the two libraries' exp and log1p may round
+    differently), and exactly 0.5 at 0."""
+    t = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+    y = _softplus(t)
+    (g,) = torch.autograd.grad(y, t)
+    y = y.detach()
+    want_y = float(jax.nn.softplus(jnp.float32(x)))
+    want_g = float(jax.grad(jax.nn.softplus)(jnp.float32(x)))
+    np.testing.assert_allclose(float(y), want_y, rtol=4.8e-7, atol=0)
+    np.testing.assert_allclose(float(g), want_g, rtol=4.8e-7, atol=0)
+    if x == 0.0:
+        assert float(g) == want_g == 0.5
+
+
+SMALL = ["--device", "cpu", "--reduced", "--steps", "2", "--seq", "16",
+         "--batch", "2"]
+
+
+def _small(arch):
+    return [*SMALL, "--arch", arch, "--d-model", str(SMALL_D[arch])]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("barrier", ["none", "pbsp"])
-def test_launcher_runs_on_cpu(barrier, capsys):
-    assert train.main([*SMALL, "--barrier", barrier]) == 0
+def test_launcher_runs_on_cpu(barrier, arch, capsys):
+    assert train.main([*_small(arch), "--barrier", barrier]) == 0
     out = capsys.readouterr().out
     assert "device=cpu" in out and ("tick" in out or "step" in out)
 
 
-def test_launcher_raises_on_unported_flags(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_raises_on_unported_flags(arch, tmp_path, capsys):
     """Every flag of the reference's launcher is ported: the checkpoint
     and publish flags run on the CPU (none raises NotImplementedError);
     only a CUDA run without a card raises."""
     ck, pub = str(tmp_path / "ck"), str(tmp_path / "pub")
-    assert train.main([*SMALL, "--barrier", "pbsp", "--ckpt-dir", ck,
+    assert train.main([*_small(arch), "--barrier", "pbsp", "--ckpt-dir", ck,
                        "--save-every", "1", "--keep", "1", "--resume",
                        "--publish-dir", pub, "--publish-every", "1"]) == 0
     out = capsys.readouterr().out
@@ -176,13 +242,14 @@ def test_launcher_raises_on_unported_flags(tmp_path, capsys):
             train.main(["--reduced", "--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("barrier", ["none", "pbsp"])
-def test_launcher_resume_continues_the_run(barrier, tmp_path, capsys):
+def test_launcher_resume_continues_the_run(barrier, arch, tmp_path, capsys):
     """``--resume`` in-process: 2 steps, then 2 more from the checkpoint,
     end where 4 uninterrupted steps end, leaf for leaf."""
     mode = ["--barrier", barrier, "--save-every", "2"]
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
-    four = [*SMALL, *mode, "--steps", "4"]
+    four = [*_small(arch), *mode, "--steps", "4"]
     assert train.main([*four, "--ckpt-dir", a]) == 0
     # the first leg runs the same schedule (--steps 4), killed after 2
     assert train.main([*four, "--ckpt-dir", b]) == 0
