@@ -259,10 +259,15 @@ SSD_F32 = (1e-4, 1e-5)
 #: (the serving prefill, then a long one); the first goes into the line
 SSD_TIMED = ((4, 512), (1, 4096))
 SSD_KERNELS = ("scan_kernel", "out_kernel")
-#: the SSD backward's three kernels, by name (its split per launch, and
-#: phase 12's traced tick sums them)
-SSD_BWD_KERNELS = ("bwd_state_kernel", "bwd_strip_kernel",
-                   "bwd_finish_kernel")
+#: the SSD forward's training shape at mamba2-780m's 48 heads, hd 64,
+#: N 128, one group, bf16, with cum and the entering states out: (B, S)
+SSD_TRAIN_TIMED = (2, 512)
+#: the bf16 SSD backward's three kernels, by name (its split per launch,
+#: and phase 12's traced tick sums them); the first two run its products
+#: and must show tensor-core instructions in their SASS, the third adds
+#: the head tiles' partial sums
+SSD_BWD_KERNELS = ("bwd_gscan_kernel", "bwd_chunk_kernel", "bwd_sum_kernel")
+SSD_BWD_TC = SSD_BWD_KERNELS[:2]
 #: the SSD backward's training shape at mamba2-780m's 48 heads, hd 64,
 #: N 128, one group, bf16: (B, S)
 SSD_BWD_TIMED = (2, 512)
@@ -904,7 +909,7 @@ def phase5_ssd(np, torch, dev, card):
     print("[5] ssd library SASS: " + "; ".join(
         f"{fn[:60]}… HGMMA {c['HGMMA']}, HMMA {c['HMMA']}"
         for fn, c in sorted(sass.items())), flush=True)
-    for name in SSD_KERNELS:
+    for name in SSD_KERNELS + SSD_BWD_TC:
         tc = [c["HGMMA"] + c["HMMA"] for fn, c in sass.items() if name in fn]
         if not tc or not all(tc):
             raise AssertionError(f"the bf16 ssd {name} has no tensor-core "
@@ -938,6 +943,31 @@ def phase5_ssd(np, torch, dev, card):
               f"call computes the scan; inputs rotated over {n_sets} copies;"
               f" SM clock {clocks} [{card}]", flush=True)
         timed.append((ms, t_ops, t_bytes))
+
+    # the training forward: cum and the entering states out as well
+    B, S = SSD_TRAIN_TIMED
+    nh, ng, hd, N = 48, 1, 64, 128
+    args = ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                      dev)
+    nxt, n_sets = rotating(args)
+    train = lambda: ssd_cuda(*nxt(), return_states=True)
+    ms_t, clocks = timed_rounds(torch, {
+        "kernel": (train, 20),
+        "plain": (lambda: ssd_ref(*nxt(), return_states=True), 3)})
+    split = {n: v for key, v in profile_device(torch, train, 20).items()
+             for n in SSD_KERNELS if n in key}
+    flops = ssd_flops(B, S, nh, ng, hd, N)
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + args[0].numel() * 2 + B * nh * hd * N * 4
+              + B * (S // 128) * nh * (128 + hd * N) * 4)
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] ssd training forward B={B} S={S} nh={nh} hd={hd} N={N} "
+          f"ng={ng} bf16, cum and states out: " + rounds_text(ms_t)
+          + "; per launch " + ", ".join(f"{n} {v:.4f} ms"
+                                        for n, v in split.items())
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP,"
+          f" {nbytes / 1e6:.2f} MB); inputs rotated over {n_sets} copies; "
+          f"SM clock {clocks} [{card}]", flush=True)
     ms, t_ops, t_bytes = timed[0]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -982,6 +1012,13 @@ def check_ssd_bwd(np, torch, case, dev, seed):
         raise AssertionError(f"{what}: two runs differ")
     _, _, cum_r, st_r = ssd_ref(*args, chunk, return_states=True)
     want = ssd_bwd_ref(*args, dy, cum_r, st_r, dh, chunk)
+    return ssd_bwd_close(np, got, want, dt, what)
+
+
+def ssd_bwd_close(np, got, want, dt, what):
+    """Max |err| of the backward's five outputs ``got`` against the plain
+    version's ``want``; raises beyond the tolerances of
+    :func:`check_ssd_bwd`, or on a value that is not finite."""
     err = 0.0
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         if g.shape != w.shape or g.dtype != w.dtype:

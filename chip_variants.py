@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's two backward kernels on the card.
+"""Time design variants of the port's three backward kernels on the card.
 
 Each variant is the kernel's CUDA source with one of its design
 constants changed (the RMSNorm backward's ``BWD_FILL``, busy warps per SM
 its launcher aims for, and ``COLS_WARPS``, the warps of its column pass;
-the flash backward's ``BWD_STAGES``, streamed tile pairs in its ring).
+the flash backward's ``BWD_STAGES``, streamed tile pairs in its ring;
+the bfloat16 SSD backward's ``BWD_HEADS``, heads per block of its chunk
+kernel, and ``BWD_ROWS``, state rows per block of its state-gradient
+scan).
 Every variant is built with the port's own flags (one ``nvcc`` each, all
-started together, into ``build/variants/``), held to its plain version on
-a few of ``chip_smoke.py``'s phase 5 cases, and timed at the training
-shapes of ``chip_smoke.py`` (``FLASH_BWD_TIMED``, ``RMS_BWD_TIMED``) beside
-the library call, in one call, with each launch's device time.  The
-first variant of each kernel is the source as it stands.
+started together, into ``build/variants/``), held to its plain version
+on a few of ``chip_smoke.py``'s phase 5 cases, and timed at the
+training shapes of ``chip_smoke.py`` (``FLASH_BWD_TIMED``,
+``RMS_BWD_TIMED``, ``SSD_BWD_TIMED``) beside the library call where there
+is one, in one call, with each launch's device time.  The first variant
+of each kernel is the source as it stands.
+
+Last, the SSD backward's chunk kernel as built is timed phase by phase:
+a copy of its source in which thread 0 of each block stamps
+``%globaltimer`` at each phase boundary, read back after one call at
+``SSD_BWD_TIMED`` (the mean and the largest time per phase over the
+blocks, and the mean by chunk).
 
 Run on a machine with one card, from the root of the checkout::
 
@@ -43,7 +53,18 @@ VARIANTS = (
                                  "COLS_BATCH = 9;": "COLS_BATCH = 33;"}),
     ("flash_attention", "as built", {}),
     ("flash_attention", "BWD_STAGES 3", {"BWD_STAGES = 2;": "BWD_STAGES = 3;"}),
+    ("ssd_scan", "as built", {}),
+    ("ssd_scan", "BWD_HEADS 2", {"BWD_HEADS = 3;": "BWD_HEADS = 2;"}),
+    ("ssd_scan", "BWD_HEADS 4", {"BWD_HEADS = 3;": "BWD_HEADS = 4;"}),
+    ("ssd_scan", "BWD_ROWS 16", {"BWD_ROWS = 64;": "BWD_ROWS = 16;"}),
+    ("ssd_scan", "BWD_ROWS 32", {"BWD_ROWS = 64;": "BWD_ROWS = 32;"}),
 )
+#: the SSD backward's spot checks: (B, S, nh, ng, hd, N, chunk, decay,
+#: dtype), a last head tile of 2, two groups at hd 16 with N and Q not
+#: multiples of 16, and 32 chunks
+SSD_CHECKS = ((2, 512, 20, 1, 64, 128, 128, "model", "bfloat16"),
+              (2, 240, 6, 2, 16, 36, 48, "slow", "bfloat16"),
+              (1, 4096, 8, 2, 64, 128, 128, "slow", "bfloat16"))
 
 
 def variant_source(name, subs):
@@ -110,6 +131,120 @@ def backward_registers(log):
     return [(f, r, spills.get(f, 0)) for f, r in rows], warns
 
 
+#: bwd_chunk_kernel's phase boundaries: (text in ssd_scan.cu after which
+#: thread 0 stamps, stamp index; per head t the index is that plus 6t)
+SSD_STAMPS = (
+    ("const int r0 = 16 * blk + g4, r1 = r0 + 8;  // this lane's rows\n",
+     0, "start"),
+    ("                    // lands\n", 1, "C and B in"),
+    ("  float accB[NT8][4], accC[NT8][4];  // dB_J, dC_I summed over the "
+     "heads\n", 2, "C·Bᵀ"),
+    ("    __syncthreads();  // head t's x and G_c have landed\n", 3,
+     "wait for x, G_c"),
+    ("    __syncthreads();  // dy, H_c, cum, dt are in; G_c in st's order "
+     "is read\n", 4, "B·G_cᵀ, wait for the rest"),
+    ("    if (c > 0) transpose_state<HD>(Hf, warp, lane);\n"
+     "    __syncthreads();\n", 5, "transposes"),
+    ("    __syncthreads();  // phase 1 is done: x and G_c are read\n", 6,
+     "phase 1"),
+    ("                      // and H_c are read\n", 7, "phase 2"),
+    ("    __syncthreads();  // cum, dt and the per-head sums are read\n", 8,
+     "dcum scan"),
+)
+STAMP_HELPERS = r"""
+__device__ unsigned long long g_stamps[1 << 16];
+__device__ __forceinline__ unsigned long long gtimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP(k) do { if (threadIdx.x == 0) g_stamps[(blockIdx.x + \
+    gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) * 32 + (k)] = \
+    gtimer(); } while (0)
+"""
+
+
+def stamped_source():
+    """``ssd_scan.cu`` with the stamps of ``SSD_STAMPS`` in
+    ``bwd_chunk_kernel`` (index 30 at its end) and a ``read_stamps``
+    entry point; raises if an anchor is not found once."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    text = text.replace("namespace {\n", "namespace {\n" + STAMP_HELPERS, 1)
+    k0 = text.index("__global__ void __launch_bounds__(NT, 1) "
+                    "bwd_chunk_kernel")
+    body = text[k0:]
+    marks = [(a, f"STAMP({k}{' + 6 * t' if k > 2 else ''});\n")
+             for a, k, _ in SSD_STAMPS]
+    marks.append(("  // the tile's dB and dC, rows r0 and r1 of this warp's "
+                  "block\n", "  __syncthreads();\n  STAMP(30);\n"))
+    for anchor, stamp in marks:
+        if body.count(anchor) < 1:
+            raise ValueError(f"ssd_scan.cu: stamp anchor {anchor!r} missing")
+        i = body.index(anchor) + len(anchor)
+        body = body[:i] + stamp + body[i:]
+    return text[:k0] + body + """
+extern "C" int read_stamps(unsigned long long* out, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, n * 8));
+}
+"""
+
+
+def ssd_phases(np, torch, cs, dev, card):
+    """Build the stamped SSD source, run one backward call at
+    ``SSD_BWD_TIMED`` through it and print each phase's block times."""
+    from repro_torch.kernels import _build, ssd_scan as ss
+    out = ROOT / "build" / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "ssd_scan_stamped.cu"
+    src.write_text(stamped_source())
+    so = src.with_suffix(".so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    use(lib, "ssd_scan")
+    B, S = cs.SSD_BWD_TIMED
+    nh, ng, hd, N = 48, 1, 64, 128
+    args = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model",
+                         "bfloat16", dev)
+    dy = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                       dev, 1)[0]
+    _, _, cum, st = ss.ssd_cuda(*args, return_states=True)
+    for _ in range(3):
+        ss.ssd_bwd_cuda(*args, dy, cum, st)
+    torch.cuda.synchronize()
+    tiles = -(-nh // 3)  # BWD_HEADS as built
+    nb, nc = tiles * (S // 128) * B, S // 128
+    buf = np.zeros(nb * 32, np.uint64)
+    if lib.read_stamps(buf.ctypes.data, nb * 32):
+        raise RuntimeError("read_stamps failed")
+    st_ = buf.reshape(nb, 32).astype(np.int64)
+    chunk = np.arange(nb) // tiles % nc
+    rows = [(name, k) for _, k, name in SSD_STAMPS[1:3]]
+    rows += [(f"head {t}: {name}", k + 6 * t) for t in range(3)
+             for _, k, name in SSD_STAMPS[3:]]
+    rows.append(("the tile's dB, dC out", 30))
+    print(f"[ssd backward phases] bwd_chunk_kernel at B={B} S={S} nh={nh} "
+          f"hd={hd} N={N} bf16, {nb} blocks: µs per phase, mean and max "
+          f"over the blocks, then the mean by chunk 0..{nc - 1} [{card}]",
+          flush=True)
+    prev = st_[:, 0]
+    for name, k in rows:
+        if k != 30 and not st_[:, k].any():
+            continue
+        d = (st_[:, k] - prev) / 1e3
+        print(f"  {name:34s} {d.mean():7.2f} {d.max():7.2f}   " + " ".join(
+            f"{d[chunk == c].mean():6.2f}" for c in range(nc)), flush=True)
+        prev = st_[:, k]
+    span = (st_[:, 30] - st_[:, 0]) / 1e3
+    print(f"  block span mean {span.mean():.2f} µs, max {span.max():.2f}; "
+          f"first start to last end "
+          f"{(st_[:, 30].max() - st_[:, 0].min()) / 1e3:.2f} µs", flush=True)
+
+
 def kernel_name(key):
     """A profiler key's kernel name without its namespace, template
     arguments and parameters (``void (anonymous namespace)::f<64>(...)``
@@ -122,7 +257,8 @@ def use(lib, name):
     """Point the wrapper module of kernel source ``name`` at ``lib``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
-    mod = fa if name == "flash_attention" else rn
+    from repro_torch.kernels import ssd_scan as ss
+    mod = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss}[name]
     _build._LIBS[name] = lib
     mod._lib.cache_clear()
     mod._lib()
@@ -138,6 +274,7 @@ def main() -> int:
     import torch.nn.functional as F
     import chip_smoke as cs
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
     card = cs.smi()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -160,6 +297,9 @@ def main() -> int:
                          (("window256", {"window": 256}), 1, 37, 64,
                           "bfloat16")):
                 cs.check_flash_bwd(np, torch, case, dev, 5)
+        elif name == "ssd_scan":
+            for i, case in enumerate(SSD_CHECKS):
+                cs.check_ssd_bwd(np, torch, case, dev, i)
         else:
             for rows, D, dt in ((1024, 896, "bfloat16"),
                                 (4099, 3072, "bfloat16"),
@@ -219,6 +359,27 @@ def main() -> int:
     fns["F.rms_norm backward"] = (lambda: torch.autograd.grad(
         y, (xl, wl), g, retain_graph=True), 50)
     report(f"rmsnorm backward ({rows}, {D}) bf16", fns)
+
+    B, S = cs.SSD_BWD_TIMED
+    nh, ng, hd, N = 48, 1, 64, 128
+    args = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model",
+                         "bfloat16", dev)
+    dy = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                       dev, 1)[0]
+    use(libs[("ssd_scan", "as built")], "ssd_scan")
+    _, _, cum, st = ss.ssd_cuda(*args, return_states=True)
+    nxt_s, _ = cs.rotating((*args, dy, cum, st))
+
+    def ssd(lib):
+        def f():
+            use(lib, "ssd_scan")
+            return ss.ssd_bwd_cuda(*nxt_s())
+        return f
+    fns = {tag: (ssd(lib), 20) for (name, tag), lib in libs.items()
+           if name == "ssd_scan"}
+    report(f"ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
+           "(no library call computes it)", fns)
+    ssd_phases(np, torch, cs, dev, card)
     return 0
 
 

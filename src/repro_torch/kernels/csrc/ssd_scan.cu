@@ -63,17 +63,46 @@
 // the chunked form, replacing the reference's XLA autodiff of
 // src/repro/models/ssm.py:ssd_chunked, on the forward's cum and entering
 // states (the bfloat16 route's hi + lo, or the float32 route's plain
-// copy).  Three launches in float32 on the CUDA cores, no atomics:
-// bwd_state_kernel scans the state gradient over the chunks in reverse;
-// bwd_strip_kernel forms each chunk's duals S = (C·Bᵀ) ⊙ L and dy·xdtᵀ
-// tile by tile for a strip of 32 steps, as rows (→ dC) or columns (→ dB,
-// dx); bwd_finish_kernel scans dcum within each chunk (→ ddt, dA) and
-// sums dB and dC over each group's heads in order.  Bound on the H100 at
+// copy).  Three launches a route, no atomics.  Bound on the H100 at
 // mamba2-780m's training shape (B 2, S 512, nh 48, hd 64, N 128, bf16):
 // 33.10 MB, 9.9 µs at 3.35 TB/s, against 5.67 GFLOP over the causal
-// pairs (5.7 µs on the bf16 tensor cores, 85 µs on the f32 cores).  This
-// first design runs on the f32 cores and forms each chunk's duals twice,
-// for its row strips and again for its column strips (PERF.md §6).
+// pairs (5.7 µs on the bf16 tensor cores, 85 µs on the f32 cores).
+//
+// bfloat16, on the tensor cores (mma.sync m16n8k16):
+//   bwd_gscan_kernel  one block per (head, batch) scans the state gradient G over the chunks
+//                     in reverse in its MMA accumulators, as scan_kernel
+//                     carries the forward's state, writing each chunk's
+//                     G as bf16 hi + lo in the states' fragment order and
+//                     its inner product with the entering state;
+//   bwd_chunk_kernel  one block per (tile of three heads of one group,
+//                     chunk, batch), one to an SM: C·Bᵀ once for the
+//                     tile, then per head every 16 × 16 tile of the
+//                     chunk's Q × Q duals formed once (dy·xᵀ exact, the
+//                     decay selected on the causal half) and used for
+//                     its columns (dB, dx, by the warp of its column
+//                     block) and, handed over through shared memory by
+//                     movmatrix, its rows (dC, by the warp of its row
+//                     block); the state terms on the same block; dcum,
+//                     its reverse scan, ddt and the chunk's share of dA;
+//                     dB and dC summed over the tile's heads in the
+//                     warps' accumulators;
+//   bwd_sum_kernel    dA over the (batch, chunk) shares and dB, dC over a
+//                     group's head tiles, in order.
+// Float32 scratch is G (4 bytes an element, hi + lo), the chunk shares
+// of dA and one dB and dC partial per head tile: 29.4 MB at the training
+// shape, where the float32 route's layout takes 63.5 MB (G in f32, dB and
+// dC per head).  Precision: x, B, C, dy are exact
+// operands; dy·exp(cum), G, the entering state and S = (C·Bᵀ) ⊙ L are
+// split into hi + lo; D = dt_j·(dy·xᵀ) ⊙ L is rounded once (it reaches
+// only the bf16 dB and dC; one rounding of any of the four split
+// operands puts ddt outside phase 5's tolerance: tests/test_torch_ssd.py).
+//
+// float32, on the CUDA cores (the first design): bwd_state_kernel scans
+// the state gradient; bwd_strip_kernel forms each chunk's duals
+// S = (C·Bᵀ) ⊙ L and dy·xdtᵀ tile by tile for a strip of 32 steps, as
+// rows (→ dC) or columns (→ dB, dx), so each is formed twice;
+// bwd_finish_kernel scans dcum within each chunk (→ ddt, dA) and sums dB
+// and dC over each group's heads in order.
 //
 // float32: the first design, products in f32 on the CUDA cores: one block
 // of 256 threads per (head, batch) walks the chunks in order, as the TPU
@@ -410,6 +439,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The transpose of an 8×8 bf16 matrix held as in ldmatrix's result (lane
+// l: row l / 4, columns 2(l % 4), +1): lane l receives the same entries
+// of the transposed matrix.
+__device__ __forceinline__ uint32_t movm(uint32_t v) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(r)
+               : "r"(v));
+  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -1031,7 +1071,8 @@ cudaError_t launch_f32(const Args& a, int B, cudaStream_t s) {
 
 // ---------------------------------------------------------------------------
 // The backward: the VJP of the chunked SSD (ssd_chunked's, which the
-// reference gets from XLA's autodiff), in float32 on the CUDA cores
+// reference gets from XLA's autodiff).  First the float32 route, on the
+// CUDA cores; then the bfloat16 route, on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int TS = 32;  // rows of a strip and of a tile of the Q × Q duals
@@ -1051,30 +1092,28 @@ struct BwdArgs {
   float* dA;         // (nh,)
   void* db;          // (B, S, ng, N) in B's dtype
   void* dc;
-  // float32 scratch
-  float* gst;   // (B, nc, nh, hd, N): dL/dH of the state each chunk leaves
+  // float32 scratch.  Both routes:
+  float* gst;   // dL/dH of the state each chunk leaves: float32 (B, nc,
+                // nh, hd, N) plain; bfloat16 hi + lo in st's fragment order
+  // the float32 route's:
   float* hdot;  // (B, nc, nh, hd/16): <H_in, gst> per 16 state rows
   float* dbh;   // (B, S, nh, N): dB and dC of each head, before the sum
   float* dch;   //   over a group's heads
   float* dcr;   // (B, nc, nh, Q): dcum from the rows of L and from y_inter
   float* dcc;   //   from the columns of L and from the state a chunk leaves
   float* sgp;   //   that last term again, for dseg
+  // the bfloat16 route's:
+  float* dap;   // (B, nc, nh): Σ ddA·dt over each chunk
+  float* dbp;   // (B, S, ng, tpg, N): dB and dC summed over each tile of
+  float* dcp;   //   BWD_HEADS heads, before the sum over a group's tiles
   long long sxb, sxs, sxh;  // element strides of x: batch, step, head
   long long sdb, sds, sdh;  // of dt
   long long sbb, sbs, sbg;  // of B: batch, step, group
   long long scb, scs, scg;  // of C
   long long syb, sys, syh;  // of dy
   int B, S, nh, ng, N, Q, nc, split;
+  int tpg;   // bfloat16: bwd_chunk_kernel head tiles per group
 };
-
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stf(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // acc + a·b, four fused multiply-adds in order
 __device__ __forceinline__ float dot4(float acc, const float4& a,
@@ -1111,21 +1150,11 @@ __device__ __forceinline__ float sum32(float v) {
 }
 
 // Element (d, n) of the state entering the chunk of `slot` ((b·nc + c)·nh
-// + h): plain float32, or the bfloat16 route's hi + lo in scan_kernel's
-// fragment order (16-row tile d/16 and n-tile n/8 hold 32 lanes of 16
-// bytes: bf16 hi of rows g, g+8, then lo, each a pair of columns).
+// + h), float32 (B, nc, nh, hd, N).
 template <int HD>
 __device__ __forceinline__ float state_at(const BwdArgs& a, long long slot,
                                           int d, int n) {
-  if (!a.split) return a.st[(slot * HD + d) * a.N + n];
-  const int n8 = (a.N + 7) / 8;
-  const uint16_t* s = reinterpret_cast<const uint16_t*>(a.st) +
-                      slot * HD * 16 * n8;
-  const int mt = d >> 4, g4 = d & 7, hh = (d >> 3) & 1;
-  const int u = (((mt * n8 + (n >> 3)) * 32 + g4 * 4 + ((n & 7) >> 1)) * 8) +
-                2 * hh + (n & 1);
-  return __uint_as_float(static_cast<uint32_t>(s[u]) << 16) +
-         __uint_as_float(static_cast<uint32_t>(s[u + 4]) << 16);
+  return a.st[(slot * HD + d) * a.N + n];
 }
 
 // Bytes of bwd_state_kernel's shared memory: a chunk's C rows (Q × (N+4))
@@ -1140,7 +1169,7 @@ __host__ __device__ constexpr size_t state_smem(int N, int Q) {
 // dh (or 0) for the state the last chunk leaves; per chunk c it is
 // written to gst, its inner product with the state entering c goes to
 // hdot, and then G ← exp(seg_c)·G + Σ_i exp(cum_i) dy_i ⊗ C_i.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) bwd_state_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
   __shared__ float red[NT / 32];
@@ -1152,8 +1181,9 @@ __global__ void __launch_bounds__(NT) bwd_state_kernel(BwdArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = d0 + warp, r1 = r0 + 8, n = 4 * lane;
   const bool on = n < N;
-  const T* cp = static_cast<const T*>(a.c) + bb * a.scb + g * a.scg;
-  const T* yp = static_cast<const T*>(a.dy) + bb * a.syb + h * a.syh + d0;
+  const float* cp = static_cast<const float*>(a.c) + bb * a.scb + g * a.scg;
+  const float* yp =
+      static_cast<const float*>(a.dy) + bb * a.syb + h * a.syh + d0;
   float4 g0 = make_float4(0.f, 0.f, 0.f, 0.f), g1 = g0;
   if (a.dh && on) {
     const float* dp = a.dh + (static_cast<long long>(bb) * a.nh + h) * HD * N;
@@ -1183,12 +1213,12 @@ __global__ void __launch_bounds__(NT) bwd_state_kernel(BwdArgs a) {
     if (c > 0) {
       const long long t0 = static_cast<long long>(c) * Q;
       for (int i = tid, j = tid / N, k = tid % N; i < Q * N; i += NT) {
-        Cs[j * NP + k] = ldf(cp + (t0 + j) * a.scs + k);
+        Cs[j * NP + k] = cp[(t0 + j) * a.scs + k];
         step_index(j, k, N);
       }
       for (int i = tid; i < Q * 16; i += NT) {
         const int j = i / 16, r = i % 16;
-        Ys[i] = ldf(yp + (t0 + j) * a.sys + r) * expf(cg[j]);
+        Ys[i] = yp[(t0 + j) * a.sys + r] * expf(cg[j]);
       }
     }
     __syncthreads();
@@ -1247,7 +1277,7 @@ __host__ __device__ constexpr size_t strip_smem(int HD, int N) {
 // Thread (r, l) = (tid / 8, tid % 8) owns strip row r: columns 4(l + 8k)
 // .. +3 of dN, head dims l + 8k of dxdt, tile entries (r, l + 8k); every
 // sum runs in a fixed order (no atomics).
-template <typename T, int HD, bool COLS>
+template <int HD, bool COLS>
 __device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
                                            int strip) {
   constexpr int HP = HD + 4, TP = TS + 1;
@@ -1270,12 +1300,12 @@ __device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
   const long long t0 = static_cast<long long>(c) * Q;
   const int o0 = strip * TS, no = min(TS, Q - o0);
   const long long slot = (static_cast<long long>(bb) * a.nc + c) * a.nh + h;
-  const T* xp = static_cast<const T*>(a.x) + bb * a.sxb + h * a.sxh;
-  const T* yp = static_cast<const T*>(a.dy) + bb * a.syb + h * a.syh;
-  const T* bp = static_cast<const T*>(a.b) + bb * a.sbb + g * a.sbg;
-  const T* cp = static_cast<const T*>(a.c) + bb * a.scb + g * a.scg;
-  const T* pn = COLS ? bp : cp;  // the own side's N-wide rows
-  const T* qn = COLS ? cp : bp;  // the other side's
+  const float* xp = static_cast<const float*>(a.x) + bb * a.sxb + h * a.sxh;
+  const float* yp = static_cast<const float*>(a.dy) + bb * a.syb + h * a.syh;
+  const float* bp = static_cast<const float*>(a.b) + bb * a.sbb + g * a.sbg;
+  const float* cp = static_cast<const float*>(a.c) + bb * a.scb + g * a.scg;
+  const float* pn = COLS ? bp : cp;  // the own side's N-wide rows
+  const float* qn = COLS ? cp : bp;  // the other side's
   const long long spn = COLS ? a.sbs : a.scs, sqn = COLS ? a.scs : a.sbs;
 
   for (int j = tid; j < Q; j += NT) {
@@ -1289,14 +1319,15 @@ __device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
       const int q = i / HD, d = i % HD;
       float v = 0.f;
       if (q < np)
-        v = xdt ? ldf(xp + (t0 + p0 + q) * a.sxs + d) * dtm[p0 + q]
-                : ldf(yp + (t0 + p0 + q) * a.sys + d);
+        v = xdt ? xp[(t0 + p0 + q) * a.sxs + d] * dtm[p0 + q]
+                : yp[(t0 + p0 + q) * a.sys + d];
       dst[q * HP + d] = v;
     }
   };
-  auto stage_n = [&](float* dst, const T* src, long long ss, int p0, int np) {
+  auto stage_n = [&](float* dst, const float* src, long long ss, int p0,
+                     int np) {
     for (int i = tid, q = tid / N, k = tid % N; i < TS * N; i += NT) {
-      dst[q * NP + k] = q < np ? ldf(src + (t0 + p0 + q) * ss + k) : 0.f;
+      dst[q * NP + k] = q < np ? src[(t0 + p0 + q) * ss + k] : 0.f;
       step_index(q, k, N);
     }
   };
@@ -1416,14 +1447,14 @@ __device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
   if (COLS) {
     float xd = 0.f;
     if (mine) {
-      T* dxp = static_cast<T*>(a.dx) +
+      float* dxp = static_cast<float*>(a.dx) +
                ((static_cast<long long>(bb) * a.S + t) * a.nh + h) * HD;
       const float dtw = dtm[w];
 #pragma unroll
       for (int k = 0; k < DK; ++k) {
         const int d = l8 + 8 * k;
-        stf(dxp + d, ah[k] * dtw);
-        xd += ah[k] * ldf(xp + t * a.sxs + d);
+        dxp[d] = ah[k] * dtw;
+        xd += ah[k] * xp[t * a.sxs + d];
       }
     }
     xd = sum8(xd);
@@ -1439,12 +1470,12 @@ __device__ __forceinline__ void strip_body(const BwdArgs& a, int c,
 
 // blockIdx.x = (chunk · 2 + side) · strips + strip: each chunk's row and
 // column strips.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) bwd_strip_kernel(BwdArgs a) {
   const int ns = (a.Q + TS - 1) / TS;
   const int c = blockIdx.x / (2 * ns), side = (blockIdx.x / ns) % 2;
-  if (side) strip_body<T, HD, true>(a, c, blockIdx.x % ns);
-  else strip_body<T, HD, false>(a, c, blockIdx.x % ns);
+  if (side) strip_body<HD, true>(a, c, blockIdx.x % ns);
+  else strip_body<HD, false>(a, c, blockIdx.x % ns);
 }
 
 // Blocks [0, nh): one per head.  Each warp takes chunks w, w + 8, ... of
@@ -1454,7 +1485,6 @@ __global__ void __launch_bounds__(NT) bwd_strip_kernel(BwdArgs a) {
 // the chunk's Σ ddA·dt, added per warp in chunk order, then over the
 // warps in order into dA.  Blocks [nh, ...): dB and dC, each element the
 // sum of its group's heads in head order, rounded once.
-template <typename T>
 __global__ void __launch_bounds__(NT) bwd_finish_kernel(BwdArgs a, int hd) {
   __shared__ float wsum[NT / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1527,7 +1557,806 @@ __global__ void __launch_bounds__(NT) bwd_finish_kernel(BwdArgs a, int hd) {
     const float* src = (isc ? a.dch : a.dbh) + (bs * a.nh + gg * rep) * N + n;
     float s = 0.f;
     for (int k = 0; k < rep; ++k) s += src[static_cast<long long>(k) * N];
-    stf(static_cast<T*>(isc ? a.dc : a.db) + e, s);
+    static_cast<float*>(isc ? a.dc : a.db)[e] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward in bfloat16: on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+// heads per bwd_chunk_kernel block (a group's last tile may hold fewer) and
+// state rows per bwd_gscan_kernel block (hd when it is smaller): the
+// fastest of 2, 3, 4 heads and 16, 32, 64 rows at mamba2-780m's training
+// shape on the H100 (PERF.md §6, the SSD backward redesign's findings)
+constexpr int BWD_HEADS = 3;
+constexpr int BWD_ROWS = 64;
+
+// Bytes of bwd_gscan_kernel's shared memory for R state rows: C (two
+// buffers, QMAX × BW bf16), the R columns of dy (two, QMAX × (R+8) bf16)
+// and cum (two, QMAX f32).
+__host__ __device__ constexpr size_t gscan_smem(int rows) {
+  return 4 * static_cast<size_t>(QMAX) * BW +
+         4 * static_cast<size_t>(QMAX) * (rows + 8) + 8 * QMAX;
+}
+
+// The state gradient, chunks in reverse: one block per (R state rows,
+// head, batch) holds its rows of G = dL/dH (R × N, f32) in its MMA
+// accumulators, as scan_kernel holds the forward's state.  G starts at
+// dh (or 0) for the state the last chunk leaves; per chunk c it goes to
+// gst as bf16 hi + lo in st's fragment order (16 bytes a lane and
+// tile), and then G ← exp(seg_c)·G + (dy ⊙ exp(cum))ᵀ·C on the tensor
+// cores: C an exact operand, dy·exp(cum) split into hi + lo, the hi and
+// lo products in separate accumulators.  The chunk before's C, dy and
+// cum are copied in (cp.async) while this chunk's products run.
+template <int HD, int R>
+__global__ void __launch_bounds__(NT) bwd_gscan_kernel(BwdArgs a) {
+  constexpr int YP = R + 8;   // dy row stride (bf16)
+  constexpr int MT = R / 16;  // 16-row tiles of G
+  constexpr int NTW = 2 * MT; // n-tiles (of 8) per warp
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Q = a.Q, nc = a.nc;
+  bf16* Cs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ys = Cs + 2 * QMAX * BW;
+  float* Ms = reinterpret_cast<float*>(Ys + 2 * QMAX * YP);
+
+  const int h = blockIdx.y, bb = blockIdx.z, d0 = blockIdx.x * R;
+  const int g = h / (a.nh / a.ng);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, tq = lane & 3;
+  const bf16* csrc = static_cast<const bf16*>(a.c) + bb * a.scb + g * a.scg;
+  const bf16* ysrc =
+      static_cast<const bf16*>(a.dy) + bb * a.syb + h * a.syh + d0;
+  const float* cum0 = a.cum + (static_cast<long long>(bb) * nc * a.nh + h) * Q;
+  const long long cums = static_cast<long long>(a.nh) * Q;  // per chunk
+  const int n8 = (N + 7) / 8;  // n-tiles of the state
+  const long long slot4 = static_cast<long long>(HD) * 2 * n8;  // uint4s
+
+  for (int buf = 0; buf < 2; ++buf) {  // pads: cp.async never writes them
+    zero_pad(Cs + buf * QMAX * BW, BW, Q, QMAX, N, NMAX);
+    zero_pad(Ys + buf * QMAX * YP, YP, Q, QMAX, R, R);
+  }
+  for (int j = Q + tid; j < QMAX; j += NT) Ms[j] = Ms[QMAX + j] = 0.f;
+
+  auto load = [&](int c) {  // C, dy and cum of chunk c
+    const long long t0 = static_cast<long long>(c) * Q;
+    const int buf = c & 1;
+    stage_rows(Cs + buf * QMAX * BW, BW, csrc + t0 * a.scs, a.scs, Q, N);
+    bf16* ys = Ys + buf * QMAX * YP;
+    for (int i = tid; i < Q * (R / 8); i += NT) {
+      const int j = i / (R / 8), k = i % (R / 8);
+      cp_async16(ys + j * YP + 8 * k, ysrc + (t0 + j) * a.sys + 8 * k);
+    }
+    for (int j = tid; j < Q; j += NT)
+      cp_async4(Ms + buf * QMAX + j, cum0 + c * cums + j);
+  };
+
+  const int mt = warp % MT, nt0 = (warp / MT) * NTW, r0 = 16 * mt + g4;
+  float gh[NTW][4], gl[NTW][4];  // G = gh + gl: the hi and lo products
+#pragma unroll
+  for (int s = 0; s < NTW; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gh[s][e] = gl[s][e] = 0.f;
+  if (a.dh) {
+    const float* dp =
+        a.dh + ((static_cast<long long>(bb) * a.nh + h) * HD + d0) * N;
+#pragma unroll
+    for (int s = 0; s < NTW; ++s) {
+      const int n = 8 * (nt0 + s) + 2 * tq;
+      if (n >= N) continue;
+      gh[s][0] = dp[r0 * N + n];
+      gh[s][1] = dp[r0 * N + n + 1];
+      gh[s][2] = dp[(r0 + 8) * N + n];
+      gh[s][3] = dp[(r0 + 8) * N + n + 1];
+    }
+  }
+
+  load(nc - 1);
+  cp_async_commit();
+  uint4* gg = reinterpret_cast<uint4*>(a.gst);
+  for (int c = nc - 1; c >= 0; --c) {
+    const int buf = c & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // C, dy, cum of chunk c are in; those of c + 1 are
+                      // no longer read
+    if (c > 0) load(c - 1);
+    cp_async_commit();
+    // G_c: this warp's tiles in fragment order
+    const long long slot = (static_cast<long long>(bb) * nc + c) * a.nh + h;
+    const long long fo = slot * slot4 + (d0 / 16 + mt) * n8 * 32 + lane;
+#pragma unroll
+    for (int s = 0; s < NTW; ++s) {
+      if (nt0 + s >= n8) break;  // warp-uniform
+      uint32_t h01, l01, h23, l23;
+      split2(gh[s][0] + gl[s][0], gh[s][1] + gl[s][1], h01, l01);
+      split2(gh[s][2] + gl[s][2], gh[s][3] + gl[s][3], h23, l23);
+      gg[fo + (nt0 + s) * 32] = make_uint4(h01, h23, l01, l23);
+    }
+    if (c == 0) break;
+
+    const float* cm = Ms + buf * QMAX;
+    const float es = expf(cm[Q - 1]);
+#pragma unroll
+    for (int s = 0; s < NTW; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gh[s][e] *= es;
+        gl[s][e] *= es;
+      }
+    const bf16* cs = Cs + buf * QMAX * BW;
+    const bf16* ys = Ys + buf * QMAX * YP;
+#pragma unroll
+    for (int k0 = 0; k0 < QMAX; k0 += 16) {
+      // A = (dy ⊙ exp(cum))ᵀ: dy fragments by ldmatrix.trans, times
+      // exp(cum) (__expf: its ≈ 1e-6 relative error is far below the
+      // split's; dy's pad rows are 0), split
+      uint32_t ya[4], fh[4], fl[4], bq[NTW / 2][4];
+      ldsm_x4_t(ya, ys + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * YP +
+                        16 * mt + ((lane >> 3) & 1) * 8);
+      const float2 c0 = *reinterpret_cast<const float2*>(cm + k0 + 2 * tq);
+      const float2 c8 = *reinterpret_cast<const float2*>(cm + k0 + 8 + 2 * tq);
+      const float w0 = __expf(c0.x), w1 = __expf(c0.y);
+      const float w8 = __expf(c8.x), w9 = __expf(c8.y);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // fragments 0, 1: steps 2tq, +1; 2, 3: +8
+        const float2 yv = unpack(ya[r]);
+        split2(yv.x * (r < 2 ? w0 : w8), yv.y * (r < 2 ? w1 : w9), fh[r],
+               fl[r]);
+      }
+#pragma unroll
+      for (int q = 0; q < NTW / 2; ++q)
+        ldsm_x4_t(bq[q], cs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * BW +
+                             8 * (nt0 + 2 * q) + (lane >> 4) * 8);
+#pragma unroll
+      for (int q = 0; q < NTW / 2; ++q) {
+        mma_bf16(gh[2 * q], fh, bq[q][0], bq[q][1]);
+        mma_bf16(gh[2 * q + 1], fh, bq[q][2], bq[q][3]);
+        mma_bf16(gl[2 * q], fl, bq[q][0], bq[q][1]);
+        mma_bf16(gl[2 * q + 1], fl, bq[q][2], bq[q][3]);
+      }
+    }
+  }
+}
+
+// Index of the 16×16 tile (J, I), J ≤ I < 8, in a triangle stored row by
+// row: rows J of 8 − J tiles.
+__device__ __forceinline__ int tri(int J, int I) {
+  return J * 8 - J * (J - 1) / 2 + (I - J);
+}
+constexpr int TRI = 36;  // tiles of the triangle
+
+// Bytes of bwd_chunk_kernel's shared memory, one block to an SM:
+//   C and B (QMAX × BW bf16 each; rows past Q and columns past N zero);
+//   x and dy of one head (QMAX × (HD+8) bf16 each);
+//   CBᵀ = B·Cᵀ over the tiles (J, I ≥ J), f32 in fragment order (two
+//   float4 a lane and tile);
+//   G_c and H_c of one head in st's fragment order (HD/16 × NMAX/8 tiles
+//   of 512 bytes each);
+//   D over the tiles (J, I ≥ J), bf16 A fragments of rows i (a uint4 a
+//   lane and tile);
+//   the sums of M over each tile's rows (16 f32 a tile); cum, dt,
+//   Σ_d dxdt·x and dcum of one head (QMAX f32 each); B·dB_state and
+//   <H_c, G_c> per warp (8 f32 each).  At hd 64: 231,744 bytes.
+__host__ __device__ constexpr size_t chunk_smem(int HD) {
+  return 4 * static_cast<size_t>(QMAX) * BW +
+         4 * static_cast<size_t>(QMAX) * (HD + 8) + 1024 * TRI +
+         8 * static_cast<size_t>(HD) * NMAX + 512 * TRI + 64 * TRI +
+         16 * QMAX + 64;
+}
+
+// Four n-tiles of a state product with the transposed state fragments
+// hf: th + tl = A·H over depth KD·16, n-tiles 4u .. 4u + 3, the hi and lo
+// products in separate accumulators.
+template <int KD>
+__device__ __forceinline__ void state_group(float (&th)[4][4],
+                                            float (&tl)[4][4],
+                                            const uint32_t (&af)[KD][4],
+                                            const uint4* hf, int u,
+                                            int lane) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) th[k][e] = tl[k][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KD; ++ks) {
+    uint4 f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[k] = hf[(ks * (NMAX / 8) + 4 * u + k) * 32 + lane];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mma_bf16(th[k], af[ks], f[k].x, f[k].y);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mma_bf16(tl[k], af[ks], f[k].z, f[k].w);
+  }
+}
+
+// Transpose the state fragments of hf in place, warp by warp over its
+// tiles: st's order (rows d, column pairs n: the B operand of a product
+// over n) becomes that of the B operand of a product over d.
+template <int HD>
+__device__ __forceinline__ void transpose_state(uint4* hf, int warp,
+                                                int lane) {
+  for (int t = warp; t < HD / 16 * (NMAX / 8); t += NT / 32) {
+    const uint4 v = hf[t * 32 + lane];
+    hf[t * 32 + lane] = make_uint4(movm(v.x), movm(v.y), movm(v.z), movm(v.w));
+  }
+}
+
+// One block per (tile of BWD_HEADS heads of one group, chunk, batch), one
+// to an SM: C·Bᵀ is formed once for the tile (as CBᵀ, the tiles (J, I ≥ J)
+// of 16 steps, in shared memory), then per head, with x, dy, dt, cum, the
+// state gradient G_c and the entering state H_c of that head staged:
+//   phase 1, the warp of column block J (j ∈ J):
+//     dxdt_j = exp(seg − cum_j)·B_j·G_cᵀ and dB_j += exp(seg − cum_j) dt_j
+//     x_j·G_c (G_c split, x and B exact; B·dB_state for dcum);
+//     then over the tiles (J, I ≥ J) of the chunk's duals, each formed
+//     once: dscᵀ = x_J·dy_Iᵀ (exact), L = exp(cum_i − cum_j)·[i ≥ j]
+//     (selected, never multiplied), Dᵀ = dt_j dscᵀ ⊙ L, Sᵀ = CBᵀ ⊙ L,
+//     M = Dᵀ ⊙ CBᵀ (its row and column sums), dB_J += Dᵀ·C_I (D rounded
+//     once), dxdt_J += Sᵀ·dy_I (S split), and D itself (movmatrix) into
+//     shared memory for phase 2;
+//     dx = dxdt·dt, Σ_d dxdt·x;
+//   phase 2, the warp of row block I (i ∈ I, the same block):
+//     dC_i += exp(cum_i)·dy_i·H_c (H_c split, dy exact; C·dC_state for
+//     dcum) + Σ_{J ≤ I} D_IJ·B_J;
+//   then dcum (M's rows and columns, the state terms, dseg = Σ B·dB_state
+//   + exp(seg)·<H_c, G_c> at the last step), its reverse scan into ddt
+//   and the chunk's Σ ddA·dt, by warp 0.
+// Warps w and w + 4 share a scheduler: they take blocks w and 7 − w, so
+// that each pair has 9 tiles in either phase.  The next head's x and G_c
+// land during phase 2, its dy, H_c, cum and dt during phase 1's first
+// product.  dB and dC are summed over the tile's heads in the warps'
+// accumulators, in head order, and written once per tile; bwd_sum_kernel
+// adds the tiles in order.  The state products over d take the state
+// fragments transposed in place (transpose_state).
+template <int HD>
+__global__ void __launch_bounds__(NT, 1) bwd_chunk_kernel(BwdArgs a) {
+  constexpr int XP = HD + 8;      // x and dy row stride (bf16)
+  constexpr int KD = HD / 16;     // depth steps over d
+  constexpr int DT = HD / 8;      // n-tiles over d
+  constexpr int NT8 = NMAX / 8;   // n-tiles over n
+  constexpr int KN = NMAX / 16;   // depth steps over n
+  constexpr int SF = HD / 16 * NT8 * 32;  // uint4s of a staged state
+  extern __shared__ float4 smem4[];
+  const int N = a.N, Q = a.Q, nc = a.nc;
+  const int RB = (Q + 15) / 16;
+  bf16* Cs = reinterpret_cast<bf16*>(smem4);
+  bf16* Bs = Cs + QMAX * BW;
+  bf16* Xs = Bs + QMAX * BW;
+  bf16* Ys = Xs + QMAX * XP;
+  float4* CBt = reinterpret_cast<float4*>(Ys + QMAX * XP);
+  uint4* Gf = reinterpret_cast<uint4*>(CBt + 64 * TRI);
+  uint4* Hf = Gf + SF;
+  uint4* Dm = Hf + SF;
+  float* Rs = reinterpret_cast<float*>(Dm + 32 * TRI);
+  float* Cv = Rs + 16 * TRI;
+  float* Tv = Cv + QMAX;
+  float* Xd = Tv + QMAX;
+  float* Dc = Xd + QMAX;
+  float* Sp = Dc + QMAX;
+  float* Hd = Sp + NT / 32;
+
+  const int rep = a.nh / a.ng;
+  const int g = blockIdx.x / a.tpg, kt = blockIdx.x % a.tpg;
+  const int h0 = g * rep + kt * BWD_HEADS;
+  const int nT = min(BWD_HEADS, (g + 1) * rep - h0);
+  const int c = blockIdx.y, bb = blockIdx.z;
+  const long long t0 = static_cast<long long>(c) * Q;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform
+  const int blk = warp < 4 ? warp : 11 - warp;  // this warp's 16-row block
+  const int g4 = lane >> 2, tq = lane & 3;
+  const int n8 = (N + 7) / 8;
+  const long long slot4 = static_cast<long long>(HD) * 2 * n8;  // uint4s
+  const int r0 = 16 * blk + g4, r1 = r0 + 8;  // this lane's rows
+
+  auto load_state = [&](uint4* dst, const float* src, long long slot) {
+    const uint4* fg = reinterpret_cast<const uint4*>(src) + slot * slot4;
+    for (int i = tid; i < SF; i += NT) {
+      const int mt = i / (NT8 * 32), nt = (i / 32) % NT8;
+      if (nt < n8)
+        cp_async16(dst + i, fg + (mt * n8 + nt) * 32 + i % 32);
+      else
+        dst[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto slot_of = [&](int t) {
+    return (static_cast<long long>(bb) * nc + c) * a.nh + h0 + t;
+  };
+  auto load_xg = [&](int t) {  // x and G_c of head t
+    const bf16* xg = static_cast<const bf16*>(a.x) + bb * a.sxb +
+                     t0 * a.sxs + (h0 + t) * a.sxh;
+    for (int i = tid; i < Q * (HD / 8); i += NT) {
+      const int j = i / (HD / 8), k = i % (HD / 8);
+      cp_async16(Xs + j * XP + 8 * k, xg + j * a.sxs + 8 * k);
+    }
+    load_state(Gf, a.gst, slot_of(t));
+  };
+  auto load_rest = [&](int t) {  // dy, cum, dt and H_c of head t
+    const int h = h0 + t;
+    const bf16* yg = static_cast<const bf16*>(a.dy) + bb * a.syb +
+                     t0 * a.sys + h * a.syh;
+    for (int i = tid; i < Q * (HD / 8); i += NT) {
+      const int j = i / (HD / 8), k = i % (HD / 8);
+      cp_async16(Ys + j * XP + 8 * k, yg + j * a.sys + 8 * k);
+    }
+    for (int j = tid; j < Q; j += NT) {
+      cp_async4(Cv + j, a.cum + slot_of(t) * Q + j);
+      cp_async4(Tv + j, a.dt + bb * a.sdb + (t0 + j) * a.sds + h * a.sdh);
+    }
+    if (c > 0) load_state(Hf, a.st, slot_of(t));  // H_c is 0 in chunk 0
+  };
+
+  zero_pad(Cs, BW, Q, QMAX, N, NMAX);
+  zero_pad(Bs, BW, Q, QMAX, N, NMAX);
+  zero_pad(Xs, XP, Q, QMAX, HD, HD);
+  zero_pad(Ys, XP, Q, QMAX, HD, HD);
+  for (int j = Q + tid; j < QMAX; j += NT) Cv[j] = Tv[j] = 0.f;
+  stage_rows(Cs, BW,
+             static_cast<const bf16*>(a.c) + bb * a.scb + t0 * a.scs +
+                 g * a.scg,
+             a.scs, Q, N);
+  stage_rows(Bs, BW,
+             static_cast<const bf16*>(a.b) + bb * a.sbb + t0 * a.sbs +
+                 g * a.sbg,
+             a.sbs, Q, N);
+  cp_async_commit();
+  load_xg(0);
+  cp_async_commit();
+  load_rest(0);
+  cp_async_commit();
+  float Ah[BWD_HEADS];  // the tile's decay rates, read ahead
+#pragma unroll
+  for (int t = 0; t < BWD_HEADS; ++t) Ah[t] = t < nT ? a.A[h0 + t] : 0.f;
+  cp_async_wait<2>();
+  __syncthreads();  // C and B are in: C·Bᵀ is formed while head 0's data
+                    // lands
+
+  // ldmatrix row offsets: A fragments (rows of a 16-row block, 16
+  // columns), B fragments of a product over the row's columns (two
+  // n-tiles of 8 rows), and B fragments of a product over the rows
+  // (ldmatrix.trans: two n-tiles of 8 columns)
+  const int ra = lane & 15, ca = (lane >> 4) * 8;
+  const int rb = (lane & 7) + ((lane >> 4) & 1) * 8, cb = ((lane >> 3) & 1) * 8;
+  const int rt = (lane & 7) + ((lane >> 3) & 1) * 8, ct = (lane >> 4) * 8;
+
+  // CBᵀ = B·Cᵀ: the warp of block J forms the tiles (J, I ≥ J) it alone
+  // reads
+  if (blk < RB) {
+    for (int I = blk; I < RB; ++I) {
+      float cbt[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KN; ++ks) {
+        uint32_t af[4], bq[4];
+        ldsm_x4(af, Bs + (16 * blk + ra) * BW + 16 * ks + ca);
+        ldsm_x4(bq, Cs + (16 * I + rb) * BW + 16 * ks + cb);
+        mma_bf16(cbt[0], af, bq[0], bq[1]);
+        mma_bf16(cbt[1], af, bq[2], bq[3]);
+      }
+      float4* out = CBt + 64 * tri(blk, I) + lane;
+      out[0] = make_float4(cbt[0][0], cbt[0][1], cbt[0][2], cbt[0][3]);
+      out[32] = make_float4(cbt[1][0], cbt[1][1], cbt[1][2], cbt[1][3]);
+    }
+  }
+
+  float accB[NT8][4], accC[NT8][4];  // dB_J, dC_I summed over the heads
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accB[nt][e] = accC[nt][e] = 0.f;
+
+  for (int t = 0; t < nT; ++t) {
+    const int h = h0 + t;
+    const long long slot = slot_of(t);
+    cp_async_wait<1>();
+    __syncthreads();  // head t's x and G_c have landed
+    float dxa[DT][4];  // dxdt of rows j
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[nt][e] = 0.f;
+
+    // ---- phase 1, the warp of block J: B_J·G_cᵀ over G_c in st's order
+    // (the fragment of 16-row tile q and n-tiles 2ks, 2ks+1 is the B
+    // operand of dxdt's n-tiles 2q (rows g) and 2q + 1 (rows g + 8) at
+    // depth step ks), while head t's dy, H_c, cum and dt land
+    if (blk < RB) {
+#pragma unroll
+      for (int ks = 0; ks < KN; ++ks) {
+        uint32_t af[4];
+        ldsm_x4(af, Bs + (16 * blk + ra) * BW + 16 * ks + ca);
+        uint4 f0[KD], f1[KD];
+#pragma unroll
+        for (int q = 0; q < KD; ++q) {
+          f0[q] = Gf[(q * NT8 + 2 * ks) * 32 + lane];
+          f1[q] = Gf[(q * NT8 + 2 * ks + 1) * 32 + lane];
+        }
+#pragma unroll
+        for (int q = 0; q < KD; ++q) {
+          mma_bf16(dxa[2 * q], af, f0[q].x, f1[q].x);
+          mma_bf16(dxa[2 * q + 1], af, f0[q].y, f1[q].y);
+        }
+#pragma unroll
+        for (int q = 0; q < KD; ++q) {
+          mma_bf16(dxa[2 * q], af, f0[q].z, f1[q].z);
+          mma_bf16(dxa[2 * q + 1], af, f0[q].w, f1[q].w);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // dy, H_c, cum, dt are in; G_c in st's order is read
+    transpose_state<HD>(Gf, warp, lane);
+    if (c > 0) transpose_state<HD>(Hf, warp, lane);
+    __syncthreads();
+    {  // <H_c, G_c>, both as hi + lo, this thread's share, by warp
+      float part = 0.f;
+      if (c > 0)
+        for (int i = tid; i < SF; i += NT) {
+          const uint4 u = Gf[i], v = Hf[i];
+          const uint32_t gu[4] = {u.x, u.y, u.z, u.w};
+          const uint32_t hv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float2 gh = unpack(gu[k]), gl = unpack(gu[k + 2]);
+            const float2 hh = unpack(hv[k]), hl = unpack(hv[k + 2]);
+            part += (gh.x + gl.x) * (hh.x + hl.x) + (gh.y + gl.y) * (hh.y + hl.y);
+          }
+        }
+      part = sum32(part);
+      if (lane == 0) Hd[warp] = part;
+    }
+    const float seg = Cv[Q - 1];
+    const float cj0 = Cv[r0], cj1 = Cv[r1], tj0 = Tv[r0], tj1 = Tv[r1];
+    float colp0 = 0.f, colp1 = 0.f;  // −Σ_i M_ij − B_j·dB_state_j
+    if (blk < RB) {
+      const int J = blk;
+      const float eo0 = expf(seg - cj0), eo1 = expf(seg - cj1);
+#pragma unroll
+      for (int nt = 0; nt < DT; ++nt) {
+        dxa[nt][0] *= eo0;
+        dxa[nt][1] *= eo0;
+        dxa[nt][2] *= eo1;
+        dxa[nt][3] *= eo1;
+      }
+      // dB_state = exp(seg − cum_j) dt_j·x_j·G_c into dB, and B·dB_state
+      uint32_t xf[KD][4];
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks)
+        ldsm_x4(xf[ks], Xs + (16 * J + ra) * XP + 16 * ks + ca);
+      const float s0 = eo0 * tj0, s1 = eo1 * tj1;
+      float st0 = 0.f, st1 = 0.f;
+#pragma unroll
+      for (int u = 0; u < NT8 / 4; ++u) {
+        float th[4][4], tl[4][4];
+        state_group<KD>(th, tl, xf, Gf, u, lane);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int nt = 4 * u + k, n = 8 * nt + 2 * tq;
+          const float v0 = (th[k][0] + tl[k][0]) * s0;
+          const float v1 = (th[k][1] + tl[k][1]) * s0;
+          const float v2 = (th[k][2] + tl[k][2]) * s1;
+          const float v3 = (th[k][3] + tl[k][3]) * s1;
+          const float2 b0 =
+              unpack(*reinterpret_cast<const uint32_t*>(Bs + r0 * BW + n));
+          const float2 b1 =
+              unpack(*reinterpret_cast<const uint32_t*>(Bs + r1 * BW + n));
+          st0 += v0 * b0.x + v1 * b0.y;
+          st1 += v2 * b1.x + v3 * b1.y;
+          accB[nt][0] += v0;
+          accB[nt][1] += v1;
+          accB[nt][2] += v2;
+          accB[nt][3] += v3;
+        }
+      }
+
+      // the tiles (J, I ≥ J) of the chunk's duals, rows j, columns i
+      float cs0 = 0.f, cs1 = 0.f;  // Σ_i M_ij of rows r0, r1
+      for (int I = J; I < RB; ++I) {
+        float sc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < KD; ++ks) {
+          uint32_t bq[4];
+          ldsm_x4(bq, Ys + (16 * I + rb) * XP + 16 * ks + cb);
+          mma_bf16(sc[0], xf[ks], bq[0], bq[1]);
+          mma_bf16(sc[1], xf[ks], bq[2], bq[3]);
+        }
+        const float4* cbp = CBt + 64 * tri(J, I) + lane;
+        const float4 ga = cbp[0], gb = cbp[32];
+        const float cbv[2][4] = {{ga.x, ga.y, ga.z, ga.w},
+                                 {gb.x, gb.y, gb.z, gb.w}};
+        float dv[2][4], sv[2][4], rs[2][2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int i = 16 * I + 8 * k + 2 * tq;
+          const float2 ci = *reinterpret_cast<const float2*>(Cv + i);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ii = i + (e & 1), jj = e < 2 ? r0 : r1;
+            const float cii = (e & 1) ? ci.y : ci.x;
+            const float cjj = e < 2 ? cj0 : cj1, tjj = e < 2 ? tj0 : tj1;
+            const bool on = ii >= jj && ii < Q;
+            // selected, never multiplied: above the diagonal the exp
+            // overflows (__expf: its ≈ 1e-6 relative error is far below
+            // the split of S)
+            const float L = on ? __expf(fminf(cii - cjj, 0.f)) : 0.f;
+            const float d = on ? tjj * sc[k][e] * L : 0.f;
+            dv[k][e] = d;
+            sv[k][e] = on ? cbv[k][e] * L : 0.f;
+            const float m = d * cbv[k][e];
+            if (e < 2) cs0 += m; else cs1 += m;
+            if (e < 2) rs[k][e] = m; else rs[k][e - 2] += m;
+          }
+        }
+        // Dᵀ (rounded once) and Sᵀ (hi + lo) as A fragments of rows j
+        uint32_t da[4], sh[4], sl[4];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          da[2 * k] = bits(__floats2bfloat162_rn(dv[k][0], dv[k][1]));
+          da[2 * k + 1] = bits(__floats2bfloat162_rn(dv[k][2], dv[k][3]));
+          split2(sv[k][0], sv[k][1], sh[2 * k], sl[2 * k]);
+          split2(sv[k][2], sv[k][3], sh[2 * k + 1], sl[2 * k + 1]);
+        }
+        // dB_J += Dᵀ·C_I
+#pragma unroll
+        for (int q = 0; q < NT8 / 2; ++q) {
+          uint32_t bq[4];
+          ldsm_x4_t(bq, Cs + (16 * I + rt) * BW + 16 * q + ct);
+          mma_bf16(accB[2 * q], da, bq[0], bq[1]);
+          mma_bf16(accB[2 * q + 1], da, bq[2], bq[3]);
+        }
+        // dxdt_J += Sᵀ·dy_I
+#pragma unroll
+        for (int q = 0; q < DT / 2; ++q) {
+          uint32_t bq[4];
+          ldsm_x4_t(bq, Ys + (16 * I + rt) * XP + 16 * q + ct);
+          mma_bf16(dxa[2 * q], sh, bq[0], bq[1]);
+          mma_bf16(dxa[2 * q + 1], sh, bq[2], bq[3]);
+          mma_bf16(dxa[2 * q], sl, bq[0], bq[1]);
+          mma_bf16(dxa[2 * q + 1], sl, bq[2], bq[3]);
+        }
+        // D_IJ, rows i, for phase 2: the tile transposed
+        Dm[32 * tri(J, I) + lane] =
+            make_uint4(movm(da[0]), movm(da[2]), movm(da[1]), movm(da[3]));
+        // Σ_j M_ij of this tile: over the lane's two rows, then its 8
+        // row groups; lanes 0..3 hold columns 2tq, +1, +8, +9
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            float v = rs[k][p];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (g4 == 0) Rs[16 * tri(J, I) + 8 * k + 2 * tq + p] = v;
+          }
+      }
+      // row totals over the lane's quad
+      cs0 += __shfl_xor_sync(0xffffffffu, cs0, 1);
+      cs0 += __shfl_xor_sync(0xffffffffu, cs0, 2);
+      cs1 += __shfl_xor_sync(0xffffffffu, cs1, 1);
+      cs1 += __shfl_xor_sync(0xffffffffu, cs1, 2);
+      st0 += __shfl_xor_sync(0xffffffffu, st0, 1);
+      st0 += __shfl_xor_sync(0xffffffffu, st0, 2);
+      st1 += __shfl_xor_sync(0xffffffffu, st1, 1);
+      st1 += __shfl_xor_sync(0xffffffffu, st1, 2);
+      colp0 = -cs0 - st0;
+      colp1 = -cs1 - st1;
+      float sts = tq == 0 ? st0 + st1 : 0.f;  // Σ_j B_j·dB_state_j
+      sts += __shfl_xor_sync(0xffffffffu, sts, 4);
+      sts += __shfl_xor_sync(0xffffffffu, sts, 8);
+      sts += __shfl_xor_sync(0xffffffffu, sts, 16);
+      if (lane == 0) Sp[J] = sts;
+
+      // dx = dxdt·dt (rounded once) and Σ_d dxdt·x
+      bf16* dxp = static_cast<bf16*>(a.dx) +
+                  ((static_cast<long long>(bb) * a.S + t0) * a.nh + h) * HD;
+      const long long dxs = static_cast<long long>(a.nh) * HD;
+      float xd0 = 0.f, xd1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < DT; ++nt) {
+        const int d = 8 * nt + 2 * tq;
+        const float2 x0 =
+            unpack(*reinterpret_cast<const uint32_t*>(Xs + r0 * XP + d));
+        const float2 x1 =
+            unpack(*reinterpret_cast<const uint32_t*>(Xs + r1 * XP + d));
+        xd0 += dxa[nt][0] * x0.x + dxa[nt][1] * x0.y;
+        xd1 += dxa[nt][2] * x1.x + dxa[nt][3] * x1.y;
+        if (r0 < Q)
+          *reinterpret_cast<__nv_bfloat162*>(dxp + r0 * dxs + d) =
+              __floats2bfloat162_rn(dxa[nt][0] * tj0, dxa[nt][1] * tj0);
+        if (r1 < Q)
+          *reinterpret_cast<__nv_bfloat162*>(dxp + r1 * dxs + d) =
+              __floats2bfloat162_rn(dxa[nt][2] * tj1, dxa[nt][3] * tj1);
+      }
+      xd0 += __shfl_xor_sync(0xffffffffu, xd0, 1);
+      xd0 += __shfl_xor_sync(0xffffffffu, xd0, 2);
+      xd1 += __shfl_xor_sync(0xffffffffu, xd1, 1);
+      xd1 += __shfl_xor_sync(0xffffffffu, xd1, 2);
+      if (tq == 0) {
+        Xd[r0] = xd0;
+        Xd[r1] = xd1;
+      }
+    }
+    __syncthreads();  // phase 1 is done: x and G_c are read
+    if (t + 1 < nT) load_xg(t + 1);
+    cp_async_commit();
+
+    // ---- phase 2, the warp of block I
+    if (blk < RB) {
+      const int I = blk;
+      float cd0 = 0.f, cd1 = 0.f;  // C_i·dC_state_i
+      if (c > 0) {  // dC_state = exp(cum_i)·dy_i·H_c; H_c is 0 in chunk 0
+        uint32_t yf[KD][4];
+#pragma unroll
+        for (int ks = 0; ks < KD; ++ks)
+          ldsm_x4(yf[ks], Ys + (16 * I + ra) * XP + 16 * ks + ca);
+        const float ei0 = expf(cj0), ei1 = expf(cj1);
+#pragma unroll
+        for (int u = 0; u < NT8 / 4; ++u) {
+          float th[4][4], tl[4][4];
+          state_group<KD>(th, tl, yf, Hf, u, lane);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int nt = 4 * u + k, n = 8 * nt + 2 * tq;
+            const float v0 = (th[k][0] + tl[k][0]) * ei0;
+            const float v1 = (th[k][1] + tl[k][1]) * ei0;
+            const float v2 = (th[k][2] + tl[k][2]) * ei1;
+            const float v3 = (th[k][3] + tl[k][3]) * ei1;
+            const float2 c0 =
+                unpack(*reinterpret_cast<const uint32_t*>(Cs + r0 * BW + n));
+            const float2 c1 =
+                unpack(*reinterpret_cast<const uint32_t*>(Cs + r1 * BW + n));
+            cd0 += v0 * c0.x + v1 * c0.y;
+            cd1 += v2 * c1.x + v3 * c1.y;
+            accC[nt][0] += v0;
+            accC[nt][1] += v1;
+            accC[nt][2] += v2;
+            accC[nt][3] += v3;
+          }
+        }
+      }
+      // dC_I += Σ_{J ≤ I} D_IJ·B_J
+      for (int J = 0; J <= I; ++J) {
+        const uint4 f = Dm[32 * tri(J, I) + lane];
+        const uint32_t da[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+        for (int q = 0; q < NT8 / 2; ++q) {
+          uint32_t bq[4];
+          ldsm_x4_t(bq, Bs + (16 * J + rt) * BW + 16 * q + ct);
+          mma_bf16(accC[2 * q], da, bq[0], bq[1]);
+          mma_bf16(accC[2 * q + 1], da, bq[2], bq[3]);
+        }
+      }
+      cd0 += __shfl_xor_sync(0xffffffffu, cd0, 1);
+      cd0 += __shfl_xor_sync(0xffffffffu, cd0, 2);
+      cd1 += __shfl_xor_sync(0xffffffffu, cd1, 1);
+      cd1 += __shfl_xor_sync(0xffffffffu, cd1, 2);
+      float rs0 = 0.f, rs1 = 0.f;  // Σ_j M_ij, column blocks in order
+      for (int J = 0; J <= I; ++J) {
+        rs0 += Rs[16 * tri(J, I) + g4];
+        rs1 += Rs[16 * tri(J, I) + g4 + 8];
+      }
+      if (tq == 0) {
+        Dc[r0] = rs0 + cd0 + colp0;
+        Dc[r1] = rs1 + cd1 + colp1;
+      }
+    }
+    __syncthreads();  // dcum, Σ_d dxdt·x and the per-warp sums are in; dy
+                      // and H_c are read
+    if (t + 1 < nT) {  // the next head's dy and H_c land during the scan
+      const int hn = h + 1;
+      const bf16* yg = static_cast<const bf16*>(a.dy) + bb * a.syb +
+                       t0 * a.sys + hn * a.syh;
+      for (int i = tid; i < Q * (HD / 8); i += NT) {
+        const int j = i / (HD / 8), k = i % (HD / 8);
+        cp_async16(Ys + j * XP + 8 * k, yg + j * a.sys + 8 * k);
+      }
+      if (c > 0) load_state(Hf, a.st, slot_of(t + 1));
+    }
+
+    // ---- dcum's reverse scan within the chunk, by warp 0: ddA, ddt and
+    // the chunk's Σ ddA·dt
+    if (warp == 0) {
+      float hs = 0.f, sts = 0.f;
+      for (int w = 0; w < NT / 32; ++w) hs += Hd[w];
+      for (int J = 0; J < RB; ++J) sts += Sp[J];
+      const float dseg = sts + expf(seg) * hs;
+      float A = Ah[0];
+#pragma unroll
+      for (int k = 1; k < BWD_HEADS; ++k)
+        if (t == k) A = Ah[k];
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        v[e] = j < Q ? Dc[j] : 0.f;
+        if (j == Q - 1) v[e] += dseg;
+      }
+      float s[4];
+      s[3] = v[3];
+      s[2] = v[2] + s[3];
+      s[1] = v[1] + s[2];
+      s[0] = v[0] + s[1];
+      float incl = s[0];
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += u;
+      }
+      const float after = incl - s[0];  // the lanes above this one
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * lane + e;
+        if (j < Q) {
+          const float dd = s[e] + after;
+          a.ddt[(static_cast<long long>(bb) * a.S + t0 + j) * a.nh + h] =
+              dd * A + Xd[j];
+          part += dd * Tv[j];
+        }
+      }
+      part = sum32(part);
+      if (lane == 0) a.dap[slot] = part;
+    }
+    __syncthreads();  // cum, dt and the per-head sums are read
+    if (t + 1 < nT)
+      for (int j = tid; j < Q; j += NT) {
+        cp_async4(Cv + j, a.cum + slot_of(t + 1) * Q + j);
+        cp_async4(Tv + j,
+                  a.dt + bb * a.sdb + (t0 + j) * a.sds + (h + 1) * a.sdh);
+      }
+    cp_async_commit();
+  }
+
+  // the tile's dB and dC, rows r0 and r1 of this warp's block
+  if (blk < RB) {
+    const long long per = static_cast<long long>(a.ng) * a.tpg;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = k ? r1 : r0;
+      if (r >= Q) continue;
+      const long long row =
+          ((static_cast<long long>(bb) * a.S + t0 + r) * per + g * a.tpg +
+           kt) * N;
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt) {
+        const int n = 8 * nt + 2 * tq;
+        if (n >= N) continue;
+        *reinterpret_cast<float2*>(a.dbp + row + n) =
+            make_float2(accB[nt][2 * k], accB[nt][2 * k + 1]);
+        *reinterpret_cast<float2*>(a.dcp + row + n) =
+            make_float2(accC[nt][2 * k], accC[nt][2 * k + 1]);
+      }
+    }
+  }
+}
+
+// Blocks [0, nh): dA of one head, its (batch, chunk) sums in order.
+// Blocks [nh, ...): dB and dC, each element the sum of its group's head
+// tiles in tile order, rounded once.
+__global__ void __launch_bounds__(NT) bwd_sum_kernel(BwdArgs a) {
+  if (blockIdx.x < a.nh) {
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int k = 0; k < a.B * a.nc; ++k)
+        s += a.dap[static_cast<long long>(k) * a.nh + blockIdx.x];
+      a.dA[blockIdx.x] = s;
+    }
+    return;
+  }
+  const int N = a.N;
+  const long long per = static_cast<long long>(a.B) * a.S * a.ng * N;
+  for (long long i = (blockIdx.x - a.nh) * static_cast<long long>(NT) +
+                     threadIdx.x;
+       i < 2 * per; i += static_cast<long long>(gridDim.x - a.nh) * NT) {
+    const bool isc = i >= per;
+    const long long e = isc ? i - per : i;
+    const long long bsg = e / N;  // (batch, step, group)
+    const int n = static_cast<int>(e % N);
+    const float* src = (isc ? a.dcp : a.dbp) + bsg * a.tpg * N + n;
+    float s = 0.f;
+    for (int k = 0; k < a.tpg; ++k) s += src[static_cast<long long>(k) * N];
+    (isc ? static_cast<bf16*>(a.dc) : static_cast<bf16*>(a.db))[e] =
+        __float2bfloat16_rn(s);
   }
 }
 
@@ -1536,33 +2365,64 @@ __host__ __device__ constexpr long long up4(long long n) {
   return (n + 3) / 4 * 4;
 }
 
-long long bwd_scratch_floats(int B, int S, int nh, int hd, int N, int Q) {
+// bfloat16 head tiles per group
+int bwd_tiles(int nh, int ng) {
+  return (nh / ng + BWD_HEADS - 1) / BWD_HEADS;
+}
+
+long long bwd_scratch_floats(int B, int S, int nh, int ng, int hd, int N,
+                             int Q, bool bf) {
   const long long nc = S / Q, bcn = static_cast<long long>(B) * nc * nh;
   const long long bsh = static_cast<long long>(B) * S * nh;
+  if (bf)
+    return up4(bcn * hd * 8 * ((N + 7) / 8)) + up4(bcn) +
+           2 * up4(static_cast<long long>(B) * S * ng * bwd_tiles(nh, ng) * N);
   return up4(bcn * hd * N) + up4(bcn * (hd / 16)) + 2 * up4(bsh * N) +
          3 * up4(bsh);
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(BwdArgs a, cudaStream_t s) {
+template <int HD>
+cudaError_t launch_bwd_f32(BwdArgs a, cudaStream_t s) {
   const size_t s1 = state_smem(a.N, a.Q), s2 = strip_smem(HD, a.N);
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_state_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_state_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s1));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(bwd_strip_kernel<T, HD>,
+  e = cudaFuncSetAttribute(bwd_strip_kernel<HD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(s2));
   if (e != cudaSuccess) return e;
-  bwd_state_kernel<T, HD><<<dim3(HD / 16, a.nh, a.B), NT, s1, s>>>(a);
+  bwd_state_kernel<HD><<<dim3(HD / 16, a.nh, a.B), NT, s1, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int ns = (a.Q + TS - 1) / TS;
-  bwd_strip_kernel<T, HD><<<dim3(a.nc * 2 * ns, a.nh, a.B), NT, s2, s>>>(a);
+  bwd_strip_kernel<HD><<<dim3(a.nc * 2 * ns, a.nh, a.B), NT, s2, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long per = 2LL * a.B * a.S * a.ng * a.N;
   const int nred = static_cast<int>(
       per / NT + 1 < 4096 ? per / NT + 1 : 4096);
-  bwd_finish_kernel<T><<<a.nh + nred, NT, 0, s>>>(a, HD);
+  bwd_finish_kernel<<<a.nh + nred, NT, 0, s>>>(a, HD);
+  return cudaGetLastError();
+}
+
+template <int HD, int R>
+cudaError_t launch_bwd_bf16(BwdArgs a, cudaStream_t s) {
+  const size_t s1 = gscan_smem(R), s2 = chunk_smem(HD);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_gscan_kernel<HD, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(s1));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_chunk_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(s2));
+  if (e != cudaSuccess) return e;
+  bwd_gscan_kernel<HD, R><<<dim3(HD / R, a.nh, a.B), NT, s1, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  bwd_chunk_kernel<HD><<<dim3(a.ng * a.tpg, a.nc, a.B), NT, s2, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long per = 2LL * a.B * a.S * a.ng * a.N;
+  const int nred = static_cast<int>(
+      per / NT + 1 < 4096 ? per / NT + 1 : 4096);
+  bwd_sum_kernel<<<a.nh + nred, NT, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1617,15 +2477,16 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
 // dt, then (batch, step, group) of B and C, then (batch, step, head) of
 // dy; the trailing dims are contiguous.  ints: B, S, nh, ng, hd, N, Q,
 // dtype of x/B/C/dy (0 = float32, 1 = bfloat16), device, and whether st
-// holds the bfloat16 route's split states (1) or plain float32 ones (0).
-// cum and st are the forward's (ssd_scan_launch); dh may be null (zeros).
+// holds the bfloat16 route's split states (1, which bfloat16 takes) or
+// plain float32 ones (0, which float32 takes).  cum and st are the
+// forward's (ssd_scan_launch); dh may be null (zeros).
 // dx (B, S, nh, hd) and dB, dC (B, S, ng, N) are written contiguous in
 // the inputs' dtype, ddt (B, S, nh) and dA (nh,) in float32; scratch holds
 // ssd_bwd_scratch_floats(ints) floats.  Three launches, no atomics: two
 // calls give the same bits.  Returns a cudaError_t (0 on success).
 extern "C" long long ssd_bwd_scratch_floats(const int* ints) {
-  return bwd_scratch_floats(ints[0], ints[1], ints[2], ints[4], ints[5],
-                            ints[6]);
+  return bwd_scratch_floats(ints[0], ints[1], ints[2], ints[3], ints[4],
+                            ints[5], ints[6], ints[7] == 1);
 }
 
 extern "C" int ssd_bwd_launch(const void* x, const float* dt, const float* A,
@@ -1654,20 +2515,30 @@ extern "C" int ssd_bwd_launch(const void* x, const float* dt, const float* A,
   a.nc = a.S / a.Q;
   const long long nc = a.nc, bcn = static_cast<long long>(a.B) * nc * a.nh;
   const long long bsh = static_cast<long long>(a.B) * a.S * a.nh;
+  a.tpg = bwd_tiles(a.nh, a.ng);
   a.gst = scratch;
-  a.hdot = a.gst + up4(bcn * hd * a.N);
-  a.dbh = a.hdot + up4(bcn * (hd / 16));
-  a.dch = a.dbh + up4(bsh * a.N);
-  a.dcr = a.dch + up4(bsh * a.N);
-  a.dcc = a.dcr + up4(bsh);
-  a.sgp = a.dcc + up4(bsh);
+  if (dtype == 1) {
+    a.dap = a.gst + up4(bcn * hd * 8 * ((a.N + 7) / 8));
+    a.dbp = a.dap + up4(bcn);
+    a.dcp = a.dbp + up4(static_cast<long long>(a.B) * a.S * a.ng * a.tpg *
+                        a.N);
+  } else {
+    a.hdot = a.gst + up4(bcn * hd * a.N);
+    a.dbh = a.hdot + up4(bcn * (hd / 16));
+    a.dch = a.dbh + up4(bsh * a.N);
+    a.dcr = a.dch + up4(bsh * a.N);
+    a.dcc = a.dcr + up4(bsh);
+    a.sgp = a.dcc + up4(bsh);
+  }
   cudaError_t e = cudaSetDevice(ints[8]);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 16) e = launch_bwd<float, 16>(a, s);
-  else if (dtype == 0 && hd == 64) e = launch_bwd<float, 64>(a, s);
-  else if (dtype == 1 && hd == 16) e = launch_bwd<bf16, 16>(a, s);
-  else if (dtype == 1 && hd == 64) e = launch_bwd<bf16, 64>(a, s);
+  if (dtype == 0 && !a.split && hd == 16) e = launch_bwd_f32<16>(a, s);
+  else if (dtype == 0 && !a.split && hd == 64) e = launch_bwd_f32<64>(a, s);
+  else if (dtype == 1 && a.split && hd == 16)
+    e = launch_bwd_bf16<16, 16>(a, s);
+  else if (dtype == 1 && a.split && hd == 64)
+    e = launch_bwd_bf16<64, BWD_ROWS>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

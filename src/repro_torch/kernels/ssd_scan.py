@@ -54,16 +54,25 @@ float32, dB and dC in B's and C's dtypes.
 * :func:`ssd_bwd_ref` — plain PyTorch, those steps one by one; what CPU
   tensors get.
 * :func:`ssd_bwd_cuda` — the hand-written kernels beside the forward in
-  ``kernels/csrc/ssd_scan.cu``, both dtypes, float32 arithmetic on the
-  CUDA cores, three launches and no atomics (two calls give the same
-  bits): the state gradient G scanned over the chunks in reverse per
-  (16 state rows, head, batch); per (chunk, head, batch) strips of 32
-  steps, each walking 32-step tiles of the other side of the chunk's
-  duals (row strips: dC and the rows' dcum; column strips: dB, dxdt →
-  dx, Σ_d dxdt·x and the columns' dcum), dB and dC per head; then per
-  head the dcum scan, ddt and dA in a fixed order, and dB, dC summed
-  over each group's heads in head order.  The bfloat16 route's states
-  are read as their hi + lo (16 bits).
+  ``kernels/csrc/ssd_scan.cu``, three launches and no atomics in either
+  dtype (two calls give the same bits).  bfloat16 runs on the tensor
+  cores (``mma.sync``, each float32 operand but D split into bf16
+  hi + lo): the state gradient G scanned over the chunks in reverse per
+  (head, batch) in MMA accumulators, written as hi + lo
+  in the forward states' fragment order; then per (tile of three heads
+  of a group, chunk, batch) C·Bᵀ once, and per head each 16 × 16 tile
+  of the chunk's duals formed once for its columns (dB, dxdt → dx) and
+  its rows (dC), the state terms, dcum and its scan into ddt and the
+  chunk's share of dA, dB and dC summed over the tile's heads; then dA
+  and dB, dC summed over the tiles in order.  float32 runs the first
+  design on the CUDA cores: the state gradient per (16 state rows,
+  head, batch); per (chunk, head, batch) strips of 32 steps, each
+  walking 32-step tiles of the other side of the chunk's duals (row
+  strips: dC and the rows' dcum; column strips: dB, dxdt → dx, Σ_d
+  dxdt·x and the columns' dcum), dB and dC per head; then per head the
+  dcum scan, ddt and dA in a fixed order, and dB, dC summed over each
+  group's heads in head order.  The bfloat16 route reads the forward's
+  states as their hi + lo (16 bits) in place.
 
 :func:`bwd_bytes` and :func:`bwd_flops` give the backward's bound.
 """
@@ -434,12 +443,15 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  dh: Optional[torch.Tensor] = None, chunk: int = 128):
     """The backward kernels: same contract as :func:`ssd_bwd_ref`, on the
     ``cum`` and ``states`` that ``ssd_cuda(..., return_states=True)``
-    returned (a bfloat16 ``states`` is read as its hi + lo).
+    returned for inputs of this dtype (bfloat16's are read as their
+    hi + lo).
 
-    The inputs are :func:`ssd_cuda`'s (read through their strides); ``dy``
-    has x's shape and dtype and a contiguous trailing dim.  Returns new
-    contiguous dx, ddt, dA, dB, dC.  Raises on any other input and if a
-    launch fails; there is no fallback.
+    The inputs are :func:`ssd_cuda`'s (read through their strides; a
+    bfloat16 x, dy, Bm or Cm that is not 16-byte aligned is copied, as
+    :func:`ssd_cuda` copies); ``dy`` has x's shape and dtype and a
+    contiguous trailing dim.  Returns new contiguous dx, ddt, dA, dB, dC.
+    Raises on any other input and if a launch fails; there is no
+    fallback.
     """
     global _BWD_LAUNCHES
     from repro_torch.kernels import _build
@@ -464,8 +476,15 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            or dh.device != x.device):
         raise ValueError(f"ssd_bwd_cuda: dh must be {(B, nh, hd, N)} on "
                          f"{x.device}")
+    if split != (x.dtype == torch.bfloat16):
+        raise ValueError("ssd_bwd_cuda: the states must be the ones "
+                         "ssd_cuda(..., return_states=True) returned for "
+                         f"{x.dtype} inputs")
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
+    if x.dtype == torch.bfloat16:
+        x, dy = _aligned(x, 8), _aligned(dy, 8)
+        Bm, Cm = (_aligned(t, 8 if N % 8 == 0 else 4) for t in (Bm, Cm))
     dt32 = dt.to(torch.float32)
     A32 = A.to(torch.float32).contiguous()
     cum, states = cum.contiguous(), states.contiguous()

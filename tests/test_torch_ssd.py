@@ -26,6 +26,14 @@ split into bf16 hi + lo; sums in f32.  Held to ``ssd_ref`` under
 1e-5·max(1, max|h|); y 2e-2); and a single bf16 rounding of the state
 operand is shown to miss the final state's tolerance.
 
+The bfloat16 backward kernels' precision plan, emulated in float32 the
+same way at the same shape with a random cotangent of the final state:
+x, B, C and dy exact; dy·exp(cum), the state gradient G_c, the entering
+state H_c and S = (C·Bᵀ) ⊙ L split into hi + lo; D = dt_j (dy·xᵀ) ⊙ L
+rounded once.  Held to ``ssd_bwd_ref`` under ``chip_smoke``'s phase 5
+tolerances (``ssd_bwd_close``); a single bf16 rounding of any of the four
+split operands is shown to miss the ddt tolerance.
+
 The backward (``ssd_bwd_ref``, on ``ssd_ref``'s cum and entering states)
 against ``jax.vjp`` of ``ssd_chunked`` over the same grid, with a
 nonzero cotangent of the final state, and against ``torch.autograd``
@@ -46,7 +54,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_tpu  # noqa: E402
 from repro.models.ssm import ssd_chunked as jssd_chunked  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd_bwd_ref, ssd_cuda,  # noqa: E402
                                           ssd_ref)
 
@@ -232,6 +240,109 @@ def test_bf16_route_single_rounded_state_operand_misses_h_tolerance(decay):
 # --------------------------------------------------------------------------
 # The backward
 # --------------------------------------------------------------------------
+
+def _emulate_bf16_bwd(x, dt, A, Bm, Cm, dy, cum, states, dh, chunk,
+                      single=""):
+    """The bfloat16 backward kernels' arithmetic (``ssd_scan.cu``'s
+    ``bwd_gscan_kernel`` and ``bwd_chunk_kernel``) in float32 on the CPU.
+    x, B, C and dy are exact bf16 operands; the f32 operands of products
+    are rounded to bf16 hi + lo: dy·exp(cum) in the state gradient's scan
+    ("W"), its output G_c ("G"), the entering state H_c ("H", the
+    forward's hi + lo, rounded again) and S = (C·Bᵀ) ⊙ L ("S"); D =
+    dt_j (dy·xᵀ) ⊙ L is rounded to hi alone.  ``single`` names operands
+    rounded to hi alone instead.  dsc, C·Bᵀ, M = D ⊙ C·Bᵀ, the exps and
+    every sum in f32; <H_c, G_c> on both as hi + lo."""
+    f32, bf = torch.float32, torch.bfloat16
+    rnd = lambda a: a.to(bf).to(f32)
+
+    def parts(a, name):
+        hi = rnd(a)
+        return (hi,) if name in single else (hi, rnd(a - hi))
+
+    Bsz, S, nh, hd = x.shape
+    ng, N = Bm.shape[2], Bm.shape[3]
+    Q, rep = min(chunk, S), nh // ng
+    nc = S // Q
+    xc = x.to(f32).reshape(Bsz, nc, Q, nh, hd)
+    dtc = dt.reshape(Bsz, nc, Q, nh)
+    dyc = dy.to(f32).reshape(Bsz, nc, Q, nh, hd)
+    Bh, Ch = (t.to(f32).reshape(Bsz, nc, Q, ng, N).repeat_interleave(rep, 3)
+              for t in (Bm, Cm))
+    cq = cum.permute(0, 1, 3, 2)                            # (B, nc, Q, nh)
+    seg = cq[:, :, -1]
+    g = torch.zeros(Bsz, nh, hd, N, dtype=f32) if dh is None else dh
+    gout = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        gout[c] = g
+        w = dyc[:, c] * torch.exp(cq[:, c])[..., None]
+        g = g * torch.exp(seg[:, c])[:, :, None, None] + sum(
+            torch.einsum("bqhd,bqhn->bhdn", p, Ch[:, c]) for p in parts(w, "W"))
+    G = torch.stack(gout, dim=1)
+    hdot = (sum(parts(states, "")) * sum(parts(G, ""))).sum((-2, -1))
+    Gp, Hp = parts(G, "G"), parts(states, "H")
+    L = ssd_scan._decay_matrix(cq)
+    CB = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    D = torch.einsum("bcihd,bcjhd->bcijh", dyc, xc) * dtc[:, :, None] * L
+    M = D * CB
+    e_in, e_out = torch.exp(cq), torch.exp(seg[:, :, None] - cq)
+    dCs = e_in[..., None] * sum(torch.einsum("bcihd,bchdn->bcihn", dyc, p)
+                                for p in Hp)
+    dBs = (e_out * dtc)[..., None] * sum(
+        torch.einsum("bcjhd,bchdn->bcjhn", xc, p) for p in Gp)
+    dxs = e_out[..., None] * sum(torch.einsum("bcjhn,bchdn->bcjhd", Bh, p)
+                                 for p in Gp)
+    Dp = (rnd(D),)
+    dC_h = sum(torch.einsum("bcijh,bcjhn->bcihn", p, Bh) for p in Dp) + dCs
+    dB_h = sum(torch.einsum("bcijh,bcihn->bcjhn", p, Ch) for p in Dp) + dBs
+    dxdt = sum(torch.einsum("bcijh,bcihd->bcjhd", p, dyc)
+               for p in parts(CB * L, "S")) + dxs
+    st = (Bh * dBs).sum(-1)
+    dcum = M.sum(3) - M.sum(2) + (Ch * dCs).sum(-1) - st
+    dcum[:, :, -1] += st.sum(2) + torch.exp(seg) * hdot
+    ddA = dcum.flip(2).cumsum(2).flip(2)
+    ddt = ddA * A + (dxdt * xc).sum(-1)
+    dA = (ddA * dtc).sum((0, 1, 2))
+    dx = (dxdt * dtc[..., None]).reshape(Bsz, S, nh, hd)
+    dB, dC = (t.reshape(Bsz, S, ng, rep, N).sum(3) for t in (dB_h, dC_h))
+    return (dx.to(x.dtype), ddt.reshape(Bsz, S, nh), dA, dB.to(Bm.dtype),
+            dC.to(Cm.dtype))
+
+
+def _bwd_precision_case(decay, single):
+    """The emulated bf16 backward and ``ssd_bwd_ref`` at mamba2-780m's hd
+    64 and N 128 (S 512, 4 heads, one group, a random cotangent of the
+    final state), and chip_smoke."""
+    smoke = _smoke()
+    cpu = torch.device("cpu")
+    args = smoke.ssd_inputs(np, torch, 1, 512, 4, 1, 64, 128, decay,
+                            "bfloat16", cpu, seed=5)
+    dy = smoke.ssd_inputs(np, torch, 1, 512, 4, 1, 64, 128, decay,
+                          "bfloat16", cpu, seed=1005)[0]
+    dh = torch.from_numpy(np.random.default_rng(2005).normal(
+        size=(1, 4, 64, 128)).astype(np.float32))
+    _, _, cum, st = ssd_ref(*args, 128, return_states=True)
+    return (_emulate_bf16_bwd(*args, dy, cum, st, dh, 128, single),
+            ssd_bwd_ref(*args, dy, cum, st, dh, 128), smoke)
+
+
+@pytest.mark.parametrize("decay", ["slow", "model"])
+def test_bf16_bwd_route_holds_phase5_tolerances(decay):
+    """The bf16 backward's precision plan within ``chip_smoke``'s phase 5
+    tolerances (``ssd_bwd_close``): ``SSD_BWD_DT`` for ddt and dA,
+    2e-2·max|plain| for dx, dB, dC."""
+    got, want, smoke = _bwd_precision_case(decay, "")
+    smoke.ssd_bwd_close(np, got, want, "bfloat16", f"{decay} emulated")
+
+
+@pytest.mark.parametrize("operand", ["W", "G", "H", "S"])
+@pytest.mark.parametrize("decay", ["slow", "model"])
+def test_bf16_bwd_single_rounded_operand_misses_tolerance(decay, operand):
+    """Why the backward kernels split each of these operands: one bf16
+    rounding of it puts ddt outside phase 5's tolerance."""
+    got, want, smoke = _bwd_precision_case(decay, operand)
+    with pytest.raises(AssertionError, match="ddt: max \\|diff\\|"):
+        smoke.ssd_bwd_close(np, got, want, "bfloat16", f"{decay} {operand}")
+
 
 #: the backward's tolerance in float32: rtol, and atol as a share of
 #: max(1, max |ref|) (float32 sums in another order; dA sums B·S terms)
