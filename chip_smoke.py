@@ -21,7 +21,11 @@ Phases (any failure exits non-zero before the final line):
    order).  Time the kernel and the plain version at the paper shape,
    with the split over the five launches and the host time per wrapper
    call, beside the in-place bound and that of a tick returning new
-   views (``kernels.psp_tick.tick_bytes``).
+   views (``kernels.psp_tick.tick_bytes``).  Then rows too long for the
+   kernel's shared-memory staging (``TICK_LONG``: B 2, P 60,000, d 8,
+   m 2; the decisions read the row from global memory, the pull lists
+   its starters in tiles) on four branch cases (``LONG_CASES``, 3
+   chained ticks) and a tick in which every node finishes and starts.
 3. The main path: the paper-scale Fig 2 straggler sweep (5 barriers × 5
    straggler fractions, P = 1000, d = 1000, β = 10, s = 4, 40 s, 2000
    ticks) through ``repro_torch.core.run_sweep`` on the card, with the
@@ -146,6 +150,27 @@ Phases (any failure exits non-zero before the final line):
     its backward 97·W.  Then ``repro_torch.launch.train --arch
     mamba2-780m --reduced --barrier pbsp`` on the card.
 
+13. The rest of the paper (``repro_torch.bench``) on the card.  (a)
+    Every figure of the harness (``bench.run.BENCHES`` but the sweep
+    benchmark: Figs 1a–1e, 1c's β sweep, the Fig 1 bands (one
+    ``run_sweep`` per seed), 2a–2c, 3, 4 with its empirical lags, 5) at
+    the paper's scale (P 1000, d 1000, β 10, 40 s; Fig 3 P 100–1000),
+    each with its derived line; the kernel's launches must equal the
+    ticks the figures' sweeps run.  It prints the paper's Fig 1 and
+    Fig 2 orderings at that scale (``paper_orderings``; a finding, not
+    a check).  (b) Figs 1–2 at the reduced scale (55 rows, P 200, d 100,
+    20 s) on the card and on the numpy backend: mean progress within
+    0.2·p + 1 and final error within a factor of two, row by row.  (c)
+    ``bench.sweep_bench`` at its default scale (the Fig 2 matrix of nine
+    barriers × five fractions, P 100, d 32, 20 s, through the event
+    engine, numpy, the plain tick and the kernel, and the 100,000-node
+    pair), every row printed and written to
+    ``results/BENCH_sweep_torch.json``.  (d) The 100k pair under
+    ``PSP_TICK_IMPL=cuda`` and ``ref``: integer traces equal, errors
+    within rtol 1e-4.  (e) One kernel tick at the 100k shape (B 2, P
+    100,000, d 4, m 2, β 1) held to the plain version over 3 chained
+    ticks and timed beside its bound, as phase 2 times the paper shape.
+
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
 FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 128} ×
@@ -175,7 +200,8 @@ prefill.
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, both serving runs, both training runs, the loop's
-server and trainer, and the resumed runs), error and
+server and trainer, the resumed runs, and phase 13's figures, bench and
+100k pair), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -220,6 +246,13 @@ TICK_KERNELS = ("prologue_kernel", "decide_kernel", "resid_kernel",
 #: third takes the kernel's m <= 16 build and its views in three column
 #: chunks, over two rounds of rows per node where every node finishes
 TICK_SIZES = ((3, 8, 5, 4), (5, 300, 40, 8), (12, 70, 1100, 12))
+#: phase 2's long rows (B, P, d, m): past the kernel's shared-memory
+#: staging (the decisions' 5 P bytes above ~46,000 nodes, the pull's 4 P
+#: byte starter list above ~58,000), on the branch cases whose noise is
+#: O(P) (a P x P score block would be 14 GB)
+TICK_LONG = (2, 60_000, 8, 2)
+LONG_CASES = ((False, False, 0, False), (False, False, 1, False),
+              (True, True, 0, False), (False, False, 0, True))
 FIVE = ("bsp", "ssp", "asp", "pbsp", "pssp")
 FRACS = (0.0, 0.05, 0.1, 0.2, 0.3)
 
@@ -546,6 +579,71 @@ def check_finish_start(np, torch, pt, dev, B, P, d, m, seed=3):
     compare(np, s_r, s_k, f"finish-and-start at {(B, P, d, m)}")
     compare(np, o_r, o_k, f"finish-and-start at {(B, P, d, m)} out")
     return both
+
+
+def time_tick(np, torch, pt, dev, st, shapes, prm, ln, jn, kw):
+    """Time one in-place kernel tick and its plain version on a tick
+    problem, beside the bound of the bytes and operations that tick's
+    data needs (``psp_tick.tick_bytes``).  Returns a dict: ``ms`` (the
+    profiler's device time of the five launches, or CUDA events),
+    ``call_ms``, ``plain_ms``, ``split`` (ms per launch), ``host_us``
+    per wrapper call, ``bound_ms``, ``fresh_bound_ms``, ``bytes``
+    {in_place: bytes}, ``flops``, ``n_fin``, ``n_start``."""
+    from repro_torch.convert import tick_inputs_to_torch
+    s, _, p = tick_inputs_to_torch(st, {}, prm, dev)
+    staged = pt.stage_params(p, adaptive=kw.get("adaptive", False))
+    _, r, _ = tick_inputs_to_torch({}, draw(np, shapes, 7), {}, dev)
+    s_k = {k: v.clone() for k, v in s.items()}    # w, pulled: in place
+    tick = dict(rand=r, t=0.8, leave_n=ln, join_n=jn, **kw)
+    kernel = lambda: pt.psp_tick_cuda(s_k, params=staged, **tick)
+    ref = lambda: pt.psp_tick_ref(s, params=p, **tick)
+    ms_call = time_calls(torch, kernel, 50)
+    ms_plain = time_calls(torch, ref, 20)
+    split = {n: ms for key, ms in profile_device(torch, kernel, 20).items()
+             for n in TICK_KERNELS if n in key}
+    ms_dev = sum(split.values()) or None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernel()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    _, o = kernel()
+    B, P = s["steps"].shape
+    m, d = r["X"].shape[1], r["X"].shape[2]
+    n_fin, n_start = int(o["fin"].sum()), int(o["start"].sum())
+    n_cand_sm = int(((~s["computing"]) & p["sampled"][:, None]).sum())
+    nbytes = {c: sum(pt.tick_bytes(s, r, p, o["fin"], o["start"],
+                                   in_place=c)) for c in (True, False)}
+    # a rank-form beta-sample scans the peer axis twice; beta = 1 on an
+    # unmasked row is one gather and one compare
+    scan = 1 if kw["k_max"] == 1 and not kw["masked"] else 2 * P
+    flops = 4 * n_fin * m * d + 2 * n_cand_sm * scan
+    return {"ms": ms_dev if ms_dev is not None else ms_call,
+            "device_time": ms_dev is not None, "call_ms": ms_call,
+            "plain_ms": ms_plain, "split": split, "host_us": host_us,
+            "bound_ms": 1e3 * max(nbytes[True] / HBM_BPS,
+                                  flops / F32_FLOPS),
+            "fresh_bound_ms": 1e3 * max(nbytes[False] / HBM_BPS,
+                                        flops / F32_FLOPS),
+            "bytes": nbytes, "flops": flops, "n_fin": n_fin,
+            "n_start": n_start}
+
+
+def print_tick_time(tag, tt, slots, card):
+    """Print :func:`time_tick`'s result as phase 2 reports it."""
+    print(f"{tag}, in place: kernels {tt['ms']:.4f} ms "
+          f"({'profiler device time' if tt['device_time'] else 'CUDA events'}"
+          f"; {tt['call_ms']:.4f} ms per wrapper call with events), plain "
+          f"{tt['plain_ms']:.4f} ms; bound {tt['bound_ms']:.4f} ms "
+          f"({tt['bytes'][True] / 1e6:.1f} MB: {tt['n_fin']} of {slots} "
+          f"slots finish, {tt['n_start']} start; {tt['flops'] / 1e9:.3f} "
+          f"GFLOP); the fresh-output contract's bound "
+          f"{tt['fresh_bound_ms']:.4f} ms ({tt['bytes'][False] / 1e6:.1f} "
+          f"MB) [{card}]", flush=True)
+    print(f"{tag.split()[0]} per launch: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in tt["split"].items())
+          + f"; host {tt['host_us']:.1f} us per wrapper call", flush=True)
 
 
 def time_calls(torch, fn, n):
@@ -2288,6 +2386,236 @@ def phase11(np, torch, dev, card):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def counted_sweeps(torch, modules, counts):
+    """Wrap ``run_sweep`` in each of ``modules`` so that every call adds
+    the ticks it will launch through the tick kernel to
+    ``counts["expect"]`` (a torch-backend call whose implementation is
+    the kernel: ``ticks_to_run`` of each of its ``_merge_key`` groups),
+    then runs unchanged.  Returns a function that restores them."""
+    from repro_torch.core import vector_sim as vs
+    from repro_torch.core.vector_sim_torch import tick_impl, ticks_to_run
+    from repro_torch.kernels import ops
+    real = vs.run_sweep
+
+    def run_sweep(configs, **kw):
+        dev = kw.get("device")
+        if kw.get("backend", "torch") == "torch" and ops.use_kernel(
+                tick_impl(), torch.device(dev if dev is not None
+                                          else "cuda")):
+            groups = {}
+            for c in configs:
+                groups.setdefault(vs._merge_key(c), []).append(c)
+            counts["expect"] += sum(ticks_to_run(vs.VectorSimulator(g))
+                                    for g in groups.values())
+        return real(configs, **kw)
+
+    saved = [(m, m.run_sweep) for m in modules]
+    for m, _ in saved:
+        m.run_sweep = run_sweep
+    return lambda: [setattr(m, "run_sweep", f) for m, f in saved]
+
+
+def paper_orderings(res):
+    """The paper's Fig 1 / Fig 2 orderings on this run's figures, each
+    (claim, holds): what ``tests/test_simulator.py`` asserts of the event
+    engine at P 100, here at the figures' own scale."""
+    prog, msgs, err = (res["fig1_progress"], res["fig1_messages"],
+                       res["fig1_error"])
+    mean = {k: v["mean"] for k, v in prog.items()}
+    spread = {k: v["max"] - v["min"] for k, v in prog.items()}
+    upd = {k: v["total"] for k, v in msgs.items()}
+    r30 = {k: v[-1]["progress_ratio"]
+           for k, v in res["fig2_stragglers"].items()}
+    return [
+        ("progress bsp < ssp < asp",
+         mean["bsp"] < mean["ssp"] < mean["asp"]),
+        ("progress pbsp > bsp", mean["pbsp"] > mean["bsp"]),
+        ("progress pssp > ssp", mean["pssp"] > mean["ssp"]),
+        ("spread bsp <= 1", spread["bsp"] <= 1),
+        ("spread ssp <= 5", spread["ssp"] <= 5),
+        ("spread asp > pssp >= pbsp",
+         spread["asp"] > spread["pssp"] >= spread["pbsp"]),
+        ("updates asp > pbsp > bsp", upd["asp"] > upd["pbsp"] > upd["bsp"]),
+        ("every final error < 0.1",
+         all(v["final"] < 0.1 for v in err.values())),
+        ("at 30 % stragglers pbsp's progress ratio > bsp's",
+         r30["pbsp"] > r30["bsp"]),
+        ("at 30 % stragglers pbsp's progress ratio > 2 x bsp's",
+         r30["pbsp"] > 2 * r30["bsp"]),
+    ], mean, spread, upd, r30
+
+
+def busy_line(torch, what, fn, wall_s, pt, n0, card):
+    """Run ``fn`` once under ``torch.profiler`` and print its device time
+    per tick and busy share against an unprofiled run's wall
+    ``wall_s`` (the tick launches of the traced run counted from
+    ``n0``)."""
+    busy = profile_device(torch, fn)
+    ticks = pt.launch_count() - n0
+    if not busy or not ticks:
+        print(f"[13] {what}: the profiler saw no device time; the busy "
+              "share is not measured", flush=True)
+        return
+    busy_ms = sum(busy.values())
+    tick_ms = sum(ms for key, ms in busy.items()
+                  if any(n in key for n in TICK_KERNELS))
+    print(f"[13] {what}: {ticks} ticks, device busy {busy_ms:.3f} ms = "
+          f"{busy_ms / ticks:.4f} ms/tick (tick kernels "
+          f"{tick_ms / ticks:.4f}), wall {1e3 * wall_s / ticks:.4f} "
+          f"ms/tick unprofiled, busy share {busy_ms / (1e3 * wall_s):.4f} "
+          f"[{card}]", flush=True)
+    for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"[13]   {ms / ticks:.4f} ms/tick  {key[:90]}", flush=True)
+
+
+def phase13(np, torch, dev, card):
+    """The rest of the paper on the port: the figures at full scale on
+    the tick kernel (launches equal to the ticks run), the paper's
+    orderings at that scale, Figs 1-2 at the reduced scale on the card
+    against the numpy backend, the sweep benchmark with its 100,000-node
+    pair, and that pair's integer traces under the kernel against the
+    plain version.  Returns (kernel launches, the 100k tick's timing)."""
+    from repro_torch.bench import fig45_bounds, figures, run as bench_run
+    from repro_torch.bench import sweep_bench
+    from repro_torch.kernels import psp_tick as pt
+    os.environ.pop("PSP_TICK_IMPL", None)
+    counts = {"expect": 0}
+    restore = counted_sweeps(torch, (figures, fig45_bounds, sweep_bench),
+                             counts)
+    try:
+        # (a) the figures at the paper's scale, through the harness's
+        # own entries, on the card
+        figures._fig1_sweep.cache_clear()
+        torch.cuda.synchronize()
+        pt.reset_launch_count()
+        res, walls, t_all = {}, {}, time.perf_counter()
+        for name, fn, derive in bench_run.BENCHES:
+            if name == "sweep_engine":
+                continue
+            t0 = time.perf_counter()
+            res[name] = fn(full=True, backend="torch", device=dev)
+            walls[name] = time.perf_counter() - t0
+            print(f"[13] {name} (full): {walls[name]:.3f} s; "
+                  f"{derive(res[name])}", flush=True)
+        wall = time.perf_counter() - t_all
+        got = pt.launch_count()
+        if got != counts["expect"] or got == 0:
+            raise AssertionError(f"figures: kernel launches {got} != "
+                                 f"ticks {counts['expect']}")
+        for name, series in res["fig1_error"].items():
+            if not (np.isfinite(series["errors"]).all()
+                    and len(series["errors"]) == len(series["times"]) > 1
+                    and np.allclose(np.diff(series["times"]), 0.5)):
+                raise AssertionError(f"fig1_error {name}: misshapen or "
+                                     "non-finite")
+        for beta, row in res["fig4_mean_bound"].items():
+            if not (np.isfinite(row["bound"]).all()
+                    and math.isfinite(row["empirical_mean_lag"])):
+                raise AssertionError(f"fig4 {beta}: non-finite")
+        print(f"[13] Figs 1-5 at full scale: {got} ticks through the kernel "
+              f"in {wall:.3f} s = {1e3 * wall / got:.4f} ms/tick [{card}]",
+              flush=True)
+        n0 = pt.launch_count()
+        busy_line(torch, "fig1_sample_sweep (full), traced rerun",
+                  lambda: figures.fig1_sample_sweep(full=True, device=dev),
+                  walls["fig1_sample_sweep"], pt, n0, card)
+        claims, mean, spread, upd, r30 = paper_orderings(res)
+        print(f"[13] Fig 1 at P {figures._scale(True).n_nodes}: mean "
+              f"progress {mean}, spread "
+              f"{spread}, updates {upd}; at 30 % stragglers progress "
+              f"ratio {r30}", flush=True)
+        for claim, holds in claims:
+            print(f"[13]   {'holds' if holds else 'DOES NOT HOLD'}: "
+                  f"{claim}", flush=True)
+
+        # (b) Figs 1-2 at the reduced scale: the card against numpy
+        c = figures._scale(False)
+        cfgs = ([figures._cfg(n, c) for n in figures.FIVE]
+                + [figures._cfg(n, c, straggler_frac=f)
+                   for n in figures.FIVE for f in FRACS]
+                + [figures._cfg(n, c, straggler_frac=0.05,
+                                straggler_slowdown=sl)
+                   for n in figures.FIVE for sl in (1.0, 2.0, 4.0, 8.0, 16.0)])
+        t0 = time.perf_counter()
+        on_card = figures.run_sweep(cfgs, device=dev)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_host = figures.run_sweep(cfgs, backend="numpy")
+        t_host = time.perf_counter() - t0
+        worst_p = worst_e = 0.0
+        for cfg, a, b in zip(cfgs, on_card, on_host):
+            what = (f"{cfg.barrier.name} frac {cfg.straggler_frac} slow "
+                    f"{cfg.straggler_slowdown}")
+            if abs(a.mean_progress - b.mean_progress) \
+                    > 0.2 * b.mean_progress + 1.0:
+                raise AssertionError(f"card vs numpy, {what}: mean progress "
+                                     f"{a.mean_progress} vs {b.mean_progress}")
+            if not 0.5 * b.final_error <= a.final_error <= 2 * b.final_error:
+                raise AssertionError(f"card vs numpy, {what}: final error "
+                                     f"{a.final_error} vs {b.final_error}")
+            worst_p = max(worst_p, abs(a.mean_progress / b.mean_progress - 1))
+            worst_e = max(worst_e, abs(math.log(a.final_error
+                                                / b.final_error)))
+        print(f"[13] Figs 1-2 reduced ({len(cfgs)} rows, P {c.n_nodes}, d "
+              f"{c.dim}, {c.duration:.0f} s): card {t_card:.3f} s, numpy "
+              f"{t_host:.3f} s; mean progress within 0.2 p + 1 (largest "
+              f"relative gap {worst_p:.4f}), final error within 2x (largest "
+              f"ratio {math.exp(worst_e):.4f}) [{card}]", flush=True)
+
+        # (c) the sweep benchmark at its default scale, with the 100k pair
+        t0 = time.perf_counter()
+        bench = sweep_bench.sweep_speedup(device=dev)
+        print(f"[13] sweep bench ({bench['n_configs']} configs, P "
+              f"{bench['n_nodes']}, {bench['duration_s']:.0f} s) in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{sweep_bench.summary_line(bench)} [{card}]", flush=True)
+        for name, row in bench["engines"].items():
+            print(f"[13]   {name}: " + json.dumps(row), flush=True)
+        os.environ["PSP_TICK_IMPL"] = "cuda"
+        n0 = pt.launch_count()
+        busy_line(torch, "bench matrix on the kernel, traced rerun",
+                  lambda: sweep_bench.run_sweep(sweep_bench._configs(False),
+                                                device=dev),
+                  bench["engines"]["cuda"]["seconds"], pt, n0, card)
+        os.environ.pop("PSP_TICK_IMPL", None)
+
+        # (d) the 100k pair under the kernel and the plain version
+        big = sweep_bench._100k_configs()
+        runs = {}
+        for impl in ("cuda", "ref"):
+            os.environ["PSP_TICK_IMPL"] = impl
+            runs[impl] = sweep_bench.run_sweep(big, device=dev)
+        os.environ.pop("PSP_TICK_IMPL", None)
+        for a, b in zip(runs["cuda"], runs["ref"]):
+            if not (np.array_equal(a.steps, b.steps)
+                    and a.total_updates == b.total_updates
+                    and a.control_messages == b.control_messages
+                    and np.array_equal(a.server_updates, b.server_updates)):
+                raise AssertionError("100k: cuda and ref sweeps differ in "
+                                     "the integer traces")
+            np.testing.assert_allclose(a.errors, b.errors, rtol=1e-4,
+                                       atol=1e-6)
+        print("[13] 100k pair: cuda == ref (steps, updates, control "
+              "messages equal; errors within rtol 1e-4)", flush=True)
+        got = pt.launch_count()
+        if got != counts["expect"]:
+            raise AssertionError(f"phase 13: kernel launches {got} != "
+                                 f"ticks {counts['expect']}")
+    finally:
+        restore()
+        os.environ.pop("PSP_TICK_IMPL", None)
+
+    # (e) one kernel tick at the 100k shape, timed beside its bound
+    B, P, d, m = 2, 100_000, 4, 2
+    err, (st, shapes, prm, ln, jn, kw) = check_tick_case(
+        np, torch, pt, dev, (False, False, 1, False), B, P, d, m, n_ticks=3,
+        fully_alive=True)
+    tt = time_tick(np, torch, pt, dev, st, shapes, prm, ln, jn, kw)
+    print_tick_time(f"[13] tick at (B, P, d, m, beta) = {(B, P, d, m, 1)}",
+                    tt, B * P, card)
+    return got, tt
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2307,7 +2635,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == [LOOP_CHILD]:
         return loop_trainer(torch, torch.device("cuda", 0), sys.argv[2])
-    from repro_torch.convert import tick_inputs_to_torch
     from repro_torch.core import SimConfig, make_barrier, run_sweep
     from repro_torch.core.vector_sim import VectorSimulator
     from repro_torch.core.vector_sim_torch import ticks_to_run
@@ -2342,44 +2669,17 @@ def main() -> int:
           f"for bit alike; data-plane max |err| {err:.3g}; {fs} nodes "
           "finishing and starting in one tick", flush=True)
 
-    s, _, p = tick_inputs_to_torch(st, {}, prm, dev)
-    staged = pt.stage_params(p, adaptive=False)
-    _, r, _ = tick_inputs_to_torch({}, draw(np, shapes, 7), {}, dev)
-    s_k = {k: v.clone() for k, v in s.items()}    # w, pulled: in place
-    tick = dict(rand=r, t=0.8, leave_n=ln, join_n=jn, **kw)
-    kernel = lambda: pt.psp_tick_cuda(s_k, params=staged, **tick)
-    ref = lambda: pt.psp_tick_ref(s, params=p, **tick)
-    ms_call = time_calls(torch, kernel, 50)
-    ms_plain = time_calls(torch, ref, 20)
-    split = {n: ms for key, ms in profile_device(torch, kernel, 20).items()
-             for n in TICK_KERNELS if n in key}
-    ms_dev = sum(split.values()) or None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        kernel()
-    host_us = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
-    _, o = kernel()
-    n_fin, n_start = int(o["fin"].sum()), int(o["start"].sum())
-    n_cand_sm = int(((~s["computing"]) & p["sampled"][:, None]).sum())
-    nbytes = {c: sum(pt.tick_bytes(s, r, p, o["fin"], o["start"],
-                                   in_place=c)) for c in (True, False)}
-    flops = 4 * n_fin * m * d + 2 * 2 * n_cand_sm * P
-    bound = 1e3 * max(nbytes[True] / HBM_BPS, flops / F32_FLOPS)
-    bound_fresh = 1e3 * max(nbytes[False] / HBM_BPS, flops / F32_FLOPS)
-    ms_kernel = ms_dev if ms_dev is not None else ms_call
-    print(f"[2] paper-shape tick, in place: kernels {ms_kernel:.4f} ms "
-          f"({'profiler device time' if ms_dev else 'CUDA events'}; "
-          f"{ms_call:.4f} ms per wrapper call with events), plain "
-          f"{ms_plain:.4f} ms; bound {bound:.4f} ms "
-          f"({nbytes[True] / 1e6:.1f} MB: {n_fin} of {B * P} slots finish, "
-          f"{n_start} start; {flops / 1e9:.3f} GFLOP); the fresh-output "
-          f"contract's bound {bound_fresh:.4f} ms "
-          f"({nbytes[False] / 1e6:.1f} MB) [{card}]", flush=True)
-    print("[2] per launch: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items())
-          + f"; host {host_us:.1f} us per wrapper call", flush=True)
+    tt = time_tick(np, torch, pt, dev, st, shapes, prm, ln, jn, kw)
+    ms_kernel, ms_plain, bound = tt["ms"], tt["plain_ms"], tt["bound_ms"]
+    nbytes, flops = tt["bytes"], tt["flops"]
+    print_tick_time("[2] paper-shape tick", tt, B * P, card)
+    for case in LONG_CASES:
+        check_tick_case(np, torch, pt, dev, case, *TICK_LONG, n_ticks=3)
+    fs = check_finish_start(np, torch, pt, dev, *TICK_LONG)
+    print(f"[2] kernel == plain at (B, P, d, m) = {TICK_LONG} on "
+          f"{len(LONG_CASES)} branch cases, 3 chained ticks (the row read "
+          f"from global memory, the starters listed in tiles); {fs} nodes "
+          "finishing and starting in one tick", flush=True)
 
     # ---- 3. the main path: paper-scale Fig 2 sweep ---------------------- #
     def fig2(duration):
@@ -2492,7 +2792,12 @@ def main() -> int:
         counts = phase(np, torch, dev, card)
         if counts is not None:
             paths.append(counts)
-    print(f"[12] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[13] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig_launches, _ = phase13(np, torch, dev, card)
+    launches += fig_launches
+    print(f"[13] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

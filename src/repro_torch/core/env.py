@@ -8,7 +8,9 @@ of silently reading the default.  Only the variables the port reads are
 registered.
 
 Accessors return the registered default when the variable is unset; the
-empty string counts as unset.
+empty string counts as unset.  *Flag* variables follow one rule:
+set-and-nonempty is true.  ``python -m repro_torch.core.env`` prints the
+registry as a markdown table (:func:`markdown_table`).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
-__all__ = ["EnvVar", "REGISTRY", "get_float", "get_int", "get_str"]
+__all__ = ["EnvVar", "REGISTRY", "flag", "get_float", "get_int", "get_str",
+           "markdown_table"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +27,8 @@ class EnvVar:
     """One registered environment override."""
 
     name: str           #: full variable name (``PSP_...``)
-    kind: str           #: "str" | "int" | "float"
-    default: Any        #: value returned when unset
+    kind: str           #: "str" | "int" | "float" | "flag"
+    default: Any        #: value returned when unset (flags: False)
     help: str           #: one-line description
 
 
@@ -100,3 +103,23 @@ def get_float(name: str) -> Optional[float]:
         return float(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r} is not a number") from None
+
+
+def flag(name: str) -> bool:
+    """Flag-typed read: set to any non-empty value = True."""
+    return _raw(name) is not None
+
+
+def markdown_table() -> str:
+    """The registry as a markdown table, one row per variable."""
+    rows = ["| variable | type | default | meaning |",
+            "|---|---|---|---|"]
+    for v in REGISTRY.values():
+        default = "unset" if v.default in (None, False) else str(v.default)
+        help_ = v.help.replace("|", "\\|")   # keep cell pipes out of the grid
+        rows.append(f"| `{v.name}` | {v.kind} | {default} | {help_} |")
+    return "\n".join(rows)
+
+
+if __name__ == "__main__":
+    print(markdown_table())

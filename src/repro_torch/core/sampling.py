@@ -1,11 +1,19 @@
-"""The ``sampling`` primitive on tensors: β peer indices per worker.
+"""The ``sampling`` primitive: β peer steps per worker.
 
-The port's counterpart of the index core of :mod:`repro.core.sampling`
-(``sample_peer_indices_jax`` / ``sample_alive_peer_indices_jax`` /
-``sample_steps_jax``).  Both
-functions take their uniform noise as an input, so a fused kernel and
-this plain version can be held to the *identical* sample: one selects by
-sorting, the kernel by an equivalent rank test.
+The port's counterpart of :mod:`repro.core.sampling`, in two halves:
+
+* the host samplers of the event engine
+  (:mod:`repro_torch.core.simulator`), plain numpy copies drawing in the
+  reference's order: :class:`CentralSampler` (the *centralised*
+  scenario: the server holds the step vector, sampling "is as trivial as
+  a counting process", paper §5) and :class:`OverlaySampler` (the
+  *distributed* scenario: samples through a structured overlay,
+  :mod:`repro_torch.core.overlay`, charging O(β log N) hops);
+* the index core on tensors (``sample_peer_indices_jax`` /
+  ``sample_alive_peer_indices_jax`` / ``sample_steps_jax`` in the
+  reference).  These functions take their uniform noise as an input, so
+  a fused kernel and this plain version can be held to the *identical*
+  sample: one selects by sorting, the kernel by an equivalent rank test.
 
 Selection order is ``(score, index)``: the k smallest scores, ties broken
 by the lower index.  That is the order ``lax.top_k(-scores, k)`` yields;
@@ -16,12 +24,91 @@ is true.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["sample_alive_peer_indices", "sample_peer_indices",
+from repro_torch.core.overlay import ChordOverlay, FullMembershipOverlay
+
+__all__ = ["CentralSampler", "OverlaySampler", "StepSample",
+           "sample_alive_peer_indices", "sample_peer_indices",
            "sample_steps"]
+
+
+@dataclasses.dataclass
+class StepSample:
+    """Result of one sampling call."""
+
+    steps: np.ndarray          # i64[β] — sampled workers' current steps
+    worker_ids: np.ndarray     # i64[β]
+    cost_hops: int             # control-plane cost charged for this call
+
+
+class CentralSampler:
+    """Server-side sampling: the server already holds all steps."""
+
+    def __init__(self, seed: int = 0):
+        self._rng = np.random.default_rng(seed)
+
+    def sample(self, steps: Sequence[int], beta: Optional[int],
+               exclude: Optional[int] = None) -> StepSample:
+        """Draw β of ``steps`` uniformly (server-side counting process)."""
+        steps = np.asarray(steps)
+        ids = np.arange(len(steps))
+        if exclude is not None:
+            keep = ids != exclude
+            ids, pool = ids[keep], steps[keep]
+        else:
+            pool = steps
+        if beta is None:  # classic barrier: full view
+            return StepSample(pool, ids, cost_hops=0)
+        beta = min(beta, len(pool))
+        if beta == 0:
+            return StepSample(pool[:0], ids[:0], cost_hops=0)
+        # rejection sampling: O(β) per call instead of rng.choice's O(N)
+        # permutation.  The selection is the set's iteration order, as
+        # the reference's: it is part of the draw stream.
+        n = len(pool)
+        if beta * 4 < n:
+            seen: set = set()
+            while len(seen) < beta:
+                for v in self._rng.integers(0, n, size=beta):
+                    seen.add(int(v))
+                    if len(seen) == beta:
+                        break
+            sel = np.fromiter(seen, dtype=np.int64)
+        else:
+            sel = self._rng.choice(n, size=beta, replace=False)
+        # centralised: zero extra messages, a local counting process
+        return StepSample(pool[sel], ids[sel], cost_hops=0)
+
+
+class OverlaySampler:
+    """Node-local sampling through the structured overlay.
+
+    Each call queries β random peers for their step: β lookups of
+    O(log N) hops plus β direct step queries.
+    """
+
+    def __init__(self, overlay: ChordOverlay | FullMembershipOverlay):
+        self.overlay = overlay
+
+    def sample(self, steps: Sequence[int], beta: Optional[int],
+               exclude: Optional[int] = None) -> StepSample:
+        """Draw β peers through the overlay, charging lookup hops."""
+        steps = np.asarray(steps)
+        if beta is None:
+            beta = len(steps)
+        peer_ids = np.asarray(self.overlay.sample(beta, exclude=exclude),
+                              dtype=np.int64)
+        cost = self.overlay.sample_cost_hops(len(peer_ids)) + len(peer_ids)
+        return StepSample(steps[peer_ids], peer_ids, cost_hops=cost)
+
+    def estimate_population(self) -> float:
+        """Estimate N from overlay density (paper §4.3)."""
+        return self.overlay.estimate_population()
 
 
 def _k_smallest(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor,

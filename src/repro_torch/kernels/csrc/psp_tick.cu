@@ -32,7 +32,8 @@
 //      needs the whole row.
 //   2. decide_kernel -- one 256-thread block per (row, 64 nodes): 512
 //      blocks at the paper shape, over the whole card.  The row's steps
-//      and alive flags are staged in shared memory; two warps own the
+//      and alive flags are staged in shared memory (read from L2 instead
+//      when 5 P bytes exceed a block's share, P > ~46,000); two warps own the
 //      nodes, and the beta-sample runs one warp per deciding node over
 //      all eight warps, compacted with __ballot_sync.  The lanes stride
 //      the peer axis, 16 coalesced score loads each in flight at once
@@ -53,7 +54,8 @@
 //      block writes one partial sum per (row, column).
 //   5. finish_kernel -- one block per (row, 128 columns): adds the partial
 //      sums in node-block order, w -= lr * sum / m in place, and writes the
-//      new model into the starters' views in place, 16 bytes a store.
+//      new model into the starters' views in place, 16 bytes a store (the
+//      starters listed in shared memory, in tiles when the row is long).
 // Launches 3 and 4 are compiled for minibatches of at most 8 and 16
 // rows, so the accumulators of the common m = 8 are 8 registers, not 16.
 // A view longer than a resid_kernel block stages (1024 columns at m <= 8,
@@ -134,6 +136,7 @@ struct Dims {
   int B, P, d, m, k_max, has_churn, masked, adaptive, nch;
   float t, eps, poll;
   Scratch s;
+  int ftile;                   // nodes per finish_kernel starter tile
 };
 
 Scratch layout(int B, int P, int d, int m) {
@@ -385,9 +388,13 @@ __global__ void __launch_bounds__(NTP) prologue_kernel(Slots a, Dims D) {
 }
 
 // 2. Barrier decisions, start / re-poll: one block per (row, TN nodes).
-// Warp 0 owns the block's nodes, one thread each; the beta-sample's two
-// passes over the peer axis run one warp per deciding node, over all NWD
-// warps of the block.
+// Warps 0 and 1 own the block's nodes, one thread each; the beta-sample's
+// two passes over the peer axis run one warp per deciding node, over all
+// NWD warps of the block.  STAGE: the row's steps and alive flags (5 P
+// bytes) are copied into shared memory first; a row too long for a
+// block's shared memory is read from global memory instead (the prologue
+// wrote it; it stays in L2), the same loops on another pointer.
+template <bool STAGE>
 __global__ void __launch_bounds__(NTD, 4) decide_kernel(Slots a, Dims D) {
   extern __shared__ __align__(16) unsigned char dsm[];
   __shared__ int cand_idx[TN];
@@ -399,13 +406,19 @@ __global__ void __launch_bounds__(NTD, 4) decide_kernel(Slots a, Dims D) {
   if (!row_active(a, D, b)) return;      // the prologue wrote the row
   const size_t row = static_cast<size_t>(b) * P;
   const float te = D.t + D.eps;
-  int* steps_s = reinterpret_cast<int*>(dsm);
-  u8* alive_s = dsm + 4 * static_cast<size_t>(P);
-  for (int j = tid; j < P; j += NTD) {
-    steps_s[j] = I32(O_STEPS)[row + j];
-    alive_s[j] = U8(O_ALIVE)[row + j];
+  const int* steps_s = I32(O_STEPS) + row;
+  const u8* alive_s = U8(O_ALIVE) + row;
+  if (STAGE) {
+    int* st_s = reinterpret_cast<int*>(dsm);
+    u8* al_s = dsm + 4 * static_cast<size_t>(P);
+    for (int j = tid; j < P; j += NTD) {
+      st_s[j] = steps_s[j];
+      al_s[j] = alive_s[j];
+    }
+    steps_s = st_s;
+    alive_s = al_s;
+    __syncthreads();
   }
-  __syncthreads();
 
   const int* ri = SCR(int, rowi) + 2 * static_cast<size_t>(b);
   const float* rf = SCR(float, rowf) + 2 * static_cast<size_t>(b);
@@ -813,9 +826,12 @@ __global__ void __launch_bounds__(NTG, 2) grad_kernel(Slots a, Dims D) {
 
 // 5. Server update and pull: one block per (CT columns, row).  Adds the
 // partial sums in node-block order, updates w in place and writes the new
-// model into the starters' views in place.
+// model into the starters' views in place.  The row's starters are
+// listed in shared memory a tile of `D.ftile` nodes at a time: one tile
+// when the whole row fits, several for a row too long for the block's
+// shared memory.
 __global__ void __launch_bounds__(NTF) finish_kernel(Slots a, Dims D) {
-  extern __shared__ int slist[];                      // the row's starters
+  extern __shared__ int slist[];                      // a tile's starters
   __shared__ __align__(16) float ws[CT];
   __shared__ int wc[NWF];
   const int b = blockIdx.y, tid = threadIdx.x;
@@ -851,34 +867,38 @@ __global__ void __launch_bounds__(NTF) finish_kernel(Slots a, Dims D) {
     ws[tid] = v;
   }
   const u8* start = U8(O_START) + row;
-  int n_start = 0;
-  for (int base = 0; base < P; base += NTF) {
-    const int j = base + tid;
-    const bool s = j < P && start[j];
-    const unsigned bal = __ballot_sync(FULL, s);
-    __syncthreads();                     // wc may hold the previous round
-    if (lane == 0) wc[wid] = __popc(bal);
-    __syncthreads();
-    int off = n_start;
-    for (int w = 0; w < NWF; ++w) {
-      off += w < wid ? wc[w] : 0;
-      n_start += wc[w];
-    }
-    if (s) slist[off + __popc(bal & lanes_below())] = j;
-  }
-  __syncthreads();
   float* pulled = F32(PULLED);
   const bool vec = (d & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(pulled) & 15) == 0;
-  for (int q = wid; q < n_start; q += NWF) {
-    float* v = pulled + (row + slist[q]) * d + col0;
-    if (vec) {
-      if (col0 + 4 * lane < d)
-        reinterpret_cast<float4*>(v)[lane] =
-            reinterpret_cast<const float4*>(ws)[lane];
-    } else {
-      for (int cc = lane; cc < CT && col0 + cc < d; cc += 32) v[cc] = ws[cc];
+  for (int t0 = 0; t0 < P; t0 += D.ftile) {
+    const int tend = min(P, t0 + D.ftile);
+    int n_start = 0;
+    for (int base = t0; base < tend; base += NTF) {
+      const int j = base + tid;
+      const bool s = j < tend && start[j];
+      const unsigned bal = __ballot_sync(FULL, s);
+      __syncthreads();                   // wc may hold the previous round
+      if (lane == 0) wc[wid] = __popc(bal);
+      __syncthreads();
+      int off = n_start;
+      for (int w = 0; w < NWF; ++w) {
+        off += w < wid ? wc[w] : 0;
+        n_start += wc[w];
+      }
+      if (s) slist[off + __popc(bal & lanes_below())] = j;
     }
+    __syncthreads();
+    for (int q = wid; q < n_start; q += NWF) {
+      float* v = pulled + (row + slist[q]) * d + col0;
+      if (vec) {
+        if (col0 + 4 * lane < d)
+          reinterpret_cast<float4*>(v)[lane] =
+              reinterpret_cast<const float4*>(ws)[lane];
+      } else {
+        for (int cc = lane; cc < CT && col0 + cc < d; cc += 32) v[cc] = ws[cc];
+      }
+    }
+    __syncthreads();                     // slist is read before the next tile
   }
 }
 
@@ -886,6 +906,31 @@ cudaError_t smem_attr(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Dynamic shared memory a block of `fn` may opt into on `dev`: the
+// card's opt-in maximum less the kernel's static shared memory.  Read
+// once per (device, kernel) and kept.
+constexpr int MAX_DEV = 64;
+cudaError_t smem_room(const void* fn, int slot, int dev, size_t* room) {
+  static long long cache[2][MAX_DEV];    // 0 = not read yet
+  long long* c = dev < MAX_DEV ? &cache[slot][dev] : nullptr;
+  if (c && *c > 0) {
+    *room = static_cast<size_t>(*c - 1);
+    return cudaSuccess;
+  }
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess) return e;
+  const long long r =
+      max(0LL, static_cast<long long>(optin) -
+                   static_cast<long long>(fa.sharedSizeBytes));
+  if (c) *c = r + 1;
+  *room = static_cast<size_t>(r);
+  return cudaSuccess;
 }
 
 // Launches 3 and 4 for minibatches of at most MM rows.
@@ -920,7 +965,7 @@ extern "C" int psp_tick_launch(void** ptrs, const int* ints,
   for (int i = 0; i < N_SLOTS; ++i) a.p[i] = ptrs[i];
   Dims D{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6],
          ints[7], (ints[1] + PC - 1) / PC, floats[0], floats[1], floats[2],
-         layout(ints[0], ints[1], ints[2], ints[3])};
+         layout(ints[0], ints[1], ints[2], ints[3]), ints[1]};
   if (D.m > MAX_M || D.m < 1 || D.B < 1 || D.P < 1 || D.d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(ints[8]);
@@ -931,10 +976,18 @@ extern "C" int psp_tick_launch(void** ptrs, const int* ints,
   prologue_kernel<<<B, NTP, 0, s>>>(a, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
+  // the decisions stage the row (5 P bytes) when a block can hold it
+  const void* dk = reinterpret_cast<const void*>(decide_kernel<true>);
+  size_t room = 0;
+  if ((e = smem_room(dk, 0, ints[8], &room))) return static_cast<int>(e);
   const size_t smem_d = 5 * static_cast<size_t>(D.P);
-  if ((e = smem_attr(reinterpret_cast<const void*>(decide_kernel), smem_d)))
-    return static_cast<int>(e);
-  decide_kernel<<<dim3((D.P + TN - 1) / TN, B), NTD, smem_d, s>>>(a, D);
+  const dim3 grid_d((D.P + TN - 1) / TN, B);
+  if (smem_d <= room) {
+    if ((e = smem_attr(dk, smem_d))) return static_cast<int>(e);
+    decide_kernel<true><<<grid_d, NTD, smem_d, s>>>(a, D);
+  } else {
+    decide_kernel<false><<<grid_d, NTD, 0, s>>>(a, D);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
 
   if (D.m <= 8)
@@ -943,9 +996,13 @@ extern "C" int psp_tick_launch(void** ptrs, const int* ints,
     e = data_plane<MAX_M>(a, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  const size_t smem_f = 4 * static_cast<size_t>(D.P);
-  if ((e = smem_attr(reinterpret_cast<const void*>(finish_kernel), smem_f)))
-    return static_cast<int>(e);
+  // the pull lists a row's starters in tiles of as many nodes as fit
+  const void* fk = reinterpret_cast<const void*>(finish_kernel);
+  if ((e = smem_room(fk, 1, ints[8], &room))) return static_cast<int>(e);
+  D.ftile = static_cast<int>(min(static_cast<size_t>(D.P),
+                                  max(room / 4, static_cast<size_t>(NTF))));
+  const size_t smem_f = 4 * static_cast<size_t>(D.ftile);
+  if ((e = smem_attr(fk, smem_f))) return static_cast<int>(e);
   finish_kernel<<<dim3(ncol, B), NTF, smem_f, s>>>(a, D);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,9 @@ runs where JAX is not installed).  The fused tick: all nine static
 branch cases of ``chip_smoke.tick_problem``, 5 chained ticks each at
 ``chip_smoke.TICK_SIZES`` (``w`` and ``pulled`` updated in place, every
 other input unwritten, two runs bit for bit alike), and a tick in which
-every node finishes and starts.
+every node finishes and starts; and at ``chip_smoke.TICK_LONG`` (60,000
+nodes, past the kernel's shared-memory staging) its four long-row cases
+and the finish-and-start tick.
 The tick's control plane must match exactly; ``w``, ``pulled`` and
 ``pol_ema`` within rtol 1e-5, atol 1e-6·max(1, max|plain|), because the
 kernel sums the gradient in another order.  RMSNorm and flash
@@ -77,6 +79,26 @@ def test_cuda_tick_finish_and_start():
     dev = torch.device("cuda", 0)
     for size in smoke.TICK_SIZES:
         assert smoke.check_finish_start(np, torch, pt, dev, *size) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_cuda_tick_long_rows(case):
+    """Rows past the kernel's shared-memory staging
+    (``chip_smoke.TICK_LONG``: the decisions read the row from global
+    memory, the pull lists its starters in tiles): ``chip_smoke``'s long
+    branch cases, 3 chained ticks each, and a tick in which every node
+    finishes and starts, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import psp_tick as pt
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    smoke.check_tick_case(np, torch, pt, dev, smoke.LONG_CASES[case],
+                          *smoke.TICK_LONG, n_ticks=3)
+    if case == 0:
+        assert smoke.check_finish_start(np, torch, pt, dev,
+                                        *smoke.TICK_LONG) > 0
 
 
 @pytest.mark.cuda

@@ -206,3 +206,115 @@ def test_port_apis_are_documented():
                            "src/repro_torch"], cwd=root,
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---- the numpy backend: bit for bit the reference's ---------------------- #
+STRICT = {
+    "static": [(n, dict(n_nodes=12, dim=6, duration=3.0, seed=s,
+                        straggler_frac=0.25))
+               for n in FIVE for s in (1, 2)],
+    "adaptive": [(n, dict(n_nodes=16, dim=6, duration=3.0, seed=3))
+                 for n in ("dssp", "ebsp", "apbsp", "apssp", "pssp")],
+    "churn": [(n, dict(n_nodes=12, dim=6, duration=3.0, seed=s,
+                       churn_leave_rate=1.5, churn_join_rate=1.0))
+              for n, s in (("pssp", 1), ("bsp", 2), ("ebsp", 3),
+                           ("asp", 4), ("apssp", 5))],
+    "distributed": [(n, dict(n_nodes=16, dim=6, duration=3.0, seed=s,
+                             distributed_sampling=True))
+                    for n, s in (("pbsp", 1), ("pssp", 2), ("apbsp", 3))],
+    "dense-sample": [("pssp", dict(n_nodes=6, dim=4, duration=2.0, seed=s))
+                     for s in range(3)],
+    "mixed-groups": MIXED,
+}
+
+
+@pytest.mark.parametrize("group", sorted(STRICT))
+def test_numpy_backend_equals_reference(group):
+    """``run_sweep(backend="numpy")`` gives the reference's numpy results
+    field by field, dtypes included; ``MIXED`` splits into strict groups
+    on both sides."""
+    specs = STRICT[group]
+    ref = jvs.run_sweep(_configs(jsim, jbar, specs), backend="numpy")
+    port = tvs.run_sweep(_configs(tsim, tbar, specs), backend="numpy")
+    for (name, _), a, b in zip(specs, ref, port):
+        for f in ("steps", "times", "errors", "server_updates",
+                  "control_messages", "total_updates", "mean_progress",
+                  "final_error"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert type(x) is type(y) and np.asarray(x).dtype == \
+                np.asarray(y).dtype, (group, name, f)
+            np.testing.assert_array_equal(y, x, err_msg=f"{group} {name} {f}")
+
+
+def test_numpy_batch_state_equals_reference():
+    """One strict churn batch run by ``VectorSimulator.run``: the final
+    dynamic state (views, clocks, policy state) equals the reference's."""
+    specs = STRICT["churn"]
+    ref = jvs.VectorSimulator(_configs(jsim, jbar, specs), backend="numpy")
+    port = tvs.VectorSimulator(_configs(tsim, tbar, specs),
+                               backend="numpy")
+    ref.run(), port.run()
+    for k in ("w", "pulled", "steps", "alive", "computing", "event_time",
+              "ready", "blocked", "total_updates", "control_messages",
+              "pol_thr", "pol_ema", "pol_beta"):
+        np.testing.assert_array_equal(getattr(port, k), getattr(ref, k),
+                                      err_msg=k)
+    assert port.rng.random() == ref.rng.random()   # the stream's position
+
+
+def test_numpy_backend_rejects_ragged_batches_and_devices():
+    """A heterogeneous numpy batch raises, as the reference's does; the
+    numpy backend takes no device; an unknown backend raises."""
+    with pytest.raises(ValueError, match="heterogeneous"):
+        jvs.VectorSimulator(_configs(jsim, jbar, MIXED), backend="numpy")
+    with pytest.raises(ValueError, match="heterogeneous"):
+        tvs.VectorSimulator(_configs(tsim, tbar, MIXED), backend="numpy")
+    cfgs = _configs(tsim, tbar, STRICT["static"][:1])
+    with pytest.raises(ValueError, match="takes no device"):
+        tvs.run_sweep(cfgs, backend="numpy", device="cpu")
+    with pytest.raises(ValueError, match="takes no device"):
+        tvs.VectorSimulator(cfgs, backend="numpy").run(device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tvs.run_sweep(cfgs, backend="jax")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tvs.VectorSimulator(cfgs, backend="jax")
+    assert tvs.BACKENDS == ("torch", "numpy")
+
+
+def test_torch_backend_run_method_matches_run_sweep():
+    """``VectorSimulator(...).run(device="cpu")`` is the torch path that
+    ``run_sweep`` takes for one merged group."""
+    cfgs = _configs(tsim, tbar, MIXED[:2])
+    a = tvs.VectorSimulator(cfgs).run(device="cpu")
+    b = tvs.run_sweep(cfgs, device="cpu")
+    for x, y in zip(a, b):
+        assert x.steps.tolist() == y.steps.tolist()
+        assert x.errors.tobytes() == y.errors.tobytes()
+
+
+def test_env_flag_and_table_follow_reference(monkeypatch):
+    """``flag`` (set-and-nonempty is true) and ``markdown_table`` read
+    like the reference's accessors, over either package's registry."""
+    from repro.core import env as jenv
+    from repro_torch.core import env as tenv
+    shared = {k: v for k, v in jenv.REGISTRY.items()}
+    monkeypatch.setattr(tenv, "REGISTRY", {
+        k: tenv.EnvVar(v.name, v.kind, v.default, v.help)
+        for k, v in shared.items()})
+    assert tenv.markdown_table() == jenv.markdown_table()
+    for value, want in (("1", True), ("0", True), ("", False)):
+        monkeypatch.setenv("PSP_REGEN_GOLDEN", value)
+        assert tenv.flag("PSP_REGEN_GOLDEN") is want \
+            is jenv.flag("PSP_REGEN_GOLDEN")
+    monkeypatch.delenv("PSP_REGEN_GOLDEN")
+    assert tenv.flag("PSP_REGEN_GOLDEN") is False
+    with pytest.raises(KeyError, match="not a registered"):
+        tenv.flag("PSP_NOPE")
+    monkeypatch.undo()
+    rows = tenv.markdown_table().splitlines()
+    assert rows[:2] == ["| variable | type | default | meaning |",
+                        "|---|---|---|---|"]
+    assert len(rows) == 2 + len(tenv.REGISTRY)
+    assert all(f"`{name}`" in row
+               for name, row in zip(tenv.REGISTRY, rows[2:]))
+    assert "\\|" in rows[2]         # PSP_TICK_IMPL's pipes are escaped
