@@ -41,14 +41,16 @@ Phases (any failure exits non-zero before the final line):
    {64, 100, 896, 1536, 3072} × its two forms (``round_scale``; D 100 in
    bfloat16 takes the kernel's scalar path), and the scalar path once
    more on a row that is not 16-byte aligned; flash over {causal,
-   + window 256, + softcap 50} × GQA {1, 7} × S {1, 37, 512, 1000} × hd
-   {64, 128} (bfloat16 on the tensor cores, float32 on the CUDA cores);
+   + window 256, + softcap 50, + both} × GQA {1, 7} × S {1, 37, 512,
+   1000} × hd {64, 80, 128} (bfloat16 on the tensor cores, hd 80 in the
+   hd-128 tiling; float32 on the CUDA cores);
    both in float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and
    bfloat16 (rtol / atol 2e-2).  Count the tensor-core instructions
    (``HGMMA``, ``HMMA``) in the built flash and SSD libraries' SASS
-   (``cuobjdump -sass``): the bfloat16 flash kernel and both bfloat16
-   SSD kernels must have some.  A bfloat16 flash call whose strides TMA
-   cannot take must raise.  SSD over S {64, 128, 512} × groups {1, 2} of
+   (``cuobjdump -sass``): the bfloat16 flash kernel's instantiation for
+   each hd must have ``HGMMA``, both bfloat16 SSD kernels some.  A
+   bfloat16 flash call whose strides TMA cannot take must raise.  SSD
+   over S {64, 128, 512} × groups {1, 2} of
    4 heads × N {64, 128} at hd 64, then ``SSD_EXTRA`` (the serving
    prefill, 32 chunks, a head tile that does not divide the group, hd 16
    with N and Q not multiples of 16), each × decay {slow: dt·A ∈ [−0.1,
@@ -80,8 +82,10 @@ Phases (any failure exits non-zero before the final line):
 7. The mamba2-780m serving path, as phase 6 with the same traffic: SSD
    must run 48 times per prefill call, RMSNorm 97 times per prefill call
    and decode step, flash never; the same teacher-forced checks.
-8. PSP training of qwen2-0.5b at full width (494,032,768 f32 params,
-   bf16 compute), built from the library calls ``repro_torch.launch.train``
+8. PSP training of qwen2-0.5b at full width, its depth cut to
+   ``TRAIN_LAYERS`` = 12 of 24 layers since PR 23 (315,084,160 f32 params,
+   bf16 compute; phase 9 trains all 24), built from the library calls
+   ``repro_torch.launch.train``
    makes (``init_model``, ``adamw(warmup_cosine(3e-3, 3, 24))``,
    ``psp_init``, ``make_psp_train_step``): W 4, ``pbsp``, β 2, s 3,
    stragglers 0.25, 2 sequences of 512 tokens per worker per tick (drawn
@@ -92,9 +96,10 @@ Phases (any failure exits non-zero before the final line):
    loss likewise), and in float32 compute (the f32 kernels) ‖Δg‖/‖g‖
    within 1e-3 and the loss within 1e-5 relative; the control plane after tick 0 (step, pushed, alive,
    total_pushes, busy_until, now) bit for bit the plain trainer's; the
-   launches exactly 2·24·W per tick for the flash forward (remat
-   recomputes it), 24·W for its backward, 97·W for the RMSNorm forward
-   and 49·W for its backward; the mean loss over the last 4 pushing ticks
+   launches exactly 2·L·W per tick for the flash forward (remat
+   recomputes it, L the layers), L·W for its backward, (4L + 1)·W for the
+   RMSNorm forward and (2L + 1)·W for its backward; the mean loss over the
+   last 4 pushing ticks
    below that over the first 4.  Prints the wall per tick and training
    tokens/s over ticks 2..24 (their summed wall over their count, all
    their tokens over that wall; the median beside), the busy share of one traced tick with its ten largest
@@ -137,18 +142,20 @@ Phases (any failure exits non-zero before the final line):
     replayed through ``external_drive`` on the card must give its final
     params bit for bit.  Prints the recovery latency.  It runs no model
     kernel.
-12. PSP training of mamba2-780m at full width (780,148,992 f32 params,
-    bf16 compute, remat on), as phase 8 trains qwen2-0.5b: the same PSP
-    settings, token pool and 24 ticks, the same checks (tick 0 against
-    the plain path; also leaf by leaf, each leaf's max |Δg| over its max
-    |g|: in bf16 compute within the largest such deviation that bf16
-    rounding gives a leaf of the plain path against float32 compute, or
-    2e-2; in float32 compute within 1e-3; the control plane; the loss
-    falling) and the same report, with the SSD backward's share of the
-    traced tick's device time.  Launches exact per tick: the SSD forward
-    2·48·W (remat recomputes it), its backward 48·W, RMSNorm 193·W and
-    its backward 97·W.  Then ``repro_torch.launch.train --arch
-    mamba2-780m --reduced --barrier pbsp`` on the card.
+12. PSP training of mamba2-780m at full width, its depth cut to
+    ``MAMBA_TRAIN_LAYERS`` = 12 of 48 layers since PR 23 (252,960,960 f32
+    params, bf16 compute, remat on), as phase 8 trains qwen2-0.5b: the
+    same PSP settings, token pool and 24 ticks, the same checks (tick 0
+    against the plain path; also leaf by leaf, each leaf's max |Δg| over
+    its max |g|: in bf16 compute within the largest such deviation that
+    bf16 rounding gives a leaf of the plain path against float32
+    compute, or 2e-2; in float32 compute within 1e-3; the control plane;
+    the loss falling) and the same report, with the SSD backward's share
+    of the traced tick's device time.  Launches exact per tick: the SSD
+    forward 2·L·W (remat recomputes it), its backward L·W, RMSNorm
+    (4L + 1)·W and its backward (2L + 1)·W.  Then
+    ``repro_torch.launch.train --arch mamba2-780m --reduced --barrier
+    pbsp`` on the card.
 
 13. The rest of the paper (``repro_torch.bench``) on the card.  (a)
     Every figure of the harness (``bench.run.BENCHES`` but the sweep
@@ -171,18 +178,42 @@ Phases (any failure exits non-zero before the final line):
     100,000, d 4, m 2, β 1) held to the plain version over 3 chained
     ticks and timed beside its bound, as phase 2 times the paper shape.
 
+14. The sliding-window and local/global decoders (``LOCAL_SERVE``), each
+    served as phase 6 serves qwen2-0.5b, with the same checks (exact
+    launches: flash once per attention layer, ``attn`` or ``local``, per
+    prefill call; RMSNorm two per layer, four with gemma2's post-norms,
+    and the final one per forward; every served token teacher-forced;
+    the plain path's logits within phase 6's bounds) and, for models with
+    ``local`` layers, the ring check (``ring_check``: layer 0's ring after
+    a prefill holds position p at slot p % w, bit for bit):
+    qwen1.5-4b at full width and depth (40 layers, 3.95 B params; MHA of
+    20 heads with QKV bias at hd 128, untied unembedding) on phase 6's
+    traffic; h2o-danube-1.8b at full width and depth (24 layers, window
+    4096, hd 80, 32 / 8 heads) at max_len 8192 on 4 requests of 6144
+    random tokens + 64 new (the prefill rolls the ring, decode wraps it),
+    then 4 of 1024 + 64 (a ring padded with zeros); gemma2-27b at full
+    width cut to 8 layers (4 local / global pairs; fused QKV, both
+    softcaps, post-norms, the gemma norm, GeGLU, ``embed_scale``) on
+    danube's first wave.  Then h2o-danube-1.8b at full width cut to 8
+    layers trained under PSP as phase 8 trains qwen2 (W 4, ``pbsp``, β 2,
+    s 3, stragglers 0.25) for 8 ticks on AdamW with
+    ``warmup_cosine(3e-3, 3, 8)``, 2 sequences of 6144 tokens per worker
+    per tick (past the window: the flash backward runs the band), with
+    phase 8's checks (the loss falling over the first and last two
+    pushing ticks).
+
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
-FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 128} ×
+FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 80, 128} ×
 {float32, bfloat16} on
 the plain forward's o and lse (float32 rtol 1e-4, atol 1e-5·max(1,
 max|plain|); bfloat16 2e-2·max|plain|, but at S 1, where dq and dk are
 exactly 0 and both versions return rounding noise, dq and dk at the
 float32 tolerance), with the forward kernel's lse against the plain
 one and its o unchanged by writing lse; the bfloat16 backward's two
-tensor-core kernels must show ``HGMMA`` in their SASS, and a q off a
-16-byte boundary must raise; RMSNorm over rows {7, 1024, 4099} × D {64, 100, 896,
-3072, 12288} and an unaligned row (dx in bfloat16 within one bf16 ulp,
+tensor-core kernels must show ``HGMMA`` in their SASS at every hd, and a
+q off a 16-byte boundary must raise; RMSNorm over rows {7, 1024, 4099} ×
+D {64, 100, 896, 3072, 12288} and an unaligned row (dx in bfloat16 within one bf16 ulp,
 dw at the float32 tolerance); the SSD backward over the forward's SSD
 grid (64 cases; the kernel on the kernel forward's cum and states, the
 plain version on the plain forward's; the final state's cotangent random
@@ -196,12 +227,16 @@ from ``ssd_scan.bwd_bytes`` / ``bwd_flops``; flash backward B 2, S 512,
 against their plain versions and the backward of
 ``scaled_dot_product_attention`` / ``F.rms_norm`` through autograd, and
 the flash forward with and without its lse output at the serving
-prefill.
+prefill; then the flash forward and backward at h2o-danube-1.8b's
+shapes (``phase5_danube``: hd 80, 32 / 8 heads, window 4096; the
+forward at B 4, S 6144, the backward at B 2, S 6144) against their plain
+versions and SDPA with the band as a boolean mask, beside the bound of
+the band's FLOPs.
 
 Then one JSON line with each kernel's launches (summed over the main
-paths: the sweep, both serving runs, both training runs, the loop's
-server and trainer, the resumed runs, and phase 13's figures, bench and
-100k pair), error and
+paths: the sweep, the serving runs, the training runs, the loop's
+server and trainer, the resumed runs, phase 13's figures, bench and
+100k pair, and phase 14's four serving runs and training run), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -262,10 +297,12 @@ RMS_ROWS = (1, 7, 2048, 4099)
 RMS_DIMS = (64, 100, 896, 1536, 3072)  # 100: not a multiple of 8
 ROUND_SCALE = (False, True)
 FLASH_MODES = (("causal", {}), ("window256", {"window": 256}),
-               ("softcap50", {"softcap": 50.0}))
+               ("softcap50", {"softcap": 50.0}),
+               ("window256_softcap50", {"window": 256, "softcap": 50.0}))
 FLASH_GQA = (1, 7)
 FLASH_SEQ = (1, 37, 512, 1000)
-FLASH_HEAD_DIMS = (64, 128)
+#: 80: h2o-danube-1.8b's, in the hd-128 tiling
+FLASH_HEAD_DIMS = (64, 80, 128)
 #: phase 5's timed shapes: RMSNorm rows at d_model 896 (4 prompts of 512,
 #: then a decode step of 4), flash (B, S) at 14 heads / 2 KV heads / hd 64
 #: (the serving prefill, then a long one); the first of each goes into
@@ -333,11 +370,20 @@ BWD_F32 = (1e-4, 1e-5)
 #: 14 heads / 2 KV heads / hd 64, bf16 causal; RMSNorm (rows, D) bf16
 FLASH_BWD_TIMED = (2, 512)
 RMS_BWD_TIMED = (1024, 896)
+#: the flash pair timed at h2o-danube-1.8b's shapes (32 / 8 heads, hd
+#: 80, window 4096, bf16): the forward at the serving prefill (B, S), the
+#: backward at the training shape
+DANUBE_HEADS, DANUBE_WINDOW = (32, 8, 80), 4096
+DANUBE_PREFILL, DANUBE_TRAIN = (4, 6144), (2, 6144)
 #: phase 8: PSP training of full-width qwen2-0.5b (W workers, B sequences
 #: of S tokens each per tick, drawn from a pool of POOL fixed sequences);
-#: phase 12 trains MAMBA_TRAIN_ARCH the same way
+#: phase 12 trains MAMBA_TRAIN_ARCH the same way; both at full width with
+#: the depth cut to TRAIN_LAYERS and MAMBA_TRAIN_LAYERS (of 24 and 48),
+#: so that the script, phase 14 included, keeps inside its time limit
+#: (phase 9 trains qwen2-0.5b at full depth)
 TRAIN_ARCH = "qwen2-0.5b"
 MAMBA_TRAIN_ARCH = "mamba2-780m"
+TRAIN_LAYERS, MAMBA_TRAIN_LAYERS = 12, 12
 TRAIN_TICKS = 24
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
 #: phase 8's reduced launcher runs on the card, each (module of
@@ -380,6 +426,30 @@ RESUME_LAYERS, RESUME_TICKS = 2, 6
 #: phase 11: the multi-process cluster on the card at the paper's d
 CLUSTER_WORKERS, CLUSTER_TICKS, CLUSTER_DIM, CLUSTER_BATCH = 3, 30, 1000, 16
 CLUSTER_PLAN, CLUSTER_MIN_WALL = "kill-one", 0.75
+#: phase 14: the sliding-window and local/global decoders served at full
+#: width (batch 4, greedy, seeded random weights, bf16): qwen1.5-4b on
+#: phase 6's traffic; h2o-danube-1.8b (window 4096) on one wave of
+#: prompts past the window (its prefill rolls the ring, its decode wraps
+#: it), then one shorter than it, at max_len 8192; gemma2-27b cut to
+#: GEMMA_LAYERS layers (4 local / global pairs) on danube's first wave
+WINDOW_TRAFFIC = ["--requests", "4", "--batch", "4", "--max-len", "8192",
+                  "--max-new", "64", "--seed", "0"]
+GEMMA_LAYERS = 8
+LOCAL_SERVE = (
+    ["--arch", "qwen1.5-4b", *TRAFFIC],
+    ["--arch", "h2o-danube-1.8b", *WINDOW_TRAFFIC, "--prompt-len", "6144"],
+    ["--arch", "h2o-danube-1.8b", *WINDOW_TRAFFIC, "--prompt-len", "1024"],
+    ["--arch", "gemma2-27b", "--n-layers", str(GEMMA_LAYERS),
+     *WINDOW_TRAFFIC, "--prompt-len", "6144"],
+)
+#: then h2o-danube-1.8b trained under PSP as phase 8 trains qwen2, at full
+#: width with its depth cut to LOCAL_TRAIN_LAYERS: LOCAL_TRAIN_TICKS ticks
+#: of sequences of LOCAL_TRAIN_S tokens (past the window), AdamW on
+#: warmup_cosine(3e-3, LOCAL_TRAIN_WARMUP, LOCAL_TRAIN_TICKS), the loss
+#: falling over the first and last LOCAL_TRAIN_FALL pushing ticks
+LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 8
+LOCAL_TRAIN_TICKS, LOCAL_TRAIN_S, LOCAL_TRAIN_WARMUP = 8, 6144, 3
+LOCAL_TRAIN_FALL = 2
 
 
 def smi() -> str:
@@ -713,11 +783,14 @@ def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
             torch.from_numpy(w).to(dev))
 
 
-def flash_inputs(np, torch, B, S, H, KV, hd, dtype, dev, seed=0):
-    """q (B, S, H, hd) and k, v (B, S, KV, hd) in ``dtype``, from numpy."""
+def flash_inputs(np, torch, B, S, H, KV, hd, dtype, dev, seed=0,
+                 q_only=False):
+    """q (B, S, H, hd) and k, v (B, S, KV, hd) in ``dtype``, from numpy;
+    with ``q_only`` the q alone (the same values: q is drawn first)."""
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(
-        np.float32)).to(dev, getattr(torch, dtype)) for n in (H, KV, KV))
+        np.float32)).to(dev, getattr(torch, dtype))
+        for n in ((H,) if q_only else (H, KV, KV)))
 
 
 def ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dtype, dev, seed=0):
@@ -740,20 +813,32 @@ def ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dtype, dev, seed=0):
             t(Cm, td))
 
 
+def _f64(torch, x):
+    """x in float64 on its own device (compared there, not on the host)."""
+    return x.to(torch.float64)
+
+
+def _max_abs(torch, x) -> float:
+    """max |x| (0 for an empty x)."""
+    return float(x.abs().max()) if x.numel() else 0.0
+
+
 def check_close(np, got, want, dtype, what, f32=(1e-5, 1e-6)):
     """Max |got - want|; raises beyond the stated tolerance (float32:
     rtol ``f32[0]``, atol ``f32[1]``·max(1, max|want|), by default 1e-5
-    and 1e-6; bfloat16: 2e-2 both)."""
+    and 1e-6; bfloat16: 2e-2 both).  Compared in float64 on the tensors'
+    device (``torch.allclose``: |got − want| <= atol + rtol·|want|, NaN
+    never close)."""
+    import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
                              f"{want.dtype}{tuple(want.shape)}")
-    a = want.float().cpu().numpy().astype(np.float64)
-    b = got.float().cpu().numpy().astype(np.float64)
-    scale = max(1.0, float(np.abs(a).max(initial=0.0)))
+    a, b = _f64(torch, want), _f64(torch, got)
+    scale = max(1.0, _max_abs(torch, a))
     rtol, atol = ((f32[0], f32[1] * scale) if dtype == "float32"
                   else (2e-2, 2e-2))
-    err = float(np.abs(a - b).max(initial=0.0))
-    if not np.allclose(b, a, rtol=rtol, atol=atol):
+    err = _max_abs(torch, a - b)
+    if not torch.allclose(b, a, rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: max |diff| {err}")
     return err
 
@@ -836,6 +921,23 @@ def timed_rounds(torch, fns):
             f"{before} → {sm_clock()}")
 
 
+def event_rounds(torch, fns):
+    """:func:`timed_rounds` by CUDA events (:func:`time_calls`) instead of
+    the profiler: for calls of milliseconds, where the profiler was seen
+    to drop some of a run's kernel records (PERF.md §7)."""
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    before = sm_clock()
+    got = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            fn, calls = fns[name]
+            got[name].append(time_calls(torch, fn, calls))
+    return ({name: (sum(r) / 2, tuple(r), "events")
+             for name, r in got.items()}, f"{before} → {sm_clock()}")
+
+
 def rounds_text(ms) -> str:
     """``name mean ms (round 1 / round 2, how)`` for each timed entry."""
     return ", ".join(f"{k} {v[0]:.4f} ms ({v[1][0]:.4f} / {v[1][1]:.4f}, "
@@ -879,14 +981,15 @@ def phase5(np, torch, dev, card):
           + ", ".join(f"{dt} {e:.3g}" for dt, e in err_fl.items()),
           flush=True)
     sass = tensor_core_sass(_build._target("flash_attention"))
-    tc = {op: sum(c[op] for fn, c in sass.items() if "flash_tc_kernel" in fn)
-          for op in ("HGMMA", "HMMA")}
     print("[5] flash library SASS: " + "; ".join(
         f"{fn[:60]}… HGMMA {c['HGMMA']}, HMMA {c['HMMA']}"
         for fn, c in sorted(sass.items())), flush=True)
-    if not (tc["HGMMA"] or tc["HMMA"]):
-        raise AssertionError("the bf16 flash kernel has no tensor-core "
-                             f"instruction in its SASS: {tc}")
+    tc = hgmma_by_hd(sass, ("flash_tc_kernel",))
+    print("[5] the bf16 flash forward's HGMMA by head dim: " + ", ".join(
+        f"{k} {n}" for k, n in tc.items()), flush=True)
+    if not all(tc.values()):
+        raise AssertionError("a bf16 flash forward instantiation has no "
+                             f"HGMMA in its SASS: {tc}")
     q, k, v = flash_inputs(np, torch, 1, 64, 14, 2, 64, "bfloat16", dev)
     bad = torch.zeros(1, 64, 14 * 64 + 4, dtype=torch.bfloat16, device=dev)
     bad = bad[..., :14 * 64].unflatten(-1, (14, 64))  # seq stride 900
@@ -1144,7 +1247,6 @@ def phase5_ssd_bwd(np, torch, dev, card):
     """The SSD backward kernels against their plain version over the
     forward's case grid, then timed at mamba2-780m's training shape.
     Returns its JSON entry without ``launches``."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import (bwd_bytes, bwd_flops,
                                               ssd_bwd_cuda, ssd_bwd_ref,
                                               ssd_cuda, ssd_ref)
@@ -1176,7 +1278,8 @@ def phase5_ssd_bwd(np, torch, dev, card):
     flops = bwd_flops(B, S, nh, ng, hd, N)
     nbytes = bwd_bytes(B, S, nh, ng, hd, N, 2, split=True)
     t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
-    calls = train_launches(get_config(MAMBA_TRAIN_ARCH))["ssd_scan_bwd"]
+    calls = train_launches(train_config(MAMBA_TRAIN_ARCH,
+                                        MAMBA_TRAIN_LAYERS))["ssd_scan_bwd"]
     print(f"[5] ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
           f"(the training shape; {calls * TRAIN_W} calls per tick): "
           + rounds_text(ms)
@@ -1204,13 +1307,25 @@ def flash_bwd_cases():
                              FLASH_HEAD_DIMS, DTYPES)
 
 
+def hgmma_by_hd(sass, names):
+    """``HGMMA`` counts of the kernels ``names`` in :func:`tensor_core_sass`
+    counts, per instantiation for each head dim of FLASH_HEAD_DIMS (the
+    first template argument, ``ILi<hd>E`` in the mangled name), keyed
+    ``name<hd>``; 0 where an instantiation is missing."""
+    out = {}
+    for name in names:
+        for hd in FLASH_HEAD_DIMS:
+            out[f"{name}<{hd}>"] = sum(
+                c["HGMMA"] for fn, c in sass.items()
+                if name in fn and re.search(rf"{name}ILi{hd}E", fn))
+    return out
+
+
 def flash_bwd_sass(lib):
     """``HGMMA`` counts of the bf16 backward's tensor-core kernels
-    (``FLASH_BWD_TC``) in the flash library ``lib``, summed over their
-    instantiations; raises if either has none."""
-    sass = tensor_core_sass(lib)
-    counts = {name: sum(c["HGMMA"] for fn, c in sass.items() if name in fn)
-              for name in FLASH_BWD_TC}
+    (``FLASH_BWD_TC``) in the flash library ``lib``, per head dim
+    (:func:`hgmma_by_hd`); raises if an instantiation has none."""
+    counts = hgmma_by_hd(tensor_core_sass(lib), FLASH_BWD_TC)
     if not all(counts.values()):
         raise AssertionError("a bf16 flash backward kernel has no HGMMA in "
                              f"its SASS: {counts}")
@@ -1232,16 +1347,16 @@ def check_bwd(np, got, want, dtype, what):
     """Max |got - want| of a backward output; raises beyond float32 rtol
     ``BWD_F32[0]``, atol ``BWD_F32[1]``·max(1, max|want|), or in bfloat16
     beyond 2e-2·max|want|."""
+    import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} != "
                              f"{want.dtype}{tuple(want.shape)}")
-    a = want.float().cpu().numpy().astype(np.float64)
-    b = got.float().cpu().numpy().astype(np.float64)
-    top = float(np.abs(a).max(initial=0.0))
+    a, b = _f64(torch, want), _f64(torch, got)
+    top = _max_abs(torch, a)
     rtol, atol = ((BWD_F32[0], BWD_F32[1] * max(1.0, top))
                   if dtype == "float32" else (0.0, 2e-2 * top))
-    err = float(np.abs(a - b).max(initial=0.0))
-    if not np.allclose(b, a, rtol=rtol, atol=atol):
+    err = _max_abs(torch, a - b)
+    if not torch.allclose(b, a, rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: max |diff| {err} (max |plain| {top})")
     return err
 
@@ -1259,7 +1374,7 @@ def check_flash_bwd(np, torch, case, dev, seed):
     (mode, kw), G, S, hd, dt = case
     q, k, v = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev, seed)
     do = flash_inputs(np, torch, 2, S, 2 * G, 2, hd, dt, dev,
-                      seed + 1000)[0]
+                      seed + 1000, q_only=True)[0]
     what = f"flash bwd {mode} G={G} S={S} hd={hd} {dt}"
     o, lse = attention_ref(q, k, v, causal=True, return_lse=True, **kw)
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, **kw)
@@ -1395,7 +1510,9 @@ def phase5_bwd(np, torch, dev, card):
               + sum(t.numel() * t.element_size() for t in (q, k, v)))
     t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
     print(f"[5] flash backward B={B} S={S} H=14 KV=2 hd=64 bf16 causal "
-          f"(the training shape; {24 * TRAIN_W} calls per tick): "
+          f"(the training shape; "
+          f"{train_launches(train_config())['flash_attention_bwd'] * TRAIN_W}"
+          " calls per tick): "
           + rounds_text(ms)
           + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP "
           f"at the bf16 tensor-core rate, {nbytes / 1e6:.2f} MB); kernel at "
@@ -1428,7 +1545,8 @@ def phase5_bwd(np, torch, dev, card):
               + 2 * D * 4)
     bound = 1e3 * nbytes / HBM_BPS
     print(f"[5] rmsnorm backward ({rows}, {D}) bf16 (the training shape; "
-          f"{49 * TRAIN_W} calls per tick): " + rounds_text(ms)
+          f"{train_launches(train_config())['rmsnorm_bwd'] * TRAIN_W} calls "
+          "per tick): " + rounds_text(ms)
           + f"; bound {bound:.4f} ms ({nbytes / 1e6:.3f} MB); library: "
           f"F.rms_norm's backward through autograd; inputs rotated over "
           f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
@@ -1439,6 +1557,98 @@ def phase5_bwd(np, torch, dev, card):
           "plain_ms": ms["plain"][0], "bound_ms": bound, "bound_by": "bytes",
           "library_ms": ms["library"][0]}
     return [fl, rn]
+
+
+def band_pairs(S, window):
+    """The (query, key) pairs a causal window of ``window`` keys sees in
+    a sequence of S: sum over queries i of min(i + 1, window)."""
+    w = min(S, window)
+    return w * (w + 1) // 2 + (S - w) * window
+
+
+def phase5_danube(np, torch, dev, card):
+    """The flash forward and backward at h2o-danube-1.8b's shapes (hd 80,
+    window 4096): the forward at the serving prefill, the backward at the
+    training shape, each held to its plain version there (``check_close``
+    and ``check_bwd``'s bf16 tolerances) and timed against it and SDPA
+    with K/V repeated to the query heads and the band as a boolean mask
+    (its backward through autograd), by CUDA events in mirrored rounds
+    (:func:`event_rounds`), beside the bound: the band's FLOPs at the
+    bf16 tensor-core rate against the bytes (inputs once, outputs once).
+    Returns (forward ms, backward ms) of the kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda,
+        flash_attention_cuda)
+    H, KV, hd = DANUBE_HEADS
+    w = DANUBE_WINDOW
+    G = H // KV
+    out = []
+    for what, (B, S) in (("forward", DANUBE_PREFILL),
+                         ("backward", DANUBE_TRAIN)):
+        q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
+        pos = torch.arange(S, device=dev)
+        band = ((pos[:, None] >= pos[None, :])
+                & (pos[:, None] - pos[None, :] < w))
+        rep = lambda t: t.repeat_interleave(G, dim=2).transpose(1, 2)
+        pairs = band_pairs(S, w)
+        if what == "forward":
+            err = check_close(np, flash_attention_cuda(q, k, v, window=w),
+                              attention_ref(q, k, v, window=w), "bfloat16",
+                              f"flash at danube's prefill shape")
+            kernel = lambda: flash_attention_cuda(*nxt(), window=w)
+            nxt, n_sets = rotating((q, k, v))
+            lib_in = (q.transpose(1, 2), rep(k), rep(v))
+            fns = {"kernel": (kernel, 5),
+                   "plain": (lambda: attention_ref(*nxt(), window=w), 2),
+                   "library": (lambda: F.scaled_dot_product_attention(
+                       *lib_in, attn_mask=band), 5)}
+            flops = 4 * B * H * hd * pairs            # S·Kᵀ and P·V
+            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        else:
+            do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev,
+                              1)[0]
+            o, lse = attention_ref(q, k, v, window=w, return_lse=True)
+            err = max(check_bwd(np, g, r, "bfloat16",
+                                f"flash bwd at danube's training shape {n}")
+                      for n, g, r in zip(
+                          "dq dk dv".split(),
+                          flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                   window=w),
+                          attention_bwd_ref(q, k, v, o, lse, do, window=w)))
+            kernel = lambda: flash_attention_bwd_cuda(*nxt(), window=w)
+            nxt, n_sets = rotating((q, k, v, o, lse, do))
+            leaves = [q.transpose(1, 2).detach().requires_grad_(True),
+                      rep(k).detach().requires_grad_(True),
+                      rep(v).detach().requires_grad_(True)]
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+            dout = do.transpose(1, 2)
+            fns = {"kernel": (kernel, 5),
+                   "plain": (lambda: attention_bwd_ref(*nxt(), window=w),
+                             2),
+                   "library": (lambda: torch.autograd.grad(
+                       lib_out, leaves, dout, retain_graph=True), 5)}
+            flops = 10 * B * H * hd * pairs           # five band products
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (q, k, v, o, lse, do, q, k, v))
+        ms, clocks = event_rounds(torch, fns)
+        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+        print(f"[5] flash {what} at h2o-danube-1.8b's shape B={B} S={S} "
+              f"H={H} KV={KV} hd={hd} bf16 causal window {w} (kernel == "
+              f"plain there, max |err| {err:.3g}): " + rounds_text(ms)
+              + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
+              f"GFLOP over the band's {pairs} (query, key) pairs at the bf16 "
+              f"tensor-core rate, {nbytes / 1e6:.2f} MB at "
+              f"{t_bytes:.4f} ms); kernel at "
+              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library (SDPA, "
+              f"K/V repeated, the band as a boolean mask) at "
+              f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+              f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+        out.append(ms["kernel"][0])
+        del fns, nxt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return tuple(out)
 
 
 def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
@@ -1456,12 +1666,58 @@ def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
     return torch.stack(steps)
 
 
+def ring_check(np, torch, run, a, tag):
+    """The ring of the first ``local`` layer (layer 0, whose keys and
+    values depend on the prompt alone) after a prefill of the first
+    wave's prompts on the kernels: slot p % w holds position p's key and
+    value for the last w positions, bit for bit the layer's own
+    projection of the prompt; a prompt shorter than w leaves the slots
+    past it zero."""
+    from repro_torch.models import prefill
+    from repro_torch.models.attention import _project
+    from repro_torch.models.layers import (apply_rope, embed_tokens,
+                                           rmsnorm, rope_angles)
+    model, cfg = run.model, run.cfg
+    if cfg.layer_kinds()[0] != "local":
+        raise AssertionError(f"{cfg.name}: layer 0 is not local")
+    dev = model.embed.device
+    toks = torch.from_numpy(np.stack(run.prompts[:a.batch])).to(dev)
+    B, S = toks.shape
+    w = cfg.sliding_window
+    with torch.no_grad():
+        _, cache = prefill(model, toks, max_len=a.max_len)
+        blk = model.blocks[0]
+        x = embed_tokens(model.embed, toks, cfg)
+        h = rmsnorm(x, blk.ln1, cfg.norm_eps, cfg.gemma_norm)
+        _, k, v = _project(blk.weights(x.dtype)["attn"], h, cfg)
+        k = apply_rope(k, *rope_angles(torch.arange(S, device=dev),
+                                       cfg.head_dim, cfg.rope_theta))
+    pos = torch.arange(max(0, S - w), S, device=dev)
+    for name, t in (("k", k), ("v", v)):
+        ring = cache["layers"][0][name]
+        if ring.shape[1] != w:
+            raise AssertionError(f"ring of {ring.shape[1]} slots, want {w}")
+        if not torch.equal(ring[:, pos % w], t[:, pos].to(ring.dtype)):
+            raise AssertionError(f"ring {name}: slot p % {w} does not hold "
+                                 "position p")
+        if S < w and ring[:, S:].any():
+            raise AssertionError(f"ring {name}: slots past the prompt are "
+                                 "not zero")
+    print(f"[{tag}] ring check: layer 0's {w}-slot ring after a prefill of "
+          f"{B} × {S} tokens holds positions {int(pos[0])}..{S - 1} at slot "
+          f"p % {w}, bit for bit its projection of the prompt"
+          + (f"; slots {S}..{w - 1} zero" if S < w else
+             f" ({S % w} slots rolled)"), flush=True)
+    del cache
+
+
 def serve_phase(np, torch, dev, card, argv, tag):
     """A serving path on the card, printed as phase ``tag``: serve
     ``argv`` through ``repro_torch.launch.serve`` with every model
-    kernel's launch count reset just before and read just after, trace a
-    rerun, and teacher-force the served tokens.  Returns the launch counts
-    by kernel name."""
+    kernel's launch count reset just before and read just after, check
+    the ring of a model with ``local`` layers (:func:`ring_check`),
+    teacher-force the served tokens, and trace a rerun.  Returns the
+    launch counts by kernel name."""
     from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
                                      ssd_scan as ss)
     from repro_torch.launch import serve
@@ -1475,13 +1731,16 @@ def serve_phase(np, torch, dev, card, argv, tag):
     run = serve.one_shot(argv)
     got = {name: m.launch_count() for name, m in kernels.items()}
     eng, cfg = run.engine, run.cfg
-    # per prefill call: one flash launch per attn layer, one SSD launch
-    # per ssd layer; per forward: two RMSNorms per layer and the final one
+    # per prefill call: one flash launch per attention layer (attn or
+    # local), one SSD launch per ssd layer; per forward: two RMSNorms per
+    # layer (four with post-norms) and the final one
     forwards = eng.prefill_calls + eng.decode_steps
-    per = {"flash_attention": (cfg.layer_kinds().count("attn"),
+    kinds = cfg.layer_kinds()
+    per = {"flash_attention": (kinds.count("attn") + kinds.count("local"),
                                eng.prefill_calls),
-           "rmsnorm": (2 * cfg.n_layers + 1, forwards),
-           "ssd_scan": (cfg.layer_kinds().count("ssd"), eng.prefill_calls)}
+           "rmsnorm": ((4 if cfg.post_norms else 2) * cfg.n_layers + 1,
+                       forwards),
+           "ssd_scan": (kinds.count("ssd"), eng.prefill_calls)}
     want = {name: n * k for name, (n, k) in per.items()}
     if got != want:
         raise AssertionError(f"launches {got}, want {want}")
@@ -1490,6 +1749,8 @@ def serve_phase(np, torch, dev, card, argv, tag):
                 and (o < cfg.vocab_size).all()):
             raise AssertionError(f"malformed completion {o}")
     st = run.stats()
+    if "local" in kinds:
+        ring_check(np, torch, run, a, tag)
     print(f"[{tag}] served {cfg.name} ({cfg.n_layers} layers, d="
           f"{cfg.d_model}, "
           f"{sum(p.numel() for p in run.model.parameters()) / 1e6:.1f}M "
@@ -1505,29 +1766,6 @@ def serve_phase(np, torch, dev, card, argv, tag):
           f"{st['decode_tok_s']:.1f} tok/s ({run.decode_tokens} tokens in "
           f"{run.decode_s:.4f} s), wall {st['wall_s']:.4f} s [{card}]",
           flush=True)
-
-    # the busy share of one wave of TRACE_NEW tokens (a prefill and its
-    # decode steps): tracing the whole run costs minutes of profiler time
-    # at mamba2's ≈ 3600 launches per forward
-    wave = [*argv, "--requests", str(a.batch), "--max-new", str(TRACE_NEW)]
-    wall_ms = 1e3 * serve.one_shot(wave).wall_s
-    init = profile_device(torch, lambda: init_model(cfg, seed=0, device=dev))
-    traced = profile_device(torch, lambda: serve.one_shot(wave))
-    if traced:
-        busy = sum(traced.values()) - sum(init.values())
-        print(f"[{tag}] traced rerun of one wave ({a.batch} requests, "
-              f"{TRACE_NEW} new tokens): "
-              f"device busy {busy:.3f} ms of the same wave's unprofiled "
-              f"{wall_ms:.3f} ms serving wall (weight init's "
-              f"{sum(init.values()):.3f} ms taken out): busy share "
-              f"{busy / wall_ms:.4f}, idle share {1 - busy / wall_ms:.4f}; "
-              f"{time.perf_counter() - t_phase:.1f} s into the phase "
-              f"[{card}]", flush=True)
-        for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
-    else:
-        print(f"[{tag}] traced rerun: the profiler saw no device time; the "
-              "busy share is not measured", flush=True)
 
     # teacher-forced checks, per wave: the kernel path must reproduce the
     # served tokens; the plain path (impl="ref") is held to it in the
@@ -1576,16 +1814,45 @@ def serve_phase(np, torch, dev, card, argv, tag):
           f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
           f"{f32[:, 1:].max():.3g} (bound 5e-3); "
           f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    # the trace builds its own model: free this one first (gemma2's two
+    # would not fit the card beside a prefill)
+    del run, m32, ker, ref, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the busy share of one wave of TRACE_NEW tokens (a prefill and its
+    # decode steps): tracing the whole run costs minutes of profiler time
+    # at mamba2's ≈ 3600 launches per forward
+    wave = [*argv, "--requests", str(a.batch), "--max-new", str(TRACE_NEW)]
+    wall_ms = 1e3 * serve.one_shot(wave).wall_s
+    init = profile_device(torch, lambda: init_model(cfg, seed=0, device=dev))
+    traced = profile_device(torch, lambda: serve.one_shot(wave))
+    if traced:
+        busy = sum(traced.values()) - sum(init.values())
+        print(f"[{tag}] traced rerun of one wave ({a.batch} requests, "
+              f"{TRACE_NEW} new tokens): "
+              f"device busy {busy:.3f} ms of the same wave's unprofiled "
+              f"{wall_ms:.3f} ms serving wall (weight init's "
+              f"{sum(init.values()):.3f} ms taken out): busy share "
+              f"{busy / wall_ms:.4f}, idle share {1 - busy / wall_ms:.4f}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase "
+              f"[{card}]", flush=True)
+        for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
+    else:
+        print(f"[{tag}] traced rerun: the profiler saw no device time; the "
+              "busy share is not measured", flush=True)
+
     return got
 
 
-def train_batches(torch, dev, vocab, ticks, seed=0):
+def train_batches(torch, dev, vocab, ticks, seed=0, seq=TRAIN_S):
     """Per tick, each worker's ``TRAIN_B`` sequences, drawn (seeded) from
-    a pool of ``TRAIN_POOL`` fixed random sequences of ``TRAIN_S`` tokens,
-    so that a model can learn them: a list of int32 (W, B, S)."""
+    a pool of ``TRAIN_POOL`` fixed random sequences of ``seq`` tokens, so
+    that a model can learn them: a list of int32 (W, B, seq)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    pool = torch.randint(0, vocab, (TRAIN_POOL, TRAIN_S), generator=gen,
+    pool = torch.randint(0, vocab, (TRAIN_POOL, seq), generator=gen,
                          device=dev, dtype=torch.int32)
     idx = torch.randint(0, TRAIN_POOL, (ticks, TRAIN_W, TRAIN_B),
                         generator=gen, device=dev)
@@ -1614,25 +1881,29 @@ def leaf_rel(torch, got, want):
             for a, b in zip(tree_leaves(got), tree_leaves(want))]
 
 
-def train_phase(np, torch, dev, card, arch, tag):
-    """PSP training of full-width ``arch`` on the card, built from the
-    library calls that ``repro_torch.launch.train`` makes: tick 0 against
-    the plain path, TRAIN_TICKS ticks through the kernels, one traced
-    tick; see the module docstring (phases 8 and 12).  Returns (the model
-    kernels' launch counts of the run, cfg, params, optimizer, batches,
-    the phase's start)."""
-    from repro_torch.configs import get_config
+def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
+                ticks=TRAIN_TICKS, seq=TRAIN_S, warmup=None, fall=4):
+    """PSP training of ``arch`` at full width on the card (its first
+    ``layers`` layers when given), built from the library calls that
+    ``repro_torch.launch.train`` makes: tick 0 against the plain path,
+    ``ticks`` ticks of ``seq``-token sequences through the kernels (AdamW
+    on ``warmup_cosine(3e-3, warmup, ticks)``), one traced tick; the mean
+    loss of the last ``fall`` pushing ticks must be below that of the
+    first ``fall``; see the module docstring (phases 8, 12 and 14).
+    Returns (the model kernels' launch counts of the run, cfg, params,
+    optimizer, batches, the phase's start)."""
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.models import init_model
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = get_config(arch)
-    ticks, W = TRAIN_TICKS, TRAIN_W
-    opt = psp_optimizer(ticks)
+    cfg = train_config(arch, layers)
+    W = TRAIN_W
+    warmup = ticks // 10 + 1 if warmup is None else warmup
+    opt = psp_optimizer(ticks, warmup)
     params = init_model(cfg, seed=0, device=dev).tree()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1)
+    batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1, seq=seq)
     trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl)[:2]
     ssd = "ssd" in cfg.layer_kinds()
 
@@ -1724,24 +1995,25 @@ def train_phase(np, torch, dev, card, arch, tag):
     losses = [float(x) for x in losses]
     pushes = [int(x) for x in pushes]
     pushed = [lo for lo, p in zip(losses, pushes) if p > 0]
-    first, last = np.mean(pushed[:4]), np.mean(pushed[-4:])
-    if not (len(pushed) >= 8 and all(map(math.isfinite, losses))
+    first, last = np.mean(pushed[:fall]), np.mean(pushed[-fall:])
+    if not (len(pushed) >= 2 * fall and all(map(math.isfinite, losses))
             and last < first):
         raise AssertionError(f"the loss did not fall: {losses}, pushes "
                              f"{pushes}")
     steady = walls[1:]
     wall = sum(steady) / len(steady)
-    tokens = W * TRAIN_B * TRAIN_S
+    tokens = W * TRAIN_B * seq
     print(f"[{tag}] PSP training of {cfg.name} at full width ({L} layers, d="
           f"{cfg.d_model}, {n_params:,} params f32, {cfg.dtype} compute): "
-          f"W={W} pbsp beta=2 s=3 stragglers 0.25, {TRAIN_B}×{TRAIN_S} "
-          f"tokens per worker per tick, {ticks} ticks; launches "
+          f"W={W} pbsp beta=2 s=3 stragglers 0.25, {TRAIN_B}×{seq} "
+          f"tokens per worker per tick, {ticks} ticks, AdamW on "
+          f"warmup_cosine(3e-3, {warmup}, {ticks}); launches "
           + ", ".join(f"{k} {got[k]} = {per[k]} × {W} × {ticks}"
                       for k in per if per[k]) + f" [{card}]", flush=True)
     print(f"[{tag}] loss per tick {[round(x, 4) for x in losses]}; pushes "
-          f"{pushes}; mean over the first 4 pushing ticks {first:.4f}, "
-          f"over the last 4 {last:.4f}; control plane after tick 0 == the "
-          "plain path's", flush=True)
+          f"{pushes}; mean over the first {fall} pushing ticks {first:.4f}, "
+          f"over the last {fall} {last:.4f}; control plane after tick 0 == "
+          "the plain path's", flush=True)
     median = 1e3 * float(np.median(steady))
     print(f"[{tag}] wall per tick {1e3 * wall:.2f} ms (ticks 2..{ticks}: "
           f"their summed wall over their count; median {median:.2f} ms, "
@@ -1792,7 +2064,7 @@ def phase12(np, torch, dev, card):
     settings and token pool; see the module docstring).  Returns the
     model kernels' launch counts of the run."""
     got, *_, t_phase = train_phase(np, torch, dev, card, MAMBA_TRAIN_ARCH,
-                                   12)
+                                   12, layers=MAMBA_TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     argv = ["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER]
@@ -1816,7 +2088,7 @@ def phase8(np, torch, dev, card):
     docstring.  Returns the model kernels' launch counts of the run."""
     from repro_torch.launch.steps import make_grad_fn
     got, cfg, params, opt, batches, t_phase = train_phase(
-        np, torch, dev, card, TRAIN_ARCH, 8)
+        np, torch, dev, card, TRAIN_ARCH, 8, layers=TRAIN_LAYERS)
 
     # (e) where a tick's host time goes: one worker's loss and clipped
     # gradients as trained (remat on), the same without remat, its
@@ -1876,10 +2148,20 @@ def phase8(np, torch, dev, card):
     return got
 
 
-def psp_optimizer(ticks):
-    """The launcher's optimizer for a run of ``ticks`` ticks."""
+def train_config(arch=TRAIN_ARCH, layers=TRAIN_LAYERS):
+    """``arch``'s config at full width, its depth cut to ``layers`` when
+    given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def psp_optimizer(ticks, warmup=None):
+    """The launcher's optimizer for a run of ``ticks`` ticks (its warm-up,
+    ``ticks // 10 + 1``, unless ``warmup`` is given)."""
     from repro_torch.optim import adamw, warmup_cosine
-    return adamw(warmup_cosine(3e-3, ticks // 10 + 1, ticks))
+    warmup = ticks // 10 + 1 if warmup is None else warmup
+    return adamw(warmup_cosine(3e-3, warmup, ticks))
 
 
 def psp_trainer(cfg, params, opt, dev, impl="auto"):
@@ -1907,12 +2189,14 @@ def psp_run(torch, dev, cfg, ticks):
 def train_launches(cfg):
     """The model kernels' launches per worker and PSP tick of ``cfg``
     (remat recomputes each block's attention or SSD scan forward and its
-    two norms: ``ln1``/``ln2``, or ``ln`` and the gated ``norm``)."""
+    norms: ``ln1``/``ln2`` (and the post-norms), or ``ln`` and the gated
+    ``norm``)."""
     L = cfg.n_layers
     ssd = "ssd" in cfg.layer_kinds()
+    norms = (4 if cfg.post_norms else 2) * L
     return {"flash_attention": 0 if ssd else 2 * L,
             "flash_attention_bwd": 0 if ssd else L,
-            "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+            "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
             "ssd_scan": 2 * L if ssd else 0, "ssd_scan_bwd": L if ssd else 0}
 
 
@@ -2616,6 +2900,26 @@ def phase13(np, torch, dev, card):
     return got, tt
 
 
+def phase14(np, torch, dev, card):
+    """The sliding-window and local/global decoders on the card: serve
+    each of LOCAL_SERVE (:func:`serve_phase`, with the ring check), then
+    train h2o-danube-1.8b under PSP (:func:`train_phase`).  Returns the
+    model kernels' launch counts of each run."""
+    paths = []
+    for argv in LOCAL_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.append(serve_phase(np, torch, dev, card, argv, 14))
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, *_ = train_phase(np, torch, dev, card, LOCAL_TRAIN_ARCH, 14,
+                          layers=LOCAL_TRAIN_LAYERS, ticks=LOCAL_TRAIN_TICKS,
+                          seq=LOCAL_TRAIN_S, warmup=LOCAL_TRAIN_WARMUP,
+                          fall=LOCAL_TRAIN_FALL)
+    paths.append(got)
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2765,10 +3069,17 @@ def main() -> int:
 
     # ---- 5. RMSNorm, flash attention and SSD against their plain versions #
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
-    entries = (phase5(np, torch, dev, card)
-               + [phase5_ssd(np, torch, dev, card),
-                  phase5_ssd_bwd(np, torch, dev, card)]
-               + phase5_bwd(np, torch, dev, card))
+    entries = []
+    for part in (phase5, phase5_ssd, phase5_ssd_bwd, phase5_bwd,
+                 phase5_danube):
+        t0 = time.perf_counter()
+        out = part(np, torch, dev, card)
+        if isinstance(out, dict):
+            entries.append(out)
+        elif isinstance(out, list):
+            entries += out
+        print(f"[5] {part.__name__} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     # ---- 6. and 7. the serving paths: qwen2-0.5b, then mamba2-780m ----- #
     paths = []
@@ -2798,6 +3109,14 @@ def main() -> int:
     fig_launches, _ = phase13(np, torch, dev, card)
     launches += fig_launches
     print(f"[13] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 14. the sliding-window and local/global decoders ------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[14] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths += phase14(np, torch, dev, card)
+    print(f"[14] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

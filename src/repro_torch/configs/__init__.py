@@ -1,8 +1,8 @@
 """Workload and model configurations of the port.
 
 The paper's PSP linear task (:mod:`~repro_torch.configs.psp_linear`) and
-the architecture registry: ``get_config("qwen2-0.5b")`` or
-``get_config("mamba2-780m")`` returns the published configuration,
+the architecture registry: ``get_config("gemma2-27b")`` (or any other
+registered name) returns the published configuration,
 ``reduced(cfg)`` the CPU-smoke variant of the same family (the
 reference's ``repro.configs.reduced``, rule for rule).
 Only the architectures whose slice has been ported are registered.
@@ -13,11 +13,24 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.configs.gemma2_27b import CONFIG as _gemma2
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
+from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in [_qwen2, _mamba2]}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in [_danube, _mamba2, _qwen15, _qwen2, _gemma2]}
+
+#: archs allowed to run long_500k (sub-quadratic / windowed decode state),
+#: as the reference's: pure full-attention archs skip it
+LONG_CONTEXT_ARCHS = (
+    "h2o-danube-1.8b",      # SWA everywhere → window-ring cache
+    "recurrentgemma-2b",    # RG-LRU + local attention
+    "mamba2-780m",          # constant-size SSM state
+    "gemma2-27b",           # alternating local/global (global KV sharded)
+)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -64,5 +77,6 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2,
     return dataclasses.replace(cfg, **changes)
 
 
-__all__ = ["ARCHS", "CONFIG", "INPUT_SHAPES", "InputShape", "ModelConfig",
-           "PSPLinearConfig", "get_config", "reduced"]
+__all__ = ["ARCHS", "CONFIG", "INPUT_SHAPES", "InputShape",
+           "LONG_CONTEXT_ARCHS", "ModelConfig", "PSPLinearConfig",
+           "get_config", "reduced"]

@@ -11,7 +11,7 @@
 // on the TPU, keys past the end of the sequence weigh exactly 0, and key
 // tiles outside the causal / window band are skipped.  Layout: q
 // (B, Sq, H, hd), k/v (B, Sk, KV, hd), the model's; o is (B, Sq, H, hd)
-// contiguous in q's dtype.  hd is 64 or 128.
+// contiguous in q's dtype.  hd is 64, 80 or 128.
 //
 // Bound on the H100: operations.  A causal prefill does 2·B·H·S²·hd
 // FLOPs on S·(H + 2·KV)·hd inputs, far above the card's ~295 FLOP/byte
@@ -30,6 +30,12 @@
 //   consumer warpgroup computes.  Tiles land 128-byte swizzled: one hd-64 bf16 row
 //   is one 128-byte swizzle row; hd 128 takes two 64-column atoms.  Rows
 //   past the end of q, k or v arrive as zeros.
+// * hd 80 takes two atoms too: the tensor maps keep hd at 80, so the
+//   second box's columns 80..127 lie past the tensor's edge and TMA
+//   fills them with zeros (the box's bytes count in full on the
+//   barrier, as for rows past the end).  Q·Kᵀ runs its 5 k-steps of 16;
+//   P·V forms 128 output columns, of which the zero ones are never
+//   stored (1.6× the tensor-core work of an exact hd-80 tiling).
 // * S = Q·Kᵀ with wgmma m64n64k16 (bf16 in, f32 accumulated), A and B
 //   from shared memory; then the scale hd^-0.5 in f32 (the TPU kernel
 //   scales f32(q); q is never rounded after scaling).
@@ -260,10 +266,11 @@ constexpr int TC_THREADS = 128 + 32;  // a consumer warpgroup, a producer warp
 
 template <int HD>
 struct Tc {
-  static constexpr int ATOMS = HD / 64;  // 64-column atoms across hd
+  static_assert(HD % 16 == 0 && HD <= 128, "hd: a multiple of 16, <= 128");
+  static constexpr int ATOMS = (HD + 63) / 64;  // 64-column atoms across hd
   // K/V stages in the ring: the consumer holds two tiles at a time; hd 64
-  // keeps a third in flight (3 measured faster than 2 at S 4096), hd 128
-  // stays at 2 so that two blocks fit an SM
+  // keeps a third in flight (3 measured faster than 2 at S 4096), hd 80
+  // and 128 stay at 2 so that two blocks fit an SM
   static constexpr int STAGES = HD == 64 ? 3 : 2;
   static constexpr int TILE_BYTES = ATOMS * ATOM_BYTES;  // Q, K or V tile
   static constexpr int SMEM =
@@ -672,6 +679,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   for (int at = 0; at < C::ATOMS; ++at)
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
+      if (64 * at + 8 * jj >= HD) continue;  // a zero column past hd
       const int col = 64 * at + 8 * jj + cl;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(op + row0 * HD + col) =
@@ -712,7 +720,8 @@ EncodeTiled encoder() {
 // A bf16 tensor (batch, seq, heads, hd) with element strides (sb, ss, sh)
 // and a contiguous hd, as a 4-D map (hd, heads, seq, batch) whose boxes
 // are 64 columns of hd × `rows` positions of one head, 128-byte swizzled.
-// Positions past `seq` read as zeros.
+// Positions past `seq`, and columns past hd (hd 80's second box), read as
+// zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                 int heads, int hd, long long sb, long long ss, long long sh,
                 int rows) {
@@ -782,9 +791,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) e = launch_f32<64>(a, B, s);
+  else if (dtype == 0 && hd == 80) e = launch_f32<80>(a, B, s);
   else if (dtype == 0 && hd == 128) e = launch_f32<128>(a, B, s);
   else if (dtype == 1 && hd == 64)
     e = a.lse ? launch_tc<64, true>(a, B, s) : launch_tc<64, false>(a, B, s);
+  else if (dtype == 1 && hd == 80)
+    e = a.lse ? launch_tc<80, true>(a, B, s) : launch_tc<80, false>(a, B, s);
   else if (dtype == 1 && hd == 128)
     e = a.lse ? launch_tc<128, true>(a, B, s)
               : launch_tc<128, false>(a, B, s);
@@ -861,6 +873,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 //   columns of dK and dV (one warpgroup's registers cannot hold all 128)
 //   and each forming the whole Sᵀ and dPᵀ over both 64-column swizzle
 //   atoms of hd; the dq kernel keeps one warpgroup.
+// * hd 80 is laid out as hd 128 (two atoms, two dk/dv warpgroups): the
+//   second atom's columns 80..127 arrive as zeros from TMA (see the
+//   forward), the score products run hd's 5 k-steps, and the columns
+//   past 80 of dK, dV and dQ, zero, are not stored.
 // * Roundings the plain version does not make: Pᵀ and dSᵀ (dS in dq)
 //   rounded to bf16 as wgmma operands, and exp taken as 2^x (ex2.approx).
 //   The products accumulate in f32; dq, dk, dv are stored in bf16.
@@ -917,21 +933,30 @@ __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& u, int e) {
 }
 
 // Δ and lse·log2(e) into (B, H, Sqp), row (b·H + h)·Sqp + i; pads (i >=
-// Sq): Δ = 0, lse = +inf.  One row per HD / VEC lanes, each lane one
-// 16-byte vector of o and of do.
+// Sq): Δ = 0, lse = +inf.  One row per LP lanes (the power of two at or
+// above HD / VEC), the first HD / VEC of them one 16-byte vector of o and
+// of do each.
+template <typename T, int HD>
+__host__ __device__ constexpr int delta_lanes() {
+  constexpr int L = HD / (16 / sizeof(T));
+  static_assert(HD % (16 / sizeof(T)) == 0 && L <= 32, "hd");
+  return L <= 8 ? 8 : L <= 16 ? 16 : 32;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int L = HD / VEC;  // lanes per row: 8, 16 or 32
+  constexpr int L = HD / VEC;                // lanes holding a vector
+  constexpr int LP = delta_lanes<T, HD>();  // lanes per row: 8, 16 or 32
   const int lane = threadIdx.x & 31;
   const long long row =
-      (static_cast<long long>(blockIdx.x) * BNT + threadIdx.x) / L;
+      (static_cast<long long>(blockIdx.x) * BNT + threadIdx.x) / LP;
   const long long n = static_cast<long long>(a.B) * a.H * a.Sqp;
   const long long i = row % a.Sqp, bh = row / a.Sqp;
   float acc = 0.f;
-  if (row < n && i < a.Sq) {
+  if (row < n && i < a.Sq && lane % LP < L) {
     const long long b = bh / a.H, h = bh % a.H;
-    const long long off = ((b * a.Sq + i) * a.H + h) * HD + (lane % L) * VEC;
+    const long long off = ((b * a.Sq + i) * a.H + h) * HD + (lane % LP) * VEC;
     const uint4 u =
         __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + off));
     const uint4 w = __ldg(
@@ -940,8 +965,9 @@ __global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
     for (int e = 0; e < VEC; ++e) acc += elem<T>(w, e) * elem<T>(u, e);
   }
 #pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
-  if (row < n && lane % L == 0) {
+  for (int off = LP / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (row < n && lane % LP == 0) {
     a.delta[row] = acc;
     a.lse2[row] = i < a.Sq ? a.lse[bh * a.Sq + i] * LOG2E : INFINITY;
   }
@@ -1170,8 +1196,8 @@ constexpr int BWD_STAGES = 2;  // streamed tile pairs in the ring
 
 template <int HD>
 struct TcBwd {
-  static constexpr int NWG = HD / 64;  // dk/dv consumer warpgroups
-  static constexpr int TILE = (HD / 64) * ATOM_BYTES;  // a 64-row tile
+  static constexpr int NWG = (HD + 63) / 64;  // dk/dv consumer warpgroups
+  static constexpr int TILE = NWG * ATOM_BYTES;  // a 64-row tile
   static constexpr int ROW = 64 * 4;  // the lse or Δ values of a query tile
   static constexpr int BARS = 8 * (2 * BWD_STAGES + 1);
   static constexpr int DKDV_THREADS = 128 * NWG + 32;
@@ -1426,6 +1452,7 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj) {
     const int col = 64 * wg + 8 * jj + cl;
+    if (64 * wg + 8 * jj >= HD) break;  // zero columns past hd
     if (kj < a.Sk) {
       *reinterpret_cast<float2*>(a.dkp + base0 + col) =
           make_float2(dk[4 * jj] * a.scale, dk[4 * jj + 1] * a.scale);
@@ -1453,7 +1480,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   using C = TcBwd<HD>;
   const int qt = gridDim.z - 1 - blockIdx.z;
   constexpr int NS = BWD_STAGES;
-  constexpr int ATOMS = HD / 64;
+  constexpr int ATOMS = C::NWG;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sG = sQ + C::TILE;
@@ -1595,6 +1622,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   for (int at = 0; at < ATOMS; ++at)
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
+      if (64 * at + 8 * jj >= HD) continue;  // a zero column past hd
       const int col = 64 * at + 8 * jj + cl;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(out + row0 * HD + col) = pack_bf16(
@@ -1632,8 +1660,8 @@ __global__ void __launch_bounds__(BNT) bwd_reduce_kernel(BwdArgs a) {
 
 template <typename T, int HD>
 cudaError_t launch_delta(const BwdArgs& a, cudaStream_t s) {
-  constexpr int L = HD / (16 / sizeof(T));
-  const long long threads = static_cast<long long>(a.B) * a.H * a.Sqp * L;
+  constexpr int LP = delta_lanes<T, HD>();
+  const long long threads = static_cast<long long>(a.B) * a.H * a.Sqp * LP;
   const long long blocks = (threads + BNT - 1) / BNT;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   bwd_delta_kernel<T, HD><<<static_cast<unsigned>(blocks), BNT, 0, s>>>(a);
@@ -1733,8 +1761,10 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const int* ints,
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) e = launch_bwd_f32<64>(a, s);
+  else if (dtype == 0 && hd == 80) e = launch_bwd_f32<80>(a, s);
   else if (dtype == 0 && hd == 128) e = launch_bwd_f32<128>(a, s);
   else if (dtype == 1 && hd == 64) e = launch_bwd_tc<64>(a, s);
+  else if (dtype == 1 && hd == 80) e = launch_bwd_tc<80>(a, s);
   else if (dtype == 1 && hd == 128) e = launch_bwd_tc<128>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -13,12 +13,13 @@ in float32, with masked scores at -1e30 (causal: ``i >= j``; window:
 output in q's dtype.  Grouped-query attention is native: no K/V head is
 repeated, and the layout is the model's (sequence before heads).
 
-* :func:`attention_ref` — plain PyTorch (O(Sq·Sk) scores); what CPU
-  tensors get.
+* :func:`attention_ref` — plain PyTorch; what CPU tensors get.  It
+  forms the scores of ``_REF_ROWS`` queries at a time (O(rows·Sk)
+  memory), so that a long prefill's plain pass fits beside its model.
 * :func:`flash_attention_cuda` — the hand-written kernel
   (``kernels/csrc/flash_attention.cu``): online softmax over the key
   tiles of the causal / window band, any sequence lengths (tails are
-  masked), ``hd`` 64 or 128, float32 or bfloat16.  In bfloat16 it runs
+  masked), ``hd`` 64, 80 or 128, float32 or bfloat16.  In bfloat16 it runs
   on the tensor cores (``wgmma``, tiles brought by TMA) and rounds the
   softmax weights P to bfloat16 before P·V, where the plain version and
   the TPU kernel keep them in float32 (a relative error of about 2⁻⁹
@@ -37,7 +38,8 @@ The backward (the reference's custom VJP ``repro.models.flash._bwd`` /
 summed over each group's query heads, all in float32 and returned in
 q's dtype:
 
-* :func:`attention_bwd_ref` — plain PyTorch; what CPU tensors get.
+* :func:`attention_bwd_ref` — plain PyTorch, ``_REF_ROWS`` queries at a
+  time as the forward; what CPU tensors get.
 * :func:`flash_attention_bwd_cuda` — the hand-written kernel (second
   half of ``kernels/csrc/flash_attention.cu``): Δ; dk/dv per (64-key
   tile, head) over the query tiles of the band into per-head float32
@@ -68,8 +70,12 @@ __all__ = ["HEAD_DIMS", "attention_bwd_ref", "attention_ref",
            "flash_attention_cuda", "launch_count", "reset_launch_count",
            "tma_strides"]
 
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+#: head dims the kernel is built for (hd 80 runs in the hd-128 tiling,
+#: its columns past 80 zero: see ``csrc/flash_attention.cu``)
+HEAD_DIMS = (64, 80, 128)
+#: query rows per block of the plain versions: their score tensors are
+#: (B, H, rows, Sk) at most
+_REF_ROWS = 1024
 
 _LAUNCHES = 0
 _BWD_LAUNCHES = 0
@@ -78,9 +84,9 @@ _NEG = -1e30
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
-          device) -> torch.Tensor:
-    """bool (Sq, Sk): which keys each query sees."""
-    qa = torch.arange(Sq, device=device)[:, None]
+          device, q0: int = 0) -> torch.Tensor:
+    """bool (Sq, Sk): which keys each query (at positions q0 ..) sees."""
+    qa = torch.arange(q0, q0 + Sq, device=device)[:, None]
     ka = torch.arange(Sk, device=device)[None, :]
     mask = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
     if causal:
@@ -99,17 +105,24 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qg = q.float().reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    s = s.masked_fill(~_mask(Sq, Sk, causal, window, q.device), _NEG)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    o = o.reshape(B, Sq, H, hd).to(q.dtype)
-    if return_lse:
-        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
-    return o
+    kf, vf = k.float(), v.float()
+    outs, lses = [], []
+    for q0 in range(0, Sq, _REF_ROWS):
+        qg = q[:, q0:q0 + _REF_ROWS].float()
+        n = qg.shape[1]
+        qg = qg.reshape(B, n, KV, G, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * hd ** -0.5
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~_mask(n, Sk, causal, window, q.device, q0), _NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+        outs.append(o.reshape(B, n, H, hd).to(q.dtype))
+        if return_lse:
+            lses.append(torch.logsumexp(s, dim=-1).reshape(B, H, n))
+        del s, p
+    o = torch.cat(outs, 1)
+    return (o, torch.cat(lses, -1)) if return_lse else o
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,27 +136,37 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = hd ** -0.5
-    qg = q.float().reshape(B, Sq, KV, G, hd)
-    dog = do.float().reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
-    t = None
-    if softcap is not None:
-        t = torch.tanh(s / softcap)
-        s = softcap * t
-    mask = _mask(Sq, Sk, causal, window, q.device)
-    s = s.masked_fill(~mask, _NEG)
-    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
-    delta = (dog * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
-    if t is not None:
-        ds = ds * (1.0 - t * t)
-    ds = ds.masked_fill(~mask, 0.0)
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
-    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    kf, vf = k.float(), v.float()
+    dqs, dk, dv = [], 0.0, 0.0
+    for q0 in range(0, Sq, _REF_ROWS):
+        rows = slice(q0, q0 + _REF_ROWS)
+        qg = q[:, rows].float()
+        n = qg.shape[1]
+        qg = qg.reshape(B, n, KV, G, hd)
+        dog = do[:, rows].float().reshape(B, n, KV, G, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+        t = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _mask(n, Sk, causal, window, q.device, q0)
+        s = s.masked_fill(~mask, _NEG)
+        p = torch.exp(s - lse[:, :, rows].reshape(B, KV, G, n)[..., None])
+        del s
+        delta = (dog * o[:, rows].float().reshape(B, n, KV, G, hd)).sum(-1)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+        ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+        del dp
+        if t is not None:
+            ds = ds * (1.0 - t * t)
+            del t
+        ds = ds.masked_fill(~mask, 0.0)
+        dqs.append((torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale)
+                   .reshape(B, n, H, hd).to(q.dtype))
+        dk = dk + torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+        dv = dv + torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+        del p, ds
+    return (torch.cat(dqs, 1), (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
 def launch_count() -> int:
@@ -252,7 +275,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     """The CUDA kernel: same contract as :func:`attention_ref`.
 
     ``q``, ``k``, ``v`` are CUDA tensors of one dtype (float32 or
-    bfloat16) with a contiguous head dim of 64 or 128.  In float32 the
+    bfloat16) with a contiguous head dim of 64, 80 or 128.  In float32 the
     other strides are read as they are.  In bfloat16 (the tensor-core
     kernel, fed by TMA) each tensor must start on a 16-byte boundary and
     its batch, seq and head strides must be multiples of 8 elements, as
@@ -305,7 +328,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel: same contract as :func:`attention_bwd_ref`.
 
     q, k, v, o, do are CUDA tensors of one dtype (float32 or bfloat16,
-    made contiguous here) with a head dim of 64 or 128, each starting on
+    made contiguous here) with a head dim of 64, 80 or 128, each starting on
     a 16-byte boundary (the TMA copies and 16-byte loads need it);
     ``lse`` float32 ``(B, H, Sq)``.  Returns new (dq, dk, dv).  Raises on
     any other input and if a launch fails; there is no fallback.

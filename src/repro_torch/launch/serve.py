@@ -10,8 +10,14 @@ On the CPU, at the reduced width::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 
-``--arch mamba2-780m`` serves the Mamba-2 stack (SSD-scan kernel) instead
-of the default qwen2-0.5b.
+``--arch`` picks any registered architecture: the default qwen2-0.5b,
+qwen1.5-4b (untied unembedding), h2o-danube-1.8b (sliding-window
+``local`` layers and their ring caches; ``--max-len`` at least its
+window of 4096), gemma2-27b (alternating local and global layers,
+softcaps, post-norms, fused QKV; 108.9 GB of f32 parameters at full
+depth, so on one card only reduced or cut, e.g. ``--n-layers 8``), or
+mamba2-780m (the Mamba-2 stack, SSD-scan kernel).  ``--reduced`` runs any of them at the CPU-smoke
+width (window 64).
 
 Weights come from the port's seeded initialisation (``--seed``), as the
 reference serves ``init_model`` weights.  Prompts are drawn from numpy
@@ -44,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.configs import ARCHS, get_config, reduced as make_reduced
 from repro_torch.convert import params_to_numpy
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import Model, init_model
@@ -85,8 +91,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """The launcher's flags (the reference's, plus ``--device`` and
     ``--impl``)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="one of " + ", ".join(sorted(ARCHS)))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="serve only the first N layers (a depth cut at "
+                         "the arch's width, a multiple of its layer "
+                         "pattern), e.g. gemma2-27b on one card")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -122,6 +133,8 @@ def _setup(a):
     cfg = get_config(a.arch)
     if a.reduced:
         cfg = make_reduced(cfg)
+    if a.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=a.n_layers)
     model = init_model(cfg, seed=a.seed, device=dev)
     scfg = ServeConfig(batch=a.batch, max_len=a.max_len,
                        max_new_tokens=a.max_new, temperature=a.temperature,

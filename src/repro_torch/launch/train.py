@@ -37,13 +37,16 @@ On the CPU, at the reduced width::
     # ... killed mid-run, then the same command with --resume
 
 On the card (the default ``--device cuda``; raises without a GPU), the
-attention (qwen2) or SSD scan (mamba2, ``--arch mamba2-780m``) and the
+attention (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b's sliding window,
+gemma2-27b) or SSD scan (mamba2, ``--arch mamba2-780m``) and the
 RMSNorm forward and backward run as the port's CUDA
 kernels.  Weights come from the port's seeded initialisation
 (``--seed``), tokens from :class:`~repro_torch.data.SyntheticLM` (whose
 ``vocab²`` host table limits it to small vocabularies, as in the
-reference, which trains ``--reduced``), the PSP noise from a
-``torch.Generator`` seeded ``--seed + 1``.
+reference, which trains ``--reduced``: at full width qwen2's and
+qwen1.5's 151,936-token vocabularies would need a 92 GB table, gemma2's
+256,000 262 GB), the PSP noise from a ``torch.Generator`` seeded
+``--seed + 1``.
 """
 from __future__ import annotations
 
@@ -58,7 +61,7 @@ import torch
 from repro_torch.checkpoint import (CheckpointManager, CheckpointPolicy,
                                     archive_keys, host_snapshot,
                                     latest_step, restore_checkpoint)
-from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.configs import ARCHS, get_config, reduced as make_reduced
 from repro_torch.convert import (from_reference_layout, state_from_reference,
                                  state_to_reference, to_reference_layout)
 from repro_torch.core.spmd_psp import (GeneratorNoise, PSPConfig, psp_init,
@@ -76,7 +79,11 @@ __all__ = ["main", "parse_args", "psp_archive", "restore_psp"]
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """The reference's flags, plus ``--device``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="one of " + ", ".join(sorted(ARCHS)) + "; "
+                         "without --reduced SyntheticLM's vocab² host "
+                         "table rules out the 151,936- and 256,000-token "
+                         "vocabularies (qwen2, qwen1.5, gemma2)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--n-layers", type=int, default=2)

@@ -1,5 +1,7 @@
-"""Models of the port: the decoder for ``attn`` blocks (qwen2-0.5b) and
-for Mamba-2 ``ssd`` blocks (mamba2-780m)."""
+"""Models of the port: the decoder for attention blocks, global
+(``attn``) and sliding-window (``local``) in any pattern (qwen2-0.5b,
+qwen1.5-4b, h2o-danube-1.8b, gemma2-27b), and for Mamba-2 ``ssd`` blocks
+(mamba2-780m)."""
 from repro_torch.models.transformer import (Block, Model, SSDBlock,
                                             cache_defs, decode_step, forward,
                                             forward_train, init_cache,

@@ -1,15 +1,20 @@
 """The decoder: parameters, caches, prefill, decode.
 
 The port's counterpart of :mod:`repro.models.transformer`, for stacks of
-full-attention blocks (qwen2-0.5b) or of Mamba-2 ``ssd`` blocks
-(mamba2-780m).  A model is ``embed → blocks → final norm → tied
-unembed``; :class:`Model` holds one block module per layer
-(:class:`Block` for ``attn``, :class:`SSDBlock` for ``ssd``) and loops
-over them (the reference scans a stacked layer axis).  Parameters keep
-the reference's shapes (``wq`` is ``(d, h, hd)``, ``in_proj``
-``(d, 16, width)`` and so on) and float32, so
+attention blocks, global (``attn``) or sliding-window (``local``) in
+any pattern (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b, gemma2-27b's
+alternating ``("local", "attn")``), or of Mamba-2 ``ssd`` blocks
+(mamba2-780m).  A model is ``embed → blocks → final norm → unembed``
+(tied: the embedding transposed; untied: ``lm_head``); :class:`Model`
+holds one block module per layer (:class:`Block` for ``attn`` and
+``local``, :class:`SSDBlock` for ``ssd``) and loops over them (the
+reference scans a stacked layer axis per pattern position).  An
+attention block is pre-norm, with gemma2's post-norms of the attention
+and MLP outputs where ``cfg.post_norms`` is set.  Parameters keep the
+reference's shapes (``wq`` is ``(d, h, hd)``, ``wqkv`` ``(d, 16, w,
+hd)``, ``in_proj`` ``(d, 16, width)`` and so on) and float32, so
 :func:`repro_torch.convert.params_from_jax` only has to split the
-reference's stacked layer axis.  Matrix weights are cast once to the
+reference's stacked layer axes.  Matrix weights are cast once to the
 compute dtype and kept beside the parameters (``weights``).
 
 Serving entry points, forward only and without autograd:
@@ -33,11 +38,12 @@ Training entry points, functional and differentiable (``attn`` and
   each block is recomputed in the backward (``torch.utils.checkpoint``,
   the reference's ``jax.checkpoint`` of its layer body);
 * :func:`loss_fn` — the causal-LM loss over it (chunked cross-entropy
-  against the tied unembedding).
+  against :func:`unembed_matrix`).
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
-:mod:`repro_torch.kernels.ops`).  Stacks that mix block kinds, other
-block kinds, tail layers and modality frontends raise
+:mod:`repro_torch.kernels.ops`).  Stacks that mix ``ssd`` with
+attention, the other block kinds (``moe``, ``rglru``), tail layers,
+modality frontends and sinusoidal positions raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -64,20 +70,30 @@ Cache = Dict[str, Any]
 _TODO = "ROADMAP queue 1, item 10 (the other model kinds)"
 
 
+#: the block kinds of an attention stack
+_ATTN = frozenset({"attn", "local"})
+
+
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for what the port does not run."""
     kinds = set(cfg.layer_kinds())
-    if kinds not in ({"attn"}, {"ssd"}):
+    if not (kinds <= _ATTN or kinds == {"ssd"}):
         raise NotImplementedError(f"block kinds {sorted(kinds)} of "
-                                  f"{cfg.name} (the port runs all-attn or "
-                                  f"all-ssd stacks): {_TODO}")
+                                  f"{cfg.name} (the port runs stacks of "
+                                  f"attn and local blocks, or of ssd "
+                                  f"blocks): {_TODO}")
     if cfg.tail_pattern:
         raise NotImplementedError(f"tail layers: {_TODO}")
     if cfg.frontend_tokens:
         raise NotImplementedError(f"modality frontends: {_TODO}")
-    if cfg.pos_embed != "rope" or cfg.post_norms:
-        raise NotImplementedError(f"pos_embed={cfg.pos_embed!r}, "
-                                  f"post_norms={cfg.post_norms}: {_TODO}")
+    if cfg.pos_embed != "rope":
+        raise NotImplementedError(f"pos_embed={cfg.pos_embed!r}: {_TODO}")
+
+
+def _window(cfg, kind: str) -> Optional[int]:
+    """A block's attention window: ``cfg.sliding_window`` for ``local``,
+    None (global) otherwise."""
+    return cfg.sliding_window if kind == "local" else None
 
 
 def _norm_def(cfg) -> ParamDef:
@@ -86,24 +102,31 @@ def _norm_def(cfg) -> ParamDef:
 
 
 def block_defs(cfg, kind: str) -> Dict:
-    """Parameter definitions of one block of ``kind`` (``attn`` or
-    ``ssd``), as the reference's."""
+    """Parameter definitions of one block of ``kind`` (``attn``,
+    ``local`` or ``ssd``), as the reference's."""
     if kind == "ssd":
         return {"ssd": ssm.ssd_defs(cfg)}
-    return {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
-            "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
+    d = {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
+         "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
+    if cfg.post_norms:
+        d["ln1_post"] = _norm_def(cfg)
+        d["ln2_post"] = _norm_def(cfg)
+    return d
 
 
 def model_defs(cfg) -> Dict:
-    """Parameter definitions: ``embed``, ``final_norm`` and one block tree
-    per layer under ``layers`` (the reference stacks them instead)."""
+    """Parameter definitions: ``embed``, ``final_norm``, ``lm_head``
+    ``(d, V)`` when the embeddings are untied, and one block tree per
+    layer under ``layers`` (the reference stacks them instead)."""
     check_supported(cfg)
+    d = {"embed": ParamDef((cfg.vocab_size, cfg.d_model),
+                           ("vocab_w", "d_model_w"), scale=0.02),
+         "final_norm": _norm_def(cfg),
+         "layers": [block_defs(cfg, k) for k in cfg.layer_kinds()]}
     if not cfg.tie_embeddings:
-        raise NotImplementedError(f"untied unembedding: {_TODO}")
-    return {"embed": ParamDef((cfg.vocab_size, cfg.d_model),
-                              ("vocab_w", "d_model_w"), scale=0.02),
-            "final_norm": _norm_def(cfg),
-            "layers": [block_defs(cfg, k) for k in cfg.layer_kinds()]}
+        d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                ("d_model_w", "vocab_w"), scale=0.02)
+    return d
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -117,14 +140,21 @@ def _cast_key(module: nn.Module, dtype: torch.dtype, recurse: bool):
                             for p in module.parameters(recurse=recurse))
 
 
-class Block(nn.Module):
-    """One pre-norm ``attn`` block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+#: an attention block's norm gains, in :func:`block_defs` order
+_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
 
-    def __init__(self, cfg, tree: Dict[str, Any]):
+
+class Block(nn.Module):
+    """One pre-norm ``attn`` or ``local`` block: x + post1(attn(ln1(x)));
+    x + post2(mlp(ln2(x))), the post-norms where ``cfg.post_norms``."""
+
+    def __init__(self, cfg, tree: Dict[str, Any], kind: str = "attn"):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = _param(tree["ln1"])
-        self.ln2 = _param(tree["ln2"])
+        self.kind = kind
+        self.norm_names = tuple(k for k in _NORMS if k in tree)
+        for k in self.norm_names:
+            self.register_parameter(k, _param(tree[k]))
         self.attn = nn.ParameterDict({k: _param(v)
                                       for k, v in tree["attn"].items()})
         self.mlp = nn.ParameterDict({k: _param(v)
@@ -133,9 +163,14 @@ class Block(nn.Module):
 
     def tree(self) -> Dict[str, Any]:
         """This layer's parameter tensors in :func:`block_defs` layout."""
-        return {"ln1": self.ln1.data, "ln2": self.ln2.data,
+        return {**{k: v.data for k, v in self.norms().items()},
                 "attn": {k: v.data for k, v in self.attn.items()},
                 "mlp": {k: v.data for k, v in self.mlp.items()}}
+
+    def norms(self) -> Dict[str, torch.Tensor]:
+        """The norm gains by name (``ln1``, ``ln2``, and the post-norms
+        where ``cfg.post_norms``)."""
+        return {k: getattr(self, k) for k in self.norm_names}
 
     def weights(self, dtype: torch.dtype) -> Dict[str, Dict]:
         """The attention and MLP weights cast to ``dtype``, made once and
@@ -154,25 +189,34 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Apply the block (``rot``: the RoPE (cos, sin) of x's
         positions); returns (x, this layer's new cache or None)."""
-        return _attn_block(x, self.ln1, self.ln2, self.weights(x.dtype),
-                           self.cfg, rot=rot, length=length, cache=cache,
-                           mode=mode, max_len=max_len, impl=impl)
+        return _attn_block(x, self.norms(), self.weights(x.dtype),
+                           self.cfg, _window(self.cfg, self.kind), rot=rot,
+                           length=length, cache=cache, mode=mode,
+                           max_len=max_len, impl=impl)
 
 
-def _attn_block(x: torch.Tensor, ln1: torch.Tensor, ln2: torch.Tensor,
-                w: Dict[str, Dict], cfg, *, rot, length: Optional[int],
-                cache: Optional[Dict], mode: str, max_len: Optional[int],
-                impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x + attn(ln1(x)); x + mlp(ln2(x)), with the attention and MLP
-    weights ``w`` in x's dtype; returns (x, the layer's new cache)."""
+def _attn_block(x: torch.Tensor, norms: Dict[str, torch.Tensor],
+                w: Dict[str, Dict], cfg, window: Optional[int], *, rot,
+                length: Optional[int], cache: Optional[Dict], mode: str,
+                max_len: Optional[int], impl: str
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x + post1(attn(ln1(x))); x + post2(mlp(ln2(x))) (the reference's
+    ``_apply_block``), with the norm gains ``norms`` (f32; the post-norms
+    where ``cfg.post_norms``), the attention and MLP weights ``w`` in x's
+    dtype and the attention ``window``; returns (x, the layer's new
+    cache)."""
     eps, gn = cfg.norm_eps, cfg.gemma_norm
-    h = rmsnorm(x, ln1, eps, gn, impl)
-    a, c = attention.attn_apply(w["attn"], h, cfg=cfg, rot=rot,
-                                length=length, cache=cache, mode=mode,
-                                max_len=max_len, impl=impl)
+    norm = lambda t, name: rmsnorm(t, norms[name], eps, gn, impl)
+    a, c = attention.attn_apply(w["attn"], norm(x, "ln1"), cfg=cfg, rot=rot,
+                                window=window, length=length, cache=cache,
+                                mode=mode, max_len=max_len, impl=impl)
+    if cfg.post_norms:
+        a = norm(a, "ln1_post")
     x = x + a
-    h = rmsnorm(x, ln2, eps, gn, impl)
-    return x + mlp_apply(w["mlp"], h, cfg), c
+    m = mlp_apply(w["mlp"], norm(x, "ln2"), cfg)
+    if cfg.post_norms:
+        m = norm(m, "ln2_post")
+    return x + m, c
 
 
 #: the parameters of an ``ssd`` block that stay float32 (the reference
@@ -215,7 +259,11 @@ class SSDBlock(nn.Module):
         return x + o, c
 
 
-_BLOCK_TYPES = {"attn": Block, "ssd": SSDBlock}
+def _block(cfg, kind: str, tree: Dict[str, Any]) -> nn.Module:
+    """The block module of ``kind`` on its parameter tree."""
+    if kind == "ssd":
+        return SSDBlock(cfg, tree)
+    return Block(cfg, tree, kind)
 
 
 class Model(nn.Module):
@@ -232,8 +280,10 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param(tree["lm_head"]))
         self.blocks = nn.ModuleList(
-            _BLOCK_TYPES[kind](cfg, t)
+            _block(cfg, kind, t)
             for kind, t in zip(cfg.layer_kinds(), tree["layers"]))
         self._memo: Tuple[Any, Optional[torch.Tensor]] = (None, None)
 
@@ -241,14 +291,19 @@ class Model(nn.Module):
         """The parameter tensors in :func:`model_defs` layout (shared, not
         copied): ``Model(other_cfg, model.tree())`` runs the same weights
         under another configuration, e.g. another compute dtype."""
-        return {"embed": self.embed.data, "final_norm": self.final_norm.data,
-                "layers": [b.tree() for b in self.blocks]}
+        t = {"embed": self.embed.data, "final_norm": self.final_norm.data,
+             "layers": [b.tree() for b in self.blocks]}
+        if self.lm_head is not None:
+            t["lm_head"] = self.lm_head.data
+        return t
 
     def unembed(self, dtype: torch.dtype) -> torch.Tensor:
-        """The tied unembedding ``(d, V)`` in ``dtype``, cast once."""
+        """The unembedding ``(d, V)`` in ``dtype``, cast once."""
         key = _cast_key(self, dtype, False)
         if self._memo[0] != key:
-            self._memo = (key, unembed_matrix(self).to(dtype))
+            self._memo = (key, unembed_matrix(
+                {"embed": self.embed, "lm_head": self.lm_head},
+                self.cfg).to(dtype))
         return self._memo[1]
 
     @torch.no_grad()
@@ -263,7 +318,7 @@ class Model(nn.Module):
         x = embed_tokens(self.embed, tokens, self.cfg)
         S = x.shape[1]
         rot = None
-        if "attn" in self.cfg.layer_kinds():
+        if _ATTN & set(self.cfg.layer_kinds()):
             positions = torch.arange(offset, offset + S, device=x.device)
             rot = rope_angles(positions, self.cfg.head_dim,
                               self.cfg.rope_theta)
@@ -294,17 +349,23 @@ def init_model(cfg, *, seed: int = 0, device: Any = "cpu") -> Model:
     return Model(cfg, tree)
 
 
-def unembed_matrix(model: Model) -> torch.Tensor:
-    """The unembedding ``(d, V)``: the embedding, transposed (tied)."""
-    return model.embed.T
+def unembed_matrix(params: Dict[str, Any], cfg) -> torch.Tensor:
+    """The unembedding ``(d, V)`` of a parameter tree: the embedding
+    transposed (tied), or ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
 
 
 def _block_cache_defs(cfg, kind: str, batch: int, max_len: int) -> Dict:
     """One layer's cache: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
-    for ``attn``; for ``ssd`` bf16 conv states ``(batch, K − 1, ·)`` and
+    for ``attn``, ``(batch, min(window, max_len), KV, hd)`` (the ring)
+    for ``local``; for ``ssd`` bf16 conv states ``(batch, K − 1, ·)`` and
     the f32 SSM state ``(batch, nh, hd, N)``."""
-    if kind == "attn":
-        kv = ParamDef((batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+    if kind in _ATTN:
+        w = _window(cfg, kind)
+        kv = ParamDef((batch, max_len if w is None else min(w, max_len),
+                       cfg.n_kv_heads, cfg.head_dim),
                       ("cache_batch", "cache_seq", "kv_heads", None),
                       init="zeros", dtype="bfloat16")
         return {"k": kv, "v": kv}
@@ -372,20 +433,21 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
     return _head(h[:, -1], model), new_cache
 
 
-def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg,
+def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg, kind: str,
                  impl: str) -> torch.Tensor:
-    """One block on layer parameters ``lp`` (f32), its weights cast to
-    x's dtype here, in the graph, where the reference casts them: an
-    ``attn`` block's matrices; an ``ssd`` block's projections, conv
+    """One block of ``kind`` on layer parameters ``lp`` (f32), its weights
+    cast to x's dtype here, in the graph, where the reference casts them:
+    an attention block's matrices; an ``ssd`` block's projections, conv
     weights and D (``_SSD_F32`` stay float32)."""
-    if "ssd" in lp:
+    if kind == "ssd":
         w = {k: v if k in _SSD_F32 else v.to(x.dtype)
              for k, v in lp["ssd"].items()}
         return x + ssm.ssd_apply(w, x, cfg=cfg, mode="train", impl=impl)[0]
     w = {g: {k: v.to(x.dtype) for k, v in lp[g].items()}
          for g in ("attn", "mlp")}
-    return _attn_block(x, lp["ln1"], lp["ln2"], w, cfg, rot=rot, length=None,
-                       cache=None, mode="train", max_len=None, impl=impl)[0]
+    return _attn_block(x, lp, w, cfg, _window(cfg, kind), rot=rot,
+                       length=None, cache=None, mode="train", max_len=None,
+                       impl=impl)[0]
 
 
 def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
@@ -396,15 +458,15 @@ def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
     rot = None
-    if "attn" in cfg.layer_kinds():
+    if _ATTN & set(cfg.layer_kinds()):
         positions = torch.arange(x.shape[1], device=x.device)
         rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    for lp in params["layers"]:
+    for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
         if cfg.remat:
-            x = checkpoint(_train_block, lp, x, rot, cfg, impl,
+            x = checkpoint(_train_block, lp, x, rot, cfg, kind, impl,
                            use_reentrant=False)
         else:
-            x = _train_block(lp, x, rot, cfg, impl)
+            x = _train_block(lp, x, rot, cfg, kind, impl)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.gemma_norm,
                    impl)
 
@@ -418,6 +480,6 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg, *,
     tokens = batch["tokens"]
     h = forward_train(params, tokens, cfg, impl=impl)
     ce = chunked_cross_entropy(h[:, :-1], tokens[:, 1:],
-                               params["embed"].T, cfg)
+                               unembed_matrix(params, cfg), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

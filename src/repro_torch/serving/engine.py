@@ -19,7 +19,10 @@ request and token for token:
 Slots live in fixed-width decode groups (``ServeConfig.batch`` slots,
 ``ServeConfig.max_len`` cache capacity) sharing one cache clock, so
 admission into a running group left-pads the new prompt to the group's
-current length (pads are attended, positions start at 0).
+current length (pads are attended, positions start at 0).  A model with
+``local`` layers keeps a ring of ``sliding_window`` slots per such layer,
+so ``max_len`` must be at least the window (the prefill lays its ring
+out at that width), as the reference's engine requires.
 ``generate(prompts)`` submits batch-sized waves and drains each.
 
 Greedy decoding is ``argmax`` with the first index on ties, as
@@ -152,6 +155,11 @@ class ServingEngine:
         if cfg.frontend_tokens:
             raise NotImplementedError("modality frontends: ROADMAP queue 1,"
                                       " item 10 (models)")
+        if cfg.sliding_window and serve_cfg.max_len < cfg.sliding_window:
+            raise ValueError(
+                f"max_len {serve_cfg.max_len} < sliding_window "
+                f"{cfg.sliding_window}: the prefill ring cache would not "
+                "fit the group cache")
         self.params = params
         self.cfg = cfg
         self.scfg = serve_cfg

@@ -25,7 +25,8 @@ attention's, RMSNorm's, the SSD scan's): ``chip_smoke``'s phase 5
 backward grids at its tolerances (``check_flash_bwd``, ``check_rms_bwd``,
 ``check_ssd_bwd``), and the bfloat16 flash
 backward's dk/dv and dq kernels must show ``HGMMA`` (``wgmma``) in the
-built library's SASS (``chip_smoke.flash_bwd_sass``).
+built library's SASS (``chip_smoke.flash_bwd_sass``), as must the bf16
+forward, at every head dim (64, 80, 128).
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -237,13 +238,18 @@ def test_cuda_rmsnorm_bwd_matches_plain(dtype):
 @pytest.mark.cuda
 def test_cuda_flash_attention_bwd_on_tensor_cores():
     """The bfloat16 flash backward's two tensor-core kernels
-    (``chip_smoke.FLASH_BWD_TC``) each have ``HGMMA`` instructions in the
-    SASS of the built flash library."""
+    (``chip_smoke.FLASH_BWD_TC``), and the bfloat16 forward, have
+    ``HGMMA`` instructions in the SASS of the built flash library, in
+    the instantiation for each head dim (64, 80, 128)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import _build
     smoke = _smoke()
     _build.load("flash_attention")
-    counts = smoke.flash_bwd_sass(_build._target("flash_attention"))
-    assert set(counts) == set(smoke.FLASH_BWD_TC)
-    assert all(n > 0 for n in counts.values())
+    lib = _build._target("flash_attention")
+    counts = smoke.flash_bwd_sass(lib)
+    assert set(counts) == {f"{n}<{hd}>" for n in smoke.FLASH_BWD_TC
+                           for hd in smoke.FLASH_HEAD_DIMS}
+    fwd = smoke.hgmma_by_hd(smoke.tensor_core_sass(lib),
+                            ("flash_tc_kernel",))
+    assert all(n > 0 for n in [*counts.values(), *fwd.values()])

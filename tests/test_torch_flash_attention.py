@@ -7,6 +7,8 @@ mode (``repro.kernels.ops.attention(..., impl="interpret")``, i.e.
 The port takes grouped K/V heads natively; the reference gets them
 repeated to H heads.  The TPU kernel needs S divisible by its 128 block,
 so it is compared at S 128 and 256; the oracle also at S 37 and 200.
+h2o-danube-1.8b's head dim 80 (the kernel runs it in the hd-128
+tiling) is compared with a window and a softcap, forward and backward.
 Inputs are drawn with numpy and rounded to the dtype once, identically
 in both packages.  Tolerances: float32 rtol 1e-5 / atol 1e-6 (softmax
 and products summed in another order); bfloat16 rtol / atol 2e-2 (the
@@ -30,12 +32,12 @@ CASES = {"causal": {}, "window32": {"window": 32},
          "softcap50": {"softcap": 50.0}}
 
 
-def _inputs(S, G, dtype, seed):
-    """q (1, S, H, 64), k/v (1, S, KV, 64) with H = KV·G."""
+def _inputs(S, G, dtype, seed, hd=64):
+    """q (1, S, H, hd), k/v (1, S, KV, hd) with H = KV·G."""
     KV = 1 if G > 1 else 2
     H = KV * G
     rng = np.random.default_rng(seed)
-    arrs = [rng.normal(size=(1, S, n, 64)).astype(np.float32)
+    arrs = [rng.normal(size=(1, S, n, hd)).astype(np.float32)
             for n in (H, KV, KV)]
     jx = [jnp.asarray(a, dtype) for a in arrs]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
@@ -72,6 +74,49 @@ def test_attention_ref_matches_oracle_any_length(case, G, S, dtype):
                               **CASES[case])
     _compare(attention_ref(tq, tk, tv, causal=True, **CASES[case]), want,
              dtype)
+
+
+#: the modes held at hd 80: gemma2's local layers run a window with a
+#: softcap (here a window shorter than S)
+HD80 = {"causal": {}, "window32_softcap50": {"window": 32, "softcap": 50.0}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("case", list(HD80))
+def test_attention_ref_at_hd80_matches_tpu_kernel(case, G, dtype):
+    """hd 80 at S 128: the plain version against ``flash_attention_tpu``
+    in interpret mode and against the reference's oracle."""
+    (jq, jk, jv), (tq, tk, tv), G = _inputs(128, G, dtype, seed=80 + G,
+                                            hd=80)
+    rep = lambda a: jnp.repeat(a, G, axis=2)
+    got = attention_ref(tq, tk, tv, causal=True, **HD80[case])
+    assert got.shape == tq.shape
+    _compare(got, jops.attention(jq, rep(jk), rep(jv), causal=True,
+                                 impl="interpret", **HD80[case]), dtype)
+    _compare(got, jref.attention_ref(jq, rep(jk), rep(jv), causal=True,
+                                     **HD80[case]), dtype)
+
+
+@pytest.mark.parametrize("rows", [16, 50])
+def test_plain_versions_in_query_blocks(monkeypatch, rows):
+    """The plain forward and backward form the scores ``_REF_ROWS``
+    queries at a time; any block size gives the one-block result (float32
+    rtol 1e-5, atol 1e-5·max(1, max|·|): dk and dv add the blocks' sums,
+    and the products run as GEMM calls of other shapes)."""
+    from repro_torch.kernels import flash_attention as fa
+    _, (q, k, v), _ = _inputs(120, 4, "float32", seed=3, hd=80)
+    do = torch.from_numpy(np.random.default_rng(4).normal(
+        size=q.shape).astype(np.float32))
+    kw = dict(window=40, softcap=30.0)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    want = (o, lse) + fa.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    monkeypatch.setattr(fa, "_REF_ROWS", rows)
+    o2, lse2 = attention_ref(q, k, v, return_lse=True, **kw)
+    got = (o2, lse2) + fa.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
 
 
 def test_dispatch_on_cpu():
@@ -132,10 +177,14 @@ BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.0, 2e-2)}
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G", [1, 3])
-@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("case", list(BWD_CASES) + ["window_softcap_hd80"])
 def test_attention_bwd_ref_matches_reference_vjp(case, G, dtype):
-    causal, window, cap, bq, bk = BWD_CASES[case]
-    B, S, KV, hd = 2, 48, 2, 16
+    """``attention_bwd_ref`` (and the forward) against ``jax.vjp`` of the
+    reference's composition, at hd 16, and at h2o-danube-1.8b's hd 80
+    with a window and a softcap (``window_softcap_hd80``)."""
+    hd = 80 if case.endswith("hd80") else 16
+    causal, window, cap, bq, bk = BWD_CASES[case.replace("_hd80", "")]
+    B, S, KV = 2, 48, 2
     H = KV * G
     rng = np.random.default_rng(len(case) + 10 * G)
     arrs = [rng.normal(size=(B, S, n, hd)).astype(np.float32)
@@ -218,20 +267,22 @@ def _bwd_as_the_kernel_rounds(q, k, v, o, lse, do, *, window=None,
             dv.to(v.dtype))
 
 
+@pytest.mark.parametrize("hd", [64, 80])
 @pytest.mark.parametrize("S", [37, 130])
 @pytest.mark.parametrize("G", [1, 7])
-@pytest.mark.parametrize("mode", ["causal", "window256", "softcap50"])
-def test_kernel_roundings_fit_the_chip_tolerance(mode, G, S):
-    """On bf16 inputs of ``chip_smoke.flash_inputs`` (hd 64), the bf16
-    kernel's roundings (:func:`_bwd_as_the_kernel_rounds`) land within
-    ``chip_smoke.check_bwd``'s bf16 tolerance (2e-2·max|plain|) of
+@pytest.mark.parametrize("mode", ["causal", "window256", "softcap50",
+                                  "window256_softcap50"])
+def test_kernel_roundings_fit_the_chip_tolerance(mode, G, S, hd):
+    """On bf16 inputs of ``chip_smoke.flash_inputs`` (hd 64 and 80), the
+    bf16 kernel's roundings (:func:`_bwd_as_the_kernel_rounds`) land
+    within ``chip_smoke.check_bwd``'s bf16 tolerance (2e-2·max|plain|) of
     ``attention_bwd_ref``: the tolerance the card holds the kernel to
     leaves room for the design's own rounding."""
     smoke = _smoke()
     kw = dict(smoke.FLASH_MODES)[mode]
-    q, k, v = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, 64, "bfloat16",
+    q, k, v = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, hd, "bfloat16",
                                  "cpu", seed=S + G)
-    do = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, 64, "bfloat16",
+    do = smoke.flash_inputs(np, torch, 2, S, 2 * G, 2, hd, "bfloat16",
                             "cpu", seed=S + G + 1000)[0]
     o, lse = attention_ref(q, k, v, return_lse=True, **kw)
     want = attention_bwd_ref(q, k, v, o, lse, do, **kw)

@@ -1,8 +1,11 @@
 """The port's decoders against the reference's, on the same weights.
 
-Each test runs for both ported architectures at their reduced width in
-both packages: ``reduced(get_config("qwen2-0.5b"))`` (2 layers, d_model
-256, GQA 2:1, hd 64, vocab 512) and ``reduced(get_config("mamba2-780m"))``
+The configs and the full-width shapes are checked for every registered
+architecture (the sliding-window and local/global decoders' parity is
+``tests/test_torch_local_global.py``); the other tests run for these
+two at their reduced width in both packages:
+``reduced(get_config("qwen2-0.5b"))`` (2 layers, d_model 256, GQA 2:1,
+hd 64, vocab 512) and ``reduced(get_config("mamba2-780m"))``
 (2 ``ssd`` layers, d_model 256, d_inner 512, 32 SSM heads of 16, state
 32, one group, vocab 512).  The reference's ``init_model`` weights, with
 biases, decay parameters and norm gains redrawn from numpy so that they
@@ -30,12 +33,14 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
-from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
+from repro.configs import (LONG_CONTEXT_ARCHS as JLONG,  # noqa: E402
+                           get_config as jget, reduced as jreduced)
 from repro.models import (decode_step as jdecode,  # noqa: E402
                           init_model as jinit, prefill as jprefill)
 from repro.models.layers import rope as jrope  # noqa: E402
 from repro.models.transformer import model_defs as jmodel_defs  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import (ARCHS as REGISTERED,  # noqa: E402
+                                 LONG_CONTEXT_ARCHS, get_config, reduced)
 from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_model,  # noqa: E402
                                 prefill)
@@ -81,11 +86,14 @@ def _pair(arch, dtype, seed=0):
     return jcfg, cfg, tree, params_from_jax(tree, cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(REGISTERED))
 def test_configs_are_the_reference_s(arch):
+    """Every registered config, and its reduced form, field for field the
+    reference's; so is ``LONG_CONTEXT_ARCHS``."""
     for port, ref in ((get_config(arch), jget(arch)),
                       (reduced(get_config(arch)), jreduced(jget(arch)))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert LONG_CONTEXT_ARCHS == JLONG
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -129,19 +137,24 @@ def _flat_shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(REGISTERED))
 def test_full_width_shapes_equal_reference_on_meta(arch):
     """The arch at full width, built on the meta device (no allocation):
     every layer's parameter has the shape of the reference's stacked
-    leaf without its layer axis."""
+    leaf of its pattern position without the layer axis; ``lm_head``
+    where the embeddings are untied."""
     cfg = get_config(arch)
     model = init_model(cfg, device="meta")
     ref = jmodel_defs(jget(arch))
     assert tuple(model.embed.shape) == ref["embed"].shape
     assert tuple(model.final_norm.shape) == ref["final_norm"].shape
-    assert len(model.blocks) == cfg.n_layers == cfg.n_groups
-    want = _flat_shapes(ref["groups"]["0"])
-    for blk in model.blocks:
+    assert ("lm_head" in ref) == (model.lm_head is not None)
+    if model.lm_head is not None:
+        assert tuple(model.lm_head.shape) == ref["lm_head"].shape
+    n_pat = len(cfg.layer_pattern)
+    assert len(model.blocks) == cfg.n_layers == cfg.n_groups * n_pat
+    for i, blk in enumerate(model.blocks):
+        want = _flat_shapes(ref["groups"][str(i % n_pat)])
         got = {n: tuple(p.shape) for n, p in blk.named_parameters()}
         assert got == {n: s[1:] for n, s in want.items()}
         assert all(p.is_meta for p in blk.parameters())
@@ -208,10 +221,15 @@ def test_teacher_forced_forward_equals_prefill_plus_decode(arch, dtype):
 
 
 def test_unported_features_raise():
+    """What item 10 still queues raises and cites it: MoE and RG-LRU
+    blocks, tail layers, modality frontends, sinusoidal positions, and
+    the configs not registered yet."""
     cfg = reduced(get_config("qwen2-0.5b"))
-    for change in ({"layer_pattern": ("rglru",)}, {"frontend_tokens": 16},
-                   {"layer_pattern": ("attn", "local"), "n_layers": 4}):
-        with pytest.raises(NotImplementedError):
+    for change in ({"layer_pattern": ("moe",)},
+                   {"layer_pattern": ("rglru",)},
+                   {"layer_pattern": ("local", "attn"), "n_layers": 3},
+                   {"frontend_tokens": 16}, {"pos_embed": "sinusoidal"}):
+        with pytest.raises(NotImplementedError, match="item 10"):
             init_model(dataclasses.replace(cfg, **change), device="meta")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gemma2-27b")
+        get_config("recurrentgemma-2b")
