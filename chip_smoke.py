@@ -43,12 +43,14 @@ Phases (any failure exits non-zero before the final line):
    more on a row that is not 16-byte aligned; flash over {causal,
    + window 256, + softcap 50, + both} × GQA {1, 7} × S {1, 37, 512,
    1000} × hd {64, 80, 128} (bfloat16 on the tensor cores, hd 80 in the
-   hd-128 tiling; float32 on the CUDA cores);
+   hd-128 tiling; float32 on the CUDA cores), and the same modes and S at
+   hd 256 × GQA {1, 10} (recurrentgemma-2b's MQA; two consumer
+   warpgroups);
    both in float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and
    bfloat16 (rtol / atol 2e-2).  Count the tensor-core instructions
    (``HGMMA``, ``HMMA``) in the built flash and SSD libraries' SASS
    (``cuobjdump -sass``): the bfloat16 flash kernel's instantiation for
-   each hd must have ``HGMMA``, both bfloat16 SSD kernels some.  A
+   each hd (256 too) must have ``HGMMA``, both bfloat16 SSD kernels some.  A
    bfloat16 flash call whose strides TMA cannot take must raise.  SSD
    over S {64, 128, 512} × groups {1, 2} of
    4 heads × N {64, 128} at hd 64, then ``SSD_EXTRA`` (the serving
@@ -184,8 +186,8 @@ Phases (any failure exits non-zero before the final line):
     prefill call; RMSNorm two per layer, four with gemma2's post-norms,
     and the final one per forward; every served token teacher-forced;
     the plain path's logits within phase 6's bounds) and, for models with
-    ``local`` layers, the ring check (``ring_check``: layer 0's ring after
-    a prefill holds position p at slot p % w, bit for bit):
+    ``local`` layers, the ring check (``ring_check``: every local layer's
+    ring after a prefill holds position p at slot p % w, bit for bit):
     qwen1.5-4b at full width and depth (40 layers, 3.95 B params; MHA of
     20 heads with QKV bias at hd 128, untied unembedding) on phase 6's
     traffic; h2o-danube-1.8b at full width and depth (24 layers, window
@@ -194,13 +196,26 @@ Phases (any failure exits non-zero before the final line):
     then 4 of 1024 + 64 (a ring padded with zeros); gemma2-27b at full
     width cut to 8 layers (4 local / global pairs; fused QKV, both
     softcaps, post-norms, the gemma norm, GeGLU, ``embed_scale``) on
-    danube's first wave.  Then h2o-danube-1.8b at full width cut to 8
-    layers trained under PSP as phase 8 trains qwen2 (W 4, ``pbsp``, β 2,
+    danube's first wave.  Then h2o-danube-1.8b at full width cut to 4
+    layers (8 until PR 24, cut so that the script keeps inside its time
+    limit with phase 15) trained under PSP as phase 8 trains qwen2 (W 4,
+    ``pbsp``, β 2,
     s 3, stragglers 0.25) for 8 ticks on AdamW with
     ``warmup_cosine(3e-3, 3, 8)``, 2 sequences of 6144 tokens per worker
     per tick (past the window: the flash backward runs the band), with
     phase 8's checks (the loss falling over the first and last two
     pushing ticks).
+
+15. recurrentgemma-2b (``RGEMMA_SERVE``) served as phase 14 serves
+    danube, at full width and depth (26 layers: 8 (R, R, A) groups and
+    the (R, R) tail; 2,682,237,440 params; d 2560, 10 query heads on one
+    KV head of 256, window 2048, GeGLU, the gemma norm) at max_len 8192
+    on 4 requests of 4096 random tokens + 64 new (the prefill rolls the
+    ring twice, decode wraps it), then 4 of 1024 + 64 (a zero-padded
+    ring); launches exact: flash 8 per prefill call and never in decode,
+    the RG-LRU scan 18 per prefill call and per decode step, RMSNorm 53
+    per forward, SSD never; every served token teacher-forced, the plain
+    path within phase 6's bounds, the ring check on all 8 local layers.
 
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
@@ -231,12 +246,22 @@ prefill; then the flash forward and backward at h2o-danube-1.8b's
 shapes (``phase5_danube``: hd 80, 32 / 8 heads, window 4096; the
 forward at B 4, S 6144, the backward at B 2, S 6144) against their plain
 versions and SDPA with the band as a boolean mask, beside the bound of
-the band's FLOPs.
+the band's FLOPs.  Last, recurrentgemma-2b's kernels (``phase5_rgemma``):
+the RG-LRU scan against its plain version over S {1, 37, 512, 4096} × W
+{256, 2560} × B {1, 4} × {h0 given, none} × {gate fused, none} ×
+{float32, bfloat16} (y float32 rtol 1e-5, atol 1e-5·max(1, max|plain|),
+bfloat16 2e-2; h_last at the float32 tolerance), timed at its prefill
+(B 4, S 4096, W 2560, bf16, gate fused) beside its bound
+(``rglru_scan.scan_bytes``); the flash forward at its prefill (B 4, S
+4096, 10 / 1 heads of 256, window 2048) as at danube's; and ``ptxas``'s
+registers and spills of the hd-256 forward and scan kernels (none may
+spill; no "Potential Performance Loss" at hd 256).
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
-100k pair, and phase 14's four serving runs and training run), error and
+100k pair, phase 14's four serving runs and training run, and phase
+15's two serving runs), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -303,6 +328,26 @@ FLASH_GQA = (1, 7)
 FLASH_SEQ = (1, 37, 512, 1000)
 #: 80: h2o-danube-1.8b's, in the hd-128 tiling
 FLASH_HEAD_DIMS = (64, 80, 128)
+#: the forward also at recurrentgemma-2b's hd 256 (no backward kernel
+#: yet), over FLASH_MODES × these GQA ratios (10: its MQA) × FLASH_SEQ ×
+#: DTYPES
+FLASH_WIDE_HD, FLASH_WIDE_GQA = 256, (1, 10)
+FLASH_FWD_HEAD_DIMS = FLASH_HEAD_DIMS + (FLASH_WIDE_HD,)
+#: phase 5's RG-LRU scan grid: S × W × B × {h0 given, none} × {gate
+#: fused, none} × DTYPES (4096 and 2560: recurrentgemma-2b's prefill and
+#: width; 37 not a multiple of the kernel's 16-step chunk, 512 two of its
+#: 256-step spans); float32 tolerance rtol, and atol as a share of
+#: max(1, max |plain|) (the kernel composes the steps in another order
+#: than the plain version's doubling); bfloat16 y within 2e-2
+RGLRU_SEQ = (1, 37, 512, 4096)
+RGLRU_WIDTHS = (256, 2560)
+RGLRU_BATCH = (1, 4)
+RGLRU_F32 = (1e-5, 1e-5)
+#: the scan and the flash forward timed at recurrentgemma-2b's prefill:
+#: the scan at (B, S, W), bf16, gate fused; flash at (B, S), 10 / 1
+#: heads of 256, window 2048
+RGLRU_TIMED = (4, 4096, 2560)
+RGEMMA_PREFILL, RGEMMA_HEADS, RGEMMA_WINDOW = (4, 4096), (10, 1, 256), 2048
 #: phase 5's timed shapes: RMSNorm rows at d_model 896 (4 prompts of 512,
 #: then a decode step of 4), flash (B, S) at 14 heads / 2 KV heads / hd 64
 #: (the serving prefill, then a long one); the first of each goes into
@@ -447,9 +492,18 @@ LOCAL_SERVE = (
 #: of sequences of LOCAL_TRAIN_S tokens (past the window), AdamW on
 #: warmup_cosine(3e-3, LOCAL_TRAIN_WARMUP, LOCAL_TRAIN_TICKS), the loss
 #: falling over the first and last LOCAL_TRAIN_FALL pushing ticks
-LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 8
+LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 4
 LOCAL_TRAIN_TICKS, LOCAL_TRAIN_S, LOCAL_TRAIN_WARMUP = 8, 6144, 3
 LOCAL_TRAIN_FALL = 2
+#: phase 15: recurrentgemma-2b served at full width and depth (26 layers,
+#: 2,682,237,440 params; batch 4, greedy, seeded random weights, bf16) at
+#: max_len 8192 on one wave of prompts past its window of 2048 (the
+#: prefill rolls the ring twice, decode wraps it), then one shorter than
+#: it (a ring padded with zeros)
+RGEMMA_SERVE = (
+    ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "4096"],
+    ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "1024"],
+)
 
 
 def smi() -> str:
@@ -758,9 +812,21 @@ def rms_cases():
 
 
 def flash_cases():
-    """Phase 5's flash grid: ((mode, kwargs), GQA ratio, S, hd, dtype)."""
-    return itertools.product(FLASH_MODES, FLASH_GQA, FLASH_SEQ,
-                             FLASH_HEAD_DIMS, DTYPES)
+    """Phase 5's flash forward grid: ((mode, kwargs), GQA ratio, S, hd,
+    dtype), hd FLASH_HEAD_DIMS at GQA FLASH_GQA, then hd 256 at
+    FLASH_WIDE_GQA."""
+    return itertools.chain(
+        itertools.product(FLASH_MODES, FLASH_GQA, FLASH_SEQ,
+                          FLASH_HEAD_DIMS, DTYPES),
+        itertools.product(FLASH_MODES, FLASH_WIDE_GQA, FLASH_SEQ,
+                          (FLASH_WIDE_HD,), DTYPES))
+
+
+def rglru_cases():
+    """Phase 5's RG-LRU scan grid: (B, S, W, h0 given, gate fused,
+    dtype)."""
+    return itertools.product(RGLRU_BATCH, RGLRU_SEQ, RGLRU_WIDTHS,
+                             (False, True), (True, False), DTYPES)
 
 
 def ssd_cases():
@@ -921,10 +987,13 @@ def timed_rounds(torch, fns):
             f"{before} → {sm_clock()}")
 
 
-def event_rounds(torch, fns):
+def event_rounds(torch, fns, queued=False):
     """:func:`timed_rounds` by CUDA events (:func:`time_calls`) instead of
     the profiler: for calls of milliseconds, where the profiler was seen
-    to drop some of a run's kernel records (PERF.md §7)."""
+    to drop some of a run's kernel records (PERF.md §7); with ``queued``
+    by :func:`queued_ms`, for short calls whose host side may outlast
+    the kernel."""
+    timer = queued_ms if queued else time_calls
     for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -933,9 +1002,32 @@ def event_rounds(torch, fns):
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
             fn, calls = fns[name]
-            got[name].append(time_calls(torch, fn, calls))
-    return ({name: (sum(r) / 2, tuple(r), "events")
+            got[name].append(timer(torch, fn, calls))
+    how = "queued events" if queued else "events"
+    return ({name: (sum(r) / 2, tuple(r), how)
              for name, r in got.items()}, f"{before} → {sm_clock()}")
+
+
+def queued_ms(torch, fn, n):
+    """Milliseconds per call of ``fn`` over ``n`` calls by CUDA events, the
+    calls queued behind a device sleep (``torch.cuda._sleep``) twice as
+    long as their enqueue took once, so that the events time the device
+    even where the host issues calls slower than the card runs them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(2 * (time.perf_counter() - t0) * 2.0e9)  # at most 2 GHz
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(cycles)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 def rounds_text(ms) -> str:
@@ -976,15 +1068,16 @@ def phase5(np, torch, dev, card):
             np, flash_attention_cuda(q, k, v, causal=True, **kw),
             attention_ref(q, k, v, causal=True, **kw), dt,
             f"flash {mode} G={G} S={S} hd={hd} {dt}"))
-    print(f"[5] flash kernel == plain on {i + 1} cases (bf16 on the tensor "
-          "cores); max |err| "
+    print(f"[5] flash kernel == plain on {i + 1} cases (hd "
+          f"{FLASH_HEAD_DIMS} at GQA {FLASH_GQA}, hd {FLASH_WIDE_HD} at GQA "
+          f"{FLASH_WIDE_GQA}; bf16 on the tensor cores); max |err| "
           + ", ".join(f"{dt} {e:.3g}" for dt, e in err_fl.items()),
           flush=True)
     sass = tensor_core_sass(_build._target("flash_attention"))
     print("[5] flash library SASS: " + "; ".join(
         f"{fn[:60]}… HGMMA {c['HGMMA']}, HMMA {c['HMMA']}"
         for fn, c in sorted(sass.items())), flush=True)
-    tc = hgmma_by_hd(sass, ("flash_tc_kernel",))
+    tc = hgmma_by_hd(sass, ("flash_tc_kernel",), FLASH_FWD_HEAD_DIMS)
     print("[5] the bf16 flash forward's HGMMA by head dim: " + ", ".join(
         f"{k} {n}" for k, n in tc.items()), flush=True)
     if not all(tc.values()):
@@ -1307,14 +1400,14 @@ def flash_bwd_cases():
                              FLASH_HEAD_DIMS, DTYPES)
 
 
-def hgmma_by_hd(sass, names):
+def hgmma_by_hd(sass, names, hds=FLASH_HEAD_DIMS):
     """``HGMMA`` counts of the kernels ``names`` in :func:`tensor_core_sass`
-    counts, per instantiation for each head dim of FLASH_HEAD_DIMS (the
-    first template argument, ``ILi<hd>E`` in the mangled name), keyed
+    counts, per instantiation for each head dim of ``hds`` (the first
+    template argument, ``ILi<hd>E`` in the mangled name), keyed
     ``name<hd>``; 0 where an instantiation is missing."""
     out = {}
     for name in names:
-        for hd in FLASH_HEAD_DIMS:
+        for hd in hds:
             out[f"{name}<{hd}>"] = sum(
                 c["HGMMA"] for fn, c in sass.items()
                 if name in fn and re.search(rf"{name}ILi{hd}E", fn))
@@ -1566,89 +1659,242 @@ def band_pairs(S, window):
     return w * (w + 1) // 2 + (S - w) * window
 
 
+def band_forward(np, torch, dev, card, what, B, S, H, KV, hd, w):
+    """The bf16 flash forward at (B, S, H / KV heads of hd, causal,
+    window w): held to its plain version there (``check_close``'s bf16
+    tolerance) and timed against it and SDPA with K/V repeated to the
+    query heads and the band as a boolean mask, by CUDA events in
+    mirrored rounds (:func:`event_rounds`), beside the bound: the band's
+    FLOPs at the bf16 tensor-core rate against the bytes (inputs once,
+    the output once).  Prints the line; returns (ms by entry, bound ms,
+    bound_by, max |err|)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
+    pos = torch.arange(S, device=dev)
+    band = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < w))
+    rep = lambda t: t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    pairs = band_pairs(S, w)
+    err = check_close(np, flash_attention_cuda(q, k, v, window=w),
+                      attention_ref(q, k, v, window=w), "bfloat16",
+                      f"flash at {what}'s prefill shape")
+    nxt, n_sets = rotating((q, k, v))
+    lib_in = (q.transpose(1, 2), rep(k), rep(v))
+    ms, clocks = event_rounds(torch, {
+        "kernel": (lambda: flash_attention_cuda(*nxt(), window=w), 5),
+        "plain": (lambda: attention_ref(*nxt(), window=w), 2),
+        "library": (lambda: F.scaled_dot_product_attention(
+            *lib_in, attn_mask=band), 5)})
+    flops = 4 * B * H * hd * pairs                    # S·Kᵀ and P·V
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] flash forward at {what}'s shape B={B} S={S} H={H} KV={KV} "
+          f"hd={hd} bf16 causal window {w} (kernel == plain there, max "
+          f"|err| {err:.3g}): " + rounds_text(ms)
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
+          f"GFLOP over the band's {pairs} (query, key) pairs at the bf16 "
+          f"tensor-core rate, {nbytes / 1e6:.2f} MB at {t_bytes:.4f} ms); "
+          f"kernel at {flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library "
+          f"(SDPA, K/V repeated, the band as a boolean mask) at "
+          f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    del nxt, lib_in, band
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (ms, max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", err)
+
+
 def phase5_danube(np, torch, dev, card):
     """The flash forward and backward at h2o-danube-1.8b's shapes (hd 80,
-    window 4096): the forward at the serving prefill, the backward at the
-    training shape, each held to its plain version there (``check_close``
-    and ``check_bwd``'s bf16 tolerances) and timed against it and SDPA
-    with K/V repeated to the query heads and the band as a boolean mask
-    (its backward through autograd), by CUDA events in mirrored rounds
-    (:func:`event_rounds`), beside the bound: the band's FLOPs at the
-    bf16 tensor-core rate against the bytes (inputs once, outputs once).
-    Returns (forward ms, backward ms) of the kernel."""
+    window 4096): the forward at the serving prefill
+    (:func:`band_forward`), the backward at the training shape, held to
+    its plain version there (``check_bwd``'s bf16 tolerance) and timed
+    as :func:`band_forward` times the forward (its SDPA through
+    autograd), beside the bound of the band's five products.  Returns
+    (forward ms, backward ms) of the kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda,
-        flash_attention_cuda)
+        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda)
     H, KV, hd = DANUBE_HEADS
     w = DANUBE_WINDOW
     G = H // KV
-    out = []
-    for what, (B, S) in (("forward", DANUBE_PREFILL),
-                         ("backward", DANUBE_TRAIN)):
-        q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
-        pos = torch.arange(S, device=dev)
-        band = ((pos[:, None] >= pos[None, :])
-                & (pos[:, None] - pos[None, :] < w))
-        rep = lambda t: t.repeat_interleave(G, dim=2).transpose(1, 2)
-        pairs = band_pairs(S, w)
-        if what == "forward":
-            err = check_close(np, flash_attention_cuda(q, k, v, window=w),
-                              attention_ref(q, k, v, window=w), "bfloat16",
-                              f"flash at danube's prefill shape")
-            kernel = lambda: flash_attention_cuda(*nxt(), window=w)
-            nxt, n_sets = rotating((q, k, v))
-            lib_in = (q.transpose(1, 2), rep(k), rep(v))
-            fns = {"kernel": (kernel, 5),
-                   "plain": (lambda: attention_ref(*nxt(), window=w), 2),
-                   "library": (lambda: F.scaled_dot_product_attention(
-                       *lib_in, attn_mask=band), 5)}
-            flops = 4 * B * H * hd * pairs            # S·Kᵀ and P·V
-            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-        else:
-            do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev,
-                              1)[0]
-            o, lse = attention_ref(q, k, v, window=w, return_lse=True)
-            err = max(check_bwd(np, g, r, "bfloat16",
-                                f"flash bwd at danube's training shape {n}")
-                      for n, g, r in zip(
-                          "dq dk dv".split(),
-                          flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                   window=w),
-                          attention_bwd_ref(q, k, v, o, lse, do, window=w)))
-            kernel = lambda: flash_attention_bwd_cuda(*nxt(), window=w)
-            nxt, n_sets = rotating((q, k, v, o, lse, do))
-            leaves = [q.transpose(1, 2).detach().requires_grad_(True),
-                      rep(k).detach().requires_grad_(True),
-                      rep(v).detach().requires_grad_(True)]
-            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=band)
-            dout = do.transpose(1, 2)
-            fns = {"kernel": (kernel, 5),
-                   "plain": (lambda: attention_bwd_ref(*nxt(), window=w),
-                             2),
-                   "library": (lambda: torch.autograd.grad(
-                       lib_out, leaves, dout, retain_graph=True), 5)}
-            flops = 10 * B * H * hd * pairs           # five band products
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in (q, k, v, o, lse, do, q, k, v))
-        ms, clocks = event_rounds(torch, fns)
-        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
-        print(f"[5] flash {what} at h2o-danube-1.8b's shape B={B} S={S} "
-              f"H={H} KV={KV} hd={hd} bf16 causal window {w} (kernel == "
-              f"plain there, max |err| {err:.3g}): " + rounds_text(ms)
-              + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
-              f"GFLOP over the band's {pairs} (query, key) pairs at the bf16 "
-              f"tensor-core rate, {nbytes / 1e6:.2f} MB at "
-              f"{t_bytes:.4f} ms); kernel at "
-              f"{flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library (SDPA, "
-              f"K/V repeated, the band as a boolean mask) at "
-              f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
-              f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
-        out.append(ms["kernel"][0])
-        del fns, nxt
-        gc.collect()
-        torch.cuda.empty_cache()
-    return tuple(out)
+    fwd = band_forward(np, torch, dev, card, "h2o-danube-1.8b",
+                       *DANUBE_PREFILL, H, KV, hd, w)[0]["kernel"][0]
+    B, S = DANUBE_TRAIN
+    q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
+    pos = torch.arange(S, device=dev)
+    band = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < w))
+    rep = lambda t: t.repeat_interleave(G, dim=2).transpose(1, 2)
+    pairs = band_pairs(S, w)
+    do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev, 1)[0]
+    o, lse = attention_ref(q, k, v, window=w, return_lse=True)
+    err = max(check_bwd(np, g, r, "bfloat16",
+                        f"flash bwd at danube's training shape {n}")
+              for n, g, r in zip(
+                  "dq dk dv".split(),
+                  flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w),
+                  attention_bwd_ref(q, k, v, o, lse, do, window=w)))
+    nxt, n_sets = rotating((q, k, v, o, lse, do))
+    leaves = [q.transpose(1, 2).detach().requires_grad_(True),
+              rep(k).detach().requires_grad_(True),
+              rep(v).detach().requires_grad_(True)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+    dout = do.transpose(1, 2)
+    ms, clocks = event_rounds(torch, {
+        "kernel": (lambda: flash_attention_bwd_cuda(*nxt(), window=w), 5),
+        "plain": (lambda: attention_bwd_ref(*nxt(), window=w), 2),
+        "library": (lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True), 5)})
+    flops = 10 * B * H * hd * pairs                   # five band products
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, o, lse, do, q, k, v))
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] flash backward at h2o-danube-1.8b's shape B={B} S={S} "
+          f"H={H} KV={KV} hd={hd} bf16 causal window {w} (kernel == plain "
+          f"there, max |err| {err:.3g}): " + rounds_text(ms)
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
+          f"GFLOP over the band's {pairs} (query, key) pairs at the bf16 "
+          f"tensor-core rate, {nbytes / 1e6:.2f} MB at {t_bytes:.4f} ms); "
+          f"kernel at {flops / ms['kernel'][0] / 1e9:.2f} TFLOP/s, library "
+          f"(SDPA, K/V repeated, the band as a boolean mask) at "
+          f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    del nxt, leaves, lib_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, ms["kernel"][0]
+
+
+def ptxas_report(log, pattern):
+    """From a verbose build's compiler output: (registers, spill store
+    bytes, spill load bytes) of each kernel whose mangled name matches
+    ``pattern``, and the "Potential Performance Loss" lines naming one."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            fn = m.group(1) if re.search(pattern, m.group(1)) else None
+            if fn is not None:
+                out.setdefault(fn, [0, 0, 0])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn][0] = int(m.group(1))
+    loss = [line.strip() for line in log.splitlines()
+            if "Potential Performance Loss" in line
+            and re.search(pattern, line)]
+    return {k: tuple(v) for k, v in out.items()}, loss
+
+
+def rglru_inputs(torch, B, S, W, dtype, dev, seed=0):
+    """x, r_pre, i_pre, gate (B, S, W) in ``dtype``, Λ (W,) and h0 (B, W)
+    float32, drawn on ``dev`` from a ``torch.Generator`` seeded with
+    ``seed`` (a 4096-token prefill's inputs drawn by numpy on the host
+    cost seconds a case): x, gate, h0 ~ N(0, 1), the gate pre-activations
+    ~ N(0, 2²), Λ ~ U(−4, 4) (decays from a ≈ 0.87 to ≈ e⁻³²)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    td = getattr(torch, dtype)
+    normal = lambda *shape, scale=1.0: (scale * torch.randn(
+        shape, generator=gen, device=dev)).to(td)
+    x = normal(B, S, W)
+    rp, ip = normal(B, S, W, scale=2.0), normal(B, S, W, scale=2.0)
+    gate = normal(B, S, W)
+    lam = 8.0 * torch.rand(W, generator=gen, device=dev) - 4.0
+    h0 = torch.randn(B, W, generator=gen, device=dev)
+    return x, rp, ip, gate, lam, h0
+
+
+def phase5_rgemma(np, torch, dev, card):
+    """recurrentgemma-2b's kernels: the RG-LRU scan against its plain
+    version over :func:`rglru_cases` (y at ``check_close``'s tolerances,
+    RGLRU_F32 in float32; h_last at RGLRU_F32 in both dtypes), then timed
+    at its prefill (RGLRU_TIMED, bf16, gate fused) against the plain
+    version and its bound (``rglru_scan.scan_bytes`` at 3.35 TB/s; no
+    library call computes it), both by queued events
+    (:func:`event_rounds`), and a
+    decode step's launch; the flash forward at its prefill
+    (:func:`band_forward`); and ``ptxas``'s registers and spills of the
+    hd-256 forward kernels and the scan, which must not spill, nor draw
+    a "Potential Performance Loss" at hd 256.  Returns the scan's JSON
+    entry without ``launches``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
+                                                rglru_scan_ref, scan_bytes)
+    err = {dt: 0.0 for dt in DTYPES}
+    for i, (B, S, W, with_h0, gated, dt) in enumerate(rglru_cases()):
+        x, rp, ip, g, lam, h0 = rglru_inputs(torch, B, S, W, dt, dev, i)
+        args = (x, rp, ip, lam, h0 if with_h0 else None,
+                g if gated else None)
+        what = f"rglru B={B} S={S} W={W} h0={with_h0} gate={gated} {dt}"
+        (y, hl), (yr, hr) = rglru_scan_cuda(*args), rglru_scan_ref(*args)
+        err[dt] = max(err[dt], check_close(np, y, yr, dt, what, RGLRU_F32),
+                      check_close(np, hl, hr, "float32", what + " h_last",
+                                  RGLRU_F32))
+    print(f"[5] rglru scan kernel == plain on {i + 1} cases; max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err.items()), flush=True)
+
+    B, S, W = RGLRU_TIMED
+    x, rp, ip, g, lam, _ = rglru_inputs(torch, B, S, W, "bfloat16", dev)
+    nxt, n_sets = rotating((x, rp, ip, g))
+    call = lambda fn: (lambda t: fn(t[0], t[1], t[2], lam, None, t[3]))(
+        nxt())
+    ms, clocks = event_rounds(torch, {
+        "kernel": (lambda: call(rglru_scan_cuda), 20),
+        "plain": (lambda: call(rglru_scan_ref), 3)}, queued=True)
+    nbytes = scan_bytes(B, S, W, 2, gated=True)
+    bound = 1e3 * nbytes / HBM_BPS
+    print(f"[5] rglru scan at recurrentgemma-2b's prefill B={B} S={S} W={W} "
+          f"bf16, gate fused: " + rounds_text(ms) + f"; bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.2f} MB; bytes); kernel at "
+          f"{nbytes / ms['kernel'][0] / 1e6:.1f} GB/s; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    step = [t[:, :1].contiguous() for t in (x, rp, ip, g)]
+    h0 = torch.zeros(B, W, dtype=torch.float32, device=dev)
+    step_ms = queued_ms(torch, lambda: rglru_scan_cuda(
+        step[0], step[1], step[2], lam, h0, step[3]), 200)
+    print(f"[5] rglru scan at a decode step B={B} S=1 W={W} bf16 (one warp "
+          f"a block): {step_ms:.5f} ms by queued events [{card}]", flush=True)
+    del nxt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    band_forward(np, torch, dev, card, "recurrentgemma-2b", *RGEMMA_PREFILL,
+                 *RGEMMA_HEADS, RGEMMA_WINDOW)
+
+    regs, loss = ptxas_report(_build.LOGS.get("flash_attention", ""),
+                              rf"flash_(tc|fwd)_kernelILi{FLASH_WIDE_HD}E")
+    more, loss_rg = ptxas_report(_build.LOGS.get("rglru_scan", ""),
+                                 "rglru_scan_kernel")
+    regs.update(more)
+    print("[5] ptxas, hd-256 flash forward and rglru scan kernels "
+          "(registers, spill store / load bytes): " + "; ".join(
+              f"{fn[:60]}… {r} regs, spills {st} / {ld}"
+              for fn, (r, st, ld) in sorted(regs.items())), flush=True)
+    for line in loss + loss_rg:
+        print(f"[5]   {line}", flush=True)
+    if len(regs) < 6 or any(st or ld for _, st, ld in regs.values()):
+        raise AssertionError(f"hd-256 flash / rglru kernels missing from "
+                             f"the build log or spilling: {regs}")
+    if loss:
+        raise AssertionError("ptxas serializes the hd-256 flash forward's "
+                             f"wgmmas: {loss}")
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/models/rglru.py:109",
+            "max_abs_err": max(err.values()), "ms": ms["kernel"][0],
+            "plain_ms": ms["plain"][0], "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
@@ -1667,45 +1913,51 @@ def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
 
 
 def ring_check(np, torch, run, a, tag):
-    """The ring of the first ``local`` layer (layer 0, whose keys and
-    values depend on the prompt alone) after a prefill of the first
+    """The ring of every ``local`` layer after a prefill of the first
     wave's prompts on the kernels: slot p % w holds position p's key and
     value for the last w positions, bit for bit the layer's own
-    projection of the prompt; a prompt shorter than w leaves the slots
-    past it zero."""
+    projection of its input, which the check forms by running the blocks
+    below it as the prefill runs them; a prompt shorter than w leaves the
+    slots past it zero."""
     from repro_torch.models import prefill
     from repro_torch.models.attention import _project
     from repro_torch.models.layers import (apply_rope, embed_tokens,
                                            rmsnorm, rope_angles)
     model, cfg = run.model, run.cfg
-    if cfg.layer_kinds()[0] != "local":
-        raise AssertionError(f"{cfg.name}: layer 0 is not local")
     dev = model.embed.device
     toks = torch.from_numpy(np.stack(run.prompts[:a.batch])).to(dev)
     B, S = toks.shape
     w = cfg.sliding_window
+    pos = torch.arange(max(0, S - w), S, device=dev)
+    local = [i for i, kind in enumerate(cfg.layer_kinds()) if kind == "local"]
     with torch.no_grad():
         _, cache = prefill(model, toks, max_len=a.max_len)
-        blk = model.blocks[0]
         x = embed_tokens(model.embed, toks, cfg)
-        h = rmsnorm(x, blk.ln1, cfg.norm_eps, cfg.gemma_norm)
-        _, k, v = _project(blk.weights(x.dtype)["attn"], h, cfg)
-        k = apply_rope(k, *rope_angles(torch.arange(S, device=dev),
-                                       cfg.head_dim, cfg.rope_theta))
-    pos = torch.arange(max(0, S - w), S, device=dev)
-    for name, t in (("k", k), ("v", v)):
-        ring = cache["layers"][0][name]
-        if ring.shape[1] != w:
-            raise AssertionError(f"ring of {ring.shape[1]} slots, want {w}")
-        if not torch.equal(ring[:, pos % w], t[:, pos].to(ring.dtype)):
-            raise AssertionError(f"ring {name}: slot p % {w} does not hold "
-                                 "position p")
-        if S < w and ring[:, S:].any():
-            raise AssertionError(f"ring {name}: slots past the prompt are "
-                                 "not zero")
-    print(f"[{tag}] ring check: layer 0's {w}-slot ring after a prefill of "
-          f"{B} × {S} tokens holds positions {int(pos[0])}..{S - 1} at slot "
-          f"p % {w}, bit for bit its projection of the prompt"
+        rot = rope_angles(torch.arange(S, device=dev), cfg.head_dim,
+                          cfg.rope_theta)
+        for i, blk in enumerate(model.blocks[:local[-1] + 1]):
+            if i in local:
+                h = rmsnorm(x, blk.ln1, cfg.norm_eps, cfg.gemma_norm)
+                _, k, v = _project(blk.weights(x.dtype)["attn"], h, cfg)
+                k = apply_rope(k, *rot)
+                for name, t in (("k", k), ("v", v)):
+                    ring = cache["layers"][i][name]
+                    if ring.shape[1] != w:
+                        raise AssertionError(f"layer {i}: ring of {w} slots "
+                                             f"wanted, {ring.shape[1]} held")
+                    if not torch.equal(ring[:, pos % w],
+                                       t[:, pos].to(ring.dtype)):
+                        raise AssertionError(f"layer {i} ring {name}: slot "
+                                             f"p % {w} does not hold p")
+                    if S < w and ring[:, S:].any():
+                        raise AssertionError(f"layer {i} ring {name}: slots "
+                                             "past the prompt are not zero")
+            x, _ = blk(x, rot=rot, length=0, cache=None, mode="prefill",
+                       max_len=a.max_len, impl="auto")
+    print(f"[{tag}] ring check: the {w}-slot rings of all {len(local)} local "
+          f"layers after a prefill of {B} × {S} tokens hold positions "
+          f"{int(pos[0])}..{S - 1} at slot p % {w}, bit for bit each layer's "
+          "projection of its input"
           + (f"; slots {S}..{w - 1} zero" if S < w else
              f" ({S % w} slots rolled)"), flush=True)
     del cache
@@ -1718,13 +1970,14 @@ def serve_phase(np, torch, dev, card, argv, tag):
     the ring of a model with ``local`` layers (:func:`ring_check`),
     teacher-force the served tokens, and trace a rerun.  Returns the
     launch counts by kernel name."""
-    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
-                                     ssd_scan as ss)
+    from repro_torch.kernels import (flash_attention as fa, rglru_scan as rg,
+                                     rmsnorm as rn, ssd_scan as ss)
     from repro_torch.launch import serve
     from repro_torch.models import Model, init_model
     t_phase = time.perf_counter()
     a = serve.parse_args(argv)
-    kernels = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss}
+    kernels = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss,
+               "rglru_scan": rg}
     torch.cuda.synchronize()
     for m in kernels.values():
         m.reset_launch_count()
@@ -1732,15 +1985,17 @@ def serve_phase(np, torch, dev, card, argv, tag):
     got = {name: m.launch_count() for name, m in kernels.items()}
     eng, cfg = run.engine, run.cfg
     # per prefill call: one flash launch per attention layer (attn or
-    # local), one SSD launch per ssd layer; per forward: two RMSNorms per
-    # layer (four with post-norms) and the final one
+    # local), one SSD launch per ssd layer; per forward (prefill or decode
+    # step): two RMSNorms per layer (four with post-norms) and the final
+    # one, one RG-LRU scan per rglru layer
     forwards = eng.prefill_calls + eng.decode_steps
     kinds = cfg.layer_kinds()
     per = {"flash_attention": (kinds.count("attn") + kinds.count("local"),
                                eng.prefill_calls),
            "rmsnorm": ((4 if cfg.post_norms else 2) * cfg.n_layers + 1,
                        forwards),
-           "ssd_scan": (kinds.count("ssd"), eng.prefill_calls)}
+           "ssd_scan": (kinds.count("ssd"), eng.prefill_calls),
+           "rglru_scan": (kinds.count("rglru"), forwards)}
     want = {name: n * k for name, (n, k) in per.items()}
     if got != want:
         raise AssertionError(f"launches {got}, want {want}")
@@ -2190,14 +2445,16 @@ def train_launches(cfg):
     """The model kernels' launches per worker and PSP tick of ``cfg``
     (remat recomputes each block's attention or SSD scan forward and its
     norms: ``ln1``/``ln2`` (and the post-norms), or ``ln`` and the gated
-    ``norm``)."""
+    ``norm``; no RG-LRU scan: ``rglru`` stacks do not train on the
+    card)."""
     L = cfg.n_layers
     ssd = "ssd" in cfg.layer_kinds()
     norms = (4 if cfg.post_norms else 2) * L
     return {"flash_attention": 0 if ssd else 2 * L,
             "flash_attention_bwd": 0 if ssd else L,
             "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
-            "ssd_scan": 2 * L if ssd else 0, "ssd_scan_bwd": L if ssd else 0}
+            "ssd_scan": 2 * L if ssd else 0, "ssd_scan_bwd": L if ssd else 0,
+            "rglru_scan": 0}
 
 
 def train_total(cfg, ticks):
@@ -2207,21 +2464,22 @@ def train_total(cfg, ticks):
 
 def launch_counts():
     """The model kernels' launch counts since their last reset."""
-    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
-                                     ssd_scan as ss)
+    from repro_torch.kernels import (flash_attention as fa, rglru_scan as rg,
+                                     rmsnorm as rn, ssd_scan as ss)
     return {"flash_attention": fa.launch_count(),
             "flash_attention_bwd": fa.bwd_launch_count(),
             "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
             "ssd_scan": ss.launch_count(),
-            "ssd_scan_bwd": ss.bwd_launch_count()}
+            "ssd_scan_bwd": ss.bwd_launch_count(),
+            "rglru_scan": rg.launch_count()}
 
 
 def reset_launch_counts(torch):
     """Set the model kernels' launch counts to 0 (after a synchronize)."""
-    from repro_torch.kernels import (flash_attention as fa, rmsnorm as rn,
-                                     ssd_scan as ss)
+    from repro_torch.kernels import (flash_attention as fa, rglru_scan as rg,
+                                     rmsnorm as rn, ssd_scan as ss)
     torch.cuda.synchronize()
-    for m in (fa, rn, ss):
+    for m in (fa, rn, ss, rg):
         m.reset_launch_count()
 
 
@@ -2441,7 +2699,8 @@ def phase9(np, torch, dev, card):
     forwards = eng.prefill_calls + eng.decode_steps
     want = {"flash_attention": cfg.n_layers * eng.prefill_calls,
             "flash_attention_bwd": 0, "rmsnorm": (2 * cfg.n_layers + 1)
-            * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+            * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            "rglru_scan": 0}
     if served_counts != want:
         raise AssertionError(f"server launches {served_counts}, want {want}")
     if trainer["launches"] != train_total(cfg, LOOP_TICKS):
@@ -2450,7 +2709,7 @@ def phase9(np, torch, dev, card):
     counts = {k: served_counts[k] + trainer["launches"][k]
               for k in served_counts}
     if not all(counts[k] > 0 for k in counts
-               if k not in ("ssd_scan", "ssd_scan_bwd")):
+               if k not in ("ssd_scan", "ssd_scan_bwd", "rglru_scan")):
         raise AssertionError(f"a kernel of the loop never ran: {counts}")
 
     # the server's loaded leaves against the published arrays, bit for bit
@@ -2920,6 +3179,19 @@ def phase14(np, torch, dev, card):
     return paths
 
 
+def phase15(np, torch, dev, card):
+    """recurrentgemma-2b served on the card at full width and depth
+    (RGEMMA_SERVE, :func:`serve_phase` with the ring check on its 8
+    local layers).  Returns the model kernels' launch counts of each
+    run."""
+    paths = []
+    for argv in RGEMMA_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.append(serve_phase(np, torch, dev, card, argv, 15))
+    return paths
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3071,7 +3343,7 @@ def main() -> int:
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     entries = []
     for part in (phase5, phase5_ssd, phase5_ssd_bwd, phase5_bwd,
-                 phase5_danube):
+                 phase5_danube, phase5_rgemma):
         t0 = time.perf_counter()
         out = part(np, torch, dev, card)
         if isinstance(out, dict):
@@ -3117,6 +3389,14 @@ def main() -> int:
           flush=True)
     paths += phase14(np, torch, dev, card)
     print(f"[14] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 15. recurrentgemma-2b: RG-LRU and local attention ------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[15] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths += phase15(np, torch, dev, card)
+    print(f"[15] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's three backward kernels on the card.
+"""Time design variants of the port's three backward kernels and of the
+RG-LRU scan on the card.
 
 Each variant is the kernel's CUDA source with one of its design
 constants changed (the RMSNorm backward's ``BWD_FILL``, busy warps per SM
@@ -7,7 +8,10 @@ its launcher aims for, and ``COLS_WARPS``, the warps of its column pass;
 the flash backward's ``BWD_STAGES``, streamed tile pairs in its ring;
 the bfloat16 SSD backward's ``BWD_HEADS``, heads per block of its chunk
 kernel, and ``BWD_ROWS``, state rows per block of its state-gradient
-scan).
+scan; the RG-LRU scan's prefill block shape, ``PREFILL_NC`` chunks of
+``PREFILL_L`` steps at ``PREFILL_MINB`` blocks an SM, timed at
+recurrentgemma-2b's prefill and at a decode step by queued CUDA
+events).
 Every variant is built with the port's own flags (one ``nvcc`` each, all
 started together, into ``build/variants/``), held to its plain version
 on a few of ``chip_smoke.py``'s phase 5 cases, and timed at the
@@ -24,7 +28,10 @@ blocks, and the mean by chunk).
 
 Run on a machine with one card, from the root of the checkout::
 
-    python3 chip_variants.py
+    python3 chip_variants.py [kernel source ...]
+
+(the sources' names, e.g. ``rglru_scan``, restrict it to their
+variants).
 
 It exits with code 2 without a GPU.  It needs the CUDA toolkit's
 ``nvcc``; it changes no file outside ``build/variants/``.
@@ -58,6 +65,13 @@ VARIANTS = (
     ("ssd_scan", "BWD_HEADS 4", {"BWD_HEADS = 3;": "BWD_HEADS = 4;"}),
     ("ssd_scan", "BWD_ROWS 16", {"BWD_ROWS = 64;": "BWD_ROWS = 16;"}),
     ("ssd_scan", "BWD_ROWS 32", {"BWD_ROWS = 64;": "BWD_ROWS = 32;"}),
+    ("rglru_scan", "as built", {}),
+    *(("rglru_scan", f"NC {nc} L {n} MINB {mb}",
+       {"PREFILL_NC = 16;": f"PREFILL_NC = {nc};",
+        "PREFILL_L = 8;": f"PREFILL_L = {n};",
+        "PREFILL_MINB = 2;": f"PREFILL_MINB = {mb};"})
+      for nc, n, mb in ((16, 16, 1), (32, 8, 1), (8, 16, 2), (8, 8, 4),
+                        (32, 4, 1))),
 )
 #: the SSD backward's spot checks: (B, S, nh, ng, hd, N, chunk, decay,
 #: dtype), a last head tile of 2, two groups at hd 16 with N and Q not
@@ -65,6 +79,10 @@ VARIANTS = (
 SSD_CHECKS = ((2, 512, 20, 1, 64, 128, 128, "model", "bfloat16"),
               (2, 240, 6, 2, 16, 36, 48, "slow", "bfloat16"),
               (1, 4096, 8, 2, 64, 128, 128, "slow", "bfloat16"))
+#: the RG-LRU scan's spot checks (h0 and the gate given): (B, S, W,
+#: dtype), a span cut short, a decode step, the prefill
+RGLRU_CHECKS = ((2, 300, 256, "float32"), (4, 1, 2560, "bfloat16"),
+                (4, 4096, 2560, "bfloat16"))
 
 
 def variant_source(name, subs):
@@ -257,8 +275,9 @@ def use(lib, name):
     """Point the wrapper module of kernel source ``name`` at ``lib``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
-    from repro_torch.kernels import ssd_scan as ss
-    mod = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss}[name]
+    from repro_torch.kernels import rglru_scan as rg, ssd_scan as ss
+    mod = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss,
+           "rglru_scan": rg}[name]
     _build._LIBS[name] = lib
     mod._lib.cache_clear()
     mod._lib()
@@ -274,11 +293,13 @@ def main() -> int:
     import torch.nn.functional as F
     import chip_smoke as cs
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
-    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import rglru_scan as rg, ssd_scan as ss
     card = cs.smi()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    libs, reports = build(VARIANTS)
+    only = set(sys.argv[1:])
+    libs, reports = build([v for v in VARIANTS if not only or v[0] in only])
+    names = {name for name, _ in libs}
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s "
           f"[{card}]", flush=True)
     for name, log in reports.items():
@@ -300,6 +321,15 @@ def main() -> int:
         elif name == "ssd_scan":
             for i, case in enumerate(SSD_CHECKS):
                 cs.check_ssd_bwd(np, torch, case, dev, i)
+        elif name == "rglru_scan":
+            for i, (B, S, W, dt) in enumerate(RGLRU_CHECKS):
+                x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W,
+                                                        dt, dev, i)
+                y, hl = rg.rglru_scan_cuda(x, rp, ip, lam, h0, g)
+                yr, hr = rg.rglru_scan_ref(x, rp, ip, lam, h0, g)
+                cs.check_close(np, y, yr, dt, f"rglru {tag}", cs.RGLRU_F32)
+                cs.check_close(np, hl, hr, "float32",
+                               f"rglru {tag} h_last", cs.RGLRU_F32)
         else:
             for rows, D, dt in ((1024, 896, "bfloat16"),
                                 (4099, 3072, "bfloat16"),
@@ -318,68 +348,93 @@ def main() -> int:
                 f"{kernel_name(k)} {v:.5f}" for k, v in split.items()),
                 flush=True)
 
-    B, S = cs.FLASH_BWD_TIMED
-    q, k, v = cs.flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev)
-    do = cs.flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev, 1)[0]
-    o, lse = fa.attention_ref(q, k, v, causal=True, return_lse=True)
-    nxt, _ = cs.rotating((q, k, v, o, lse, do))
-    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
-              for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                         enable_gqa=True)
-    dout = do.transpose(1, 2)
+    if "flash_attention" in names:
+        B, S = cs.FLASH_BWD_TIMED
+        q, k, v = cs.flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev)
+        do = cs.flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev, 1)[0]
+        o, lse = fa.attention_ref(q, k, v, causal=True, return_lse=True)
+        nxt, _ = cs.rotating((q, k, v, o, lse, do))
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        dout = do.transpose(1, 2)
 
-    def flash(lib):
-        def f():
-            use(lib, "flash_attention")
-            return fa.flash_attention_bwd_cuda(*nxt())
-        return f
-    fns = {tag: (flash(lib), 20) for (name, tag), lib in libs.items()
-           if name == "flash_attention"}
-    fns["SDPA backward"] = (lambda: torch.autograd.grad(
-        out, leaves, dout, retain_graph=True), 20)
-    report(f"flash backward B={B} S={S} H=14 KV=2 hd=64 bf16 causal", fns)
+        def flash(lib):
+            def f():
+                use(lib, "flash_attention")
+                return fa.flash_attention_bwd_cuda(*nxt())
+            return f
+        fns = {tag: (flash(lib), 20) for (name, tag), lib in libs.items()
+               if name == "flash_attention"}
+        fns["SDPA backward"] = (lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), 20)
+        report(f"flash backward B={B} S={S} H=14 KV=2 hd=64 bf16 causal", fns)
 
-    rows, D = cs.RMS_BWD_TIMED
-    x, w = cs.rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=1)
-    g, _ = cs.rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=2)
-    _, m = rn.rmsnorm_ref(x, w, round_scale=True, return_m=True)
-    nxt_r, _ = cs.rotating((x, w, g, m))
-    xl = x.detach().requires_grad_(True)
-    wl = w.to(torch.bfloat16).requires_grad_(True)
-    y = F.rms_norm(xl, (D,), wl, 1e-6)
+    if "rmsnorm" in names:
+        rows, D = cs.RMS_BWD_TIMED
+        x, w = cs.rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=1)
+        g, _ = cs.rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=2)
+        _, m = rn.rmsnorm_ref(x, w, round_scale=True, return_m=True)
+        nxt_r, _ = cs.rotating((x, w, g, m))
+        xl = x.detach().requires_grad_(True)
+        wl = w.to(torch.bfloat16).requires_grad_(True)
+        y = F.rms_norm(xl, (D,), wl, 1e-6)
 
-    def rms(lib):
-        def f():
-            use(lib, "rmsnorm")
-            return rn.rmsnorm_bwd_cuda(*nxt_r())
-        return f
-    fns = {tag: (rms(lib), 50) for (name, tag), lib in libs.items()
-           if name == "rmsnorm"}
-    fns["F.rms_norm backward"] = (lambda: torch.autograd.grad(
-        y, (xl, wl), g, retain_graph=True), 50)
-    report(f"rmsnorm backward ({rows}, {D}) bf16", fns)
+        def rms(lib):
+            def f():
+                use(lib, "rmsnorm")
+                return rn.rmsnorm_bwd_cuda(*nxt_r())
+            return f
+        fns = {tag: (rms(lib), 50) for (name, tag), lib in libs.items()
+               if name == "rmsnorm"}
+        fns["F.rms_norm backward"] = (lambda: torch.autograd.grad(
+            y, (xl, wl), g, retain_graph=True), 50)
+        report(f"rmsnorm backward ({rows}, {D}) bf16", fns)
 
-    B, S = cs.SSD_BWD_TIMED
-    nh, ng, hd, N = 48, 1, 64, 128
-    args = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model",
-                         "bfloat16", dev)
-    dy = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
-                       dev, 1)[0]
-    use(libs[("ssd_scan", "as built")], "ssd_scan")
-    _, _, cum, st = ss.ssd_cuda(*args, return_states=True)
-    nxt_s, _ = cs.rotating((*args, dy, cum, st))
+    if "ssd_scan" in names:
+        B, S = cs.SSD_BWD_TIMED
+        nh, ng, hd, N = 48, 1, 64, 128
+        args = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model",
+                             "bfloat16", dev)
+        dy = cs.ssd_inputs(np, torch, B, S, nh, ng, hd, N, "model", "bfloat16",
+                           dev, 1)[0]
+        use(libs[("ssd_scan", "as built")], "ssd_scan")
+        _, _, cum, st = ss.ssd_cuda(*args, return_states=True)
+        nxt_s, _ = cs.rotating((*args, dy, cum, st))
 
-    def ssd(lib):
-        def f():
-            use(lib, "ssd_scan")
-            return ss.ssd_bwd_cuda(*nxt_s())
-        return f
-    fns = {tag: (ssd(lib), 20) for (name, tag), lib in libs.items()
-           if name == "ssd_scan"}
-    report(f"ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
-           "(no library call computes it)", fns)
-    ssd_phases(np, torch, cs, dev, card)
+        def ssd(lib):
+            def f():
+                use(lib, "ssd_scan")
+                return ss.ssd_bwd_cuda(*nxt_s())
+            return f
+        fns = {tag: (ssd(lib), 20) for (name, tag), lib in libs.items()
+               if name == "ssd_scan"}
+        report(f"ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
+               "(no library call computes it)", fns)
+        ssd_phases(np, torch, cs, dev, card)
+    if "rglru_scan" in names:
+        B, S, W = cs.RGLRU_TIMED
+        x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W, "bfloat16",
+                                                dev)
+        nxt_g, _ = cs.rotating((x, rp, ip, g))
+        step = tuple(t[:, :1].contiguous() for t in (x, rp, ip, g))
+
+        def scan(lib, decode):
+            def f():
+                use(lib, "rglru_scan")
+                t = step if decode else nxt_g()
+                return rg.rglru_scan_cuda(t[0], t[1], t[2], lam,
+                                          h0 if decode else None, t[3])
+            return f
+        for decode, what in ((False, f"S={S}"), (True, "a decode step (S=1)")):
+            fns = {tag: (scan(lib, decode), 200 if decode else 20)
+                   for (name, tag), lib in libs.items()
+                   if name == "rglru_scan"}
+            ms, clocks = cs.event_rounds(torch, fns, queued=True)
+            print(f"[rglru scan B={B} {what} W={W} bf16, gate fused (no "
+                  "library call computes it)] " + cs.rounds_text(ms)
+                  + f"; SM clock {clocks} [{card}]", flush=True)
     return 0
 
 

@@ -19,9 +19,11 @@ from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
 from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
+from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_danube, _mamba2, _qwen15, _qwen2, _gemma2]}
+    c.name: c for c in [_danube, _mamba2, _qwen15, _qwen2, _gemma2,
+                        _rgemma]}
 
 #: archs allowed to run long_500k (sub-quadratic / windowed decode state),
 #: as the reference's: pure full-attention archs skip it

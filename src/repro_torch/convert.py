@@ -9,7 +9,10 @@ tensors.  :func:`tick_inputs_to_torch` maps the reference's sweep-tick
 Model trees.  The port keeps one block tree per layer in a ``layers``
 list (:meth:`repro_torch.models.Model.tree`); the reference stacks the
 blocks of pattern position ``j`` along a leading group axis under
-``groups[str(j)]``, layer ``g·len(pattern) + j`` being slice ``g``.
+``groups[str(j)]``, layer ``g·len(pattern) + j`` being slice ``g``, and
+keeps the layers past the last full group (``cfg.tail_pattern``:
+recurrentgemma-2b's (R, R)) unstacked under ``tail[str(j)]``, layer
+``n_groups·len(pattern) + j``.
 :func:`to_reference_layout` and :func:`from_reference_layout` convert
 any tree between the two (every dict holding a ``layers`` list is a
 model tree, or one shaped like it: AdamW's moments, the PSP worker
@@ -67,26 +70,30 @@ def to_numpy(tree: Dict) -> Dict[str, np.ndarray]:
 
 def to_reference_layout(tree: Any, cfg, axis: int = 0) -> Any:
     """``tree`` with every ``layers`` list restacked into the reference's
-    ``groups`` (see the module docstring), along ``axis`` of each leaf
-    (0, or 1 behind the views' worker axis).  Numpy leaves stack with
-    numpy, tensors with torch; nothing else changes."""
+    ``groups`` and ``tail`` (see the module docstring), along ``axis`` of
+    each leaf (0, or 1 behind the views' worker axis).  Numpy leaves
+    stack with numpy, tensors with torch; nothing else changes."""
     if not isinstance(tree, dict):
         return tree
     layers = tree.get("layers")
     if not isinstance(layers, list):
         return {k: to_reference_layout(v, cfg, axis) for k, v in tree.items()}
     n_pat = len(cfg.layer_pattern)
+    n_body = cfg.n_groups * n_pat
     out = {k: to_reference_layout(v, cfg, axis) for k, v in tree.items()
            if k != "layers"}
-    out["groups"] = {str(j): _stack(layers[j::n_pat], axis)
+    out["groups"] = {str(j): _stack(layers[j:n_body:n_pat], axis)
                      for j in range(n_pat)}
+    if layers[n_body:]:
+        out["tail"] = {str(j): t for j, t in enumerate(layers[n_body:])}
     return out
 
 
 def from_reference_layout(tree: Any, cfg, axis: int = 0) -> Any:
     """Inverse of :func:`to_reference_layout`: every ``groups`` dict
-    split back into ``cfg.n_layers`` per-layer trees (tensor slices made
-    contiguous; numpy slices stay views)."""
+    (with its sibling ``tail``) split back into ``cfg.n_layers``
+    per-layer trees (tensor slices made contiguous; numpy slices stay
+    views)."""
     if not isinstance(tree, dict):
         return tree
     groups = tree.get("groups")
@@ -94,11 +101,16 @@ def from_reference_layout(tree: Any, cfg, axis: int = 0) -> Any:
         return {k: from_reference_layout(v, cfg, axis)
                 for k, v in tree.items()}
     n_pat = len(cfg.layer_pattern)
+    tail = tree.get("tail", {})
+    if len(tail) != len(cfg.tail_pattern):
+        raise ValueError(f"{len(tail)} tail layers, {cfg.name} has "
+                         f"{len(cfg.tail_pattern)}")
     out = {k: from_reference_layout(v, cfg, axis) for k, v in tree.items()
-           if k != "groups"}
+           if k not in ("groups", "tail")}
     out["layers"] = [tree_map(lambda a, g=i // n_pat: _take(a, g, axis),
                               groups[str(i % n_pat)])
-                     for i in range(cfg.n_layers)]
+                     for i in range(cfg.n_groups * n_pat)]
+    out["layers"] += [tail[str(j)] for j in range(len(tail))]
     return out
 
 

@@ -15,7 +15,8 @@ wrapper module declares the signatures of its own entry points.
 
 :func:`build_all` compiles every source, one ``nvcc`` per source, all
 started together; :func:`load` returns one source's library, building
-it if needed.
+it if needed.  A verbose build keeps each compiler's report (``ptxas``'s
+registers, spills and warnings per kernel) in :data:`LOGS`.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "error_string",
-           "load"]
+__all__ = ["BUILD_DIR", "CSRC", "LOGS", "NVCC_FLAGS", "build_all",
+           "error_string", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the compiler's output of each source's last verbose build, by name
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -82,6 +85,7 @@ def _finish(name: str, started, verbose: bool) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit "
                            f"{proc.returncode}):\n{log}")
     if verbose and log:
+        LOGS[name] = log
         print(f"--- {name}.cu\n{log}")
     os.replace(tmp, _target(name))
 

@@ -11,7 +11,9 @@
 // on the TPU, keys past the end of the sequence weigh exactly 0, and key
 // tiles outside the causal / window band are skipped.  Layout: q
 // (B, Sq, H, hd), k/v (B, Sk, KV, hd), the model's; o is (B, Sq, H, hd)
-// contiguous in q's dtype.  hd is 64, 80 or 128.
+// contiguous in q's dtype.  hd is 64, 80, 128 or 256 forward (256:
+// recurrentgemma-2b's, 10 query heads on one KV head), 64, 80 or 128
+// backward.
 //
 // Bound on the H100: operations.  A causal prefill does 2·B·H·S²·hd
 // FLOPs on S·(H + 2·KV)·hd inputs, far above the card's ~295 FLOP/byte
@@ -36,6 +38,26 @@
 //   barrier, as for rows past the end).  Q·Kᵀ runs its 5 k-steps of 16;
 //   P·V forms 128 output columns, of which the zero ones are never
 //   stored (1.6× the tensor-core work of an exact hd-80 tiling).
+// * hd 256 takes four atoms (Q, K and V tiles of 32 KB, three stages:
+//   225 KB, one block an SM) and two consumer warpgroups.  One warpgroup
+//   holding O (64 × 256 f32) would carry 128 accumulators a thread beside
+//   S's 32 and two P buffers' 32: ptxas then serializes the wgmmas for
+//   lack of registers (C7511, as hd 80 drew at half that).  So each
+//   warpgroup owns 128 of O's columns (64 accumulators) and forms S and
+//   the softmax itself from the shared Q and K tiles: S costs twice
+//   (Q·Kᵀ and P·V are equal halves of a tile's products, so 1.5× the
+//   tile's tensor-core work), but no warpgroup waits on another, no P
+//   crosses shared memory, and both keep the hd-128 kernel's register
+//   budget and its overlap of S(j + 1) with P·V(j).  The two softmaxes
+//   see the same scores in the same order, so their P, row maxima and
+//   sums are bit for bit alike.  The block has no producer warp: a
+//   ninth warp would put three warps on one of the SM's four register
+//   files and cap every thread at 168 registers, which spilled (148
+//   bytes a thread, measured); with eight, each thread may take 255.
+//   Thread 0 issues the copies instead: Q and the first three tiles up
+//   front, then tile j + 3 once all eight warps have released tile j.
+//   Grouped-query heads map as everywhere: query head h reads KV head
+//   h / (H / KV) (10 : 1 in MQA).
 // * S = Q·Kᵀ with wgmma m64n64k16 (bf16 in, f32 accumulated), A and B
 //   from shared memory; then the scale hd^-0.5 in f32 (the TPU kernel
 //   scales f32(q); q is never rounded after scaling).
@@ -262,16 +284,26 @@ cudaError_t launch_f32(const Args& a, int B, cudaStream_t s) {
 constexpr int TC_BK = 64;             // keys per tile
 constexpr int ATOM_BYTES = 64 * 128;  // 64 rows of one 128-byte swizzle atom
 
-constexpr int TC_THREADS = 128 + 32;  // a consumer warpgroup, a producer warp
+// a consumer warpgroup and a producer warp (the backward's dq kernel;
+// the forward's count is Tc<HD>::THREADS)
+constexpr int TC_THREADS = 128 + 32;
 
 template <int HD>
 struct Tc {
-  static_assert(HD % 16 == 0 && HD <= 128, "hd: a multiple of 16, <= 128");
+  static_assert(HD % 16 == 0 && HD <= 256, "hd: a multiple of 16, <= 256");
   static constexpr int ATOMS = (HD + 63) / 64;  // 64-column atoms across hd
+  // consumer warpgroups, each owning AW of O's atoms (see the header)
+  static constexpr int NWG = HD > 128 ? 2 : 1;
+  static constexpr int AW = ATOMS / NWG;
+  // a producer warp beside the consumers, or (two consumer warpgroups)
+  // none: thread 0 issues the copies (see the header)
+  static constexpr bool PRODUCER = NWG == 1;
+  static constexpr int THREADS = 128 * NWG + (PRODUCER ? 32 : 0);
   // K/V stages in the ring: the consumer holds two tiles at a time; hd 64
   // keeps a third in flight (3 measured faster than 2 at S 4096), hd 80
-  // and 128 stay at 2 so that two blocks fit an SM
-  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  // and 128 stay at 2 so that two blocks fit an SM; hd 256 (one block an
+  // SM) takes 3, as its copies are issued by a consumer thread
+  static constexpr int STAGES = HD == 80 || HD == 128 ? 2 : 3;
   static constexpr int TILE_BYTES = ATOMS * ATOM_BYTES;  // Q, K or V tile
   static constexpr int SMEM =
       1024 + (1 + 2 * STAGES) * TILE_BYTES + 8 * (2 * STAGES + 1);
@@ -420,7 +452,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int HD, bool LSE>
-__global__ void __launch_bounds__(TC_THREADS)
+__global__ void __launch_bounds__(Tc<HD>::THREADS)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Args a) {
@@ -452,48 +484,64 @@ __global__ void __launch_bounds__(TC_THREADS)
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * C::NWG);  // one arrival per consumer warp
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 4) {  // the producer warp: one thread issues every copy
-    if (lane == 0) {
-      mbar_expect_tx(qbar, C::TILE_BYTES);
-      for (int at = 0; at < C::ATOMS; ++at)
-        tma_load_4d(sQ + at * ATOM_BYTES, &tq, qbar, 64 * at, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % C::STAGES;
-        if (j >= C::STAGES)  // the consumers released this stage's last use
-          mbar_wait(&empty[s], ((j / C::STAGES) - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * C::TILE_BYTES);
-        const int k0 = k_begin + j * TC_BK;
-        for (int at = 0; at < C::ATOMS; ++at) {
-          tma_load_4d(sK + s * C::TILE_BYTES + at * ATOM_BYTES, &tk, &full[s],
-                      64 * at, kvh, k0, b);
-          tma_load_4d(sV + s * C::TILE_BYTES + at * ATOM_BYTES, &tv, &full[s],
-                      64 * at, kvh, k0, b);
+  // one thread's copies: Q, and key tile j's K and V into its stage
+  auto load_q = [&]() {
+    mbar_expect_tx(qbar, C::TILE_BYTES);
+    for (int at = 0; at < C::ATOMS; ++at)
+      tma_load_4d(sQ + at * ATOM_BYTES, &tq, qbar, 64 * at, h, q0, b);
+  };
+  auto load_tile = [&](int j) {
+    const int s = j % C::STAGES;
+    mbar_expect_tx(&full[s], 2 * C::TILE_BYTES);
+    const int k0 = k_begin + j * TC_BK;
+    for (int at = 0; at < C::ATOMS; ++at) {
+      tma_load_4d(sK + s * C::TILE_BYTES + at * ATOM_BYTES, &tk, &full[s],
+                  64 * at, kvh, k0, b);
+      tma_load_4d(sV + s * C::TILE_BYTES + at * ATOM_BYTES, &tv, &full[s],
+                  64 * at, kvh, k0, b);
+    }
+  };
+  if constexpr (C::PRODUCER) {
+    if (warp == 4) {  // the producer warp: one thread issues every copy
+      if (lane == 0) {
+        load_q();
+        for (int j = 0; j < n_tiles; ++j) {
+          if (j >= C::STAGES)  // the consumers released this stage's last use
+            mbar_wait(&empty[j % C::STAGES], ((j / C::STAGES) - 1) & 1);
+          load_tile(j);
         }
       }
+      return;
     }
-    return;
+  } else {
+    if (threadIdx.x == 0) {  // Q and the first tiles; the rest in release
+      load_q();
+      for (int j = 0; j < min(n_tiles, C::STAGES); ++j) load_tile(j);
+    }
+    __syncwarp();
   }
 
-  // the consumer warpgroup: this thread holds rows r0 and r0 + 8 of
-  // every fragment
-  const int r0 = q0 + 16 * warp + (lane >> 2);
+  // the consumer warpgroup wg (of O's atoms wg·AW ..): this thread holds
+  // rows r0 and r0 + 8 of every fragment
+  const int wg = warp >> 2;
+  const int r0 = q0 + 16 * (warp & 3) + (lane >> 2);
   const int cl = 2 * (lane & 3);  // first column in each group of 8
   const float sc_log2 = a.scale * LOG2E;
   const uint32_t qa = smem_u32(sQ);
 
-  float o[C::ATOMS][32], sc[32];
+  float o[C::AW][32], sc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sc[i] = 0.f;
 #pragma unroll
-    for (int at = 0; at < C::ATOMS; ++at) o[at][i] = 0.f;
+    for (int at = 0; at < C::AW; ++at) o[at][i] = 0.f;
   }
   uint32_t p0[4][4], p1[4][4];  // P of alternate tiles, as A fragments
   float m0 = NEG, m1 = NEG;     // row maxima, in log2 units
@@ -509,12 +557,13 @@ __global__ void __launch_bounds__(TC_THREADS)
                sw128_desc(ka + (kk >> 2) * ATOM_BYTES + (kk & 3) * 32),
                kk > 0);
   };
-  // O += P·V for key tile j, 64 output columns and 16 keys per
-  // instruction (issue only)
+  // O += P·V for key tile j, this warpgroup's 64-column atoms, 16 keys
+  // per instruction (issue only)
   auto issue_pv = [&](int j, const uint32_t (&pa)[4][4]) {
-    const uint32_t va = smem_u32(sV + (j % C::STAGES) * C::TILE_BYTES);
+    const uint32_t va = smem_u32(sV + (j % C::STAGES) * C::TILE_BYTES) +
+                        wg * C::AW * ATOM_BYTES;
 #pragma unroll
-    for (int at = 0; at < C::ATOMS; ++at)
+    for (int at = 0; at < C::AW; ++at)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(o[at], pa[kk], sw128_desc(va + at * ATOM_BYTES + kk * 2048));
@@ -596,12 +645,19 @@ __global__ void __launch_bounds__(TC_THREADS)
   };
   auto fence_o = [&]() {
 #pragma unroll
-    for (int at = 0; at < C::ATOMS; ++at) fence_regs(o[at]);
+    for (int at = 0; at < C::AW; ++at) fence_regs(o[at]);
   };
   auto release = [&](int j, uint32_t (&pa)[4][4]) {
     fence_regs(pa);  // this warp's products no longer read tile j
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[j % C::STAGES]);
+    if constexpr (!C::PRODUCER) {  // thread 0 refills the stage
+      if (threadIdx.x == 0 && j + C::STAGES < n_tiles) {
+        mbar_wait(&empty[j % C::STAGES], (j / C::STAGES) & 1);
+        load_tile(j + C::STAGES);
+      }
+      __syncwarp();
+    }
   };
   // tile j whose P is in pa, while the next tile's P goes to pn
   auto step = [&](int j, uint32_t (&pa)[4][4], uint32_t (&pn)[4][4]) {
@@ -621,7 +677,7 @@ __global__ void __launch_bounds__(TC_THREADS)
     fence_o();
     release(j, pa);
 #pragma unroll
-    for (int at = 0; at < C::ATOMS; ++at)
+    for (int at = 0; at < C::AW; ++at)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[at][i] *= (i & 2) ? c1 : c0;
   };
@@ -666,7 +722,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   l1 += __shfl_xor_sync(FULL, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   if constexpr (LSE) {  // m is in log2 units: lse = m·ln 2 + ln l
-    if ((lane & 3) == 0) {
+    if (wg == 0 && (lane & 3) == 0) {
       float* lr = a.lse + (static_cast<long long>(b) * a.H + h) * a.Sq;
       if (r0 < a.Sq) lr[r0] = m0 * LN2 + logf(d0);
       if (r0 + 8 < a.Sq) lr[r0 + 8] = m1 * LN2 + logf(d1);
@@ -676,11 +732,12 @@ __global__ void __launch_bounds__(TC_THREADS)
   const long long row0 = (static_cast<long long>(b) * a.Sq + r0) * a.H + h;
   const long long row1 = row0 + 8LL * a.H;
 #pragma unroll
-  for (int at = 0; at < C::ATOMS; ++at)
+  for (int at = 0; at < C::AW; ++at)
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      if (64 * at + 8 * jj >= HD) continue;  // a zero column past hd
-      const int col = 64 * at + 8 * jj + cl;
+      const int col0 = 64 * (wg * C::AW + at) + 8 * jj;
+      if (col0 >= HD) continue;  // a zero column past hd
+      const int col = col0 + cl;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(op + row0 * HD + col) =
             pack_bf16(o[at][4 * jj] / d0, o[at][4 * jj + 1] / d0);
@@ -757,7 +814,7 @@ cudaError_t launch_tc(const Args& a, int B, cudaStream_t s) {
   const long long tiles = (a.Sq + 63) / 64;
   if (tiles > 65535) return cudaErrorInvalidValue;
   dim3 grid(a.H, B, static_cast<unsigned>(tiles));
-  flash_tc_kernel<HD, LSE><<<grid, TC_THREADS, C::SMEM, s>>>(tq, tk, tv, a);
+  flash_tc_kernel<HD, LSE><<<grid, C::THREADS, C::SMEM, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -793,6 +850,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0 && hd == 64) e = launch_f32<64>(a, B, s);
   else if (dtype == 0 && hd == 80) e = launch_f32<80>(a, B, s);
   else if (dtype == 0 && hd == 128) e = launch_f32<128>(a, B, s);
+  else if (dtype == 0 && hd == 256) e = launch_f32<256>(a, B, s);
   else if (dtype == 1 && hd == 64)
     e = a.lse ? launch_tc<64, true>(a, B, s) : launch_tc<64, false>(a, B, s);
   else if (dtype == 1 && hd == 80)
@@ -800,6 +858,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   else if (dtype == 1 && hd == 128)
     e = a.lse ? launch_tc<128, true>(a, B, s)
               : launch_tc<128, false>(a, B, s);
+  else if (dtype == 1 && hd == 256)
+    e = a.lse ? launch_tc<256, true>(a, B, s)
+              : launch_tc<256, false>(a, B, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -19,11 +19,13 @@ repeated, and the layout is the model's (sequence before heads).
 * :func:`flash_attention_cuda` — the hand-written kernel
   (``kernels/csrc/flash_attention.cu``): online softmax over the key
   tiles of the causal / window band, any sequence lengths (tails are
-  masked), ``hd`` 64, 80 or 128, float32 or bfloat16.  In bfloat16 it runs
-  on the tensor cores (``wgmma``, tiles brought by TMA) and rounds the
-  softmax weights P to bfloat16 before P·V, where the plain version and
-  the TPU kernel keep them in float32 (a relative error of about 2⁻⁹
-  per weight); in float32 it runs on the CUDA cores in float32.
+  masked), ``hd`` 64, 80, 128 or 256 (``HEAD_DIMS``), float32 or
+  bfloat16.  In bfloat16 it runs on the tensor cores (``wgmma``, tiles
+  brought by TMA; hd 256 in two consumer warpgroups of 128 output
+  columns each) and rounds the softmax weights P to bfloat16 before P·V,
+  where the plain version and the TPU kernel keep them in float32 (a
+  relative error of about 2⁻⁹ per weight); in float32 it runs on the
+  CUDA cores in float32.
 
 Both take ``return_lse=True`` (the training forward): they then also
 return the row log-sum-exp ``lse`` (float32 ``(B, H, Sq)``) that the
@@ -41,7 +43,9 @@ q's dtype:
 * :func:`attention_bwd_ref` — plain PyTorch, ``_REF_ROWS`` queries at a
   time as the forward; what CPU tensors get.
 * :func:`flash_attention_bwd_cuda` — the hand-written kernel (second
-  half of ``kernels/csrc/flash_attention.cu``): Δ; dk/dv per (64-key
+  half of ``kernels/csrc/flash_attention.cu``), at ``BWD_HEAD_DIMS``
+  (64, 80, 128: hd 256's dK/dV tile is a design still to come): Δ;
+  dk/dv per (64-key
   tile, head) over the query tiles of the band into per-head float32
   partials; dq per (64-query tile, head) over the key tiles, recomputing
   S and dP; then dk/dv summed over the group's heads in order, by the
@@ -65,14 +69,18 @@ from typing import Optional
 
 import torch
 
-__all__ = ["HEAD_DIMS", "attention_bwd_ref", "attention_ref",
+__all__ = ["BWD_HEAD_DIMS", "HEAD_DIMS", "attention_bwd_ref",
+           "attention_ref",
            "bwd_launch_count", "flash_attention_bwd_cuda",
            "flash_attention_cuda", "launch_count", "reset_launch_count",
            "tma_strides"]
 
-#: head dims the kernel is built for (hd 80 runs in the hd-128 tiling,
-#: its columns past 80 zero: see ``csrc/flash_attention.cu``)
-HEAD_DIMS = (64, 80, 128)
+#: head dims the forward kernel is built for (hd 80 runs in the hd-128
+#: tiling, its columns past 80 zero; hd 256 in two consumer warpgroups:
+#: see ``csrc/flash_attention.cu``)
+HEAD_DIMS = (64, 80, 128, 256)
+#: head dims the backward kernel is built for
+BWD_HEAD_DIMS = (64, 80, 128)
 #: query rows per block of the plain versions: their score tensors are
 #: (B, H, rows, Sk) at most
 _REF_ROWS = 1024
@@ -275,7 +283,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     """The CUDA kernel: same contract as :func:`attention_ref`.
 
     ``q``, ``k``, ``v`` are CUDA tensors of one dtype (float32 or
-    bfloat16) with a contiguous head dim of 64, 80 or 128.  In float32 the
+    bfloat16) with a contiguous head dim in ``HEAD_DIMS``.  In float32 the
     other strides are read as they are.  In bfloat16 (the tensor-core
     kernel, fed by TMA) each tensor must start on a 16-byte boundary and
     its batch, seq and head strides must be multiples of 8 elements, as
@@ -328,13 +336,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel: same contract as :func:`attention_bwd_ref`.
 
     q, k, v, o, do are CUDA tensors of one dtype (float32 or bfloat16,
-    made contiguous here) with a head dim of 64, 80 or 128, each starting on
-    a 16-byte boundary (the TMA copies and 16-byte loads need it);
-    ``lse`` float32 ``(B, H, Sq)``.  Returns new (dq, dk, dv).  Raises on
-    any other input and if a launch fails; there is no fallback.
+    made contiguous here) with a head dim in ``BWD_HEAD_DIMS`` (64, 80 or
+    128), each starting on a 16-byte boundary (the TMA copies and 16-byte
+    loads need it); ``lse`` float32 ``(B, H, Sq)``.  Returns new (dq, dk,
+    dv).  Raises on any other input (hd 256 among them: its backward is
+    queued with recurrentgemma-2b's training) and if a launch fails;
+    there is no fallback.
     """
     global _BWD_LAUNCHES
     from repro_torch.kernels import _build
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {q.shape[-1]} "
+                         f"has no backward kernel (built for "
+                         f"{BWD_HEAD_DIMS}; hd 256: ROADMAP queue 1, item "
+                         "10f)")
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

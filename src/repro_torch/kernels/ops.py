@@ -15,7 +15,10 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
   ``round_scale=True`` the reference model's (in bfloat16 the scale is
   rounded before the product) (:mod:`repro_torch.kernels.rmsnorm`);
 * :func:`ssd` — the Mamba-2 chunked SSD scan, with its final state
-  (:mod:`repro_torch.kernels.ssd_scan`).
+  (:mod:`repro_torch.kernels.ssd_scan`);
+* :func:`rglru_scan` — the RG-LRU recurrence of a recurrentgemma block,
+  its gate fused, with its last state
+  (:mod:`repro_torch.kernels.rglru_scan`).
 
 :func:`attention`, :func:`rmsnorm` (its ``round_scale=True`` form) and
 :func:`ssd` are differentiable: when autograd records (grad enabled and
@@ -26,7 +29,10 @@ cum and each chunk's entering state) and whose backward is the backward
 kernel (``flash_attention_bwd_cuda``, ``rmsnorm_bwd_cuda``,
 ``ssd_bwd_cuda``) or its plain version, chosen by the same rule.
 Otherwise (serving) they are the forward alone, as before.
-``round_scale=False`` has no backward.
+``round_scale=False`` has no backward.  :func:`rglru_scan` is
+differentiable on its plain version only (autograd through
+``rglru_scan_ref``): its backward kernel is still to come, so under
+autograd on the kernel path it raises.
 """
 from __future__ import annotations
 
@@ -39,12 +45,18 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_ref
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
                                           ssd_cuda, ssd_ref)
 
-__all__ = ["IMPLS", "attention", "psp_tick", "rmsnorm", "ssd", "use_kernel"]
+__all__ = ["IMPLS", "attention", "psp_tick", "rglru_scan", "rmsnorm", "ssd",
+           "use_kernel"]
+
+#: where the RG-LRU scan's backward kernel (and recurrentgemma training on
+#: the card) is queued
+RGLRU_TRAIN_TODO = "ROADMAP queue 1, item 10f (recurrentgemma-2b training)"
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -195,3 +207,23 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return _SSD.apply(x, dt, A, Bm, Cm, chunk, kernel)
     fn = ssd_cuda if kernel else ssd_ref
     return fn(x, dt, A, Bm, Cm, chunk)
+
+
+def rglru_scan(x: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+               lam: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               gate: Optional[torch.Tensor] = None, *,
+               impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU scan: x, r_pre, i_pre (and gate) ``(B, S, W)`` in the
+    compute dtype, Λ ``(W,)`` and h0 ``(B, W)`` float32 → (y ``(B, S,
+    W)``, h_last ``(B, W)`` float32) (see
+    :mod:`repro_torch.kernels.rglru_scan`).  Differentiable when autograd
+    records on the plain version; on the kernel it then raises
+    ``NotImplementedError``."""
+    kernel = use_kernel(impl, x.device)
+    if not kernel:
+        return rglru_scan_ref(x, r_pre, i_pre, lam, h0, gate)
+    if _records(*(t for t in (x, r_pre, i_pre, lam, h0, gate)
+                  if t is not None)):
+        raise NotImplementedError("the RG-LRU scan has no backward kernel "
+                                  f"yet: {RGLRU_TRAIN_TODO}")
+    return rglru_scan_cuda(x, r_pre, i_pre, lam, h0, gate)

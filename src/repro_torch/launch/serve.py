@@ -15,7 +15,9 @@ qwen1.5-4b (untied unembedding), h2o-danube-1.8b (sliding-window
 ``local`` layers and their ring caches; ``--max-len`` at least its
 window of 4096), gemma2-27b (alternating local and global layers,
 softcaps, post-norms, fused QKV; 108.9 GB of f32 parameters at full
-depth, so on one card only reduced or cut, e.g. ``--n-layers 8``), or
+depth, so on one card only reduced or cut, e.g. ``--n-layers 8``),
+recurrentgemma-2b (RG-LRU blocks and local attention at head dim 256,
+the RG-LRU scan kernel; ``--max-len`` at least its window of 2048), or
 mamba2-780m (the Mamba-2 stack, SSD-scan kernel).  ``--reduced`` runs any of them at the CPU-smoke
 width (window 64).
 

@@ -46,7 +46,10 @@ kernels.  Weights come from the port's seeded initialisation
 reference, which trains ``--reduced``: at full width qwen2's and
 qwen1.5's 151,936-token vocabularies would need a 92 GB table, gemma2's
 256,000 262 GB), the PSP noise from a ``torch.Generator`` seeded
-``--seed + 1``.
+``--seed + 1``.  recurrentgemma-2b (``--arch recurrentgemma-2b``) trains
+on the CPU only: on the card its ``forward_train`` raises
+``NotImplementedError`` (its RG-LRU and hd-256 attention backward
+kernels are still queued, ROADMAP item 10f).
 """
 from __future__ import annotations
 

@@ -25,7 +25,9 @@ compute dtype (cast once by
 :meth:`repro_torch.models.transformer.SSDBlock.weights` for serving, and
 in the autograd graph on every training call, where the reference casts
 them); the SSM state float32.  softplus has the reference's gradient
-(sigmoid, 0.5 at 0: ``dt_bias`` starts at zeros).  The caches a call
+(sigmoid, 0.5 at 0: ``dt_bias`` starts at zeros;
+:func:`repro_torch.kernels.rglru_scan.softplus`, shared with the RG-LRU
+block).  The caches a call
 returns are new tensors, as the reference's are: conv states (the
 trailing K−1 inputs) in the compute dtype, the state in float32.
 """
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.rglru_scan import softplus as _softplus
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
 
@@ -100,29 +103,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = y + b
     new_state = xp[:, -(K - 1):] if K > 1 else state
     return y, new_state
-
-
-class _Softplus(torch.autograd.Function):
-    """softplus as the reference's ``jax.nn.softplus`` (``logaddexp(x,
-    0)``) evaluates it, max(x, 0) + log1p(exp(−|x|)), with its gradient
-    exp(x − softplus(x)) (= sigmoid(x); 0.5 at 0, where autograd of the
-    expression above would give 1)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        y = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-        ctx.save_for_backward(x, y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        return g * torch.exp(x - y)
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """softplus with the reference's value and gradient (``_Softplus``)."""
-    return _Softplus.apply(x)
 
 
 def ssd_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, cfg,

@@ -3,16 +3,21 @@
 The port's counterpart of :mod:`repro.models.transformer`, for stacks of
 attention blocks, global (``attn``) or sliding-window (``local``) in
 any pattern (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b, gemma2-27b's
-alternating ``("local", "attn")``), or of Mamba-2 ``ssd`` blocks
-(mamba2-780m).  A model is ``embed → blocks → final norm → unembed``
-(tied: the embedding transposed; untied: ``lm_head``); :class:`Model`
-holds one block module per layer (:class:`Block` for ``attn`` and
-``local``, :class:`SSDBlock` for ``ssd``) and loops over them (the
-reference scans a stacked layer axis per pattern position).  An
-attention block is pre-norm, with gemma2's post-norms of the attention
-and MLP outputs where ``cfg.post_norms`` is set.  Parameters keep the
-reference's shapes (``wq`` is ``(d, h, hd)``, ``wqkv`` ``(d, 16, w,
-hd)``, ``in_proj`` ``(d, 16, width)`` and so on) and float32, so
+alternating ``("local", "attn")``), of Mamba-2 ``ssd`` blocks
+(mamba2-780m), or of RG-LRU ``rglru`` blocks mixed with attention
+(recurrentgemma-2b's ``("rglru", "rglru", "local")``, whose 26 layers
+end in an (R, R) tail).  A model is ``embed → blocks → final norm →
+unembed`` (tied: the embedding transposed; untied: ``lm_head``);
+:class:`Model` holds one block module per layer (:class:`Block` for
+``attn`` and ``local``, :class:`SSDBlock` for ``ssd``,
+:class:`RGLRUBlock` for ``rglru``) and loops over them, tail layers
+included (the reference scans a stacked layer axis per pattern
+position and runs the tail after it).  An attention block is pre-norm,
+with gemma2's post-norms of the attention and MLP outputs where
+``cfg.post_norms`` is set; an RG-LRU block is pre-norm with the MLP.
+Parameters keep the reference's shapes (``wq`` is ``(d, h, hd)``,
+``wqkv`` ``(d, 16, w, hd)``, ``in_proj`` ``(d, 16, width)`` and so on)
+and float32, so
 :func:`repro_torch.convert.params_from_jax` only has to split the
 reference's stacked layer axes.  Matrix weights are cast once to the
 compute dtype and kept beside the parameters (``weights``).
@@ -21,13 +26,16 @@ Serving entry points, forward only and without autograd:
 
 * :func:`forward` — hidden states for ``mode`` "train" (teacher-forced,
   no cache), "prefill" (returns a cache) or "decode" (reads the cache;
-  attention layers update theirs in place, ``ssd`` layers return new
-  states);
+  attention layers update theirs in place, ``ssd`` and ``rglru``
+  layers return new states);
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
 
 Training entry points, functional and differentiable (``attn`` and
-``ssd`` stacks; an ``ssd`` block's scan runs with its backward kernel):
+``ssd`` stacks; an ``ssd`` block's scan runs with its backward kernel;
+``rglru`` stacks on the CPU only, through the plain scan: on a card
+they raise ``NotImplementedError``, as the RG-LRU backward kernel and
+the flash backward at head dim 256 are still queued):
 
 * :func:`forward_train` — hidden states of a **parameter tree** of
   tensors (:meth:`Model.tree` layout), so that a worker's view goes
@@ -41,9 +49,8 @@ Training entry points, functional and differentiable (``attn`` and
   against :func:`unembed_matrix`).
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
-:mod:`repro_torch.kernels.ops`).  Stacks that mix ``ssd`` with
-attention, the other block kinds (``moe``, ``rglru``), tail layers,
-modality frontends and sinusoidal positions raise
+:mod:`repro_torch.kernels.ops`).  Stacks that mix ``ssd`` with other
+kinds, ``moe`` blocks, modality frontends and sinusoidal positions raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -54,15 +61,17 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, ssm
+from repro_torch.kernels.ops import RGLRU_TRAIN_TODO
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
                                        mlp_apply, mlp_defs, rmsnorm,
                                        rope_angles, softcap)
 from repro_torch.models.params import ParamDef, init_params, torch_dtype
 
-__all__ = ["Block", "Model", "SSDBlock", "cache_defs", "decode_step",
-           "forward", "forward_train", "init_cache", "init_model",
-           "loss_fn", "model_defs", "prefill", "unembed_matrix"]
+__all__ = ["Block", "Model", "RGLRUBlock", "SSDBlock", "cache_defs",
+           "decode_step", "forward", "forward_train", "init_cache",
+           "init_model", "loss_fn", "model_defs", "prefill",
+           "unembed_matrix"]
 
 Cache = Dict[str, Any]
 
@@ -72,18 +81,18 @@ _TODO = "ROADMAP queue 1, item 10 (the other model kinds)"
 
 #: the block kinds of an attention stack
 _ATTN = frozenset({"attn", "local"})
+#: the block kinds a stack may mix: attention and RG-LRU blocks
+_MIXED = _ATTN | {"rglru"}
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
     kinds = set(cfg.layer_kinds())
-    if not (kinds <= _ATTN or kinds == {"ssd"}):
+    if not (kinds <= _MIXED or kinds == {"ssd"}):
         raise NotImplementedError(f"block kinds {sorted(kinds)} of "
                                   f"{cfg.name} (the port runs stacks of "
-                                  f"attn and local blocks, or of ssd "
-                                  f"blocks): {_TODO}")
-    if cfg.tail_pattern:
-        raise NotImplementedError(f"tail layers: {_TODO}")
+                                  f"attn, local and rglru blocks, or of "
+                                  f"ssd blocks): {_TODO}")
     if cfg.frontend_tokens:
         raise NotImplementedError(f"modality frontends: {_TODO}")
     if cfg.pos_embed != "rope":
@@ -103,9 +112,12 @@ def _norm_def(cfg) -> ParamDef:
 
 def block_defs(cfg, kind: str) -> Dict:
     """Parameter definitions of one block of ``kind`` (``attn``,
-    ``local`` or ``ssd``), as the reference's."""
+    ``local``, ``ssd`` or ``rglru``), as the reference's."""
     if kind == "ssd":
         return {"ssd": ssm.ssd_defs(cfg)}
+    if kind == "rglru":
+        return {"ln1": _norm_def(cfg), "rglru": rglru.rglru_defs(cfg),
+                "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
     d = {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
          "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
     if cfg.post_norms:
@@ -259,10 +271,77 @@ class SSDBlock(nn.Module):
         return x + o, c
 
 
+def _rglru_weights(lp: Dict[str, Any], dtype: torch.dtype) -> Dict:
+    """An RG-LRU block's RG-LRU and MLP weights in ``dtype`` (``Lambda``
+    stays float32)."""
+    return {"rglru": {k: v if k in rglru.F32_PARAMS else v.to(dtype)
+                      for k, v in lp["rglru"].items()},
+            "mlp": {k: v.to(dtype) for k, v in lp["mlp"].items()}}
+
+
+def _rglru_block(x: torch.Tensor, norms: Dict[str, torch.Tensor],
+                 w: Dict[str, Dict], cfg, *, cache: Optional[Dict],
+                 mode: str, impl: str
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x + rglru(ln1(x)); x + mlp(ln2(x)) (the reference's
+    ``_apply_block`` for ``rglru``); returns (x, the layer's new cache)."""
+    eps, gn = cfg.norm_eps, cfg.gemma_norm
+    o, c = rglru.rglru_apply(w["rglru"],
+                             rmsnorm(x, norms["ln1"], eps, gn, impl),
+                             cfg=cfg, cache=cache, mode=mode, impl=impl)
+    x = x + o
+    return x + mlp_apply(w["mlp"], rmsnorm(x, norms["ln2"], eps, gn, impl),
+                         cfg), c
+
+
+class RGLRUBlock(nn.Module):
+    """One RecurrentGemma recurrent block: x + rglru(ln1(x)); x +
+    mlp(ln2(x))."""
+
+    def __init__(self, cfg, tree: Dict[str, Any]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _param(tree["ln1"])
+        self.ln2 = _param(tree["ln2"])
+        self.rglru = nn.ParameterDict({k: _param(v)
+                                       for k, v in tree["rglru"].items()})
+        self.mlp = nn.ParameterDict({k: _param(v)
+                                     for k, v in tree["mlp"].items()})
+        self._memo: Tuple[Any, Dict] = (None, {})
+
+    def tree(self) -> Dict[str, Any]:
+        """This layer's parameter tensors in :func:`block_defs` layout."""
+        return {"ln1": self.ln1.data, "ln2": self.ln2.data,
+                "rglru": {k: v.data for k, v in self.rglru.items()},
+                "mlp": {k: v.data for k, v in self.mlp.items()}}
+
+    def weights(self, dtype: torch.dtype) -> Dict[str, Dict]:
+        """The RG-LRU and MLP weights cast to ``dtype`` (``Lambda`` stays
+        float32), made once and kept until a parameter moves or
+        changes."""
+        key = _cast_key(self, dtype, True)
+        if self._memo[0] != key:
+            self._memo = (key, _rglru_weights(
+                {"rglru": self.rglru, "mlp": self.mlp}, dtype))
+        return self._memo[1]
+
+    def forward(self, x: torch.Tensor, *, rot, length: Optional[int],
+                cache: Optional[Dict], mode: str, max_len: Optional[int],
+                impl: str) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """Apply the block (``rot``, ``length`` and ``max_len`` are unused:
+        the state carries the position); returns (x, this layer's new
+        cache or None)."""
+        return _rglru_block(x, {"ln1": self.ln1, "ln2": self.ln2},
+                            self.weights(x.dtype), self.cfg, cache=cache,
+                            mode=mode, impl=impl)
+
+
 def _block(cfg, kind: str, tree: Dict[str, Any]) -> nn.Module:
     """The block module of ``kind`` on its parameter tree."""
     if kind == "ssd":
         return SSDBlock(cfg, tree)
+    if kind == "rglru":
+        return RGLRUBlock(cfg, tree)
     return Block(cfg, tree, kind)
 
 
@@ -361,7 +440,15 @@ def _block_cache_defs(cfg, kind: str, batch: int, max_len: int) -> Dict:
     """One layer's cache: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
     for ``attn``, ``(batch, min(window, max_len), KV, hd)`` (the ring)
     for ``local``; for ``ssd`` bf16 conv states ``(batch, K − 1, ·)`` and
-    the f32 SSM state ``(batch, nh, hd, N)``."""
+    the f32 SSM state ``(batch, nh, hd, N)``; for ``rglru`` the bf16
+    conv state ``(batch, K − 1, W)`` and the f32 state ``(batch, W)``."""
+    if kind == "rglru":
+        return {"conv": ParamDef((batch, cfg.conv_width - 1, cfg.lru_width),
+                                 ("cache_batch", None, "lru_act"),
+                                 init="zeros", dtype="bfloat16"),
+                "h": ParamDef((batch, cfg.lru_width),
+                              ("cache_batch", "lru_act"),
+                              init="zeros", dtype="float32")}
     if kind in _ATTN:
         w = _window(cfg, kind)
         kv = ParamDef((batch, max_len if w is None else min(w, max_len),
@@ -426,9 +513,9 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
     """One decode step: tokens (B, 1) → (logits (B, V), cache).
 
     Attention layers update their key and value tensors in place (the
-    reference's engine donates them); ``ssd`` layers return new conv and
-    SSM states, as the reference's do.  The returned cache holds them
-    and the advanced ``length``."""
+    reference's engine donates them); ``ssd`` and ``rglru`` layers return
+    new conv and recurrent states, as the reference's do.  The returned
+    cache holds them and the advanced ``length``."""
     h, new_cache = model(tokens, cache=cache, mode="decode", impl=impl)
     return _head(h[:, -1], model), new_cache
 
@@ -438,7 +525,11 @@ def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg, kind: str,
     """One block of ``kind`` on layer parameters ``lp`` (f32), its weights
     cast to x's dtype here, in the graph, where the reference casts them:
     an attention block's matrices; an ``ssd`` block's projections, conv
-    weights and D (``_SSD_F32`` stay float32)."""
+    weights and D (``_SSD_F32`` stay float32); an ``rglru`` block's all
+    but ``Lambda``."""
+    if kind == "rglru":
+        return _rglru_block(x, lp, _rglru_weights(lp, x.dtype), cfg,
+                            cache=None, mode="train", impl=impl)[0]
     if kind == "ssd":
         w = {k: v if k in _SSD_F32 else v.to(x.dtype)
              for k, v in lp["ssd"].items()}
@@ -456,6 +547,9 @@ def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
     parameter tree ``params``, differentiable (see the module
     docstring)."""
     check_supported(cfg)
+    if "rglru" in cfg.layer_kinds() and tokens.device.type == "cuda":
+        raise NotImplementedError(f"training {cfg.name} on the card: "
+                                  f"{RGLRU_TRAIN_TODO}")
     x = embed_tokens(params["embed"], tokens, cfg)
     rot = None
     if _ATTN & set(cfg.layer_kinds()):

@@ -12,10 +12,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (_build, flash_attention, ops,  # noqa: E402
-                                 psp_tick, rmsnorm, ssd_scan)
+                                 psp_tick, rglru_scan, rmsnorm, ssd_scan)
 
-SOURCES = ("flash_attention", "psp_tick", "rmsnorm", "ssd_scan")
-WRAPPERS = (flash_attention, psp_tick, rmsnorm, ssd_scan)
+SOURCES = ("flash_attention", "psp_tick", "rglru_scan", "rmsnorm",
+           "ssd_scan")
+WRAPPERS = (flash_attention, psp_tick, rglru_scan, rmsnorm, ssd_scan)
 
 
 def test_wrappers_check_before_they_build():
@@ -30,6 +31,9 @@ def test_wrappers_check_before_they_build():
     with pytest.raises(ValueError, match="CUDA tensor"):
         x, bc = torch.ones(1, 4, 2, 16), torch.ones(1, 4, 1, 32)
         ssd_scan.ssd_cuda(x, torch.ones(1, 4, 2), -torch.ones(2), bc, bc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        x = torch.ones(1, 4, 32)
+        rglru_scan.rglru_scan_cuda(x, x, x, torch.ones(32))
     assert ops.use_kernel("auto", torch.device("cpu")) is False
     assert _build._LIBS == libs
     assert counts == [m.launch_count() for m in WRAPPERS]

@@ -25,8 +25,12 @@ attention's, RMSNorm's, the SSD scan's): ``chip_smoke``'s phase 5
 backward grids at its tolerances (``check_flash_bwd``, ``check_rms_bwd``,
 ``check_ssd_bwd``), and the bfloat16 flash
 backward's dk/dv and dq kernels must show ``HGMMA`` (``wgmma``) in the
-built library's SASS (``chip_smoke.flash_bwd_sass``), as must the bf16
-forward, at every head dim (64, 80, 128).
+built library's SASS (``chip_smoke.flash_bwd_sass``) at every head dim
+(64, 80, 128), as must the bf16 forward, at those and 256 (whose grid,
+GQA 1 and 10, is part of ``chip_smoke.flash_cases``).  The RG-LRU scan:
+``chip_smoke``'s phase 5 grid (``rglru_cases``: S × W × B × h0 × gate)
+in one dtype, y at ``check_close``'s tolerances (``RGLRU_F32`` in
+float32), h_last at ``RGLRU_F32``; two runs bit for bit alike.
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -251,5 +255,35 @@ def test_cuda_flash_attention_bwd_on_tensor_cores():
     assert set(counts) == {f"{n}<{hd}>" for n in smoke.FLASH_BWD_TC
                            for hd in smoke.FLASH_HEAD_DIMS}
     fwd = smoke.hgmma_by_hd(smoke.tensor_core_sass(lib),
-                            ("flash_tc_kernel",))
+                            ("flash_tc_kernel",), smoke.FLASH_FWD_HEAD_DIMS)
+    assert set(fwd) == {f"flash_tc_kernel<{hd}>"
+                        for hd in smoke.FLASH_FWD_HEAD_DIMS}
     assert all(n > 0 for n in [*counts.values(), *fwd.values()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_scan_matches_plain(dtype):
+    """The RG-LRU scan over ``chip_smoke``'s phase 5 grid in one dtype,
+    at its tolerances; a second run on the same inputs bit for bit the
+    first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_ref
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, (B, S, W, with_h0, gated, dt) in enumerate(smoke.rglru_cases()):
+        if dt != dtype:
+            continue
+        x, rp, ip, g, lam, h0 = smoke.rglru_inputs(torch, B, S, W, dt,
+                                                   dev, i)
+        args = (x, rp, ip, lam, h0 if with_h0 else None,
+                g if gated else None)
+        what = f"B={B} S={S} W={W} h0={with_h0} gate={gated}"
+        y, hl = rglru_scan_cuda(*args)
+        yr, hr = rglru_scan_ref(*args)
+        smoke.check_close(np, y, yr, dt, what, smoke.RGLRU_F32)
+        smoke.check_close(np, hl, hr, "float32", what + " h_last",
+                          smoke.RGLRU_F32)
+        y2, hl2 = rglru_scan_cuda(*args)
+        assert torch.equal(y, y2) and torch.equal(hl, hl2), what

@@ -8,7 +8,9 @@ The port takes grouped K/V heads natively; the reference gets them
 repeated to H heads.  The TPU kernel needs S divisible by its 128 block,
 so it is compared at S 128 and 256; the oracle also at S 37 and 200.
 h2o-danube-1.8b's head dim 80 (the kernel runs it in the hd-128
-tiling) is compared with a window and a softcap, forward and backward.
+tiling) is compared with a window and a softcap, forward and backward;
+recurrentgemma-2b's head dim 256 (forward only) causal and with a
+window, at G 1 and its MQA's 10.
 Inputs are drawn with numpy and rounded to the dtype once, identically
 in both packages.  Tolerances: float32 rtol 1e-5 / atol 1e-6 (softmax
 and products summed in another order); bfloat16 rtol / atol 2e-2 (the
@@ -117,6 +119,44 @@ def test_plain_versions_in_query_blocks(monkeypatch, rows):
     for g, w in zip(got, want):
         torch.testing.assert_close(
             g, w, rtol=1e-5, atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+#: the modes held at hd 256: recurrentgemma-2b's local layers run a
+#: window (here one shorter than S) on one KV head
+HD256 = {"causal": {}, "window32": {"window": 32}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 10])
+@pytest.mark.parametrize("case", list(HD256))
+def test_attention_ref_at_hd256_matches_tpu_kernel(case, G, dtype):
+    """hd 256 at S 128 (G 10: recurrentgemma-2b's MQA, 10 query heads on
+    one KV head): the plain version against ``flash_attention_tpu`` in
+    interpret mode and against the reference's oracle."""
+    (jq, jk, jv), (tq, tk, tv), G = _inputs(128, G, dtype, seed=256 + G,
+                                            hd=256)
+    rep = lambda a: jnp.repeat(a, G, axis=2)
+    got = attention_ref(tq, tk, tv, causal=True, **HD256[case])
+    assert got.shape == tq.shape
+    _compare(got, jops.attention(jq, rep(jk), rep(jv), causal=True,
+                                 impl="interpret", **HD256[case]), dtype)
+    _compare(got, jref.attention_ref(jq, rep(jk), rep(jv), causal=True,
+                                     **HD256[case]), dtype)
+
+
+def test_backward_kernel_refuses_hd256():
+    """hd 256 has a forward kernel and no backward one: the backward
+    wrapper refuses it by name before anything else, the forward
+    wrapper's head-dim check lets it through to its device check."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_HEAD_DIMS, HEAD_DIMS, flash_attention_bwd_cuda)
+    assert 256 in HEAD_DIMS and 256 not in BWD_HEAD_DIMS
+    q, k = torch.randn(1, 8, 10, 256), torch.randn(1, 8, 1, 256)
+    o, lse = attention_ref(q, k, k, return_lse=True)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        flash_attention_bwd_cuda(q, k, k, o, lse, q)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, k, k)
 
 
 def test_dispatch_on_cpu():

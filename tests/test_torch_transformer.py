@@ -141,8 +141,9 @@ def _flat_shapes(tree, prefix=""):
 def test_full_width_shapes_equal_reference_on_meta(arch):
     """The arch at full width, built on the meta device (no allocation):
     every layer's parameter has the shape of the reference's stacked
-    leaf of its pattern position without the layer axis; ``lm_head``
-    where the embeddings are untied."""
+    leaf of its pattern position without the layer axis, or of its tail
+    leaf (recurrentgemma-2b's (R, R)); ``lm_head`` where the embeddings
+    are untied."""
     cfg = get_config(arch)
     model = init_model(cfg, device="meta")
     ref = jmodel_defs(jget(arch))
@@ -152,11 +153,16 @@ def test_full_width_shapes_equal_reference_on_meta(arch):
     if model.lm_head is not None:
         assert tuple(model.lm_head.shape) == ref["lm_head"].shape
     n_pat = len(cfg.layer_pattern)
-    assert len(model.blocks) == cfg.n_layers == cfg.n_groups * n_pat
+    n_body = cfg.n_groups * n_pat
+    assert len(model.blocks) == cfg.n_layers == n_body + len(
+        ref.get("tail", {}))
     for i, blk in enumerate(model.blocks):
-        want = _flat_shapes(ref["groups"][str(i % n_pat)])
         got = {n: tuple(p.shape) for n, p in blk.named_parameters()}
-        assert got == {n: s[1:] for n, s in want.items()}
+        if i < n_body:
+            want = _flat_shapes(ref["groups"][str(i % n_pat)])
+            assert got == {n: s[1:] for n, s in want.items()}
+        else:
+            assert got == _flat_shapes(ref["tail"][str(i - n_body)])
         assert all(p.is_meta for p in blk.parameters())
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(d.shape)) for d in jax.tree.leaves(
@@ -221,15 +227,14 @@ def test_teacher_forced_forward_equals_prefill_plus_decode(arch, dtype):
 
 
 def test_unported_features_raise():
-    """What item 10 still queues raises and cites it: MoE and RG-LRU
-    blocks, tail layers, modality frontends, sinusoidal positions, and
-    the configs not registered yet."""
+    """What item 10 still queues raises and cites it: MoE blocks, an
+    ``ssd`` block mixed with attention, modality frontends, sinusoidal
+    positions, and the configs not registered yet."""
     cfg = reduced(get_config("qwen2-0.5b"))
     for change in ({"layer_pattern": ("moe",)},
-                   {"layer_pattern": ("rglru",)},
-                   {"layer_pattern": ("local", "attn"), "n_layers": 3},
+                   {"layer_pattern": ("ssd", "local")},
                    {"frontend_tokens": 16}, {"pos_embed": "sinusoidal"}):
         with pytest.raises(NotImplementedError, match="item 10"):
             init_model(dataclasses.replace(cfg, **change), device="meta")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("recurrentgemma-2b")
+        get_config("qwen3-moe-30b-a3b")
