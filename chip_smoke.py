@@ -247,10 +247,11 @@ shapes (``phase5_danube``: hd 80, 32 / 8 heads, window 4096; the
 forward at B 4, S 6144, the backward at B 2, S 6144) against their plain
 versions and SDPA with the band as a boolean mask, beside the bound of
 the band's FLOPs.  Last, recurrentgemma-2b's kernels (``phase5_rgemma``):
-the RG-LRU scan against its plain version over S {1, 37, 512, 4096} × W
-{256, 2560} × B {1, 4} × {h0 given, none} × {gate fused, none} ×
-{float32, bfloat16} (y float32 rtol 1e-5, atol 1e-5·max(1, max|plain|),
-bfloat16 2e-2; h_last at the float32 tolerance), timed at its prefill
+the RG-LRU scan against its plain version over S {1, 37, 65, 512,
+4096, 8192} × W {100, 200, 256, 2560} × B {1, 4} × {h0 given, none} ×
+{gate fused, none} × {float32, bfloat16} (y float32 rtol 1e-5, atol
+1e-5·max(1, max|plain|), bfloat16 2e-2; h_last at the float32
+tolerance), timed at its prefill
 (B 4, S 4096, W 2560, bf16, gate fused) beside its bound
 (``rglru_scan.scan_bytes``); the flash forward at its prefill (B 4, S
 4096, 10 / 1 heads of 256, window 2048) as at danube's; and ``ptxas``'s
@@ -335,12 +336,16 @@ FLASH_WIDE_HD, FLASH_WIDE_GQA = 256, (1, 10)
 FLASH_FWD_HEAD_DIMS = FLASH_HEAD_DIMS + (FLASH_WIDE_HD,)
 #: phase 5's RG-LRU scan grid: S × W × B × {h0 given, none} × {gate
 #: fused, none} × DTYPES (4096 and 2560: recurrentgemma-2b's prefill and
-#: width; 37 not a multiple of the kernel's 16-step chunk, 512 two of its
-#: 256-step spans); float32 tolerance rtol, and atol as a share of
-#: max(1, max |plain|) (the kernel composes the steps in another order
-#: than the plain version's doubling); bfloat16 y within 2e-2
-RGLRU_SEQ = (1, 37, 512, 4096)
-RGLRU_WIDTHS = (256, 2560)
+#: width, 8192 its max_len; 1 the decode kernel; 37 inside one of the
+#: prefill kernel's 64-step segments, 65 one step into a second, 512
+#: eight; W 100 rows not of 16-byte vectors in bfloat16 (the kernel's
+#: masked path) and a partial 32-channel tile in float32, 200 a partial
+#: 64-channel tile by bulk copies in bfloat16); float32 tolerance rtol,
+#: and atol as a share of max(1, max |plain|) (the kernel composes the
+#: steps in another order than the plain version's doubling); bfloat16 y
+#: within 2e-2
+RGLRU_SEQ = (1, 37, 65, 512, 4096, 8192)
+RGLRU_WIDTHS = (100, 200, 256, 2560)
 RGLRU_BATCH = (1, 4)
 RGLRU_F32 = (1e-5, 1e-5)
 #: the scan and the flash forward timed at recurrentgemma-2b's prefill:
@@ -1842,7 +1847,11 @@ def phase5_rgemma(np, torch, dev, card):
         err[dt] = max(err[dt], check_close(np, y, yr, dt, what, RGLRU_F32),
                       check_close(np, hl, hr, "float32", what + " h_last",
                                   RGLRU_F32))
-    print(f"[5] rglru scan kernel == plain on {i + 1} cases; max |err| "
+        y2, hl2 = rglru_scan_cuda(*args)
+        identical(torch, {"y": y, "h_last": hl}, {"y": y2, "h_last": hl2},
+                  what + ", a second call")
+    print(f"[5] rglru scan kernel == plain on {i + 1} cases, two calls bit "
+          "for bit alike; max |err| "
           + ", ".join(f"{dt} {e:.3g}" for dt, e in err.items()), flush=True)
 
     B, S, W = RGLRU_TIMED
@@ -1875,8 +1884,12 @@ def phase5_rgemma(np, torch, dev, card):
     regs, loss = ptxas_report(_build.LOGS.get("flash_attention", ""),
                               rf"flash_(tc|fwd)_kernelILi{FLASH_WIDE_HD}E")
     more, loss_rg = ptxas_report(_build.LOGS.get("rglru_scan", ""),
-                                 "rglru_scan_kernel")
+                                 r"rglru_(prefill|decode)_kernel")
     regs.update(more)
+    if not all(any(k in fn for fn in more)
+               for k in ("rglru_prefill_kernel", "rglru_decode_kernel")):
+        raise AssertionError("the rglru scan's prefill and decode kernels "
+                             f"are missing from the build log: {more}")
     print("[5] ptxas, hd-256 flash forward and rglru scan kernels "
           "(registers, spill store / load bytes): " + "; ".join(
               f"{fn[:60]}… {r} regs, spills {st} / {ld}"
@@ -2094,6 +2107,11 @@ def serve_phase(np, torch, dev, card, argv, tag):
               f"[{card}]", flush=True)
         for key, ms in sorted(traced.items(), key=lambda kv: -kv[1])[:10]:
             print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
+        scan = sum(ms for key, ms in traced.items()
+                   if re.search(r"\brglru_(prefill|decode)_kernel<", key))
+        if scan:
+            print(f"[{tag}]   the RG-LRU scan's kernels: {scan:.3f} ms, "
+                  f"{scan / busy:.4f} of the wave's device time", flush=True)
     else:
         print(f"[{tag}] traced rerun: the profiler saw no device time; the "
               "busy share is not measured", flush=True)

@@ -8,10 +8,10 @@ its launcher aims for, and ``COLS_WARPS``, the warps of its column pass;
 the flash backward's ``BWD_STAGES``, streamed tile pairs in its ring;
 the bfloat16 SSD backward's ``BWD_HEADS``, heads per block of its chunk
 kernel, and ``BWD_ROWS``, state rows per block of its state-gradient
-scan; the RG-LRU scan's prefill block shape, ``PREFILL_NC`` chunks of
-``PREFILL_L`` steps at ``PREFILL_MINB`` blocks an SM, timed at
-recurrentgemma-2b's prefill and at a decode step by queued CUDA
-events).
+scan; the RG-LRU scan's prefill block, ``PREFILL_THREADS`` threads of
+``PREFILL_L`` steps each, a ring of ``PREFILL_SLOTS`` tiles and
+``PREFILL_MINB`` blocks an SM, timed at recurrentgemma-2b's prefill and
+at a decode step by queued CUDA events and by the profiler).
 Every variant is built with the port's own flags (one ``nvcc`` each, all
 started together, into ``build/variants/``), held to its plain version
 on a few of ``chip_smoke.py``'s phase 5 cases, and timed at the
@@ -20,21 +20,37 @@ training shapes of ``chip_smoke.py`` (``FLASH_BWD_TIMED``,
 is one, in one call, with each launch's device time.  The first variant
 of each kernel is the source as it stands.
 
-Last, the SSD backward's chunk kernel as built is timed phase by phase:
-a copy of its source in which thread 0 of each block stamps
-``%globaltimer`` at each phase boundary, read back after one call at
-``SSD_BWD_TIMED`` (the mean and the largest time per phase over the
-blocks, and the mean by chunk).
+With ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
+``git archive`` into a directory ``.gitignore`` lists), that checkout's
+RG-LRU scan is checked and timed before and after the variants, on the
+same inputs and by the same clocks, through its own wrapper and build
+(into ``DIR/build/kernels/``), in a child interpreter that imports that
+checkout's ``repro_torch``: any checkout whose ``rglru_scan_cuda`` keeps
+its contract.
+
+Last, two kernels as built are timed phase by phase from copies of their
+sources in which thread 0 of each block stamps ``%globaltimer`` (and
+``clock64``), read back after one call: the SSD backward's chunk kernel
+at ``SSD_BWD_TIMED`` (the mean and the largest time per phase over the
+blocks, and the mean by chunk), and the RG-LRU scan at its prefill (the
+first block's start to the last block's end, and each block's cycles
+waiting for its tiles' loads, forming and scanning them, carrying h in
+and out, and rescanning and storing, summed over its tiles).  The
+RG-LRU scan's SASS
+instructions per element (``cuobjdump -sass``, static counts over each
+kernel, divided by the elements a thread holds a tile) are printed with
+its ``ptxas`` registers.
 
 Run on a machine with one card, from the root of the checkout::
 
-    python3 chip_variants.py [kernel source ...]
+    python3 chip_variants.py [--parent DIR] [kernel source ...]
 
 (the sources' names, e.g. ``rglru_scan``, restrict it to their
 variants).
 
 It exits with code 2 without a GPU.  It needs the CUDA toolkit's
-``nvcc``; it changes no file outside ``build/variants/``.
+``nvcc``; it changes no file outside ``build/variants/`` (and, with
+``--parent``, the parent's ``build/kernels/``).
 """
 from __future__ import annotations
 
@@ -66,12 +82,17 @@ VARIANTS = (
     ("ssd_scan", "BWD_ROWS 16", {"BWD_ROWS = 64;": "BWD_ROWS = 16;"}),
     ("ssd_scan", "BWD_ROWS 32", {"BWD_ROWS = 64;": "BWD_ROWS = 32;"}),
     ("rglru_scan", "as built", {}),
-    *(("rglru_scan", f"NC {nc} L {n} MINB {mb}",
-       {"PREFILL_NC = 16;": f"PREFILL_NC = {nc};",
-        "PREFILL_L = 8;": f"PREFILL_L = {n};",
-        "PREFILL_MINB = 2;": f"PREFILL_MINB = {mb};"})
-      for nc, n, mb in ((16, 16, 1), (32, 8, 1), (8, 16, 2), (8, 8, 4),
-                        (32, 4, 1))),
+    *(("rglru_scan", tag, dict(
+        (f"PREFILL_{k} = {v};", f"PREFILL_{k} = {n};")
+        for k, v, n in zip(("THREADS", "L", "SLOTS", "MINB"), (256, 2, 2, 3),
+                           new) if n != v))
+      for tag, new in (("SLOTS 3, two blocks an SM", (256, 2, 3, 2)),
+                       ("SLOTS 2, two blocks an SM", (256, 2, 2, 2)),
+                       ("L 4 (128-step tiles), one block an SM",
+                        (256, 4, 2, 1)),
+                       ("L 1 (32-step tiles)", (256, 1, 2, 3)),
+                       ("128 threads, L 2, six blocks an SM",
+                        (128, 2, 2, 6)))),
 )
 #: the SSD backward's spot checks: (B, S, nh, ng, hd, N, chunk, decay,
 #: dtype), a last head tile of 2, two groups at hd 16 with N and Q not
@@ -80,9 +101,10 @@ SSD_CHECKS = ((2, 512, 20, 1, 64, 128, 128, "model", "bfloat16"),
               (2, 240, 6, 2, 16, 36, 48, "slow", "bfloat16"),
               (1, 4096, 8, 2, 64, 128, 128, "slow", "bfloat16"))
 #: the RG-LRU scan's spot checks (h0 and the gate given): (B, S, W,
-#: dtype), a span cut short, a decode step, the prefill
+#: dtype), a segment cut short, a decode step, a partial tile on the
+#: masked path, the prefill
 RGLRU_CHECKS = ((2, 300, 256, "float32"), (4, 1, 2560, "bfloat16"),
-                (4, 4096, 2560, "bfloat16"))
+                (1, 65, 100, "bfloat16"), (4, 4096, 2560, "bfloat16"))
 
 
 def variant_source(name, subs):
@@ -99,9 +121,9 @@ def variant_source(name, subs):
 
 
 def build(variants):
-    """Build every variant in parallel (the sources as they stand with
-    ``-Xptxas -v``); returns ({(name, tag): CDLL}, {name: ptxas report of
-    the source as it stands})."""
+    """Build every variant in parallel (the sources as they stand, and
+    every RG-LRU variant, with ``-Xptxas -v``); returns ({(name, tag):
+    CDLL}, {name, or "name tag": its ptxas report})."""
     from repro_torch.kernels import _build
     out = ROOT / "build" / "variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -109,19 +131,20 @@ def build(variants):
     for i, (name, tag, subs) in enumerate(variants):
         src = out / f"{name}_{i}.cu"
         src.write_text(variant_source(name, subs))
-        procs[(name, tag)] = (not subs, subprocess.Popen(
+        verbose = not subs or name == "rglru_scan"
+        procs[(name, tag)] = (verbose, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS,
-             *(() if subs else ("-Xptxas", "-v")), "-o",
+             *(("-Xptxas", "-v") if verbose else ()), "-o",
              str(src.with_suffix(".so")), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             src.with_suffix(".so"))
     libs, reports = {}, {}
-    for (name, tag), (as_built, proc, so) in procs.items():
+    for (name, tag), (verbose, proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name} {tag}:\n{log}")
-        if as_built:
-            reports[name] = log
+        if verbose:
+            reports[name if tag == "as built" else f"{name} {tag}"] = log
         lib = ctypes.CDLL(str(so))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -130,8 +153,9 @@ def build(variants):
 
 
 def backward_registers(log):
-    """(kernel, registers, spill-store bytes) of each backward kernel in a
-    ``-Xptxas -v`` report, and its "Potential Performance Loss" lines."""
+    """(kernel, registers, spill-store bytes) of each backward kernel (and
+    the RG-LRU scan's) in a ``-Xptxas -v`` report, and its "Potential
+    Performance Loss" lines."""
     rows, warns, fn = [], [], None
     for line in log.splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
@@ -140,7 +164,8 @@ def backward_registers(log):
         if "Potential Performance Loss" in line:
             warns.append(line.strip())
         used = re.search(r"Used (\d+) registers", line)
-        if used and fn and re.search(r"bwd_\w+kernel", fn):
+        if used and fn and re.search(
+                r"bwd_\w+kernel|rglru_(prefill|decode)_kernel", fn):
             rows.append((fn, int(used.group(1))))
     spills = {f: int(m.group(1)) for f, m in (
         (f, re.search(rf"Function properties for {re.escape(f)}\s+"
@@ -263,6 +288,244 @@ def ssd_phases(np, torch, cs, dev, card):
           f"{(st_[:, 30].max() - st_[:, 0].min()) / 1e3:.2f} µs", flush=True)
 
 
+#: the stamps of a stamped RG-LRU scan: thread 0 of each block writes
+#: its first and last %globaltimer, then its clock64 cycles in each phase
+#: summed over its tiles, then its tile count
+RGLRU_PHASES = ("waiting for the tile's loads", "forming a, b and the "
+                "chunks' maps, the warp scan", "waiting for the entering h",
+                "carrying h across the warps", "rescan and stores, the "
+                "slot's refill")
+RGLRU_STAMPS = r"""
+__device__ unsigned long long g_stamps[1 << 16];
+__device__ __forceinline__ unsigned long long gtimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP_BEGIN() \
+  const unsigned long long st_t0 = gtimer(); \
+  long long st_last = clock64(), st_acc[5] = {0, 0, 0, 0, 0};
+#define STAMP(k) do { if (threadIdx.x == 0) { const long long st_now = \
+    clock64(); st_acc[k] += st_now - st_last; st_last = st_now; } } while (0)
+#define STAMP_END(tiles) do { if (threadIdx.x == 0) { \
+    unsigned long long* st_o = g_stamps + 8 * blockIdx.x; \
+    st_o[0] = st_t0; st_o[1] = gtimer(); \
+    for (int q = 0; q < 5; ++q) st_o[2 + q] = st_acc[q]; \
+    st_o[7] = (tiles); } } while (0)
+"""
+READ_STAMPS = """
+extern "C" int read_stamps(unsigned long long* out, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, n * 8));
+}
+"""
+def build_lib(src, text, *flags):
+    """Write ``text`` to ``src``, build it with the port's flags, load it
+    with ``cuda_error_string`` declared (and ``read_stamps`` if it has
+    one); returns (library, compiler output)."""
+    from repro_torch.kernels import _build
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    so = src.with_suffix(".so")
+    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+                          str(so), str(src)], capture_output=True, text=True)
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{run.stdout}"
+                           f"{run.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    if "read_stamps" in text:
+        lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib, run.stdout + run.stderr
+
+
+def sass_per_element(lib_path, pattern, per_thread):
+    """(kernel, static SASS instructions, of them MUFU, instructions per
+    element) of each kernel in ``lib_path`` whose name matches
+    ``pattern``; ``per_thread(name)`` is the elements a thread of it
+    holds a tile (``cuobjdump -sass``; a static count: each kernel's
+    whole code, its division and sqrt slow paths included)."""
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1) if re.search(pattern, head.group(1)) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]", line):
+            counts[fn][0] += 1
+            counts[fn][1] += "MUFU" in line
+    return [(f, n, m, n / per_thread(f)) for f, (n, m) in counts.items()]
+
+
+def rglru_elements(fn):
+    """Elements a thread of the RG-LRU scan kernel ``fn`` (a mangled
+    name) holds a tile: PREFILL_L steps of a 16-byte vector of channels
+    in the prefill kernel, DECODE_L steps of one channel in the decode
+    kernel."""
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "rglru_scan.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                       text).group(1))
+    if "rglru_decode_kernel" in fn:
+        return const("DECODE_L")
+    return const("PREFILL_L") * (8 if "bfloat16" in fn else 4)
+
+
+def stamp_read(np, lib, n_blocks, width):
+    """The first ``n_blocks`` × ``width`` stamps of ``lib``."""
+    buf = np.zeros(n_blocks * width, np.uint64)
+    if lib.read_stamps(buf.ctypes.data, n_blocks * width):
+        raise RuntimeError("read_stamps failed")
+    return buf.reshape(n_blocks, width).astype(np.int64)
+
+
+def rglru_phases(np, torch, cs, dev, card, lam, nxt):
+    """Build the stamped scan, run calls on the rotated prefill inputs
+    ``nxt`` through it and print its first start to last end and each
+    phase's cycles."""
+    from repro_torch.kernels import _build, rglru_scan as rg
+    text = (_build.CSRC / "rglru_scan.cu").read_text()
+    lib, _ = build_lib(ROOT / "build" / "variants" / "rglru_scan_stamped.cu",
+                       RGLRU_STAMPS + text + READ_STAMPS)
+    use(lib, "rglru_scan")
+    B, S, W = cs.RGLRU_TIMED
+    mhz = float(re.sub(r"[^0-9.]", "", cs.sm_clock()) or "nan")
+    for _ in range(5):  # each call stamps the same blocks; the last stays
+        t = nxt()
+        rg.rglru_scan_cuda(t[0], t[1], t[2], lam, None, t[3])
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    st = stamp_read(np, lib, 4 * sms, 8)
+    st = st[st[:, 1] > 0]  # the grid's blocks
+    span = (st[:, 1].max() - st[:, 0].min()) / 1e3
+    life = (st[:, 1] - st[:, 0]) / 1e3
+    starts, ends, tiles = st[:, 0], st[:, 1], st[:, 7]
+    print(f"[rglru scan phases] B={B} S={S} W={W} bf16, gate fused: "
+          f"{len(st)} blocks, tiles a block {tiles.min()}–{tiles.max()} "
+          f"({tiles.sum()} in all); first block's start to last block's end "
+          f"{span:.2f} µs; a block's span mean {life.mean():.2f}, min "
+          f"{life.min():.2f}, max {life.max():.2f} µs; starts spread over "
+          f"{(starts.max() - starts.min()) / 1e3:.2f} µs, ends over "
+          f"{(ends.max() - ends.min()) / 1e3:.2f} µs [{card}]", flush=True)
+    for k, name in enumerate(RGLRU_PHASES):
+        us = st[:, 2 + k] / mhz
+        print(f"  {name:44s} mean {us.mean():8.2f} µs a block (max "
+              f"{us.max():8.2f}), {us.sum() / tiles.sum():6.3f} µs a tile "
+              f"(thread 0's clock64 at {mhz:.0f} MHz)", flush=True)
+
+
+def rglru_check(np, torch, cs, dev, rg, tag):
+    """Hold ``rg.rglru_scan_cuda`` (with the library it has) to
+    ``rg.rglru_scan_ref`` on RGLRU_CHECKS."""
+    for i, (B, S, W, dt) in enumerate(RGLRU_CHECKS):
+        x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W, dt, dev, i)
+        y, hl = rg.rglru_scan_cuda(x, rp, ip, lam, h0, g)
+        yr, hr = rg.rglru_scan_ref(x, rp, ip, lam, h0, g)
+        cs.check_close(np, y, yr, dt, f"rglru {tag}", cs.RGLRU_F32)
+        cs.check_close(np, hl, hr, "float32", f"rglru {tag} h_last",
+                       cs.RGLRU_F32)
+
+
+def rglru_times(torch, cs, dev, card, rg, libs, nbytes=None):
+    """Time ``rg.rglru_scan_cuda`` with each library of ``libs`` (tag →
+    CDLL, or None: the one the wrapper builds itself) at
+    recurrentgemma-2b's prefill (RGLRU_TIMED, bf16, gate fused) and a
+    decode step by queued CUDA events, and at the prefill by the
+    profiler, beside the bound of ``nbytes`` if given; returns the
+    prefill's rotating inputs and lam."""
+    B, S, W = cs.RGLRU_TIMED
+    x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W, "bfloat16", dev)
+    nxt, n_sets = cs.rotating((x, rp, ip, g))
+    step = tuple(t[:, :1].contiguous() for t in (x, rp, ip, g))
+
+    def scan(lib, decode):
+        def f():
+            if lib is not None:
+                use(lib, "rglru_scan")
+            t = step if decode else nxt()
+            return rg.rglru_scan_cuda(t[0], t[1], t[2], lam,
+                                      h0 if decode else None, t[3])
+        return f
+    for decode, what in ((False, f"S={S}"), (True, "a decode step (S=1)")):
+        fns = {tag: (scan(lib, decode), 200 if decode else 20)
+               for tag, lib in libs.items()}
+        ms, clocks = cs.event_rounds(torch, fns, queued=True)
+        print(f"[rglru scan B={B} {what} W={W} bf16, gate fused (no library "
+              "call computes it)] " + cs.rounds_text(ms) + f"; SM clock "
+              f"{clocks}; inputs rotated over {n_sets} copies [{card}]",
+              flush=True)
+        if decode:
+            continue
+        if nbytes is not None:
+            print("  bound " + f"{1e3 * nbytes / cs.HBM_BPS:.4f} ms "
+                  f"({nbytes / 1e6:.2f} MB); " + ", ".join(
+                      f"{tag} {nbytes / v[0] / 1e6:.1f} GB/s"
+                      for tag, v in ms.items()), flush=True)
+        prof, clocks = cs.timed_rounds(torch, fns)
+        print(f"  by the profiler: " + cs.rounds_text(prof)
+              + f"; SM clock {clocks} [{card}]", flush=True)
+    return nxt, lam
+
+
+def parent_times(parent):
+    """Check and time the RG-LRU scan of the checkout at ``parent`` (an
+    earlier commit, e.g. unpacked by ``git archive``) through its own
+    wrapper, built by its own ``_build`` into its own ``build/kernels/``,
+    on this checkout's inputs: in a child interpreter whose
+    ``repro_torch`` is that checkout's (:func:`scan_child`)."""
+    sys.stdout.flush()
+    src = Path(parent).resolve() / "src"
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--scan-child", str(src)], cwd=ROOT)
+    if run.returncode:
+        raise RuntimeError(f"the parent's RG-LRU scan failed (rc "
+                           f"{run.returncode})")
+
+
+def scan_child(src):
+    """The child of :func:`parent_times`: ``repro_torch`` from ``src``,
+    its RG-LRU scan held to its plain version and timed."""
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import rglru_scan as rg
+    if Path(src).resolve() not in Path(rg.__file__).resolve().parents:
+        raise RuntimeError(f"repro_torch came from {rg.__file__}, not {src}")
+    dev = torch.device("cuda", 0)
+    rglru_check(np, torch, cs, dev, rg, "the parent's kernel")
+    rglru_times(torch, cs, dev, cs.smi(), rg, {"the parent's kernel": None})
+    return 0
+
+
+def rglru_section(np, torch, cs, dev, card, libs, parent):
+    """The RG-LRU scan's variants timed at the prefill and a decode step,
+    by queued events and by the profiler (the parent's kernel before and
+    after them, if given); their SASS per element; then the stamped
+    phases."""
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, W = cs.RGLRU_TIMED
+    if parent is not None:
+        parent_times(parent)
+    nxt, lam = rglru_times(
+        torch, cs, dev, card, rg,
+        {tag: lib for (name, tag), lib in libs.items()
+         if name == "rglru_scan"}, rg.scan_bytes(B, S, W, 2, gated=True))
+    if parent is not None:
+        parent_times(parent)
+    path = Path(libs[("rglru_scan", "as built")]._name)
+    for fn, n, mufu, per in sass_per_element(
+            path, r"rglru_(prefill|decode)_kernel", rglru_elements):
+        print(f"[rglru sass] {path.stem}: …{fn[-56:]} {n} instructions "
+              f"({mufu} MUFU), {per:.1f} per element", flush=True)
+    rglru_phases(np, torch, cs, dev, card, lam, nxt)
+
+
 def kernel_name(key):
     """A profiler key's kernel name without its namespace, template
     arguments and parameters (``void (anonymous namespace)::f<64>(...)``
@@ -285,6 +548,8 @@ def use(lib, name):
 
 def main() -> int:
     """Build, check and time every variant; 0 on success."""
+    if sys.argv[1:2] == ["--scan-child"]:
+        return scan_child(sys.argv[2])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -297,7 +562,11 @@ def main() -> int:
     card = cs.smi()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    only = set(sys.argv[1:])
+    argv = sys.argv[1:]
+    parent = None
+    if argv[:1] == ["--parent"]:
+        parent, argv = argv[1], argv[2:]
+    only = set(argv)
     libs, reports = build([v for v in VARIANTS if not only or v[0] in only])
     names = {name for name, _ in libs}
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s "
@@ -305,6 +574,8 @@ def main() -> int:
     for name, log in reports.items():
         rows, warns = backward_registers(log)
         for fn, regs, spill in rows:
+            if " " in name and "rglru_prefill_kernel" not in fn:
+                continue  # of a variant, its prefill kernels only
             print(f"[ptxas] {name}: {fn[-72:]} {regs} registers, {spill} "
                   "bytes spilled", flush=True)
         print(f"[ptxas] {name}: {len(warns)} 'Potential Performance Loss' "
@@ -322,14 +593,7 @@ def main() -> int:
             for i, case in enumerate(SSD_CHECKS):
                 cs.check_ssd_bwd(np, torch, case, dev, i)
         elif name == "rglru_scan":
-            for i, (B, S, W, dt) in enumerate(RGLRU_CHECKS):
-                x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W,
-                                                        dt, dev, i)
-                y, hl = rg.rglru_scan_cuda(x, rp, ip, lam, h0, g)
-                yr, hr = rg.rglru_scan_ref(x, rp, ip, lam, h0, g)
-                cs.check_close(np, y, yr, dt, f"rglru {tag}", cs.RGLRU_F32)
-                cs.check_close(np, hl, hr, "float32",
-                               f"rglru {tag} h_last", cs.RGLRU_F32)
+            rglru_check(np, torch, cs, dev, rg, tag)
         else:
             for rows, D, dt in ((1024, 896, "bfloat16"),
                                 (4099, 3072, "bfloat16"),
@@ -414,27 +678,7 @@ def main() -> int:
                "(no library call computes it)", fns)
         ssd_phases(np, torch, cs, dev, card)
     if "rglru_scan" in names:
-        B, S, W = cs.RGLRU_TIMED
-        x, rp, ip, g, lam, h0 = cs.rglru_inputs(torch, B, S, W, "bfloat16",
-                                                dev)
-        nxt_g, _ = cs.rotating((x, rp, ip, g))
-        step = tuple(t[:, :1].contiguous() for t in (x, rp, ip, g))
-
-        def scan(lib, decode):
-            def f():
-                use(lib, "rglru_scan")
-                t = step if decode else nxt_g()
-                return rg.rglru_scan_cuda(t[0], t[1], t[2], lam,
-                                          h0 if decode else None, t[3])
-            return f
-        for decode, what in ((False, f"S={S}"), (True, "a decode step (S=1)")):
-            fns = {tag: (scan(lib, decode), 200 if decode else 20)
-                   for (name, tag), lib in libs.items()
-                   if name == "rglru_scan"}
-            ms, clocks = cs.event_rounds(torch, fns, queued=True)
-            print(f"[rglru scan B={B} {what} W={W} bf16, gate fused (no "
-                  "library call computes it)] " + cs.rounds_text(ms)
-                  + f"; SM clock {clocks} [{card}]", flush=True)
+        rglru_section(np, torch, cs, dev, card, libs, parent)
     return 0
 
 

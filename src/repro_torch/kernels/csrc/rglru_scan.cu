@@ -10,54 +10,143 @@
 //   h_t = a_t * h_{t-1} + b_t,  h_{-1} = h0 (or 0)
 //   y_t = cast(h_t), or cast(cast(h_t) * gate_t) with a gate
 //
-// in float32 with the reference's expressions (expf, not __expf; the
-// build passes -fmad=false, so a * h + b rounds twice, as the reference's
-// multiply and add do).  x, r_pre, i_pre, gate, y: (B, S, W) contiguous
-// in T (float or bf16); lambda (W,), h0 and h_last (B, W) float32.
-// h_last is h at position S - 1, the f32 value whose rounding is the
-// last y.
+// in float32 with the reference's expressions (expf, not __expf; IEEE
+// division in the sigmoid; the build passes -fmad=false, so a * h + b
+// rounds twice, as the reference's multiply and add do).  x, r_pre,
+// i_pre, gate, y: (B, S, W) contiguous in T (float or bf16); lambda (W,),
+// h0 and h_last (B, W) float32.  h_last is h at position S - 1, the f32
+// value whose rounding is the last y.
 //
 // Bound on the H100: bytes.  At recurrentgemma-2b's prefill (B 4, S
 // 4096, W 2560, bf16, gate fused) the kernel must move 419 MB, 0.125 ms
 // at 3.35 TB/s.  Each element also costs ~90 instructions (two sigmoids
 // with their IEEE divisions, three expf, a sqrt, the recurrence twice),
 // ~0.11 ms of issue on 132 SMs, so the two limits are close and the
-// kernel has to overlap them.  A sequential scan per channel would give
-// only B * W = 10,240 threads, ~2.4 warps an SM, each with one step's
-// loads in flight: latency-bound.  The design:
-// * one block per (32 channels, batch row) with NC = 16 warps; warp c
-//   owns steps [L c, L c + L) of every NC·L-step span (L = 8: 128 steps),
-//   lane l channel 32 * blockIdx.x + l (64 contiguous bytes a warp in
-//   bf16); two blocks an SM (at most 64 registers a thread);
-// * a thread loads its L steps of x, r_pre, i_pre (and the gate) into
-//   registers at once (one batch of independent loads, predicated past
-//   S), forms a and b, and composes its L affine maps from h = 0;
-// * one warp then carries h across the span's NC partial maps in order
-//   (shared memory), handing each chunk the h that enters it, and every
-//   thread rescans its L steps from that h, from registers, and writes
-//   y; the block moves to the next span with the carry.
-// Each input is read once.  Steps past S are the identity (a = 1, b = 0),
-// so a thread's h after its loop is h at its last valid step.  Of the
-// shapes timed on the card (chip_variants.py), 16 chunks of 8 steps at
-// two blocks an SM ran fastest at the prefill: 16 chunks of 16 steps at
-// one block an SM (99 registers a thread) took 1.2x as long.  A decode
-// step (S <= 16) runs one warp a block, which scans its steps alone.
+// kernel has to keep its loads in flight while it computes.  Parallelism
+// over B * W alone (one serial walk of S per channel group) cannot fill
+// 132 SMs evenly, so the sequence is split as well.  The design:
+// * a tile is SEG steps (a segment) of CT channels (one 128-byte row a
+//   step: 64 in bf16, 32 in float) of one batch row; tiles are numbered
+//   segment by segment, every (batch row, channel tile) column of a
+//   segment before the next segment;
+// * persistent blocks (as many as fit, PREFILL_MINB an SM) take tiles
+//   in that order from an atomic ticket, and bring each into a ring of
+//   PREFILL_SLOTS shared-memory slots by TMA, one box of a 3-D tensor map
+//   (W, S, B) per input, completing on the slot's mbarrier (rows past S
+//   and channels past W read as zeros).  The copies of the next tiles
+//   are in flight while a block forms, scans and carries the current
+//   one;
+// * a thread owns one 16-byte vector of channels (8 in bf16, 4 in
+//   float) over PREFILL_L consecutive steps (a chunk), read from shared
+//   memory 16 bytes at a time: it forms a and b in registers and
+//   composes its chunk's affine map h -> A h + H;
+// * the four chunks of a warp that share channels (lanes 8 apart)
+//   compose their maps by a warp-shuffle scan; the first CT threads, one
+//   channel each, then carry h across the block's warps in order, from
+//   the h that enters the tile;
+// * that h comes from the tile of the segment before (the same column),
+//   which publishes the h leaving it, with the call's tag in the upper
+//   half of one 64-bit word per channel, as soon as it has its own
+//   entering h (before its rescan); the first segment starts from h0.
+//   A tile waits only on a smaller ticket, whose block is resident and
+//   waits only on smaller ones, so the chain cannot deadlock; the h's
+//   are composed in one fixed order, so two calls agree bit for bit.
+//   A thread-block cluster carrying h over distributed shared memory
+//   was not built: it would hold a cluster's blocks in step, a segment
+//   each, where the ticket lets each block take a tile when it is free,
+//   and a tile's whole wait for its h is a small share of its time
+//   (PERF.md, the RG-LRU scan's findings);
+// * each thread rescans its chunk from the h entering it (a from
+//   registers, b from the slot, where it was written over the x and r
+//   the thread had read: registers are what limits the blocks an SM),
+//   and writes y in 16-byte vectors (the gate read from the slot); the
+//   slot is then refilled with the block's next ticket.
+// The ticket, a count of finished blocks and the tag live in a scratch
+// buffer the wrapper keeps per device and stream (zeroed when it is
+// made); the last block to finish resets both counts and advances the
+// tag, so no call needs a launch to clear it.  Each input is read once.
+// A W whose rows are not 16-byte multiples (or an unaligned tensor:
+// TMA's limits) takes the same path, each thread gathering its own bytes
+// of the tile into the slot by predicated scalar loads, and storing y
+// element by element.  A decode step (S <= DECODE_L) runs one warp a
+// block, each thread one channel, which scans its steps alone.  Of the
+// block shapes timed on the card (chip_variants.py), 256 threads of 2
+// steps at three blocks an SM ran fastest; it fits ptxas's 80 registers
+// a thread without a spill only because b waits in the slot and nothing
+// else is held through the forming.  Two blocks an SM (two or three
+// slots), 128-step tiles at one block an SM, 32-step tiles and blocks of
+// 128 threads were slower.
+// CUtensorMap and its enums (the encoder is fetched at run time)
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+// Per-phase block times: no-ops here; chip_variants.py builds a copy of
+// this source that defines them to stamp each phase of each block.
+#ifndef STAMP_BEGIN
+#define STAMP_BEGIN()
+#define STAMP(k)
+#define STAMP_END(tiles)
+#endif
+
 namespace {
 
-constexpr int CH = 32;  // channels per block (a warp's lanes)
-// the prefill's block: NC chunks per span (warps per block) of L steps
-// each, held in registers, and the blocks an SM should hold (MINB, for
-// the register cap); a call of at most DECODE_L steps (a decode step)
-// takes one warp per block instead
-constexpr int PREFILL_NC = 16;
-constexpr int PREFILL_L = 8;
-constexpr int PREFILL_MINB = 2;
+// the prefill's block: PREFILL_THREADS threads, each holding PREFILL_L
+// steps of a tile, a ring of PREFILL_SLOTS tiles, PREFILL_MINB blocks an
+// SM (the register cap); a call of at most DECODE_L steps (a decode
+// step) runs rglru_decode_kernel instead
+constexpr int PREFILL_THREADS = 256;
+constexpr int PREFILL_L = 2;
+constexpr int PREFILL_SLOTS = 2;
+constexpr int PREFILL_MINB = 3;
 constexpr int DECODE_L = 16;
+// the masked path (no TMA; its speed matters little) at most two blocks
+// an SM, so that its gathers and element stores do not spill
+constexpr int MASKED_MINB = PREFILL_MINB < 2 ? PREFILL_MINB : 2;
+
+constexpr int ROW_BYTES = 128;          // a tile's row: a step of CT channels
+constexpr int GROUPS = ROW_BYTES / 16;  // 16-byte vectors a row
+constexpr int CTL_BYTES = 128;          // the scratch's counters, then h's
+
+template <typename T>
+struct Tile {
+  static constexpr int VEC = 16 / sizeof(T);  // channels a thread
+  static constexpr int CT = GROUPS * VEC;     // channels a tile
+  static constexpr int NT = PREFILL_THREADS;
+  static constexpr int NWARP = NT / 32;
+  static constexpr int CPW = 32 / GROUPS;     // chunks a warp
+  static constexpr int NCH = NT / GROUPS;     // chunks a tile
+  static constexpr int L = PREFILL_L;
+  static constexpr int SEG = NCH * L;         // steps a tile
+  static constexpr int NS = PREFILL_SLOTS;
+  static constexpr int ARR = SEG * ROW_BYTES;  // one input's tile, bytes
+  static_assert(NT % 32 == 0 && NS >= 2 && CT <= NT && SEG <= 256,
+                "tile shape");
+  // dynamic shared memory: alignment slack, the slots, the warps' maps
+  // and entering h, the slots' coefficients, their mbarriers and
+  // tickets, the call's tag
+  static constexpr int smem(int narr) {
+    return 128 + NS * narr * ARR + 4 * (3 * NWARP + NS) * CT + 8 * NS +
+           4 * NS + 4;
+  }
+};
+
+template <typename T>
+struct Args {
+  const T* x;
+  const T* r;
+  const T* i;
+  const T* gate;
+  const float* lam;
+  const float* h0;
+  T* y;
+  float* h_last;
+  unsigned* ctl;             // ticket, finished blocks, the last call's tag
+  unsigned long long* carry;  // (column, segment, CT) h leaving each tile
+  int B, S, W;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -81,136 +170,641 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-template <typename T, bool GATE, int NC, int L, int MINB>
-__global__ void __launch_bounds__(CH* NC, MINB)
-    rglru_scan_kernel(const T* __restrict__ x, const T* __restrict__ rp,
-                      const T* __restrict__ ip, const float* __restrict__ lam,
-                      const float* __restrict__ h0, const T* __restrict__ gate,
-                      T* __restrict__ y, float* __restrict__ h_last, int S,
-                      int W) {
-  __shared__ float sA[NC][CH];      // each chunk's composed map h -> A h + H
-  __shared__ float sH[NC][CH];
-  __shared__ float sIn[NC][CH];     // the h entering each chunk
+// a, b of one element from its x, r_pre, i_pre and its channel's coef
+__device__ __forceinline__ void form(float x, float rp, float ip, float coef,
+                                     float& a, float& b) {
+  const float r = sigmoid(rp), i = sigmoid(ip);
+  const float log_a = coef * r;
+  const float mult = sqrtf(fminf(fmaxf(1.f - expf(2.f * log_a), 0.f), 1.f));
+  a = expf(log_a);
+  b = (mult * i) * x;
+}
 
-  const int lane = threadIdx.x, c = threadIdx.y;
-  const int w = blockIdx.x * CH + lane, b = blockIdx.y;
-  const bool live = w < W;
-  const float coef = live ? -8.f * softplus(lam[w]) : 0.f;
-  float carry = (live && h0 != nullptr) ? h0[static_cast<long long>(b) * W + w]
-                                        : 0.f;  // used by warp 0
-  const long long row = static_cast<long long>(b) * S;
+// 16 bytes of T as VEC floats, and back (bf16: channel order low half
+// first, as in memory)
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+// channels 4q .. 4q + 3 of the 16 bytes at p
+template <typename T>
+__device__ __forceinline__ void unpack4(const unsigned char* p, int q,
+                                        float (&f)[4]);
+template <>
+__device__ __forceinline__ void unpack4<float>(const unsigned char* p, int,
+                                               float (&f)[4]) {
+  unpack(*reinterpret_cast<const uint4*>(p), f);
+}
+template <>
+__device__ __forceinline__ void unpack4<__nv_bfloat16>(const unsigned char* p,
+                                                       int q, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p + 8 * q);
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    w[j] = *reinterpret_cast<const unsigned*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-  for (int s0 = 0; s0 < S; s0 += NC * L) {
-    const int t0 = s0 + c * L;
-    T xv[L], rv[L], iv[L], gv[L];
+// ---- PTX helpers -------------------------------------------------------- //
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive, and expect `bytes` of TMA transactions in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait of more than ~2^34 cycles (seconds) is a fault and traps instead
+// of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// order this thread's writes to shared memory before later TMA writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// device-coherent (L2) accesses of the chain's words and counters
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// ---- end of PTX helpers ------------------------------------------------- //
+
+// the inputs' tensor maps (TMA path; unused on the masked path)
+struct Maps {
+  CUtensorMap m[4];  // x, r_pre, i_pre, gate
+};
+
+// Warp 0 readies slot s for ticket tk: its channels' coefficients, and
+// (TMA path) one box per input, counted on its mbarrier.
+template <typename T, bool GATE, bool TMA>
+__device__ __forceinline__ void fill(const Args<T>& a, const Maps& maps,
+                                     unsigned char* raw, float* sCoef,
+                                     uint64_t* mbar, int s, int tk,
+                                     int ntiles, int ncols, int nct,
+                                     int lane) {
+  using C = Tile<T>;
+  constexpr int NARR = GATE ? 4 : 3;
+  if (tk >= ntiles) return;
+  const int seg = tk / ncols, col = tk - seg * ncols;
+  const int b = col / nct, c0 = (col - b * nct) * C::CT;
+  if constexpr (TMA) {
+    if (lane == 0) {
+      mbar_expect_tx(&mbar[s], NARR * C::ARR);
 #pragma unroll
-    for (int k = 0; k < L; ++k) {  // one batch of independent loads
-      const bool in = live && t0 + k < S;
-      const long long o = (row + t0 + k) * W + w;
-      xv[k] = in ? x[o] : from_f<T>(0.f);
-      rv[k] = in ? rp[o] : from_f<T>(0.f);
-      iv[k] = in ? ip[o] : from_f<T>(0.f);
-      if constexpr (GATE) gv[k] = in ? gate[o] : from_f<T>(0.f);
+      for (int k = 0; k < NARR; ++k)
+        tma_load_3d(raw + (s * NARR + k) * C::ARR, &maps.m[k], &mbar[s], c0,
+                    seg * C::SEG, b);
     }
-    float av[L], bv[L];
-    float A = 1.f, H = 0.f;
+  }
+  for (int ch = lane; ch < C::CT; ch += 32)
+    sCoef[s * C::CT + ch] =
+        c0 + ch < a.W ? -8.f * softplus(a.lam[c0 + ch]) : 0.f;
+}
+
+template <typename T, bool GATE, bool TMA>
+__global__ void __launch_bounds__(PREFILL_THREADS,
+                                  TMA ? PREFILL_MINB : MASKED_MINB)
+    rglru_prefill_kernel(const __grid_constant__ Maps maps, const Args<T> a) {
+  using C = Tile<T>;
+  constexpr int NARR = GATE ? 4 : 3, VEC = C::VEC, L = C::L;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* raw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  float* sWA = reinterpret_cast<float*>(raw + C::NS * NARR * C::ARR);
+  float* sWH = sWA + C::NWARP * C::CT;  // each warp's composed map
+  float* sHw = sWH + C::NWARP * C::CT;  // the h entering each warp
+  float* sCoef = sHw + C::NWARP * C::CT;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(sCoef + C::NS * C::CT);
+  int* sTk = reinterpret_cast<int*>(mbar + C::NS);
+  unsigned& sTag = *reinterpret_cast<unsigned*>(sTk + C::NS);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane % GROUPS, cw = lane / GROUPS, chunk = tid / GROUPS;
+  const int S = a.S, W = a.W;
+  const int nct = (W + C::CT - 1) / C::CT, ncols = a.B * nct;
+  const int nseg = (S + C::SEG - 1) / C::SEG, ntiles = ncols * nseg;
+
+  STAMP_BEGIN();
+  if (tid == 0) {
+    for (int s = 0; s < C::NS; ++s) mbar_init(&mbar[s], 1);
+    mbar_fence_init();
+    sTag = ld_relaxed(&a.ctl[2]) + 1;
+    for (int s = 0; s < C::NS; ++s)
+      sTk[s] = static_cast<int>(atomicAdd(&a.ctl[0], 1u));
+  }
+  __syncthreads();
+  const unsigned tag = sTag;
+  if (warp == 0)
+    for (int s = 0; s < C::NS; ++s)
+      fill<T, GATE, TMA>(a, maps, raw, sCoef, mbar, s, sTk[s], ntiles, ncols,
+                         nct, lane);
+  __syncthreads();
+
+  int tiles = 0;
+  for (int n = 0;; ++n) {
+    const int s = n % C::NS, tk = sTk[s];
+    if (tk >= ntiles) break;  // the block's later tickets are larger
+    ++tiles;
+    const int seg = tk / ncols, col = tk - seg * ncols;
+    const int b = col / nct, c0 = (col - b * nct) * C::CT;
+    const int t0 = seg * C::SEG, tc = t0 + chunk * L;  // tile's, chunk's
+    const int cv = c0 + g * VEC;  // this thread's first channel
+    // this thread's 16 bytes of its first step of x in the slot (step k
+    // of input q: + k rows, + q inputs)
+    unsigned char* const mine =
+        raw + (s * NARR) * C::ARR + chunk * L * ROW_BYTES + 16 * g;
+    if constexpr (TMA) {
+      mbar_wait(&mbar[s], (n / C::NS) & 1);
+    } else {  // the masked path: each thread gathers its own bytes
+#pragma unroll 1
+      for (int kq = 0; kq < L * NARR; ++kq) {  // step k of input q
+        const int k = kq / NARR, q = kq - k * NARR;
+        const T* src = q == 0 ? a.x : q == 1 ? a.r : q == 2 ? a.i : a.gate;
+        const long long o = (static_cast<long long>(b) * S + tc + k) * W + cv;
+        T* dst = reinterpret_cast<T*>(mine + q * C::ARR + k * ROW_BYTES);
 #pragma unroll
-    for (int k = 0; k < L; ++k) {
-      const float r = sigmoid(to_f(rv[k])), i = sigmoid(to_f(iv[k]));
-      const float log_a = coef * r;
-      const float mult =
-          sqrtf(fminf(fmaxf(1.f - expf(2.f * log_a), 0.f), 1.f));
-      const bool in = t0 + k < S;
-      av[k] = in ? expf(log_a) : 1.f;
-      bv[k] = in ? (mult * i) * to_f(xv[k]) : 0.f;
-      H = av[k] * H + bv[k];
-      A = A * av[k];
-    }
-    sA[c][lane] = A;
-    sH[c][lane] = H;
-    __syncthreads();
-    if (c == 0) {  // carry h across the span's chunks, in order
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        sIn[j][lane] = carry;
-        carry = sA[j][lane] * carry + sH[j][lane];
+        for (int v = 0; v < VEC; ++v)
+          dst[v] = tc + k < S && cv + v < W ? src[o + v] : from_f<T>(0.f);
       }
     }
-    __syncthreads();
-    float h = sIn[c][lane];
+    STAMP(0);
+
+    // a and b of this thread's L steps, composed as they are formed into
+    // its chunk's map h -> A h + H; b is written over the x (and r) just
+    // read, for the rescan (registers are what limits the blocks an SM)
+    float av[L][VEC], A[VEC], H[VEC];
 #pragma unroll
     for (int k = 0; k < L; ++k) {
-      h = av[k] * h + bv[k];
-      if (live && t0 + k < S) {
-        const long long o = (row + t0 + k) * W + w;
-        if constexpr (GATE)
-          y[o] = from_f<T>(to_f(from_f<T>(h)) * to_f(gv[k]));
-        else
-          y[o] = from_f<T>(h);
+      unsigned char* p = mine + k * ROW_BYTES;
+      float xs[VEC];  // all of x: b overwrites it
+      unpack(*reinterpret_cast<const uint4*>(p), xs);
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {  // four channels at a time
+        float rq[4], iq[4];
+        unpack4<T>(p + C::ARR, q, rq);
+        unpack4<T>(p + 2 * C::ARR, q, iq);
+        const float4 cq = *reinterpret_cast<const float4*>(
+            &sCoef[s * C::CT + g * VEC + 4 * q]);
+        const float coef[4] = {cq.x, cq.y, cq.z, cq.w};
+        float bq[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int v = 4 * q + u;
+          form(xs[v], rq[u], iq[u], coef[u], av[k][v], bq[u]);
+          if (k == 0) {
+            A[v] = av[0][v];
+            H[v] = bq[u];
+          } else {
+            H[v] = av[k][v] * H[v] + bq[u];
+            A[v] = A[v] * av[k][v];
+          }
+        }
+        *reinterpret_cast<float4*>(p + q * C::ARR) =
+            make_float4(bq[0], bq[1], bq[2], bq[3]);
       }
     }
-    // the thread holding step S - 1 hands its f32 h on as h_last
-    if (live && t0 <= S - 1 && S - 1 < t0 + L)
-      h_last[static_cast<long long>(b) * W + w] = h;
+    // the ticket that refills this slot, and (the first CT threads, one
+    // channel each) the h leaving the tile before, asked for now: their
+    // latency runs under the warp scan and the barrier (not earlier, so
+    // that no register holds them through the forming)
+    unsigned next = 0;
+    if (tid == 0) next = atomicAdd(&a.ctl[0], 1u);
+    const unsigned long long* prev =  // the tile before's, by channel
+        a.carry +
+        (static_cast<long long>(col) * nseg + (seg > 0 ? seg - 1 : 0)) * C::CT;
+    unsigned long long word = 0;
+    if (tid < C::CT && seg > 0) word = ld_relaxed(prev + tid);
+    // the warp's chunks of these channels (lanes GROUPS apart) compose
+    // their maps, earlier ones first: an inclusive shuffle scan
+#pragma unroll
+    for (int off = GROUPS; off < 32; off *= 2) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float Ap = __shfl_up_sync(0xffffffffu, A[v], off);
+        const float Hp = __shfl_up_sync(0xffffffffu, H[v], off);
+        if (lane >= off) {
+          H[v] = A[v] * Hp + H[v];
+          A[v] = A[v] * Ap;
+        }
+      }
+    }
+    if (cw == C::CPW - 1)
+#pragma unroll
+      for (int v = 0; v < VEC; v += 4) {
+        *reinterpret_cast<float4*>(&sWA[warp * C::CT + g * VEC + v]) =
+            make_float4(A[v], A[v + 1], A[v + 2], A[v + 3]);
+        *reinterpret_cast<float4*>(&sWH[warp * C::CT + g * VEC + v]) =
+            make_float4(H[v], H[v + 1], H[v + 2], H[v + 3]);
+      }
+    __syncthreads();  // (1) the warps' maps are in
+    STAMP(1);
+
+    // the carriers take the h entering the tile: h0 in the first
+    // segment, else the h leaving the tile before once its word carries
+    // this call's tag; they carry it across the warps in order and
+    // publish the h leaving the tile for the next segment's tile
+    if (tid < C::CT) {
+      float h;
+      if (seg == 0) {
+        h = a.h0 != nullptr && c0 + tid < W
+                ? a.h0[static_cast<long long>(b) * W + c0 + tid]
+                : 0.f;
+      } else {
+        const long long t_wait = clock64();
+        while (static_cast<unsigned>(word >> 32) != tag) {
+          if (clock64() - t_wait > (1LL << 34)) __trap();
+          word = ld_relaxed(prev + tid);
+        }
+        h = __uint_as_float(static_cast<unsigned>(word));
+      }
+      STAMP(2);
+#pragma unroll
+      for (int w = 0; w < C::NWARP; ++w) {
+        sHw[w * C::CT + tid] = h;
+        h = sWA[w * C::CT + tid] * h + sWH[w * C::CT + tid];
+      }
+      if (seg + 1 < nseg)
+        st_relaxed(a.carry + (static_cast<long long>(col) * nseg + seg) *
+                                 C::CT + tid,
+                   static_cast<unsigned long long>(tag) << 32 |
+                       __float_as_uint(h));
+    }
+    __syncthreads();  // (2) the h entering each warp is in
+    STAMP(3);
+
+    // the h entering the chunk: the warp's, through the maps of the
+    // warp's chunks before this one (the chunk before hands it on); then
+    // rescan the chunk from it, y in 16-byte vectors
+    float h[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; v += 4) {
+      const float4 hw =
+          *reinterpret_cast<const float4*>(&sHw[warp * C::CT + g * VEC + v]);
+      h[v] = hw.x, h[v + 1] = hw.y, h[v + 2] = hw.z, h[v + 3] = hw.w;
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float out = __shfl_up_sync(0xffffffffu, A[v] * h[v] + H[v],
+                                       GROUPS);
+      if (cw > 0) h[v] = out;
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int t = tc + k;
+      const unsigned char* p = mine + k * ROW_BYTES;
+      float out[VEC];
+#pragma unroll
+      for (int q = 0; q < VEC / 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(p + q * C::ARR);
+        out[4 * q] = f.x, out[4 * q + 1] = f.y, out[4 * q + 2] = f.z,
+        out[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        h[v] = av[k][v] * h[v] + out[v];
+        out[v] = h[v];
+      }
+      if (t >= S) continue;
+      if constexpr (GATE) {
+        float gs[VEC];
+        unpack(*reinterpret_cast<const uint4*>(p + 3 * C::ARR), gs);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          out[v] = to_f(from_f<T>(out[v])) * gs[v];
+      }
+      const long long o = (static_cast<long long>(b) * S + t) * W + cv;
+      if constexpr (TMA) {
+        if (cv < W) *reinterpret_cast<uint4*>(a.y + o) = pack(out);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (cv + v < W) a.y[o + v] = from_f<T>(out[v]);
+      }
+      if (t == S - 1)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (cv + v < W)
+            a.h_last[static_cast<long long>(b) * W + cv + v] = h[v];
+    }
+    fence_proxy_async();  // the slot's writes before a TMA refill
+    __syncthreads();      // (3) the slot and the warps' h are read
+    if (warp == 0) {
+      const int nt = static_cast<int>(__shfl_sync(0xffffffffu, next, 0));
+      if (lane == 0) sTk[s] = nt;
+      fill<T, GATE, TMA>(a, maps, raw, sCoef, mbar, s, nt, ntiles, ncols, nct,
+                         lane);
+    }
+    STAMP(4);
+  }
+  STAMP_END(tiles);
+  // the last block to finish clears the counts and publishes this call's
+  // tag for the next call on the stream
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(&a.ctl[1], 1u) == gridDim.x - 1) {
+      atomicExch(&a.ctl[0], 0u);
+      atomicExch(&a.ctl[1], 0u);
+      atomicExch(&a.ctl[2], tag);
+    }
   }
 }
 
-template <typename T, int NC, int L, int MINB>
-void launch_shape(const T* x, const T* r, const T* i, const float* lam,
-                  const float* h0, const T* gate, T* y, float* h_last, int B,
-                  int S, int W, cudaStream_t s) {
-  dim3 grid((W + CH - 1) / CH, B), block(CH, NC);
-  if (gate != nullptr)
-    rglru_scan_kernel<T, true, NC, L, MINB><<<grid, block, 0, s>>>(
-        x, r, i, lam, h0, gate, y, h_last, S, W);
-  else
-    rglru_scan_kernel<T, false, NC, L, MINB><<<grid, block, 0, s>>>(
-        x, r, i, lam, h0, nullptr, y, h_last, S, W);
+// A decode step: one warp a block, a thread one channel, its S <=
+// DECODE_L steps loaded in one batch and scanned from h0 in order.
+template <typename T, bool GATE>
+__global__ void __launch_bounds__(32) rglru_decode_kernel(const Args<T> a) {
+  const int w = blockIdx.x * 32 + threadIdx.x, b = blockIdx.y;
+  if (w >= a.W) return;
+  const int S = a.S, W = a.W;
+  const long long row = static_cast<long long>(b) * S;
+  const float coef = -8.f * softplus(a.lam[w]);
+  float h = a.h0 != nullptr ? a.h0[static_cast<long long>(b) * W + w] : 0.f;
+  T xv[DECODE_L], rv[DECODE_L], iv[DECODE_L], gv[DECODE_L];
+#pragma unroll
+  for (int k = 0; k < DECODE_L; ++k) {  // one batch of independent loads
+    const bool in = k < S;
+    const long long o = (row + k) * W + w;
+    xv[k] = in ? a.x[o] : from_f<T>(0.f);
+    rv[k] = in ? a.r[o] : from_f<T>(0.f);
+    iv[k] = in ? a.i[o] : from_f<T>(0.f);
+    if constexpr (GATE) gv[k] = in ? a.gate[o] : from_f<T>(0.f);
+  }
+#pragma unroll
+  for (int k = 0; k < DECODE_L; ++k) {
+    if (k >= S) break;
+    float av, bv;
+    form(to_f(xv[k]), to_f(rv[k]), to_f(iv[k]), coef, av, bv);
+    h = av * h + bv;
+    const long long o = (row + k) * W + w;
+    if constexpr (GATE)
+      a.y[o] = from_f<T>(to_f(from_f<T>(h)) * to_f(gv[k]));
+    else
+      a.y[o] = from_f<T>(h);
+  }
+  a.h_last[static_cast<long long>(b) * W + w] = h;
+}
+
+// ---- tensor maps ------------------------------------------------------- //
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous (B, S, W) tensor of T as a 3-D map (W, S, B) whose boxes
+// are one tile: CT channels × SEG steps of one batch row, unswizzled
+// (rows of 128 bytes); positions past S and channels past W read as
+// zeros.
+template <typename T>
+bool tensor_map(CUtensorMap* map, const T* ptr, int B, int S, int W) {
+  using C = Tile<T>;
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {sizeof(T) * static_cast<cuuint64_t>(W),
+                                 sizeof(T) * static_cast<cuuint64_t>(S) * W};
+  const cuuint32_t box[3] = {C::CT, C::SEG, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<T*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- end of tensor maps ------------------------------------------------ //
+
+template <typename T, bool GATE, bool TMA>
+cudaError_t launch_prefill(const Args<T>& a, int device, cudaStream_t s) {
+  using C = Tile<T>;
+  constexpr int MAXDEV = 64;
+  static int slots[MAXDEV] = {};  // blocks resident on the card, per device
+  const auto kern = rglru_prefill_kernel<T, GATE, TMA>;
+  const int smem = C::smem(GATE ? 4 : 3);
+  if (device < 0 || device >= MAXDEV) return cudaErrorInvalidDevice;
+  if (slots[device] == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int per_sm = 0, sms = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::NT,
+                                                        smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots[device] = per_sm * sms;
+  }
+  const long long ntiles = static_cast<long long>(a.B) *
+                           ((a.W + C::CT - 1) / C::CT) *
+                           ((a.S + C::SEG - 1) / C::SEG);
+  if (ntiles > (1LL << 30)) return cudaErrorInvalidValue;
+  Maps maps = {};
+  if (TMA && !(tensor_map(&maps.m[0], a.x, a.B, a.S, a.W) &&
+               tensor_map(&maps.m[1], a.r, a.B, a.S, a.W) &&
+               tensor_map(&maps.m[2], a.i, a.B, a.S, a.W) &&
+               (!GATE || tensor_map(&maps.m[3], a.gate, a.B, a.S, a.W))))
+    return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(
+      ntiles < slots[device] ? ntiles : static_cast<long long>(slots[device]));
+  kern<<<grid, C::NT, smem, s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* r, const void* i,
-                   const float* lam, const float* h0, const void* gate,
-                   void* y, float* h_last, int B, int S, int W,
-                   cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(r);
-  const T* it = static_cast<const T*>(i);
-  const T* gt = static_cast<const T*>(gate);
-  T* yt = static_cast<T*>(y);
-  if (S <= DECODE_L)  // one warp a block: no span to carry across
-    launch_shape<T, 1, DECODE_L, 1>(xt, rt, it, lam, h0, gt, yt, h_last, B,
-                                    S, W, s);
-  else
-    launch_shape<T, PREFILL_NC, PREFILL_L, PREFILL_MINB>(
-        xt, rt, it, lam, h0, gt, yt, h_last, B, S, W, s);
-  return cudaGetLastError();
+cudaError_t launch(Args<T> a, void* scratch, int device, cudaStream_t s) {
+  if (a.S <= DECODE_L) {  // one warp a block: no segment to carry across
+    dim3 grid((a.W + 31) / 32, a.B);
+    if (a.gate != nullptr)
+      rglru_decode_kernel<T, true><<<grid, 32, 0, s>>>(a);
+    else
+      rglru_decode_kernel<T, false><<<grid, 32, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  a.ctl = static_cast<unsigned*>(scratch);
+  a.carry = reinterpret_cast<unsigned long long*>(
+      static_cast<unsigned char*>(scratch) + CTL_BYTES);
+  // TMA: 16-byte aligned tensors whose rows are 16-byte multiples
+  const bool tma = a.W * sizeof(T) % 16 == 0 && aligned16(a.x) &&
+                   aligned16(a.r) && aligned16(a.i) && aligned16(a.y) &&
+                   (a.gate == nullptr || aligned16(a.gate));
+  if (a.gate != nullptr)
+    return tma ? launch_prefill<T, true, true>(a, device, s)
+               : launch_prefill<T, true, false>(a, device, s);
+  return tma ? launch_prefill<T, false, true>(a, device, s)
+             : launch_prefill<T, false, false>(a, device, s);
+}
+
+template <typename T>
+long long scratch_bytes(int B, int S, int W) {
+  using C = Tile<T>;
+  if (S <= DECODE_L) return 0;
+  return CTL_BYTES + 8LL * B * ((W + C::CT - 1) / C::CT) *
+                         ((S + C::SEG - 1) / C::SEG) * C::CT;
 }
 
 }  // namespace
 
+// Bytes of the scratch buffer a call of this shape needs (0: none): the
+// ticket, finished-block count and tag, then one 64-bit word per channel
+// of each tile.  The buffer must be zeroed when it is made and used by
+// one stream only.
+extern "C" long long rglru_scan_scratch_bytes(int B, int S, int W,
+                                              int dtype) {
+  if (B < 1 || S < 1 || W < 1) return -1;
+  if (dtype == 0) return scratch_bytes<float>(B, S, W);
+  if (dtype == 1) return scratch_bytes<__nv_bfloat16>(B, S, W);
+  return -1;
+}
+
 // x, r, i, gate (or null), y: (B, S, W) contiguous in dtype (0 = float32,
-// 1 = bfloat16); lam (W,), h0 (B, W) or null, h_last (B, W): float32.
-// Returns a cudaError_t (0 on success).
+// 1 = bfloat16); lam (W,), h0 (B, W) or null, h_last (B, W): float32;
+// scratch: rglru_scan_scratch_bytes(B, S, W, dtype) bytes kept for this
+// stream (null when that is 0).  Returns a cudaError_t (0 on success).
 extern "C" int rglru_scan_launch(const void* x, const void* r, const void* i,
                                  const void* lam, const void* h0,
                                  const void* gate, void* y, void* h_last,
-                                 int B, int S, int W, int dtype, int device,
-                                 void* stream) {
+                                 void* scratch, int B, int S, int W,
+                                 int dtype, int device, void* stream) {
   if (B < 1 || S < 1 || W < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lam);
-  const float* h = static_cast<const float*>(h0);
-  float* hl = static_cast<float*>(h_last);
-  if (dtype == 0)
-    e = launch<float>(x, r, i, l, h, gate, y, hl, B, S, W, s);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16>(x, r, i, l, h, gate, y, hl, B, S, W, s);
-  else
+  if (dtype == 0) {
+    Args<float> a{static_cast<const float*>(x), static_cast<const float*>(r),
+                  static_cast<const float*>(i), static_cast<const float*>(gate),
+                  static_cast<const float*>(lam), static_cast<const float*>(h0),
+                  static_cast<float*>(y), static_cast<float*>(h_last), nullptr,
+                  nullptr, B, S, W};
+    e = launch(a, scratch, device, s);
+  } else if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    Args<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(r),
+               static_cast<const bf*>(i), static_cast<const bf*>(gate),
+               static_cast<const float*>(lam), static_cast<const float*>(h0),
+               static_cast<bf*>(y), static_cast<float*>(h_last), nullptr,
+               nullptr, B, S, W};
+    e = launch(a, scratch, device, s);
+  } else {
     e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 

@@ -25,14 +25,19 @@ the product of two compute-dtype values, the reference's multiply), and
   4096-token prefill's plain pass is a dozen tensor ops a layer.
 * :func:`rglru_scan_cuda` — the hand-written kernel
   (``kernels/csrc/rglru_scan.cu``): one launch per call, prefill or a
-  decode step alike; float32 or bfloat16.  Each block holds 32 channels
-  and walks the sequence in spans of 256 steps, 16 steps a thread held
-  in registers: each thread scans its 16 steps from 0, one warp carries
-  the 16 partial maps across the span in order, and each thread rescans
-  its steps from the carry it is handed and writes them.  Every input
-  is read once.  Its sums run in another order than the plain version's
-  doubling (and the reference's tree), so the two agree to float32
-  rounding, not bit for bit.
+  decode step alike; float32 or bfloat16.  The sequence is cut into
+  tiles of 64 steps × one 128-byte row of channels, which persistent
+  blocks (three an SM) take in order from an atomic ticket and bring
+  into a ring of shared-memory slots by TMA: each thread forms its 2
+  steps × 16 bytes of channels and composes their map, a warp-shuffle
+  scan composes the warp's, one thread a channel carries h across the
+  warps, and the h leaving each tile passes to the next segment's tile
+  through a scratch buffer kept per device and stream (one tagged word a
+  channel, in a fixed order).  Every input is read once; a decode step
+  (S ≤ 16) runs one warp a block.  Its sums run in another order than
+  the plain version's doubling (and the reference's tree), so the two
+  agree to float32 rounding, not bit for bit; two calls agree bit for
+  bit.
 
 softplus has the reference's value and gradient (:func:`softplus`,
 shared with the Mamba-2 block).
@@ -41,7 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,6 +58,10 @@ C = 8.0
 
 _LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's scratch buffer (ticket, counts, tag, the tiles' h) per
+#: (device index, stream): a call on one stream never shares it with a
+#: call that may run beside it on another
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 class _Softplus(torch.autograd.Function):
@@ -138,10 +147,29 @@ def _lib() -> ctypes.CDLL:
     (once)."""
     from repro_torch.kernels import _build
     lib = _build.load("rglru_scan")
-    lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rglru_scan_launch.restype = ctypes.c_int
+    lib.rglru_scan_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.rglru_scan_scratch_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def _scratch(lib: ctypes.CDLL, B: int, S: int, W: int, dtype: int,
+             device: torch.device, stream: int) -> Optional[torch.Tensor]:
+    """The scratch buffer of ``device`` and ``stream`` with room for a
+    call of this shape (``None`` if the call needs none).  A new buffer
+    is made zeroed (its one fill, when it first grows); the kernel leaves
+    it ready for the next call on the same stream."""
+    need = lib.rglru_scan_scratch_bytes(B, S, W, dtype)
+    if need <= 0:
+        return None
+    key = (device.index or 0, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def rglru_scan_cuda(x: torch.Tensor, r_pre: torch.Tensor,
@@ -190,11 +218,12 @@ def rglru_scan_cuda(x: torch.Tensor, r_pre: torch.Tensor,
     h_last = torch.empty(B, W, dtype=torch.float32, device=x.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = _scratch(lib, B, S, W, _DTYPES[x.dtype], x.device, stream)
     err = lib.rglru_scan_launch(
         x.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(), lam.data_ptr(),
-        ptr(h0), ptr(gate), y.data_ptr(), h_last.data_ptr(), B, S, W,
-        _DTYPES[x.dtype], x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ptr(h0), ptr(gate), y.data_ptr(), h_last.data_ptr(), ptr(scratch),
+        B, S, W, _DTYPES[x.dtype], x.device.index or 0, stream)
     if err != 0:
         raise RuntimeError("rglru_scan_cuda: launch failed: "
                            + _build.error_string(lib, err))

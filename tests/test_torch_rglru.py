@@ -22,8 +22,20 @@ gradients (through ``rglru_apply``, float32) against ``jax.vjp`` of the
 reference's block, 1e-4 of each leaf's largest entry.  On the kernel
 path (``impl="cuda"``) under autograd ``ops.rglru_scan`` raises: its
 backward kernel is still to come.
+
+The CUDA kernel's order of composition, rehearsed in plain PyTorch
+(``_kernel_order_scan``, test code only: it checks the soundness of the
+order, not the kernel, which runs only on a card): each thread's chunk of steps composed in order, the warp's
+chunks by its shuffle scan, the warps' maps carried in order from the h
+entering the tile, and that h handed from one segment's tile to the
+next; the constants are read from ``kernels/csrc/rglru_scan.cu`` (and one
+other block shape).  Against the float64 oracle at 1e-5 of max |h|, at
+S 1 (the decode kernel's order), 37, a segment + 1 and three segments +
+1, W 100 (not a multiple of a 16-byte vector or a tile's row), with and
+without h0, gated and ungated.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -36,8 +48,9 @@ from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
 from repro.models import rglru as jrglru  # noqa: E402
 from repro.models.params import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    C, rglru_scan_ref, softplus)
 from repro_torch.models.rglru import F32_PARAMS, rglru_apply  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
@@ -185,3 +198,122 @@ def test_kernel_path_under_autograd_raises():
         ops.rglru_scan(x, x, x, lam, impl="cuda")
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         ops.rglru_scan(x, x, x, lam, impl="cuda")
+
+
+def _kernel_constants():
+    """(threads a block, steps a thread, 16-byte vectors a row, the
+    decode kernel's most steps) as ``rglru_scan.cu`` defines them."""
+    text = (_build.CSRC / "rglru_scan.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                     text).group(1))
+    return (get("PREFILL_THREADS"), get("PREFILL_L"),
+            get("ROW_BYTES") // 16, get("DECODE_L"))
+
+
+def _kernel_order_scan(x, r_pre, i_pre, lam, h0, gate, threads, L, groups,
+                       decode_l):
+    """The RG-LRU scan in float32 with the CUDA kernel's order of
+    composition (every product and sum rounded alone, as the kernel's
+    ``-fmad=false`` build): a thread composes the maps h ↦ a·h + b of its
+    L steps; the 32 / groups chunks of a warp that share channels
+    compose theirs by a Hillis–Steele scan (offsets 1, 2, …); the warps'
+    maps are applied in order to the h entering the tile (a segment of
+    threads / groups · L steps), from h0 in the first segment and from
+    the h leaving the segment before in the others; each chunk is then
+    rescanned from the h entering it.  At most ``decode_l`` steps: one
+    walk from h0.  Returns (y, h_last) as ``rglru_scan_ref``.
+
+    A mirror of the order, not the kernel: it shares only the constants
+    read from the source, so it checks that the chosen order is sound in
+    float32, and would go on passing if the kernel's order drifted from
+    it.  The kernel itself is checked only on a card (``chip_smoke.py``'s
+    phase 5 and ``tests/test_torch_cuda.py``)."""
+    r, i = torch.sigmoid(r_pre.float()), torch.sigmoid(i_pre.float())
+    log_a = -C * softplus(lam.float()) * r
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0))
+    b = mult * i * x.float()
+    Bn, S, W = x.shape
+    h_in = h0.float() if h0 is not None else torch.zeros(Bn, W)
+    if S <= decode_l:
+        h, hs = h_in, []
+        for t in range(S):
+            h = a[:, t] * h + b[:, t]
+            hs.append(h)
+        hs = torch.stack(hs, 1)
+    else:
+        cpw, nwarp = 32 // groups, threads // 32
+        seg = threads // groups * L
+        nseg = -(-S // seg)
+        pad = nseg * seg - S  # steps past S: the identity map
+        a = torch.cat([a, torch.ones(Bn, pad, W)], 1)
+        b = torch.cat([b, torch.zeros(Bn, pad, W)], 1)
+        a = a.view(Bn, nseg, nwarp, cpw, L, W)
+        b = b.view(Bn, nseg, nwarp, cpw, L, W)
+        A, H = a[..., 0, :], b[..., 0, :]
+        for k in range(1, L):
+            H = a[..., k, :] * H + b[..., k, :]
+            A = A * a[..., k, :]
+        off = 1
+        while off < cpw:  # the warp's shuffle scan, earlier chunks first
+            Ap = torch.cat([torch.ones_like(A[..., :off, :]),
+                            A[..., :-off, :]], 3)
+            Hp = torch.cat([torch.zeros_like(H[..., :off, :]),
+                            H[..., :-off, :]], 3)
+            live = (torch.arange(cpw) >= off).view(cpw, 1)
+            H = torch.where(live, A * Hp + H, H)
+            A = torch.where(live, A * Ap, A)
+            off *= 2
+        h, hw = h_in, []
+        for s in range(nseg):  # segments, then warps, in order
+            for w in range(nwarp):
+                hw.append(h)
+                h = A[:, s, w, -1] * h + H[:, s, w, -1]
+        hw = torch.stack(hw, 1).view(Bn, nseg, nwarp, 1, W)
+        hc = torch.cat([hw, A[..., :-1, :] * hw + H[..., :-1, :]], 3)
+        hs = []
+        for k in range(L):
+            hc = a[..., k, :] * hc + b[..., k, :]
+            hs.append(hc)
+        hs = torch.stack(hs, 4).reshape(Bn, nseg * seg, W)[:, :S]
+    y = hs.to(x.dtype)
+    if gate is not None:
+        y = y * gate
+    return y, hs[:, -1]
+
+
+def _shapes():
+    """The kernel's block shape, and one other (128 threads, 8 steps)."""
+    threads, L, groups, decode_l = _kernel_constants()
+    return [(threads, L, groups, decode_l), (128, 8, groups, decode_l)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("n_seg", ["1", "37", "seg+1", "3seg+1"])
+@pytest.mark.parametrize("shape", [0, 1])
+def test_kernel_order_matches_sequential_oracle(shape, n_seg, with_h0):
+    """The kernel's composition order (``_kernel_order_scan``) ≡ the
+    step-by-step recurrence (float64) within 1e-5 of max |h|: y gated and
+    ungated, h_last, W 100."""
+    threads, L, groups, decode_l = _shapes()[shape]
+    seg = threads // groups * L
+    S_ = {"1": 1, "37": 37, "seg+1": seg + 1, "3seg+1": 3 * seg + 1}[n_seg]
+    rng = np.random.default_rng(S_ + 7 * shape)
+    W = 100
+    t = lambda *shape_: torch.from_numpy(rng.normal(size=shape_).astype(
+        np.float32))
+    x, gate = t(B, S_, W), t(B, S_, W)
+    rp, ip = 2 * t(B, S_, W), 2 * t(B, S_, W)
+    lam = torch.from_numpy(rng.uniform(-4, 4, W).astype(np.float32))
+    h0 = t(B, W) if with_h0 else None
+    want = _oracle(x, rp, ip, lam, h0)
+    scale = float(want.abs().max())
+    consts = (threads, L, groups, decode_l)
+    y, h_last = _kernel_order_scan(x, rp, ip, lam, h0, None, *consts)
+    assert y.shape == (B, S_, W) and h_last.shape == (B, W)
+    assert float((y.double() - want).abs().max()) <= 1e-5 * scale
+    assert float((h_last.double() - want[:, -1]).abs().max()) <= 1e-5 * scale
+    yg, _ = _kernel_order_scan(x, rp, ip, lam, h0, gate, *consts)
+    wg = want * gate.double()
+    assert float((yg.double() - wg).abs().max()) <= 1e-5 * float(
+        wg.abs().max())
