@@ -81,9 +81,12 @@ Phases (any failure exits non-zero before the final line):
    the plain path's own bf16 rounding error (its logits in bf16 against
    float32 compute) where that is larger; and on the same weights in
    float32 compute within 1e-4 at prefill and 5e-3 in decode.
-7. The mamba2-780m serving path, as phase 6 with the same traffic: SSD
-   must run 48 times per prefill call, RMSNorm 97 times per prefill call
-   and decode step, flash never; the same teacher-forced checks.
+7. The mamba2-780m serving path, as phase 6 with the same traffic, at
+   full width with its depth cut to ``MAMBA_SERVE_LAYERS`` = 24 of 48
+   layers (so that the script keeps inside its time limit with phase
+   16): SSD must run once per layer per prefill call, RMSNorm
+   2·L + 1 times per prefill call and decode step, flash never; the same
+   teacher-forced checks.
 8. PSP training of qwen2-0.5b at full width, its depth cut to
    ``TRAIN_LAYERS`` = 12 of 24 layers since PR 23 (315,084,160 f32 params,
    bf16 compute; phase 9 trains all 24), built from the library calls
@@ -188,15 +191,17 @@ Phases (any failure exits non-zero before the final line):
     the plain path's logits within phase 6's bounds) and, for models with
     ``local`` layers, the ring check (``ring_check``: every local layer's
     ring after a prefill holds position p at slot p % w, bit for bit):
-    qwen1.5-4b at full width and depth (40 layers, 3.95 B params; MHA of
-    20 heads with QKV bias at hd 128, untied unembedding) on phase 6's
-    traffic; h2o-danube-1.8b at full width and depth (24 layers, window
+    qwen1.5-4b at full width cut to 12 of its 40 layers (MHA of 20 heads
+    with QKV bias at hd 128, untied unembedding) on phase 6's traffic;
+    h2o-danube-1.8b at full width cut to 12 of its 24 layers (window
     4096, hd 80, 32 / 8 heads) at max_len 8192 on 4 requests of 6144
     random tokens + 64 new (the prefill rolls the ring, decode wraps it),
     then 4 of 1024 + 64 (a ring padded with zeros); gemma2-27b at full
-    width cut to 8 layers (4 local / global pairs; fused QKV, both
+    width cut to 4 layers (2 local / global pairs; fused QKV, both
     softcaps, post-norms, the gemma norm, GeGLU, ``embed_scale``) on
-    danube's first wave.  Then h2o-danube-1.8b at full width cut to 4
+    danube's first wave.  (qwen1.5-4b and danube were served whole and
+    gemma2 at 8 layers before phase 16 came: cut so that the script
+    keeps inside its time limit with it.)  Then h2o-danube-1.8b at full width cut to 4
     layers (8 until PR 24, cut so that the script keeps inside its time
     limit with phase 15) trained under PSP as phase 8 trains qwen2 (W 4,
     ``pbsp``, β 2,
@@ -217,10 +222,23 @@ Phases (any failure exits non-zero before the final line):
     per forward, SSD never; every served token teacher-forced, the plain
     path within phase 6's bounds, the ring check on all 8 local layers.
 
+16. recurrentgemma-2b at full width cut to 5 layers (one (R, R, A)
+    group and the (R, R) tail: 1,048,686,080 params) trained under PSP
+    as phase 14 trains danube (W 4, ``pbsp``, β 2, s 3, stragglers 0.25,
+    8 ticks, AdamW on ``warmup_cosine(3e-3, 3, 8)``), 2 sequences of
+    4096 tokens per worker per tick (past the window of 2048: the flash
+    backward runs the band at hd 256, and the RG-LRU backward 64 tiles
+    of the sequence), with phase 8's checks and tick 0 also leaf by leaf
+    as phase 12 holds mamba2; launches exact, a worker a tick: flash 2
+    and its backward 1, the RG-LRU scan 8 and its backward 4, RMSNorm
+    21 and its backward 11; then ``launch.train --arch recurrentgemma-2b
+    --reduced`` on the card.
+
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
 FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 80, 128} ×
-{float32, bfloat16} on
+{float32, bfloat16}, and at hd 256 over FLASH_MODES × G {1, 10} × those
+S and window 2048 at S 2200, on
 the plain forward's o and lse (float32 rtol 1e-4, atol 1e-5·max(1,
 max|plain|); bfloat16 2e-2·max|plain|, but at S 1, where dq and dk are
 exactly 0 and both versions return rounding noise, dq and dk at the
@@ -256,13 +274,28 @@ tolerance), timed at its prefill
 (``rglru_scan.scan_bytes``); the flash forward at its prefill (B 4, S
 4096, 10 / 1 heads of 256, window 2048) as at danube's; and ``ptxas``'s
 registers and spills of the hd-256 forward and scan kernels (none may
-spill; no "Potential Performance Loss" at hd 256).
+spill; no "Potential Performance Loss" at hd 256).  Then its training
+kernels (``phase5_rgemma_bwd``): the RG-LRU backward against its plain
+version over the forward's grid on the forward kernel's entering states
+(themselves against the plain ones), h_last's cotangent given on every
+other case, and at the edge (B 2, S 300, W 256, r_pre −30 at every 7th
+step and channel, where sqrt's gradient is infinite: the non-finite
+entries at the same places): float32 at rtol 1e-5, atol 1e-5·max(1,
+max|plain|), bfloat16 within 2e-2·max|plain|, dΛ within 1e-4 of max
+|plain dΛ|, two calls bit for bit alike; timed at the training shape
+(B 2, S 4096, W 2560, bf16, gated) beside its bound
+(``rglru_scan.scan_bwd_bytes``); the hd-256 flash backward (in the
+flash grid above at GQA 1 and 10, and at its window of 2048 at S 2200)
+timed at the training shape (B 2, S 4096, 10 / 1 heads, window 2048)
+as at danube's; and ``ptxas``'s registers and spills of the RG-LRU
+backward's three kernels and the hd-256 flash backward's (none may
+spill).
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
-100k pair, phase 14's four serving runs and training run, and phase
-15's two serving runs), error and
+100k pair, phase 14's four serving runs and training run, phase 15's
+two serving runs and phase 16's training run), error and
 times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are missing.
 """
@@ -329,11 +362,13 @@ FLASH_GQA = (1, 7)
 FLASH_SEQ = (1, 37, 512, 1000)
 #: 80: h2o-danube-1.8b's, in the hd-128 tiling
 FLASH_HEAD_DIMS = (64, 80, 128)
-#: the forward also at recurrentgemma-2b's hd 256 (no backward kernel
-#: yet), over FLASH_MODES × these GQA ratios (10: its MQA) × FLASH_SEQ ×
-#: DTYPES
+#: both directions also at recurrentgemma-2b's hd 256, over FLASH_MODES ×
+#: these GQA ratios (10: its MQA) × FLASH_SEQ (FLASH_BWD_SEQ backward) ×
+#: DTYPES, and backward its band (FLASH_WIDE_BAND: window 2048 at
+#: FLASH_WIDE_BAND_S, past it)
 FLASH_WIDE_HD, FLASH_WIDE_GQA = 256, (1, 10)
 FLASH_FWD_HEAD_DIMS = FLASH_HEAD_DIMS + (FLASH_WIDE_HD,)
+FLASH_WIDE_BAND, FLASH_WIDE_BAND_S = ("window2048", {"window": 2048}), 2200
 #: phase 5's RG-LRU scan grid: S × W × B × {h0 given, none} × {gate
 #: fused, none} × DTYPES (4096 and 2560: recurrentgemma-2b's prefill and
 #: width, 8192 its max_len; 1 the decode kernel; 37 inside one of the
@@ -353,6 +388,22 @@ RGLRU_F32 = (1e-5, 1e-5)
 #: heads of 256, window 2048
 RGLRU_TIMED = (4, 4096, 2560)
 RGEMMA_PREFILL, RGEMMA_HEADS, RGEMMA_WINDOW = (4, 4096), (10, 1, 256), 2048
+#: phase 5's RG-LRU backward: the forward's grid (rglru_cases) on the
+#: forward kernel's entering states, h_last's cotangent given on every
+#: other case, then the edge (RGLRU_EDGE (B, S, W), both dtypes, gated,
+#: h0: r_pre = RGLRU_EDGE_R at every RGLRU_EDGE_EVERY-th step and
+#: channel, where exp(2·log a) rounds to 1 and sqrt's gradient is
+#: infinite); dΛ (a sum over B·S terms in another order) within
+#: RGLRU_LAM_RTOL of max |plain dΛ|; timed at the training shape
+#: RGLRU_BWD_TIMED (B, S, W), bf16, gated, the flash backward at
+#: RGEMMA_TRAIN (B, S)
+RGLRU_EDGE, RGLRU_EDGE_R, RGLRU_EDGE_EVERY = (2, 300, 256), -30.0, 7
+RGLRU_LAM_RTOL = 1e-4
+RGLRU_BWD_TIMED = (2, 4096, 2560)
+RGEMMA_TRAIN = (2, 4096)
+#: the RG-LRU backward's kernels, by name, as the traced tick sums them
+RGLRU_BWD_KERNELS = ("rglru_bwd_map_kernel", "rglru_bwd_main_kernel",
+                     "rglru_bwd_lam_kernel")
 #: phase 5's timed shapes: RMSNorm rows at d_model 896 (4 prompts of 512,
 #: then a decode step of 4), flash (B, S) at 14 heads / 2 KV heads / hd 64
 #: (the serving prefill, then a long one); the first of each goes into
@@ -458,7 +509,11 @@ TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
 SERVE_ARGV = ["--arch", "qwen2-0.5b", *TRAFFIC]
 #: new tokens of the one wave whose device busy share is traced
 TRACE_NEW = 16
-MAMBA_ARGV = ["--arch", "mamba2-780m", *TRAFFIC]
+#: phase 7 serves mamba2-780m at full width, its depth cut to
+#: MAMBA_SERVE_LAYERS of 48
+MAMBA_SERVE_LAYERS = 24
+MAMBA_ARGV = ["--arch", "mamba2-780m", "--n-layers", str(MAMBA_SERVE_LAYERS),
+              *TRAFFIC]
 #: phase 9: the trainer → bus → live server loop at full width; the
 #: trainer (phase 8's PSP config and token pool) runs in a child
 #: interpreter started with LOOP_CHILD and publishes every
@@ -477,18 +532,24 @@ RESUME_LAYERS, RESUME_TICKS = 2, 6
 CLUSTER_WORKERS, CLUSTER_TICKS, CLUSTER_DIM, CLUSTER_BATCH = 3, 30, 1000, 16
 CLUSTER_PLAN, CLUSTER_MIN_WALL = "kill-one", 0.75
 #: phase 14: the sliding-window and local/global decoders served at full
-#: width (batch 4, greedy, seeded random weights, bf16): qwen1.5-4b on
-#: phase 6's traffic; h2o-danube-1.8b (window 4096) on one wave of
+#: width (batch 4, greedy, seeded random weights, bf16), their depths cut:
+#: qwen1.5-4b on phase 6's traffic; h2o-danube-1.8b (window 4096) on one wave of
 #: prompts past the window (its prefill rolls the ring, its decode wraps
 #: it), then one shorter than it, at max_len 8192; gemma2-27b cut to
-#: GEMMA_LAYERS layers (4 local / global pairs) on danube's first wave
+#: GEMMA_LAYERS layers (2 local / global pairs) on danube's first wave
 WINDOW_TRAFFIC = ["--requests", "4", "--batch", "4", "--max-len", "8192",
                   "--max-new", "64", "--seed", "0"]
-GEMMA_LAYERS = 8
+GEMMA_LAYERS = 4
+#: qwen1.5-4b's and h2o-danube-1.8b's depths cut to QWEN15_LAYERS of 40
+#: and DANUBE_LAYERS of 24, and gemma2-27b's from 8 to 4 (so that the
+#: script keeps inside its time limit with phase 16)
+QWEN15_LAYERS, DANUBE_LAYERS = 12, 12
 LOCAL_SERVE = (
-    ["--arch", "qwen1.5-4b", *TRAFFIC],
-    ["--arch", "h2o-danube-1.8b", *WINDOW_TRAFFIC, "--prompt-len", "6144"],
-    ["--arch", "h2o-danube-1.8b", *WINDOW_TRAFFIC, "--prompt-len", "1024"],
+    ["--arch", "qwen1.5-4b", "--n-layers", str(QWEN15_LAYERS), *TRAFFIC],
+    ["--arch", "h2o-danube-1.8b", "--n-layers", str(DANUBE_LAYERS),
+     *WINDOW_TRAFFIC, "--prompt-len", "6144"],
+    ["--arch", "h2o-danube-1.8b", "--n-layers", str(DANUBE_LAYERS),
+     *WINDOW_TRAFFIC, "--prompt-len", "1024"],
     ["--arch", "gemma2-27b", "--n-layers", str(GEMMA_LAYERS),
      *WINDOW_TRAFFIC, "--prompt-len", "6144"],
 )
@@ -509,6 +570,19 @@ RGEMMA_SERVE = (
     ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "4096"],
     ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "1024"],
 )
+#: phase 16: recurrentgemma-2b trained under PSP as phase 14 trains
+#: danube, at full width with its depth cut to RGEMMA_TRAIN_LAYERS (one
+#: (R, R, A) group and the (R, R) tail: 1,048,686,080 params),
+#: RGEMMA_TRAIN_TICKS ticks of TRAIN_B sequences of RGEMMA_TRAIN_S tokens
+#: a worker (past the window of 2048), AdamW on warmup_cosine(3e-3,
+#: RGEMMA_TRAIN_WARMUP, RGEMMA_TRAIN_TICKS), the loss falling over the
+#: first and last RGEMMA_TRAIN_FALL pushing ticks
+RGEMMA_TRAIN_ARCH, RGEMMA_TRAIN_LAYERS = "recurrentgemma-2b", 5
+RGEMMA_TRAIN_TICKS, RGEMMA_TRAIN_S, RGEMMA_TRAIN_WARMUP = 8, 4096, 3
+RGEMMA_TRAIN_FALL = 2
+#: then the reduced launcher on the card, as phase 12 runs mamba2's
+RGEMMA_LAUNCHER = ["--arch", RGEMMA_TRAIN_ARCH, "--reduced", "--barrier",
+                   "pbsp", "--steps", "4"]
 
 
 def smi() -> str:
@@ -622,9 +696,17 @@ def compare(np, ref, ker, what):
 
 
 def identical(torch, a, b, what):
-    """Raise unless the tensors of ``a`` and ``b`` are equal bit for bit."""
+    """Raise unless the tensors of ``a`` and ``b`` are equal bit for bit
+    (equal values, or, where NaNs are, equal bits)."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
     for k, v in a.items():
-        if not torch.equal(v, b[k]):
+        w = b[k]
+        if torch.equal(v, w):
+            continue
+        if not (v.is_floating_point() and v.dtype == w.dtype
+                and v.shape == w.shape and torch.equal(
+                    v.contiguous().view(ints[v.element_size()]),
+                    w.contiguous().view(ints[v.element_size()]))):
             raise AssertionError(f"{what}: {k} differs")
 
 
@@ -1401,8 +1483,13 @@ def phase5_ssd_bwd(np, torch, dev, card):
 def flash_bwd_cases():
     """Phase 5's flash backward grid: ((mode, kwargs), GQA ratio, S, hd,
     dtype)."""
-    return itertools.product(FLASH_MODES, FLASH_GQA, FLASH_BWD_SEQ,
-                             FLASH_HEAD_DIMS, DTYPES)
+    return itertools.chain(
+        itertools.product(FLASH_MODES, FLASH_GQA, FLASH_BWD_SEQ,
+                          FLASH_HEAD_DIMS, DTYPES),
+        itertools.product(FLASH_MODES, FLASH_WIDE_GQA, FLASH_BWD_SEQ,
+                          (FLASH_WIDE_HD,), DTYPES),
+        itertools.product((FLASH_WIDE_BAND,), FLASH_WIDE_GQA,
+                          (FLASH_WIDE_BAND_S,), (FLASH_WIDE_HD,), DTYPES))
 
 
 def hgmma_by_hd(sass, names, hds=FLASH_HEAD_DIMS):
@@ -1422,8 +1509,10 @@ def hgmma_by_hd(sass, names, hds=FLASH_HEAD_DIMS):
 def flash_bwd_sass(lib):
     """``HGMMA`` counts of the bf16 backward's tensor-core kernels
     (``FLASH_BWD_TC``) in the flash library ``lib``, per head dim
-    (:func:`hgmma_by_hd`); raises if an instantiation has none."""
-    counts = hgmma_by_hd(tensor_core_sass(lib), FLASH_BWD_TC)
+    (:func:`hgmma_by_hd`, 256 included); raises if an instantiation has
+    none."""
+    counts = hgmma_by_hd(tensor_core_sass(lib), FLASH_BWD_TC,
+                         FLASH_FWD_HEAD_DIMS)
     if not all(counts.values()):
         raise AssertionError("a bf16 flash backward kernel has no HGMMA in "
                              f"its SASS: {counts}")
@@ -1712,23 +1801,18 @@ def band_forward(np, torch, dev, card, what, B, S, H, KV, hd, w):
             "operations" if t_ops >= t_bytes else "bytes", err)
 
 
-def phase5_danube(np, torch, dev, card):
-    """The flash forward and backward at h2o-danube-1.8b's shapes (hd 80,
-    window 4096): the forward at the serving prefill
-    (:func:`band_forward`), the backward at the training shape, held to
-    its plain version there (``check_bwd``'s bf16 tolerance) and timed
-    as :func:`band_forward` times the forward (its SDPA through
-    autograd), beside the bound of the band's five products.  Returns
-    (forward ms, backward ms) of the kernel."""
+def band_backward(np, torch, dev, card, what, B, S, H, KV, hd, w):
+    """The bf16 flash backward at (B, S, H / KV heads of hd, causal,
+    window w): held to its plain version there (``check_bwd``'s bf16
+    tolerance) and timed against it and SDPA's backward through autograd
+    (K/V repeated to the query heads, the band as a boolean mask) by
+    CUDA events in mirrored rounds (:func:`event_rounds`), beside the
+    bound of the band's five products.  Prints the line; returns (ms by
+    entry, bound ms, bound_by, max |err|)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_bwd_ref, attention_ref, flash_attention_bwd_cuda)
-    H, KV, hd = DANUBE_HEADS
-    w = DANUBE_WINDOW
     G = H // KV
-    fwd = band_forward(np, torch, dev, card, "h2o-danube-1.8b",
-                       *DANUBE_PREFILL, H, KV, hd, w)[0]["kernel"][0]
-    B, S = DANUBE_TRAIN
     q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
     pos = torch.arange(S, device=dev)
     band = ((pos[:, None] >= pos[None, :])
@@ -1738,7 +1822,7 @@ def phase5_danube(np, torch, dev, card):
     do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev, 1)[0]
     o, lse = attention_ref(q, k, v, window=w, return_lse=True)
     err = max(check_bwd(np, g, r, "bfloat16",
-                        f"flash bwd at danube's training shape {n}")
+                        f"flash bwd at {what}'s training shape {n}")
               for n, g, r in zip(
                   "dq dk dv".split(),
                   flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w),
@@ -1758,7 +1842,7 @@ def phase5_danube(np, torch, dev, card):
     nbytes = sum(t.numel() * t.element_size()
                  for t in (q, k, v, o, lse, do, q, k, v))
     t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
-    print(f"[5] flash backward at h2o-danube-1.8b's shape B={B} S={S} "
+    print(f"[5] flash backward at {what}'s training shape B={B} S={S} "
           f"H={H} KV={KV} hd={hd} bf16 causal window {w} (kernel == plain "
           f"there, max |err| {err:.3g}): " + rounds_text(ms)
           + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
@@ -1771,6 +1855,25 @@ def phase5_danube(np, torch, dev, card):
     del nxt, leaves, lib_out
     gc.collect()
     torch.cuda.empty_cache()
+    return (ms, max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", err)
+
+
+def phase5_danube(np, torch, dev, card):
+    """The flash forward and backward at h2o-danube-1.8b's shapes (hd 80,
+    window 4096): the forward at the serving prefill
+    (:func:`band_forward`), the backward at the training shape, held to
+    its plain version there (``check_bwd``'s bf16 tolerance) and timed
+    as :func:`band_forward` times the forward (its SDPA through
+    autograd), beside the bound of the band's five products
+    (:func:`band_backward`).  Returns (forward ms, backward ms) of the
+    kernel."""
+    H, KV, hd = DANUBE_HEADS
+    w = DANUBE_WINDOW
+    fwd = band_forward(np, torch, dev, card, "h2o-danube-1.8b",
+                       *DANUBE_PREFILL, H, KV, hd, w)[0]["kernel"][0]
+    ms = band_backward(np, torch, dev, card, "h2o-danube-1.8b",
+                       *DANUBE_TRAIN, H, KV, hd, w)[0]
     return fwd, ms["kernel"][0]
 
 
@@ -1903,6 +2006,174 @@ def phase5_rgemma(np, torch, dev, card):
         raise AssertionError("ptxas serializes the hd-256 flash forward's "
                              f"wgmmas: {loss}")
     return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/models/rglru.py:109",
+            "max_abs_err": max(err.values()), "ms": ms["kernel"][0],
+            "plain_ms": ms["plain"][0], "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def rglru_bwd_cases():
+    """Phase 5's RG-LRU backward grid: the forward's (:func:`rglru_cases`),
+    then the edge cases (``edge`` True): (B, S, W, h0, gate, dtype,
+    edge)."""
+    B, S, W = RGLRU_EDGE
+    return itertools.chain(
+        (case + (False,) for case in rglru_cases()),
+        ((B, S, W, True, True, dt, True) for dt in DTYPES))
+
+
+def rglru_bwd_close(np, torch, got, want, dt, what):
+    """Max |got − want| of one RG-LRU backward output: float32 at
+    ``RGLRU_F32`` (:func:`check_close`), bfloat16 within 2e-2·max|want|
+    (:func:`check_bwd`); non-finite entries (the edge's) must sit at the
+    same places with the same values, and are left out of the rest."""
+    bad = ~torch.isfinite(want)
+    if not torch.equal(bad, ~torch.isfinite(got)) or not torch.equal(
+            torch.isnan(want), torch.isnan(got)) or not torch.equal(
+            want[torch.isinf(want)], got[torch.isinf(got)]):
+        raise AssertionError(f"{what}: non-finite entries differ")
+    if bad.any():
+        got = torch.where(bad, torch.zeros_like(got), got)
+        want = torch.where(bad, torch.zeros_like(want), want)
+    if dt == "float32":
+        return check_close(np, got, want, "float32", what, RGLRU_F32)
+    return check_bwd(np, got, want, "bfloat16", what)
+
+
+def check_rglru_bwd(np, torch, case, dev, seed):
+    """One RG-LRU backward case (:func:`rglru_bwd_cases`): the forward
+    kernel's entering states against the plain forward's, then
+    ``rglru_scan_bwd_cuda`` on them against ``rglru_scan_bwd_ref`` on the
+    same inputs (dy drawn, h_last's cotangent on odd ``seed``): dx,
+    dr_pre, di_pre, dgate at :func:`rglru_bwd_close`, dh0 at
+    ``RGLRU_F32``, dΛ within ``RGLRU_LAM_RTOL``·max |plain dΛ|; two calls
+    bit for bit alike.  Returns the max |err| of the compute-dtype
+    outputs and dΛ's."""
+    from repro_torch.kernels.rglru_scan import (
+        rglru_scan_bwd_cuda, rglru_scan_bwd_ref, rglru_scan_cuda,
+        rglru_scan_ref)
+    B, S, W, with_h0, gated, dt, edge = case
+    x, rp, ip, g, lam, h0 = rglru_inputs(torch, B, S, W, dt, dev, seed)
+    if edge:
+        rp[:, ::RGLRU_EDGE_EVERY, ::RGLRU_EDGE_EVERY] = RGLRU_EDGE_R
+    h0, g = (h0 if with_h0 else None), (g if gated else None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1000)
+    dy = torch.randn(B, S, W, generator=gen, device=dev).to(x.dtype)
+    dh = (torch.randn(B, W, generator=gen, device=dev) if seed % 2
+          else None)
+    what = (f"rglru bwd B={B} S={S} W={W} h0={with_h0} gate={gated} {dt}"
+            f" dh={dh is not None}" + " edge" * edge)
+    args = (x, rp, ip, lam)
+    st = rglru_scan_cuda(*args, h0, g, return_states=True)[2]
+    check_close(np, st, rglru_scan_ref(*args, h0, g, return_states=True)[2],
+                "float32", what + " states", RGLRU_F32)
+    got = rglru_scan_bwd_cuda(*args, dy, st, h0, g, dh)
+    again = rglru_scan_bwd_cuda(*args, dy, st, h0, g, dh)
+    names = ("dx", "dr_pre", "di_pre", "dlam", "dh0", "dgate")
+    identical(torch, {n: t for n, t in zip(names, got) if t is not None},
+              {n: t for n, t in zip(names, again) if t is not None},
+              what + ", a second call")
+    want = rglru_scan_bwd_ref(*args, dy, h0, g, dh)
+    err = 0.0
+    for n, a, b in zip(names, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what} {n}: {a is None} vs {b is None}")
+        if a is None or n == "dlam":
+            continue
+        err = max(err, rglru_bwd_close(np, torch, a, b,
+                                       "float32" if n == "dh0" else dt,
+                                       f"{what} {n}"))
+    dl, dw = got[3], want[3]
+    ok = torch.isfinite(dw)
+    if not (torch.equal(ok, torch.isfinite(dl))
+            and torch.equal(torch.isnan(dl), torch.isnan(dw))):
+        raise AssertionError(f"{what} dlam: non-finite entries differ")
+    top = _max_abs(torch, dw[ok]) if ok.any() else 0.0
+    lerr = _max_abs(torch, (dl - dw)[ok]) if ok.any() else 0.0
+    if not lerr <= RGLRU_LAM_RTOL * top:
+        raise AssertionError(f"{what} dlam: max |diff| {lerr} (max |plain| "
+                             f"{top})")
+    return err, lerr / max(top, 1e-30)
+
+
+def phase5_rgemma_bwd(np, torch, dev, card):
+    """recurrentgemma-2b's training kernels: the RG-LRU backward against
+    its plain version over :func:`rglru_bwd_cases` (:func:`check_rglru_bwd`)
+    and timed at the training shape (RGLRU_BWD_TIMED, bf16, gated, h_last
+    unused) against the plain version and its bound
+    (``rglru_scan.scan_bwd_bytes`` at 3.35 TB/s; no library call computes
+    it), both by queued events; the flash backward at hd 256 at the
+    training shape (:func:`band_backward`); and ``ptxas``'s registers and
+    spills of the RG-LRU backward's kernels and of the hd-256 flash
+    backward's, which must not spill.  Returns the RG-LRU backward's
+    JSON entry without ``launches``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import (
+        rglru_scan_bwd_cuda, rglru_scan_bwd_ref, rglru_scan_cuda,
+        scan_bwd_bytes)
+    err = {dt: 0.0 for dt in DTYPES}
+    lam_rel = 0.0
+    for i, case in enumerate(rglru_bwd_cases()):
+        e, le = check_rglru_bwd(np, torch, case, dev, i)
+        err[case[5]] = max(err[case[5]], e)
+        lam_rel = max(lam_rel, le)
+    print(f"[5] rglru backward kernel == plain on {i + 1} cases (the edge "
+          f"r_pre = {RGLRU_EDGE_R} included), on the forward kernel's "
+          "entering states (== plain), two calls bit for bit alike; max "
+          "|err| " + ", ".join(f"{dt} {e:.3g}" for dt, e in err.items())
+          + f"; dΛ within {lam_rel:.3g} of max |plain dΛ| (bound "
+          f"{RGLRU_LAM_RTOL})", flush=True)
+
+    B, S, W = RGLRU_BWD_TIMED
+    x, rp, ip, g, lam, _ = rglru_inputs(torch, B, S, W, "bfloat16", dev)
+    dy = rglru_inputs(torch, B, S, W, "bfloat16", dev, 1)[0]
+    st = rglru_scan_cuda(x, rp, ip, lam, None, g, return_states=True)[2]
+    nxt, n_sets = rotating((x, rp, ip, g, dy, st))
+    ms, clocks = event_rounds(torch, {
+        "kernel": (lambda: (lambda t: rglru_scan_bwd_cuda(
+            t[0], t[1], t[2], lam, t[4], t[5], None, t[3]))(nxt()), 20),
+        "plain": (lambda: (lambda t: rglru_scan_bwd_ref(
+            t[0], t[1], t[2], lam, t[4], None, t[3]))(nxt()), 3)},
+        queued=True)
+    split = {n: v for key, v in profile_device(
+        torch, lambda: (lambda t: rglru_scan_bwd_cuda(
+            t[0], t[1], t[2], lam, t[4], t[5], None, t[3]))(nxt()),
+        20).items() for n in RGLRU_BWD_KERNELS if n in key}
+    nbytes = scan_bwd_bytes(B, S, W, 2, gated=True)
+    bound = 1e3 * nbytes / HBM_BPS
+    print(f"[5] rglru backward at recurrentgemma-2b's training shape B={B} "
+          f"S={S} W={W} bf16, gated, h_last unused: " + rounds_text(ms)
+          + "; per launch (profiler) " + ", ".join(
+              f"{n} {v:.4f} ms" for n, v in split.items())
+          + f"; bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB; bytes); kernel "
+          f"at {nbytes / ms['kernel'][0] / 1e6:.1f} GB/s; inputs rotated "
+          f"over {n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    del nxt, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    band_backward(np, torch, dev, card, "recurrentgemma-2b", *RGEMMA_TRAIN,
+                  *RGEMMA_HEADS, RGEMMA_WINDOW)
+
+    regs, _ = ptxas_report(_build.LOGS.get("rglru_scan", ""),
+                           r"rglru_bwd_\w+_kernel")
+    wide, loss = ptxas_report(_build.LOGS.get("flash_attention", ""),
+                              rf"bwd_\w+kernelILi{FLASH_WIDE_HD}E")
+    if not all(any(n in fn for fn in regs) for n in RGLRU_BWD_KERNELS):
+        raise AssertionError("the rglru backward's kernels are missing from "
+                             f"the build log: {regs}")
+    regs.update(wide)
+    print("[5] ptxas, rglru backward and hd-256 flash backward kernels "
+          "(registers, spill store / load bytes): " + "; ".join(
+              f"{fn[:60]}… {r} regs, spills {st} / {ld}"
+              for fn, (r, st, ld) in sorted(regs.items())), flush=True)
+    for line in loss:
+        print(f"[5]   {line}", flush=True)
+    if len(wide) < 4 or any(st or ld for _, st, ld in regs.values()):
+        raise AssertionError(f"rglru / hd-256 flash backward kernels missing "
+                             f"from the build log or spilling: {regs}")
+    return {"name": "rglru_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/models/rglru.py:109",
             "max_abs_err": max(err.values()), "ms": ms["kernel"][0],
@@ -2178,15 +2449,16 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     n_params = sum(p.numel() for p in tree_leaves(params))
     batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1, seq=seq)
     trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl)[:2]
-    ssd = "ssd" in cfg.layer_kinds()
+    leafwise = bool({"ssd", "rglru"} & set(cfg.layer_kinds()))
 
     # (a) the first tick's per-worker losses and (clipped) gradients: the
     # kernels against the plain path in bf16 compute, beside the plain
     # path's own spread between float32 and bf16 compute; and the kernels
     # against the plain path in float32 compute (the f32 kernels), where
-    # rounding is not amplified past a tight bound.  qwen2 is held over
-    # the whole tree (‖Δg‖/‖g‖), mamba2 leaf by leaf (max |Δg| over each
-    # leaf's max |g|)
+    # rounding is not amplified past a tight bound.  Attention stacks are
+    # held over the whole tree (‖Δg‖/‖g‖), mamba2 and recurrentgemma also
+    # leaf by leaf (max |Δg| over each leaf's max |g|: the small leaves,
+    # such as Λ's, are lost in the whole tree's norm)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     fns = {"cuda": make_grad_fn(cfg, 1.0, "cuda"),
            "ref": make_grad_fn(cfg, 1.0, "ref"),
@@ -2200,7 +2472,7 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
                      tree_rel(torch, gk, gr), tree_rel(torch, gr, g32),
                      abs(float(lk32) - float(l32)) / abs(float(l32)),
                      tree_rel(torch, gk32, g32)))
-        if ssd:
+        if leafwise:
             leaf.append((leaf_rel(torch, gk, gr), leaf_rel(torch, gr, g32),
                          leaf_rel(torch, gk32, g32)))
         del got, gk, gr, g32, gk32
@@ -2217,7 +2489,7 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     ok = (errs[:, 0].max() <= max(2e-2, errs[:, 1].max())
           and errs[:, 4].max() <= 1e-5 and errs[:, 2].max() <= bound
           and errs[:, 5].max() <= 1e-3)
-    if ssd:
+    if leafwise:
         # leaf by leaf, relative to each leaf's max |g|: in bf16 compute
         # the kernels within the largest deviation that bf16 rounding
         # itself gives a leaf of the plain path (against float32 compute),
@@ -2236,13 +2508,18 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     if not ok:
         raise AssertionError(f"kernel and plain tick 0 differ: {errs}")
 
-    # (b) one tick on the plain path: its control plane
+    # (b) one tick on the plain path: its control plane (the caching
+    # allocator's free blocks released first, each stage's shapes differ)
+    gc.collect()
+    torch.cuda.empty_cache()
     st, step = trainer("ref")
     st, _ = step(st, batches[0])
     ctrl_ref = {f: getattr(st, f).clone() for f in CONTROL}
     del st, step
 
     # (c) the main path: TICK ticks through the kernels
+    gc.collect()
+    torch.cuda.empty_cache()
     reset_launch_counts(torch)
     st, step = trainer("auto")
     walls, losses, pushes = [], [], []
@@ -2299,6 +2576,7 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     # (d) the device busy share of one traced tick, against an unprofiled
     # tick's wall
     box = {"st": st}
+    del st  # the box holds the one state: two would not fit beside a tick
 
     def one_tick():
         box["st"], _ = step(box["st"], batches[ticks])
@@ -2318,7 +2596,8 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
             print(f"[{tag}]   {ms:9.3f} ms  {key[:90]}", flush=True)
         for what, names in (("flash", FLASH_BWD_KERNELS),
                             ("rmsnorm", RMS_BWD_KERNELS),
-                            ("ssd", SSD_BWD_KERNELS)):
+                            ("ssd", SSD_BWD_KERNELS),
+                            ("rglru", RGLRU_BWD_KERNELS)):
             ms = sum(v for key, v in traced.items()
                      if any(n in key for n in names))
             if ms:
@@ -2328,7 +2607,7 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     else:
         print(f"[{tag}] traced tick: the profiler saw no device time; the "
               "busy share is not measured", flush=True)
-    del box, st, step
+    del box, step
     return got, cfg, params, opt, batches, t_phase
 
 
@@ -2340,7 +2619,13 @@ def phase12(np, torch, dev, card):
                                    12, layers=MAMBA_TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
-    argv = ["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER]
+    launcher(["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER], 12, t_phase)
+    return got
+
+
+def launcher(argv, tag, t_phase):
+    """``python -m repro_torch.launch.train`` with ``argv`` on the card, in
+    a child interpreter; fails unless it exits 0 having logged a tick."""
     run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                           *argv], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(SRC)},
@@ -2348,10 +2633,9 @@ def phase12(np, torch, dev, card):
     if run.returncode != 0 or "tick" not in run.stdout:
         raise AssertionError(f"launch.train {argv} failed ({run.returncode}):"
                              f" {run.stdout[-1500:]}{run.stderr[-2000:]}")
-    print(f"[12] python -m repro_torch.launch.train {' '.join(argv)}: "
+    print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}: "
           f"{run.stdout.strip().splitlines()[-1]}; "
           f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
-    return got
 
 
 def phase8(np, torch, dev, card):
@@ -2460,19 +2744,20 @@ def psp_run(torch, dev, cfg, ticks):
 
 
 def train_launches(cfg):
-    """The model kernels' launches per worker and PSP tick of ``cfg``
-    (remat recomputes each block's attention or SSD scan forward and its
-    norms: ``ln1``/``ln2`` (and the post-norms), or ``ln`` and the gated
-    ``norm``; no RG-LRU scan: ``rglru`` stacks do not train on the
-    card)."""
-    L = cfg.n_layers
-    ssd = "ssd" in cfg.layer_kinds()
-    norms = (4 if cfg.post_norms else 2) * L
-    return {"flash_attention": 0 if ssd else 2 * L,
-            "flash_attention_bwd": 0 if ssd else L,
+    """The model kernels' launches per worker and PSP tick of ``cfg``, any
+    mix of block kinds: remat runs each block's forward twice (once
+    without autograd, once recording in the backward) and its backward
+    once: its attention, SSD scan or RG-LRU scan, and its norms
+    (``ln1``/``ln2`` and the post-norms, or an ``ssd`` block's ``ln``
+    and gated ``norm``); then the final norm once each way."""
+    kinds = cfg.layer_kinds()
+    count = lambda *ks: sum(k in ks for k in kinds)
+    attn, ssd, rg = count("attn", "local"), count("ssd"), count("rglru")
+    norms = (4 if cfg.post_norms else 2) * cfg.n_layers
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
             "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
-            "ssd_scan": 2 * L if ssd else 0, "ssd_scan_bwd": L if ssd else 0,
-            "rglru_scan": 0}
+            "ssd_scan": 2 * ssd, "ssd_scan_bwd": ssd,
+            "rglru_scan": 2 * rg, "rglru_scan_bwd": rg}
 
 
 def train_total(cfg, ticks):
@@ -2489,7 +2774,8 @@ def launch_counts():
             "rmsnorm": rn.launch_count(), "rmsnorm_bwd": rn.bwd_launch_count(),
             "ssd_scan": ss.launch_count(),
             "ssd_scan_bwd": ss.bwd_launch_count(),
-            "rglru_scan": rg.launch_count()}
+            "rglru_scan": rg.launch_count(),
+            "rglru_scan_bwd": rg.bwd_launch_count()}
 
 
 def reset_launch_counts(torch):
@@ -2718,7 +3004,7 @@ def phase9(np, torch, dev, card):
     want = {"flash_attention": cfg.n_layers * eng.prefill_calls,
             "flash_attention_bwd": 0, "rmsnorm": (2 * cfg.n_layers + 1)
             * forwards, "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "rglru_scan_bwd": 0}
     if served_counts != want:
         raise AssertionError(f"server launches {served_counts}, want {want}")
     if trainer["launches"] != train_total(cfg, LOOP_TICKS):
@@ -2727,7 +3013,8 @@ def phase9(np, torch, dev, card):
     counts = {k: served_counts[k] + trainer["launches"][k]
               for k in served_counts}
     if not all(counts[k] > 0 for k in counts
-               if k not in ("ssd_scan", "ssd_scan_bwd", "rglru_scan")):
+               if k not in ("ssd_scan", "ssd_scan_bwd", "rglru_scan",
+                            "rglru_scan_bwd")):
         raise AssertionError(f"a kernel of the loop never ran: {counts}")
 
     # the server's loaded leaves against the published arrays, bit for bit
@@ -3210,6 +3497,34 @@ def phase15(np, torch, dev, card):
     return paths
 
 
+def phase16(np, torch, dev, card):
+    """recurrentgemma-2b trained under PSP on the card at full width, its
+    depth cut to RGEMMA_TRAIN_LAYERS (:func:`train_phase`: tick 0 against
+    the plain path over the whole tree and leaf by leaf, the control
+    plane, exact launches, the loss falling), then the reduced launcher
+    on the card (RGEMMA_LAUNCHER).  Its ticks peak within ~5 GB of the
+    card's memory, so the caching allocator runs with expandable segments
+    for the phase: blocks freed by one stage's shapes would otherwise be
+    split too finely for the next stage's largest tensors.  Returns the
+    model kernels' launch counts of the run."""
+    allocator = torch.cuda.memory._set_allocator_settings
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocator("expandable_segments:True")
+    try:
+        got, *_, t_phase = train_phase(
+            np, torch, dev, card, RGEMMA_TRAIN_ARCH, 16,
+            layers=RGEMMA_TRAIN_LAYERS, ticks=RGEMMA_TRAIN_TICKS,
+            seq=RGEMMA_TRAIN_S, warmup=RGEMMA_TRAIN_WARMUP,
+            fall=RGEMMA_TRAIN_FALL)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocator("expandable_segments:False")
+    launcher(RGEMMA_LAUNCHER, 16, t_phase)
+    return got
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3361,7 +3676,7 @@ def main() -> int:
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     entries = []
     for part in (phase5, phase5_ssd, phase5_ssd_bwd, phase5_bwd,
-                 phase5_danube, phase5_rgemma):
+                 phase5_danube, phase5_rgemma, phase5_rgemma_bwd):
         t0 = time.perf_counter()
         out = part(np, torch, dev, card)
         if isinstance(out, dict):
@@ -3415,6 +3730,14 @@ def main() -> int:
           flush=True)
     paths += phase15(np, torch, dev, card)
     print(f"[15] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 16. recurrentgemma-2b trained under PSP ----------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths.append(phase16(np, torch, dev, card))
+    print(f"[16] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -11,8 +11,8 @@
 // on the TPU, keys past the end of the sequence weigh exactly 0, and key
 // tiles outside the causal / window band are skipped.  Layout: q
 // (B, Sq, H, hd), k/v (B, Sk, KV, hd), the model's; o is (B, Sq, H, hd)
-// contiguous in q's dtype.  hd is 64, 80, 128 or 256 forward (256:
-// recurrentgemma-2b's, 10 query heads on one KV head), 64, 80 or 128
+// contiguous in q's dtype.  hd is 64, 80, 128 or 256 (256:
+// recurrentgemma-2b's, 10 query heads on one KV head), forward and
 // backward.
 //
 // Bound on the H100: operations.  A causal prefill does 2·B·H·S²·hd
@@ -934,6 +934,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 //   columns of dK and dV (one warpgroup's registers cannot hold all 128)
 //   and each forming the whole Sᵀ and dPᵀ over both 64-column swizzle
 //   atoms of hd; the dq kernel keeps one warpgroup.
+// * hd 256 (recurrentgemma-2b's training): four atoms, and each key or
+//   query tile's columns split over two blocks (grid z doubled), each
+//   owning 128 of dK and dV (two warpgroups of 64) or of dQ (one
+//   warpgroup, two atoms) and forming the whole Sᵀ, dPᵀ (S, dP) over all
+//   four atoms itself.  One warpgroup cannot hold 128 f32 accumulator
+//   columns of both dK and dV beside Sᵀ and dPᵀ, and four dk/dv
+//   warpgroups in one block (544 threads) would cap each thread at 120
+//   registers: the split keeps hd 128's register budget in every
+//   warpgroup at 2.5× the tile's minimum tensor-core work (each
+//   warpgroup's S and dP cost four times its dV and dK products), with
+//   no P or dS crossing shared memory.  Shared memory: two resident and
+//   four streamed 32 KB tiles, 194 KB, one block an SM.
 // * hd 80 is laid out as hd 128 (two atoms, two dk/dv warpgroups): the
 //   second atom's columns 80..127 arrive as zeros from TMA (see the
 //   forward), the score products run hd's 5 k-steps, and the columns
@@ -947,7 +959,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // as f32 (rows padded to hd + 4 floats: conflict-free float4 reads); a
 // thread owns one row of the 64 × 64 score tile and every fourth column
 // (S, dP), or one row and hd / 4 columns of a 64 × hd accumulator (dq,
-// dk, dv); products as fmaf on the CUDA cores.
+// dk, dv); products as fmaf on the CUDA cores.  hd 256 stages 32-row
+// tiles, eight threads a row (F32Bwd).
 
 namespace {
 
@@ -995,19 +1008,20 @@ __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& u, int e) {
 
 // Δ and lse·log2(e) into (B, H, Sqp), row (b·H + h)·Sqp + i; pads (i >=
 // Sq): Δ = 0, lse = +inf.  One row per LP lanes (the power of two at or
-// above HD / VEC), the first HD / VEC of them one 16-byte vector of o and
-// of do each.
+// above HD / VEC, at most 32), lane l of them the 16-byte vectors l,
+// l + LP, ... of o and of do (two each at hd 256 in float32).
 template <typename T, int HD>
 __host__ __device__ constexpr int delta_lanes() {
   constexpr int L = HD / (16 / sizeof(T));
-  static_assert(HD % (16 / sizeof(T)) == 0 && L <= 32, "hd");
+  static_assert(HD % (16 / sizeof(T)) == 0 && (L <= 32 || L % 32 == 0),
+                "hd");
   return L <= 8 ? 8 : L <= 16 ? 16 : 32;
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int L = HD / VEC;                // lanes holding a vector
+  constexpr int L = HD / VEC;                // vectors a row
   constexpr int LP = delta_lanes<T, HD>();  // lanes per row: 8, 16 or 32
   const int lane = threadIdx.x & 31;
   const long long row =
@@ -1015,15 +1029,19 @@ __global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
   const long long n = static_cast<long long>(a.B) * a.H * a.Sqp;
   const long long i = row % a.Sqp, bh = row / a.Sqp;
   float acc = 0.f;
-  if (row < n && i < a.Sq && lane % LP < L) {
+  if (row < n && i < a.Sq) {
     const long long b = bh / a.H, h = bh % a.H;
-    const long long off = ((b * a.Sq + i) * a.H + h) * HD + (lane % LP) * VEC;
-    const uint4 u =
-        __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + off));
-    const uint4 w = __ldg(
-        reinterpret_cast<const uint4*>(static_cast<const T*>(a.dout) + off));
+    const long long base = ((b * a.Sq + i) * a.H + h) * HD;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc += elem<T>(w, e) * elem<T>(u, e);
+    for (int v = lane % LP; v < L; v += LP) {
+      const long long off = base + v * VEC;
+      const uint4 u = __ldg(
+          reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + off));
+      const uint4 w = __ldg(
+          reinterpret_cast<const uint4*>(static_cast<const T*>(a.dout) + off));
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc += elem<T>(w, e) * elem<T>(u, e);
+    }
   }
 #pragma unroll
   for (int off = LP / 2; off > 0; off >>= 1)
@@ -1038,18 +1056,30 @@ __global__ void __launch_bounds__(BNT) bwd_delta_kernel(BwdArgs a) {
 // float32: CUDA cores                                                     //
 // ---------------------------------------------------------------------- //
 
+// the CUDA-core kernels' tiles: BT rows of queries and of keys, a row
+// per TPR threads; hd 256 takes 32-row tiles (four 64-row tiles of 256
+// f32 columns and their score tiles would need 300,032 bytes of shared
+// memory, above the 232,448 a block may have)
 template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * static_cast<size_t>(BT) * (HD + 4) +
-                          2 * static_cast<size_t>(BT) * (BT + 1) + 2 * BT);
-}
+struct F32Bwd {
+  static constexpr int T = HD > 128 ? 32 : BT;  // rows a tile
+  static constexpr int TPR = BNT / T;           // threads a row
+  static constexpr int RS = HD + 4;             // padded row stride
+  static constexpr int PS = T + 1;              // score tile's row stride
+  static constexpr size_t SMEM =
+      sizeof(float) * (4 * static_cast<size_t>(T) * RS +
+                       2 * static_cast<size_t>(T) * PS + 2 * T);
+  static_assert(HD % (4 * TPR) == 0 && T % TPR == 0 && BT % T == 0,
+                "f32 backward tiling");
+};
 
-// rows [r0, r0 + BT) of a (batch, seq, heads, HD) tensor's head `hh`
+// rows [r0, r0 + T) of a (batch, seq, heads, HD) tensor's head `hh`
 // into `dst` (row stride HD + 4); rows past `seq` are zeros
 template <int HD>
 __device__ __forceinline__ void stage(float* dst, const float* src, int b,
                                       int r0, int seq, int heads, int hh) {
-  for (int idx = threadIdx.x; idx < BT * HD; idx += BNT) {
+  constexpr int T = F32Bwd<HD>::T;
+  for (int idx = threadIdx.x; idx < T * HD; idx += BNT) {
     const int rr = idx / HD, d = idx % HD, row = r0 + rr;
     dst[rr * (HD + 4) + d] =
         row < seq ? src[((static_cast<long long>(b) * seq + row) * heads +
@@ -1058,8 +1088,8 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int b,
   }
 }
 
-// S and dP of query row `r` of the Q / dO tile against keys c + 4·jj of
-// the K / V tile; then p and ds, written to P[r][·] and dS[r][·].
+// S and dP of query row `r` of the Q / dO tile against keys c + TPR·jj
+// of the K / V tile; then p and ds, written to P[r][·] and dS[r][·].
 // q_i, k_j: the positions of the tile's first query and key.
 template <int HD>
 __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
@@ -1067,17 +1097,18 @@ __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
                                        const float* Vs, float lse_r,
                                        float del_r, int q_i, int k_j, int r,
                                        int c, float* Ps, float* dSs) {
-  constexpr int RS = HD + 4;
-  float s[BT / 4], dp[BT / 4];
+  using F = F32Bwd<HD>;
+  constexpr int RS = F::RS, NJ = F::T / F::TPR;
+  float s[NJ], dp[NJ];
 #pragma unroll
-  for (int jj = 0; jj < BT / 4; ++jj) s[jj] = dp[jj] = 0.f;
+  for (int jj = 0; jj < NJ; ++jj) s[jj] = dp[jj] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
     const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * RS + d]);
     const float4 gv = *reinterpret_cast<const float4*>(&dOs[r * RS + d]);
 #pragma unroll
-    for (int jj = 0; jj < BT / 4; ++jj) {
-      const int j = c + 4 * jj;
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int j = c + F::TPR * jj;
       const float4 kv = *reinterpret_cast<const float4*>(&Ks[j * RS + d]);
       const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * RS + d]);
       s[jj] = fmaf(qv.x, kv.x, s[jj]);
@@ -1092,8 +1123,8 @@ __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
   }
   const int qi = q_i + r;
 #pragma unroll
-  for (int jj = 0; jj < BT / 4; ++jj) {
-    const int j = c + 4 * jj, kj = k_j + j;
+  for (int jj = 0; jj < NJ; ++jj) {
+    const int j = c + F::TPR * jj, kj = k_j + j;
     const bool vis = qi < a.Sq && kj < a.Sk && visible(a, qi, kj);
     float x = s[jj] * a.scale, t = 0.f;
     if (a.softcap > 0.f) {
@@ -1103,29 +1134,30 @@ __device__ __forceinline__ void scores(const BwdArgs& a, const float* Qs,
     const float p = vis ? expf(x - lse_r) : 0.f;
     float ds = p * (dp[jj] - del_r);
     if (a.softcap > 0.f) ds = ds * (1.f - t * t);
-    Ps[r * (BT + 1) + j] = p;
-    dSs[r * (BT + 1) + j] = vis ? ds : 0.f;
+    Ps[r * F::PS + j] = p;
+    dSs[r * F::PS + j] = vis ? ds : 0.f;
   }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
-  constexpr int RS = HD + 4;
-  constexpr int DPT = HD / 4;
+  using F = F32Bwd<HD>;
+  constexpr int T = F::T, TPR = F::TPR, RS = F::RS, PS = F::PS;
+  constexpr int DPT = HD / TPR;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BT * RS;
-  float* Qs = Vs + BT * RS;
-  float* dOs = Qs + BT * RS;
-  float* Ps = dOs + BT * RS;
-  float* dSs = Ps + BT * (BT + 1);
-  float* lse_s = dSs + BT * (BT + 1);
-  float* del_s = lse_s + BT;
+  float* Vs = Ks + T * RS;
+  float* Qs = Vs + T * RS;
+  float* dOs = Qs + T * RS;
+  float* Ps = dOs + T * RS;
+  float* dSs = Ps + T * PS;
+  float* lse_s = dSs + T * PS;
+  float* del_s = lse_s + T;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const int k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
+  const int k0 = blockIdx.x * T;
+  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
   const float* q = static_cast<const float*>(a.q);
   const float* dout = static_cast<const float*>(a.dout);
   stage<HD>(Ks, static_cast<const float*>(a.k), b, k0, a.Sk, a.KV, kvh);
@@ -1137,14 +1169,14 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
 
   // the queries that see some key of this tile
   const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(a.Sq, k0 + BT - 1 + a.window) : a.Sq;
+  const int q_hi = a.window > 0 ? min(a.Sq, k0 + T - 1 + a.window) : a.Sq;
   const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
   const long long drow = (static_cast<long long>(b) * a.H + h) * a.Sqp;
-  for (int q0 = (q_lo / BT) * BT; q0 < q_hi; q0 += BT) {
+  for (int q0 = (q_lo / T) * T; q0 < q_hi; q0 += T) {
     __syncthreads();  // the last tile's Q, dO, P, dS are no longer read
     stage<HD>(Qs, q, b, q0, a.Sq, a.H, h);
     stage<HD>(dOs, dout, b, q0, a.Sq, a.H, h);
-    if (tid < BT) {
+    if (tid < T) {
       const int qi = q0 + tid;
       lse_s[tid] = qi < a.Sq ? a.lse[lrow + qi] : 0.f;
       del_s[tid] = qi < a.Sq ? a.delta[drow + qi] : 0.f;
@@ -1153,14 +1185,13 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
     scores<HD>(a, Qs, dOs, Ks, Vs, lse_s[r], del_s[r], q0, k0, r, c, Ps, dSs);
     __syncthreads();
     // this thread's key row r: dv += Σ_i p[i][r]·do[i], dk += Σ_i ds[i][r]·q[i]
-    for (int i = 0; i < BT; ++i) {
-      const float p = Ps[i * (BT + 1) + r], ds = dSs[i * (BT + 1) + r];
+    for (int i = 0; i < T; ++i) {
+      const float p = Ps[i * PS + r], ds = dSs[i * PS + r];
 #pragma unroll
-      for (int qd = 0; qd < HD / 16; ++qd) {
-        const float4 gv =
-            *reinterpret_cast<const float4*>(&dOs[i * RS + 16 * qd + 4 * c]);
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&Qs[i * RS + 16 * qd + 4 * c]);
+      for (int qd = 0; qd < DPT / 4; ++qd) {
+        const int d = 4 * TPR * qd + 4 * c;
+        const float4 gv = *reinterpret_cast<const float4*>(&dOs[i * RS + d]);
+        const float4 qv = *reinterpret_cast<const float4*>(&Qs[i * RS + d]);
         dv[4 * qd + 0] = fmaf(p, gv.x, dv[4 * qd + 0]);
         dv[4 * qd + 1] = fmaf(p, gv.y, dv[4 * qd + 1]);
         dv[4 * qd + 2] = fmaf(p, gv.z, dv[4 * qd + 2]);
@@ -1177,31 +1208,33 @@ __global__ void __launch_bounds__(BNT) bwd_dkdv_kernel(BwdArgs a) {
     const long long base =
         ((static_cast<long long>(b) * a.Sk + kj) * a.H + h) * HD;
 #pragma unroll
-    for (int qd = 0; qd < HD / 16; ++qd)
+    for (int qd = 0; qd < DPT / 4; ++qd)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        a.dkp[base + 16 * qd + 4 * c + e] = dk[4 * qd + e] * a.scale;
-        a.dvp[base + 16 * qd + 4 * c + e] = dv[4 * qd + e];
+        const int d = 4 * TPR * qd + 4 * c + e;
+        a.dkp[base + d] = dk[4 * qd + e] * a.scale;
+        a.dvp[base + d] = dv[4 * qd + e];
       }
   }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
-  constexpr int RS = HD + 4;
-  constexpr int DPT = HD / 4;
+  using F = F32Bwd<HD>;
+  constexpr int T = F::T, TPR = F::TPR, RS = F::RS, PS = F::PS;
+  constexpr int DPT = HD / TPR;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BT * RS;
-  float* Qs = Vs + BT * RS;
-  float* dOs = Qs + BT * RS;
-  float* Ps = dOs + BT * RS;
-  float* dSs = Ps + BT * (BT + 1);
+  float* Vs = Ks + T * RS;
+  float* Qs = Vs + T * RS;
+  float* dOs = Qs + T * RS;
+  float* Ps = dOs + T * RS;
+  float* dSs = Ps + T * PS;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
+  const int q0 = blockIdx.x * T;
+  const int tid = threadIdx.x, r = tid / TPR, c = tid % TPR;
   stage<HD>(Qs, static_cast<const float*>(a.q), b, q0, a.Sq, a.H, h);
   stage<HD>(dOs, static_cast<const float*>(a.dout), b, q0, a.Sq, a.H, h);
   const int qi = q0 + r;
@@ -1214,22 +1247,22 @@ __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
   for (int i = 0; i < DPT; ++i) dq[i] = 0.f;
 
   // the band of keys this tile can see, in whole key tiles
-  const int q_last = min(q0 + BT, a.Sq) - 1;
+  const int q_last = min(q0 + T, a.Sq) - 1;
   const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
-  const int k_begin = a.window > 0 ? (max(0, q0 - a.window + 1) / BT) * BT : 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BT) {
+  const int k_begin = a.window > 0 ? (max(0, q0 - a.window + 1) / T) * T : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += T) {
     __syncthreads();  // the last tile's K, V are no longer read
     stage<HD>(Ks, static_cast<const float*>(a.k), b, k0, a.Sk, a.KV, kvh);
     stage<HD>(Vs, static_cast<const float*>(a.v), b, k0, a.Sk, a.KV, kvh);
     __syncthreads();
     scores<HD>(a, Qs, dOs, Ks, Vs, lse_r, del_r, q0, k0, r, c, Ps, dSs);
     __syncwarp();  // row r's dS is written and read by its own warp
-    for (int j = 0; j < BT; ++j) {
-      const float ds = dSs[r * (BT + 1) + j];
+    for (int j = 0; j < T; ++j) {
+      const float ds = dSs[r * PS + j];
 #pragma unroll
-      for (int qd = 0; qd < HD / 16; ++qd) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(&Ks[j * RS + 16 * qd + 4 * c]);
+      for (int qd = 0; qd < DPT / 4; ++qd) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            &Ks[j * RS + 4 * TPR * qd + 4 * c]);
         dq[4 * qd + 0] = fmaf(ds, kv.x, dq[4 * qd + 0]);
         dq[4 * qd + 1] = fmaf(ds, kv.y, dq[4 * qd + 1]);
         dq[4 * qd + 2] = fmaf(ds, kv.z, dq[4 * qd + 2]);
@@ -1242,10 +1275,10 @@ __global__ void __launch_bounds__(BNT) bwd_dq_kernel(BwdArgs a) {
     const long long base =
         ((static_cast<long long>(b) * a.Sq + qi) * a.H + h) * HD;
 #pragma unroll
-    for (int qd = 0; qd < HD / 16; ++qd)
+    for (int qd = 0; qd < DPT / 4; ++qd)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        out[base + 16 * qd + 4 * c + e] = dq[4 * qd + e] * a.scale;
+        out[base + 4 * TPR * qd + 4 * c + e] = dq[4 * qd + e] * a.scale;
   }
 }
 
@@ -1257,8 +1290,13 @@ constexpr int BWD_STAGES = 2;  // streamed tile pairs in the ring
 
 template <int HD>
 struct TcBwd {
-  static constexpr int NWG = (HD + 63) / 64;  // dk/dv consumer warpgroups
-  static constexpr int TILE = NWG * ATOM_BYTES;  // a 64-row tile
+  static constexpr int ATOMS = (HD + 63) / 64;  // 64-column atoms of hd
+  // blocks a tile's dK, dV (and dQ) columns are split over: hd 256 in two
+  // halves of 128 columns, so that each warpgroup keeps hd 128's register
+  // budget
+  static constexpr int PARTS = HD > 128 ? 2 : 1;
+  static constexpr int NWG = ATOMS / PARTS;  // dk/dv consumer warpgroups
+  static constexpr int TILE = ATOMS * ATOM_BYTES;  // a 64-row tile
   static constexpr int ROW = 64 * 4;  // the lse or Δ values of a query tile
   static constexpr int BARS = 8 * (2 * BWD_STAGES + 1);
   static constexpr int DKDV_THREADS = 128 * NWG + 32;
@@ -1361,7 +1399,7 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
                        const __grid_constant__ CUtensorMap tv,
                        const BwdArgs a) {
   using C = TcBwd<HD>;
-  const int kt = blockIdx.z;
+  const int kt = blockIdx.z / C::PARTS, part = blockIdx.z % C::PARTS;
   constexpr int NS = BWD_STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -1399,7 +1437,7 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
   if (warp == 4 * C::NWG) {  // the producer warp
     if (lane == 0 && n_tiles > 0) {
       mbar_expect_tx(kvbar, 2 * C::TILE);
-      for (int at = 0; at < C::NWG; ++at) {
+      for (int at = 0; at < C::ATOMS; ++at) {
         tma_load_4d(sK + at * ATOM_BYTES, &tk, kvbar, 64 * at, kvh, k0, b);
         tma_load_4d(sV + at * ATOM_BYTES, &tv, kvbar, 64 * at, kvh, k0, b);
       }
@@ -1408,7 +1446,7 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
         if (j >= NS) mbar_wait(&empty[s], ((j / NS) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::ROW);
         const int q0 = q_lo + 64 * j;
-        for (int at = 0; at < C::NWG; ++at) {
+        for (int at = 0; at < C::ATOMS; ++at) {
           tma_load_4d(sQ + s * C::TILE + at * ATOM_BYTES, &tq, &full[s],
                       64 * at, h, q0, b);
           tma_load_4d(sG + s * C::TILE + at * ATOM_BYTES, &tdo, &full[s],
@@ -1421,10 +1459,10 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
     return;
   }
 
-  // consumer warpgroup wg owns dK and dV columns [64·wg, 64·wg + 64); this
-  // thread holds key rows kr and kr + 8 of every fragment, and query
-  // columns cl + 8·i (+1)
-  const int wg = warp >> 2;
+  // consumer warpgroup wg owns dK and dV columns [64·ca, 64·ca + 64) (ca:
+  // the atom part·NWG + wg); this thread holds key rows kr and kr + 8 of
+  // every fragment, and query columns cl + 8·i (+1)
+  const int wg = warp >> 2, ca = part * C::NWG + wg;
   const int kr = 16 * (warp & 3) + (lane >> 2);
   const int cl = 2 * (lane & 3);
   const float sc2 = a.scale * LOG2E;
@@ -1492,10 +1530,10 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(dv, pa[kk], sw128_desc(ga + wg * ATOM_BYTES + kk * 2048));
+      wgmma_rs(dv, pa[kk], sw128_desc(ga + ca * ATOM_BYTES + kk * 2048));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(dk, da[kk], sw128_desc(qa + wg * ATOM_BYTES + kk * 2048));
+      wgmma_rs(dk, da[kk], sw128_desc(qa + ca * ATOM_BYTES + kk * 2048));
     wg_commit();
     wg_wait<0>();
     fence_regs(dk);
@@ -1512,8 +1550,8 @@ __global__ void __launch_bounds__(TcBwd<HD>::DKDV_THREADS)
   const long long base1 = base0 + 8LL * a.H * HD;
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj) {
-    const int col = 64 * wg + 8 * jj + cl;
-    if (64 * wg + 8 * jj >= HD) break;  // zero columns past hd
+    const int col = 64 * ca + 8 * jj + cl;
+    if (64 * ca + 8 * jj >= HD) break;  // zero columns past hd
     if (kj < a.Sk) {
       *reinterpret_cast<float2*>(a.dkp + base0 + col) =
           make_float2(dk[4 * jj] * a.scale, dk[4 * jj + 1] * a.scale);
@@ -1539,9 +1577,10 @@ __global__ void __launch_bounds__(TC_THREADS)
                      const __grid_constant__ CUtensorMap tv,
                      const BwdArgs a) {
   using C = TcBwd<HD>;
-  const int qt = gridDim.z - 1 - blockIdx.z;
-  constexpr int NS = BWD_STAGES;
-  constexpr int ATOMS = C::NWG;
+  // dQ's atoms this block owns: DQA of them from the atom part·DQA
+  constexpr int NS = BWD_STAGES, ATOMS = C::ATOMS, DQA = ATOMS / C::PARTS;
+  const int qt = gridDim.z / C::PARTS - 1 - blockIdx.z / C::PARTS;
+  const int a0 = blockIdx.z % C::PARTS * DQA;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sG = sQ + C::TILE;
@@ -1603,12 +1642,12 @@ __global__ void __launch_bounds__(TC_THREADS)
   const float l0 = a.lse2[srow + r0], l1 = a.lse2[srow + r0 + 8];
   const float d0 = a.delta[srow + r0], d1 = a.delta[srow + r0 + 8];
   const uint32_t qa = smem_u32(sQ), ga = smem_u32(sG);
-  float dq[ATOMS][32], sc[32], dp[32];
+  float dq[DQA][32], sc[32], dp[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     sc[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int at = 0; at < ATOMS; ++at) dq[at][i] = 0.f;
+    for (int at = 0; at < DQA; ++at) dq[at][i] = 0.f;
   }
   uint32_t da[4][4];  // dS as A fragments
 
@@ -1659,18 +1698,19 @@ __global__ void __launch_bounds__(TC_THREADS)
     dispatch(a.softcap > 0.f, edge, scores);
 
 #pragma unroll
-    for (int at = 0; at < ATOMS; ++at) fence_regs(dq[at]);
+    for (int at = 0; at < DQA; ++at) fence_regs(dq[at]);
     fence_regs(da);
     wg_fence();
 #pragma unroll
-    for (int at = 0; at < ATOMS; ++at)
+    for (int at = 0; at < DQA; ++at)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(dq[at], da[kk], sw128_desc(ka + at * ATOM_BYTES + kk * 2048));
+        wgmma_rs(dq[at], da[kk],
+                 sw128_desc(ka + (a0 + at) * ATOM_BYTES + kk * 2048));
     wg_commit();
     wg_wait<0>();
 #pragma unroll
-    for (int at = 0; at < ATOMS; ++at) fence_regs(dq[at]);
+    for (int at = 0; at < DQA; ++at) fence_regs(dq[at]);
     fence_regs(da);  // this warp's products no longer read stage s
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -1680,11 +1720,11 @@ __global__ void __launch_bounds__(TC_THREADS)
   const long long row0 = (static_cast<long long>(b) * a.Sq + r0) * a.H + h;
   const long long row1 = row0 + 8LL * a.H;
 #pragma unroll
-  for (int at = 0; at < ATOMS; ++at)
+  for (int at = 0; at < DQA; ++at)
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      if (64 * at + 8 * jj >= HD) continue;  // a zero column past hd
-      const int col = 64 * at + 8 * jj + cl;
+      if (64 * (a0 + at) + 8 * jj >= HD) continue;  // a zero column past hd
+      const int col = 64 * (a0 + at) + 8 * jj + cl;
       if (r0 < a.Sq)
         *reinterpret_cast<uint32_t*>(out + row0 * HD + col) = pack_bf16(
             dq[at][4 * jj] * a.scale, dq[at][4 * jj + 1] * a.scale);
@@ -1737,7 +1777,8 @@ cudaError_t launch_reduce(const BwdArgs& a, cudaStream_t s) {
 
 template <int HD>
 cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
-  constexpr size_t smem = bwd_smem_bytes<HD>();
+  constexpr int T = F32Bwd<HD>::T;
+  constexpr size_t smem = F32Bwd<HD>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1747,9 +1788,9 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t s) {
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   if ((e = launch_delta<float, HD>(a, s)) != cudaSuccess) return e;
-  bwd_dkdv_kernel<HD><<<dim3((a.Sk + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  bwd_dkdv_kernel<HD><<<dim3((a.Sk + T - 1) / T, a.H, a.B), BNT, smem, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq_kernel<HD><<<dim3((a.Sq + BT - 1) / BT, a.H, a.B), BNT, smem, s>>>(a);
+  bwd_dq_kernel<HD><<<dim3((a.Sq + T - 1) / T, a.H, a.B), BNT, smem, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return launch_reduce<float, HD>(a, s);
 }
@@ -1765,7 +1806,8 @@ cudaError_t launch_bwd_tc(const BwdArgs& a, cudaStream_t s) {
       !tensor_map(&tk, a.k, a.B, a.Sk, a.KV, HD, a.Sk * hk, hk, HD, 64) ||
       !tensor_map(&tv, a.v, a.B, a.Sk, a.KV, HD, a.Sk * hk, hk, HD, 64))
     return cudaErrorInvalidValue;
-  const long long kt = (a.Sk + 63) / 64, qt = (a.Sq + 63) / 64;
+  const long long kt = (a.Sk + 63) / 64 * C::PARTS;
+  const long long qt = (a.Sq + 63) / 64 * C::PARTS;
   if (kt > 65535 || qt > 65535) return cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = launch_delta<__nv_bfloat16, HD>(a, s)) != cudaSuccess) return e;
@@ -1824,9 +1866,11 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const int* ints,
   if (dtype == 0 && hd == 64) e = launch_bwd_f32<64>(a, s);
   else if (dtype == 0 && hd == 80) e = launch_bwd_f32<80>(a, s);
   else if (dtype == 0 && hd == 128) e = launch_bwd_f32<128>(a, s);
+  else if (dtype == 0 && hd == 256) e = launch_bwd_f32<256>(a, s);
   else if (dtype == 1 && hd == 64) e = launch_bwd_tc<64>(a, s);
   else if (dtype == 1 && hd == 80) e = launch_bwd_tc<80>(a, s);
   else if (dtype == 1 && hd == 128) e = launch_bwd_tc<128>(a, s);
+  else if (dtype == 1 && hd == 256) e = launch_bwd_tc<256>(a, s);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -102,6 +102,10 @@ constexpr int PREFILL_L = 2;
 constexpr int PREFILL_SLOTS = 2;
 constexpr int PREFILL_MINB = 3;
 constexpr int DECODE_L = 16;
+// steps a tile of the backward, which reads the h entering each of the
+// forward's tiles: the forward writes them (h_enter) only when its tiles
+// are as long (a design variant with other tiles still runs serving)
+constexpr int BWD_SEG = 64;
 // the masked path (no TMA; its speed matters little) at most two blocks
 // an SM, so that its gathers and element stores do not spill
 constexpr int MASKED_MINB = PREFILL_MINB < 2 ? PREFILL_MINB : 2;
@@ -143,6 +147,7 @@ struct Args {
   const float* h0;
   T* y;
   float* h_last;
+  float* h_enter;            // (B, nseg, W) h entering each tile, or null
   unsigned* ctl;             // ticket, finished blocks, the last call's tag
   unsigned long long* carry;  // (column, segment, CT) h leaving each tile
   int B, S, W;
@@ -503,6 +508,8 @@ __global__ void __launch_bounds__(PREFILL_THREADS,
         }
         h = __uint_as_float(static_cast<unsigned>(word));
       }
+      if (a.h_enter != nullptr && c0 + tid < W)  // the training forward's
+        a.h_enter[(static_cast<long long>(b) * nseg + seg) * W + c0 + tid] = h;
       STAMP(2);
 #pragma unroll
       for (int w = 0; w < C::NWARP; ++w) {
@@ -605,6 +612,8 @@ __global__ void __launch_bounds__(32) rglru_decode_kernel(const Args<T> a) {
   const long long row = static_cast<long long>(b) * S;
   const float coef = -8.f * softplus(a.lam[w]);
   float h = a.h0 != nullptr ? a.h0[static_cast<long long>(b) * W + w] : 0.f;
+  if (a.h_enter != nullptr)  // one tile: the h entering it is h0
+    a.h_enter[static_cast<long long>(b) * W + w] = h;
   T xv[DECODE_L], rv[DECODE_L], iv[DECODE_L], gv[DECODE_L];
 #pragma unroll
   for (int k = 0; k < DECODE_L; ++k) {  // one batch of independent loads
@@ -628,6 +637,236 @@ __global__ void __launch_bounds__(32) rglru_decode_kernel(const Args<T> a) {
       a.y[o] = from_f<T>(h);
   }
   a.h_last[static_cast<long long>(b) * W + w] = h;
+}
+
+// ---- backward ------------------------------------------------------------ //
+//
+// The VJP of the scan above (XLA's autodiff of the reference's
+// associative_scan; the port's plain version is rglru_scan_bwd_ref), in
+// the plain forward's roundings: given the cotangent dy of y (and dh_last
+// of h_last, or none), with g_t = f32(cast(dy_t * gate_t)) under a gate
+// (else f32(dy_t)) and dgate_t = cast(dy_t * cast(h_t)),
+//
+//   dh_t = g_t + a_{t+1} * dh_{t+1},  dh_{S-1} = g_{S-1} + dh_last
+//   da_t = dh_t * h_{t-1},  db_t = dh_t        (h_{-1} = h0, or 0)
+//   dx = cast(db * (mult * i)),  dmi = db * x
+//   di_pre = cast(((dmi * mult) * (1 - i)) * i)
+//   du = clip'(u) * (dmi * i) / (2 * mult),  u = 1 - exp(2 log_a)
+//   dlog_a = da * a + 2 * (-du * exp(2 log_a))
+//   dr_pre = cast(((dlog_a * coef) * (1 - r)) * r)
+//   dlambda = ((sum over b, t of dlog_a * r) * -8) * exp(lambda - softplus)
+//   dh0 = a_0 * dh_0
+//
+// (where exp(2 log_a) rounds to 1, mult is 0 and du is +-inf or NaN, as
+// autograd's sqrt gives).  Three launches, no atomics (two calls give the
+// same bits), over tiles of BWD_SEG steps (the forward's tiles) x
+// BWD_THREADS channels of one batch row, a thread one channel:
+// * bwd_map_kernel: each tile's map of the carry c = a_{t1} * dh_{t1}
+//   entering its last step (t1 = the next tile's first step; dh_last for
+//   the last tile) to the carry it hands the tile before, c' = a_{t0} *
+//   dh_{t0} = A c + P: A = the product of the tile's a, P = a_{t0} * the
+//   dh_{t0} of c = 0.  It reads r_pre, dy and the gate;
+// * bwd_main_kernel: the carry entering the tile, composed from dh_last
+//   through the maps of the later tiles in order; h over the tile,
+//   recomputed from the h the training forward saved as it entered the
+//   tile (no h is stored), kept in shared memory; then the tile's steps
+//   from last to first: every gradient above, and the tile's sum of
+//   dlog_a * r for dlambda (a partial per tile);
+// * bwd_lam_kernel: dlambda from the partials, summed over the batch rows
+//   and tiles in order.
+// Each thread loads BWD_K steps of its inputs into registers before it
+// uses any: a loop whose loads sit after the previous step's stores
+// (which they might alias) issued them one step at a time: 1.6× slower
+// at the training shape (chip_smoke.phase5_rgemma_bwd; PERF.md).
+// Bound on the H100: bytes, 18 an element in bf16 (x, r_pre, i_pre, gate,
+// dy read, dx, dr_pre, di_pre, dgate written), 0.113 ms at the training
+// shape (B 2, S 4096, W 2560) at 3.35 TB/s; as built it also reads r_pre,
+// dy and the gate in the first launch and forms a and b twice (once for
+// h, once for the gradients), ~220 instructions an element.  The design
+// is the simple one: no chain between blocks, so no tile waits on
+// another, at the price of those second reads and formings.
+constexpr int BWD_THREADS = 128;
+// steps whose inputs a thread loads in one batch before it uses any: a
+// loop's loads behind a runtime trip count (or after its stores, which
+// they may alias) would otherwise issue one step at a time
+constexpr int BWD_K = 8;
+
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const T* r;
+  const T* i;
+  const T* gate;        // or null
+  const T* dy;
+  const float* lam;
+  const float* dh_last;  // (B, W) or null
+  const float* h_enter;  // (B, nseg, W)
+  T* dx;
+  T* dr;
+  T* di;
+  T* dgate;              // or null (no gate)
+  float* dlam;
+  float* dh0;            // (B, W) or null (no h0)
+  float* map_a;          // (B, nseg, W) scratch: each tile's map
+  float* map_p;
+  float* part;           // (B, nseg, W) scratch: dlambda's partials
+  int B, S, W, nseg;
+};
+
+template <typename T, bool GATE>
+__device__ __forceinline__ float cotangent(const BwdArgs<T>& a, long long o) {
+  if constexpr (GATE)
+    return to_f(from_f<T>(to_f(a.dy[o]) * to_f(a.gate[o])));
+  else
+    return to_f(a.dy[o]);
+}
+
+template <typename T, bool GATE>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rglru_bwd_map_kernel(const BwdArgs<T> a) {
+  const int w = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (w >= a.W) return;
+  const int seg = blockIdx.y, b = blockIdx.z;
+  const int t0 = seg * BWD_SEG, t1 = min(a.S, t0 + BWD_SEG);
+  const long long row = static_cast<long long>(b) * a.S;
+  const float coef = -8.f * softplus(a.lam[w]);
+  float P = 0.f, an = 0.f, A = 1.f;
+  for (int tb = t1 - 1; tb >= t0; tb -= BWD_K) {  // steps tb, tb - 1, ...
+    float rv[BWD_K], gv[BWD_K];
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {  // one batch of loads
+      const bool in = tb - k >= t0;
+      const long long o = (row + tb - k) * a.W + w;
+      rv[k] = in ? to_f(a.r[o]) : 0.f;
+      gv[k] = in ? cotangent<T, GATE>(a, o) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {
+      if (tb - k < t0) break;
+      const float at = expf(coef * sigmoid(rv[k]));
+      P = gv[k] + an * P;
+      an = at;
+      A = A * at;
+    }
+  }
+  const long long m = (static_cast<long long>(b) * a.nseg + seg) * a.W + w;
+  a.map_a[m] = A;
+  a.map_p[m] = an * P;
+}
+
+template <typename T, bool GATE>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rglru_bwd_main_kernel(const BwdArgs<T> a) {
+  __shared__ float hs[BWD_SEG][BWD_THREADS];  // h_{t-1} of each step
+  const int tid = threadIdx.x, w = blockIdx.x * BWD_THREADS + tid;
+  if (w >= a.W) return;
+  const int seg = blockIdx.y, b = blockIdx.z;
+  const int t0 = seg * BWD_SEG, t1 = min(a.S, t0 + BWD_SEG);
+  const long long W = a.W, row = static_cast<long long>(b) * a.S;
+  const long long col = static_cast<long long>(b) * a.nseg;
+  // the carry entering the tile's last step: dh_last through the maps of
+  // the later tiles, the last first
+  float c = a.dh_last != nullptr ? a.dh_last[b * W + w] : 0.f;
+#pragma unroll 4
+  for (int s = a.nseg - 1; s > seg; --s)
+    c = a.map_a[(col + s) * W + w] * c + a.map_p[(col + s) * W + w];
+  const float coef = -8.f * softplus(a.lam[w]);
+  // h over the tile from the h entering it, BWD_K steps a batch of loads
+  float h = a.h_enter[(col + seg) * W + w];
+  for (int tb = t0; tb < t1; tb += BWD_K) {
+    float xv[BWD_K], rv[BWD_K], iv[BWD_K];
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {
+      const bool in = tb + k < t1;
+      const long long o = (row + tb + k) * W + w;
+      xv[k] = in ? to_f(a.x[o]) : 0.f;
+      rv[k] = in ? to_f(a.r[o]) : 0.f;
+      iv[k] = in ? to_f(a.i[o]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {
+      if (tb + k >= t1) break;
+      hs[tb + k - t0][tid] = h;
+      float at, bt;
+      form(xv[k], rv[k], iv[k], coef, at, bt);
+      h = at * h + bt;
+    }
+  }
+  // the tile's steps from last to first, each batch's loads before its
+  // stores (which the compiler may not move them past)
+  float lam_acc = 0.f;
+  for (int tb = t1 - 1; tb >= t0; tb -= BWD_K) {
+    float xv[BWD_K], rv[BWD_K], iv[BWD_K], dyv[BWD_K], gtv[BWD_K];
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {
+      const bool in = tb - k >= t0;
+      const long long o = (row + tb - k) * W + w;
+      xv[k] = in ? to_f(a.x[o]) : 0.f;
+      rv[k] = in ? to_f(a.r[o]) : 0.f;
+      iv[k] = in ? to_f(a.i[o]) : 0.f;
+      dyv[k] = in ? to_f(a.dy[o]) : 0.f;
+      if constexpr (GATE) gtv[k] = in ? to_f(a.gate[o]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < BWD_K; ++k) {
+      const int t = tb - k;
+      if (t < t0) break;
+      const long long o = (row + t) * W + w;
+      const float hp = hs[t - t0][tid];  // h_{t-1}; h is h_t
+      const float r = sigmoid(rv[k]), i = sigmoid(iv[k]);
+      const float log_a = coef * r;
+      const float at = expf(log_a);
+      const float e2 = expf(2.f * log_a);
+      const float u = 1.f - e2;
+      const float mult = sqrtf(fminf(fmaxf(u, 0.f), 1.f));
+      const float mi = mult * i;
+      float g;
+      if constexpr (GATE) {
+        g = to_f(from_f<T>(dyv[k] * gtv[k]));
+        a.dgate[o] = from_f<T>(dyv[k] * to_f(from_f<T>(h)));
+      } else {
+        g = dyv[k];
+      }
+      const float dh = g + c;
+      const float dmi = dh * xv[k];
+      a.dx[o] = from_f<T>(dh * mi);
+      a.di[o] = from_f<T>(((dmi * mult) * (1.f - i)) * i);
+      const float dsq = (dmi * i) / (2.f * mult);
+      const float du = u >= 0.f && u <= 1.f ? dsq : 0.f;
+      const float dlog_a = (dh * hp) * at + 2.f * (-du * e2);
+      a.dr[o] = from_f<T>(((dlog_a * coef) * (1.f - r)) * r);
+      lam_acc += dlog_a * r;
+      c = at * dh;
+      h = hp;
+    }
+  }
+  if (seg == 0 && a.dh0 != nullptr) a.dh0[b * W + w] = c;
+  a.part[(col + seg) * W + w] = lam_acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+    rglru_bwd_lam_kernel(const BwdArgs<T> a) {
+  const int w = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (w >= a.W) return;
+  const long long n = static_cast<long long>(a.B) * a.nseg;
+  float s = 0.f;
+  for (long long k = 0; k < n; ++k) s += a.part[k * a.W + w];
+  const float lam = a.lam[w];
+  a.dlam[w] = (s * -8.f) * expf(lam - softplus(lam));
+}
+
+template <typename T, bool GATE>
+cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t s) {
+  const dim3 grid((a.W + BWD_THREADS - 1) / BWD_THREADS, a.nseg, a.B);
+  rglru_bwd_map_kernel<T, GATE><<<grid, BWD_THREADS, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rglru_bwd_main_kernel<T, GATE><<<grid, BWD_THREADS, 0, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  rglru_bwd_lam_kernel<T>
+      <<<(a.W + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 // ---- tensor maps ------------------------------------------------------- //
@@ -728,6 +967,8 @@ bool aligned16(const void* p) {
 
 template <typename T>
 cudaError_t launch(Args<T> a, void* scratch, int device, cudaStream_t s) {
+  if (a.h_enter != nullptr && Tile<T>::SEG != BWD_SEG)
+    return cudaErrorInvalidValue;
   if (a.S <= DECODE_L) {  // one warp a block: no segment to carry across
     dim3 grid((a.W + 31) / 32, a.B);
     if (a.gate != nullptr)
@@ -775,12 +1016,16 @@ extern "C" long long rglru_scan_scratch_bytes(int B, int S, int W,
 
 // x, r, i, gate (or null), y: (B, S, W) contiguous in dtype (0 = float32,
 // 1 = bfloat16); lam (W,), h0 (B, W) or null, h_last (B, W): float32;
-// scratch: rglru_scan_scratch_bytes(B, S, W, dtype) bytes kept for this
-// stream (null when that is 0).  Returns a cudaError_t (0 on success).
+// h_enter: null, or (B, ceil(S / 64), W) float32 for the h entering each
+// 64-step tile (the training forward's, which rglru_scan_bwd_launch
+// reads); scratch: rglru_scan_scratch_bytes(B, S, W, dtype) bytes kept
+// for this stream (null when that is 0).  Returns a cudaError_t (0 on
+// success).
 extern "C" int rglru_scan_launch(const void* x, const void* r, const void* i,
                                  const void* lam, const void* h0,
                                  const void* gate, void* y, void* h_last,
-                                 void* scratch, int B, int S, int W,
+                                 void* h_enter, void* scratch, int B, int S,
+                                 int W,
                                  int dtype, int device, void* stream) {
   if (B < 1 || S < 1 || W < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -791,20 +1036,63 @@ extern "C" int rglru_scan_launch(const void* x, const void* r, const void* i,
     Args<float> a{static_cast<const float*>(x), static_cast<const float*>(r),
                   static_cast<const float*>(i), static_cast<const float*>(gate),
                   static_cast<const float*>(lam), static_cast<const float*>(h0),
-                  static_cast<float*>(y), static_cast<float*>(h_last), nullptr,
-                  nullptr, B, S, W};
+                  static_cast<float*>(y), static_cast<float*>(h_last),
+                  static_cast<float*>(h_enter), nullptr, nullptr, B, S, W};
     e = launch(a, scratch, device, s);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
     Args<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(r),
                static_cast<const bf*>(i), static_cast<const bf*>(gate),
                static_cast<const float*>(lam), static_cast<const float*>(h0),
-               static_cast<bf*>(y), static_cast<float*>(h_last), nullptr,
-               nullptr, B, S, W};
+               static_cast<bf*>(y), static_cast<float*>(h_last),
+               static_cast<float*>(h_enter), nullptr, nullptr, B, S, W};
     e = launch(a, scratch, device, s);
   } else {
     e = cudaErrorInvalidValue;
   }
+  return static_cast<int>(e);
+}
+
+// The backward (see above).  x, r, i, gate (or null), dy and the outputs
+// dx, dr, di, dgate (null without a gate): (B, S, W) contiguous in dtype
+// (0 = float32, 1 = bfloat16); lam, dlam (W,), dh_last (B, W) or null,
+// dh0 (B, W) or null (no h0), h_enter (B, nseg, W) as rglru_scan_launch
+// wrote it (nseg = ceil(S / 64)): float32; scratch: 3 * B * nseg * W
+// floats.  Returns a cudaError_t (0 on success).
+extern "C" int rglru_scan_bwd_launch(const void* x, const void* r,
+                                     const void* i, const void* gate,
+                                     const void* dy, const void* lam,
+                                     const void* dh_last, const void* h_enter,
+                                     void* dx, void* dr, void* di,
+                                     void* dgate, void* dlam, void* dh0,
+                                     void* scratch, int B, int S, int W,
+                                     int dtype, int device, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || B > 65535 ||
+      (S + BWD_SEG - 1) / BWD_SEG > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nseg = (S + BWD_SEG - 1) / BWD_SEG;
+  float* sc = static_cast<float*>(scratch);
+  const long long n = static_cast<long long>(B) * nseg * W;
+  auto run = [&](auto zero) -> cudaError_t {
+    using T = decltype(zero);
+    BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(r),
+                 static_cast<const T*>(i), static_cast<const T*>(gate),
+                 static_cast<const T*>(dy), static_cast<const float*>(lam),
+                 static_cast<const float*>(dh_last),
+                 static_cast<const float*>(h_enter), static_cast<T*>(dx),
+                 static_cast<T*>(dr), static_cast<T*>(di),
+                 static_cast<T*>(dgate), static_cast<float*>(dlam),
+                 static_cast<float*>(dh0), sc, sc + n, sc + 2 * n,
+                 B, S, W, nseg};
+    return gate != nullptr ? launch_bwd<T, true>(a, s)
+                           : launch_bwd<T, false>(a, s);
+  };
+  if (dtype == 0) e = run(0.f);
+  else if (dtype == 1) e = run(__nv_bfloat16());
+  else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
 

@@ -44,8 +44,8 @@ q's dtype:
   time as the forward; what CPU tensors get.
 * :func:`flash_attention_bwd_cuda` — the hand-written kernel (second
   half of ``kernels/csrc/flash_attention.cu``), at ``BWD_HEAD_DIMS``
-  (64, 80, 128: hd 256's dK/dV tile is a design still to come): Δ;
-  dk/dv per (64-key
+  (64, 80, 128, 256; hd 256 splits a tile's columns over two blocks):
+  Δ; dk/dv per (64-key
   tile, head) over the query tiles of the band into per-head float32
   partials; dq per (64-query tile, head) over the key tiles, recomputing
   S and dP; then dk/dv summed over the group's heads in order, by the
@@ -80,7 +80,7 @@ __all__ = ["BWD_HEAD_DIMS", "HEAD_DIMS", "attention_bwd_ref",
 #: see ``csrc/flash_attention.cu``)
 HEAD_DIMS = (64, 80, 128, 256)
 #: head dims the backward kernel is built for
-BWD_HEAD_DIMS = (64, 80, 128)
+BWD_HEAD_DIMS = (64, 80, 128, 256)
 #: query rows per block of the plain versions: their score tensors are
 #: (B, H, rows, Sk) at most
 _REF_ROWS = 1024
@@ -336,11 +336,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel: same contract as :func:`attention_bwd_ref`.
 
     q, k, v, o, do are CUDA tensors of one dtype (float32 or bfloat16,
-    made contiguous here) with a head dim in ``BWD_HEAD_DIMS`` (64, 80 or
-    128), each starting on a 16-byte boundary (the TMA copies and 16-byte
-    loads need it); ``lse`` float32 ``(B, H, Sq)``.  Returns new (dq, dk,
-    dv).  Raises on any other input (hd 256 among them: its backward is
-    queued with recurrentgemma-2b's training) and if a launch fails;
+    made contiguous here) with a head dim in ``BWD_HEAD_DIMS`` (64, 80,
+    128 or 256), each starting on a 16-byte boundary (the TMA copies and
+    16-byte loads need it); ``lse`` float32 ``(B, H, Sq)``.  Returns new
+    (dq, dk, dv).  Raises on any other input and if a launch fails;
     there is no fallback.
     """
     global _BWD_LAUNCHES
@@ -348,8 +347,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_cuda: head dim {q.shape[-1]} "
                          f"has no backward kernel (built for "
-                         f"{BWD_HEAD_DIMS}; hd 256: ROADMAP queue 1, item "
-                         "10f)")
+                         f"{BWD_HEAD_DIMS})")
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -20,19 +20,17 @@ and ``cuda`` on CPU tensors raises in the wrapper's checks.
   its gate fused, with its last state
   (:mod:`repro_torch.kernels.rglru_scan`).
 
-:func:`attention`, :func:`rmsnorm` (its ``round_scale=True`` form) and
-:func:`ssd` are differentiable: when autograd records (grad enabled and
-an input requires grad) they run as a ``torch.autograd.Function`` whose
-forward is the kernel or plain version above (the attention forward then
-also returns the row log-sum-exp, RMSNorm's each row's m, the SSD scan
-cum and each chunk's entering state) and whose backward is the backward
-kernel (``flash_attention_bwd_cuda``, ``rmsnorm_bwd_cuda``,
-``ssd_bwd_cuda``) or its plain version, chosen by the same rule.
-Otherwise (serving) they are the forward alone, as before.
-``round_scale=False`` has no backward.  :func:`rglru_scan` is
-differentiable on its plain version only (autograd through
-``rglru_scan_ref``): its backward kernel is still to come, so under
-autograd on the kernel path it raises.
+:func:`attention`, :func:`rmsnorm` (its ``round_scale=True`` form),
+:func:`ssd` and :func:`rglru_scan` are differentiable: when autograd
+records (grad enabled and an input requires grad) they run as a
+``torch.autograd.Function`` whose forward is the kernel or plain version
+above (the attention forward then also returns the row log-sum-exp,
+RMSNorm's each row's m, the SSD scan cum and each chunk's entering
+state, the RG-LRU kernel the h entering each 64-step tile) and whose
+backward is the backward kernel (``flash_attention_bwd_cuda``,
+``rmsnorm_bwd_cuda``, ``ssd_bwd_cuda``, ``rglru_scan_bwd_cuda``) or its
+plain version, chosen by the same rule.  Otherwise (serving) they are
+the forward alone, as before.  ``round_scale=False`` has no backward.
 """
 from __future__ import annotations
 
@@ -45,7 +43,9 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
-from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda,
+                                            rglru_scan_bwd_ref,
+                                            rglru_scan_cuda, rglru_scan_ref)
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
@@ -53,10 +53,6 @@ from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
 
 __all__ = ["IMPLS", "attention", "psp_tick", "rglru_scan", "rmsnorm", "ssd",
            "use_kernel"]
-
-#: where the RG-LRU scan's backward kernel (and recurrentgemma training on
-#: the card) is queued
-RGLRU_TRAIN_TODO = "ROADMAP queue 1, item 10f (recurrentgemma-2b training)"
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -162,6 +158,40 @@ class _SSD(torch.autograd.Function):
         return dx, ddt, dA.to(A.dtype), dB, dC, None, None
 
 
+class _RGLRU(torch.autograd.Function):
+    """The RG-LRU scan with its VJP (kernel or plain version); on the
+    kernel the forward keeps the h entering each tile for the backward
+    kernel.  An unused output's cotangent arrives as None (h_last's, in
+    training): the backward then takes it as zeros without making
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, r_pre, i_pre, lam, h0, gate, kernel):
+        ctx.set_materialize_grads(False)
+        if kernel:
+            y, h_last, states = rglru_scan_cuda(x, r_pre, i_pre, lam, h0,
+                                                gate, return_states=True)
+        else:
+            y, h_last = rglru_scan_ref(x, r_pre, i_pre, lam, h0, gate)
+            states = None
+        ctx.save_for_backward(x, r_pre, i_pre, lam, h0, gate, states)
+        ctx.kernel = kernel
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, r_pre, i_pre, lam, h0, gate, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if ctx.kernel:
+            dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_cuda(
+                x, r_pre, i_pre, lam, dy.contiguous(), states, h0, gate, dh)
+        else:
+            dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_ref(
+                x, r_pre, i_pre, lam, dy, h0, gate, dh)
+        return dx, dr, di, dlam.to(lam.dtype), dh0, dgate, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
@@ -216,14 +246,11 @@ def rglru_scan(x: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     """The RG-LRU scan: x, r_pre, i_pre (and gate) ``(B, S, W)`` in the
     compute dtype, Λ ``(W,)`` and h0 ``(B, W)`` float32 → (y ``(B, S,
     W)``, h_last ``(B, W)`` float32) (see
-    :mod:`repro_torch.kernels.rglru_scan`).  Differentiable when autograd
-    records on the plain version; on the kernel it then raises
-    ``NotImplementedError``."""
+    :mod:`repro_torch.kernels.rglru_scan`); differentiable when autograd
+    records."""
     kernel = use_kernel(impl, x.device)
-    if not kernel:
-        return rglru_scan_ref(x, r_pre, i_pre, lam, h0, gate)
     if _records(*(t for t in (x, r_pre, i_pre, lam, h0, gate)
                   if t is not None)):
-        raise NotImplementedError("the RG-LRU scan has no backward kernel "
-                                  f"yet: {RGLRU_TRAIN_TODO}")
-    return rglru_scan_cuda(x, r_pre, i_pre, lam, h0, gate)
+        return _RGLRU.apply(x, r_pre, i_pre, lam, h0, gate, kernel)
+    fn = rglru_scan_cuda if kernel else rglru_scan_ref
+    return fn(x, r_pre, i_pre, lam, h0, gate)

@@ -39,6 +39,25 @@ the product of two compute-dtype values, the reference's multiply), and
   agree to float32 rounding, not bit for bit; two calls agree bit for
   bit.
 
+The backward, given the cotangent ``dy`` of y (and ``dh`` of h_last,
+or none): with ``g_t = f32(cast(dy_t·gate_t))`` (or f32(dy_t)) and
+``dgate_t = cast(dy_t·cast(h_t))``, the reverse recurrence ``dh_t = g_t
++ a_{t+1}·dh_{t+1}`` (``dh_{S−1} = g_{S−1} + dh``), ``da_t =
+dh_t·h_{t−1}``, ``db_t = dh_t``, then back through b, mult, a and log a
+to dx, dr_pre, di_pre (compute dtype), dΛ (float32) and dh0 = a_0·dh_0,
+each product and rounding as autograd takes them through
+:func:`rglru_scan_ref`:
+
+* :func:`rglru_scan_bwd_ref` — plain PyTorch, the explicit formulas,
+  the reverse recurrence as a doubling scan; what CPU tensors get;
+* :func:`rglru_scan_bwd_cuda` — the hand-written kernels (the second
+  half of ``kernels/csrc/rglru_scan.cu``), three launches over the
+  forward's 64-step tiles, a thread a channel: each tile's map of the
+  carried ``a·dh``; the gradients, h recomputed in each tile from the h
+  entering it, which the training forward (``return_states=True``)
+  writes, ``(B, ⌈S/64⌉, W)`` float32; dΛ summed over the tiles' partials
+  in order.  No atomics: two calls agree bit for bit.
+
 softplus has the reference's value and gradient (:func:`softplus`,
 shared with the Mamba-2 block).
 """
@@ -50,13 +69,18 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["launch_count", "reset_launch_count", "rglru_scan_cuda",
-           "rglru_scan_ref", "scan_bytes", "softplus"]
+__all__ = ["SEG", "bwd_launch_count", "launch_count", "reset_launch_count",
+           "rglru_scan_bwd_cuda", "rglru_scan_bwd_ref", "rglru_scan_cuda",
+           "rglru_scan_ref", "scan_bwd_bytes", "scan_bytes", "softplus"]
 
 #: Griffin's fixed gate sharpness constant
 C = 8.0
 
+#: steps a tile of the kernels (the forward's and the backward's)
+SEG = 64
+
 _LAUNCHES = 0
+_BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's scratch buffer (ticket, counts, tag, the tiles' h) per
 #: (device index, stream): a call on one stream never shares it with a
@@ -99,26 +123,99 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _tile_states(h: torch.Tensor, h0: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The h entering each ``SEG``-step tile of h ``(B, S, W)``: h0 (or
+    0) for the first, then h at each tile's step before: ``(B, ⌈S/SEG⌉,
+    W)``."""
+    first = (h0 if h0 is not None else torch.zeros_like(h[:, 0]))[:, None]
+    return torch.cat([first, h[:, SEG - 1:-1:SEG]], 1)
+
+
+def _terms(x: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
+           lam: torch.Tensor, h0: Optional[torch.Tensor]) -> Dict:
+    """The forward's float32 terms in the reference's expressions: r, i,
+    softplus(Λ), coef = −C·softplus(Λ), a, e2 = exp(2·log a), u = 1 − e2,
+    mult, mi = mult·i and b = mi·x (h0's term folded into the first
+    step's)."""
+    r = torch.sigmoid(r_pre.float())
+    i = torch.sigmoid(i_pre.float())
+    sp = softplus(lam.float())
+    coef = -C * sp
+    log_a = coef * r
+    a = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    u = 1.0 - e2
+    mult = torch.sqrt(torch.clamp(u, 0.0, 1.0))
+    mi = mult * i
+    b = mi * x.float()
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
+    return dict(r=r, i=i, sp=sp, coef=coef, a=a, e2=e2, u=u, mult=mult,
+                mi=mi, b=b)
+
+
 def rglru_scan_ref(x: torch.Tensor, r_pre: torch.Tensor,
                    i_pre: torch.Tensor, lam: torch.Tensor,
                    h0: Optional[torch.Tensor] = None,
-                   gate: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   gate: Optional[torch.Tensor] = None,
+                   return_states: bool = False):
     """Plain RG-LRU scan (see the module docstring): (y in x's dtype,
-    h_last float32)."""
-    r = torch.sigmoid(r_pre.float())
-    i = torch.sigmoid(i_pre.float())
-    log_a = -C * softplus(lam.float()) * r
-    a = torch.exp(log_a)
-    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0))
-    b = mult * i * x.float()
-    if h0 is not None:
-        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
-    h = _doubling_scan(a, b)
+    h_last float32); with ``return_states`` also the h entering each
+    ``SEG``-step tile, float32 ``(B, ⌈S/SEG⌉, W)`` (what
+    :func:`rglru_scan_bwd_cuda` reads)."""
+    t = _terms(x, r_pre, i_pre, lam, h0)
+    h = _doubling_scan(t["a"], t["b"])
     y = h.to(x.dtype)
     if gate is not None:
         y = y * gate
+    if return_states:
+        return y, h[:, -1], _tile_states(h, h0)
     return y, h[:, -1]
+
+
+def rglru_scan_bwd_ref(x: torch.Tensor, r_pre: torch.Tensor,
+                       i_pre: torch.Tensor, lam: torch.Tensor,
+                       dy: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                       gate: Optional[torch.Tensor] = None,
+                       dh: Optional[torch.Tensor] = None):
+    """Plain backward of :func:`rglru_scan_ref`: the cotangents of its
+    inputs given ``dy`` (y's, x's dtype) and ``dh`` (h_last's, float32
+    ``(B, W)``, or None for zeros), by the explicit formulas of autograd
+    through it, in its roundings: (dx, dr_pre, di_pre in x's dtype, dΛ
+    float32 ``(W,)``, dh0 float32 ``(B, W)`` or None without h0, dgate
+    in x's dtype or None without a gate).  The reverse recurrence
+    ``dh_t = g_t + a_{t+1}·dh_{t+1}`` runs as a doubling scan over the
+    reversed sequence; h is recomputed by the forward's."""
+    dt = x.dtype
+    t = _terms(x, r_pre, i_pre, lam, h0)
+    r, i, a, e2, u, mult = (t[k] for k in ("r", "i", "a", "e2", "u", "mult"))
+    h = _doubling_scan(a, t["b"])
+    dgate = None
+    if gate is not None:
+        g = (dy * gate).float()
+        dgate = dy * h.to(dt)
+    else:
+        g = dy.float()
+    # reversed time: dh'_τ = g'_τ + a'_τ·dh'_{τ−1}, a'_τ = a_{S−τ} (1 at
+    # τ = 0, where h_last's cotangent enters)
+    gr = g.flip(1)
+    if dh is not None:
+        gr = torch.cat([gr[:, :1] + dh.float()[:, None], gr[:, 1:]], 1)
+    ar = torch.cat([torch.ones_like(a[:, :1]), a.flip(1)[:, :-1]], 1)
+    dhs = _doubling_scan(ar, gr).flip(1)
+    first = h0[:, None] if h0 is not None else torch.zeros_like(h[:, :1])
+    h_prev = torch.cat([first, h[:, :-1]], 1)
+    dmi = dhs * x.float()
+    dx = (dhs * t["mi"]).to(dt)
+    di = (((dmi * mult) * (1.0 - i)) * i).to(dt)
+    dsq = (dmi * i) / (2.0 * mult)
+    du = torch.where((u >= 0.0) & (u <= 1.0), dsq, torch.zeros_like(dsq))
+    dlog_a = (dhs * h_prev) * a + 2.0 * (-du * e2)
+    dr = (((dlog_a * t["coef"]) * (1.0 - r)) * r).to(dt)
+    dlam = ((dlog_a * r).sum((0, 1)) * -C) * torch.exp(lam.float() - t["sp"])
+    dh0 = a[:, 0] * dhs[:, 0] if h0 is not None else None
+    return dx, dr, di, dlam, dh0, dgate
 
 
 def scan_bytes(B: int, S: int, W: int, itemsize: int,
@@ -129,16 +226,33 @@ def scan_bytes(B: int, S: int, W: int, itemsize: int,
             + 4 * B * W * (2 if h0 else 1))
 
 
+def scan_bwd_bytes(B: int, S: int, W: int, itemsize: int,
+                   gated: bool = True, h0: bool = False) -> int:
+    """Bytes the backward must move: x, r_pre, i_pre, dy (and the gate)
+    read once and dx, dr_pre, di_pre (and dgate) written once, the h
+    entering each tile, Λ and dΛ, and h0 and dh0 (float32)."""
+    return (B * S * W * itemsize * (9 if gated else 7)
+            + 4 * B * -(-S // SEG) * W + 8 * W
+            + (8 * B * W if h0 else 0))
+
+
 def launch_count() -> int:
     """Kernel launches through :func:`rglru_scan_cuda` since the last
     reset."""
     return _LAUNCHES
 
 
+def bwd_launch_count() -> int:
+    """Calls of :func:`rglru_scan_bwd_cuda` (each launches its three
+    kernels) since the last reset."""
+    return _BWD_LAUNCHES
+
+
 def reset_launch_count() -> None:
-    """Set the launch count of :func:`rglru_scan_cuda` to 0."""
-    global _LAUNCHES
-    _LAUNCHES = 0
+    """Set the launch counts of :func:`rglru_scan_cuda` and
+    :func:`rglru_scan_bwd_cuda` to 0."""
+    global _LAUNCHES, _BWD_LAUNCHES
+    _LAUNCHES = _BWD_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,9 +261,12 @@ def _lib() -> ctypes.CDLL:
     (once)."""
     from repro_torch.kernels import _build
     lib = _build.load("rglru_scan")
-    lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 9 + [
+    lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rglru_scan_launch.restype = ctypes.c_int
+    lib.rglru_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.rglru_scan_bwd_launch.restype = ctypes.c_int
     lib.rglru_scan_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.rglru_scan_scratch_bytes.restype = ctypes.c_longlong
     return lib
@@ -172,60 +289,132 @@ def _scratch(lib: ctypes.CDLL, B: int, S: int, W: int, dtype: int,
     return buf
 
 
+def _check(x: torch.Tensor, named, lam: torch.Tensor, floats,
+           what: str) -> None:
+    """The wrappers' checks: ``named`` (name, tensor) pairs contiguous
+    CUDA tensors of x's shape (B, S, W) and dtype, float32 or bfloat16;
+    ``lam`` and ``floats`` ((name, tensor or None, shape) triples)
+    contiguous float32 on x's device."""
+    for name, t in named:
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be a CUDA tensor")
+        if t.dim() != 3 or t.shape != x.shape or t.dtype != x.dtype \
+                or t.device != x.device:
+            raise ValueError(f"{what}: {name} is {t.dtype}"
+                             f"{tuple(t.shape)}, x is {x.dtype}"
+                             f"{tuple(x.shape)} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype {x.dtype}, expected float32 or "
+                         "bfloat16")
+    B, S, W = x.shape
+    if B < 1 or S < 1 or W < 1 or B > 65535:
+        raise ValueError(f"{what}: shape {tuple(x.shape)}")
+    for name, t, shape in (("lam", lam, (W,)), *floats):
+        if t is None:
+            continue
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"{shape} on {x.device}")
+
+
+def _shape(x) -> Tuple[int, int, int]:
+    """x's (B, S, W), or zeros when it is not a 3-d tensor (the checks
+    then say what is wrong)."""
+    if isinstance(x, torch.Tensor) and x.dim() == 3:
+        return tuple(x.shape)
+    return 0, 0, 0
+
+
 def rglru_scan_cuda(x: torch.Tensor, r_pre: torch.Tensor,
                     i_pre: torch.Tensor, lam: torch.Tensor,
                     h0: Optional[torch.Tensor] = None,
-                    gate: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    gate: Optional[torch.Tensor] = None,
+                    return_states: bool = False):
     """The CUDA kernel: same contract as :func:`rglru_scan_ref`.
 
     ``x``, ``r_pre``, ``i_pre`` (and ``gate``) are contiguous CUDA
     tensors ``(B, S, W)`` of one dtype, float32 or bfloat16; ``lam``
     float32 ``(W,)`` and ``h0`` float32 ``(B, W)`` on the same device.
-    Returns new (y, h_last).  Raises on any other input and if the
-    launch fails; there is no fallback.
+    Returns new (y, h_last), and with ``return_states`` the h entering
+    each tile as the kernel carried it.  Raises on any other input and
+    if the launch fails; there is no fallback.
     """
     global _LAUNCHES
     from repro_torch.kernels import _build
     named = [("x", x), ("r_pre", r_pre), ("i_pre", i_pre)]
     if gate is not None:
         named.append(("gate", gate))
-    for name, t in named:
-        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-            raise ValueError(f"rglru_scan_cuda: {name} must be a CUDA "
-                             "tensor")
-        if t.dim() != 3 or t.shape != x.shape or t.dtype != x.dtype \
-                or t.device != x.device:
-            raise ValueError(f"rglru_scan_cuda: {name} is {t.dtype}"
-                             f"{tuple(t.shape)}, x is {x.dtype}"
-                             f"{tuple(x.shape)} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"rglru_scan_cuda: {name} must be contiguous")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"rglru_scan_cuda: dtype {x.dtype}, expected "
-                         "float32 or bfloat16")
-    B, S, W = x.shape
-    if B < 1 or S < 1 or W < 1 or B > 65535:
-        raise ValueError(f"rglru_scan_cuda: shape {tuple(x.shape)}")
-    for name, t, shape in (("lam", lam, (W,)), ("h0", h0, (B, W))):
-        if t is None:
-            continue
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"rglru_scan_cuda: {name} must be contiguous "
-                             f"float32 {shape} on {x.device}")
+    B, S, W = _shape(x)
+    _check(x, named, lam, [("h0", h0, (B, W))], "rglru_scan_cuda")
     y = torch.empty_like(x)
     h_last = torch.empty(B, W, dtype=torch.float32, device=x.device)
+    states = (torch.empty(B, -(-S // SEG), W, dtype=torch.float32,
+                          device=x.device) if return_states else None)
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scratch = _scratch(lib, B, S, W, _DTYPES[x.dtype], x.device, stream)
     err = lib.rglru_scan_launch(
         x.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(), lam.data_ptr(),
-        ptr(h0), ptr(gate), y.data_ptr(), h_last.data_ptr(), ptr(scratch),
-        B, S, W, _DTYPES[x.dtype], x.device.index or 0, stream)
+        ptr(h0), ptr(gate), y.data_ptr(), h_last.data_ptr(), ptr(states),
+        ptr(scratch), B, S, W, _DTYPES[x.dtype], x.device.index or 0, stream)
     if err != 0:
         raise RuntimeError("rglru_scan_cuda: launch failed: "
                            + _build.error_string(lib, err))
     _LAUNCHES += 1
-    return y, h_last
+    return (y, h_last, states) if return_states else (y, h_last)
+
+
+def rglru_scan_bwd_cuda(x: torch.Tensor, r_pre: torch.Tensor,
+                        i_pre: torch.Tensor, lam: torch.Tensor,
+                        dy: torch.Tensor, states: torch.Tensor,
+                        h0: Optional[torch.Tensor] = None,
+                        gate: Optional[torch.Tensor] = None,
+                        dh: Optional[torch.Tensor] = None):
+    """The backward kernels (``kernels/csrc/rglru_scan.cu``, three
+    launches: each tile's map of the carried cotangent, the gradients,
+    dΛ's sum): same contract as :func:`rglru_scan_bwd_ref`, given the
+    ``states`` that ``rglru_scan_cuda(..., return_states=True)`` returned
+    for these inputs.
+
+    x, r_pre, i_pre, dy (and gate) are contiguous CUDA tensors ``(B, S,
+    W)`` of one dtype, float32 or bfloat16; lam ``(W,)``, h0 and dh
+    ``(B, W)`` and states ``(B, ⌈S/64⌉, W)`` contiguous float32.
+    Returns new (dx, dr_pre, di_pre, dΛ, dh0 or None, dgate or None).
+    Raises on any other input and if a launch fails; there is no
+    fallback.
+    """
+    global _BWD_LAUNCHES
+    from repro_torch.kernels import _build
+    named = [("x", x), ("r_pre", r_pre), ("i_pre", i_pre), ("dy", dy)]
+    if gate is not None:
+        named.append(("gate", gate))
+    B, S, W = _shape(x)
+    nseg = -(-S // SEG)
+    _check(x, named, lam, [("h0", h0, (B, W)), ("dh", dh, (B, W)),
+                           ("states", states, (B, nseg, W))],
+           "rglru_scan_bwd_cuda")
+    dx, dr, di = (torch.empty_like(x) for _ in range(3))
+    dgate = torch.empty_like(x) if gate is not None else None
+    dlam = torch.empty(W, dtype=torch.float32, device=x.device)
+    dh0 = (torch.empty(B, W, dtype=torch.float32, device=x.device)
+           if h0 is not None else None)
+    scratch = torch.empty(3 * B * nseg * W, dtype=torch.float32,
+                          device=x.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    lib = _lib()
+    err = lib.rglru_scan_bwd_launch(
+        x.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(), ptr(gate),
+        dy.data_ptr(), lam.data_ptr(), ptr(dh), states.data_ptr(),
+        dx.data_ptr(), dr.data_ptr(), di.data_ptr(), ptr(dgate),
+        dlam.data_ptr(), ptr(dh0), scratch.data_ptr(), B, S, W,
+        _DTYPES[x.dtype], x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rglru_scan_bwd_cuda: launch failed: "
+                           + _build.error_string(lib, err))
+    _BWD_LAUNCHES += 1
+    return dx, dr, di, dlam, dh0, dgate

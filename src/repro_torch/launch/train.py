@@ -38,18 +38,16 @@ On the CPU, at the reduced width::
 
 On the card (the default ``--device cuda``; raises without a GPU), the
 attention (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b's sliding window,
-gemma2-27b) or SSD scan (mamba2, ``--arch mamba2-780m``) and the
-RMSNorm forward and backward run as the port's CUDA
-kernels.  Weights come from the port's seeded initialisation
+gemma2-27b, recurrentgemma-2b's local layers at head dim 256), SSD scan
+(mamba2, ``--arch mamba2-780m``) or RG-LRU scan (``--arch
+recurrentgemma-2b``) and the RMSNorm forward and backward run as the
+port's CUDA kernels.  Weights come from the port's seeded initialisation
 (``--seed``), tokens from :class:`~repro_torch.data.SyntheticLM` (whose
 ``vocab²`` host table limits it to small vocabularies, as in the
 reference, which trains ``--reduced``: at full width qwen2's and
 qwen1.5's 151,936-token vocabularies would need a 92 GB table, gemma2's
 256,000 262 GB), the PSP noise from a ``torch.Generator`` seeded
-``--seed + 1``.  recurrentgemma-2b (``--arch recurrentgemma-2b``) trains
-on the CPU only: on the card its ``forward_train`` raises
-``NotImplementedError`` (its RG-LRU and hd-256 attention backward
-kernels are still queued, ROADMAP item 10f).
+``--seed + 1``.
 """
 from __future__ import annotations
 

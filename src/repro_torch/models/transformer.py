@@ -31,11 +31,9 @@ Serving entry points, forward only and without autograd:
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
 
-Training entry points, functional and differentiable (``attn`` and
-``ssd`` stacks; an ``ssd`` block's scan runs with its backward kernel;
-``rglru`` stacks on the CPU only, through the plain scan: on a card
-they raise ``NotImplementedError``, as the RG-LRU backward kernel and
-the flash backward at head dim 256 are still queued):
+Training entry points, functional and differentiable (``attn``,
+``ssd`` and ``rglru`` stacks; an ``ssd`` block's scan and an ``rglru``
+block's RG-LRU scan run with their backward kernels on the card):
 
 * :func:`forward_train` — hidden states of a **parameter tree** of
   tensors (:meth:`Model.tree` layout), so that a worker's view goes
@@ -61,7 +59,6 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.ops import RGLRU_TRAIN_TODO
 from repro_torch.models import attention, rglru, ssm
 from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
                                        mlp_apply, mlp_defs, rmsnorm,
@@ -547,9 +544,6 @@ def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
     parameter tree ``params``, differentiable (see the module
     docstring)."""
     check_supported(cfg)
-    if "rglru" in cfg.layer_kinds() and tokens.device.type == "cuda":
-        raise NotImplementedError(f"training {cfg.name} on the card: "
-                                  f"{RGLRU_TRAIN_TODO}")
     x = embed_tokens(params["embed"], tokens, cfg)
     rot = None
     if _ATTN & set(cfg.layer_kinds()):

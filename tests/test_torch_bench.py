@@ -28,6 +28,7 @@ import pytest
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from benchmarks import fig45_bounds as jfig45  # noqa: E402
 from benchmarks import figures as jfig  # noqa: E402

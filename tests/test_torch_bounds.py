@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import bounds as jb  # noqa: E402
 from repro_torch.core import bounds as tb  # noqa: E402

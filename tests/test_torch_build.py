@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import (_build, flash_attention, ops,  # noqa: E402
                                  psp_tick, rglru_scan, rmsnorm, ssd_scan)

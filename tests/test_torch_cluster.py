@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core import spmd_psp as sp  # noqa: E402
 from repro_torch.core.faults import (BUILDERS, FaultEvent,  # noqa: E402

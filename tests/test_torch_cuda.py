@@ -23,14 +23,18 @@ of 16), y and the final state at ``chip_smoke.SSD_F32`` in float32
 (the final state as in float32).  The three backward kernels (flash
 attention's, RMSNorm's, the SSD scan's): ``chip_smoke``'s phase 5
 backward grids at its tolerances (``check_flash_bwd``, ``check_rms_bwd``,
-``check_ssd_bwd``), and the bfloat16 flash
+``check_ssd_bwd``; the flash grid includes hd 256 at GQA 1 and 10 and
+its window of 2048), and the bfloat16 flash
 backward's dk/dv and dq kernels must show ``HGMMA`` (``wgmma``) in the
 built library's SASS (``chip_smoke.flash_bwd_sass``) at every head dim
-(64, 80, 128), as must the bf16 forward, at those and 256 (whose grid,
-GQA 1 and 10, is part of ``chip_smoke.flash_cases``).  The RG-LRU scan:
+(64, 80, 128, 256), as must the bf16 forward (whose hd-256 grid, GQA 1
+and 10, is part of ``chip_smoke.flash_cases``).  The RG-LRU scan:
 ``chip_smoke``'s phase 5 grid (``rglru_cases``: S × W × B × h0 × gate)
 in one dtype, y at ``check_close``'s tolerances (``RGLRU_F32`` in
-float32), h_last at ``RGLRU_F32``; two runs bit for bit alike.
+float32), h_last at ``RGLRU_F32``; two runs bit for bit alike.  Its
+backward: the same grid and the edge rows (``rglru_bwd_cases``) at
+``chip_smoke.check_rglru_bwd``'s tolerances, on the forward kernel's
+entering states.
 Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -244,7 +248,7 @@ def test_cuda_flash_attention_bwd_on_tensor_cores():
     """The bfloat16 flash backward's two tensor-core kernels
     (``chip_smoke.FLASH_BWD_TC``), and the bfloat16 forward, have
     ``HGMMA`` instructions in the SASS of the built flash library, in
-    the instantiation for each head dim (64, 80, 128)."""
+    the instantiation for each head dim (64, 80, 128, 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import _build
@@ -253,7 +257,7 @@ def test_cuda_flash_attention_bwd_on_tensor_cores():
     lib = _build._target("flash_attention")
     counts = smoke.flash_bwd_sass(lib)
     assert set(counts) == {f"{n}<{hd}>" for n in smoke.FLASH_BWD_TC
-                           for hd in smoke.FLASH_HEAD_DIMS}
+                           for hd in smoke.FLASH_FWD_HEAD_DIMS}
     fwd = smoke.hgmma_by_hd(smoke.tensor_core_sass(lib),
                             ("flash_tc_kernel",), smoke.FLASH_FWD_HEAD_DIMS)
     assert set(fwd) == {f"flash_tc_kernel<{hd}>"
@@ -287,3 +291,20 @@ def test_cuda_rglru_scan_matches_plain(dtype):
                           smoke.RGLRU_F32)
         y2, hl2 = rglru_scan_cuda(*args)
         assert torch.equal(y, y2) and torch.equal(hl, hl2), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_scan_bwd_matches_plain(dtype):
+    """The RG-LRU backward kernel over ``chip_smoke``'s phase 5 backward
+    grid in one dtype (``chip_smoke.check_rglru_bwd``: the forward
+    kernel's entering states against the plain ones, every cotangent at
+    its tolerance, the edge's non-finite entries at the same places, two
+    calls bit for bit alike)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    for i, case in enumerate(smoke.rglru_bwd_cases()):
+        if case[5] == dtype:
+            smoke.check_rglru_bwd(np, torch, case, dev, i)

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
@@ -145,15 +146,16 @@ def test_attention_ref_at_hd256_matches_tpu_kernel(case, G, dtype):
 
 
 def test_backward_kernel_refuses_hd256():
-    """hd 256 has a forward kernel and no backward one: the backward
-    wrapper refuses it by name before anything else, the forward
-    wrapper's head-dim check lets it through to its device check."""
+    """hd 256 has a forward and a backward kernel: neither wrapper
+    refuses it by its head dim, each reaches its device check, which
+    refuses CPU tensors (the name is kept from when the backward
+    wrapper refused hd 256)."""
     from repro_torch.kernels.flash_attention import (
         BWD_HEAD_DIMS, HEAD_DIMS, flash_attention_bwd_cuda)
-    assert 256 in HEAD_DIMS and 256 not in BWD_HEAD_DIMS
+    assert 256 in HEAD_DIMS and 256 in BWD_HEAD_DIMS
     q, k = torch.randn(1, 8, 10, 256), torch.randn(1, 8, 1, 256)
     o, lse = attention_ref(q, k, k, return_lse=True)
-    with pytest.raises(ValueError, match="no backward kernel"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_bwd_cuda(q, k, k, o, lse, q)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, k, k)

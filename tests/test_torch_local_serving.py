@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402

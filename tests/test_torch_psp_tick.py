@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels.psp_tick import psp_tick_ref as jax_tick  # noqa: E402
 from repro_torch.convert import (tick_inputs_to_torch, to_numpy,  # noqa: E402

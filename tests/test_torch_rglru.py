@@ -19,9 +19,11 @@ tolerance (the two packages' matrix products sum in other orders).
 ``rglru_scan_ref`` against a float64 sequential recurrence (1e-5 of max
 |h|, with and without h0, with and without the gate), and its
 gradients (through ``rglru_apply``, float32) against ``jax.vjp`` of the
-reference's block, 1e-4 of each leaf's largest entry.  On the kernel
-path (``impl="cuda"``) under autograd ``ops.rglru_scan`` raises: its
-backward kernel is still to come.
+reference's block, 1e-4 of each leaf's largest entry (through
+``ops.rglru_scan``'s ``_RGLRU`` Function: ``rglru_scan_bwd_ref``).  On
+the kernel path (``impl="cuda"``) under autograd ``ops.rglru_scan``
+reaches the kernel's checks, which refuse CPU tensors, as do the
+backward kernel's.
 
 The CUDA kernel's order of composition, rehearsed in plain PyTorch
 (``_kernel_order_scan``, test code only: it checks the soundness of the
@@ -42,6 +44,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
@@ -50,7 +53,7 @@ from repro.models.params import init_params as jinit_params  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
-    C, rglru_scan_ref, softplus)
+    C, rglru_scan_bwd_cuda, rglru_scan_ref, softplus)
 from repro_torch.models.rglru import F32_PARAMS, rglru_apply  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
@@ -189,15 +192,19 @@ def test_gradients_match_reference_vjp():
 
 
 def test_kernel_path_under_autograd_raises():
-    """``impl="cuda"`` with autograd recording raises before any launch
-    (no backward kernel yet), citing the ROADMAP item; without autograd
-    it reaches the kernel's checks, which refuse CPU tensors."""
+    """``impl="cuda"`` with autograd recording runs the ``_RGLRU``
+    Function on the kernel, whose forward reaches the kernel's checks and
+    raises there on CPU tensors, as it does without autograd: nothing
+    falls back to the plain version (the name is kept from when autograd
+    on the kernel path raised)."""
     x = torch.zeros(1, 4, 32, requires_grad=True)
     lam = torch.ones(32)
-    with pytest.raises(NotImplementedError, match="item 10f"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ops.rglru_scan(x, x, x, lam, impl="cuda")
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         ops.rglru_scan(x, x, x, lam, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rglru_scan_bwd_cuda(x, x, x, lam, x, torch.zeros(1, 1, 32))
 
 
 def _kernel_constants():

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import barrier_kernel as jbk  # noqa: E402
 from repro.core import sampling as jsm  # noqa: E402

@@ -20,6 +20,7 @@ import pytest
 
 pytest.importorskip("torch")
 pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import barriers as jbar  # noqa: E402
 from repro.core import engines as jeng  # noqa: E402

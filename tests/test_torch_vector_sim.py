@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro.core import barriers as jbar  # noqa: E402
 from repro.core import simulator as jsim  # noqa: E402
