@@ -288,8 +288,8 @@ max|plain|), bfloat16 within 2e-2·max|plain|, dΛ within 1e-4 of max
 flash grid above at GQA 1 and 10, and at its window of 2048 at S 2200)
 timed at the training shape (B 2, S 4096, 10 / 1 heads, window 2048)
 as at danube's; and ``ptxas``'s registers and spills of the RG-LRU
-backward's three kernels and the hd-256 flash backward's (none may
-spill).
+backward's two kernels (its persistent tile kernel, both paths, and
+dΛ's sum) and the hd-256 flash backward's (none may spill).
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
@@ -402,8 +402,8 @@ RGLRU_LAM_RTOL = 1e-4
 RGLRU_BWD_TIMED = (2, 4096, 2560)
 RGEMMA_TRAIN = (2, 4096)
 #: the RG-LRU backward's kernels, by name, as the traced tick sums them
-RGLRU_BWD_KERNELS = ("rglru_bwd_map_kernel", "rglru_bwd_main_kernel",
-                     "rglru_bwd_lam_kernel")
+#: (the persistent tile kernel, then dΛ's sum)
+RGLRU_BWD_KERNELS = ("rglru_bwd_kernel", "rglru_bwd_lam_kernel")
 #: phase 5's timed shapes: RMSNorm rows at d_model 896 (4 prompts of 512,
 #: then a decode step of 4), flash (B, S) at 14 heads / 2 KV heads / hd 64
 #: (the serving prefill, then a long one); the first of each goes into
@@ -2157,7 +2157,7 @@ def phase5_rgemma_bwd(np, torch, dev, card):
                   *RGEMMA_HEADS, RGEMMA_WINDOW)
 
     regs, _ = ptxas_report(_build.LOGS.get("rglru_scan", ""),
-                           r"rglru_bwd_\w+_kernel")
+                           r"rglru_bwd_(\w+_)?kernel")
     wide, loss = ptxas_report(_build.LOGS.get("flash_attention", ""),
                               rf"bwd_\w+kernelILi{FLASH_WIDE_HD}E")
     if not all(any(n in fn for fn in regs) for n in RGLRU_BWD_KERNELS):

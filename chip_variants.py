@@ -11,7 +11,12 @@ kernel, and ``BWD_ROWS``, state rows per block of its state-gradient
 scan; the RG-LRU scan's prefill block, ``PREFILL_THREADS`` threads of
 ``PREFILL_L`` steps each, a ring of ``PREFILL_SLOTS`` tiles and
 ``PREFILL_MINB`` blocks an SM, timed at recurrentgemma-2b's prefill and
-at a decode step by queued CUDA events and by the profiler).
+at a decode step by queued CUDA events and by the profiler; the RG-LRU
+backward's block, ``BWD_THREADS`` threads, ``BWD_GROUPS`` of them
+across a tile's row of 4-channel vectors, ``BWD_SLOTS`` slots and
+``BWD_MINB`` blocks an SM, under the name ``rglru_bwd``, timed at
+recurrentgemma-2b's training shape by queued events and by the profiler,
+each launch apart).
 Every variant is built with the port's own flags (one ``nvcc`` each, all
 started together, into ``build/variants/``), held to its plain version
 on a few of ``chip_smoke.py``'s phase 5 cases, and timed at the
@@ -22,11 +27,12 @@ of each kernel is the source as it stands.
 
 With ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive`` into a directory ``.gitignore`` lists), that checkout's
-RG-LRU scan is checked and timed before and after the variants, on the
-same inputs and by the same clocks, through its own wrapper and build
-(into ``DIR/build/kernels/``), in a child interpreter that imports that
-checkout's ``repro_torch``: any checkout whose ``rglru_scan_cuda`` keeps
-its contract.
+RG-LRU scan (and its backward, beside the ``rglru_bwd`` variants) is
+checked and timed before and after the variants, on the same inputs and
+by the same clocks, through its own wrapper and build (into
+``DIR/build/kernels/``), in a child interpreter that imports that
+checkout's ``repro_torch``: any checkout whose ``rglru_scan_cuda`` and
+``rglru_scan_bwd_cuda`` keep their contracts.
 
 Last, two kernels as built are timed phase by phase from copies of their
 sources in which thread 0 of each block stamps ``%globaltimer`` (and
@@ -35,18 +41,20 @@ at ``SSD_BWD_TIMED`` (the mean and the largest time per phase over the
 blocks, and the mean by chunk), and the RG-LRU scan at its prefill (the
 first block's start to the last block's end, and each block's cycles
 waiting for its tiles' loads, forming and scanning them, carrying h in
-and out, and rescanning and storing, summed over its tiles).  The
-RG-LRU scan's SASS
-instructions per element (``cuobjdump -sass``, static counts over each
-kernel, divided by the elements a thread holds a tile) are printed with
-its ``ptxas`` registers.
+and out, and rescanning and storing, summed over its tiles), and the
+RG-LRU backward at its training shape likewise (waiting for the loads,
+forming and both scans, waiting for the carry, carrying it across the
+warps, the gradients and their stores, dΛ's sums and the refill).  The
+RG-LRU kernels' SASS instructions per element (``cuobjdump -sass``,
+static counts over each kernel, divided by the elements a thread holds
+a tile) are printed with their ``ptxas`` registers.
 
 Run on a machine with one card, from the root of the checkout::
 
     python3 chip_variants.py [--parent DIR] [kernel source ...]
 
-(the sources' names, e.g. ``rglru_scan``, restrict it to their
-variants).
+(the sources' names, e.g. ``rglru_scan``, or ``rglru_bwd`` for the
+RG-LRU backward's, restrict it to their variants).
 
 It exits with code 2 without a GPU.  It needs the CUDA toolkit's
 ``nvcc``; it changes no file outside ``build/variants/`` (and, with
@@ -93,7 +101,20 @@ VARIANTS = (
                        ("L 1 (32-step tiles)", (256, 1, 2, 3)),
                        ("128 threads, L 2, six blocks an SM",
                         (128, 2, 2, 6)))),
+    ("rglru_bwd", "as built", {}),
+    *(("rglru_bwd", tag, dict(
+        (f"BWD_{k} = {v};", f"BWD_{k} = {n};")
+        for k, v, n in zip(("THREADS", "GROUPS", "SLOTS", "MINB"),
+                           (256, 8, 2, 2), new) if n != v))
+      for tag, new in (("three slots", (256, 8, 3, 2)),
+                       ("three blocks an SM", (256, 8, 2, 3)),
+                       ("512 threads (1 step a chunk), one block an SM",
+                        (512, 8, 2, 1)),
+                       ("16 channels a tile (1 step a chunk), four blocks "
+                        "an SM", (256, 4, 2, 4)))),
 )
+#: the CUDA source of each variant name that is not a source's own
+SOURCE = {"rglru_bwd": "rglru_scan"}
 #: the SSD backward's spot checks: (B, S, nh, ng, hd, N, chunk, decay,
 #: dtype), a last head tile of 2, two groups at hd 16 with N and Q not
 #: multiples of 16, and 32 chunks
@@ -105,13 +126,20 @@ SSD_CHECKS = ((2, 512, 20, 1, 64, 128, 128, "model", "bfloat16"),
 #: masked path, the prefill
 RGLRU_CHECKS = ((2, 300, 256, "float32"), (4, 1, 2560, "bfloat16"),
                 (1, 65, 100, "bfloat16"), (4, 4096, 2560, "bfloat16"))
+#: the RG-LRU backward's spot checks (``chip_smoke.rglru_bwd_cases``'
+#: form): segments cut short in float32, the masked path, the edge, the
+#: training shape
+RGLRU_BWD_CHECKS = ((2, 300, 256, True, True, "float32", False),
+                    (1, 65, 100, True, True, "bfloat16", False),
+                    (2, 300, 256, True, True, "bfloat16", True),
+                    (2, 4096, 2560, False, True, "bfloat16", False))
 
 
 def variant_source(name, subs):
     """The text of ``csrc/<name>.cu`` with each substitution made once;
     raises if a constant is not found."""
     from repro_torch.kernels import _build
-    text = (_build.CSRC / f"{name}.cu").read_text()
+    text = (_build.CSRC / f"{SOURCE.get(name, name)}.cu").read_text()
     for old, new in subs.items():
         if text.count(old) != 1:
             raise ValueError(f"{name}.cu: {old!r} found {text.count(old)} "
@@ -131,7 +159,7 @@ def build(variants):
     for i, (name, tag, subs) in enumerate(variants):
         src = out / f"{name}_{i}.cu"
         src.write_text(variant_source(name, subs))
-        verbose = not subs or name == "rglru_scan"
+        verbose = not subs or name in ("rglru_scan", "rglru_bwd")
         procs[(name, tag)] = (verbose, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS,
              *(("-Xptxas", "-v") if verbose else ()), "-o",
@@ -165,7 +193,7 @@ def backward_registers(log):
             warns.append(line.strip())
         used = re.search(r"Used (\d+) registers", line)
         if used and fn and re.search(
-                r"bwd_\w+kernel|rglru_(prefill|decode)_kernel", fn):
+                r"bwd_\w*kernel|rglru_(prefill|decode)_kernel", fn):
             rows.append((fn, int(used.group(1))))
     spills = {f: int(m.group(1)) for f, m in (
         (f, re.search(rf"Function properties for {re.escape(f)}\s+"
@@ -288,13 +316,20 @@ def ssd_phases(np, torch, cs, dev, card):
           f"{(st_[:, 30].max() - st_[:, 0].min()) / 1e3:.2f} µs", flush=True)
 
 
-#: the stamps of a stamped RG-LRU scan: thread 0 of each block writes
-#: its first and last %globaltimer, then its clock64 cycles in each phase
-#: summed over its tiles, then its tile count
+#: the stamps of a stamped RG-LRU kernel: thread 0 of each block writes
+#: its first and last %globaltimer, then its clock64 cycles in each of
+#: up to eight phases summed over its tiles, then its tile count
+#: (RGLRU_WIDTH words a block)
 RGLRU_PHASES = ("waiting for the tile's loads", "forming a, b and the "
                 "chunks' maps, the warp scan", "waiting for the entering h",
                 "carrying h across the warps", "rescan and stores, the "
                 "slot's refill")
+RGLRU_BWD_PHASES = ("waiting for the tile's loads", "forming, the chunks' "
+                    "maps and both warp scans", "waiting for the carry",
+                    "the carry across the warps, published", "rescan, "
+                    "gradients and their stores", "waiting for the block's "
+                    "gradients, the slot's refill")
+RGLRU_WIDTH = 12
 RGLRU_STAMPS = r"""
 __device__ unsigned long long g_stamps[1 << 16];
 __device__ __forceinline__ unsigned long long gtimer() {
@@ -304,20 +339,26 @@ __device__ __forceinline__ unsigned long long gtimer() {
 }
 #define STAMP_BEGIN() \
   const unsigned long long st_t0 = gtimer(); \
-  long long st_last = clock64(), st_acc[5] = {0, 0, 0, 0, 0};
+  long long st_last = clock64(), st_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #define STAMP(k) do { if (threadIdx.x == 0) { const long long st_now = \
     clock64(); st_acc[k] += st_now - st_last; st_last = st_now; } } while (0)
 #define STAMP_END(tiles) do { if (threadIdx.x == 0) { \
-    unsigned long long* st_o = g_stamps + 8 * blockIdx.x; \
+    unsigned long long* st_o = g_stamps + 12 * blockIdx.x; \
     st_o[0] = st_t0; st_o[1] = gtimer(); \
-    for (int q = 0; q < 5; ++q) st_o[2 + q] = st_acc[q]; \
-    st_o[7] = (tiles); } } while (0)
+    for (int q = 0; q < 8; ++q) st_o[2 + q] = st_acc[q]; \
+    st_o[10] = (tiles); } } while (0)
 """
 READ_STAMPS = """
 extern "C" int read_stamps(unsigned long long* out, int n) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, n * 8));
 }
+extern "C" int clear_stamps() {
+  static unsigned long long zeros[1 << 16];
+  return static_cast<int>(cudaMemcpyToSymbol(g_stamps, zeros, sizeof zeros));
+}
 """
+
+
 def build_lib(src, text, *flags):
     """Write ``text`` to ``src``, build it with the port's flags, load it
     with ``cuda_error_string`` declared (and ``read_stamps`` if it has
@@ -336,6 +377,8 @@ def build_lib(src, text, *flags):
     lib.cuda_error_string.restype = ctypes.c_char_p
     if "read_stamps" in text:
         lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if "clear_stamps" in text:
+        lib.clear_stamps.argtypes = []
     return lib, run.stdout + run.stderr
 
 
@@ -363,16 +406,20 @@ def sass_per_element(lib_path, pattern, per_thread):
 
 
 def rglru_elements(fn):
-    """Elements a thread of the RG-LRU scan kernel ``fn`` (a mangled
-    name) holds a tile: PREFILL_L steps of a 16-byte vector of channels
-    in the prefill kernel, DECODE_L steps of one channel in the decode
-    kernel."""
+    """Elements a thread of the RG-LRU kernel ``fn`` (a mangled name)
+    holds a tile: PREFILL_L steps of a 16-byte vector of channels in the
+    prefill kernel, DECODE_L steps of one channel in the decode kernel,
+    BWD_SEG · BWD_GROUPS / BWD_THREADS steps of 4 channels in the
+    backward's."""
     from repro_torch.kernels import _build
     text = (_build.CSRC / "rglru_scan.cu").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
                                        text).group(1))
     if "rglru_decode_kernel" in fn:
         return const("DECODE_L")
+    if "rglru_bwd_kernel" in fn:
+        return 4 * const("BWD_SEG") * const("BWD_GROUPS") // const(
+            "BWD_THREADS")
     return const("PREFILL_L") * (8 if "bfloat16" in fn else 4)
 
 
@@ -399,24 +446,54 @@ def rglru_phases(np, torch, cs, dev, card, lam, nxt):
         t = nxt()
         rg.rglru_scan_cuda(t[0], t[1], t[2], lam, None, t[3])
     torch.cuda.synchronize()
+    stamps_text(np, torch, cs, dev, lib, f"[rglru scan phases] B={B} S={S} "
+                f"W={W} bf16, gate fused", RGLRU_PHASES, mhz, card)
+
+
+def stamps_text(np, torch, cs, dev, lib, title, phases, mhz, card):
+    """Print a stamped RG-LRU kernel's blocks: first start to last end,
+    a block's span, and each phase's cycles a block and a tile."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    st = stamp_read(np, lib, 4 * sms, 8)
+    st = stamp_read(np, lib, 4 * sms, RGLRU_WIDTH)
     st = st[st[:, 1] > 0]  # the grid's blocks
     span = (st[:, 1].max() - st[:, 0].min()) / 1e3
     life = (st[:, 1] - st[:, 0]) / 1e3
-    starts, ends, tiles = st[:, 0], st[:, 1], st[:, 7]
-    print(f"[rglru scan phases] B={B} S={S} W={W} bf16, gate fused: "
-          f"{len(st)} blocks, tiles a block {tiles.min()}–{tiles.max()} "
-          f"({tiles.sum()} in all); first block's start to last block's end "
-          f"{span:.2f} µs; a block's span mean {life.mean():.2f}, min "
-          f"{life.min():.2f}, max {life.max():.2f} µs; starts spread over "
+    starts, ends, tiles = st[:, 0], st[:, 1], st[:, 10]
+    print(f"{title}: {len(st)} blocks, tiles a block {tiles.min()}–"
+          f"{tiles.max()} ({tiles.sum()} in all); first block's start to last "
+          f"block's end {span:.2f} µs; a block's span mean {life.mean():.2f}, "
+          f"min {life.min():.2f}, max {life.max():.2f} µs; starts spread over "
           f"{(starts.max() - starts.min()) / 1e3:.2f} µs, ends over "
           f"{(ends.max() - ends.min()) / 1e3:.2f} µs [{card}]", flush=True)
-    for k, name in enumerate(RGLRU_PHASES):
+    for k, name in enumerate(phases):
         us = st[:, 2 + k] / mhz
-        print(f"  {name:44s} mean {us.mean():8.2f} µs a block (max "
+        print(f"  {name:50s} mean {us.mean():8.2f} µs a block (max "
               f"{us.max():8.2f}), {us.sum() / tiles.sum():6.3f} µs a tile "
               f"(thread 0's clock64 at {mhz:.0f} MHz)", flush=True)
+
+
+def rglru_bwd_phases(np, torch, cs, dev, card):
+    """Build the stamped source, run the backward at the training shape
+    (RGLRU_BWD_TIMED, bf16, gated) through it and print its blocks'
+    phases."""
+    from repro_torch.kernels import _build, rglru_scan as rg
+    text = (_build.CSRC / "rglru_scan.cu").read_text()
+    lib, _ = build_lib(ROOT / "build" / "variants" / "rglru_bwd_stamped.cu",
+                       RGLRU_STAMPS + text + READ_STAMPS)
+    use(lib, "rglru_scan")
+    B, S, W = cs.RGLRU_BWD_TIMED
+    x, rp, ip, g, lam, _ = cs.rglru_inputs(torch, B, S, W, "bfloat16", dev)
+    dy = cs.rglru_inputs(torch, B, S, W, "bfloat16", dev, 1)[0]
+    st = rg.rglru_scan_cuda(x, rp, ip, lam, None, g, return_states=True)[2]
+    torch.cuda.synchronize()
+    if lib.clear_stamps():
+        raise RuntimeError("clear_stamps failed")
+    for _ in range(5):  # each call stamps the same blocks; the last stays
+        rg.rglru_scan_bwd_cuda(x, rp, ip, lam, dy, st, None, g)
+    torch.cuda.synchronize()
+    mhz = float(re.sub(r"[^0-9.]", "", cs.sm_clock()) or "nan")
+    stamps_text(np, torch, cs, dev, lib, f"[rglru backward phases] B={B} "
+                f"S={S} W={W} bf16, gated", RGLRU_BWD_PHASES, mhz, card)
 
 
 def rglru_check(np, torch, cs, dev, rg, tag):
@@ -472,24 +549,25 @@ def rglru_times(torch, cs, dev, card, rg, libs, nbytes=None):
     return nxt, lam
 
 
-def parent_times(parent):
-    """Check and time the RG-LRU scan of the checkout at ``parent`` (an
-    earlier commit, e.g. unpacked by ``git archive``) through its own
-    wrapper, built by its own ``_build`` into its own ``build/kernels/``,
-    on this checkout's inputs: in a child interpreter whose
-    ``repro_torch`` is that checkout's (:func:`scan_child`)."""
+def parent_times(parent, what="scan"):
+    """Check and time the RG-LRU scan (``what`` "scan") or its backward
+    ("bwd") of the checkout at ``parent`` (an earlier commit, e.g.
+    unpacked by ``git archive``) through its own wrapper, built by its own
+    ``_build`` into its own ``build/kernels/``, on this checkout's
+    inputs: in a child interpreter whose ``repro_torch`` is that
+    checkout's (:func:`scan_child`)."""
     sys.stdout.flush()
     src = Path(parent).resolve() / "src"
     run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--scan-child", str(src)], cwd=ROOT)
+                          "--scan-child", str(src), what], cwd=ROOT)
     if run.returncode:
-        raise RuntimeError(f"the parent's RG-LRU scan failed (rc "
+        raise RuntimeError(f"the parent's RG-LRU {what} failed (rc "
                            f"{run.returncode})")
 
 
-def scan_child(src):
+def scan_child(src, what):
     """The child of :func:`parent_times`: ``repro_torch`` from ``src``,
-    its RG-LRU scan held to its plain version and timed."""
+    its RG-LRU scan or backward held to its plain version and timed."""
     sys.path.insert(0, src)
     import numpy as np
     import torch
@@ -498,9 +576,83 @@ def scan_child(src):
     if Path(src).resolve() not in Path(rg.__file__).resolve().parents:
         raise RuntimeError(f"repro_torch came from {rg.__file__}, not {src}")
     dev = torch.device("cuda", 0)
+    if what == "bwd":
+        rglru_bwd_check(np, torch, cs, dev, "the parent's kernels")
+        rglru_bwd_times(torch, cs, dev, cs.smi(), rg,
+                        {"the parent's kernels": None})
+        return 0
     rglru_check(np, torch, cs, dev, rg, "the parent's kernel")
     rglru_times(torch, cs, dev, cs.smi(), rg, {"the parent's kernel": None})
     return 0
+
+
+def rglru_bwd_check(np, torch, cs, dev, tag):
+    """Hold the RG-LRU backward (with the library its wrapper has) to its
+    plain version on RGLRU_BWD_CHECKS (``chip_smoke.check_rglru_bwd``)."""
+    for i, case in enumerate(RGLRU_BWD_CHECKS):
+        try:
+            cs.check_rglru_bwd(np, torch, case, dev, i)
+        except AssertionError as e:
+            raise AssertionError(f"{tag}: {e}") from e
+
+
+def rglru_bwd_times(torch, cs, dev, card, rg, libs, nbytes=None):
+    """Time ``rg.rglru_scan_bwd_cuda`` with each library of ``libs`` (tag
+    → CDLL, or None: the one the wrapper builds itself) at
+    recurrentgemma-2b's training shape (RGLRU_BWD_TIMED, bf16, gated,
+    h_last unused) by queued CUDA events and by the profiler, each
+    launch apart, beside the bound of ``nbytes`` if given."""
+    B, S, W = cs.RGLRU_BWD_TIMED
+    x, rp, ip, g, lam, _ = cs.rglru_inputs(torch, B, S, W, "bfloat16", dev)
+    dy = cs.rglru_inputs(torch, B, S, W, "bfloat16", dev, 1)[0]
+    st = rg.rglru_scan_cuda(x, rp, ip, lam, None, g, return_states=True)[2]
+    nxt, n_sets = cs.rotating((x, rp, ip, g, dy, st))
+
+    def bwd(lib):
+        def f():
+            if lib is not None:
+                use(lib, "rglru_scan")
+            t = nxt()
+            return rg.rglru_scan_bwd_cuda(t[0], t[1], t[2], lam, t[4], t[5],
+                                          None, t[3])
+        return f
+    fns = {tag: (bwd(lib), 20) for tag, lib in libs.items()}
+    ms, clocks = cs.event_rounds(torch, fns, queued=True)
+    print(f"[rglru backward B={B} S={S} W={W} bf16, gated (no library call "
+          "computes it)] " + cs.rounds_text(ms) + f"; SM clock {clocks}; "
+          f"inputs rotated over {n_sets} copies [{card}]", flush=True)
+    if nbytes is not None:
+        print("  bound " + f"{1e3 * nbytes / cs.HBM_BPS:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB); " + ", ".join(
+                  f"{tag} {nbytes / v[0] / 1e6:.1f} GB/s"
+                  for tag, v in ms.items()), flush=True)
+    for tag, (fn, n) in fns.items():
+        split = cs.profile_device(torch, fn, n)
+        print(f"  {tag} by the profiler: " + ", ".join(
+            f"{kernel_name(k)} {v:.5f}" for k, v in split.items()
+            if "rglru" in k), flush=True)
+
+
+def rglru_bwd_section(np, torch, cs, dev, card, libs, parent):
+    """The RG-LRU backward's variants timed at the training shape (the
+    parent's kernels before and after them, if given), their SASS per
+    element, then the stamped phases of the source as it stands."""
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, W = cs.RGLRU_BWD_TIMED
+    if parent is not None:
+        parent_times(parent, "bwd")
+    rglru_bwd_times(torch, cs, dev, card, rg,
+                    {tag: lib for (name, tag), lib in libs.items()
+                     if name == "rglru_bwd"},
+                    rg.scan_bwd_bytes(B, S, W, 2, gated=True))
+    if parent is not None:
+        parent_times(parent, "bwd")
+    path = Path(libs[("rglru_bwd", "as built")]._name)
+    for fn, n, mufu, per in sass_per_element(path, r"rglru_bwd_kernel",
+                                             rglru_elements):
+        print(f"[rglru bwd sass] {path.stem}: …{fn[-56:]} {n} instructions "
+              f"({mufu} MUFU), {per:.1f} per element", flush=True)
+    rglru_bwd_phases(np, torch, cs, dev, card)
 
 
 def rglru_section(np, torch, cs, dev, card, libs, parent):
@@ -539,6 +691,7 @@ def use(lib, name):
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn
     from repro_torch.kernels import rglru_scan as rg, ssd_scan as ss
+    name = SOURCE.get(name, name)
     mod = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss,
            "rglru_scan": rg}[name]
     _build._LIBS[name] = lib
@@ -549,7 +702,7 @@ def use(lib, name):
 def main() -> int:
     """Build, check and time every variant; 0 on success."""
     if sys.argv[1:2] == ["--scan-child"]:
-        return scan_child(sys.argv[2])
+        return scan_child(sys.argv[2], sys.argv[3])
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -574,8 +727,10 @@ def main() -> int:
     for name, log in reports.items():
         rows, warns = backward_registers(log)
         for fn, regs, spill in rows:
-            if " " in name and "rglru_prefill_kernel" not in fn:
-                continue  # of a variant, its prefill kernels only
+            if " " in name and not re.search(
+                    "rglru_bwd_kernel" if name.startswith("rglru_bwd")
+                    else "rglru_prefill_kernel", fn):
+                continue  # of a variant, the kernels it changes
             print(f"[ptxas] {name}: {fn[-72:]} {regs} registers, {spill} "
                   "bytes spilled", flush=True)
         print(f"[ptxas] {name}: {len(warns)} 'Potential Performance Loss' "
@@ -594,6 +749,8 @@ def main() -> int:
                 cs.check_ssd_bwd(np, torch, case, dev, i)
         elif name == "rglru_scan":
             rglru_check(np, torch, cs, dev, rg, tag)
+        elif name == "rglru_bwd":
+            rglru_bwd_check(np, torch, cs, dev, tag)
         else:
             for rows, D, dt in ((1024, 896, "bfloat16"),
                                 (4099, 3072, "bfloat16"),
@@ -679,6 +836,8 @@ def main() -> int:
         ssd_phases(np, torch, cs, dev, card)
     if "rglru_scan" in names:
         rglru_section(np, torch, cs, dev, card, libs, parent)
+    if "rglru_bwd" in names:
+        rglru_bwd_section(np, torch, cs, dev, card, libs, parent)
     return 0
 
 

@@ -83,6 +83,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 // Per-phase block times: no-ops here; chip_variants.py builds a copy of
 // this source that defines them to stamp each phase of each block.
 #ifndef STAMP_BEGIN
@@ -223,14 +225,14 @@ __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
                     __float_as_uint(f[2]), __float_as_uint(f[3]));
 }
+// two floats as bf16, the first in the low half
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
 __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  unsigned w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-    w[j] = *reinterpret_cast<const unsigned*>(&p);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                    pack2(f[6], f[7]));
 }
 
 // ---- PTX helpers -------------------------------------------------------- //
@@ -658,38 +660,94 @@ __global__ void __launch_bounds__(32) rglru_decode_kernel(const Args<T> a) {
 //   dh0 = a_0 * dh_0
 //
 // (where exp(2 log_a) rounds to 1, mult is 0 and du is +-inf or NaN, as
-// autograd's sqrt gives).  Three launches, no atomics (two calls give the
-// same bits), over tiles of BWD_SEG steps (the forward's tiles) x
-// BWD_THREADS channels of one batch row, a thread one channel:
-// * bwd_map_kernel: each tile's map of the carry c = a_{t1} * dh_{t1}
-//   entering its last step (t1 = the next tile's first step; dh_last for
-//   the last tile) to the carry it hands the tile before, c' = a_{t0} *
-//   dh_{t0} = A c + P: A = the product of the tile's a, P = a_{t0} * the
-//   dh_{t0} of c = 0.  It reads r_pre, dy and the gate;
-// * bwd_main_kernel: the carry entering the tile, composed from dh_last
-//   through the maps of the later tiles in order; h over the tile,
-//   recomputed from the h the training forward saved as it entered the
-//   tile (no h is stored), kept in shared memory; then the tile's steps
-//   from last to first: every gradient above, and the tile's sum of
-//   dlog_a * r for dlambda (a partial per tile);
-// * bwd_lam_kernel: dlambda from the partials, summed over the batch rows
-//   and tiles in order.
-// Each thread loads BWD_K steps of its inputs into registers before it
-// uses any: a loop whose loads sit after the previous step's stores
-// (which they might alias) issued them one step at a time: 1.6× slower
-// at the training shape (chip_smoke.phase5_rgemma_bwd; PERF.md).
+// autograd's sqrt gives).  The carry c_t = a_{t+1} * dh_{t+1} entering
+// step t (dh_last at S - 1) leaves it as c_{t-1} = a_t * (g_t + c_t): an
+// affine map, so the forward's design runs here in reverse:
+// * a tile is BWD_SEG steps (the forward's tiles, whose entering h the
+//   training forward writes: h_enter) of CT = 4 * BWD_GROUPS channels of
+//   one batch row; tiles are numbered segment by segment, the LAST
+//   segment first, and persistent blocks (BWD_MINB an SM in bf16, one in
+//   float32) take them in that order from an atomic ticket, bringing x,
+//   r_pre, i_pre, dy and the gate into a ring of BWD_SLOTS slots by TMA
+//   (one box each, completing on the slot's mbarrier; steps past S and
+//   channels past W read as zeros).  Each input is read from device
+//   memory once;
+// * a thread owns 4 channels over L consecutive steps (a chunk): it
+//   forms r, i, a, e2 = exp(2 log_a), mult and b once, keeps a and e2 in
+//   registers and r, mult and i in the block's stash in shared memory
+//   until the gradients, and composes its chunk's map of h forward (h ->
+//   A h + H) and of the carry backward (c -> A_c c + P_c; steps past S
+//   the identity, which the zero fill would not be);
+// * the warp's chunks of the same channels compose both by shuffle
+//   scans (h: earlier chunks first; the carry: later chunks first); CT
+//   threads, one channel each, carry h across the warps in order from
+//   h_enter, and beside them CT others the carry across them in reverse
+//   from the carry that enters the tile: dh_last (or 0) in the last
+//   segment, else the word that the next segment's tile published; they
+//   publish the carry leaving the tile (dh0 in the first segment) in one
+//   tagged 64-bit word a channel before any gradient is formed.  A tile
+//   waits only on a smaller ticket, whose block is resident, so the
+//   chain cannot deadlock (as the forward's);
+// * each thread then rescans h over its chunk from the h entering it,
+//   walks its steps from last to first from the carry entering its last
+//   step, and writes dx, dr_pre, di_pre and dgate, 4 channels a store;
+//   the tile's sums of dlog_a * r go, by shuffles and the warps in order,
+//   to one partial a channel and tile, which rglru_bwd_lam_kernel sums
+//   over the batch rows and tiles in order.  No atomics touch a value:
+//   two calls agree bit for bit.
+// The ticket, finished-block count, tag, the tiles' carry words and the
+// partials live in a scratch buffer of the backward's own (the forward's
+// counters are in another), kept per device and stream and zeroed when
+// made; the last block resets the counts and advances the tag.  Rows not
+// of 16-byte multiples and unaligned tensors take the same kernel, each
+// thread gathering its bytes into the slot by predicated loads.
 // Bound on the H100: bytes, 18 an element in bf16 (x, r_pre, i_pre, gate,
 // dy read, dx, dr_pre, di_pre, dgate written), 0.113 ms at the training
-// shape (B 2, S 4096, W 2560) at 3.35 TB/s; as built it also reads r_pre,
-// dy and the gate in the first launch and forms a and b twice (once for
-// h, once for the gradients), ~220 instructions an element.  The design
-// is the simple one: no chain between blocks, so no tile waits on
-// another, at the price of those second reads and formings.
-constexpr int BWD_THREADS = 128;
-// steps whose inputs a thread loads in one batch before it uses any: a
-// loop's loads behind a runtime trip count (or after its stores, which
-// they may alias) would otherwise issue one step at a time
-constexpr int BWD_K = 8;
+// shape (B 2, S 4096, W 2560) at 3.35 TB/s; the forming of each element
+// (two sigmoids and a division, two expf, a sqrt) costs about as much
+// issue, so the loads of the next tiles stay in flight while a block
+// forms and walks this one.  Of the shapes timed on the card
+// (chip_variants.py), two blocks of 256 threads an SM ran fastest; a
+// thread's 16 elements of the forward's 128-byte rows needed ~200
+// registers and spilled at two blocks, three blocks an SM spilled at 80,
+// and 512 threads at one block an SM, three slots, or 16-channel tiles
+// at four blocks an SM were slower.
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_GROUPS = 8;  // threads across a tile's row, 4 channels each
+constexpr int BWD_SLOTS = 2;
+// blocks an SM in bf16 (the register cap: 128 a thread); float32, whose
+// 16-byte vectors need more, one
+constexpr int BWD_MINB = 2;
+// the dΛ sum's block: LAM_ROWS groups of tiles by 32 channels
+constexpr int LAM_ROWS = 8;
+
+template <typename T>
+struct BwdTile {
+  static constexpr int VEC = 4;                   // channels a thread
+  static constexpr int TB = VEC * sizeof(T);      // its bytes of a row
+  static constexpr int CT = BWD_GROUPS * VEC;     // channels a tile
+  static constexpr int ROW = CT * sizeof(T);      // a row's bytes
+  static constexpr int NT = BWD_THREADS;
+  static constexpr int NWARP = NT / 32;
+  static constexpr int CPW = 32 / BWD_GROUPS;     // chunks a warp
+  static constexpr int NCH = NT / BWD_GROUPS;     // chunks a tile
+  static constexpr int L = BWD_SEG / NCH;         // steps a chunk
+  static constexpr int NS = BWD_SLOTS;
+  static constexpr int ARR = BWD_SEG * ROW;       // one input's tile
+  static constexpr int KEEP = BWD_SEG * CT;       // one kept value's floats
+  static constexpr int MINB = sizeof(T) == 2 ? BWD_MINB : 1;
+  static_assert(NT % 32 == 0 && NCH * L == BWD_SEG && NS >= 2 &&
+                    2 * CT <= NT && 32 % BWD_GROUPS == 0,
+                "backward tile shape");
+  // dynamic shared memory: alignment slack, the slots, the tile's kept r,
+  // mult and i, seven per-warp rows (the maps of h and of the carry, the
+  // h and the carry entering each warp, the warps' dΛ sums), the slots'
+  // coefficients, their mbarriers and tickets, the call's tag
+  static constexpr int smem(int narr) {
+    return 128 + NS * narr * ARR + 4 * 3 * KEEP +
+           4 * (7 * NWARP + NS) * CT + 8 * NS + 4 * NS + 4;
+  }
+};
 
 template <typename T>
 struct BwdArgs {
@@ -707,166 +765,462 @@ struct BwdArgs {
   T* dgate;              // or null (no gate)
   float* dlam;
   float* dh0;            // (B, W) or null (no h0)
-  float* map_a;          // (B, nseg, W) scratch: each tile's map
-  float* map_p;
-  float* part;           // (B, nseg, W) scratch: dlambda's partials
-  int B, S, W, nseg;
+  unsigned* ctl;         // ticket, finished blocks, the last call's tag
+  unsigned long long* carry;  // (column, segment, CT) carry leaving a tile
+  float* part;           // (B, nseg, W) dΛ's partial of each tile
+  int B, S, W;
 };
 
-template <typename T, bool GATE>
-__device__ __forceinline__ float cotangent(const BwdArgs<T>& a, long long o) {
-  if constexpr (GATE)
-    return to_f(from_f<T>(to_f(a.dy[o]) * to_f(a.gate[o])));
-  else
-    return to_f(a.dy[o]);
-}
+// the inputs' tensor maps (TMA path): x, r_pre, i_pre, dy, gate
+struct BwdMaps {
+  CUtensorMap m[5];
+};
 
-template <typename T, bool GATE>
-__global__ void __launch_bounds__(BWD_THREADS)
-    rglru_bwd_map_kernel(const BwdArgs<T> a) {
-  const int w = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (w >= a.W) return;
-  const int seg = blockIdx.y, b = blockIdx.z;
-  const int t0 = seg * BWD_SEG, t1 = min(a.S, t0 + BWD_SEG);
-  const long long row = static_cast<long long>(b) * a.S;
-  const float coef = -8.f * softplus(a.lam[w]);
-  float P = 0.f, an = 0.f, A = 1.f;
-  for (int tb = t1 - 1; tb >= t0; tb -= BWD_K) {  // steps tb, tb - 1, ...
-    float rv[BWD_K], gv[BWD_K];
+// Warp 0 readies slot s for ticket tk (the backward's fill).
+template <typename T, bool GATE, bool TMA>
+__device__ __forceinline__ void bwd_fill(const BwdArgs<T>& a,
+                                         const BwdMaps& maps,
+                                         unsigned char* raw, float* sCoef,
+                                         uint64_t* mbar, int s, int tk,
+                                         int ntiles, int ncols, int nct,
+                                         int nseg, int lane) {
+  using C = BwdTile<T>;
+  constexpr int NARR = GATE ? 5 : 4;
+  if (tk >= ntiles) return;
+  const int q = tk / ncols, seg = nseg - 1 - q, col = tk - q * ncols;
+  const int b = col / nct, c0 = (col - b * nct) * C::CT;
+  if constexpr (TMA) {
+    if (lane == 0) {
+      mbar_expect_tx(&mbar[s], NARR * C::ARR);
 #pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {  // one batch of loads
-      const bool in = tb - k >= t0;
-      const long long o = (row + tb - k) * a.W + w;
-      rv[k] = in ? to_f(a.r[o]) : 0.f;
-      gv[k] = in ? cotangent<T, GATE>(a, o) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {
-      if (tb - k < t0) break;
-      const float at = expf(coef * sigmoid(rv[k]));
-      P = gv[k] + an * P;
-      an = at;
-      A = A * at;
+      for (int k = 0; k < NARR; ++k)
+        tma_load_3d(raw + (s * NARR + k) * C::ARR, &maps.m[k], &mbar[s], c0,
+                    seg * BWD_SEG, b);
     }
   }
-  const long long m = (static_cast<long long>(b) * a.nseg + seg) * a.W + w;
-  a.map_a[m] = A;
-  a.map_p[m] = an * P;
+  for (int ch = lane; ch < C::CT; ch += 32)
+    sCoef[s * C::CT + ch] =
+        c0 + ch < a.W ? -8.f * softplus(a.lam[c0 + ch]) : 0.f;
 }
 
-template <typename T, bool GATE>
-__global__ void __launch_bounds__(BWD_THREADS)
-    rglru_bwd_main_kernel(const BwdArgs<T> a) {
-  __shared__ float hs[BWD_SEG][BWD_THREADS];  // h_{t-1} of each step
-  const int tid = threadIdx.x, w = blockIdx.x * BWD_THREADS + tid;
-  if (w >= a.W) return;
-  const int seg = blockIdx.y, b = blockIdx.z;
-  const int t0 = seg * BWD_SEG, t1 = min(a.S, t0 + BWD_SEG);
-  const long long W = a.W, row = static_cast<long long>(b) * a.S;
-  const long long col = static_cast<long long>(b) * a.nseg;
-  // the carry entering the tile's last step: dh_last through the maps of
-  // the later tiles, the last first
-  float c = a.dh_last != nullptr ? a.dh_last[b * W + w] : 0.f;
-#pragma unroll 4
-  for (int s = a.nseg - 1; s > seg; --s)
-    c = a.map_a[(col + s) * W + w] * c + a.map_p[(col + s) * W + w];
-  const float coef = -8.f * softplus(a.lam[w]);
-  // h over the tile from the h entering it, BWD_K steps a batch of loads
-  float h = a.h_enter[(col + seg) * W + w];
-  for (int tb = t0; tb < t1; tb += BWD_K) {
-    float xv[BWD_K], rv[BWD_K], iv[BWD_K];
-#pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {
-      const bool in = tb + k < t1;
-      const long long o = (row + tb + k) * W + w;
-      xv[k] = in ? to_f(a.x[o]) : 0.f;
-      rv[k] = in ? to_f(a.r[o]) : 0.f;
-      iv[k] = in ? to_f(a.i[o]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {
-      if (tb + k >= t1) break;
-      hs[tb + k - t0][tid] = h;
-      float at, bt;
-      form(xv[k], rv[k], iv[k], coef, at, bt);
-      h = at * h + bt;
-    }
-  }
-  // the tile's steps from last to first, each batch's loads before its
-  // stores (which the compiler may not move them past)
-  float lam_acc = 0.f;
-  for (int tb = t1 - 1; tb >= t0; tb -= BWD_K) {
-    float xv[BWD_K], rv[BWD_K], iv[BWD_K], dyv[BWD_K], gtv[BWD_K];
-#pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {
-      const bool in = tb - k >= t0;
-      const long long o = (row + tb - k) * W + w;
-      xv[k] = in ? to_f(a.x[o]) : 0.f;
-      rv[k] = in ? to_f(a.r[o]) : 0.f;
-      iv[k] = in ? to_f(a.i[o]) : 0.f;
-      dyv[k] = in ? to_f(a.dy[o]) : 0.f;
-      if constexpr (GATE) gtv[k] = in ? to_f(a.gate[o]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < BWD_K; ++k) {
-      const int t = tb - k;
-      if (t < t0) break;
-      const long long o = (row + t) * W + w;
-      const float hp = hs[t - t0][tid];  // h_{t-1}; h is h_t
-      const float r = sigmoid(rv[k]), i = sigmoid(iv[k]);
-      const float log_a = coef * r;
-      const float at = expf(log_a);
-      const float e2 = expf(2.f * log_a);
-      const float u = 1.f - e2;
-      const float mult = sqrtf(fminf(fmaxf(u, 0.f), 1.f));
-      const float mi = mult * i;
-      float g;
-      if constexpr (GATE) {
-        g = to_f(from_f<T>(dyv[k] * gtv[k]));
-        a.dgate[o] = from_f<T>(dyv[k] * to_f(from_f<T>(h)));
-      } else {
-        g = dyv[k];
-      }
-      const float dh = g + c;
-      const float dmi = dh * xv[k];
-      a.dx[o] = from_f<T>(dh * mi);
-      a.di[o] = from_f<T>(((dmi * mult) * (1.f - i)) * i);
-      const float dsq = (dmi * i) / (2.f * mult);
-      const float du = u >= 0.f && u <= 1.f ? dsq : 0.f;
-      const float dlog_a = (dh * hp) * at + 2.f * (-du * e2);
-      a.dr[o] = from_f<T>(((dlog_a * coef) * (1.f - r)) * r);
-      lam_acc += dlog_a * r;
-      c = at * dh;
-      h = hp;
-    }
-  }
-  if (seg == 0 && a.dh0 != nullptr) a.dh0[b * W + w] = c;
-  a.part[(col + seg) * W + w] = lam_acc;
+// 4 floats from or to shared memory (16-byte aligned)
+__device__ __forceinline__ void load_f(const float* p, float (&f)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  f[0] = q.x, f[1] = q.y, f[2] = q.z, f[3] = q.w;
+}
+__device__ __forceinline__ void store_f(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
+// 4 channels of T at p (8 bytes of bf16, 16 of float) as floats, and
+// 4 floats stored at p as T
 template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-    rglru_bwd_lam_kernel(const BwdArgs<T> a) {
-  const int w = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (w >= a.W) return;
-  const long long n = static_cast<long long>(a.B) * a.nseg;
-  float s = 0.f;
-  for (long long k = 0; k < n; ++k) s += a.part[k * a.W + w];
-  const float lam = a.lam[w];
-  a.dlam[w] = (s * -8.f) * expf(lam - softplus(lam));
+__device__ __forceinline__ void ld4(const void* p, float (&f)[4]);
+template <>
+__device__ __forceinline__ void ld4<float>(const void* p, float (&f)[4]) {
+  unpack(*reinterpret_cast<const uint4*>(p), f);
+}
+template <>
+__device__ __forceinline__ void ld4<__nv_bfloat16>(const void* p,
+                                                   float (&f)[4]) {
+  unpack4<__nv_bfloat16>(static_cast<const unsigned char*>(p), 0, f);
+}
+template <typename T>
+__device__ __forceinline__ void st4(T* p, const float (&f)[4]);
+template <>
+__device__ __forceinline__ void st4<float>(float* p, const float (&f)[4]) {
+  *reinterpret_cast<uint4*>(p) = pack(f);
+}
+template <>
+__device__ __forceinline__ void st4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                   const float (&f)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack2(f[0], f[1]), pack2(f[2], f[3]));
 }
 
+// g = f32(cast(dy * gate)) under a gate, else dy
 template <typename T, bool GATE>
-cudaError_t launch_bwd(const BwdArgs<T>& a, cudaStream_t s) {
-  const dim3 grid((a.W + BWD_THREADS - 1) / BWD_THREADS, a.nseg, a.B);
-  rglru_bwd_map_kernel<T, GATE><<<grid, BWD_THREADS, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  rglru_bwd_main_kernel<T, GATE><<<grid, BWD_THREADS, 0, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  rglru_bwd_lam_kernel<T>
-      <<<(a.W + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, s>>>(a);
-  return cudaGetLastError();
+__device__ __forceinline__ float cotangent(float dy, float gate) {
+  return GATE ? to_f(from_f<T>(dy * gate)) : dy;
+}
+
+template <typename T, bool GATE, bool TMA>
+__global__ void __launch_bounds__(BWD_THREADS,
+                                  TMA ? BwdTile<T>::MINB : 1)
+    rglru_bwd_kernel(const __grid_constant__ BwdMaps maps,
+                     const BwdArgs<T> a) {
+  using C = BwdTile<T>;
+  constexpr int NARR = GATE ? 5 : 4, L = C::L, CT = C::CT, ROW = C::ROW;
+  constexpr int NWARP = C::NWARP, CPW = C::CPW, ARR = C::ARR;
+  constexpr int G = BWD_GROUPS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* raw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  float* sKeep = reinterpret_cast<float*>(raw + C::NS * NARR * ARR);
+  float* sWA = sKeep + 3 * C::KEEP;  // each warp's map of h
+  float* sWH = sWA + NWARP * CT;
+  float* sCA = sWH + NWARP * CT;   // each warp's map of the carry
+  float* sCP = sCA + NWARP * CT;
+  float* sHw = sCP + NWARP * CT;   // the h entering each warp
+  float* sCw = sHw + NWARP * CT;   // the carry entering its last step
+  float* sLam = sCw + NWARP * CT;  // each warp's sums of dlog_a * r
+  float* sCoef = sLam + NWARP * CT;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(sCoef + C::NS * CT);
+  int* sTk = reinterpret_cast<int*>(mbar + C::NS);
+  unsigned& sTag = *reinterpret_cast<unsigned*>(sTk + C::NS);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane % G, cw = lane / G, chunk = tid / G;
+  const int S = a.S, W = a.W;
+  const int nct = (W + CT - 1) / CT, ncols = a.B * nct;
+  const int nseg = (S + BWD_SEG - 1) / BWD_SEG, ntiles = ncols * nseg;
+  // this thread's kept r, mult and i of its first step (+ CT a step)
+  float* const keep_r = sKeep + chunk * L * CT + 4 * g;
+  float* const keep_m = keep_r + C::KEEP;
+  float* const keep_i = keep_m + C::KEEP;
+
+  STAMP_BEGIN();
+  if (tid == 0) {
+    for (int s = 0; s < C::NS; ++s) mbar_init(&mbar[s], 1);
+    mbar_fence_init();
+    sTag = ld_relaxed(&a.ctl[2]) + 1;
+    for (int s = 0; s < C::NS; ++s)
+      sTk[s] = static_cast<int>(atomicAdd(&a.ctl[0], 1u));
+  }
+  __syncthreads();
+  const unsigned tag = sTag;
+  if (warp == 0)
+    for (int s = 0; s < C::NS; ++s)
+      bwd_fill<T, GATE, TMA>(a, maps, raw, sCoef, mbar, s, sTk[s], ntiles,
+                             ncols, nct, nseg, lane);
+  __syncthreads();
+
+  int tiles = 0;
+  for (int n = 0;; ++n) {
+    const int s = n % C::NS, tk = sTk[s];
+    if (tk >= ntiles) break;  // the block's later tickets are larger
+    ++tiles;
+    const int q = tk / ncols, seg = nseg - 1 - q, col = tk - q * ncols;
+    const int b = col / nct, c0 = (col - b * nct) * CT;
+    const int tc = seg * BWD_SEG + chunk * L;  // the chunk's first step
+    const int cv = c0 + 4 * g;                 // this thread's first channel
+    // this thread's bytes of its first step of x in the slot (step k of
+    // input j: + k rows, + j inputs)
+    unsigned char* const mine =
+        raw + (s * NARR) * ARR + chunk * L * ROW + C::TB * g;
+    float coef[4];
+    load_f(sCoef + s * CT + 4 * g, coef);
+    if constexpr (TMA) {
+      mbar_wait(&mbar[s], (n / C::NS) & 1);
+    } else {  // each thread gathers its own bytes
+#pragma unroll 1
+      for (int kj = 0; kj < L * NARR; ++kj) {  // step k of input j
+        const int k = kj / NARR, j = kj - k * NARR;
+        const T* src = j == 0   ? a.x
+                       : j == 1 ? a.r
+                       : j == 2 ? a.i
+                       : j == 3 ? a.dy
+                                : a.gate;
+        const long long o = (static_cast<long long>(b) * S + tc + k) * W + cv;
+        T* dst = reinterpret_cast<T*>(mine + j * ARR + k * ROW);
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          dst[v] = tc + k < S && cv + v < W ? src[o + v] : from_f<T>(0.f);
+      }
+    }
+    STAMP(0);
+
+    // form each element once: a and e2 kept in registers, r, mult and i
+    // in the block's stash; the chunk's map of h, forward
+    float av[L][4], ev[L][4], A[4], H[4];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const unsigned char* p = mine + k * ROW;
+      float xs[4], rs[4], is[4], ms[4];
+      ld4<T>(p, xs);
+      ld4<T>(p + ARR, rs);
+      ld4<T>(p + 2 * ARR, is);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float r = sigmoid(rs[v]), i = sigmoid(is[v]);
+        const float log_a = coef[v] * r;
+        const float at = expf(log_a);
+        const float e2 = expf(2.f * log_a);
+        const float mult = sqrtf(fminf(fmaxf(1.f - e2, 0.f), 1.f));
+        const float bt = (mult * i) * xs[v];
+        av[k][v] = at, ev[k][v] = e2;
+        rs[v] = r, ms[v] = mult, is[v] = i;
+        if (k == 0) {
+          A[v] = at;
+          H[v] = bt;
+        } else {
+          H[v] = at * H[v] + bt;
+          A[v] = A[v] * at;
+        }
+      }
+      store_f(keep_r + k * CT, rs);
+      store_f(keep_m + k * CT, ms);
+      store_f(keep_i + k * CT, is);
+    }
+    // the chunk's map of the carry, from its last step to its first
+    // (steps past S: the identity)
+    float Ac[4], Pc[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) Ac[v] = 1.f, Pc[v] = 0.f;
+#pragma unroll
+    for (int k = L - 1; k >= 0; --k) {
+      const unsigned char* p = mine + k * ROW;
+      float dys[4], gts[4] = {};
+      ld4<T>(p + 3 * ARR, dys);
+      if constexpr (GATE) ld4<T>(p + 4 * ARR, gts);
+      const bool in = tc + k < S;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float gv = cotangent<T, GATE>(dys[v], gts[v]);
+        const float P = av[k][v] * (gv + Pc[v]);
+        const float Am = av[k][v] * Ac[v];
+        Pc[v] = in ? P : Pc[v];
+        Ac[v] = in ? Am : Ac[v];
+      }
+    }
+    // the ticket that refills this slot; the carriers' (one channel a
+    // thread: the carry's the first CT threads, h's the next CT) carry
+    // and h entering the tile, asked for now: their latency runs under
+    // the scans
+    unsigned next = 0;
+    if (tid == 0) next = atomicAdd(&a.ctl[0], 1u);
+    const bool last = seg + 1 == nseg;
+    const unsigned long long* later =  // the next segment's tile's words
+        a.carry +
+        (static_cast<long long>(col) * nseg + (last ? seg : seg + 1)) * CT;
+    const int ch = tid < CT ? tid : tid - CT;  // a carrier's channel
+    unsigned long long word = 0;
+    float h_in = 0.f, c_in = 0.f;
+    if (tid < CT) {
+      if (!last) word = ld_relaxed(later + tid);
+      if (last && a.dh_last != nullptr && c0 + tid < W)
+        c_in = a.dh_last[static_cast<long long>(b) * W + c0 + tid];
+    } else if (tid < 2 * CT && c0 + ch < W) {
+      h_in = a.h_enter[(static_cast<long long>(b) * nseg + seg) * W + c0 + ch];
+    }
+    // the warp's chunks of these channels (lanes G apart) compose their
+    // maps: h's earlier ones first, the carry's later ones first
+#pragma unroll
+    for (int off = G; off < 32; off *= 2) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float Ap = __shfl_up_sync(0xffffffffu, A[v], off);
+        const float Hp = __shfl_up_sync(0xffffffffu, H[v], off);
+        const float An = __shfl_down_sync(0xffffffffu, Ac[v], off);
+        const float Pn = __shfl_down_sync(0xffffffffu, Pc[v], off);
+        if (lane >= off) {
+          H[v] = A[v] * Hp + H[v];
+          A[v] = A[v] * Ap;
+        }
+        if (lane + off < 32) {
+          Pc[v] = Ac[v] * Pn + Pc[v];
+          Ac[v] = Ac[v] * An;
+        }
+      }
+    }
+    const int wo = warp * CT + 4 * g;
+    if (cw == CPW - 1) {
+      store_f(sWA + wo, A);
+      store_f(sWH + wo, H);
+    }
+    if (cw == 0) {
+      store_f(sCA + wo, Ac);
+      store_f(sCP + wo, Pc);
+    }
+    __syncthreads();  // (1) the warps' maps are in
+    STAMP(1);
+
+    // the carriers: h across the warps in order; beside it, the carry
+    // entering the tile (dh_last or 0 in the last segment, else the next
+    // segment's word once it carries this call's tag) across them in
+    // reverse, and the carry leaving the tile published before any
+    // gradient is formed
+    if (tid >= CT && tid < 2 * CT) {
+      float h = h_in;
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) {
+        sHw[w * CT + ch] = h;
+        h = sWA[w * CT + ch] * h + sWH[w * CT + ch];
+      }
+    } else if (tid < CT) {
+      float c = c_in;
+      if (!last) {
+        const long long t_wait = clock64();
+        while (static_cast<unsigned>(word >> 32) != tag) {
+          if (clock64() - t_wait > (1LL << 34)) __trap();
+          word = ld_relaxed(later + tid);
+        }
+        c = __uint_as_float(static_cast<unsigned>(word));
+      }
+      STAMP(2);
+#pragma unroll
+      for (int w = NWARP - 1; w >= 0; --w) {
+        sCw[w * CT + tid] = c;
+        c = sCA[w * CT + tid] * c + sCP[w * CT + tid];
+      }
+      if (seg > 0)
+        st_relaxed(a.carry + (static_cast<long long>(col) * nseg + seg) * CT +
+                       tid,
+                   static_cast<unsigned long long>(tag) << 32 |
+                       __float_as_uint(c));
+      else if (a.dh0 != nullptr && c0 + tid < W)
+        a.dh0[static_cast<long long>(b) * W + c0 + tid] = c;
+    }
+    __syncthreads();  // (2) the h and carry entering each warp are in
+    STAMP(3);
+
+    // the h entering the chunk (through the warp's chunks before it) and
+    // the carry entering its last step (through the chunks after it)
+    float hp[L][4], c[4];
+    {
+      float hw[4], cwv[4];
+      load_f(sHw + wo, hw);
+      load_f(sCw + wo, cwv);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float ho = __shfl_up_sync(0xffffffffu, A[v] * hw[v] + H[v], G);
+        const float co =
+            __shfl_down_sync(0xffffffffu, Ac[v] * cwv[v] + Pc[v], G);
+        hp[0][v] = cw > 0 ? ho : hw[v];
+        c[v] = cw < CPW - 1 ? co : cwv[v];
+      }
+    }
+    // h entering each of the chunk's later steps (b formed again from the
+    // kept mult and i: two products)
+#pragma unroll
+    for (int k = 1; k < L; ++k) {
+      float xs[4], ms[4], is[4];
+      ld4<T>(mine + (k - 1) * ROW, xs);
+      load_f(keep_m + (k - 1) * CT, ms);
+      load_f(keep_i + (k - 1) * CT, is);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        hp[k][v] = av[k - 1][v] * hp[k - 1][v] + (ms[v] * is[v]) * xs[v];
+    }
+    // the chunk's steps from last to first
+    float lam[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) lam[v] = 0.f;
+#pragma unroll
+    for (int k = L - 1; k >= 0; --k) {
+      const int t = tc + k;
+      const bool in = t < S;
+      const unsigned char* p = mine + k * ROW;
+      float xs[4], dys[4], gts[4] = {}, rs[4], ms[4], is[4];
+      ld4<T>(p, xs);
+      ld4<T>(p + 3 * ARR, dys);
+      if constexpr (GATE) ld4<T>(p + 4 * ARR, gts);
+      load_f(keep_r + k * CT, rs);
+      load_f(keep_m + k * CT, ms);
+      load_f(keep_i + k * CT, is);
+      float fx[4], fr[4], fi[4], fg[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float r = rs[v], i = is[v], mult = ms[v];
+        const float at = av[k][v], e2 = ev[k][v];
+        const float u = 1.f - e2;
+        const float mi = mult * i;
+        const float h_prev = hp[k][v];
+        const float gv = cotangent<T, GATE>(dys[v], gts[v]);
+        if constexpr (GATE)  // h_t as the rescan formed it
+          fg[v] = dys[v] * to_f(from_f<T>(at * h_prev + mi * xs[v]));
+        const float dh = gv + c[v];
+        const float dmi = dh * xs[v];
+        fx[v] = dh * mi;
+        fi[v] = ((dmi * mult) * (1.f - i)) * i;
+        const float dsq = (dmi * i) / (2.f * mult);
+        const float du = u >= 0.f && u <= 1.f ? dsq : 0.f;
+        const float dlog_a = (dh * h_prev) * at + 2.f * (-du * e2);
+        fr[v] = ((dlog_a * coef[v]) * (1.f - r)) * r;
+        const float dl = lam[v] + dlog_a * r;
+        lam[v] = in ? dl : lam[v];
+        c[v] = in ? at * dh : c[v];
+      }
+      if (!in) continue;
+      const long long o = (static_cast<long long>(b) * S + t) * W + cv;
+      if constexpr (TMA) {
+        if (cv < W) {
+          st4<T>(a.dx + o, fx);
+          st4<T>(a.dr + o, fr);
+          st4<T>(a.di + o, fi);
+          if constexpr (GATE) st4<T>(a.dgate + o, fg);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (cv + v < W) {
+            a.dx[o + v] = from_f<T>(fx[v]);
+            a.dr[o + v] = from_f<T>(fr[v]);
+            a.di[o + v] = from_f<T>(fi[v]);
+            if constexpr (GATE) a.dgate[o + v] = from_f<T>(fg[v]);
+          }
+      }
+    }
+    // the tile's sums of dlog_a * r: the warp's chunks by shuffles (every
+    // lane gets the same bits), then the warps in order by the carriers
+#pragma unroll
+    for (int off = G; off < 32; off *= 2)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        lam[v] += __shfl_xor_sync(0xffffffffu, lam[v], off);
+    if (cw == 0) store_f(sLam + wo, lam);
+    STAMP(4);
+    fence_proxy_async();  // the slot's writes before a TMA refill
+    __syncthreads();      // (3) the slot and the warps' rows are read
+    if (warp == 0) {
+      const int nt = static_cast<int>(__shfl_sync(0xffffffffu, next, 0));
+      if (lane == 0) sTk[s] = nt;
+      bwd_fill<T, GATE, TMA>(a, maps, raw, sCoef, mbar, s, nt, ntiles, ncols,
+                             nct, nseg, lane);
+    }
+    if (tid >= CT && tid < 2 * CT && c0 + ch < W) {
+      float sum = sLam[ch];
+#pragma unroll
+      for (int w = 1; w < NWARP; ++w) sum += sLam[w * CT + ch];
+      a.part[(static_cast<long long>(b) * nseg + seg) * W + c0 + ch] = sum;
+    }
+    STAMP(5);
+  }
+  STAMP_END(tiles);
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(&a.ctl[1], 1u) == gridDim.x - 1) {
+      atomicExch(&a.ctl[0], 0u);
+      atomicExch(&a.ctl[1], 0u);
+      atomicExch(&a.ctl[2], tag);
+    }
+  }
+}
+
+// dlambda from the tiles' partials: a block is 32 channels × LAM_ROWS
+// threads; thread row j sums partials j, j + LAM_ROWS, ... in order, then
+// row 0 sums the rows in order (a fixed order: two calls, same bits).
+template <typename T>
+__global__ void __launch_bounds__(32 * LAM_ROWS)
+    rglru_bwd_lam_kernel(const BwdArgs<T> a) {
+  __shared__ float rows[LAM_ROWS][32];
+  const int ch = threadIdx.x & 31, j = threadIdx.x >> 5;
+  const int w = blockIdx.x * 32 + ch;
+  const long long n =
+      static_cast<long long>(a.B) * ((a.S + BWD_SEG - 1) / BWD_SEG);
+  float s = 0.f;
+  if (w < a.W) {
+#pragma unroll 4
+    for (long long k = j; k < n; k += LAM_ROWS) s += a.part[k * a.W + w];
+  }
+  rows[j][ch] = s;
+  __syncthreads();
+  if (j == 0 && w < a.W) {
+#pragma unroll
+    for (int q = 1; q < LAM_ROWS; ++q) s += rows[q][ch];
+    const float lam = a.lam[w];
+    a.dlam[w] = (s * -8.f) * expf(lam - softplus(lam));
+  }
 }
 
 // ---- tensor maps ------------------------------------------------------- //
@@ -899,12 +1253,11 @@ EncodeTiled encoder() {
 }
 
 // A contiguous (B, S, W) tensor of T as a 3-D map (W, S, B) whose boxes
-// are one tile: CT channels × SEG steps of one batch row, unswizzled
-// (rows of 128 bytes); positions past S and channels past W read as
-// zeros.
+// are one tile: `cols` channels × `steps` steps of one batch row,
+// unswizzled; positions past S and channels past W read as zeros.
 template <typename T>
-bool tensor_map(CUtensorMap* map, const T* ptr, int B, int S, int W) {
-  using C = Tile<T>;
+bool tensor_map(CUtensorMap* map, const T* ptr, int B, int S, int W,
+                int cols, int steps) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
@@ -912,7 +1265,8 @@ bool tensor_map(CUtensorMap* map, const T* ptr, int B, int S, int W) {
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {sizeof(T) * static_cast<cuuint64_t>(W),
                                  sizeof(T) * static_cast<cuuint64_t>(S) * W};
-  const cuuint32_t box[3] = {C::CT, C::SEG, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(steps), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -924,40 +1278,80 @@ bool tensor_map(CUtensorMap* map, const T* ptr, int B, int S, int W) {
 
 // ---- end of tensor maps ------------------------------------------------ //
 
+constexpr int MAXDEV = 64;
+
+// Blocks of `kern` (`threads` threads, `smem` bytes of dynamic shared
+// memory) resident on the whole card, found once per device into
+// `slots[device]` (each kernel keeps its own table).
+template <typename K>
+cudaError_t resident(K kern, int threads, int smem, int device,
+                     int (&slots)[MAXDEV]) {
+  if (device < 0 || device >= MAXDEV) return cudaErrorInvalidDevice;
+  if (slots[device] != 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  slots[device] = per_sm * sms;
+  return cudaSuccess;
+}
+
 template <typename T, bool GATE, bool TMA>
 cudaError_t launch_prefill(const Args<T>& a, int device, cudaStream_t s) {
   using C = Tile<T>;
-  constexpr int MAXDEV = 64;
   static int slots[MAXDEV] = {};  // blocks resident on the card, per device
   const auto kern = rglru_prefill_kernel<T, GATE, TMA>;
   const int smem = C::smem(GATE ? 4 : 3);
-  if (device < 0 || device >= MAXDEV) return cudaErrorInvalidDevice;
-  if (slots[device] == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int per_sm = 0, sms = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::NT,
-                                                        smem);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    slots[device] = per_sm * sms;
-  }
+  cudaError_t e = resident(kern, C::NT, smem, device, slots);
+  if (e != cudaSuccess) return e;
   const long long ntiles = static_cast<long long>(a.B) *
                            ((a.W + C::CT - 1) / C::CT) *
                            ((a.S + C::SEG - 1) / C::SEG);
   if (ntiles > (1LL << 30)) return cudaErrorInvalidValue;
   Maps maps = {};
-  if (TMA && !(tensor_map(&maps.m[0], a.x, a.B, a.S, a.W) &&
-               tensor_map(&maps.m[1], a.r, a.B, a.S, a.W) &&
-               tensor_map(&maps.m[2], a.i, a.B, a.S, a.W) &&
-               (!GATE || tensor_map(&maps.m[3], a.gate, a.B, a.S, a.W))))
+  const auto map = [&](int k, const T* ptr) {
+    return tensor_map(&maps.m[k], ptr, a.B, a.S, a.W, C::CT, C::SEG);
+  };
+  if (TMA && !(map(0, a.x) && map(1, a.r) && map(2, a.i) &&
+               (!GATE || map(3, a.gate))))
     return cudaErrorInvalidValue;
   const int grid = static_cast<int>(
       ntiles < slots[device] ? ntiles : static_cast<long long>(slots[device]));
   kern<<<grid, C::NT, smem, s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// The backward: its persistent kernel, then the dΛ sum.
+template <typename T, bool GATE, bool TMA>
+cudaError_t launch_bwd(const BwdArgs<T>& a, int device, cudaStream_t s) {
+  using C = BwdTile<T>;
+  static int slots[MAXDEV] = {};
+  const auto kern = rglru_bwd_kernel<T, GATE, TMA>;
+  const int smem = C::smem(GATE ? 5 : 4);
+  cudaError_t e = resident(kern, C::NT, smem, device, slots);
+  if (e != cudaSuccess) return e;
+  const long long ntiles = static_cast<long long>(a.B) *
+                           ((a.W + C::CT - 1) / C::CT) *
+                           ((a.S + BWD_SEG - 1) / BWD_SEG);
+  if (ntiles > (1LL << 30)) return cudaErrorInvalidValue;
+  BwdMaps maps = {};
+  const auto map = [&](int k, const T* ptr) {
+    return tensor_map(&maps.m[k], ptr, a.B, a.S, a.W, C::CT, BWD_SEG);
+  };
+  if (TMA && !(map(0, a.x) && map(1, a.r) && map(2, a.i) && map(3, a.dy) &&
+               (!GATE || map(4, a.gate))))
+    return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(
+      ntiles < slots[device] ? ntiles : static_cast<long long>(slots[device]));
+  kern<<<grid, C::NT, smem, s>>>(maps, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  rglru_bwd_lam_kernel<T><<<(a.W + 31) / 32, 32 * LAM_ROWS, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -998,6 +1392,22 @@ long long scratch_bytes(int B, int S, int W) {
   if (S <= DECODE_L) return 0;
   return CTL_BYTES + 8LL * B * ((W + C::CT - 1) / C::CT) *
                          ((S + C::SEG - 1) / C::SEG) * C::CT;
+}
+
+// the backward's: counters, a word per channel of each tile, then the
+// tiles' dΛ partials (B, nseg, W)
+template <typename T>
+long long bwd_scratch_bytes(int B, int S, int W) {
+  using C = BwdTile<T>;
+  const long long nseg = (S + BWD_SEG - 1) / BWD_SEG;
+  return CTL_BYTES + 8LL * B * ((W + C::CT - 1) / C::CT) * nseg * C::CT +
+         4LL * B * nseg * W;
+}
+
+bool aligned_all(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (p != nullptr && !aligned16(p)) return false;
+  return true;
 }
 
 }  // namespace
@@ -1053,12 +1463,25 @@ extern "C" int rglru_scan_launch(const void* x, const void* r, const void* i,
   return static_cast<int>(e);
 }
 
+// Bytes of the backward's scratch buffer for a call of this shape: the
+// ticket, finished-block count and tag, a 64-bit word per channel of
+// each tile, the tiles' dΛ partials.  Zeroed when made and used by one
+// stream only (not the forward's buffer).
+extern "C" long long rglru_scan_bwd_scratch_bytes(int B, int S, int W,
+                                                  int dtype) {
+  if (B < 1 || S < 1 || W < 1) return -1;
+  if (dtype == 0) return bwd_scratch_bytes<float>(B, S, W);
+  if (dtype == 1) return bwd_scratch_bytes<__nv_bfloat16>(B, S, W);
+  return -1;
+}
+
 // The backward (see above).  x, r, i, gate (or null), dy and the outputs
 // dx, dr, di, dgate (null without a gate): (B, S, W) contiguous in dtype
 // (0 = float32, 1 = bfloat16); lam, dlam (W,), dh_last (B, W) or null,
 // dh0 (B, W) or null (no h0), h_enter (B, nseg, W) as rglru_scan_launch
-// wrote it (nseg = ceil(S / 64)): float32; scratch: 3 * B * nseg * W
-// floats.  Returns a cudaError_t (0 on success).
+// wrote it (nseg = ceil(S / 64)): float32; scratch:
+// rglru_scan_bwd_scratch_bytes(B, S, W, dtype) bytes kept for this
+// stream.  Returns a cudaError_t (0 on success).
 extern "C" int rglru_scan_bwd_launch(const void* x, const void* r,
                                      const void* i, const void* gate,
                                      const void* dy, const void* lam,
@@ -1067,17 +1490,17 @@ extern "C" int rglru_scan_bwd_launch(const void* x, const void* r,
                                      void* dgate, void* dlam, void* dh0,
                                      void* scratch, int B, int S, int W,
                                      int dtype, int device, void* stream) {
-  if (B < 1 || S < 1 || W < 1 || B > 65535 ||
-      (S + BWD_SEG - 1) / BWD_SEG > 65535)
+  if (B < 1 || S < 1 || W < 1 || B > 65535 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nseg = (S + BWD_SEG - 1) / BWD_SEG;
-  float* sc = static_cast<float*>(scratch);
-  const long long n = static_cast<long long>(B) * nseg * W;
   auto run = [&](auto zero) -> cudaError_t {
     using T = decltype(zero);
+    using C = BwdTile<T>;
+    const long long nseg = (S + BWD_SEG - 1) / BWD_SEG;
+    unsigned char* sc = static_cast<unsigned char*>(scratch);
+    const long long words = 8LL * B * ((W + C::CT - 1) / C::CT) * nseg * C::CT;
     BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(r),
                  static_cast<const T*>(i), static_cast<const T*>(gate),
                  static_cast<const T*>(dy), static_cast<const float*>(lam),
@@ -1085,10 +1508,17 @@ extern "C" int rglru_scan_bwd_launch(const void* x, const void* r,
                  static_cast<const float*>(h_enter), static_cast<T*>(dx),
                  static_cast<T*>(dr), static_cast<T*>(di),
                  static_cast<T*>(dgate), static_cast<float*>(dlam),
-                 static_cast<float*>(dh0), sc, sc + n, sc + 2 * n,
-                 B, S, W, nseg};
-    return gate != nullptr ? launch_bwd<T, true>(a, s)
-                           : launch_bwd<T, false>(a, s);
+                 static_cast<float*>(dh0), reinterpret_cast<unsigned*>(sc),
+                 reinterpret_cast<unsigned long long*>(sc + CTL_BYTES),
+                 reinterpret_cast<float*>(sc + CTL_BYTES + words), B, S, W};
+    // TMA: 16-byte aligned tensors whose rows are 16-byte multiples
+    const bool tma = W * sizeof(T) % 16 == 0 &&
+                     aligned_all({x, r, i, gate, dy, dx, dr, di, dgate});
+    if (gate != nullptr)
+      return tma ? launch_bwd<T, true, true>(a, device, s)
+                 : launch_bwd<T, true, false>(a, device, s);
+    return tma ? launch_bwd<T, false, true>(a, device, s)
+               : launch_bwd<T, false, false>(a, device, s);
   };
   if (dtype == 0) e = run(0.f);
   else if (dtype == 1) e = run(__nv_bfloat16());

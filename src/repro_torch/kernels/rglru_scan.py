@@ -50,13 +50,17 @@ each product and rounding as autograd takes them through
 
 * :func:`rglru_scan_bwd_ref` — plain PyTorch, the explicit formulas,
   the reverse recurrence as a doubling scan; what CPU tensors get;
-* :func:`rglru_scan_bwd_cuda` — the hand-written kernels (the second
-  half of ``kernels/csrc/rglru_scan.cu``), three launches over the
-  forward's 64-step tiles, a thread a channel: each tile's map of the
-  carried ``a·dh``; the gradients, h recomputed in each tile from the h
-  entering it, which the training forward (``return_states=True``)
-  writes, ``(B, ⌈S/64⌉, W)`` float32; dΛ summed over the tiles' partials
-  in order.  No atomics: two calls agree bit for bit.
+* :func:`rglru_scan_bwd_cuda` — the hand-written kernel (the second
+  half of ``kernels/csrc/rglru_scan.cu``): one persistent launch over
+  the forward's 64-step tiles taken by ticket from the last segment to
+  the first, each input read once by TMA and each element's a and b
+  formed once; h composed over each tile from the h entering it, which
+  the training forward (``return_states=True``) writes, ``(B, ⌈S/64⌉,
+  W)`` float32; the carried ``a·dh`` chained from tile to tile through a
+  tagged word a channel in a scratch buffer of its own, kept per device
+  and stream; then dΛ summed over the tiles' partials in order by a
+  small second launch.  No atomics touch a value: two calls agree bit
+  for bit.
 
 softplus has the reference's value and gradient (:func:`softplus`,
 shared with the Mamba-2 block).
@@ -82,10 +86,12 @@ SEG = 64
 _LAUNCHES = 0
 _BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's scratch buffer (ticket, counts, tag, the tiles' h) per
-#: (device index, stream): a call on one stream never shares it with a
-#: call that may run beside it on another
-_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+#: the kernels' scratch buffers (ticket, counts, tag, the words chained
+#: between tiles; the backward's also its dΛ partials) per (kernel,
+#: device index, stream): a call on one stream never shares one with a
+#: call that may run beside it on another, and the forward's counters
+#: never meet the backward's
+_SCRATCH: Dict[Tuple[str, int, int], torch.Tensor] = {}
 
 
 class _Softplus(torch.autograd.Function):
@@ -243,8 +249,8 @@ def launch_count() -> int:
 
 
 def bwd_launch_count() -> int:
-    """Calls of :func:`rglru_scan_bwd_cuda` (each launches its three
-    kernels) since the last reset."""
+    """Calls of :func:`rglru_scan_bwd_cuda` (each launches its kernel
+    and dΛ's sum) since the last reset."""
     return _BWD_LAUNCHES
 
 
@@ -267,21 +273,23 @@ def _lib() -> ctypes.CDLL:
     lib.rglru_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.rglru_scan_bwd_launch.restype = ctypes.c_int
-    lib.rglru_scan_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    lib.rglru_scan_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.rglru_scan_scratch_bytes,
+               lib.rglru_scan_bwd_scratch_bytes):
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
     return lib
 
 
-def _scratch(lib: ctypes.CDLL, B: int, S: int, W: int, dtype: int,
-             device: torch.device, stream: int) -> Optional[torch.Tensor]:
-    """The scratch buffer of ``device`` and ``stream`` with room for a
-    call of this shape (``None`` if the call needs none).  A new buffer
-    is made zeroed (its one fill, when it first grows); the kernel leaves
-    it ready for the next call on the same stream."""
-    need = lib.rglru_scan_scratch_bytes(B, S, W, dtype)
+def _scratch(kind: str, need: int, device: torch.device,
+             stream: int) -> Optional[torch.Tensor]:
+    """The scratch buffer of kernel ``kind`` ("fwd" or "bwd"), ``device``
+    and ``stream`` with room for ``need`` bytes (``None`` if the call
+    needs none).  A new buffer is made zeroed (its one fill, when it first
+    grows); the kernel leaves it ready for its next call on the same
+    stream."""
     if need <= 0:
         return None
-    key = (device.index or 0, stream)
+    key = (kind, device.index or 0, stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < need:
         buf = torch.zeros(need, dtype=torch.uint8, device=device)
@@ -356,7 +364,8 @@ def rglru_scan_cuda(x: torch.Tensor, r_pre: torch.Tensor,
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    scratch = _scratch(lib, B, S, W, _DTYPES[x.dtype], x.device, stream)
+    scratch = _scratch("fwd", lib.rglru_scan_scratch_bytes(
+        B, S, W, _DTYPES[x.dtype]), x.device, stream)
     err = lib.rglru_scan_launch(
         x.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(), lam.data_ptr(),
         ptr(h0), ptr(gate), y.data_ptr(), h_last.data_ptr(), ptr(states),
@@ -374,9 +383,9 @@ def rglru_scan_bwd_cuda(x: torch.Tensor, r_pre: torch.Tensor,
                         h0: Optional[torch.Tensor] = None,
                         gate: Optional[torch.Tensor] = None,
                         dh: Optional[torch.Tensor] = None):
-    """The backward kernels (``kernels/csrc/rglru_scan.cu``, three
-    launches: each tile's map of the carried cotangent, the gradients,
-    dΛ's sum): same contract as :func:`rglru_scan_bwd_ref`, given the
+    """The backward kernel (``kernels/csrc/rglru_scan.cu``: one persistent
+    launch over the tiles, the carried cotangent chained between them,
+    then dΛ's sum): same contract as :func:`rglru_scan_bwd_ref`, given the
     ``states`` that ``rglru_scan_cuda(..., return_states=True)`` returned
     for these inputs.
 
@@ -402,17 +411,17 @@ def rglru_scan_bwd_cuda(x: torch.Tensor, r_pre: torch.Tensor,
     dlam = torch.empty(W, dtype=torch.float32, device=x.device)
     dh0 = (torch.empty(B, W, dtype=torch.float32, device=x.device)
            if h0 is not None else None)
-    scratch = torch.empty(3 * B * nseg * W, dtype=torch.float32,
-                          device=x.device)
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = _scratch("bwd", lib.rglru_scan_bwd_scratch_bytes(
+        B, S, W, _DTYPES[x.dtype]), x.device, stream)
     err = lib.rglru_scan_bwd_launch(
         x.data_ptr(), r_pre.data_ptr(), i_pre.data_ptr(), ptr(gate),
         dy.data_ptr(), lam.data_ptr(), ptr(dh), states.data_ptr(),
         dx.data_ptr(), dr.data_ptr(), di.data_ptr(), ptr(dgate),
         dlam.data_ptr(), ptr(dh0), scratch.data_ptr(), B, S, W,
-        _DTYPES[x.dtype], x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], x.device.index or 0, stream)
     if err != 0:
         raise RuntimeError("rglru_scan_bwd_cuda: launch failed: "
                            + _build.error_string(lib, err))

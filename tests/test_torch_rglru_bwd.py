@@ -22,12 +22,17 @@ infinite, so dr_pre and dΛ are ±inf or NaN at the same places in both.
 ``ops.rglru_scan``'s ``_RGLRU`` Function on the CPU (the plain pair),
 h_last's or y's cotangent alone arriving as None.  The forward's
 entering states (``return_states``).  And the backward kernel's order
-(``_kernel_order_bwd``, test code: the three launches of
-``kernels/csrc/rglru_scan.cu`` rehearsed in float32: each 64-step tile's
-map of the carried ``a·dh``, composed from h_last's cotangent through
-the later tiles, then the tile's steps from last to first) against a
-float64 reverse recurrence.
+(``_kernel_order_bwd``, test code: the composition order of
+``kernels/csrc/rglru_scan.cu``'s backward rehearsed in float32, its
+block shape read from the source: each chunk's maps, the warp's shuffle
+scans and the warps in order, forward for h from the h entering each
+64-step tile and backward for the carried ``a·dh``, chained from the
+last segment's tile to the first, the steps past S masked out of the
+carry) against a float64 recurrence, at the kernel's block shape and at
+one other.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -39,7 +44,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
 from repro.models import rglru as jrglru  # noqa: E402
 from repro.models.params import init_params as jinit_params  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     C, SEG, rglru_scan_bwd_ref, rglru_scan_ref, softplus)
 
@@ -237,58 +242,158 @@ def test_states_are_the_h_entering_each_tile(S):
         torch.testing.assert_close(st[:, s], h_at, rtol=1e-6, atol=1e-6)
 
 
-def _kernel_order_bwd(a, g, dh_last):
-    """dh_t = g_t + a_{t+1}·dh_{t+1} (dh_{S−1} = g_{S−1} + dh_last) in
-    float32 in the backward kernel's order: each SEG-step tile's map c ↦
-    A·c + P of the carry c = a·dh entering its last step (A the product
-    of its a, P = a_{t0}·dh_{t0} at c = 0: ``bwd_map_kernel``); the carry
-    entering a tile composed from dh_last through the maps of the later
-    tiles, the last first, then the tile's steps from last to first
-    (``bwd_main_kernel``).  Also returns dh0 = a_0·dh_0."""
-    S = a.shape[1]
-    nseg = -(-S // SEG)
-    maps = []
+def _bwd_constants():
+    """(threads a block, steps a tile, threads across a tile's row) of
+    the backward kernel, as ``rglru_scan.cu`` defines them."""
+    text = (_build.CSRC / "rglru_scan.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                     text).group(1))
+    return get("BWD_THREADS"), get("BWD_SEG"), get("BWD_GROUPS")
+
+
+def _warp_scan(A, P, cpw, later_first):
+    """The warp's Hillis–Steele shuffle scan over its ``cpw`` chunks
+    (dim 3) of the maps x ↦ A·x + P: earlier chunks first (``__shfl_up``,
+    h) or later ones first (``__shfl_down``, the carry)."""
+    off = 1
+    while off < cpw:
+        if later_first:
+            An = torch.cat([A[:, :, :, off:], torch.ones_like(A[:, :, :, :off])],
+                           3)
+            Pn = torch.cat([P[:, :, :, off:],
+                            torch.zeros_like(P[:, :, :, :off])], 3)
+            live = (torch.arange(cpw) + off < cpw).view(cpw, 1)
+        else:
+            An = torch.cat([torch.ones_like(A[:, :, :, :off]),
+                            A[:, :, :, :-off]], 3)
+            Pn = torch.cat([torch.zeros_like(P[:, :, :, :off]),
+                            P[:, :, :, :-off]], 3)
+            live = (torch.arange(cpw) >= off).view(cpw, 1)
+        P = torch.where(live, A * Pn + P, P)
+        A = torch.where(live, A * An, A)
+        off *= 2
+    return A, P
+
+
+def _kernel_order_bwd(a, b, g, h0, dh_last, threads, seg, groups):
+    """The backward kernel's order in float32 (every product and sum
+    rounded alone, as its ``-fmad=false`` build), for the maps h ↦ a·h + b
+    (forward) and c ↦ a·(g + c) of the carry c = a_{t+1}·dh_{t+1}
+    (backward): a tile is ``seg`` steps, a chunk L = seg·groups / threads
+    steps of a thread, ``32 / groups`` chunks a warp.  Each chunk composes
+    its maps (h's first step first, the carry's last step first, steps
+    past S the identity: their a and g are poisoned here, as the zero
+    fill would make them wrong), the warp's chunks by ``_warp_scan``, the
+    warps' maps are applied in order to the h entering the tile (h0 in the
+    first; the forward's h handed from tile to tile) and in reverse to the
+    carry entering it (dh_last in the last segment, else the carry the
+    next segment's tile left), each chunk's from its warp's through the
+    chunks before (h) or after (the carry) it; then each chunk's steps:
+    h forward from the h entering it, dh_t = g_t + c and c = a_t·dh_t
+    from its last step.  Returns (h_{t−1}, dh, dh0 = a_0·dh_0).
+
+    A mirror of the order, not the kernel: it shares only the constants
+    read from the source, so it checks that the chosen order is sound in
+    float32; the kernel itself is checked only on a card (``chip_smoke.py``
+    phase 5 and ``tests/test_torch_cuda.py``)."""
+    Bn, S, W = a.shape
+    nch, cpw, nwarp = threads // groups, 32 // groups, threads // 32
+    L = seg // nch
+    nseg = -(-S // seg)
+    pad = nseg * seg - S
+    shape = (Bn, nseg, nwarp, cpw, L, W)
+    fill = lambda t, v: torch.cat([t, torch.full((Bn, pad, W), v)], 1).view(
+        shape)
+    a, b, g = fill(a, 0.5), fill(b, 0.0), fill(g, 1.0)
+    live = (torch.arange(nseg * seg) < S).view(1, nseg, nwarp, cpw, L, 1)
+    # h: the chunks' maps, the warps', the tiles' entering h in order
+    A, H = a[..., 0, :], b[..., 0, :]
+    for k in range(1, L):
+        H = a[..., k, :] * H + b[..., k, :]
+        A = A * a[..., k, :]
+    A, H = _warp_scan(A, H, cpw, later_first=False)
+    h = h0.clone()
+    hw = torch.empty(Bn, nseg, nwarp, W)
     for s in range(nseg):
-        t0, t1 = s * SEG, min(S, s * SEG + SEG)
-        P = torch.zeros_like(a[:, 0])
-        an = torch.zeros_like(P)
-        A = torch.ones_like(P)
-        for t in range(t1 - 1, t0 - 1, -1):
-            P = g[:, t] + an * P
-            an = a[:, t]
-            A = A * a[:, t]
-        maps.append((A, an * P))
-    dh = torch.empty_like(g)
-    c0 = None
-    for s in range(nseg):
-        c = dh_last.clone()
-        for k in range(nseg - 1, s, -1):
-            c = maps[k][0] * c + maps[k][1]
-        for t in range(min(S, s * SEG + SEG) - 1, s * SEG - 1, -1):
-            dh[:, t] = g[:, t] + c
-            c = a[:, t] * dh[:, t]
-        if s == 0:
-            c0 = c
-    return dh, c0
+        for w in range(nwarp):
+            hw[:, s, w] = h
+            h = A[:, s, w, -1] * h + H[:, s, w, -1]
+    hw = hw[:, :, :, None]
+    hc = torch.cat([hw, A[:, :, :, :-1] * hw + H[:, :, :, :-1]], 3)
+    # the carry: the chunks' maps from their last step, the warps' later
+    # ones first, the tiles from the last segment
+    Ac, Pc = torch.ones_like(A), torch.zeros_like(A)
+    for k in range(L - 1, -1, -1):
+        ok = live[..., k, :]
+        Pc = torch.where(ok, a[..., k, :] * (g[..., k, :] + Pc), Pc)
+        Ac = torch.where(ok, a[..., k, :] * Ac, Ac)
+    Ac, Pc = _warp_scan(Ac, Pc, cpw, later_first=True)
+    c = dh_last.clone()
+    cw = torch.empty(Bn, nseg, nwarp, W)
+    for s in range(nseg - 1, -1, -1):
+        for w in range(nwarp - 1, -1, -1):
+            cw[:, s, w] = c
+            c = Ac[:, s, w, 0] * c + Pc[:, s, w, 0]
+    dh0 = c
+    cw = cw[:, :, :, None]
+    cc = torch.cat([Ac[:, :, :, 1:] * cw + Pc[:, :, :, 1:], cw], 3)
+    # each chunk's steps
+    hp, dh = torch.empty(shape), torch.empty(shape)
+    for k in range(L):
+        hp[..., k, :] = hc
+        hc = a[..., k, :] * hc + b[..., k, :]
+    for k in range(L - 1, -1, -1):
+        dh[..., k, :] = g[..., k, :] + cc
+        cc = torch.where(live[..., k, :], a[..., k, :] * dh[..., k, :], cc)
+    cut = lambda t: t.reshape(Bn, nseg * seg, W)[:, :S]
+    return cut(hp), cut(dh), dh0
+
+
+def _order_case(S, shape):
+    """_kernel_order_bwd at ``shape`` (threads, steps a tile, threads
+    across a row) against the float64 recurrence: h_{t−1} within 1e-5 of max |h|,
+    dh and dh0 within 1e-5 of max |dh|; W 100, h0 and dh_last drawn."""
+    rng = np.random.default_rng(S)
+    W_ = 100
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    lam = torch.from_numpy(rng.uniform(-4, 4, W_).astype(np.float32))
+    rp, ip, x = f(B, S, W_, sc=2.0), f(B, S, W_, sc=2.0), f(B, S, W_)
+    g, h0, dh_last = f(B, S, W_), f(B, W_), f(B, W_)
+    log_a = -C * softplus(lam) * torch.sigmoid(rp)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0)) \
+        * torch.sigmoid(ip) * x
+    hp, dh, dh0 = _kernel_order_bwd(a, b, g, h0, dh_last, *shape)
+    ad, bd = a.double(), b.double()
+    h = h0.double()
+    want_h = torch.empty(B, S, W_, dtype=torch.float64)
+    for t in range(S):
+        want_h[:, t] = h
+        h = ad[:, t] * h + bd[:, t]
+    want = torch.empty_like(want_h)
+    c = dh_last.double()
+    for t in range(S - 1, -1, -1):
+        want[:, t] = g[:, t].double() + c
+        c = ad[:, t] * want[:, t]
+    scale_h = float(want_h.abs().max())
+    assert float((hp.double() - want_h).abs().max()) <= 1e-5 * scale_h
+    scale = float(want.abs().max())
+    assert float((dh.double() - want).abs().max()) <= 1e-5 * scale
+    assert float((dh0.double() - c).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("S", [1, 37, 64, 65, 200])
 def test_kernel_order_matches_float64_recurrence(S):
-    """``_kernel_order_bwd`` against the reverse recurrence in float64,
-    one step at a time: dh at 1e-5 of max |dh|, dh0 likewise."""
-    rng = np.random.default_rng(S)
-    lam = torch.from_numpy(rng.uniform(-4, 4, 100).astype(np.float32))
-    rp = torch.from_numpy(2 * rng.normal(size=(B, S, 100)).astype(
-        np.float32))
-    a = torch.exp(-C * softplus(lam) * torch.sigmoid(rp))
-    g = torch.from_numpy(rng.normal(size=(B, S, 100)).astype(np.float32))
-    dh_last = torch.from_numpy(rng.normal(size=(B, 100)).astype(np.float32))
-    got, dh0 = _kernel_order_bwd(a, g, dh_last)
-    want = torch.empty_like(g, dtype=torch.float64)
-    c = dh_last.double()
-    for t in range(S - 1, -1, -1):
-        want[:, t] = g[:, t].double() + c
-        c = a[:, t].double() * want[:, t]
-    scale = float(want.abs().max())
-    assert float((got.double() - want).abs().max()) <= 1e-5 * scale
-    assert float((dh0.double() - c).abs().max()) <= 1e-5 * scale
+    """``_kernel_order_bwd`` at the kernel's block shape (read from
+    ``rglru_scan.cu``) against the float64 recurrences: S inside one
+    tile, a whole tile, one step into a second (63 masked steps first in
+    the carry's walk), several."""
+    _order_case(S, _bwd_constants())
+
+
+@pytest.mark.parametrize("S", [1, 37, 64, 65, 200])
+def test_kernel_order_at_another_block_shape(S):
+    """The same at blocks of 128 threads (4 steps a chunk)."""
+    threads, seg, groups = _bwd_constants()
+    _order_case(S, (128, seg, groups))
