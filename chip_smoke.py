@@ -45,7 +45,8 @@ Phases (any failure exits non-zero before the final line):
    1000} × hd {64, 80, 128} (bfloat16 on the tensor cores, hd 80 in the
    hd-128 tiling; float32 on the CUDA cores), and the same modes and S at
    hd 256 × GQA {1, 10} (recurrentgemma-2b's MQA; two consumer
-   warpgroups);
+   warpgroups), and at hd 128 × GQA {8, 6} (qwen3-moe-30b-a3b's 32 / 4
+   heads, dbrx-132b's 48 / 8);
    both in float32 (rtol 1e-5, atol 1e-6·max(1, max|plain|)) and
    bfloat16 (rtol / atol 2e-2).  Count the tensor-core instructions
    (``HGMMA``, ``HMMA``) in the built flash and SSD libraries' SASS
@@ -82,19 +83,21 @@ Phases (any failure exits non-zero before the final line):
    float32 compute) where that is larger; and on the same weights in
    float32 compute within 1e-4 at prefill and 5e-3 in decode.
 7. The mamba2-780m serving path, as phase 6 with the same traffic, at
-   full width with its depth cut to ``MAMBA_SERVE_LAYERS`` = 24 of 48
-   layers (so that the script keeps inside its time limit with phase
-   16): SSD must run once per layer per prefill call, RMSNorm
+   full width with its depth cut to ``MAMBA_SERVE_LAYERS`` = 12 of 48
+   layers (24 before phase 17 came; cut so that the script keeps inside
+   its time limit with it): SSD must run once per layer per prefill
+   call, RMSNorm
    2·L + 1 times per prefill call and decode step, flash never; the same
    teacher-forced checks.
 8. PSP training of qwen2-0.5b at full width, its depth cut to
-   ``TRAIN_LAYERS`` = 12 of 24 layers since PR 23 (315,084,160 f32 params,
-   bf16 compute; phase 9 trains all 24), built from the library calls
-   ``repro_torch.launch.train``
-   makes (``init_model``, ``adamw(warmup_cosine(3e-3, 3, 24))``,
+   ``TRAIN_LAYERS`` = 6 of 24 layers (12 before phase 17 came;
+   225,609,856 f32 params, bf16 compute; phase 9 trains all 24), built
+   from the library calls ``repro_torch.launch.train``
+   makes (``init_model``, ``adamw(warmup_cosine(3e-3, 2, 16))``,
    ``psp_init``, ``make_psp_train_step``): W 4, ``pbsp``, β 2, s 3,
    stragglers 0.25, 2 sequences of 512 tokens per worker per tick (drawn
-   from a pool of 8 fixed random ones), 24 ticks.  Tick 0's per-worker
+   from a pool of 8 fixed random ones), 16 ticks (24 before phase 17).
+   Tick 0's per-worker
    losses and clipped gradients under the kernels against ``impl="ref"``
    on the same inputs: ‖Δg‖/‖g‖ within 2e-2 or the plain path's own
    spread between bf16 and float32 compute, whichever is larger (the
@@ -148,9 +151,10 @@ Phases (any failure exits non-zero before the final line):
     params bit for bit.  Prints the recovery latency.  It runs no model
     kernel.
 12. PSP training of mamba2-780m at full width, its depth cut to
-    ``MAMBA_TRAIN_LAYERS`` = 12 of 48 layers since PR 23 (252,960,960 f32
-    params, bf16 compute, remat on), as phase 8 trains qwen2-0.5b: the
-    same PSP settings, token pool and 24 ticks, the same checks (tick 0
+    ``MAMBA_TRAIN_LAYERS`` = 6 of 48 layers (12 before phase 17 came;
+    165,096,288 f32 params, bf16 compute, remat on), as phase 8 trains
+    qwen2-0.5b: the same PSP settings, token pool and 16 ticks, the same
+    checks (tick 0
     against the plain path; also leaf by leaf, each leaf's max |Δg| over
     its max |g|: in bf16 compute within the largest such deviation that
     bf16 rounding gives a leaf of the plain path against float32
@@ -191,17 +195,18 @@ Phases (any failure exits non-zero before the final line):
     the plain path's logits within phase 6's bounds) and, for models with
     ``local`` layers, the ring check (``ring_check``: every local layer's
     ring after a prefill holds position p at slot p % w, bit for bit):
-    qwen1.5-4b at full width cut to 12 of its 40 layers (MHA of 20 heads
+    qwen1.5-4b at full width cut to 6 of its 40 layers (MHA of 20 heads
     with QKV bias at hd 128, untied unembedding) on phase 6's traffic;
-    h2o-danube-1.8b at full width cut to 12 of its 24 layers (window
+    h2o-danube-1.8b at full width cut to 6 of its 24 layers (window
     4096, hd 80, 32 / 8 heads) at max_len 8192 on 4 requests of 6144
     random tokens + 64 new (the prefill rolls the ring, decode wraps it),
     then 4 of 1024 + 64 (a ring padded with zeros); gemma2-27b at full
     width cut to 4 layers (2 local / global pairs; fused QKV, both
     softcaps, post-norms, the gemma norm, GeGLU, ``embed_scale``) on
     danube's first wave.  (qwen1.5-4b and danube were served whole and
-    gemma2 at 8 layers before phase 16 came: cut so that the script
-    keeps inside its time limit with it.)  Then h2o-danube-1.8b at full width cut to 4
+    gemma2 at 8 layers before phase 16 came, qwen1.5-4b and danube at
+    12 layers before phase 17: cut so that the script keeps inside its
+    time limit with them.)  Then h2o-danube-1.8b at full width cut to 4
     layers (8 until PR 24, cut so that the script keeps inside its time
     limit with phase 15) trained under PSP as phase 8 trains qwen2 (W 4,
     ``pbsp``, β 2,
@@ -212,15 +217,16 @@ Phases (any failure exits non-zero before the final line):
     pushing ticks).
 
 15. recurrentgemma-2b (``RGEMMA_SERVE``) served as phase 14 serves
-    danube, at full width and depth (26 layers: 8 (R, R, A) groups and
-    the (R, R) tail; 2,682,237,440 params; d 2560, 10 query heads on one
-    KV head of 256, window 2048, GeGLU, the gemma norm) at max_len 8192
+    danube, at full width with its depth cut to ``RGEMMA_SERVE_LAYERS`` =
+    14 of 26 (whole before phase 17 came; 4 (R, R, A) groups and the
+    (R, R) tail; 1,748,779,520 params; d 2560, 10 query heads on one KV
+    head of 256, window 2048, GeGLU, the gemma norm) at max_len 8192
     on 4 requests of 4096 random tokens + 64 new (the prefill rolls the
     ring twice, decode wraps it), then 4 of 1024 + 64 (a zero-padded
-    ring); launches exact: flash 8 per prefill call and never in decode,
-    the RG-LRU scan 18 per prefill call and per decode step, RMSNorm 53
+    ring); launches exact: flash 4 per prefill call and never in decode,
+    the RG-LRU scan 10 per prefill call and per decode step, RMSNorm 29
     per forward, SSD never; every served token teacher-forced, the plain
-    path within phase 6's bounds, the ring check on all 8 local layers.
+    path within phase 6's bounds, the ring check on all 4 local layers.
 
 16. recurrentgemma-2b at full width cut to 5 layers (one (R, R, A)
     group and the (R, R) tail: 1,048,686,080 params) trained under PSP
@@ -234,6 +240,36 @@ Phases (any failure exits non-zero before the final line):
     21 and its backward 11; then ``launch.train --arch recurrentgemma-2b
     --reduced`` on the card.
 
+17. The MoE decoders (``MOE_SERVE``), each served as phase 6 serves
+    qwen2-0.5b on its traffic at the config's capacity factor 1.25:
+    qwen3-moe-30b-a3b at full width cut to 12 of its 48 layers (128
+    experts, top 8, 32 / 4 heads of 128; 8,099,776,512 params) and
+    dbrx-132b at full width cut to 2 of its 40 (16 experts, top 4, 48 / 8
+    heads of 128; 7,751,301,120 params).  Launches exact (flash once per
+    layer per prefill call, RMSNorm 2·L + 1 per forward); the first MoE
+    layer's device time split into route, dispatch, experts and combine
+    at the prefill's and a decode step's token counts
+    (``moe_split``); every served token reproduced by the kernel path
+    at the served factor; then phase 6's checks (``teacher_checks``) at
+    the capacity factor E / k (16, 4), under which no token can drop
+    (checked from the routes), as the reference's decode-consistency
+    test runs at a factor without drops (8.0 at its reduced 4 experts,
+    top 2), each comparison on one routing
+    (``repro_torch.models.moe.routing``: the plain path on the kernel
+    path's experts, the plain path's bf16 rounding error on the float32
+    path's), and a whole-sequence pass on its incremental run's experts
+    within 2e-2 of prefill + decode in float32 compute, or of the plain
+    path's own such spread where larger; a traced wave.  Then
+    qwen3-moe-30b-a3b at full width cut to 1 layer (1,245,452,288
+    params) trained under PSP as phase 16 trains recurrentgemma, but at
+    W 2, β 1 (W 4 would not fit), 8 ticks of 2 × 512 tokens a worker,
+    tick 0 also leaf by leaf and on one routing as above, with the top-k
+    sets either side would have picked differently counted; then the four
+    reduced launchers side by side: ``launch.train`` and
+    ``launch.serve`` of both (dbrx-132b at ``--d-model 384``: its
+    reduced 6 heads at the default 256 are of hd 42, which the flash
+    kernel does not take).
+
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
 FLASH_MODES × G {1, 7} × S {1, 37, 64, 512, 1000} × hd {64, 80, 128} ×
@@ -246,7 +282,11 @@ float32 tolerance), with the forward kernel's lse against the plain
 one and its o unchanged by writing lse; the bfloat16 backward's two
 tensor-core kernels must show ``HGMMA`` in their SASS at every hd, and a
 q off a 16-byte boundary must raise; RMSNorm over rows {7, 1024, 4099} ×
-D {64, 100, 896, 3072, 12288} and an unaligned row (dx in bfloat16 within one bf16 ulp,
+D {64, 100, 896, 3072, 12288}, an unaligned row and three bfloat16
+draws on the card at (4099, 12288) (dx in bfloat16 within one bf16 ulp,
+or, row by row, bit for bit the plain formula at one of the two bf16
+neighbours of the row's coefficient summed in float64: the kernel sums
+the row in another order and can round its coefficient the other way;
 dw at the float32 tolerance); the SSD backward over the forward's SSD
 grid (64 cases; the kernel on the kernel forward's cum and states, the
 plain version on the plain forward's; the final state's cotangent random
@@ -290,14 +330,23 @@ timed at the training shape (B 2, S 4096, 10 / 1 heads, window 2048)
 as at danube's; and ``ptxas``'s registers and spills of the RG-LRU
 backward's two kernels (its persistent tile kernel, both paths, and
 dΛ's sum) and the hd-256 flash backward's (none may spill).
+Last, the MoE decoders' kernels at their own shapes (``phase5_moe``,
+``MOE_SHAPES``): the flash forward at each one's prefill (B 4, S 512;
+qwen3-moe-30b-a3b's 32 / 4 heads of 128, dbrx-132b's 48 / 8) and its
+backward at the training shape (B 2, S 512), bf16, held to their plain
+versions and timed beside SDPA (GQA) and its backward; the RMSNorm
+forward at the prefill's 2048 rows and its backward at the training
+shape's 1024, at each one's width (2048, 6144), held to their plain
+versions.
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
 100k pair, phase 14's four serving runs and training run, phase 15's
-two serving runs and phase 16's training run), error and
-times, the ``nvidia-smi`` line, and the result line.  Exits non-zero without a
-result when no CUDA device is visible or the port's sources are missing.
+two serving runs, phase 16's training run and phase 17's two serving
+runs and training run), error and times, the ``nvidia-smi`` line, and
+the result line.  Exits non-zero without a result when no CUDA device
+is visible or the port's sources are missing.
 """
 from __future__ import annotations
 
@@ -369,6 +418,16 @@ FLASH_HEAD_DIMS = (64, 80, 128)
 FLASH_WIDE_HD, FLASH_WIDE_GQA = 256, (1, 10)
 FLASH_FWD_HEAD_DIMS = FLASH_HEAD_DIMS + (FLASH_WIDE_HD,)
 FLASH_WIDE_BAND, FLASH_WIDE_BAND_S = ("window2048", {"window": 2048}), 2200
+#: both directions also at the MoE decoders' grouped heads at hd 128, over
+#: FLASH_MODES × these ratios (qwen3-moe-30b-a3b's 32 / 4, dbrx-132b's
+#: 48 / 8) × FLASH_SEQ (FLASH_BWD_SEQ backward) × DTYPES; then the pair
+#: held to its plain version and timed at each decoder's heads and the
+#: RMSNorm pair held at its width (MOE_SHAPES: name, H, KV, hd, d_model),
+#: at the serving prefill and training shapes (B, S)
+FLASH_MOE_HD, FLASH_MOE_GQA = 128, (8, 6)
+MOE_SHAPES = (("qwen3-moe-30b-a3b", 32, 4, 128, 2048),
+              ("dbrx-132b", 48, 8, 128, 6144))
+MOE_PREFILL, MOE_TRAIN = (4, 512), (2, 512)
 #: phase 5's RG-LRU scan grid: S × W × B × {h0 given, none} × {gate
 #: fused, none} × DTYPES (4096 and 2560: recurrentgemma-2b's prefill and
 #: width, 8192 its max_len; 1 the decode kernel; 37 inside one of the
@@ -457,6 +516,8 @@ SSD_BWD_DT = (1e-4, 1e-4)
 FLASH_BWD_SEQ = (1, 37, 64, 512, 1000)
 RMS_BWD_ROWS = (7, 1024, 4099)
 RMS_BWD_DIMS = (64, 100, 896, 3072, 12288)
+#: and bf16 rows × D drawn on the card, RMS_BWD_CARD_DRAWS draws
+RMS_BWD_CARD, RMS_BWD_CARD_DRAWS = (4099, 12288), 3
 #: the bf16 backward's tensor-core kernels, whose SASS must show HGMMA
 FLASH_BWD_TC = ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel")
 #: the two backward wrappers' kernels, by name, as phase 8's traced tick
@@ -480,12 +541,13 @@ DANUBE_PREFILL, DANUBE_TRAIN = (4, 6144), (2, 6144)
 #: of S tokens each per tick, drawn from a pool of POOL fixed sequences);
 #: phase 12 trains MAMBA_TRAIN_ARCH the same way; both at full width with
 #: the depth cut to TRAIN_LAYERS and MAMBA_TRAIN_LAYERS (of 24 and 48),
-#: so that the script, phase 14 included, keeps inside its time limit
-#: (phase 9 trains qwen2-0.5b at full depth)
+#: so that the script, phase 17 included, keeps inside its time limit
+#: (phase 9 trains qwen2-0.5b at full depth); 12 layers and 24 ticks
+#: before phase 17 came
 TRAIN_ARCH = "qwen2-0.5b"
 MAMBA_TRAIN_ARCH = "mamba2-780m"
-TRAIN_LAYERS, MAMBA_TRAIN_LAYERS = 12, 12
-TRAIN_TICKS = 24
+TRAIN_LAYERS, MAMBA_TRAIN_LAYERS = 6, 6
+TRAIN_TICKS = 16
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
 #: phase 8's reduced launcher runs on the card, each (module of
 #: repro_torch.launch, argv, what its output must hold): train with
@@ -510,8 +572,8 @@ SERVE_ARGV = ["--arch", "qwen2-0.5b", *TRAFFIC]
 #: new tokens of the one wave whose device busy share is traced
 TRACE_NEW = 16
 #: phase 7 serves mamba2-780m at full width, its depth cut to
-#: MAMBA_SERVE_LAYERS of 48
-MAMBA_SERVE_LAYERS = 24
+#: MAMBA_SERVE_LAYERS of 48 (24 before phase 17 came)
+MAMBA_SERVE_LAYERS = 12
 MAMBA_ARGV = ["--arch", "mamba2-780m", "--n-layers", str(MAMBA_SERVE_LAYERS),
               *TRAFFIC]
 #: phase 9: the trainer → bus → live server loop at full width; the
@@ -541,9 +603,10 @@ WINDOW_TRAFFIC = ["--requests", "4", "--batch", "4", "--max-len", "8192",
                   "--max-new", "64", "--seed", "0"]
 GEMMA_LAYERS = 4
 #: qwen1.5-4b's and h2o-danube-1.8b's depths cut to QWEN15_LAYERS of 40
-#: and DANUBE_LAYERS of 24, and gemma2-27b's from 8 to 4 (so that the
-#: script keeps inside its time limit with phase 16)
-QWEN15_LAYERS, DANUBE_LAYERS = 12, 12
+#: and DANUBE_LAYERS of 24 (12 each before phase 17 came), and
+#: gemma2-27b's from 8 to 4 (so that the script keeps inside its time
+#: limit with phases 16 and 17)
+QWEN15_LAYERS, DANUBE_LAYERS = 6, 6
 LOCAL_SERVE = (
     ["--arch", "qwen1.5-4b", "--n-layers", str(QWEN15_LAYERS), *TRAFFIC],
     ["--arch", "h2o-danube-1.8b", "--n-layers", str(DANUBE_LAYERS),
@@ -561,15 +624,17 @@ LOCAL_SERVE = (
 LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 4
 LOCAL_TRAIN_TICKS, LOCAL_TRAIN_S, LOCAL_TRAIN_WARMUP = 8, 6144, 3
 LOCAL_TRAIN_FALL = 2
-#: phase 15: recurrentgemma-2b served at full width and depth (26 layers,
-#: 2,682,237,440 params; batch 4, greedy, seeded random weights, bf16) at
+#: phase 15: recurrentgemma-2b served at full width, its depth cut to
+#: RGEMMA_SERVE_LAYERS of 26 (4 (R, R, A) groups and the (R, R) tail;
+#: whole before phase 17 came: cut so that the script keeps inside its
+#: time limit with it; batch 4, greedy, seeded random weights, bf16) at
 #: max_len 8192 on one wave of prompts past its window of 2048 (the
 #: prefill rolls the ring twice, decode wraps it), then one shorter than
 #: it (a ring padded with zeros)
-RGEMMA_SERVE = (
-    ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "4096"],
-    ["--arch", "recurrentgemma-2b", *WINDOW_TRAFFIC, "--prompt-len", "1024"],
-)
+RGEMMA_SERVE_LAYERS = 14
+RGEMMA_SERVE = tuple(
+    ["--arch", "recurrentgemma-2b", "--n-layers", str(RGEMMA_SERVE_LAYERS),
+     *WINDOW_TRAFFIC, "--prompt-len", str(n)] for n in (4096, 1024))
 #: phase 16: recurrentgemma-2b trained under PSP as phase 14 trains
 #: danube, at full width with its depth cut to RGEMMA_TRAIN_LAYERS (one
 #: (R, R, A) group and the (R, R) tail: 1,048,686,080 params),
@@ -583,6 +648,47 @@ RGEMMA_TRAIN_FALL = 2
 #: then the reduced launcher on the card, as phase 12 runs mamba2's
 RGEMMA_LAUNCHER = ["--arch", RGEMMA_TRAIN_ARCH, "--reduced", "--barrier",
                    "pbsp", "--steps", "4"]
+#: phase 17: the MoE decoders served at full width on phase 6's traffic
+#: (batch 4, greedy, seeded random weights, bf16, the config's capacity
+#: factor 1.25), their depths cut: qwen3-moe-30b-a3b to QWEN3_MOE_LAYERS
+#: of 48 (623,120,384 f32 params a layer), dbrx-132b to DBRX_LAYERS of 40
+#: (3,259,084,800 a layer; three would not fit the card beside their
+#: casts); their teacher-forced comparisons at the capacity factor E / k
+#: (16 and 4), under which an expert's capacity is at least a call's
+#: tokens, so that none can be dropped (random weights route skewed: at
+#: 8.0 an expert of qwen3-moe's took 1051 of a 2048-token prefill, past
+#: its capacity of 1024)
+QWEN3_MOE_LAYERS, DBRX_LAYERS = 12, 2
+MOE_SERVE = (
+    ["--arch", "qwen3-moe-30b-a3b", "--n-layers", str(QWEN3_MOE_LAYERS),
+     *TRAFFIC],
+    ["--arch", "dbrx-132b", "--n-layers", str(DBRX_LAYERS), *TRAFFIC],
+)
+#: then qwen3-moe-30b-a3b trained under PSP at full width with its depth
+#: cut to MOE_TRAIN_LAYERS (1,245,452,288 f32 params): MOE_TRAIN_W
+#: workers, β MOE_TRAIN_BETA (the other phases' W 4 peaks at about 19×
+#: the parameter bytes, past the card's 80 GB), MOE_TRAIN_TICKS ticks of
+#: TRAIN_B sequences of TRAIN_S tokens a worker, AdamW on
+#: warmup_cosine(3e-3, MOE_TRAIN_WARMUP, MOE_TRAIN_TICKS), the loss
+#: falling over the first and last MOE_TRAIN_FALL pushing ticks
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen3-moe-30b-a3b", 1
+MOE_TRAIN_W, MOE_TRAIN_BETA = 2, 1
+MOE_TRAIN_TICKS, MOE_TRAIN_WARMUP, MOE_TRAIN_FALL = 8, 3, 2
+#: then the reduced launchers on the card, run side by side: (module of
+#: repro_torch.launch, argv, what its output must hold); dbrx-132b's
+#: reduced 6 heads take d_model 384 (hd 64: the default 256 gives hd 42,
+#: which the flash kernel does not take)
+MOE_LAUNCHERS = (
+    ("train", ["--arch", "qwen3-moe-30b-a3b", "--reduced", "--barrier",
+               "pbsp", "--steps", "4"], ("tick",)),
+    ("train", ["--arch", "dbrx-132b", "--reduced", "--d-model", "384",
+               "--barrier", "pbsp", "--steps", "4"], ("tick",)),
+    ("serve", ["--arch", "qwen3-moe-30b-a3b", "--reduced"],
+     ("device=cuda",)),
+    ("serve", ["--arch", "dbrx-132b", "--reduced", "--d-model", "384"],
+     ("device=cuda",)),
+)
+
 
 
 def smi() -> str:
@@ -900,13 +1006,15 @@ def rms_cases():
 
 def flash_cases():
     """Phase 5's flash forward grid: ((mode, kwargs), GQA ratio, S, hd,
-    dtype), hd FLASH_HEAD_DIMS at GQA FLASH_GQA, then hd 256 at
-    FLASH_WIDE_GQA."""
+    dtype), hd FLASH_HEAD_DIMS at GQA FLASH_GQA, hd 256 at
+    FLASH_WIDE_GQA, then hd 128 at FLASH_MOE_GQA."""
     return itertools.chain(
         itertools.product(FLASH_MODES, FLASH_GQA, FLASH_SEQ,
                           FLASH_HEAD_DIMS, DTYPES),
         itertools.product(FLASH_MODES, FLASH_WIDE_GQA, FLASH_SEQ,
-                          (FLASH_WIDE_HD,), DTYPES))
+                          (FLASH_WIDE_HD,), DTYPES),
+        itertools.product(FLASH_MODES, FLASH_MOE_GQA, FLASH_SEQ,
+                          (FLASH_MOE_HD,), DTYPES))
 
 
 def rglru_cases():
@@ -927,8 +1035,24 @@ def ssd_cases():
     return [(*shape, d, dt) for shape, d, dt in grid]
 
 
-def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
-    """x (rows, D) in ``dtype`` and a float32 gain w (D,), from numpy."""
+def _normal(torch, dev, seed):
+    """N(0, 1) float32 tensors of a shape, drawn on ``dev`` one after
+    another from a ``torch.Generator`` seeded with ``seed`` (numpy on the
+    host took a tenth of a second a flash case, most of phase 5's
+    grids)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return lambda *shape: torch.randn(shape, generator=gen, device=dev)
+
+
+def rms_inputs(np, torch, rows, D, dtype, dev, seed=0, on_card=False):
+    """x (rows, D) ~ 3·N(0, 1) in ``dtype`` and a float32 gain w (D,) ~ 1
+    + 0.5·N(0, 1), from numpy, or with ``on_card`` drawn on ``dev``
+    (:func:`_normal`)."""
+    if on_card:
+        normal = _normal(torch, dev, seed)
+        x = normal(rows, D) * 3
+        return x.to(getattr(torch, dtype)), 1 + 0.5 * normal(D)
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(rows, D)) * 3).astype(np.float32)
     w = (1 + 0.5 * rng.normal(size=D)).astype(np.float32)
@@ -938,12 +1062,12 @@ def rms_inputs(np, torch, rows, D, dtype, dev, seed=0):
 
 def flash_inputs(np, torch, B, S, H, KV, hd, dtype, dev, seed=0,
                  q_only=False):
-    """q (B, S, H, hd) and k, v (B, S, KV, hd) in ``dtype``, from numpy;
-    with ``q_only`` the q alone (the same values: q is drawn first)."""
-    rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(
-        np.float32)).to(dev, getattr(torch, dtype))
-        for n in ((H,) if q_only else (H, KV, KV)))
+    """q (B, S, H, hd) and k, v (B, S, KV, hd) ~ N(0, 1) in ``dtype``,
+    drawn on ``dev`` (:func:`_normal`); with ``q_only`` the q alone (the
+    same values: q is drawn first)."""
+    normal = _normal(torch, dev, seed)
+    return tuple(normal(B, S, n, hd).to(getattr(torch, dtype))
+                 for n in ((H,) if q_only else (H, KV, KV)))
 
 
 def ssd_inputs(np, torch, B, S, nh, ng, hd, N, decay, dtype, dev, seed=0):
@@ -1157,7 +1281,8 @@ def phase5(np, torch, dev, card):
             f"flash {mode} G={G} S={S} hd={hd} {dt}"))
     print(f"[5] flash kernel == plain on {i + 1} cases (hd "
           f"{FLASH_HEAD_DIMS} at GQA {FLASH_GQA}, hd {FLASH_WIDE_HD} at GQA "
-          f"{FLASH_WIDE_GQA}; bf16 on the tensor cores); max |err| "
+          f"{FLASH_WIDE_GQA}, hd {FLASH_MOE_HD} at GQA {FLASH_MOE_GQA}; "
+          "bf16 on the tensor cores); max |err| "
           + ", ".join(f"{dt} {e:.3g}" for dt, e in err_fl.items()),
           flush=True)
     sass = tensor_core_sass(_build._target("flash_attention"))
@@ -1489,7 +1614,9 @@ def flash_bwd_cases():
         itertools.product(FLASH_MODES, FLASH_WIDE_GQA, FLASH_BWD_SEQ,
                           (FLASH_WIDE_HD,), DTYPES),
         itertools.product((FLASH_WIDE_BAND,), FLASH_WIDE_GQA,
-                          (FLASH_WIDE_BAND_S,), (FLASH_WIDE_HD,), DTYPES))
+                          (FLASH_WIDE_BAND_S,), (FLASH_WIDE_HD,), DTYPES),
+        itertools.product(FLASH_MODES, FLASH_MOE_GQA, FLASH_BWD_SEQ,
+                          (FLASH_MOE_HD,), DTYPES))
 
 
 def hgmma_by_hd(sass, names, hds=FLASH_HEAD_DIMS):
@@ -1589,22 +1716,29 @@ def check_flash_bwd(np, torch, case, dev, seed):
     return err
 
 
-def check_rms_bwd(np, torch, rows, D, dt, dev, seed, shift=False):
+def check_rms_bwd(np, torch, rows, D, dt, dev, seed, shift=False,
+                  on_card=False):
     """One RMSNorm backward case: the kernel against ``rmsnorm_bwd_ref``
-    on the same x, w, g and the plain forward's m (``shift``: x and g one
-    element past a 16-byte boundary), two runs bit for bit alike.
-    float32: dx and dw at ``BWD_F32``; bfloat16: dx within one bf16 ulp
-    of the larger of |dx| and its rounded term |cast(coeff)·x| (the
-    kernel sums the row's inner product in another order, which can
-    round ``cast(coeff)`` the other way), dw at ``BWD_F32`` (the same m:
-    the rows' ``cast(g·m)`` are equal).  Returns max |err| of dx, dw."""
+    on the same x, w, g (:func:`rms_inputs`) and the plain forward's m
+    (``shift``: x and g one element past a 16-byte boundary), two runs
+    bit for bit alike.  float32: dx and dw at ``BWD_F32``.  bfloat16: dw
+    at ``BWD_F32`` (the same m: the rows' ``cast(g·m)`` are equal); dx
+    within one bf16 ulp of the larger of |dx| and its rounded term
+    |cast(coeff)·x|, or else, row by row, bit for bit the plain formula
+    at one of the two bf16 neighbours of the row's exact coefficient
+    (:func:`rms_coeff_witness`): the kernel sums the row's inner product
+    in another order, which can round ``cast(coeff)`` the other way, and
+    one ulp of a coefficient at the foot of its binade moves a product
+    at the top of its own by two.  Returns (max |err| of dx and dw, the
+    rows decided by the witness)."""
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
                                              rmsnorm_bwd_ref, rmsnorm_ref)
-    x, w = rms_inputs(np, torch, rows, D, dt, dev, seed=seed)
-    g, _ = rms_inputs(np, torch, rows, D, dt, dev, seed=seed + 1000)
+    x, w = rms_inputs(np, torch, rows, D, dt, dev, seed, on_card)
+    g, _ = rms_inputs(np, torch, rows, D, dt, dev, seed + 1000, on_card)
     if shift:
         x, g = unaligned(torch, x), unaligned(torch, g)
-    what = f"rmsnorm bwd rows={rows} D={D} {dt}" + (" unaligned" * shift)
+    what = (f"rmsnorm bwd rows={rows} D={D} {dt}" + (" unaligned" * shift)
+            + (" drawn on the card" * on_card))
     _, m = rmsnorm_ref(x, w, round_scale=True, return_m=True)
     dx, dw = rmsnorm_bwd_cuda(x, w, g, m)
     dx2, dw2 = rmsnorm_bwd_cuda(x, w, g, m)
@@ -1613,7 +1747,7 @@ def check_rms_bwd(np, torch, rows, D, dt, dev, seed, shift=False):
     rdx, rdw = rmsnorm_bwd_ref(x, w, g, m)
     err_w = check_bwd(np, dw, rdw, "float32", f"{what} dw")
     if dt == "float32":
-        return max(check_bwd(np, dx, rdx, dt, f"{what} dx"), err_w)
+        return max(check_bwd(np, dx, rdx, dt, f"{what} dx"), err_w), 0
     a = rdx.float().cpu().numpy()
     b = dx.float().cpu().numpy()
     xf, gf = x.float(), g.float()
@@ -1622,10 +1756,33 @@ def check_rms_bwd(np, torch, rows, D, dt, dev, seed, shift=False):
     term = np.maximum(np.maximum(np.abs(a), np.abs(b)),
                       (coeff * xf).abs().cpu().numpy())
     err = float(np.abs(a - b).max())
-    if not (np.abs(a - b) <= bf16_ulp(np, term)).all():
-        raise AssertionError(f"{what} dx: beyond one bf16 ulp, max |diff| "
-                             f"{err}")
-    return max(err, err_w)
+    over = np.nonzero((np.abs(a - b) > bf16_ulp(np, term)).any(-1))[0]
+    if len(over):
+        r = torch.from_numpy(over).to(dev)
+        if not rms_coeff_witness(torch, x[r], w, g[r], m[r], dx[r]):
+            raise AssertionError(f"{what} dx: beyond one bf16 ulp on rows "
+                                 f"{over[:8].tolist()}, max |diff| {err}, "
+                                 "and not the plain formula at a bf16 "
+                                 "neighbour of the exact coefficient")
+    return max(err, err_w), len(over)
+
+
+def rms_coeff_witness(torch, x, w, g, m, dx):
+    """Whether each row of the kernel's bf16 ``dx`` is, bit for bit,
+    ``rmsnorm_bwd_ref``'s formula ``cast(m·g·w) − cast(c)·x`` at c one of
+    the two bfloat16 neighbours of the row's coefficient m³/D · Σ
+    cast(g·w)·x, its sum taken in float64 (m³/D in float32, as both
+    versions form it)."""
+    D = x.shape[-1]
+    gs = g.float() * w.float()
+    mmm = (m[:, None] * m[:, None] * m[:, None] / D).double()
+    exact = mmm * (gs.to(x.dtype).double() * x.double()).sum(
+        -1, keepdim=True)
+    lo = (exact.float().view(torch.int32) & -65536).view(torch.float32)
+    hi = (lo.view(torch.int32) + 65536).view(torch.float32)
+    first = (m[:, None] * gs).to(x.dtype)
+    at = [first - c.to(x.dtype) * x for c in (lo, hi)]
+    return bool(((dx == at[0]).all(-1) | (dx == at[1]).all(-1)).all())
 
 
 def phase5_bwd(np, torch, dev, card):
@@ -1660,15 +1817,23 @@ def phase5_bwd(np, torch, dev, card):
         raise AssertionError("flash backward took a q off a 16-byte "
                              "boundary")
     err_rms = {dt: 0.0 for dt in DTYPES}
-    cases = [(*c, False) for c in rms_bwd_cases()]
-    cases += [(7, 896, dt, True) for dt in DTYPES]
-    for i, (rows, D, dt, shift) in enumerate(cases):
-        err_rms[dt] = max(err_rms[dt], check_rms_bwd(
-            np, torch, rows, D, dt, dev, seed=i, shift=shift))
+    cases = [(*c, False, False) for c in rms_bwd_cases()]
+    cases += [(7, 896, dt, True, False) for dt in DTYPES]
+    # drawn on the card: a draw at this shape had rows whose coefficient
+    # the two versions round apart, with dx two ulps apart
+    cases += [(*RMS_BWD_CARD, "bfloat16", False, True)] * RMS_BWD_CARD_DRAWS
+    apart = 0
+    for i, (rows, D, dt, shift, on_card) in enumerate(cases):
+        err, n = check_rms_bwd(np, torch, rows, D, dt, dev, seed=i,
+                               shift=shift, on_card=on_card)
+        err_rms[dt] = max(err_rms[dt], err)
+        apart += n
     print(f"[5] rmsnorm backward kernel == plain on {len(cases)} cases "
-          "(2 unaligned), two runs bit for bit alike; max |err| "
-          + ", ".join(f"{dt} {e:.3g}" for dt, e in err_rms.items()),
-          flush=True)
+          f"(2 unaligned; {RMS_BWD_CARD_DRAWS} drawn on the card at "
+          f"{RMS_BWD_CARD}), two runs bit for bit alike; max |err| "
+          + ", ".join(f"{dt} {e:.3g}" for dt, e in err_rms.items())
+          + f"; bf16 rows beyond one ulp, each the plain formula at a bf16 "
+          f"neighbour of its float64 coefficient: {apart}", flush=True)
 
     B, S = FLASH_BWD_TIMED
     q, k, v = flash_inputs(np, torch, B, S, 14, 2, 64, "bfloat16", dev)
@@ -1875,6 +2040,123 @@ def phase5_danube(np, torch, dev, card):
     ms = band_backward(np, torch, dev, card, "h2o-danube-1.8b",
                        *DANUBE_TRAIN, H, KV, hd, w)[0]
     return fwd, ms["kernel"][0]
+
+
+def phase5_moe(np, torch, dev, card):
+    """The flash pair at each MoE decoder's grouped heads (MOE_SHAPES:
+    qwen3-moe-30b-a3b's 32 query heads on 4 KV heads of 128, dbrx-132b's
+    48 on 8, causal) and bf16: the forward at the serving prefill
+    MOE_PREFILL against its plain version and SDPA (GQA), the backward
+    at the training shape MOE_TRAIN against its plain version and SDPA's
+    backward through autograd, each held to its plain version there and
+    timed by the profiler in mirrored rounds (:func:`timed_rounds`)
+    beside its bound; and the RMSNorm pair at the decoder's width, the
+    forward at the prefill's B·S rows (the model's ``round_scale``
+    form), the backward at the training shape's (:func:`check_rms_bwd`),
+    against their plain versions."""
+    for name, H, KV, hd, D in MOE_SHAPES:
+        moe_flash(np, torch, dev, card, name, H, KV, hd)
+        moe_rmsnorm(np, torch, dev, name, D)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_rmsnorm(np, torch, dev, name, D):
+    """:func:`phase5_moe`'s RMSNorm checks at width D."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    rows = MOE_PREFILL[0] * MOE_PREFILL[1]
+    x, w = rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=5)
+    err = check_close(np, rmsnorm_cuda(x, w, round_scale=True),
+                      rmsnorm_ref(x, w, round_scale=True), "bfloat16",
+                      f"rmsnorm at {name}'s prefill")
+    bwd_rows = MOE_TRAIN[0] * MOE_TRAIN[1]
+    err_b = check_rms_bwd(np, torch, bwd_rows, D, "bfloat16", dev,
+                          seed=6)[0]
+    print(f"[5] rmsnorm at {name}'s width {D}, bf16: the forward at "
+          f"({rows}, {D}) == plain, max |err| {err:.3g}; the backward at "
+          f"({bwd_rows}, {D}) == plain, max |err| {err_b:.3g}", flush=True)
+
+def moe_flash(np, torch, dev, card, name, H, KV, hd):
+    """:func:`phase5_moe`'s flash pair at ``name``'s heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_ref, flash_attention_bwd_cuda,
+        flash_attention_cuda)
+    G = H // KV
+    sdpa_in = lambda t, i: (t if i == 0 else t.repeat_interleave(G, dim=2)
+                            ).transpose(1, 2)
+    B, S = MOE_PREFILL
+    q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
+    err = check_close(np, flash_attention_cuda(q, k, v),
+                      attention_ref(q, k, v), "bfloat16",
+                      f"flash at {name}'s prefill shape")
+    nxt, n_sets = rotating((q, k, v))
+    try:
+        F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (
+            q, k, v)), is_causal=True, enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in nxt()), is_causal=True,
+            enable_gqa=True)
+    except TypeError:              # a torch without enable_gqa
+        lib = lambda: F.scaled_dot_product_attention(
+            *(sdpa_in(t, i) for i, t in enumerate(nxt())), is_causal=True)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: flash_attention_cuda(*nxt()), 20),
+        "plain": (lambda: attention_ref(*nxt()), 5),
+        "library": (lib, 20)})
+    flops = 2 * B * H * S * S * hd                 # two causal products
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] flash forward at {name}'s prefill B={B} S={S} "
+          f"H={H} KV={KV} hd={hd} bf16 causal (kernel == plain there, max "
+          f"|err| {err:.3g}): " + rounds_text(ms)
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP"
+          f" at the bf16 tensor-core rate, {nbytes / 1e6:.2f} MB at "
+          f"{t_bytes:.4f} ms); kernel at {flops / ms['kernel'][0] / 1e9:.2f}"
+          f" TFLOP/s, library (SDPA, GQA) at "
+          f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+
+    B, S = MOE_TRAIN
+    q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
+    do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev, 1)[0]
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    err = max(check_bwd(np, g, r, "bfloat16",
+                        f"flash bwd at {name}'s training shape {n}")
+              for n, g, r in zip(
+                  "dq dk dv".split(),
+                  flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                  attention_bwd_ref(q, k, v, o, lse, do)))
+    nxt, n_sets = rotating((q, k, v, o, lse, do))
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    except TypeError:              # a torch without enable_gqa
+        leaves = [sdpa_in(t, i).detach().requires_grad_(True)
+                  for i, t in enumerate((q, k, v))]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    dout = do.transpose(1, 2)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: flash_attention_bwd_cuda(*nxt()), 20),
+        "plain": (lambda: attention_bwd_ref(*nxt()), 5),
+        "library": (lambda: torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True), 20)})
+    flops = 5 * B * H * S * S * hd            # five causal products
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, o, lse, do, q, k, v))
+    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    print(f"[5] flash backward at {name}'s training shape B={B} "
+          f"S={S} H={H} KV={KV} hd={hd} bf16 causal (kernel == plain there,"
+          f" max |err| {err:.3g}): " + rounds_text(ms)
+          + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP"
+          f" at the bf16 tensor-core rate, {nbytes / 1e6:.2f} MB at "
+          f"{t_bytes:.4f} ms); kernel at {flops / ms['kernel'][0] / 1e9:.2f}"
+          f" TFLOP/s, library (SDPA's backward through autograd) at "
+          f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
+          f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    del nxt, leaves, out
 
 
 def ptxas_report(log, pattern):
@@ -2247,6 +2529,256 @@ def ring_check(np, torch, run, a, tag):
     del cache
 
 
+def routed(np, torch, model, toks, prompt_len, max_len, impl,
+           replay=None):
+    """:func:`teacher_force` inside ``repro_torch.models.moe.routing``:
+    (its logits, the experts each MoE layer picked, call by call; empty
+    for a model without experts).  With ``replay`` (such a record of the
+    same tokens) the layers take those experts instead."""
+    from repro_torch.models import moe
+    with moe.routing(replay) as rec:
+        out = teacher_force(np, torch, model, toks, prompt_len, max_len,
+                            impl)
+    return out, rec
+
+
+def sets_apart(a, b):
+    """Two routing records of the same calls compared as sets of experts,
+    token by token: (the top-k sets that differ, the sets compared)."""
+    d = [(x.sort(-1).values != y.sort(-1).values).any(-1)
+         for x, y in zip(a, b)]
+    return sum(int(t.sum()) for t in d), sum(t.numel() for t in d)
+
+
+def by_layer(torch, rec, n_moe, batch):
+    """An incremental run's routing record (a prefill's n_moe calls, then
+    each decode step's, layer by layer) as a whole-sequence pass makes
+    its calls: one a layer over every (row, position), row-major."""
+    return [torch.cat([c.view(batch, -1, c.shape[-1])
+                       for c in rec[i::n_moe]], 1).flatten(0, 1)
+            for i in range(n_moe)]
+
+
+def stepwise(torch, model, toks, prompt_len):
+    """Incremental decoding of ``toks`` (B, T) token by token, each a
+    decode step (impl "cuda") from an empty cache whose keys and values
+    are float32: (the logits (T − prompt_len + 1, B, V) of positions
+    prompt_len − 1 on, the routing record).  The serving cache is bf16;
+    a float32 model's whole-sequence pass is held to this one."""
+    from repro_torch.models import decode_step, init_cache, moe
+    B, T = toks.shape
+    cache = init_cache(model.cfg, B, T, device=toks.device)
+    cache["layers"] = [{k: v.float() for k, v in layer.items()}
+                       for layer in cache["layers"]]
+    steps = []
+    with moe.routing() as rec:
+        for j in range(T):
+            logits, cache = decode_step(model, cache, toks[:, j:j + 1],
+                                        impl="cuda")
+            if j >= prompt_len - 1:
+                steps.append(logits)
+    return torch.stack(steps), rec
+
+
+def teacher_checks(np, torch, run, a, tag, t_phase):
+    """Teacher-forced checks of a served run, per wave.  The kernel path
+    must reproduce the served tokens.  The plain path (impl="ref") is
+    held to it in the served bf16 compute within 2e-2 of max |logit|, or
+    the plain path's own bf16 rounding error (against float32 compute)
+    where larger, and on the same weights in float32 compute within 1e-4
+    at prefill and 5e-3 in decode (the bounds of
+    tests/test_torch_transformer.py; the bf16 caches can round a
+    last-bit change apart).
+
+    A MoE model is compared at the capacity factor E / k, under which an
+    expert's capacity is at least a call's tokens, so that none drops
+    (checked from the routes), as the reference's decode-consistency
+    test runs at a factor without drops: drops depend on a call's token
+    count, which a whole-sequence pass and incremental decode do not
+    share.  Each comparison runs on one routing
+    (``repro_torch.models.moe.routing``): the plain path takes the
+    experts the kernel path picked, and the plain path's bf16 rounding
+    error is taken on the float32 path's experts, since a top-k set that
+    rounding flips sends a token to other experts, a difference that no
+    tolerance on the logits describes; the sets each side would have
+    flipped are counted.  There, on the first wave, a whole-sequence pass
+    on the kernels in float32 compute is also held within 2e-2 of an
+    incremental one (:func:`stepwise`: every token a decode step, on a
+    float32 cache, since the served bf16 cache rounds the keys and values
+    that the whole pass keeps in float32), on the incremental pass's
+    experts."""
+    from repro_torch.models import Model, forward, moe
+    from repro_torch.models.transformer import _head
+    cfg, dev, P = run.cfg, run.model.embed.device, a.prompt_len
+    waves = [np.stack([np.concatenate([run.prompts[i], run.outputs[i]])
+                       for i in range(w, min(w + a.batch, len(run.prompts)))])
+             for w in range(0, len(run.prompts), a.batch)]
+    served = lambda toks: torch.from_numpy(toks[:, P:].T.copy()).to(dev)
+    reproduced = lambda ker, toks: torch.equal(ker.argmax(-1), served(toks))
+    model, tree, agree = run.model, run.model.tree(), 0
+    if cfg.is_moe:
+        for toks in waves:                 # at the served factor first
+            ker = teacher_force(np, torch, model, toks, P, a.max_len,
+                                "cuda")
+            if not reproduced(ker, toks):
+                raise AssertionError("teacher-forced kernel logits do not "
+                                     "reproduce the served tokens")
+            agree += toks[:, P:].size
+        del ker
+        for m in model.modules():            # the served model's casts
+            if hasattr(m, "_memo"):
+                m._memo = (None, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=(
+            cfg.n_experts / cfg.n_experts_per_token))
+        model = Model(cfg, tree)
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), tree)
+    n_moe = cfg.layer_kinds().count("moe")
+    rel = lambda a, b: ((a - b).abs().amax((1, 2))
+                        / a.abs().amax((1, 2))).cpu().numpy()
+    bf16, floor, f32, whole, most = [], [], [], [], 0
+    sets = {k: [0, 0] for k in ("bf16", "f32", "floor", "whole")}
+    for toks in waves:
+        tf = lambda m, impl, replay=None: routed(
+            np, torch, m, toks, P, a.max_len, impl, replay)
+        ker, rk = tf(model, "cuda")
+        if not n_moe:
+            if not reproduced(ker, toks):
+                raise AssertionError("teacher-forced kernel logits do not "
+                                     "reproduce the served tokens")
+            agree += toks[:, P:].size
+        ref, own = tf(model, "ref", rk)
+        ref32, r32 = tf(m32, "ref")
+        counts = [("bf16", rk, own)]
+        if n_moe:               # the plain bf16 path on float32's experts
+            ref_f, own_f = tf(model, "ref", r32)
+            counts.append(("floor", r32, own_f))
+        else:
+            ref_f = ref
+        k32, rk32 = tf(m32, "cuda")
+        if n_moe:
+            ref32k, own32 = tf(m32, "ref", rk32)
+            counts.append(("f32", rk32, own32))
+        else:
+            ref32k = ref32
+        bf16.append(rel(ker, ref))
+        floor.append(rel(ref32, ref_f))
+        f32.append(rel(k32, ref32k))
+        if n_moe and not len(whole):
+            B, t = toks.shape[0], torch.from_numpy(toks[:, :-1]).to(dev)
+            with torch.no_grad():
+                inc, rs = stepwise(torch, m32, t, P)
+                rs = by_layer(torch, rs, n_moe, B)
+                with moe.routing(rs) as own_w:
+                    h, _ = forward(m32, t, impl="cuda")
+                full = _head(h[:, P - 1:], m32).transpose(0, 1)
+            counts.append(("whole", rs, own_w))
+            whole.append(rel(full, inc))
+            del h, full, inc
+        for rec in (rk, r32, rk32):
+            for top_i in rec:
+                load = int(torch.bincount(top_i.reshape(-1),
+                                          minlength=cfg.n_experts).max())
+                most = max(most, load)
+                if load > moe.capacity(top_i.shape[0], cfg):
+                    raise AssertionError(f"a token dropped at factor "
+                                         f"{cfg.moe_capacity_factor:g}: "
+                                         f"load {load}")
+        for key, x, y in counts:
+            n, n_all = sets_apart(x, y)
+            sets[key][0] += n
+            sets[key][1] += n_all
+        del ker, ref, ref_f, ref32, k32, ref32k
+    bf16, floor, f32 = (np.stack(x) for x in (bf16, floor, f32))
+    if not (f32[:, 0].max() <= 1e-4 and f32[:, 1:].max() <= 5e-3):
+        raise AssertionError(f"float32 compute: impl=ref logits differ by "
+                             f"{f32[:, 0].max()} at prefill, "
+                             f"{f32[:, 1:].max()} in decode")
+    bound = max(2e-2, float(floor.max()))
+    if not bf16.max() <= bound:
+        raise AssertionError(f"bf16 compute: impl=ref logits differ by "
+                             f"{bf16.max()} of max |logit| > {bound}")
+    text = ""
+    if n_moe:
+        whole = np.stack(whole)
+        if not whole.max() <= 2e-2:
+            raise AssertionError(f"float32 compute: the whole-sequence pass "
+                                 f"differs from the incremental one by "
+                                 f"{whole.max()} of max |logit| > 2e-2")
+        text = (f"; at the capacity factor {cfg.moe_capacity_factor:g}, "
+                f"under which no token drops (the most tokens an expert "
+                f"took in one call {most}; the served runs keep "
+                f"{run.cfg.moe_capacity_factor:g}), each comparison on one "
+                f"routing: on the first wave in float32 compute, the whole-"
+                f"sequence pass against decode steps from an empty float32 "
+                f"cache {whole.max():.3g} (median {np.median(whole):.3g}; "
+                f"bound 2e-2); top-k sets the other side would "
+                f"have picked differently: plain − kernel "
+                f"{sets['bf16'][0]} of {sets['bf16'][1]} in bf16, "
+                f"{sets['f32'][0]} of {sets['f32'][1]} in float32; plain "
+                f"bf16 − float32 {sets['floor'][0]} of {sets['floor'][1]};"
+                f" whole − incremental {sets['whole'][0]} of "
+                f"{sets['whole'][1]}")
+    print(f"[{tag}] teacher-forced: kernel logits reproduce all {agree} "
+          "served "
+          f"tokens; impl=ref per-step logits, as a share of max |logit|: "
+          f"bf16 max {bf16.max():.4g} (median {np.median(bf16):.4g}, "
+          f"prefill max {bf16[:, 0].max():.4g}; bound {bound:.4g}: 2e-2 or "
+          f"the plain path's bf16 rounding error, max {floor.max():.4g}, "
+          f"median {np.median(floor):.4g}); float32 compute prefill "
+          f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
+          f"{f32[:, 1:].max():.3g} (bound 5e-3){text}; "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    del model, m32
+
+
+def moe_split(np, torch, model, cfg, a, tag, card):
+    """The device time of the first MoE layer's four stages
+    (``repro_torch.models.moe``: route (the router product, softmax, top
+    k), dispatch, experts, combine) and of the whole ``moe_apply``, on
+    its served bf16 weights and unit-normal inputs, at the served
+    prefill's token count and a decode step's, by queued CUDA events
+    (:func:`queued_ms`), beside the experts' bound (their weights read
+    once, or their products at the bf16 tensor-core rate)."""
+    from repro_torch.models import moe
+    dev = model.embed.device
+    w = model.blocks[0].weights(torch.bfloat16)["moe"]
+    E, D, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for what, T in (("prefill", a.batch * a.prompt_len),
+                    ("decode step", a.batch)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        x = torch.randn(T, D, generator=gen, device=dev).to(torch.bfloat16)
+        cap = moe.capacity(T, cfg)
+        with torch.no_grad():
+            top_p, top_i, _ = moe.route(x, w["router"], cfg)
+            h, slot, ok = moe.dispatch(x, top_i, cap, E)
+            o = moe.experts(h, w["w_gate"], w["w_up"], w["w_down"])
+            stages = {
+                "route": lambda: moe.route(x, w["router"], cfg),
+                "dispatch": lambda: moe.dispatch(x, top_i, cap, E),
+                "experts": lambda: moe.experts(h, w["w_gate"], w["w_up"],
+                                               w["w_down"]),
+                "combine": lambda: moe.combine(o, top_p, top_i, slot, ok),
+                "moe_apply": lambda: moe.moe_apply(w, x[None], cfg)}
+            ms = {k: queued_ms(torch, fn, 10) for k, fn in stages.items()}
+        parts = sum(v for k, v in ms.items() if k != "moe_apply")
+        flops = 6 * E * cap * D * f
+        nbytes = 3 * E * D * f * 2
+        bound = 1e3 * max(flops / BF16_TC_FLOPS, nbytes / HBM_BPS)
+        print(f"[{tag}] {cfg.name} MoE layer 0 at the {what} (T {T}, "
+              f"capacity {cap} of {E} experts, top {cfg.n_experts_per_token}"
+              f", bf16), device ms by queued events: "
+              + ", ".join(f"{k} {v:.4f} ({v / parts:.3f})" for k, v in
+                          ms.items() if k != "moe_apply")
+              + f"; the four {parts:.4f}, moe_apply {ms['moe_apply']:.4f}; "
+              f"the experts' bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e9:.3f} GB of expert weights) [{card}]",
+              flush=True)
+        del x, top_p, top_i, h, slot, ok, o
+
+
 def serve_phase(np, torch, dev, card, argv, tag):
     """A serving path on the card, printed as phase ``tag``: serve
     ``argv`` through ``repro_torch.launch.serve`` with every model
@@ -2257,7 +2789,8 @@ def serve_phase(np, torch, dev, card, argv, tag):
     from repro_torch.kernels import (flash_attention as fa, rglru_scan as rg,
                                      rmsnorm as rn, ssd_scan as ss)
     from repro_torch.launch import serve
-    from repro_torch.models import Model, init_model
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import _ATTN
     t_phase = time.perf_counter()
     a = serve.parse_args(argv)
     kernels = {"flash_attention": fa, "rmsnorm": rn, "ssd_scan": ss,
@@ -2268,13 +2801,13 @@ def serve_phase(np, torch, dev, card, argv, tag):
     run = serve.one_shot(argv)
     got = {name: m.launch_count() for name, m in kernels.items()}
     eng, cfg = run.engine, run.cfg
-    # per prefill call: one flash launch per attention layer (attn or
-    # local), one SSD launch per ssd layer; per forward (prefill or decode
-    # step): two RMSNorms per layer (four with post-norms) and the final
-    # one, one RG-LRU scan per rglru layer
+    # per prefill call: one flash launch per attention layer (attn,
+    # local or moe), one SSD launch per ssd layer; per forward (prefill
+    # or decode step): two RMSNorms per layer (four with post-norms) and
+    # the final one, one RG-LRU scan per rglru layer
     forwards = eng.prefill_calls + eng.decode_steps
     kinds = cfg.layer_kinds()
-    per = {"flash_attention": (kinds.count("attn") + kinds.count("local"),
+    per = {"flash_attention": (sum(k in _ATTN for k in kinds),
                                eng.prefill_calls),
            "rmsnorm": ((4 if cfg.post_norms else 2) * cfg.n_layers + 1,
                        forwards),
@@ -2306,56 +2839,12 @@ def serve_phase(np, torch, dev, card, argv, tag):
           f"{run.decode_s:.4f} s), wall {st['wall_s']:.4f} s [{card}]",
           flush=True)
 
-    # teacher-forced checks, per wave: the kernel path must reproduce the
-    # served tokens; the plain path (impl="ref") is held to it in the
-    # served bf16 compute and, on the same weights, in float32 compute
-    m32 = Model(dataclasses.replace(cfg, dtype="float32"), run.model.tree())
-    rel = lambda a, b: ((a - b).abs().amax((1, 2))
-                        / a.abs().amax((1, 2))).cpu().numpy()
-    bf16, floor, f32 = [], [], []
-    agree = 0
-    for w in range(0, len(run.prompts), a.batch):
-        toks = np.stack([np.concatenate([run.prompts[i], run.outputs[i]])
-                         for i in range(w, min(w + a.batch,
-                                               len(run.prompts)))])
-        tf = lambda m, impl: teacher_force(np, torch, m, toks, a.prompt_len,
-                                           a.max_len, impl)
-        ker, ref = tf(run.model, "cuda"), tf(run.model, "ref")
-        served = torch.from_numpy(toks[:, a.prompt_len:].T.copy()).to(dev)
-        if not torch.equal(ker.argmax(-1), served):
-            raise AssertionError("teacher-forced kernel logits do not "
-                                 "reproduce the served tokens")
-        agree += served.numel()
-        ref32 = tf(m32, "ref")
-        bf16.append(rel(ker, ref))
-        floor.append(rel(ref32, ref))
-        f32.append(rel(tf(m32, "cuda"), ref32))
-    bf16, floor, f32 = (np.stack(x) for x in (bf16, floor, f32))
-    # float32: the bounds of tests/test_torch_transformer.py (prefill 1e-4;
-    # decode 5e-3, as the bf16 caches can round a last-bit change apart)
-    if not (f32[:, 0].max() <= 1e-4 and f32[:, 1:].max() <= 5e-3):
-        raise AssertionError(f"float32 compute: impl=ref logits differ by "
-                             f"{f32[:, 0].max()} at prefill, "
-                             f"{f32[:, 1:].max()} in decode")
-    # bfloat16: 2e-2 of max |logit|, or the plain path's own bf16 rounding
-    # error (bf16 against float32 compute) where that is larger
-    bound = max(2e-2, float(floor.max()))
-    if not bf16.max() <= bound:
-        raise AssertionError(f"bf16 compute: impl=ref logits differ by "
-                             f"{bf16.max()} of max |logit| > {bound}")
-    print(f"[{tag}] teacher-forced: kernel logits reproduce all {agree} "
-          "served "
-          f"tokens; impl=ref per-step logits, as a share of max |logit|: "
-          f"bf16 max {bf16.max():.4g} (median {np.median(bf16):.4g}, "
-          f"prefill max {bf16[:, 0].max():.4g}; bound {bound:.4g}: 2e-2 or "
-          f"the plain path's bf16 rounding error, max {floor.max():.4g}, "
-          f"median {np.median(floor):.4g}); float32 compute prefill "
-          f"{f32[:, 0].max():.3g} (bound 1e-4), decode "
-          f"{f32[:, 1:].max():.3g} (bound 5e-3); "
-          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    if cfg.is_moe:
+        moe_split(np, torch, run.model, cfg, a, tag, card)
+    teacher_checks(np, torch, run, a, tag, t_phase)
     # the trace builds its own model: free this one first (gemma2's two
     # would not fit the card beside a prefill)
-    del run, m32, ker, ref, ref32
+    del run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2390,15 +2879,17 @@ def serve_phase(np, torch, dev, card, argv, tag):
     return got
 
 
-def train_batches(torch, dev, vocab, ticks, seed=0, seq=TRAIN_S):
-    """Per tick, each worker's ``TRAIN_B`` sequences, drawn (seeded) from
-    a pool of ``TRAIN_POOL`` fixed random sequences of ``seq`` tokens, so
-    that a model can learn them: a list of int32 (W, B, seq)."""
+def train_batches(torch, dev, vocab, ticks, seed=0, seq=TRAIN_S,
+                  workers=TRAIN_W):
+    """Per tick, each of ``workers`` workers' ``TRAIN_B`` sequences, drawn
+    (seeded) from a pool of ``TRAIN_POOL`` fixed random sequences of
+    ``seq`` tokens, so that a model can learn them: a list of int32 (W,
+    B, seq)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     pool = torch.randint(0, vocab, (TRAIN_POOL, seq), generator=gen,
                          device=dev, dtype=torch.int32)
-    idx = torch.randint(0, TRAIN_POOL, (ticks, TRAIN_W, TRAIN_B),
+    idx = torch.randint(0, TRAIN_POOL, (ticks, workers, TRAIN_B),
                         generator=gen, device=dev)
     return [pool[idx[t]] for t in range(ticks)]
 
@@ -2426,30 +2917,38 @@ def leaf_rel(torch, got, want):
 
 
 def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
-                ticks=TRAIN_TICKS, seq=TRAIN_S, warmup=None, fall=4):
+                ticks=TRAIN_TICKS, seq=TRAIN_S, warmup=None, fall=4,
+                workers=TRAIN_W, beta=2):
     """PSP training of ``arch`` at full width on the card (its first
     ``layers`` layers when given), built from the library calls that
-    ``repro_torch.launch.train`` makes: tick 0 against the plain path,
-    ``ticks`` ticks of ``seq``-token sequences through the kernels (AdamW
-    on ``warmup_cosine(3e-3, warmup, ticks)``), one traced tick; the mean
-    loss of the last ``fall`` pushing ticks must be below that of the
-    first ``fall``; see the module docstring (phases 8, 12 and 14).
-    Returns (the model kernels' launch counts of the run, cfg, params,
-    optimizer, batches, the phase's start)."""
+    ``repro_torch.launch.train`` makes (``workers`` workers, β ``beta``):
+    tick 0 against the plain path, ``ticks`` ticks of ``seq``-token
+    sequences through the kernels (AdamW on ``warmup_cosine(3e-3, warmup,
+    ticks)``), one traced tick; the mean loss of the last ``fall``
+    pushing ticks must be below that of the first ``fall``; see the
+    module docstring (phases 8, 12, 14, 16 and 17).  A MoE model's tick 0
+    compares on one routing, as :func:`teacher_checks` does: the plain
+    path on the kernel path's experts, its bf16 − float32 spread on the
+    float32 path's; the top-k sets either side would have picked
+    differently are counted.  Returns (the model
+    kernels' launch counts of the run, cfg, params, optimizer, batches,
+    the phase's start)."""
     from repro_torch.launch.steps import make_grad_fn
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, moe
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = train_config(arch, layers)
-    W = TRAIN_W
+    W = workers
     warmup = ticks // 10 + 1 if warmup is None else warmup
     opt = psp_optimizer(ticks, warmup)
     params = init_model(cfg, seed=0, device=dev).tree()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1, seq=seq)
-    trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl)[:2]
-    leafwise = bool({"ssd", "rglru"} & set(cfg.layer_kinds()))
+    batches = train_batches(torch, dev, cfg.vocab_size, ticks + 1, seq=seq,
+                            workers=W)
+    trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl,
+                                       workers=W, beta=beta)[:2]
+    leafwise = bool({"ssd", "rglru", "moe"} & set(cfg.layer_kinds()))
 
     # (a) the first tick's per-worker losses and (clipped) gradients: the
     # kernels against the plain path in bf16 compute, beside the plain
@@ -2464,19 +2963,48 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
            "ref": make_grad_fn(cfg, 1.0, "ref"),
            "ref32": make_grad_fn(cfg32, 1.0, "ref"),
            "cuda32": make_grad_fn(cfg32, 1.0, "cuda")}
-    errs, leaf = [], []
+    errs, leaf, sets = [], [], []
     for i in range(W):
-        got = {k: fn(params, batches[0][i]) for k, fn in fns.items()}
-        (lk, gk), (lr, gr), (l32, g32), (lk32, gk32) = (got[k] for k in fns)
-        errs.append((abs(float(lk) - float(lr)), abs(float(l32) - float(lr)),
-                     tree_rel(torch, gk, gr), tree_rel(torch, gr, g32),
-                     abs(float(lk32) - float(l32)) / abs(float(l32)),
-                     tree_rel(torch, gk32, g32)))
+        def grads(name, replay=None):
+            with moe.routing(replay) as rec:
+                loss, g = fns[name](params, batches[0][i])
+            return float(loss), g, rec
+        lk, gk, rk = grads("cuda")
+        l32, g32, r32 = grads("ref32")
+        lr, gr, own = grads("ref", rk)
+        n_sets = [sets_apart(rk, own)]
+        if cfg.is_moe:         # the plain bf16 path on float32's experts
+            lf, gf, own = grads("ref", r32)
+            n_sets.append(sets_apart(r32, own))
+        else:
+            lf, gf = lr, gr
+        e = [abs(lk - lr), abs(l32 - lf), tree_rel(torch, gk, gr),
+             tree_rel(torch, gf, g32)]
         if leafwise:
-            leaf.append((leaf_rel(torch, gk, gr), leaf_rel(torch, gr, g32),
-                         leaf_rel(torch, gk32, g32)))
-        del got, gk, gr, g32, gk32
+            leaf.append([leaf_rel(torch, gk, gr), leaf_rel(torch, gf, g32)])
+        del gk, gr, gf
+        lk32, gk32, rk32 = grads("cuda32")
+        n_sets.append(sets_apart(rk32, r32))
+        if n_sets[-1][0]:      # the plain float32 path on the kernels'
+            l32, g32, _ = grads("ref32", rk32)
+        e += [abs(lk32 - l32) / abs(l32), tree_rel(torch, gk32, g32)]
+        errs.append(e)
+        if leafwise:
+            leaf[-1].append(leaf_rel(torch, gk32, g32))
+        sets.append(n_sets)
+        del g32, gk32
     errs = np.array(errs)
+    if cfg.is_moe:
+        print(f"[{tag}] tick 0 on one routing (the plain path on the "
+              "kernel path's experts; its bf16 − f32 spread on float32's): "
+              "top-k sets picked differently, per worker (the forward's and "
+              "remat's calls): plain − kernel in bf16 "
+              + ", ".join(f"{s[0][0]} of {s[0][1]}" for s in sets)
+              + "; plain bf16 − f32 " + ", ".join(f"{s[1][0]} of {s[1][1]}"
+                                                   for s in sets)
+              + "; kernel − plain in float32 "
+              + ", ".join(f"{s[2][0]} of {s[2][1]}" for s in sets),
+              flush=True)
     bound = max(2e-2, float(errs[:, 3].max()))
     print(f"[{tag}] tick 0, per worker (W={W}): |loss kernels − plain| "
           f"{errs[:, 0].max():.4g} (plain bf16 − f32: {errs[:, 1].max():.4g});"
@@ -2555,7 +3083,7 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     tokens = W * TRAIN_B * seq
     print(f"[{tag}] PSP training of {cfg.name} at full width ({L} layers, d="
           f"{cfg.d_model}, {n_params:,} params f32, {cfg.dtype} compute): "
-          f"W={W} pbsp beta=2 s=3 stragglers 0.25, {TRAIN_B}×{seq} "
+          f"W={W} pbsp beta={beta} s=3 stragglers 0.25, {TRAIN_B}×{seq} "
           f"tokens per worker per tick, {ticks} ticks, AdamW on "
           f"warmup_cosine(3e-3, {warmup}, {ticks}); launches "
           + ", ".join(f"{k} {got[k]} = {per[k]} × {W} × {ticks}"
@@ -2721,14 +3249,15 @@ def psp_optimizer(ticks, warmup=None):
     return adamw(warmup_cosine(3e-3, warmup, ticks))
 
 
-def psp_trainer(cfg, params, opt, dev, impl="auto"):
-    """The launcher's PSP trainer (W TRAIN_W, ``pbsp``, β 2, s 3,
-    stragglers 0.25, noise seeded 1) on the parameter tree ``params``,
+def psp_trainer(cfg, params, opt, dev, impl="auto", workers=TRAIN_W,
+                beta=2):
+    """The launcher's PSP trainer (W ``workers``, ``pbsp``, β ``beta``, s
+    3, stragglers 0.25, noise seeded 1) on the parameter tree ``params``,
     built from the library calls ``repro_torch.launch.train`` makes:
     (state, step function, noise source)."""
     from repro_torch.core.spmd_psp import GeneratorNoise, PSPConfig, psp_init
     from repro_torch.launch.steps import make_psp_train_step
-    pcfg = PSPConfig(barrier="pbsp", n_workers=TRAIN_W, sample_size=2,
+    pcfg = PSPConfig(barrier="pbsp", n_workers=workers, sample_size=beta,
                      staleness=3, straggler_frac=0.25)
     noise = GeneratorNoise(1, dev)
     return (psp_init(pcfg, params, opt.init, noise),
@@ -2750,9 +3279,10 @@ def train_launches(cfg):
     once: its attention, SSD scan or RG-LRU scan, and its norms
     (``ln1``/``ln2`` and the post-norms, or an ``ssd`` block's ``ln``
     and gated ``norm``); then the final norm once each way."""
+    from repro_torch.models.transformer import _ATTN
     kinds = cfg.layer_kinds()
     count = lambda *ks: sum(k in ks for k in kinds)
-    attn, ssd, rg = count("attn", "local"), count("ssd"), count("rglru")
+    attn, ssd, rg = count(*_ATTN), count("ssd"), count("rglru")
     norms = (4 if cfg.post_norms else 2) * cfg.n_layers
     return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
             "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
@@ -3485,10 +4015,10 @@ def phase14(np, torch, dev, card):
 
 
 def phase15(np, torch, dev, card):
-    """recurrentgemma-2b served on the card at full width and depth
-    (RGEMMA_SERVE, :func:`serve_phase` with the ring check on its 8
-    local layers).  Returns the model kernels' launch counts of each
-    run."""
+    """recurrentgemma-2b served on the card at full width, its depth cut
+    to RGEMMA_SERVE_LAYERS (RGEMMA_SERVE, :func:`serve_phase` with the
+    ring check on its local layers).  Returns the model kernels' launch
+    counts of each run."""
     paths = []
     for argv in RGEMMA_SERVE:
         gc.collect()
@@ -3523,6 +4053,59 @@ def phase16(np, torch, dev, card):
         allocator("expandable_segments:False")
     launcher(RGEMMA_LAUNCHER, 16, t_phase)
     return got
+
+
+def phase17(np, torch, dev, card):
+    """The MoE decoders on the card: serve each of MOE_SERVE
+    (:func:`serve_phase`: exact launches, the MoE layer's split, the
+    teacher-forced checks of :func:`teacher_checks`, a traced wave),
+    train qwen3-moe-30b-a3b under PSP (:func:`train_phase`, with
+    expandable segments as phase 16), then the reduced launchers
+    (MOE_LAUNCHERS) side by side.  Returns the model kernels' launch
+    counts of each run."""
+    paths = []
+    for argv in MOE_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.append(serve_phase(np, torch, dev, card, argv, 17))
+    allocator = torch.cuda.memory._set_allocator_settings
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocator("expandable_segments:True")
+    try:
+        got, *_, t_phase = train_phase(
+            np, torch, dev, card, MOE_TRAIN_ARCH, 17,
+            layers=MOE_TRAIN_LAYERS, ticks=MOE_TRAIN_TICKS,
+            warmup=MOE_TRAIN_WARMUP, fall=MOE_TRAIN_FALL,
+            workers=MOE_TRAIN_W, beta=MOE_TRAIN_BETA)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocator("expandable_segments:False")
+    paths.append(got)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = [(module, argv, expect, subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{module}", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)) for module, argv, expect in MOE_LAUNCHERS]
+    failed = []
+    for module, argv, expect, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0 or not all(e in out for e in expect):
+            failed.append(f"launch.{module} {argv} ({proc.returncode}): "
+                          f"{out[-1500:]}{err[-2000:]}")
+            continue
+        print(f"[17] python -m repro_torch.launch.{module} {' '.join(argv)}"
+              f": {out.strip().splitlines()[-1]}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the training",
+              flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return paths
 
 
 def main() -> int:
@@ -3676,7 +4259,8 @@ def main() -> int:
     print(f"[5] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     entries = []
     for part in (phase5, phase5_ssd, phase5_ssd_bwd, phase5_bwd,
-                 phase5_danube, phase5_rgemma, phase5_rgemma_bwd):
+                 phase5_danube, phase5_rgemma, phase5_rgemma_bwd,
+                 phase5_moe):
         t0 = time.perf_counter()
         out = part(np, torch, dev, card)
         if isinstance(out, dict):
@@ -3738,6 +4322,14 @@ def main() -> int:
           flush=True)
     paths.append(phase16(np, torch, dev, card))
     print(f"[16] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 17. the MoE decoders: qwen3-moe-30b-a3b and dbrx-132b --------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[17] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths += phase17(np, torch, dev, card)
+    print(f"[17] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

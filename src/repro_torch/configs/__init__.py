@@ -13,17 +13,19 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma2
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
 from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3moe
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [_danube, _mamba2, _qwen15, _qwen2, _gemma2,
-                        _rgemma]}
+                        _rgemma, _qwen3moe, _dbrx]}
 
 #: archs allowed to run long_500k (sub-quadratic / windowed decode state),
 #: as the reference's: pure full-attention archs skip it

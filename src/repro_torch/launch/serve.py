@@ -17,9 +17,12 @@ window of 4096), gemma2-27b (alternating local and global layers,
 softcaps, post-norms, fused QKV; 108.9 GB of f32 parameters at full
 depth, so on one card only reduced or cut, e.g. ``--n-layers 8``),
 recurrentgemma-2b (RG-LRU blocks and local attention at head dim 256,
-the RG-LRU scan kernel; ``--max-len`` at least its window of 2048), or
-mamba2-780m (the Mamba-2 stack, SSD-scan kernel).  ``--reduced`` runs any of them at the CPU-smoke
-width (window 64).
+the RG-LRU scan kernel; ``--max-len`` at least its window of 2048),
+mamba2-780m (the Mamba-2 stack, SSD-scan kernel), or the MoE decoders
+qwen3-moe-30b-a3b (128 experts, top 8; 30.5B parameters, so on one card
+cut, e.g. ``--n-layers 12``) and dbrx-132b (16 experts, top 4; e.g.
+``--n-layers 2``).  ``--reduced`` runs any of them at the CPU-smoke
+width (window 64; ``--d-model``, 256 by default).
 
 Weights come from the port's seeded initialisation (``--seed``), as the
 reference serves ``init_model`` weights.  Prompts are drawn from numpy
@@ -96,6 +99,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     help="one of " + ", ".join(sorted(ARCHS)))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--d-model", type=int, default=256,
+                    help="the width of --reduced (its head dim is "
+                         "d_model // heads: dbrx-132b's 6 heads need 384 "
+                         "for the card's kernels' hd 64)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="serve only the first N layers (a depth cut at "
                          "the arch's width, a multiple of its layer "
@@ -134,7 +141,7 @@ def _setup(a):
                            "to serve on the CPU")
     cfg = get_config(a.arch)
     if a.reduced:
-        cfg = make_reduced(cfg)
+        cfg = make_reduced(cfg, d_model=a.d_model)
     if a.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=a.n_layers)
     model = init_model(cfg, seed=a.seed, device=dev)

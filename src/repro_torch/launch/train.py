@@ -38,12 +38,16 @@ On the CPU, at the reduced width::
 
 On the card (the default ``--device cuda``; raises without a GPU), the
 attention (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b's sliding window,
-gemma2-27b, recurrentgemma-2b's local layers at head dim 256), SSD scan
-(mamba2, ``--arch mamba2-780m``) or RG-LRU scan (``--arch
-recurrentgemma-2b``) and the RMSNorm forward and backward run as the
-port's CUDA kernels.  Weights come from the port's seeded initialisation
-(``--seed``), tokens from :class:`~repro_torch.data.SyntheticLM` (whose
-``vocab²`` host table limits it to small vocabularies, as in the
+gemma2-27b, recurrentgemma-2b's local layers at head dim 256, the MoE
+decoders qwen3-moe-30b-a3b and dbrx-132b), SSD scan (mamba2, ``--arch
+mamba2-780m``) or RG-LRU scan (``--arch recurrentgemma-2b``) and the
+RMSNorm forward and backward run as the port's CUDA kernels; a
+``--reduced`` model's head dim must be one the flash kernel takes (64,
+80, 128, 256: dbrx-132b's 6 reduced heads need ``--d-model 384``).  The
+loss adds the MoE router's load-balance term.  Weights come from the
+port's seeded initialisation (``--seed``), tokens from
+:class:`~repro_torch.data.SyntheticLM` (whose ``vocab²`` host table
+limits it to small vocabularies, as in the
 reference, which trains ``--reduced``: at full width qwen2's and
 qwen1.5's 151,936-token vocabularies would need a 92 GB table, gemma2's
 256,000 262 GB), the PSP noise from a ``torch.Generator`` seeded

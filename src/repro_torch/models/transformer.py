@@ -3,18 +3,22 @@
 The port's counterpart of :mod:`repro.models.transformer`, for stacks of
 attention blocks, global (``attn``) or sliding-window (``local``) in
 any pattern (qwen2-0.5b, qwen1.5-4b, h2o-danube-1.8b, gemma2-27b's
-alternating ``("local", "attn")``), of Mamba-2 ``ssd`` blocks
-(mamba2-780m), or of RG-LRU ``rglru`` blocks mixed with attention
-(recurrentgemma-2b's ``("rglru", "rglru", "local")``, whose 26 layers
-end in an (R, R) tail).  A model is ``embed → blocks → final norm →
-unembed`` (tied: the embedding transposed; untied: ``lm_head``);
-:class:`Model` holds one block module per layer (:class:`Block` for
-``attn`` and ``local``, :class:`SSDBlock` for ``ssd``,
+alternating ``("local", "attn")``), of global attention with a
+mixture-of-experts FFN (``moe``: qwen3-moe-30b-a3b, dbrx-132b), of
+Mamba-2 ``ssd`` blocks (mamba2-780m), or of RG-LRU ``rglru`` blocks
+mixed with attention (recurrentgemma-2b's ``("rglru", "rglru",
+"local")``, whose 26 layers end in an (R, R) tail).  A model is
+``embed → blocks → final norm → unembed`` (tied: the embedding
+transposed; untied: ``lm_head``); :class:`Model` holds one block module
+per layer (:class:`Block` for ``attn``, ``local`` and ``moe``,
+:class:`SSDBlock` for ``ssd``,
 :class:`RGLRUBlock` for ``rglru``) and loops over them, tail layers
 included (the reference scans a stacked layer axis per pattern
 position and runs the tail after it).  An attention block is pre-norm,
 with gemma2's post-norms of the attention and MLP outputs where
-``cfg.post_norms`` is set; an RG-LRU block is pre-norm with the MLP.
+``cfg.post_norms`` is set, and a ``moe`` block's FFN is
+:func:`repro_torch.models.moe.moe_apply` in place of the MLP; an RG-LRU
+block is pre-norm with the MLP.
 Parameters keep the reference's shapes (``wq`` is ``(d, h, hd)``,
 ``wqkv`` ``(d, 16, w, hd)``, ``in_proj`` ``(d, 16, width)`` and so on)
 and float32, so
@@ -32,8 +36,9 @@ Serving entry points, forward only and without autograd:
   and the cache, as the serving engine calls them.
 
 Training entry points, functional and differentiable (``attn``,
-``ssd`` and ``rglru`` stacks; an ``ssd`` block's scan and an ``rglru``
-block's RG-LRU scan run with their backward kernels on the card):
+``moe``, ``ssd`` and ``rglru`` stacks; an ``ssd`` block's scan and an
+``rglru`` block's RG-LRU scan run with their backward kernels on the
+card):
 
 * :func:`forward_train` — hidden states of a **parameter tree** of
   tensors (:meth:`Model.tree` layout), so that a worker's view goes
@@ -44,11 +49,12 @@ block's RG-LRU scan run with their backward kernels on the card):
   each block is recomputed in the backward (``torch.utils.checkpoint``,
   the reference's ``jax.checkpoint`` of its layer body);
 * :func:`loss_fn` — the causal-LM loss over it (chunked cross-entropy
-  against :func:`unembed_matrix`).
+  against :func:`unembed_matrix`) plus ``cfg.router_aux_coef`` times the
+  ``moe`` blocks' summed load-balance loss.
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
 :mod:`repro_torch.kernels.ops`).  Stacks that mix ``ssd`` with other
-kinds, ``moe`` blocks, modality frontends and sinusoidal positions raise
+kinds, modality frontends and sinusoidal positions raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -59,7 +65,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, rglru, ssm
+from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
                                        mlp_apply, mlp_defs, rmsnorm,
                                        rope_angles, softcap)
@@ -76,8 +82,8 @@ Cache = Dict[str, Any]
 _TODO = "ROADMAP queue 1, item 10 (the other model kinds)"
 
 
-#: the block kinds of an attention stack
-_ATTN = frozenset({"attn", "local"})
+#: the block kinds with attention (a ``moe`` block's is global)
+_ATTN = frozenset({"attn", "local", "moe"})
 #: the block kinds a stack may mix: attention and RG-LRU blocks
 _MIXED = _ATTN | {"rglru"}
 
@@ -88,8 +94,8 @@ def check_supported(cfg) -> None:
     if not (kinds <= _MIXED or kinds == {"ssd"}):
         raise NotImplementedError(f"block kinds {sorted(kinds)} of "
                                   f"{cfg.name} (the port runs stacks of "
-                                  f"attn, local and rglru blocks, or of "
-                                  f"ssd blocks): {_TODO}")
+                                  f"attn, local, moe and rglru blocks, or "
+                                  f"of ssd blocks): {_TODO}")
     if cfg.frontend_tokens:
         raise NotImplementedError(f"modality frontends: {_TODO}")
     if cfg.pos_embed != "rope":
@@ -109,9 +115,12 @@ def _norm_def(cfg) -> ParamDef:
 
 def block_defs(cfg, kind: str) -> Dict:
     """Parameter definitions of one block of ``kind`` (``attn``,
-    ``local``, ``ssd`` or ``rglru``), as the reference's."""
+    ``local``, ``moe``, ``ssd`` or ``rglru``), as the reference's."""
     if kind == "ssd":
         return {"ssd": ssm.ssd_defs(cfg)}
+    if kind == "moe":
+        return {"ln1": _norm_def(cfg), "attn": attention.attn_defs(cfg),
+                "ln2": _norm_def(cfg), "moe": moe.moe_defs(cfg)}
     if kind == "rglru":
         return {"ln1": _norm_def(cfg), "rglru": rglru.rglru_defs(cfg),
                 "ln2": _norm_def(cfg), "mlp": mlp_defs(cfg)}
@@ -154,8 +163,10 @@ _NORMS = ("ln1", "ln2", "ln1_post", "ln2_post")
 
 
 class Block(nn.Module):
-    """One pre-norm ``attn`` or ``local`` block: x + post1(attn(ln1(x)));
-    x + post2(mlp(ln2(x))), the post-norms where ``cfg.post_norms``."""
+    """One pre-norm ``attn``, ``local`` or ``moe`` block: x +
+    post1(attn(ln1(x))); x + post2(ffn(ln2(x))), the post-norms where
+    ``cfg.post_norms``; the FFN is the MLP, or for ``moe`` the experts
+    (:func:`repro_torch.models.moe.moe_apply`)."""
 
     def __init__(self, cfg, tree: Dict[str, Any], kind: str = "attn"):
         super().__init__()
@@ -166,15 +177,17 @@ class Block(nn.Module):
             self.register_parameter(k, _param(tree[k]))
         self.attn = nn.ParameterDict({k: _param(v)
                                       for k, v in tree["attn"].items()})
-        self.mlp = nn.ParameterDict({k: _param(v)
-                                     for k, v in tree["mlp"].items()})
+        #: the FFN's parameters, ``mlp`` or ``moe`` by the block's kind
+        self.ffn = "moe" if kind == "moe" else "mlp"
+        setattr(self, self.ffn, nn.ParameterDict(
+            {k: _param(v) for k, v in tree[self.ffn].items()}))
         self._memo: Tuple[Any, Dict] = (None, {})
 
     def tree(self) -> Dict[str, Any]:
         """This layer's parameter tensors in :func:`block_defs` layout."""
         return {**{k: v.data for k, v in self.norms().items()},
-                "attn": {k: v.data for k, v in self.attn.items()},
-                "mlp": {k: v.data for k, v in self.mlp.items()}}
+                **{g: {k: v.data for k, v in getattr(self, g).items()}
+                   for g in ("attn", self.ffn)}}
 
     def norms(self) -> Dict[str, torch.Tensor]:
         """The norm gains by name (``ln1``, ``ln2``, and the post-norms
@@ -182,13 +195,14 @@ class Block(nn.Module):
         return {k: getattr(self, k) for k in self.norm_names}
 
     def weights(self, dtype: torch.dtype) -> Dict[str, Dict]:
-        """The attention and MLP weights cast to ``dtype``, made once and
-        kept until a parameter moves or changes."""
+        """The attention and FFN weights (the MLP's, or the router's and
+        the experts') cast to ``dtype``, made once and kept until a
+        parameter moves or changes."""
         key = _cast_key(self, dtype, True)
         if self._memo[0] != key:
             self._memo = (key, {
-                "attn": {k: v.to(dtype) for k, v in self.attn.items()},
-                "mlp": {k: v.to(dtype) for k, v in self.mlp.items()}})
+                g: {k: v.to(dtype) for k, v in getattr(self, g).items()}
+                for g in ("attn", self.ffn)})
         return self._memo[1]
 
     def forward(self, x: torch.Tensor, *,
@@ -201,19 +215,21 @@ class Block(nn.Module):
         return _attn_block(x, self.norms(), self.weights(x.dtype),
                            self.cfg, _window(self.cfg, self.kind), rot=rot,
                            length=length, cache=cache, mode=mode,
-                           max_len=max_len, impl=impl)
+                           max_len=max_len, impl=impl)[:2]
 
 
 def _attn_block(x: torch.Tensor, norms: Dict[str, torch.Tensor],
                 w: Dict[str, Dict], cfg, window: Optional[int], *, rot,
                 length: Optional[int], cache: Optional[Dict], mode: str,
                 max_len: Optional[int], impl: str
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x + post1(attn(ln1(x))); x + post2(mlp(ln2(x))) (the reference's
+                ) -> Tuple[torch.Tensor, Optional[Dict],
+                           Optional[torch.Tensor]]:
+    """x + post1(attn(ln1(x))); x + post2(ffn(ln2(x))) (the reference's
     ``_apply_block``), with the norm gains ``norms`` (f32; the post-norms
-    where ``cfg.post_norms``), the attention and MLP weights ``w`` in x's
-    dtype and the attention ``window``; returns (x, the layer's new
-    cache)."""
+    where ``cfg.post_norms``), the attention and FFN weights ``w`` in x's
+    dtype (the MLP's under ``mlp``, or the experts' under ``moe``) and
+    the attention ``window``; returns (x, the layer's new cache, the
+    experts' load-balance loss or None)."""
     eps, gn = cfg.norm_eps, cfg.gemma_norm
     norm = lambda t, name: rmsnorm(t, norms[name], eps, gn, impl)
     a, c = attention.attn_apply(w["attn"], norm(x, "ln1"), cfg=cfg, rot=rot,
@@ -222,10 +238,14 @@ def _attn_block(x: torch.Tensor, norms: Dict[str, torch.Tensor],
     if cfg.post_norms:
         a = norm(a, "ln1_post")
     x = x + a
-    m = mlp_apply(w["mlp"], norm(x, "ln2"), cfg)
+    aux = None
+    if "moe" in w:
+        m, aux = moe.moe_apply(w["moe"], norm(x, "ln2"), cfg)
+    else:
+        m = mlp_apply(w["mlp"], norm(x, "ln2"), cfg)
     if cfg.post_norms:
         m = norm(m, "ln2_post")
-    return x + m, c
+    return x + m, c, aux
 
 
 #: the parameters of an ``ssd`` block that stay float32 (the reference
@@ -435,10 +455,11 @@ def unembed_matrix(params: Dict[str, Any], cfg) -> torch.Tensor:
 
 def _block_cache_defs(cfg, kind: str, batch: int, max_len: int) -> Dict:
     """One layer's cache: bf16 ``k``/``v`` ``(batch, max_len, KV, hd)``
-    for ``attn``, ``(batch, min(window, max_len), KV, hd)`` (the ring)
-    for ``local``; for ``ssd`` bf16 conv states ``(batch, K − 1, ·)`` and
-    the f32 SSM state ``(batch, nh, hd, N)``; for ``rglru`` the bf16
-    conv state ``(batch, K − 1, W)`` and the f32 state ``(batch, W)``."""
+    for ``attn`` and ``moe``, ``(batch, min(window, max_len), KV, hd)``
+    (the ring) for ``local``; for ``ssd`` bf16 conv states ``(batch, K −
+    1, ·)`` and the f32 SSM state ``(batch, nh, hd, N)``; for ``rglru``
+    the bf16 conv state ``(batch, K − 1, W)`` and the f32 state
+    ``(batch, W)``."""
     if kind == "rglru":
         return {"conv": ParamDef((batch, cfg.conv_width - 1, cfg.lru_width),
                                  ("cache_batch", None, "lru_act"),
@@ -518,56 +539,64 @@ def decode_step(model: Model, cache: Cache, tokens: torch.Tensor, *,
 
 
 def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg, kind: str,
-                 impl: str) -> torch.Tensor:
+                 impl: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block of ``kind`` on layer parameters ``lp`` (f32), its weights
     cast to x's dtype here, in the graph, where the reference casts them:
-    an attention block's matrices; an ``ssd`` block's projections, conv
-    weights and D (``_SSD_F32`` stay float32); an ``rglru`` block's all
-    but ``Lambda``."""
+    an attention block's matrices (a ``moe`` block's router and experts
+    too); an ``ssd`` block's projections, conv weights and D
+    (``_SSD_F32`` stay float32); an ``rglru`` block's all but
+    ``Lambda``.  Returns (x, a ``moe`` block's load-balance loss or
+    None)."""
     if kind == "rglru":
         return _rglru_block(x, lp, _rglru_weights(lp, x.dtype), cfg,
-                            cache=None, mode="train", impl=impl)[0]
+                            cache=None, mode="train", impl=impl)[0], None
     if kind == "ssd":
         w = {k: v if k in _SSD_F32 else v.to(x.dtype)
              for k, v in lp["ssd"].items()}
-        return x + ssm.ssd_apply(w, x, cfg=cfg, mode="train", impl=impl)[0]
+        return (x + ssm.ssd_apply(w, x, cfg=cfg, mode="train",
+                                  impl=impl)[0], None)
     w = {g: {k: v.to(x.dtype) for k, v in lp[g].items()}
-         for g in ("attn", "mlp")}
-    return _attn_block(x, lp, w, cfg, _window(cfg, kind), rot=rot,
-                       length=None, cache=None, mode="train", max_len=None,
-                       impl=impl)[0]
+         for g in ("attn", "moe" if kind == "moe" else "mlp")}
+    x, _, aux = _attn_block(x, lp, w, cfg, _window(cfg, kind), rot=rot,
+                            length=None, cache=None, mode="train",
+                            max_len=None, impl=impl)
+    return x, aux
 
 
 def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
-                  impl: str = "auto") -> torch.Tensor:
+                  impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Final hidden states (B, T, D) of ``tokens`` (B, T) under the
     parameter tree ``params``, differentiable (see the module
-    docstring)."""
+    docstring), and the ``moe`` blocks' summed load-balance loss (f32;
+    0 without them)."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     rot = None
     if _ATTN & set(cfg.layer_kinds()):
         positions = torch.arange(x.shape[1], device=x.device)
         rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
         if cfg.remat:
-            x = checkpoint(_train_block, lp, x, rot, cfg, kind, impl,
-                           use_reentrant=False)
+            x, a = checkpoint(_train_block, lp, x, rot, cfg, kind, impl,
+                              use_reentrant=False)
         else:
-            x = _train_block(lp, x, rot, cfg, kind, impl)
+            x, a = _train_block(lp, x, rot, cfg, kind, impl)
+        if a is not None:
+            aux = aux + a
     return rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.gemma_norm,
-                   impl)
+                   impl), aux
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg, *,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Causal-LM loss of ``batch = {"tokens": (B, S)}`` (f32), and
-    ``{"ce", "aux"}``; as ``repro.models.transformer.loss_fn``."""
+    """Causal-LM loss of ``batch = {"tokens": (B, S)}`` (f32) with the
+    router's load-balance term, and ``{"ce", "aux"}``; as
+    ``repro.models.transformer.loss_fn``."""
     if batch.get("embeds") is not None:
         raise NotImplementedError(f"modality frontends: {_TODO}")
     tokens = batch["tokens"]
-    h = forward_train(params, tokens, cfg, impl=impl)
+    h, aux = forward_train(params, tokens, cfg, impl=impl)
     ce = chunked_cross_entropy(h[:, :-1], tokens[:, 1:],
                                unembed_matrix(params, cfg), cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

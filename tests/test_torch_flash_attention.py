@@ -145,6 +145,29 @@ def test_attention_ref_at_hd256_matches_tpu_kernel(case, G, dtype):
                                      **HD256[case]), dtype)
 
 
+#: the MoE decoders' grouped heads at hd 128: qwen3-moe-30b-a3b's 32
+#: query heads on 4 KV heads (G 8) and dbrx-132b's 48 on 8 (G 6)
+MOE_GQA = (8, 6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", MOE_GQA)
+@pytest.mark.parametrize("case", ["causal", "window32"])
+def test_attention_ref_at_moe_gqa_matches_tpu_kernel(case, G, dtype):
+    """hd 128 at S 128, G 8 and 6: the plain version against
+    ``flash_attention_tpu`` in interpret mode and against the
+    reference's oracle."""
+    (jq, jk, jv), (tq, tk, tv), G = _inputs(128, G, dtype, seed=128 + G,
+                                            hd=128)
+    rep = lambda a: jnp.repeat(a, G, axis=2)
+    got = attention_ref(tq, tk, tv, causal=True, **CASES[case])
+    assert got.shape == tq.shape
+    _compare(got, jops.attention(jq, rep(jk), rep(jv), causal=True,
+                                 impl="interpret", **CASES[case]), dtype)
+    _compare(got, jref.attention_ref(jq, rep(jk), rep(jv), causal=True,
+                                     **CASES[case]), dtype)
+
+
 def test_backward_kernel_refuses_hd256():
     """hd 256 has a forward and a backward kernel: neither wrapper
     refuses it by its head dim, each reaches its device check, which
@@ -218,14 +241,16 @@ BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (0.0, 2e-2)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 3])
-@pytest.mark.parametrize("case", list(BWD_CASES) + ["window_softcap_hd80"])
+@pytest.mark.parametrize(
+    "case, G", [(c, g) for c in list(BWD_CASES) + ["window_softcap_hd80"]
+                for g in (1, 3)] + [("tri_hd128", g) for g in MOE_GQA])
 def test_attention_bwd_ref_matches_reference_vjp(case, G, dtype):
     """``attention_bwd_ref`` (and the forward) against ``jax.vjp`` of the
-    reference's composition, at hd 16, and at h2o-danube-1.8b's hd 80
-    with a window and a softcap (``window_softcap_hd80``)."""
-    hd = 80 if case.endswith("hd80") else 16
-    causal, window, cap, bq, bk = BWD_CASES[case.replace("_hd80", "")]
+    reference's composition, at hd 16, at h2o-danube-1.8b's hd 80 with a
+    window and a softcap (``window_softcap_hd80``), and at the MoE
+    decoders' hd 128 and grouped heads (``tri_hd128``, G 8 and 6)."""
+    hd = int(case.rsplit("_hd", 1)[1]) if "_hd" in case else 16
+    causal, window, cap, bq, bk = BWD_CASES[case.rsplit("_hd", 1)[0]]
     B, S, KV = 2, 48, 2
     H = KV * G
     rng = np.random.default_rng(len(case) + 10 * G)
