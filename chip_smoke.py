@@ -69,11 +69,12 @@ Phases (any failure exits non-zero before the final line):
    bytes.  Each is timed twice, in mirrored order, with the SM clock read
    before and after.
 6. The qwen2-0.5b serving path: ``repro_torch.launch.serve`` serves it at
-   full width with seeded random weights, bfloat16 (8 requests, batch
-   4, prompt 512, max_len 1024, 64 new tokens, greedy), every kernel's
-   launch count reset just before and read just after: flash must run
-   24 times per prefill call, RMSNorm 49 times per prefill call and
-   decode step, SSD never.  Prints time to first token, prefill and
+   full width, its depth cut to ``SERVE_LAYERS`` = 12 of 24 (whole before
+   phase 18 came), with seeded random weights, bfloat16 (8 requests,
+   batch 4, prompt 512, max_len 1024, 64 new tokens, greedy), every
+   kernel's launch count reset just before and read just after: flash
+   must run 12 times per prefill call, RMSNorm 25 times per prefill
+   call and decode step, SSD never.  Prints time to first token, prefill and
    decode tokens/s; then a traced rerun of one wave with 16 new tokens,
    against the same wave unprofiled, gives the device's busy share;
    then the served tokens are teacher-forced through the model under
@@ -83,15 +84,14 @@ Phases (any failure exits non-zero before the final line):
    float32 compute) where that is larger; and on the same weights in
    float32 compute within 1e-4 at prefill and 5e-3 in decode.
 7. The mamba2-780m serving path, as phase 6 with the same traffic, at
-   full width with its depth cut to ``MAMBA_SERVE_LAYERS`` = 12 of 48
-   layers (24 before phase 17 came; cut so that the script keeps inside
-   its time limit with it): SSD must run once per layer per prefill
-   call, RMSNorm
-   2·L + 1 times per prefill call and decode step, flash never; the same
-   teacher-forced checks.
+   full width with its depth cut to ``MAMBA_SERVE_LAYERS`` = 6 of 48
+   layers (24 before phase 17 came, 12 before phase 18; cut so that the
+   script keeps inside its time limit with them): SSD must run once per
+   layer per prefill call, RMSNorm 2·L + 1 times per prefill call and
+   decode step, flash never; the same teacher-forced checks.
 8. PSP training of qwen2-0.5b at full width, its depth cut to
    ``TRAIN_LAYERS`` = 6 of 24 layers (12 before phase 17 came;
-   225,609,856 f32 params, bf16 compute; phase 9 trains all 24), built
+   225,609,856 f32 params, bf16 compute; phase 9 trains 12), built
    from the library calls ``repro_torch.launch.train``
    makes (``init_model``, ``adamw(warmup_cosine(3e-3, 2, 16))``,
    ``psp_init``, ``make_psp_train_step``): W 4, ``pbsp``, β 2, s 3,
@@ -116,14 +116,17 @@ Phases (any failure exits non-zero before the final line):
    worker's loss and gradients (with and without remat), its forward
    and the AdamW update; then runs the launchers on the card, reduced
    (``LAUNCHER_RUNS``): ``repro_torch.launch.train --barrier pbsp`` with
-   ``--ckpt-dir`` and ``--publish-dir``, again with ``--resume``, and
-   ``repro_torch.launch.serve --watch-dir`` on its snapshots.
-9. The trainer → bus → live server loop at full width.  A fresh child
-   interpreter (``chip_smoke.py --loop-trainer DIR``) trains qwen2-0.5b
-   as phase 8 does for 8 ticks and publishes its f32 server params
-   through ``SnapshotPublisher`` (version 0 first, then every 2 ticks,
-   keep 2; the last one blocking); meanwhile an ``InferenceServer`` over
-   a bf16 ``ServingEngine`` (batch 4, max_len 1024, polling its
+   ``--ckpt-dir`` and ``--publish-dir``, then side by side the same
+   with ``--resume`` and ``repro_torch.launch.serve --watch-dir`` on its
+   snapshots.
+9. The trainer → bus → live server loop at full width, qwen2-0.5b's
+   depth cut to ``LOOP_LAYERS`` = 12 of 24 (whole before phase 18
+   came).  A fresh child interpreter (``chip_smoke.py --loop-trainer
+   DIR``) trains it as phase 8 does for 6 ticks (8 before phase 18) and
+   publishes its f32 server params through ``SnapshotPublisher``
+   (version 0 first, then every 2 ticks, keep 2; the last one
+   blocking); meanwhile an ``InferenceServer`` over a bf16
+   ``ServingEngine`` (batch 4, max_len 1024, polling its
    ``SnapshotWatcher`` every 4 steps) serves waves of 4 greedy requests
    of 512 random tokens and 64 new ones: at least 16, and more (up to
    48) until they span two versions with a swap landing while requests
@@ -162,9 +165,9 @@ Phases (any failure exits non-zero before the final line):
     the loss falling) and the same report, with the SSD backward's share
     of the traced tick's device time.  Launches exact per tick: the SSD
     forward 2·L·W (remat recomputes it), its backward L·W, RMSNorm
-    (4L + 1)·W and its backward (2L + 1)·W.  Then
+    (4L + 1)·W and its backward (2L + 1)·W.
     ``repro_torch.launch.train --arch mamba2-780m --reduced --barrier
-    pbsp`` on the card.
+    pbsp`` runs on the card at the end of phase 18.
 
 13. The rest of the paper (``repro_torch.bench``) on the card.  (a)
     Every figure of the harness (``bench.run.BENCHES`` but the sweep
@@ -195,22 +198,23 @@ Phases (any failure exits non-zero before the final line):
     the plain path's logits within phase 6's bounds) and, for models with
     ``local`` layers, the ring check (``ring_check``: every local layer's
     ring after a prefill holds position p at slot p % w, bit for bit):
-    qwen1.5-4b at full width cut to 6 of its 40 layers (MHA of 20 heads
+    qwen1.5-4b at full width cut to 4 of its 40 layers (MHA of 20 heads
     with QKV bias at hd 128, untied unembedding) on phase 6's traffic;
-    h2o-danube-1.8b at full width cut to 6 of its 24 layers (window
+    h2o-danube-1.8b at full width cut to 4 of its 24 layers (window
     4096, hd 80, 32 / 8 heads) at max_len 8192 on 4 requests of 6144
     random tokens + 64 new (the prefill rolls the ring, decode wraps it),
     then 4 of 1024 + 64 (a ring padded with zeros); gemma2-27b at full
-    width cut to 4 layers (2 local / global pairs; fused QKV, both
+    width cut to 2 layers (one local / global pair; fused QKV, both
     softcaps, post-norms, the gemma norm, GeGLU, ``embed_scale``) on
     danube's first wave.  (qwen1.5-4b and danube were served whole and
     gemma2 at 8 layers before phase 16 came, qwen1.5-4b and danube at
-    12 layers before phase 17: cut so that the script keeps inside its
-    time limit with them.)  Then h2o-danube-1.8b at full width cut to 4
-    layers (8 until PR 24, cut so that the script keeps inside its time
-    limit with phase 15) trained under PSP as phase 8 trains qwen2 (W 4,
-    ``pbsp``, β 2,
-    s 3, stragglers 0.25) for 8 ticks on AdamW with
+    12 layers before phase 17, 6 and gemma2 4 before phase 18: cut so
+    that the script keeps inside its time limit with them.)  Then
+    h2o-danube-1.8b at full width cut to 2 layers (8 before phase 15
+    came, 4 before phase 18, cut so that the script keeps inside its
+    time limit with the later phases) trained under PSP as phase 8
+    trains qwen2 (W 4, ``pbsp``, β 2, s 3, stragglers 0.25) for 8 ticks
+    on AdamW with
     ``warmup_cosine(3e-3, 3, 8)``, 2 sequences of 6144 tokens per worker
     per tick (past the window: the flash backward runs the band), with
     phase 8's checks (the loss falling over the first and last two
@@ -218,35 +222,39 @@ Phases (any failure exits non-zero before the final line):
 
 15. recurrentgemma-2b (``RGEMMA_SERVE``) served as phase 14 serves
     danube, at full width with its depth cut to ``RGEMMA_SERVE_LAYERS`` =
-    14 of 26 (whole before phase 17 came; 4 (R, R, A) groups and the
-    (R, R) tail; 1,748,779,520 params; d 2560, 10 query heads on one KV
-    head of 256, window 2048, GeGLU, the gemma norm) at max_len 8192
-    on 4 requests of 4096 random tokens + 64 new (the prefill rolls the
-    ring twice, decode wraps it), then 4 of 1024 + 64 (a zero-padded
-    ring); launches exact: flash 4 per prefill call and never in decode,
-    the RG-LRU scan 10 per prefill call and per decode step, RMSNorm 29
-    per forward, SSD never; every served token teacher-forced, the plain
-    path within phase 6's bounds, the ring check on all 4 local layers.
+    5 of 26 (whole before phase 17 came, 14 before phase 18; one (R, R,
+    A) group and the (R, R) tail; 1,048,686,080 params; d 2560, 10 query
+    heads on one KV head of 256, window 2048, GeGLU, the gemma norm) at
+    max_len 8192 on 4 requests of 4096 random tokens + 64 new (the
+    prefill rolls the ring twice, decode wraps it), then 4 of 1024 + 64
+    (a zero-padded ring); launches exact: flash 1 per prefill call and
+    never in decode, the RG-LRU scan 4 per prefill call and per decode
+    step, RMSNorm 11 per forward, SSD never; every served token
+    teacher-forced, the plain path within phase 6's bounds, the ring
+    check on its local layer.
 
 16. recurrentgemma-2b at full width cut to 5 layers (one (R, R, A)
     group and the (R, R) tail: 1,048,686,080 params) trained under PSP
     as phase 14 trains danube (W 4, ``pbsp``, β 2, s 3, stragglers 0.25,
     8 ticks, AdamW on ``warmup_cosine(3e-3, 3, 8)``), 2 sequences of
-    4096 tokens per worker per tick (past the window of 2048: the flash
-    backward runs the band at hd 256, and the RG-LRU backward 64 tiles
-    of the sequence), with phase 8's checks and tick 0 also leaf by leaf
-    as phase 12 holds mamba2; launches exact, a worker a tick: flash 2
-    and its backward 1, the RG-LRU scan 8 and its backward 4, RMSNorm
-    21 and its backward 11; then ``launch.train --arch recurrentgemma-2b
-    --reduced`` on the card.
+    2560 tokens per worker per tick (4096 before phase 18 came; past the
+    window of 2048: the flash backward runs the band at hd 256, and the
+    RG-LRU backward 40 tiles of the sequence), with phase 8's checks and
+    tick 0 also leaf by leaf as phase 12 holds mamba2; launches exact, a
+    worker a tick: flash 2 and its backward 1, the RG-LRU scan 8 and its
+    backward 4, RMSNorm 21 and its backward 11; ``launch.train --arch
+    recurrentgemma-2b --reduced`` runs on the card at the end of phase
+    18.
 
 17. The MoE decoders (``MOE_SERVE``), each served as phase 6 serves
     qwen2-0.5b on its traffic at the config's capacity factor 1.25:
-    qwen3-moe-30b-a3b at full width cut to 12 of its 48 layers (128
-    experts, top 8, 32 / 4 heads of 128; 8,099,776,512 params) and
-    dbrx-132b at full width cut to 2 of its 40 (16 experts, top 4, 48 / 8
-    heads of 128; 7,751,301,120 params).  Launches exact (flash once per
-    layer per prefill call, RMSNorm 2·L + 1 per forward); the first MoE
+    qwen3-moe-30b-a3b at full width cut to 3 of its 48 layers (12
+    before phase 18 came; 128 experts, top 8, 32 / 4 heads of 128;
+    2,491,693,056 params) and
+    dbrx-132b at full width cut to 1 of its 40 (2 before phase 18; 16
+    experts, top 4, 48 / 8 heads of 128; 4,492,216,320 params).
+    Launches exact (flash once per layer per prefill call, RMSNorm
+    2·L + 1 per forward); the first MoE
     layer's device time split into route, dispatch, experts and combine
     at the prefill's and a decode step's token counts
     (``moe_split``); every served token reproduced by the kernel path
@@ -264,11 +272,41 @@ Phases (any failure exits non-zero before the final line):
     params) trained under PSP as phase 16 trains recurrentgemma, but at
     W 2, β 1 (W 4 would not fit), 8 ticks of 2 × 512 tokens a worker,
     tick 0 also leaf by leaf and on one routing as above, with the top-k
-    sets either side would have picked differently counted; then the four
-    reduced launchers side by side: ``launch.train`` and
-    ``launch.serve`` of both (dbrx-132b at ``--d-model 384``: its
-    reduced 6 heads at the default 256 are of hd 42, which the flash
-    kernel does not take).
+    sets either side would have picked differently counted.  The four
+    reduced launchers, ``launch.train`` and ``launch.serve`` of both
+    (dbrx-132b at ``--d-model 384``: its reduced 6 heads at the default
+    256 are of hd 42, which the flash kernel does not take), run at the
+    end of phase 18.
+
+18. The frontend models (``FRONTEND_SERVE``), each served whole, at
+    full width and full depth, on phase 6's traffic, every request
+    carrying its own seeded N(0, 1) frontend rows through
+    ``ServingEngine.submit(Request(embed=…))`` (``launch.serve.one_shot``
+    with ``embeds``), rows that differ between the waves: internvl2-2b
+    (24 layers, 16 / 8 heads of 128, untied 92,553-token unembedding,
+    256 rows a request: a prefill of 256 + 512 positions;
+    1,889,146,880 params) and musicgen-large (48 layers, 32 / 32 heads
+    of 64 in one fused ``wqkv``, sinusoidal positions, the GELU MLP, 64
+    rows; 2,424,506,368 params).  Launches exact (flash once per layer
+    per prefill call, RMSNorm 2·L + 1 per forward); each wave after the
+    first served again alone with its rows through a fresh engine's
+    ``generate``, its tokens those of the run (the reference's
+    ``test_per_wave_embeds``); phase 6's checks (``teacher_checks``) on
+    the same rows, each prefill's clock F + 512; a traced wave.  Then
+    internvl2-2b's ``loss_fn`` with frontend rows at full width cut to 2
+    layers (B 2, 256 rows + 512 tokens; ``frontend_loss``): one forward
+    and backward under the kernels against ``impl="ref"``, the loss and
+    the gradients (the tree and each leaf) within 2e-2 or the plain
+    path's own bf16 − float32 spread, in float32 compute within 1e-5
+    and 1e-3; then musicgen-large at full width cut to 8 of its 48
+    layers trained under PSP as phase 16 trains recurrentgemma (W 4,
+    ``pbsp``, β 2, s 3, stragglers 0.25, 8 ticks of 2 × 512 tokens a
+    worker, tokens only as both trainers feed them), tick 0 also leaf by
+    leaf; then the reduced launchers of phases 12, 16, 17 and this one
+    side by side (``REDUCED_LAUNCHERS``; run one after another they had
+    taken about a minute): ``launch.train`` and ``launch.serve`` of both
+    frontend models (the serving launcher submits no rows:
+    the engine zero-fills them).
 
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
@@ -337,16 +375,24 @@ backward at the training shape (B 2, S 512), bf16, held to their plain
 versions and timed beside SDPA (GQA) and its backward; the RMSNorm
 forward at the prefill's 2048 rows and its backward at the training
 shape's 1024, at each one's width (2048, 6144), held to their plain
-versions.
+versions.  Then the frontend models' (``phase5_frontends``,
+``FRONTEND_SHAPES``): the flash forward at each one's serving prefill
+(B 4; internvl2-2b's 16 / 8 heads of 128 at S 768, musicgen-large's 32
+/ 32 of 64 at S 576) and at musicgen's training shape (B 2, S 512) its
+backward, held to their plain versions and timed beside SDPA and its
+backward; the RMSNorm forward at each prefill's rows and its backward at
+musicgen's training shape's 1024, at width 2048, held to their plain
+versions and timed beside ``F.rms_norm`` and its backward.
 
 Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
 100k pair, phase 14's four serving runs and training run, phase 15's
-two serving runs, phase 16's training run and phase 17's two serving
-runs and training run), error and times, the ``nvidia-smi`` line, and
-the result line.  Exits non-zero without a result when no CUDA device
-is visible or the port's sources are missing.
+two serving runs, phase 16's training run, and phase 17's and phase
+18's two serving runs and training run each), error and times, the
+``nvidia-smi`` line, and the result line.  Exits non-zero without a
+result when no CUDA device is visible or the port's sources are
+missing.
 """
 from __future__ import annotations
 
@@ -428,6 +474,13 @@ FLASH_MOE_HD, FLASH_MOE_GQA = 128, (8, 6)
 MOE_SHAPES = (("qwen3-moe-30b-a3b", 32, 4, 128, 2048),
               ("dbrx-132b", 48, 8, 128, 6144))
 MOE_PREFILL, MOE_TRAIN = (4, 512), (2, 512)
+#: the flash and RMSNorm pairs timed at the frontend models' shapes
+#: (phase5_frontends): (name, H, KV, hd, d_model, the serving prefill (B,
+#: F + 512), the training shape (B, S) or None: internvl2-2b is not
+#: trained on the card)
+FRONTEND_SHAPES = (
+    ("internvl2-2b", 16, 8, 128, 2048, (4, 256 + 512), None),
+    ("musicgen-large", 32, 32, 64, 2048, (4, 64 + 512), (2, 512)))
 #: phase 5's RG-LRU scan grid: S × W × B × {h0 given, none} × {gate
 #: fused, none} × DTYPES (4096 and 2560: recurrentgemma-2b's prefill and
 #: width, 8192 its max_len; 1 the decode kernel; 37 inside one of the
@@ -551,7 +604,8 @@ TRAIN_TICKS = 16
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
 #: phase 8's reduced launcher runs on the card, each (module of
 #: repro_torch.launch, argv, what its output must hold): train with
-#: checkpoints and snapshots, resume it, serve its snapshots live
+#: checkpoints and snapshots, then resume it and serve its snapshots live
+#: side by side
 LAUNCHER_RUNS = (
     ("train", ["--reduced", "--barrier", "pbsp", "--steps", "4",
                "--ckpt-dir", "{ck}", "--save-every", "2",
@@ -563,17 +617,23 @@ LAUNCHER_RUNS = (
     ("serve", ["--reduced", "--watch-dir", "{snaps}", "--requests", "4"],
      ("loaded snapshot v4", "versions=[4]")),
 )
-#: phase 12's reduced launcher run on the card (after the arch)
+#: phase 12's reduced launcher run on the card (after the arch; run with
+#: the other phases' at the end of phase 18, REDUCED_LAUNCHERS)
 MAMBA_LAUNCHER = ["--reduced", "--barrier", "pbsp", "--steps", "4"]
 #: phases 6 and 7: qwen2-0.5b's and mamba2-780m's serving runs
 TRAFFIC = ["--requests", "8", "--batch", "4", "--prompt-len", "512",
            "--max-len", "1024", "--max-new", "64", "--seed", "0"]
-SERVE_ARGV = ["--arch", "qwen2-0.5b", *TRAFFIC]
+#: phase 6 serves qwen2-0.5b at full width, its depth cut to SERVE_LAYERS
+#: of 24 (whole before phase 18 came: cut so that the script keeps inside
+#: its time limit with it)
+SERVE_LAYERS = 12
+SERVE_ARGV = ["--arch", "qwen2-0.5b", "--n-layers", str(SERVE_LAYERS),
+              *TRAFFIC]
 #: new tokens of the one wave whose device busy share is traced
 TRACE_NEW = 16
 #: phase 7 serves mamba2-780m at full width, its depth cut to
-#: MAMBA_SERVE_LAYERS of 48 (24 before phase 17 came)
-MAMBA_SERVE_LAYERS = 12
+#: MAMBA_SERVE_LAYERS of 48 (24 before phase 17 came, 12 before phase 18)
+MAMBA_SERVE_LAYERS = 6
 MAMBA_ARGV = ["--arch", "mamba2-780m", "--n-layers", str(MAMBA_SERVE_LAYERS),
               *TRAFFIC]
 #: phase 9: the trainer → bus → live server loop at full width; the
@@ -581,7 +641,12 @@ MAMBA_ARGV = ["--arch", "mamba2-780m", "--n-layers", str(MAMBA_SERVE_LAYERS),
 #: interpreter started with LOOP_CHILD and publishes every
 #: LOOP_PUBLISH_EVERY ticks, keeping LOOP_KEEP snapshots
 LOOP_CHILD = "--loop-trainer"
-LOOP_TICKS, LOOP_PUBLISH_EVERY, LOOP_KEEP = 8, 2, 2
+#: the loop's qwen2-0.5b at full width, its depth cut to LOOP_LAYERS of 24
+#: (whole before phase 18 came: cut so that the script keeps inside its
+#: time limit with it)
+LOOP_LAYERS = 12
+#: and LOOP_TICKS ticks (8 before phase 18)
+LOOP_TICKS, LOOP_PUBLISH_EVERY, LOOP_KEEP = 6, 2, 2
 LOOP_BATCH, LOOP_PROMPT, LOOP_NEW, LOOP_MAX_LEN = 4, 512, 64, 1024
 LOOP_POLL_EVERY = 4
 #: requests served at least, and at most while waiting for the traffic to
@@ -598,15 +663,17 @@ CLUSTER_PLAN, CLUSTER_MIN_WALL = "kill-one", 0.75
 #: qwen1.5-4b on phase 6's traffic; h2o-danube-1.8b (window 4096) on one wave of
 #: prompts past the window (its prefill rolls the ring, its decode wraps
 #: it), then one shorter than it, at max_len 8192; gemma2-27b cut to
-#: GEMMA_LAYERS layers (2 local / global pairs) on danube's first wave
+#: GEMMA_LAYERS layers (one local / global pair; 4 before phase 18) on
+#: danube's first wave
 WINDOW_TRAFFIC = ["--requests", "4", "--batch", "4", "--max-len", "8192",
                   "--max-new", "64", "--seed", "0"]
-GEMMA_LAYERS = 4
+GEMMA_LAYERS = 2
 #: qwen1.5-4b's and h2o-danube-1.8b's depths cut to QWEN15_LAYERS of 40
-#: and DANUBE_LAYERS of 24 (12 each before phase 17 came), and
+#: and DANUBE_LAYERS of 24 (12 each before phase 17 came, 6 before phase
+#: 18), and
 #: gemma2-27b's from 8 to 4 (so that the script keeps inside its time
 #: limit with phases 16 and 17)
-QWEN15_LAYERS, DANUBE_LAYERS = 6, 6
+QWEN15_LAYERS, DANUBE_LAYERS = 4, 4
 LOCAL_SERVE = (
     ["--arch", "qwen1.5-4b", "--n-layers", str(QWEN15_LAYERS), *TRAFFIC],
     ["--arch", "h2o-danube-1.8b", "--n-layers", str(DANUBE_LAYERS),
@@ -621,17 +688,18 @@ LOCAL_SERVE = (
 #: of sequences of LOCAL_TRAIN_S tokens (past the window), AdamW on
 #: warmup_cosine(3e-3, LOCAL_TRAIN_WARMUP, LOCAL_TRAIN_TICKS), the loss
 #: falling over the first and last LOCAL_TRAIN_FALL pushing ticks
-LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 4
+LOCAL_TRAIN_ARCH, LOCAL_TRAIN_LAYERS = "h2o-danube-1.8b", 2
 LOCAL_TRAIN_TICKS, LOCAL_TRAIN_S, LOCAL_TRAIN_WARMUP = 8, 6144, 3
 LOCAL_TRAIN_FALL = 2
 #: phase 15: recurrentgemma-2b served at full width, its depth cut to
-#: RGEMMA_SERVE_LAYERS of 26 (4 (R, R, A) groups and the (R, R) tail;
-#: whole before phase 17 came: cut so that the script keeps inside its
-#: time limit with it; batch 4, greedy, seeded random weights, bf16) at
+#: RGEMMA_SERVE_LAYERS of 26 (one (R, R, A) group and the (R, R) tail;
+#: whole before phase 17 came, 14 before phase 18: cut so that the
+#: script keeps inside its time limit with them; batch 4, greedy, seeded
+#: random weights, bf16) at
 #: max_len 8192 on one wave of prompts past its window of 2048 (the
 #: prefill rolls the ring twice, decode wraps it), then one shorter than
 #: it (a ring padded with zeros)
-RGEMMA_SERVE_LAYERS = 14
+RGEMMA_SERVE_LAYERS = 5
 RGEMMA_SERVE = tuple(
     ["--arch", "recurrentgemma-2b", "--n-layers", str(RGEMMA_SERVE_LAYERS),
      *WINDOW_TRAFFIC, "--prompt-len", str(n)] for n in (4096, 1024))
@@ -643,22 +711,25 @@ RGEMMA_SERVE = tuple(
 #: RGEMMA_TRAIN_WARMUP, RGEMMA_TRAIN_TICKS), the loss falling over the
 #: first and last RGEMMA_TRAIN_FALL pushing ticks
 RGEMMA_TRAIN_ARCH, RGEMMA_TRAIN_LAYERS = "recurrentgemma-2b", 5
-RGEMMA_TRAIN_TICKS, RGEMMA_TRAIN_S, RGEMMA_TRAIN_WARMUP = 8, 4096, 3
+RGEMMA_TRAIN_TICKS, RGEMMA_TRAIN_S, RGEMMA_TRAIN_WARMUP = 8, 2560, 3
 RGEMMA_TRAIN_FALL = 2
 #: then the reduced launcher on the card, as phase 12 runs mamba2's
+#: (REDUCED_LAUNCHERS)
 RGEMMA_LAUNCHER = ["--arch", RGEMMA_TRAIN_ARCH, "--reduced", "--barrier",
                    "pbsp", "--steps", "4"]
 #: phase 17: the MoE decoders served at full width on phase 6's traffic
 #: (batch 4, greedy, seeded random weights, bf16, the config's capacity
 #: factor 1.25), their depths cut: qwen3-moe-30b-a3b to QWEN3_MOE_LAYERS
-#: of 48 (623,120,384 f32 params a layer), dbrx-132b to DBRX_LAYERS of 40
+#: of 48 (623,120,384 f32 params a layer; 12 before phase 18 came, cut so
+#: that the script keeps inside its time limit with it), dbrx-132b to
+#: DBRX_LAYERS of 40 (2 before phase 18)
 #: (3,259,084,800 a layer; three would not fit the card beside their
 #: casts); their teacher-forced comparisons at the capacity factor E / k
 #: (16 and 4), under which an expert's capacity is at least a call's
 #: tokens, so that none can be dropped (random weights route skewed: at
 #: 8.0 an expert of qwen3-moe's took 1051 of a 2048-token prefill, past
 #: its capacity of 1024)
-QWEN3_MOE_LAYERS, DBRX_LAYERS = 12, 2
+QWEN3_MOE_LAYERS, DBRX_LAYERS = 3, 1
 MOE_SERVE = (
     ["--arch", "qwen3-moe-30b-a3b", "--n-layers", str(QWEN3_MOE_LAYERS),
      *TRAFFIC],
@@ -674,7 +745,7 @@ MOE_SERVE = (
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen3-moe-30b-a3b", 1
 MOE_TRAIN_W, MOE_TRAIN_BETA = 2, 1
 MOE_TRAIN_TICKS, MOE_TRAIN_WARMUP, MOE_TRAIN_FALL = 8, 3, 2
-#: then the reduced launchers on the card, run side by side: (module of
+#: then the reduced launchers on the card (REDUCED_LAUNCHERS): (module of
 #: repro_torch.launch, argv, what its output must hold); dbrx-132b's
 #: reduced 6 heads take d_model 384 (hd 64: the default 256 gives hd 42,
 #: which the flash kernel does not take)
@@ -688,6 +759,43 @@ MOE_LAUNCHERS = (
     ("serve", ["--arch", "dbrx-132b", "--reduced", "--d-model", "384"],
      ("device=cuda",)),
 )
+#: phase 18: the frontend models served at full width and depth on phase
+#: 6's traffic (batch 4, greedy, seeded random weights, bf16), each
+#: request with its own frontend rows, seeded N(0, 1) (FRONTEND_SEED):
+#: internvl2-2b (256 rows a request) and musicgen-large (64)
+FRONTEND_SERVE = (["--arch", "internvl2-2b", *TRAFFIC],
+                  ["--arch", "musicgen-large", *TRAFFIC])
+FRONTEND_SEED = 18
+#: then internvl2-2b's loss_fn with frontend rows at full width, its
+#: depth cut to FRONTEND_LOSS_LAYERS, on (B, T) tokens after the rows
+FRONTEND_LOSS_ARCH, FRONTEND_LOSS_LAYERS = "internvl2-2b", 2
+FRONTEND_LOSS_BT = (2, 512)
+#: then musicgen-large trained under PSP as phase 16 trains
+#: recurrentgemma, at full width with its depth cut to
+#: FRONTEND_TRAIN_LAYERS of 48 (411,076,608 f32 params): W 4, β 2,
+#: FRONTEND_TRAIN_TICKS ticks of TRAIN_B sequences of TRAIN_S tokens a
+#: worker (tokens only, as both packages' trainers feed them), AdamW on
+#: warmup_cosine(3e-3, FRONTEND_TRAIN_WARMUP, FRONTEND_TRAIN_TICKS), the
+#: loss falling over the first and last FRONTEND_TRAIN_FALL pushing ticks
+FRONTEND_TRAIN_ARCH, FRONTEND_TRAIN_LAYERS = "musicgen-large", 8
+FRONTEND_TRAIN_TICKS, FRONTEND_TRAIN_WARMUP, FRONTEND_TRAIN_FALL = 8, 3, 2
+#: then the reduced launchers on the card (the serving launcher submits
+#: no rows: the engine zero-fills them)
+FRONTEND_LAUNCHERS = tuple(
+    (module, ["--arch", arch, "--reduced", *extra], expect)
+    for arch in ("internvl2-2b", "musicgen-large")
+    for module, extra, expect in (
+        ("train", ["--barrier", "pbsp", "--steps", "4"], ("tick",)),
+        ("serve", [], ("device=cuda",))))
+#: the reduced launchers of phases 12, 16, 17 and 18, run side by side at
+#: the end of phase 18 (each a child interpreter: run one after another
+#: they had taken about a minute): (phase tag, module, argv, what its
+#: output must hold)
+REDUCED_LAUNCHERS = (
+    (12, "train", ["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER], ("tick",)),
+    (16, "train", RGEMMA_LAUNCHER, ("tick",)),
+    *((17, *run) for run in MOE_LAUNCHERS),
+    *((18, *run) for run in FRONTEND_LAUNCHERS))
 
 
 
@@ -2055,7 +2163,8 @@ def phase5_moe(np, torch, dev, card):
     form), the backward at the training shape's (:func:`check_rms_bwd`),
     against their plain versions."""
     for name, H, KV, hd, D in MOE_SHAPES:
-        moe_flash(np, torch, dev, card, name, H, KV, hd)
+        model_flash(np, torch, dev, card, name, H, KV, hd, MOE_PREFILL,
+                    MOE_TRAIN)
         moe_rmsnorm(np, torch, dev, name, D)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2076,8 +2185,87 @@ def moe_rmsnorm(np, torch, dev, name, D):
           f"({rows}, {D}) == plain, max |err| {err:.3g}; the backward at "
           f"({bwd_rows}, {D}) == plain, max |err| {err_b:.3g}", flush=True)
 
-def moe_flash(np, torch, dev, card, name, H, KV, hd):
-    """:func:`phase5_moe`'s flash pair at ``name``'s heads."""
+def phase5_frontends(np, torch, dev, card):
+    """The flash and RMSNorm kernels at the frontend models' shapes
+    (FRONTEND_SHAPES): the flash forward at each one's serving prefill
+    (F rows + 512 tokens: internvl2-2b's 16 / 8 heads of 128 at S 768,
+    musicgen-large's 32 / 32 of 64 at S 576), against its plain version
+    and SDPA, and at musicgen's training shape (B 2, S 512: its trainer
+    feeds tokens only) the backward, against its plain version and SDPA's
+    backward (:func:`model_flash`); the RMSNorm forward at the prefill's
+    rows and the backward at the training shape's, at width 2048, held to
+    their plain versions and timed beside ``F.rms_norm`` and its backward
+    (:func:`rmsnorm_pair`)."""
+    for name, H, KV, hd, D, prefill, train in FRONTEND_SHAPES:
+        model_flash(np, torch, dev, card, name, H, KV, hd, prefill, train)
+        rmsnorm_pair(np, torch, dev, card, name, D, prefill[0] * prefill[1],
+                     None if train is None else train[0] * train[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rmsnorm_pair(np, torch, dev, card, name, D, rows, bwd_rows):
+    """The bf16 RMSNorm forward (the model's ``round_scale`` form) at
+    (rows, D) and, where ``bwd_rows`` is given, its backward at
+    (bwd_rows, D) (:func:`check_rms_bwd`), each held to its plain version
+    and timed against it and ``F.rms_norm`` (its backward through
+    autograd) beside the bytes' bound, by the profiler in mirrored
+    rounds (:func:`timed_rounds`)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
+                                             rmsnorm_bwd_ref, rmsnorm_cuda,
+                                             rmsnorm_ref)
+    x, w = rms_inputs(np, torch, rows, D, "bfloat16", dev, seed=7,
+                      on_card=True)
+    err = check_close(np, rmsnorm_cuda(x, w, round_scale=True),
+                      rmsnorm_ref(x, w, round_scale=True), "bfloat16",
+                      f"rmsnorm at {name}'s prefill")
+    nxt, n_sets = rotating((x,))
+    w16 = w.to(torch.bfloat16)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: rmsnorm_cuda(nxt()[0], w, round_scale=True), 50),
+        "plain": (lambda: rmsnorm_ref(nxt()[0], w, round_scale=True), 50),
+        "library": (lambda: F.rms_norm(nxt()[0], (D,), w16, 1e-6), 50)})
+    nbytes = 2 * x.numel() * x.element_size() + D * 4
+    print(f"[5] rmsnorm at {name}'s prefill ({rows}, {D}) bf16 (kernel == "
+          f"plain, max |err| {err:.3g}): " + rounds_text(ms)
+          + f"; bound {1e3 * nbytes / HBM_BPS:.4f} ms ({nbytes / 1e6:.3f} "
+          f"MB; bytes); library F.rms_norm; inputs rotated over {n_sets} "
+          f"copies; SM clock {clocks} [{card}]", flush=True)
+    if bwd_rows is None:
+        return
+    err = check_rms_bwd(np, torch, bwd_rows, D, "bfloat16", dev, seed=8,
+                        on_card=True)[0]
+    x, w = rms_inputs(np, torch, bwd_rows, D, "bfloat16", dev, seed=9,
+                      on_card=True)
+    g, _ = rms_inputs(np, torch, bwd_rows, D, "bfloat16", dev, seed=10,
+                      on_card=True)
+    _, m = rmsnorm_ref(x, w, round_scale=True, return_m=True)
+    nxt, n_sets = rotating((x, w, g, m))
+    xl = x.detach().requires_grad_(True)
+    wl = w.to(torch.bfloat16).requires_grad_(True)
+    y = F.rms_norm(xl, (D,), wl, 1e-6)
+    ms, clocks = timed_rounds(torch, {
+        "kernel": (lambda: rmsnorm_bwd_cuda(*nxt()), 50),
+        "plain": (lambda: rmsnorm_bwd_ref(*nxt()), 50),
+        "library": (lambda: torch.autograd.grad(y, (xl, wl), g,
+                                                retain_graph=True), 50)})
+    nbytes = 3 * x.numel() * x.element_size() + m.numel() * 4 + 2 * D * 4
+    print(f"[5] rmsnorm backward at {name}'s training shape ({bwd_rows}, "
+          f"{D}) bf16 (kernel == plain, max |err| {err:.3g}): "
+          + rounds_text(ms) + f"; bound {1e3 * nbytes / HBM_BPS:.4f} ms "
+          f"({nbytes / 1e6:.3f} MB; bytes); library F.rms_norm's backward "
+          f"through autograd; inputs rotated over {n_sets} copies; SM clock "
+          f"{clocks} [{card}]", flush=True)
+
+
+def model_flash(np, torch, dev, card, name, H, KV, hd, prefill, train):
+    """The bf16 causal flash pair at ``name``'s heads (H query heads on
+    KV of hd): the forward at the serving prefill ``prefill`` (B, S), the
+    backward at the training shape ``train`` (B, S; None: not timed),
+    each held to its plain version there and timed against it and SDPA
+    (GQA) or SDPA's backward through autograd, by the profiler in
+    mirrored rounds (:func:`timed_rounds`), beside its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_bwd_ref, attention_ref, flash_attention_bwd_cuda,
@@ -2085,7 +2273,7 @@ def moe_flash(np, torch, dev, card, name, H, KV, hd):
     G = H // KV
     sdpa_in = lambda t, i: (t if i == 0 else t.repeat_interleave(G, dim=2)
                             ).transpose(1, 2)
-    B, S = MOE_PREFILL
+    B, S = prefill
     q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
     err = check_close(np, flash_attention_cuda(q, k, v),
                       attention_ref(q, k, v), "bfloat16",
@@ -2116,8 +2304,10 @@ def moe_flash(np, torch, dev, card, name, H, KV, hd):
           f" TFLOP/s, library (SDPA, GQA) at "
           f"{flops / ms['library'][0] / 1e9:.2f}; inputs rotated over "
           f"{n_sets} copies; SM clock {clocks} [{card}]", flush=True)
+    if train is None:
+        return
 
-    B, S = MOE_TRAIN
+    B, S = train
     q, k, v = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev)
     do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev, 1)[0]
     o, lse = attention_ref(q, k, v, return_lse=True)
@@ -2463,14 +2653,22 @@ def phase5_rgemma_bwd(np, torch, dev, card):
             "bound_by": "bytes", "library_ms": None}
 
 
-def teacher_force(np, torch, model, toks, prompt_len, max_len, impl):
+def teacher_force(np, torch, model, toks, prompt_len, max_len, impl,
+                  embeds=None):
     """Per-step logits (steps, B, V) of ``toks`` (B, prompt + new) fed
-    through prefill and decode steps, as the engine feeds a group."""
+    through prefill and decode steps, as the engine feeds a group: a
+    modality model's prefill after the frontend rows ``embeds`` (B, F, D;
+    bf16, as the engine rounds them), whose clock must then be F +
+    prompt."""
     from repro_torch.models import decode_step, prefill
     dev = model.embed.device
     t = torch.from_numpy(np.ascontiguousarray(toks)).to(dev)
     logits, cache = prefill(model, t[:, :prompt_len].to(torch.int32),
-                            max_len=max_len, impl=impl)
+                            embeds=embeds, max_len=max_len, impl=impl)
+    F = 0 if embeds is None else embeds.shape[1]
+    if cache["length"] != F + prompt_len:
+        raise AssertionError(f"prefill clock {cache['length']} != "
+                             f"{F} frontend rows + {prompt_len} tokens")
     steps = [logits]
     for j in range(prompt_len, toks.shape[1] - 1):
         logits, cache = decode_step(model, cache, t[:, j:j + 1], impl=impl)
@@ -2530,7 +2728,7 @@ def ring_check(np, torch, run, a, tag):
 
 
 def routed(np, torch, model, toks, prompt_len, max_len, impl,
-           replay=None):
+           replay=None, embeds=None):
     """:func:`teacher_force` inside ``repro_torch.models.moe.routing``:
     (its logits, the experts each MoE layer picked, call by call; empty
     for a model without experts).  With ``replay`` (such a record of the
@@ -2538,7 +2736,7 @@ def routed(np, torch, model, toks, prompt_len, max_len, impl,
     from repro_torch.models import moe
     with moe.routing(replay) as rec:
         out = teacher_force(np, torch, model, toks, prompt_len, max_len,
-                            impl)
+                            impl, embeds)
     return out, rec
 
 
@@ -2606,13 +2804,21 @@ def teacher_checks(np, torch, run, a, tag, t_phase):
     incremental one (:func:`stepwise`: every token a decode step, on a
     float32 cache, since the served bf16 cache rounds the keys and values
     that the whole pass keeps in float32), on the incremental pass's
-    experts."""
+    experts.
+
+    A modality model's waves are forced after their requests' own
+    frontend rows (``run.embeds``, rounded to bf16 as the engine rounds
+    them), and each prefill's clock is checked to be F + prompt."""
     from repro_torch.models import Model, forward, moe
     from repro_torch.models.transformer import _head
     cfg, dev, P = run.cfg, run.model.embed.device, a.prompt_len
-    waves = [np.stack([np.concatenate([run.prompts[i], run.outputs[i]])
-                       for i in range(w, min(w + a.batch, len(run.prompts)))])
+    spans = [range(w, min(w + a.batch, len(run.prompts)))
              for w in range(0, len(run.prompts), a.batch)]
+    waves = [np.stack([np.concatenate([run.prompts[i], run.outputs[i]])
+                       for i in span]) for span in spans]
+    rows = [None if run.embeds is None else torch.from_numpy(np.stack(
+        [run.embeds[i] for i in span])).to(dev, torch.bfloat16)
+        for span in spans]
     served = lambda toks: torch.from_numpy(toks[:, P:].T.copy()).to(dev)
     reproduced = lambda ker, toks: torch.equal(ker.argmax(-1), served(toks))
     model, tree, agree = run.model, run.model.tree(), 0
@@ -2639,9 +2845,9 @@ def teacher_checks(np, torch, run, a, tag, t_phase):
                         / a.abs().amax((1, 2))).cpu().numpy()
     bf16, floor, f32, whole, most = [], [], [], [], 0
     sets = {k: [0, 0] for k in ("bf16", "f32", "floor", "whole")}
-    for toks in waves:
+    for toks, emb in zip(waves, rows):
         tf = lambda m, impl, replay=None: routed(
-            np, torch, m, toks, P, a.max_len, impl, replay)
+            np, torch, m, toks, P, a.max_len, impl, replay, emb)
         ker, rk = tf(model, "cuda")
         if not n_moe:
             if not reproduced(ker, toks):
@@ -2720,6 +2926,10 @@ def teacher_checks(np, torch, run, a, tag, t_phase):
                 f"bf16 − float32 {sets['floor'][0]} of {sets['floor'][1]};"
                 f" whole − incremental {sets['whole'][0]} of "
                 f"{sets['whole'][1]}")
+    if run.embeds is not None:
+        text += (f"; every wave forced after its requests' own "
+                 f"{cfg.frontend_tokens} frontend rows, each prefill's "
+                 f"clock {cfg.frontend_tokens} + {P}")
     print(f"[{tag}] teacher-forced: kernel logits reproduce all {agree} "
           "served "
           f"tokens; impl=ref per-step logits, as a share of max |logit|: "
@@ -2779,13 +2989,42 @@ def moe_split(np, torch, model, cfg, a, tag, card):
         del x, top_p, top_i, h, slot, ok, o
 
 
-def serve_phase(np, torch, dev, card, argv, tag):
+def waves_alone(np, run, a, tag):
+    """Each wave after the first of a modality model's run served again
+    alone, on the same model, through a fresh engine's blocking
+    ``generate`` with its requests' own frontend rows: its tokens must
+    be those the run served it after the waves before (the port's twin
+    of the reference's ``test_per_wave_embeds``); the rows differ from
+    every earlier wave's."""
+    from repro_torch.serving import ServingEngine
+    n, eng = len(run.prompts), run.engine
+    for w in range(a.batch, n, a.batch):
+        span = range(w, min(w + a.batch, n))
+        if any(np.array_equal(run.embeds[i], run.embeds[j])
+               for i in span for j in range(w)):
+            raise AssertionError(f"wave at request {w}: frontend rows "
+                                 "repeat an earlier wave's")
+        alone = ServingEngine(run.model, run.cfg, eng.scfg,
+                              impl=eng.impl).generate(
+            [run.prompts[i] for i in span], [run.embeds[i] for i in span])
+        for i, o in zip(span, alone):
+            if not np.array_equal(o, run.outputs[i]):
+                raise AssertionError(f"request {i} served alone with its "
+                                     "rows differs from its wave's tokens")
+    print(f"[{tag}] each later wave served alone with its own frontend rows"
+          f" (distinct from every earlier wave's): its tokens equal the "
+          f"run's", flush=True)
+
+
+def serve_phase(np, torch, dev, card, argv, tag, embeds=None):
     """A serving path on the card, printed as phase ``tag``: serve
-    ``argv`` through ``repro_torch.launch.serve`` with every model
-    kernel's launch count reset just before and read just after, check
-    the ring of a model with ``local`` layers (:func:`ring_check`),
-    teacher-force the served tokens, and trace a rerun.  Returns the
-    launch counts by kernel name."""
+    ``argv`` through ``repro_torch.launch.serve`` (each request with its
+    row of ``embeds``, a modality model's frontend rows, where given)
+    with every model kernel's launch count reset just before and read
+    just after, check the ring of a model with ``local`` layers
+    (:func:`ring_check`), serve each later wave of a modality model
+    alone (:func:`waves_alone`), teacher-force the served tokens, and
+    trace a rerun.  Returns the launch counts by kernel name."""
     from repro_torch.kernels import (flash_attention as fa, rglru_scan as rg,
                                      rmsnorm as rn, ssd_scan as ss)
     from repro_torch.launch import serve
@@ -2798,7 +3037,7 @@ def serve_phase(np, torch, dev, card, argv, tag):
     torch.cuda.synchronize()
     for m in kernels.values():
         m.reset_launch_count()
-    run = serve.one_shot(argv)
+    run = serve.one_shot(argv, embeds)
     got = {name: m.launch_count() for name, m in kernels.items()}
     eng, cfg = run.engine, run.cfg
     # per prefill call: one flash launch per attention layer (attn,
@@ -2841,6 +3080,8 @@ def serve_phase(np, torch, dev, card, argv, tag):
 
     if cfg.is_moe:
         moe_split(np, torch, run.model, cfg, a, tag, card)
+    if embeds is not None:
+        waves_alone(np, run, a, tag)
     teacher_checks(np, torch, run, a, tag, t_phase)
     # the trace builds its own model: free this one first (gemma2's two
     # would not fit the card beside a prefill)
@@ -2852,9 +3093,10 @@ def serve_phase(np, torch, dev, card, argv, tag):
     # decode steps): tracing the whole run costs minutes of profiler time
     # at mamba2's ≈ 3600 launches per forward
     wave = [*argv, "--requests", str(a.batch), "--max-new", str(TRACE_NEW)]
-    wall_ms = 1e3 * serve.one_shot(wave).wall_s
+    rows = None if embeds is None else embeds[:a.batch]
+    wall_ms = 1e3 * serve.one_shot(wave, rows).wall_s
     init = profile_device(torch, lambda: init_model(cfg, seed=0, device=dev))
-    traced = profile_device(torch, lambda: serve.one_shot(wave))
+    traced = profile_device(torch, lambda: serve.one_shot(wave, rows))
     if traced:
         busy = sum(traced.values()) - sum(init.values())
         print(f"[{tag}] traced rerun of one wave ({a.batch} requests, "
@@ -2918,7 +3160,7 @@ def leaf_rel(torch, got, want):
 
 def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
                 ticks=TRAIN_TICKS, seq=TRAIN_S, warmup=None, fall=4,
-                workers=TRAIN_W, beta=2):
+                workers=TRAIN_W, beta=2, leafwise=False):
     """PSP training of ``arch`` at full width on the card (its first
     ``layers`` layers when given), built from the library calls that
     ``repro_torch.launch.train`` makes (``workers`` workers, β ``beta``):
@@ -2926,7 +3168,9 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
     sequences through the kernels (AdamW on ``warmup_cosine(3e-3, warmup,
     ticks)``), one traced tick; the mean loss of the last ``fall``
     pushing ticks must be below that of the first ``fall``; see the
-    module docstring (phases 8, 12, 14, 16 and 17).  A MoE model's tick 0
+    module docstring (phases 8, 12, 14, 16, 17 and 18).  Tick 0 is held
+    leaf by leaf too for ``ssd``, ``rglru`` and ``moe`` stacks, and with
+    ``leafwise``.  A MoE model's tick 0
     compares on one routing, as :func:`teacher_checks` does: the plain
     path on the kernel path's experts, its bf16 − float32 spread on the
     float32 path's; the top-k sets either side would have picked
@@ -2948,7 +3192,8 @@ def train_phase(np, torch, dev, card, arch, tag, *, layers=None,
                             workers=W)
     trainer = lambda impl: psp_trainer(cfg, params, opt, dev, impl,
                                        workers=W, beta=beta)[:2]
-    leafwise = bool({"ssd", "rglru", "moe"} & set(cfg.layer_kinds()))
+    leafwise = leafwise or bool({"ssd", "rglru", "moe"}
+                                & set(cfg.layer_kinds()))
 
     # (a) the first tick's per-worker losses and (clipped) gradients: the
     # kernels against the plain path in bf16 compute, beside the plain
@@ -3143,27 +3388,8 @@ def phase12(np, torch, dev, card):
     """PSP training of full-width mamba2-780m on the card (phase 8's
     settings and token pool; see the module docstring).  Returns the
     model kernels' launch counts of the run."""
-    got, *_, t_phase = train_phase(np, torch, dev, card, MAMBA_TRAIN_ARCH,
-                                   12, layers=MAMBA_TRAIN_LAYERS)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launcher(["--arch", MAMBA_TRAIN_ARCH, *MAMBA_LAUNCHER], 12, t_phase)
-    return got
-
-
-def launcher(argv, tag, t_phase):
-    """``python -m repro_torch.launch.train`` with ``argv`` on the card, in
-    a child interpreter; fails unless it exits 0 having logged a tick."""
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          *argv], capture_output=True, text=True,
-                         env={**os.environ, "PYTHONPATH": str(SRC)},
-                         cwd=ROOT, timeout=300)
-    if run.returncode != 0 or "tick" not in run.stdout:
-        raise AssertionError(f"launch.train {argv} failed ({run.returncode}):"
-                             f" {run.stdout[-1500:]}{run.stderr[-2000:]}")
-    print(f"[{tag}] python -m repro_torch.launch.train {' '.join(argv)}: "
-          f"{run.stdout.strip().splitlines()[-1]}; "
-          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+    return train_phase(np, torch, dev, card, MAMBA_TRAIN_ARCH, 12,
+                       layers=MAMBA_TRAIN_LAYERS)[0]
 
 
 def phase8(np, torch, dev, card):
@@ -3210,25 +3436,15 @@ def phase8(np, torch, dev, card):
     del grads, ostate
 
     # (f) the launchers themselves, reduced, on the card: train with
-    # checkpoints and snapshots, resume, serve the snapshots live
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # checkpoints and snapshots, then resume it and serve its snapshots
+    # live side by side
     where = ROOT / "build" / "launchers"
     shutil.rmtree(where, ignore_errors=True)
     dirs = {"ck": str(where / "ck"), "snaps": str(where / "snaps")}
-    for module, argv, expect in LAUNCHER_RUNS:
-        argv = [x.format(**dirs) for x in argv]
-        run = subprocess.run([sys.executable, "-m",
-                              f"repro_torch.launch.{module}", *argv],
-                             capture_output=True, text=True, env=env,
-                             cwd=ROOT, timeout=300)
-        if run.returncode != 0 or not all(e in run.stdout for e in expect):
-            raise AssertionError(f"launch.{module} {argv} failed "
-                                 f"({run.returncode}): {run.stdout[-1500:]}"
-                                 f"{run.stderr[-2000:]}")
-        print(f"[8] python -m repro_torch.launch.{module} {' '.join(argv)}: "
-              f"{run.stdout.strip().splitlines()[-1]}; "
-              f"{time.perf_counter() - t_phase:.1f} s into the phase",
-              flush=True)
+    runs = [(8, module, [x.format(**dirs) for x in argv], expect)
+            for module, argv, expect in LAUNCHER_RUNS]
+    launchers_side_by_side(runs[:1], t_phase)
+    launchers_side_by_side(runs[1:], t_phase)
     shutil.rmtree(where, ignore_errors=True)
     return got
 
@@ -3320,16 +3536,16 @@ def reset_launch_counts(torch):
 def loop_trainer(torch, dev, out_dir) -> int:
     """Phase 9's trainer, run in a child interpreter (``python3
     chip_smoke.py --loop-trainer DIR``): phase 8's PSP run of full-width
-    qwen2-0.5b for LOOP_TICKS ticks, publishing its server params to
-    ``DIR`` as version 0 before the first tick, every LOOP_PUBLISH_EVERY
-    ticks asynchronously and after the last tick blocking.  Prints
+    qwen2-0.5b (its first LOOP_LAYERS layers) for LOOP_TICKS ticks,
+    publishing its server params to ``DIR`` as version 0 before the first
+    tick, every LOOP_PUBLISH_EVERY ticks asynchronously and after the
+    last tick blocking.  Prints
     ``published <version>`` as each publication is handed over, then one
     JSON line: the kernels' launches, the wall per tick (publishing
     included), the trainer thread's seconds per async publication and
     per blocking one, a snapshot's bytes and the peak device memory."""
-    from repro_torch.configs import get_config
     from repro_torch.serving import SnapshotPublisher
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_config(TRAIN_ARCH, LOOP_LAYERS)
     st, step, _ = psp_run(torch, dev, cfg, LOOP_TICKS)
     batches = train_batches(torch, dev, cfg.vocab_size, LOOP_TICKS)
     pub = SnapshotPublisher(out_dir, cfg, every_steps=LOOP_PUBLISH_EVERY,
@@ -3416,7 +3632,6 @@ def phase9(np, torch, dev, card):
     import queue
     import threading
     from repro_torch.checkpoint import latest_step, restore_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.convert import (from_reference_layout, params_from_jax,
                                      params_to_numpy)
     from repro_torch.models import init_model
@@ -3424,7 +3639,7 @@ def phase9(np, torch, dev, card):
                                      ServingEngine, SnapshotWatcher)
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_config(TRAIN_ARCH, LOOP_LAYERS)
     out = ROOT / "build" / "phase9"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -3588,8 +3803,9 @@ def phase9(np, torch, dev, card):
     times = np.array(stats.token_times)
     n_dec = len(times) - len(ttft)
     print(f"[9] trainer (a child interpreter on the same card): "
-          f"{LOOP_TICKS} PSP ticks of {cfg.name} at full width (phase 8's "
-          f"config, W={TRAIN_W}), versions {published} published (every "
+          f"{LOOP_TICKS} PSP ticks of {cfg.name} at full width, "
+          f"{cfg.n_layers} layers (phase 8's settings, W={TRAIN_W}), "
+          f"versions {published} published (every "
           f"{LOOP_PUBLISH_EVERY} ticks, keep {LOOP_KEEP}); version 0 on "
           f"disk {t_v0:.1f} s into the phase; wall per tick with "
           f"publishing on {walls.mean():.2f} ms (ticks 2..{LOOP_TICKS}: "
@@ -4031,37 +4247,34 @@ def phase16(np, torch, dev, card):
     """recurrentgemma-2b trained under PSP on the card at full width, its
     depth cut to RGEMMA_TRAIN_LAYERS (:func:`train_phase`: tick 0 against
     the plain path over the whole tree and leaf by leaf, the control
-    plane, exact launches, the loss falling), then the reduced launcher
-    on the card (RGEMMA_LAUNCHER).  Its ticks peak within ~5 GB of the
-    card's memory, so the caching allocator runs with expandable segments
-    for the phase: blocks freed by one stage's shapes would otherwise be
-    split too finely for the next stage's largest tensors.  Returns the
-    model kernels' launch counts of the run."""
+    plane, exact launches, the loss falling).  Its ticks peak within ~5
+    GB of the card's memory, so the caching allocator runs with
+    expandable segments for the phase: blocks freed by one stage's
+    shapes would otherwise be split too finely for the next stage's
+    largest tensors.  Returns the model kernels' launch counts of the
+    run."""
     allocator = torch.cuda.memory._set_allocator_settings
     gc.collect()
     torch.cuda.empty_cache()
     allocator("expandable_segments:True")
     try:
-        got, *_, t_phase = train_phase(
+        return train_phase(
             np, torch, dev, card, RGEMMA_TRAIN_ARCH, 16,
             layers=RGEMMA_TRAIN_LAYERS, ticks=RGEMMA_TRAIN_TICKS,
             seq=RGEMMA_TRAIN_S, warmup=RGEMMA_TRAIN_WARMUP,
-            fall=RGEMMA_TRAIN_FALL)
+            fall=RGEMMA_TRAIN_FALL)[0]
     finally:
         gc.collect()
         torch.cuda.empty_cache()
         allocator("expandable_segments:False")
-    launcher(RGEMMA_LAUNCHER, 16, t_phase)
-    return got
 
 
 def phase17(np, torch, dev, card):
     """The MoE decoders on the card: serve each of MOE_SERVE
     (:func:`serve_phase`: exact launches, the MoE layer's split, the
     teacher-forced checks of :func:`teacher_checks`, a traced wave),
-    train qwen3-moe-30b-a3b under PSP (:func:`train_phase`, with
-    expandable segments as phase 16), then the reduced launchers
-    (MOE_LAUNCHERS) side by side.  Returns the model kernels' launch
+    and train qwen3-moe-30b-a3b under PSP (:func:`train_phase`, with
+    expandable segments as phase 16).  Returns the model kernels' launch
     counts of each run."""
     paths = []
     for argv in MOE_SERVE:
@@ -4073,23 +4286,32 @@ def phase17(np, torch, dev, card):
     torch.cuda.empty_cache()
     allocator("expandable_segments:True")
     try:
-        got, *_, t_phase = train_phase(
+        paths.append(train_phase(
             np, torch, dev, card, MOE_TRAIN_ARCH, 17,
             layers=MOE_TRAIN_LAYERS, ticks=MOE_TRAIN_TICKS,
             warmup=MOE_TRAIN_WARMUP, fall=MOE_TRAIN_FALL,
-            workers=MOE_TRAIN_W, beta=MOE_TRAIN_BETA)
+            workers=MOE_TRAIN_W, beta=MOE_TRAIN_BETA)[0])
     finally:
         gc.collect()
         torch.cuda.empty_cache()
         allocator("expandable_segments:False")
-    paths.append(got)
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    procs = [(module, argv, expect, subprocess.Popen(
+    return paths
+
+
+def launchers_side_by_side(runs, t_phase):
+    """The reduced launchers ``runs`` ((phase tag, module of
+    repro_torch.launch, argv, what its output must hold), ...) on the
+    card, each in a child interpreter, all started together; fails
+    unless each exits 0 with its output holding what it must.  Each
+    runs torch at one CPU thread: their work is on the card, and their
+    default pools of every core each would oversubscribe the host."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    procs = [(tag, module, argv, expect, subprocess.Popen(
         [sys.executable, "-m", f"repro_torch.launch.{module}", *argv],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)) for module, argv, expect in MOE_LAUNCHERS]
+        cwd=ROOT)) for tag, module, argv, expect in runs]
     failed = []
-    for module, argv, expect, proc in procs:
+    for tag, module, argv, expect, proc in procs:
         try:
             out, err = proc.communicate(timeout=300)
         except subprocess.TimeoutExpired:
@@ -4099,16 +4321,127 @@ def phase17(np, torch, dev, card):
             failed.append(f"launch.{module} {argv} ({proc.returncode}): "
                           f"{out[-1500:]}{err[-2000:]}")
             continue
-        print(f"[17] python -m repro_torch.launch.{module} {' '.join(argv)}"
-              f": {out.strip().splitlines()[-1]}; "
-              f"{time.perf_counter() - t_phase:.1f} s into the training",
+        print(f"[{tag}] python -m repro_torch.launch.{module} "
+              f"{' '.join(argv)}: {out.strip().splitlines()[-1]}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase",
               flush=True)
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+def frontend_rows(np, cfg, n, seed=FRONTEND_SEED):
+    """Each of ``n`` requests' own frontend rows (F, d_model), seeded
+    N(0, 1) from numpy, float32."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((cfg.frontend_tokens, cfg.d_model),
+                                dtype=np.float32) for _ in range(n)]
+
+
+def frontend_loss(np, torch, dev, card):
+    """internvl2-2b's ``loss_fn`` with frontend rows at full width, its
+    depth cut to FRONTEND_LOSS_LAYERS: one forward and backward of B
+    sequences of F rows + T tokens (FRONTEND_LOSS_BT; seeded on the
+    card) under the kernels against ``impl="ref"``, in bf16 compute and
+    in float32, held as :func:`train_phase` holds tick 0 leaf by leaf:
+    the loss within 2e-2 or the plain path's own bf16 − float32 spread,
+    the gradients over the tree and each leaf within 2e-2 or that
+    spread; in float32 compute the loss within 1e-5 relative, the
+    gradients within 1e-3.  The kernels' launches are those of one
+    worker's training step (:func:`train_launches`)."""
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import init_model
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = train_config(FRONTEND_LOSS_ARCH, FRONTEND_LOSS_LAYERS)
+    params = init_model(cfg, seed=0, device=dev).tree()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    B, T = FRONTEND_LOSS_BT
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(FRONTEND_SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "embeds": torch.randn(B, cfg.frontend_tokens, cfg.d_model,
+                                   generator=gen, device=dev)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    grads = lambda c, impl: make_grad_fn(c, None, impl)(params, batch)
+    reset_launch_counts(torch)
+    lk, gk = grads(cfg, "cuda")
+    got = launch_counts()
+    want = train_launches(cfg)
+    if got != want:
+        raise AssertionError(f"loss check launches {got}, want {want}")
+    lr, gr = grads(cfg, "ref")
+    l32, g32 = grads(cfg32, "ref")
+    lk32, gk32 = grads(cfg32, "cuda")
+    lk, lr, l32, lk32 = (float(x) for x in (lk, lr, l32, lk32))
+    e_loss, s_loss = abs(lk - lr), abs(lr - l32)
+    e_tree, s_tree = tree_rel(torch, gk, gr), tree_rel(torch, gr, g32)
+    e_leaf, s_leaf = leaf_rel(torch, gk, gr), leaf_rel(torch, gr, g32)
+    e32_loss, e32_tree = abs(lk32 - l32) / abs(l32), tree_rel(torch, gk32,
+                                                             g32)
+    e32_leaf = max(leaf_rel(torch, gk32, g32))
+    bounds = [max(2e-2, x) for x in (s_loss, s_tree, max(s_leaf))]
+    print(f"[18] {cfg.name} loss_fn with {cfg.frontend_tokens} frontend rows"
+          f" at full width ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{n_params:,} params f32), B={B}, {cfg.frontend_tokens} + {T} "
+          f"positions, bf16: loss kernels {lk:.6f}, plain {lr:.6f}, plain "
+          f"f32 {l32:.6f}; |loss kernels − plain| {e_loss:.4g} (bound "
+          f"{bounds[0]:.4g}: 2e-2 or plain bf16 − f32 {s_loss:.4g}); "
+          f"‖Δg‖/‖g‖ {e_tree:.4g} (bound {bounds[1]:.4g}; the plain path's "
+          f"{s_tree:.4g}); leaf by leaf ({len(e_leaf)} leaves) up to "
+          f"{max(e_leaf):.4g} (bound {bounds[2]:.4g}; the plain path's up "
+          f"to {max(s_leaf):.4g}); float32 compute: loss {e32_loss:.3g} "
+          f"relative (bound 1e-5), ‖Δg‖/‖g‖ {e32_tree:.3g}, leaf by leaf "
+          f"up to {e32_leaf:.3g} (bound 1e-3); launches "
+          + ", ".join(f"{k} {n}" for k, n in got.items() if n)
+          + f"; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if not (e_loss <= bounds[0] and e_tree <= bounds[1]
+            and max(e_leaf) <= bounds[2] and e32_loss <= 1e-5
+            and e32_tree <= 1e-3 and e32_leaf <= 1e-3):
+        raise AssertionError(f"{cfg.name} loss with frontend rows: kernels "
+                             "and plain path differ beyond the bounds")
+    del params, gk, gr, g32, gk32
+
+
+def phase18(np, torch, dev, card):
+    """The frontend models on the card: serve each of FRONTEND_SERVE at
+    full width and depth, every request with its own seeded frontend rows
+    (:func:`serve_phase`: exact launches, each later wave served alone,
+    the teacher-forced checks on the same rows, a traced wave); hold
+    internvl2-2b's ``loss_fn`` with frontend rows to the plain path
+    (:func:`frontend_loss`); train musicgen-large under PSP
+    (:func:`train_phase`, tick 0 leaf by leaf); then the reduced
+    launchers of phases 12, 16, 17 and 18 (REDUCED_LAUNCHERS) side by
+    side.  Returns the model kernels' launch counts of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    paths = []
+    for argv in FRONTEND_SERVE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        a = serve.parse_args(argv)
+        rows = frontend_rows(np, get_config(a.arch), a.requests)
+        paths.append(serve_phase(np, torch, dev, card, argv, 18, rows))
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend_loss(np, torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, *_, t_phase = train_phase(
+        np, torch, dev, card, FRONTEND_TRAIN_ARCH, 18,
+        layers=FRONTEND_TRAIN_LAYERS, ticks=FRONTEND_TRAIN_TICKS,
+        warmup=FRONTEND_TRAIN_WARMUP, fall=FRONTEND_TRAIN_FALL,
+        leafwise=True)
+    paths.append(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launchers_side_by_side(REDUCED_LAUNCHERS, t_phase)
     return paths
 
 
 def main() -> int:
+    """Run every phase (see the module docstring); 0 when all passed."""
     try:
         import numpy as np
         import torch
@@ -4260,7 +4593,7 @@ def main() -> int:
     entries = []
     for part in (phase5, phase5_ssd, phase5_ssd_bwd, phase5_bwd,
                  phase5_danube, phase5_rgemma, phase5_rgemma_bwd,
-                 phase5_moe):
+                 phase5_moe, phase5_frontends):
         t0 = time.perf_counter()
         out = part(np, torch, dev, card)
         if isinstance(out, dict):
@@ -4330,6 +4663,14 @@ def main() -> int:
           flush=True)
     paths += phase17(np, torch, dev, card)
     print(f"[17] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 18. the frontend models: internvl2-2b and musicgen-large ------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    paths += phase18(np, torch, dev, card)
+    print(f"[18] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

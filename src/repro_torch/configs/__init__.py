@@ -5,7 +5,7 @@ the architecture registry: ``get_config("gemma2-27b")`` (or any other
 registered name) returns the published configuration,
 ``reduced(cfg)`` the CPU-smoke variant of the same family (the
 reference's ``repro.configs.reduced``, rule for rule).
-Only the architectures whose slice has been ported are registered.
+Every architecture of the reference is registered.
 """
 from __future__ import annotations
 
@@ -16,7 +16,9 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma2
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as _danube
+from repro_torch.configs.internvl2_2b import CONFIG as _internvl2
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
+from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.psp_linear import CONFIG, PSPLinearConfig
 from repro_torch.configs.qwen1_5_4b import CONFIG as _qwen15
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
@@ -25,7 +27,7 @@ from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [_danube, _mamba2, _qwen15, _qwen2, _gemma2,
-                        _rgemma, _qwen3moe, _dbrx]}
+                        _rgemma, _qwen3moe, _dbrx, _musicgen, _internvl2]}
 
 #: archs allowed to run long_500k (sub-quadratic / windowed decode state),
 #: as the reference's: pure full-attention archs skip it
@@ -39,7 +41,7 @@ LONG_CONTEXT_ARCHS = (
 
 def get_config(name: str) -> ModelConfig:
     """The registered architecture ``name``; raises ``KeyError`` for an
-    unknown or not yet ported one."""
+    unknown one."""
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS)}")
     return ARCHS[name]

@@ -21,17 +21,23 @@ the RG-LRU scan kernel; ``--max-len`` at least its window of 2048),
 mamba2-780m (the Mamba-2 stack, SSD-scan kernel), or the MoE decoders
 qwen3-moe-30b-a3b (128 experts, top 8; 30.5B parameters, so on one card
 cut, e.g. ``--n-layers 12``) and dbrx-132b (16 experts, top 4; e.g.
-``--n-layers 2``).  ``--reduced`` runs any of them at the CPU-smoke
-width (window 64; ``--d-model``, 256 by default).
+``--n-layers 2``), or the modality models internvl2-2b (a vision stub's
+256 frontend rows before each prompt, 16 / 8 heads of 128) and
+musicgen-large (an audio stub's 64 rows, sinusoidal positions, the GELU
+MLP, fused QKV at 32 / 32 heads of 64), both whole on one card.
+``--reduced`` runs any of them at the CPU-smoke width (window 64;
+``--d-model``, 256 by default; 16 frontend rows).
 
 Weights come from the port's seeded initialisation (``--seed``), as the
 reference serves ``init_model`` weights.  Prompts are drawn from numpy
-with the same seed.  Requests go through
-:class:`~repro_torch.serving.ServingEngine` in batch-sized waves, as
-``ServingEngine.generate`` submits them, with every engine step timed on
-the host clock: the first step of a wave prefills it and emits its
-first tokens (time to first token), the others decode.  Without a
-visible GPU and without ``--device cpu`` it raises.
+with the same seed.  The command line submits no frontend rows, as the
+reference's launcher does, so the engine zero-fills a modality model's;
+:func:`one_shot` takes each request's own rows from a caller.  Requests
+go through :class:`~repro_torch.serving.ServingEngine` in batch-sized
+waves, as ``ServingEngine.generate`` submits them, with every engine
+step timed on the host clock: the first step of a wave prefills it and
+emits its first tokens (time to first token), the others decode.
+Without a visible GPU and without ``--device cpu`` it raises.
 
 Live mode watches a snapshot directory that a trainer publishes into
 (``python -m repro_torch.launch.train --publish-dir``) and hot-swaps the
@@ -79,6 +85,7 @@ class ServeRun:
     decode_tokens: int
     decode_s: float            # steps after each wave's first
     wall_s: float
+    embeds: Optional[List[np.ndarray]] = None   # each request's rows
 
     def stats(self) -> Dict[str, float]:
         """Time to first token, prefill and decode rates, wall."""
@@ -182,10 +189,17 @@ def _serve_live(a) -> int:
     return 0
 
 
-def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
-    """Parse ``argv``, build the model and serve the requests once."""
+def one_shot(argv: Optional[List[str]] = None,
+             embeds: Optional[List[np.ndarray]] = None) -> ServeRun:
+    """Parse ``argv``, build the model and serve the requests once, each
+    carrying its row of ``embeds`` (a modality model's ``(F, d_model)``
+    frontend rows a request; zeros when None).  The prefill rate counts
+    the positions prefilled: each prompt's tokens and its F rows."""
     a = parse_args(argv)
     cfg, model, scfg = _setup(a)
+    if embeds is not None and len(embeds) != a.requests:
+        raise ValueError(f"{a.requests} requests got {len(embeds)} "
+                         "embeddings")
     dev = model.embed.device
     eng = ServingEngine(model, cfg, scfg, impl=a.impl)
     rng = np.random.default_rng(a.seed)
@@ -198,8 +212,9 @@ def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
     t_start = time.perf_counter()
     for start in range(0, len(prompts), a.batch):
         t0 = time.perf_counter()
-        ids += [eng.submit(Request(prompt=p))
-                for p in prompts[start:start + a.batch]]
+        ids += [eng.submit(Request(
+            prompt=p, embed=None if embeds is None else embeds[start + i]))
+            for i, p in enumerate(prompts[start:start + a.batch])]
         first = True
         while eng.has_pending():
             t1 = time.perf_counter()
@@ -218,9 +233,10 @@ def one_shot(argv: Optional[List[str]] = None) -> ServeRun:
     wall = time.perf_counter() - t_start
     return ServeRun(cfg=cfg, model=model, engine=eng, prompts=prompts,
                     outputs=[results[i] for i in ids], ttft_s=ttft,
-                    prefill_tokens=a.requests * a.prompt_len,
+                    prefill_tokens=a.requests * (a.prompt_len
+                                                 + cfg.frontend_tokens),
                     decode_tokens=decode_tokens, decode_s=decode_s,
-                    wall_s=wall)
+                    wall_s=wall, embeds=embeds)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

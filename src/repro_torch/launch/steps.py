@@ -35,7 +35,8 @@ Tree = Any
 def make_grad_fn(cfg, clip_norm: Optional[float] = 1.0,
                  impl: str = "auto") -> Callable:
     """``grad_fn(params, batch) -> (loss, grads)`` for ONE worker:
-    ``batch`` is ``{"tokens": (B, S)}`` or the token tensor itself;
+    ``batch`` is ``{"tokens": (B, S)[, "embeds": (B, F, D)]}`` or the
+    token tensor itself;
     ``grads`` has the params' structure, clipped to ``clip_norm``."""
     def grad_fn(params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
         if isinstance(batch, torch.Tensor):

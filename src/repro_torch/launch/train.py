@@ -50,8 +50,10 @@ port's seeded initialisation (``--seed``), tokens from
 limits it to small vocabularies, as in the
 reference, which trains ``--reduced``: at full width qwen2's and
 qwen1.5's 151,936-token vocabularies would need a 92 GB table, gemma2's
-256,000 262 GB), the PSP noise from a ``torch.Generator`` seeded
-``--seed + 1``.
+256,000 262 GB, internvl2-2b's 92,553 34 GB), the PSP noise from a
+``torch.Generator`` seeded ``--seed + 1``.  The batches hold tokens
+only, as the reference's trainer feeds them: a modality model
+(internvl2-2b, musicgen-large) trains without frontend rows.
 """
 from __future__ import annotations
 
@@ -87,8 +89,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     help="one of " + ", ".join(sorted(ARCHS)) + "; "
                          "without --reduced SyntheticLM's vocab² host "
-                         "table rules out the 151,936- and 256,000-token "
-                         "vocabularies (qwen2, qwen1.5, gemma2)")
+                         "table rules out the 92,553-, 151,936- and "
+                         "256,000-token vocabularies (internvl2, qwen2, "
+                         "qwen1.5, gemma2)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--n-layers", type=int, default=2)

@@ -1,4 +1,5 @@
-"""Grouped-query attention with RoPE: projections, prefill and decode.
+"""Grouped-query attention with RoPE (or none, under sinusoidal
+positions): projections, prefill and decode.
 
 The port's counterpart of :mod:`repro.models.attention` on one device,
 for full (global, ``window=None``) and sliding-window (``local``)
@@ -136,15 +137,17 @@ def _prefill_cache(t: torch.Tensor, window: Optional[int],
 
 
 def attn_apply(p: dict, x: torch.Tensor, *, cfg,
-               rot: Tuple[torch.Tensor, torch.Tensor],
+               rot: Optional[Tuple[torch.Tensor, torch.Tensor]],
                window: Optional[int] = None,
                length: Optional[int] = None, cache: Optional[dict] = None,
                mode: str = "train", max_len: Optional[int] = None,
                impl: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
     """GQA attention with RoPE; weights ``p`` in x's dtype, ``rot`` the
     (cos, sin) of :func:`~repro_torch.models.layers.rope_angles` at
-    x's positions; ``window`` a ``local`` layer's sliding window (None:
-    global).
+    x's positions (None under ``cfg.pos_embed == "sinusoidal"``, whose
+    positions are added to the embeddings instead: q and k are not
+    rotated, as in the reference); ``window`` a ``local`` layer's sliding
+    window (None: global).
 
     mode: "train" (no cache), "prefill" (returns a cache: padded to
     ``max_len``, or the window's ring), "decode" (x is (B, 1, D); writes
@@ -154,7 +157,8 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg,
     """
     B, S, D = x.shape
     q, k, v = _project(p, x, cfg)
-    q, k = apply_rope(q, *rot), apply_rope(k, *rot)
+    if cfg.pos_embed == "rope":
+        q, k = apply_rope(q, *rot), apply_rope(k, *rot)
 
     new_cache = None
     if mode == "decode":

@@ -1,5 +1,5 @@
-"""Shared neural layers: RMSNorm, soft-capping, RoPE, the MLP, embedding,
-the chunked cross-entropy.
+"""Shared neural layers: RMSNorm, soft-capping, RoPE and sinusoidal
+positions, the MLPs, embedding, the chunked cross-entropy.
 
 The port's counterpart of :mod:`repro.models.layers`.  Every RMSNorm
 goes through :func:`repro_torch.kernels.ops.rmsnorm` in the reference
@@ -26,7 +26,7 @@ from repro_torch.models.params import ParamDef, torch_dtype
 
 __all__ = ["apply_rope", "chunked_cross_entropy", "embed_tokens",
            "mlp_apply", "mlp_defs", "rmsnorm", "rope", "rope_angles",
-           "softcap"]
+           "sinusoidal_pos", "softcap"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
@@ -81,25 +81,54 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return apply_rope(x, *rope_angles(positions, x.shape[-1], theta))
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoid_freq(half: int, device: torch.device) -> torch.Tensor:
+    """The sinusoidal frequencies exp(−ln(10⁴)·i / half) on ``device``.
+    As in the reference, numpy computes them in float64 (``np.log`` of a
+    Python float is a float64 scalar, which numpy 2 does not demote) and
+    they are rounded to float32 once, where they meet the positions."""
+    freq = np.exp(-np.log(10_000.0) * np.arange(half, dtype=np.float32)
+                  / half)
+    return torch.from_numpy(freq.astype(np.float32)).to(device)
+
+
+def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Classic transformer sinusoidal embedding (f32): integer positions
+    (S,) → (S, d_model), the sines of the f32 angles, then the cosines."""
+    ang = (positions.to(torch.float32)[:, None]
+           * _sinusoid_freq(d_model // 2, positions.device))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def mlp_defs(cfg) -> dict:
-    """Parameter definitions of the gated MLP (gate and up fused)."""
+    """Parameter definitions of the MLP: the gated one (``swiglu`` or
+    ``geglu``; gate and up fused), or the plain GELU one (``gelu``:
+    ``w_up``, ``w_down``; ``fuse_gateup`` does not apply)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "gelu":
+        return {"w_up": ParamDef((d, f), ("d_model_w", "d_ff_w")),
+                "w_down": ParamDef((f, d), ("d_ff_w", "d_model_w"))}
     if cfg.mlp_type not in ("swiglu", "geglu") or not cfg.fuse_gateup:
         raise NotImplementedError(
             f"mlp_type={cfg.mlp_type!r} fuse_gateup={cfg.fuse_gateup}: the "
-            "port has the fused gated MLP only (ROADMAP queue 1, item 10)")
-    d, f = cfg.d_model, cfg.d_ff
+            "port has the fused gated MLP and the GELU MLP (no configuration "
+            "of the reference unfuses gate and up)")
     # gate and up interleaved on a trailing axis of 2, as in the reference
     return {"w_gu": ParamDef((d, f, 2), ("d_model_w", "d_ff_w", None)),
             "w_down": ParamDef((f, d), ("d_ff_w", "d_model_w"))}
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Gated MLP: down(act(x·gate) · (x·up)); weights in x's dtype.
+    """Gated MLP: down(act(x·gate) · (x·up)), or the GELU MLP:
+    down(gelu(x·up)) (tanh GELU, as the reference's); weights in x's
+    dtype.
 
     ``w_gu`` is ``(d, f, 2)`` with gate and up interleaved on the last
     axis, so they are the slices ``[..., 0]`` and ``[..., 1]`` of the
     product, never halves of a ``(d, 2f)`` reshape.
     """
+    if "w_gu" not in p:
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     d, f, _ = p["w_gu"].shape
     gu = (x @ p["w_gu"].reshape(d, 2 * f)).view(*x.shape[:-1], f, 2)
     g, u = gu[..., 0], gu[..., 1]

@@ -9,7 +9,13 @@ Mamba-2 ``ssd`` blocks (mamba2-780m), or of RG-LRU ``rglru`` blocks
 mixed with attention (recurrentgemma-2b's ``("rglru", "rglru",
 "local")``, whose 26 layers end in an (R, R) tail).  A model is
 ``embed → blocks → final norm → unembed`` (tied: the embedding
-transposed; untied: ``lm_head``); :class:`Model` holds one block module
+transposed; untied: ``lm_head``).  The modality models (internvl2-2b's
+vision stub, musicgen-large's audio stub) take ``embeds`` ``(B, F,
+d)``: precomputed frontend rows, cast to the compute dtype and
+prepended to the token embeddings, so that the positions run over F +
+T; musicgen-large adds sinusoidal positions to the concatenation
+(:func:`~repro_torch.models.layers.sinusoidal_pos`) in place of RoPE,
+and its MLP is the plain GELU one.  :class:`Model` holds one block module
 per layer (:class:`Block` for ``attn``, ``local`` and ``moe``,
 :class:`SSDBlock` for ``ssd``,
 :class:`RGLRUBlock` for ``rglru``) and loops over them, tail layers
@@ -29,9 +35,10 @@ compute dtype and kept beside the parameters (``weights``).
 Serving entry points, forward only and without autograd:
 
 * :func:`forward` — hidden states for ``mode`` "train" (teacher-forced,
-  no cache), "prefill" (returns a cache) or "decode" (reads the cache;
-  attention layers update theirs in place, ``ssd`` and ``rglru``
-  layers return new states);
+  no cache), "prefill" (returns a cache whose clock is F + T) or
+  "decode" (reads the cache; attention layers update theirs in place,
+  ``ssd`` and ``rglru`` layers return new states; a decode step takes
+  no ``embeds`` and its positions start at the cache's ``length``);
 * :func:`prefill` / :func:`decode_step` — last-position logits (f32)
   and the cache, as the serving engine calls them.
 
@@ -49,13 +56,14 @@ card):
   each block is recomputed in the backward (``torch.utils.checkpoint``,
   the reference's ``jax.checkpoint`` of its layer body);
 * :func:`loss_fn` — the causal-LM loss over it (chunked cross-entropy
-  against :func:`unembed_matrix`) plus ``cfg.router_aux_coef`` times the
-  ``moe`` blocks' summed load-balance loss.
+  against :func:`unembed_matrix`; with ``embeds`` every token is
+  predicted from the position before it, the first from the last
+  frontend row) plus ``cfg.router_aux_coef`` times the ``moe`` blocks'
+  summed load-balance loss.
 
 Every kernel-backed op takes ``impl`` (``auto|cuda|ref``, see
 :mod:`repro_torch.kernels.ops`).  Stacks that mix ``ssd`` with other
-kinds, modality frontends and sinusoidal positions raise
-``NotImplementedError``.
+kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import (chunked_cross_entropy, embed_tokens,
                                        mlp_apply, mlp_defs, rmsnorm,
-                                       rope_angles, softcap)
+                                       rope_angles, sinusoidal_pos, softcap)
 from repro_torch.models.params import ParamDef, init_params, torch_dtype
 
 __all__ = ["Block", "Model", "RGLRUBlock", "SSDBlock", "cache_defs",
@@ -78,8 +86,8 @@ __all__ = ["Block", "Model", "RGLRUBlock", "SSDBlock", "cache_defs",
 
 Cache = Dict[str, Any]
 
-#: where each unported feature is queued
-_TODO = "ROADMAP queue 1, item 10 (the other model kinds)"
+#: where the unported stacks are queued
+_TODO = "ROADMAP queue 1, item 10 (ssd mixed with other block kinds)"
 
 
 #: the block kinds with attention (a ``moe`` block's is global)
@@ -96,10 +104,6 @@ def check_supported(cfg) -> None:
                                   f"{cfg.name} (the port runs stacks of "
                                   f"attn, local, moe and rglru blocks, or "
                                   f"of ssd blocks): {_TODO}")
-    if cfg.frontend_tokens:
-        raise NotImplementedError(f"modality frontends: {_TODO}")
-    if cfg.pos_embed != "rope":
-        raise NotImplementedError(f"pos_embed={cfg.pos_embed!r}: {_TODO}")
 
 
 def _window(cfg, kind: str) -> Optional[int]:
@@ -211,7 +215,8 @@ class Block(nn.Module):
                 max_len: Optional[int], impl: str
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Apply the block (``rot``: the RoPE (cos, sin) of x's
-        positions); returns (x, this layer's new cache or None)."""
+        positions, None under sinusoidal positions); returns (x, this
+        layer's new cache or None)."""
         return _attn_block(x, self.norms(), self.weights(x.dtype),
                            self.cfg, _window(self.cfg, self.kind), rot=rot,
                            length=length, cache=cache, mode=mode,
@@ -403,21 +408,21 @@ class Model(nn.Module):
         return self._memo[1]
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, *, cache: Optional[Cache] = None,
-                mode: str = "train", max_len: Optional[int] = None,
-                impl: str = "auto") -> Tuple[torch.Tensor, Optional[Cache]]:
-        """Run the stack on ``tokens`` (B, T); returns (final hidden states
-        (B, T, D), new cache or None)."""
+    def forward(self, tokens: torch.Tensor, *,
+                embeds: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None, mode: str = "train",
+                max_len: Optional[int] = None, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """Run the stack on ``tokens`` (B, T), after the frontend rows
+        ``embeds`` (B, F, D) where given (train and prefill); returns
+        (final hidden states (B, F + T, D), new cache or None)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if embeds is not None and mode == "decode":
+            raise ValueError("a decode step takes no frontend embeddings")
         offset = cache["length"] if mode == "decode" else 0
-        x = embed_tokens(self.embed, tokens, self.cfg)
+        x, rot = _embed(self.embed, tokens, embeds, offset, self.cfg)
         S = x.shape[1]
-        rot = None
-        if _ATTN & set(self.cfg.layer_kinds()):
-            positions = torch.arange(offset, offset + S, device=x.device)
-            rot = rope_angles(positions, self.cfg.head_dim,
-                              self.cfg.rope_theta)
         layers = []
         for i, blk in enumerate(self.blocks):
             x, c = blk(x, rot=rot, length=offset,
@@ -503,11 +508,13 @@ def init_cache(cfg, batch: int, max_len: int, device: Any = "cpu") -> Cache:
 
 
 def forward(model: Model, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[Cache] = None, mode: str = "train",
             max_len: Optional[int] = None, impl: str = "auto"
             ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Run the decoder stack (see :meth:`Model.forward`)."""
-    return model(tokens, cache=cache, mode=mode, max_len=max_len, impl=impl)
+    return model(tokens, embeds=embeds, cache=cache, mode=mode,
+                 max_len=max_len, impl=impl)
 
 
 def _head(h_last: torch.Tensor, model: Model) -> torch.Tensor:
@@ -517,12 +524,16 @@ def _head(h_last: torch.Tensor, model: Model) -> torch.Tensor:
 
 
 def prefill(model: Model, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None, impl: str = "auto"
             ) -> Tuple[torch.Tensor, Cache]:
-    """Process a prompt; returns (last-position logits (B, V), cache).
+    """Process a prompt after its frontend rows ``embeds`` (B, F, D)
+    where given; returns (last-position logits (B, V), cache), the
+    cache's clock at F + T.
 
     ``max_len`` pre-sizes the caches so decode can append."""
-    h, cache = model(tokens, mode="prefill", max_len=max_len, impl=impl)
+    h, cache = model(tokens, embeds=embeds, mode="prefill", max_len=max_len,
+                     impl=impl)
     return _head(h[:, -1], model), cache
 
 
@@ -563,19 +574,37 @@ def _train_block(lp: Dict[str, Any], x: torch.Tensor, rot, cfg, kind: str,
     return x, aux
 
 
+def _embed(embed: torch.Tensor, tokens: torch.Tensor,
+           embeds: Optional[torch.Tensor], offset: int, cfg
+           ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]]]:
+    """The stack's input and its RoPE angles, as the reference's
+    ``forward`` forms them: the token embeddings after the frontend rows
+    ``embeds`` (cast to the compute dtype) where given, the positions
+    ``offset … offset + F + T − 1``; under sinusoidal positions those
+    are added to the input and no angles are made (None, as for a stack
+    without attention)."""
+    x = embed_tokens(embed, tokens, cfg)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(offset, offset + x.shape[1], device=x.device)
+    if cfg.pos_embed == "sinusoidal":
+        return x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype), None
+    if not _ATTN & set(cfg.layer_kinds()):
+        return x, None
+    return x, rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
 def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
+                  embeds: Optional[torch.Tensor] = None,
                   impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Final hidden states (B, T, D) of ``tokens`` (B, T) under the
-    parameter tree ``params``, differentiable (see the module
-    docstring), and the ``moe`` blocks' summed load-balance loss (f32;
-    0 without them)."""
+    """Final hidden states (B, F + T, D) of ``tokens`` (B, T) after the
+    frontend rows ``embeds`` (B, F, D) where given, under the parameter
+    tree ``params``, differentiable (see the module docstring), and the
+    ``moe`` blocks' summed load-balance loss (f32; 0 without them)."""
     check_supported(cfg)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x, rot = _embed(params["embed"], tokens, embeds, 0, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    rot = None
-    if _ATTN & set(cfg.layer_kinds()):
-        positions = torch.arange(x.shape[1], device=x.device)
-        rot = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
         if cfg.remat:
             x, a = checkpoint(_train_block, lp, x, rot, cfg, kind, impl,
@@ -590,13 +619,17 @@ def forward_train(params: Dict[str, Any], tokens: torch.Tensor, cfg, *,
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg, *,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
-    """Causal-LM loss of ``batch = {"tokens": (B, S)}`` (f32) with the
-    router's load-balance term, and ``{"ce", "aux"}``; as
-    ``repro.models.transformer.loss_fn``."""
-    if batch.get("embeds") is not None:
-        raise NotImplementedError(f"modality frontends: {_TODO}")
-    tokens = batch["tokens"]
-    h, aux = forward_train(params, tokens, cfg, impl=impl)
-    ce = chunked_cross_entropy(h[:, :-1], tokens[:, 1:],
-                               unembed_matrix(params, cfg), cfg)
+    """Causal-LM loss of ``batch = {"tokens": (B, S)[, "embeds": (B, F,
+    D)]}`` (f32) with the router's load-balance term, and ``{"ce",
+    "aux"}``; as ``repro.models.transformer.loss_fn``.  Without
+    ``embeds`` position i predicts token i + 1; with them the F frontend
+    rows come first, and the hidden states from the last row on, ``h[:,
+    F − 1:−1]``, predict every token."""
+    tokens, embeds = batch["tokens"], batch.get("embeds")
+    h, aux = forward_train(params, tokens, cfg, embeds=embeds, impl=impl)
+    if embeds is not None and embeds.shape[1]:
+        hp, labels = h[:, embeds.shape[1] - 1:-1], tokens
+    else:
+        hp, labels = h[:, :-1], tokens[:, 1:]
+    ce = chunked_cross_entropy(hp, labels, unembed_matrix(params, cfg), cfg)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

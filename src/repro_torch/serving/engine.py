@@ -23,13 +23,21 @@ current length (pads are attended, positions start at 0).  A model with
 ``local`` layers keeps a ring of ``sliding_window`` slots per such layer,
 so ``max_len`` must be at least the window (the prefill lays its ring
 out at that width), as the reference's engine requires.
-``generate(prompts)`` submits batch-sized waves and drains each.
+``generate(prompts, embeds)`` submits batch-sized waves and drains each.
+
+A model with a modality frontend (``cfg.frontend_tokens`` F > 0:
+internvl2-2b, musicgen-large) takes each request's own frontend rows
+(:attr:`Request.embed`, ``(F, d_model)``; zeros where omitted), which
+its prefill puts before the prompt: F counts in every capacity check
+and in the group's clock, exactly where the reference counts it, and
+a block's rows are rounded to bfloat16 before the prefill whatever the
+compute dtype, as the reference's engine rounds them.
 
 Greedy decoding is ``argmax`` with the first index on ties, as
 ``jnp.argmax``; top-k and temperature draw from a ``torch.Generator`` on
 the model's device, seeded from ``ServeConfig.seed`` (not the
 reference's bits).  The model runs its kernels under the engine's
-``impl`` (``auto|cuda|ref``).  Modality frontends wait for their slice.
+``impl`` (``auto|cuda|ref``).
 """
 from __future__ import annotations
 
@@ -63,10 +71,11 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 @dataclasses.dataclass
 class ServeConfig:
     """Engine knobs.  ``max_len`` is the per-group cache capacity: every
-    request must satisfy ``prompt + max_new_tokens <= max_len``, and a
-    slot whose group clock reaches it finishes with reason
-    ``"capacity"``.  ``max_groups`` bounds concurrently decoding groups
-    (admission back-pressure: excess requests wait in the queue)."""
+    request must satisfy ``prompt + frontend + max_new_tokens <=
+    max_len`` (frontend: the model's ``frontend_tokens``), and a slot
+    whose group clock reaches it finishes with reason ``"capacity"``.
+    ``max_groups`` bounds concurrently decoding groups (admission
+    back-pressure: excess requests wait in the queue)."""
 
     batch: int = 8
     max_len: int = 512
@@ -82,11 +91,14 @@ class ServeConfig:
 class Request:
     """One generation request; ``max_new_tokens=None`` takes the engine
     default, and :meth:`ServingEngine.submit` assigns ``req_id``.
+    ``embed`` is the request's frontend rows ``(F, d_model)`` for a model
+    with ``cfg.frontend_tokens`` F (zeros when omitted).
     ``deadline_s`` is a wall-clock budget from submission that the
     engine ignores: :class:`~repro_torch.serving.server.InferenceServer`
     enforces it."""
 
     prompt: np.ndarray
+    embed: Optional[np.ndarray] = None
     max_new_tokens: Optional[int] = None
     req_id: Optional[int] = None
     deadline_s: Optional[float] = None
@@ -152,9 +164,6 @@ class ServingEngine:
 
     def __init__(self, params: Model, cfg, serve_cfg: ServeConfig, *,
                  version: int = 0, impl: str = "auto"):
-        if cfg.frontend_tokens:
-            raise NotImplementedError("modality frontends: ROADMAP queue 1,"
-                                      " item 10 (models)")
         if cfg.sliding_window and serve_cfg.max_len < cfg.sliding_window:
             raise ValueError(
                 f"max_len {serve_cfg.max_len} < sliding_window "
@@ -165,6 +174,7 @@ class ServingEngine:
         self.scfg = serve_cfg
         self.version = version
         self.impl = impl
+        self._F = cfg.frontend_tokens or 0
         self.device = params.embed.device
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(serve_cfg.seed)
@@ -193,11 +203,17 @@ class ServingEngine:
             raise ValueError(f"prompt must be a non-empty 1-D token array, "
                              f"got shape {prompt.shape}")
         mn = req.max_new_tokens or self.scfg.max_new_tokens
-        need = prompt.size + mn
+        need = prompt.size + self._F + mn
         if need > self.scfg.max_len:
             raise ValueError(
                 f"request needs {need} cache slots (prompt {prompt.size} + "
-                f"max_new {mn}) > max_len {self.scfg.max_len}")
+                f"frontend {self._F} + max_new {mn}) > max_len "
+                f"{self.scfg.max_len}")
+        if self._F and req.embed is not None:
+            shape = np.shape(req.embed)
+            if shape != (self._F, self.cfg.d_model):
+                raise ValueError(f"embed shape {shape} != "
+                                 f"({self._F}, {self.cfg.d_model})")
         req = dataclasses.replace(req, prompt=prompt.astype(np.int32),
                                   max_new_tokens=mn, req_id=self._next_id)
         self._next_id += 1
@@ -305,7 +321,7 @@ class ServingEngine:
     def _fits_running(self, req: Request, g: _Group) -> bool:
         """Left-pad admission into a running group's shared clock."""
         return (g.version == self.version and g.free()
-                and req.prompt.size <= g.length
+                and req.prompt.size + self._F <= g.length
                 and g.length + req.max_new_tokens <= self.scfg.max_len)
 
     def _admit(self):
@@ -330,7 +346,7 @@ class ServingEngine:
                 r = self._queue[0]
                 L2 = max(L, r.prompt.size)
                 mn2 = max(mn, r.max_new_tokens)
-                if block and L2 + mn2 > self.scfg.max_len:
+                if block and L2 + self._F + mn2 > self.scfg.max_len:
                     break           # would overflow a co-admitted slot
                 L, mn = L2, mn2
                 block.append(self._queue.popleft())
@@ -347,15 +363,27 @@ class ServingEngine:
     def _admit_block(self, g: _Group, reqs: List[Request]):
         """Prefill ``reqs`` together and scatter them into ``g``'s free
         slots.  A fresh group's clock starts at the block's padded
-        length; a running group left-pads every prompt to its clock."""
+        length and its frontend rows; a running group left-pads every
+        prompt to its clock."""
+        F = self._F
         if g.length is None:
-            g.length = max(r.prompt.size for r in reqs)
-        L = g.length
+            L = max(r.prompt.size for r in reqs)
+            g.length = L + F
+        else:
+            L = g.length - F
         toks = np.zeros((len(reqs), L), np.int32)
         for i, r in enumerate(reqs):
             toks[i, L - r.prompt.size:] = r.prompt
+        emb = None
+        if F:
+            rows = np.zeros((len(reqs), F, self.cfg.d_model), np.float32)
+            for i, r in enumerate(reqs):
+                if r.embed is not None:
+                    rows[i] = np.asarray(r.embed, np.float32)
+            emb = torch.from_numpy(rows).to(self.device, torch.bfloat16)
         logits, cache = prefill(g.params, torch.from_numpy(toks).to(
-            self.device), max_len=self.scfg.max_len, impl=self.impl)
+            self.device), embeds=emb, max_len=self.scfg.max_len,
+            impl=self.impl)
         self.prefill_calls += 1
         if cache["length"] != g.length:
             raise RuntimeError(f"prefill clock {cache['length']} != group "
@@ -380,15 +408,24 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     # blocking API
     # ------------------------------------------------------------------ #
-    def generate(self, prompts: List[np.ndarray]) -> List[np.ndarray]:
+    def generate(self, prompts: List[np.ndarray],
+                 embeds: Optional[List[np.ndarray]] = None
+                 ) -> List[np.ndarray]:
         """Blocking wave-batch generation: prompts are submitted in
         batch-sized waves and each wave is drained before the next is
-        admitted, padded to its own longest prompt."""
+        admitted, padded to its own longest prompt; each request carries
+        its row of ``embeds`` (one ``(F, d_model)`` array a prompt), so
+        that each wave decodes against its own frontend rows."""
+        if embeds is not None and len(embeds) != len(prompts):
+            raise ValueError(f"{len(prompts)} prompts got {len(embeds)} "
+                             "embeddings")
         results: Dict[int, np.ndarray] = {}
         ids: List[int] = []
         for start in range(0, len(prompts), self.scfg.batch):
-            for p in prompts[start:start + self.scfg.batch]:
-                ids.append(self.submit(Request(prompt=np.asarray(p))))
+            for j, p in enumerate(prompts[start:start + self.scfg.batch]):
+                emb = None if embeds is None else embeds[start + j]
+                ids.append(self.submit(Request(prompt=np.asarray(p),
+                                               embed=emb)))
             for c in self.drain():
                 results[c.req_id] = c.tokens
         return [results[i] for i in ids]

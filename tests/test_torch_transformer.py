@@ -233,14 +233,17 @@ def test_teacher_forced_forward_equals_prefill_plus_decode(arch, dtype):
 
 def test_unported_features_raise():
     """What item 10 still queues raises and cites it: an ``ssd`` block
-    mixed with attention (or with MoE), modality frontends, sinusoidal
-    positions, and the configs not registered yet (the frontends'
-    internvl2-2b)."""
+    mixed with attention (or with MoE).  Modality frontends and
+    sinusoidal positions are ported (both frontend models are
+    registered); an unknown arch raises ``KeyError``."""
     cfg = reduced(get_config("qwen2-0.5b"))
     for change in ({"layer_pattern": ("ssd", "local")},
-                   {"layer_pattern": ("ssd", "moe")},
-                   {"frontend_tokens": 16}, {"pos_embed": "sinusoidal"}):
+                   {"layer_pattern": ("ssd", "moe")}):
         with pytest.raises(NotImplementedError, match="item 10"):
             init_model(dataclasses.replace(cfg, **change), device="meta")
+    for change in ({"frontend_tokens": 16}, {"pos_embed": "sinusoidal"}):
+        init_model(dataclasses.replace(cfg, **change), device="meta")
+    for arch in ("internvl2-2b", "musicgen-large"):
+        assert get_config(arch).frontend_tokens
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("internvl2-2b")
+        get_config("internvl3-2b")
