@@ -114,11 +114,11 @@ Phases (any failure exits non-zero before the final line):
    device items and the device time of the two backward wrappers'
    kernels, peak device memory, and the wall and device time of a
    worker's loss and gradients (with and without remat), its forward
-   and the AdamW update; then runs the launchers on the card, reduced
-   (``LAUNCHER_RUNS``): ``repro_torch.launch.train --barrier pbsp`` with
-   ``--ckpt-dir`` and ``--publish-dir``, then side by side the same
-   with ``--resume`` and ``repro_torch.launch.serve --watch-dir`` on its
-   snapshots.
+   and the AdamW update.  Its reduced launcher runs
+   (``LAUNCHER_RUNS``: ``repro_torch.launch.train --barrier pbsp`` with
+   ``--ckpt-dir`` and ``--publish-dir``, then the same with
+   ``--resume`` and ``repro_torch.launch.serve --watch-dir`` on its
+   snapshots) run in phase 19's lanes.
 9. The trainer → bus → live server loop at full width, qwen2-0.5b's
    depth cut to ``LOOP_LAYERS`` = 12 of 24 (whole before phase 18
    came).  A fresh child interpreter (``chip_smoke.py --loop-trainer
@@ -147,12 +147,12 @@ Phases (any failure exits non-zero before the final line):
     generator's state equal bit for bit.  Prints the bytes and the save
     and restore seconds.
 11. The multi-process cluster (``launch.cluster.run_cluster``) on the
-    card: 3 worker subprocesses, the ``kill-one`` plan, 30 ticks at
-    d = 1000 with a 0.75 s tick floor; it must complete with exactly the
-    victim respawned (epoch 1) and rejoined, and the recorded events
-    replayed through ``external_drive`` on the card must give its final
-    params bit for bit.  Prints the recovery latency.  It runs no model
-    kernel.
+    card runs in phase 19 (c), the chaos suite's faulted run, with this
+    phase's checks: exactly the victim respawned (epoch 1) and rejoined,
+    and the recorded events replayed through ``external_drive`` on the
+    card giving its final params bit for bit (before phase 19 came: its
+    own run of the ``kill-one`` plan, 30 ticks at d = 1000, a 0.75 s
+    floor).
 12. PSP training of mamba2-780m at full width, its depth cut to
     ``MAMBA_TRAIN_LAYERS`` = 6 of 48 layers (12 before phase 17 came;
     165,096,288 f32 params, bf16 compute, remat on), as phase 8 trains
@@ -180,8 +180,10 @@ Phases (any failure exits non-zero before the final line):
     a check).  (b) Figs 1–2 at the reduced scale (55 rows, P 200, d 100,
     20 s) on the card and on the numpy backend: mean progress within
     0.2·p + 1 and final error within a factor of two, row by row.  (c)
-    ``bench.sweep_bench`` at its default scale (the Fig 2 matrix of nine
-    barriers × five fractions, P 100, d 32, 20 s, through the event
+    ``bench.sweep_bench`` at its default scale with its horizon cut to
+    ``SWEEP_BENCH_DURATION`` = 5 s (20 before phase 19 came) (the Fig 2
+    matrix of nine barriers × five fractions, P 100, d 32, through the
+    event
     engine, numpy, the plain tick and the kernel, and the 100,000-node
     pair), every row printed and written to
     ``results/BENCH_sweep_torch.json``.  (d) The 100k pair under
@@ -302,11 +304,45 @@ Phases (any failure exits non-zero before the final line):
     layers trained under PSP as phase 16 trains recurrentgemma (W 4,
     ``pbsp``, β 2, s 3, stragglers 0.25, 8 ticks of 2 × 512 tokens a
     worker, tokens only as both trainers feed them), tick 0 also leaf by
-    leaf; then the reduced launchers of phases 12, 16, 17 and this one
-    side by side (``REDUCED_LAUNCHERS``; run one after another they had
-    taken about a minute): ``launch.train`` and ``launch.serve`` of both
-    frontend models (the serving launcher submits no rows:
-    the engine zero-fills them).
+    leaf.  The reduced launchers of phases 12, 16, 17 and this one
+    (``REDUCED_LAUNCHERS``, ``launch.train`` and ``launch.serve`` of both
+    frontend models among them: the serving launcher submits no rows,
+    the engine zero-fills them) run in phase 19's lanes.
+19. The reference's remaining entry points (``repro_torch.bench``'s
+    churn, serve and chaos benchmarks, ``repro_torch.examples``).  (d)
+    starts first: child interpreters in lanes run side by side
+    (``phase19_lanes``; a lane's runs one after another), each of the
+    five examples through ``chip_smoke.py --example`` (its ``main``,
+    its kernels' launch counts written at its exit): ``serve_demo``,
+    ``train_e2e --steps 60``, ``barrier_sweep`` (stage 2 at 60 ticks a
+    barrier), ``live_serve --smoke``, ``elastic_train`` to a checkpoint
+    at tick 150, then ``--resume`` to 300; with phase 8's launcher runs
+    and the reduced launchers.  Each must exit 0 with its output holding
+    what it must; together the examples must launch flash, its
+    backward, RMSNorm, its backward, the SSD scan and the tick.  Beside
+    them (a): ``bench.churn_bench.elastic_churn`` at its default scale
+    (9 policies × churn / stragglers, 300 ticks, W 8, d 32), then
+    ``fig6_adaptive_churn`` from its cache: the schema, finite errors,
+    leaves and joins in every churn run, each run's final error below
+    its first; then ``CHURN_REPLAY``'s runs, one record of a seeded
+    ``GeneratorNoise``'s draws and of the minibatches replayed through
+    ``ReplayNoise`` on the card and on the CPU: the control plane after
+    every tick bit for bit, the error trace within rtol 1e-5, atol
+    1e-6; the scoreboard printed (a finding, not a check).  Then, alone:
+    (b) the serve benchmark's body (``bench.serve_bench.open_loop``) at
+    qwen2-0.5b's full width cut to ``SERVE_LAYERS`` (bf16) on the
+    reference's default load (32 requests at 4 a second, batch 4, prompt
+    12, 16 new, polling every 4 steps) with two full-width snapshots
+    published mid-stream: at least 2 swaps, 2 versions served, none
+    dropped, launches exact (flash once per layer per prefill call,
+    RMSNorm 2·L + 1 per forward, the warm-up's included); tokens/s, the
+    three latency pairs and each swap's stall printed.  (c) The chaos
+    benchmark's two segments at ``chaos_suite(smoke=True)``'s shapes on
+    the card, the cluster's tick floor raised to ``CHAOS_TICK_MIN_WALL``
+    (a respawned worker took 10.9–14.4 s from the kill to its first
+    push on an NVIDIA H100 80GB HBM3 at 700 W, past the smoke shape's
+    6.4 s after the kill): the reference's exit invariants and phase
+    11's checks.
 
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
@@ -388,16 +424,19 @@ Then one JSON line with each kernel's launches (summed over the main
 paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
 100k pair, phase 14's four serving runs and training run, phase 15's
-two serving runs, phase 16's training run, and phase 17's and phase
-18's two serving runs and training run each), error and times, the
+two serving runs, phase 16's training run, phase 17's and phase 18's
+two serving runs and training run each, and phase 19's serving runs and
+examples), error and times, the
 ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are
 missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
@@ -602,10 +641,10 @@ MAMBA_TRAIN_ARCH = "mamba2-780m"
 TRAIN_LAYERS, MAMBA_TRAIN_LAYERS = 6, 6
 TRAIN_TICKS = 16
 TRAIN_W, TRAIN_B, TRAIN_S, TRAIN_POOL = 4, 2, 512, 8
-#: phase 8's reduced launcher runs on the card, each (module of
-#: repro_torch.launch, argv, what its output must hold): train with
-#: checkpoints and snapshots, then resume it and serve its snapshots live
-#: side by side
+#: phase 8's reduced launcher runs on the card (run in phase 19, side by
+#: side with the examples), each (module of repro_torch.launch, argv,
+#: what its output must hold): train with checkpoints and snapshots, then
+#: resume it and serve its snapshots live side by side
 LAUNCHER_RUNS = (
     ("train", ["--reduced", "--barrier", "pbsp", "--steps", "4",
                "--ckpt-dir", "{ck}", "--save-every", "2",
@@ -655,9 +694,6 @@ LOOP_REQUESTS, LOOP_MAX_REQUESTS = 16, 48
 #: phase 10: kill-and-resume at full width, depth cut to RESUME_LAYERS;
 #: RESUME_TICKS straight against half, save, restore, half
 RESUME_LAYERS, RESUME_TICKS = 2, 6
-#: phase 11: the multi-process cluster on the card at the paper's d
-CLUSTER_WORKERS, CLUSTER_TICKS, CLUSTER_DIM, CLUSTER_BATCH = 3, 30, 1000, 16
-CLUSTER_PLAN, CLUSTER_MIN_WALL = "kill-one", 0.75
 #: phase 14: the sliding-window and local/global decoders served at full
 #: width (batch 4, greedy, seeded random weights, bf16), their depths cut:
 #: qwen1.5-4b on phase 6's traffic; h2o-danube-1.8b (window 4096) on one wave of
@@ -796,6 +832,57 @@ REDUCED_LAUNCHERS = (
     (16, "train", RGEMMA_LAUNCHER, ("tick",)),
     *((17, *run) for run in MOE_LAUNCHERS),
     *((18, *run) for run in FRONTEND_LAUNCHERS))
+#: phase 19: the reference's remaining entry points on the card.  (a) the
+#: churn benchmark at its default scale, then its card held to the CPU on
+#: CHURN_REPLAY's runs ((scenario, barrier), ...) under the same recorded
+#: draws and minibatches
+CHURN_REPLAY = (("churn", "apssp"), ("stragglers", "ebsp"))
+#: (b) the serve benchmark's open-loop load (the reference's default:
+#: requests, arrivals a second, batch, new tokens, prompt, poll every)
+#: on qwen2-0.5b at full width, its depth cut to SERVE_LAYERS as phase 6's
+SERVE_BENCH = dict(requests=32, rate_rps=4.0, batch=4, max_new=16,
+                   prompt_len=12, poll_every=4)
+#: (c) the chaos suite at its smoke shape, its cluster segment's tick
+#: floor raised from 0.4 s to CHAOS_TICK_MIN_WALL: on an NVIDIA H100 80GB
+#: HBM3 (700 W) host a respawned worker took 10.9–14.4 s from the kill to
+#: its first push, past the 6.4 s the smoke shape leaves (16 ticks of
+#: 0.4 s after the kill at tick 8); 16 ticks of 1.5 s leave room for a
+#: host 1.6 times slower
+CHAOS_TICK_MIN_WALL = 1.5
+#: (d) the five examples, each a child interpreter started with
+#: EXAMPLE_CHILD (``chip_smoke.py --example MODULE COUNTS_JSON CUTS_JSON
+#: ARGS``: the module's constants in CUTS_JSON set, then its ``main(ARGS)``,
+#: its kernels' launch counts written at its exit), in lanes run side by
+#: side with phase 8's launcher runs (LAUNCHER_RUNS) and the reduced
+#: launchers (REDUCED_LAUNCHERS), beside (a); each (phase tag, module,
+#: argv, what its output must hold).  Their tick counts cut: train_e2e to
+#: E2E_STEPS of 200 steps, barrier_sweep's stage 2 to SWEEP_TICKS of 120
+#: ticks a barrier, elastic_train to ELASTIC_TICKS[0] of 300 with a
+#: checkpoint, then resumed to ELASTIC_TICKS[1]
+EXAMPLE_CHILD = "--example"
+E2E_STEPS, SWEEP_TICKS, ELASTIC_TICKS = 60, 60, (150, 300)
+EXAMPLE_CUTS = {"examples.barrier_sweep": {"TICKS": SWEEP_TICKS}}
+EXAMPLES = {
+    "serve_demo": (19, "examples.serve_demo", [], ("mamba2-780m",)),
+    "train_e2e": (19, "examples.train_e2e", ["--steps", str(E2E_STEPS)],
+                  (f"tick {E2E_STEPS - 1:5d}",)),
+    "barrier_sweep": (19, "examples.barrier_sweep", [],
+                      ("near-ASP step throughput",)),
+    "live_serve": (19, "examples.live_serve", ["--smoke"],
+                   ("OK: zero drops",)),
+    "elastic_train": (19, "examples.elastic_train",
+                      ["--ticks", str(ELASTIC_TICKS[0]),
+                       "--ckpt-dir", "{elastic}"],
+                      (f"checkpoint: tick {ELASTIC_TICKS[0]}",)),
+    "elastic_resume": (19, "examples.elastic_train",
+                       ["--ticks", str(ELASTIC_TICKS[1]),
+                        "--ckpt-dir", "{elastic}", "--resume"],
+                       (f"resumed tick {ELASTIC_TICKS[0]}",
+                        f"checkpoint: tick {ELASTIC_TICKS[1]}")),
+}
+#: phase 13's sweep bench at its default scale, its horizon cut from 20 s
+#: to SWEEP_BENCH_DURATION, to make room for phase 19
+SWEEP_BENCH_DURATION = 5.0
 
 
 
@@ -3398,7 +3485,7 @@ def phase8(np, torch, dev, card):
     worker's time goes and the reduced launchers; see the module
     docstring.  Returns the model kernels' launch counts of the run."""
     from repro_torch.launch.steps import make_grad_fn
-    got, cfg, params, opt, batches, t_phase = train_phase(
+    got, cfg, params, opt, batches, _ = train_phase(
         np, torch, dev, card, TRAIN_ARCH, 8, layers=TRAIN_LAYERS)
 
     # (e) where a tick's host time goes: one worker's loss and clipped
@@ -3435,17 +3522,6 @@ def phase8(np, torch, dev, card):
           flush=True)
     del grads, ostate
 
-    # (f) the launchers themselves, reduced, on the card: train with
-    # checkpoints and snapshots, then resume it and serve its snapshots
-    # live side by side
-    where = ROOT / "build" / "launchers"
-    shutil.rmtree(where, ignore_errors=True)
-    dirs = {"ck": str(where / "ck"), "snaps": str(where / "snaps")}
-    runs = [(8, module, [x.format(**dirs) for x in argv], expect)
-            for module, argv, expect in LAUNCHER_RUNS]
-    launchers_side_by_side(runs[:1], t_phase)
-    launchers_side_by_side(runs[1:], t_phase)
-    shutil.rmtree(where, ignore_errors=True)
     return got
 
 
@@ -3917,69 +3993,6 @@ def phase10(np, torch, dev, card):
     return counts
 
 
-def phase11(np, torch, dev, card):
-    """The multi-process PSP cluster on the card: CLUSTER_WORKERS worker
-    subprocesses, CLUSTER_PLAN, CLUSTER_TICKS ticks at d = CLUSTER_DIM;
-    completed, one respawned worker and no live one restarted, and the
-    recorded events replayed through ``external_drive`` on the card give
-    ``final_params`` bit for bit.  Runs no model kernel."""
-    from repro_torch.core.faults import make_plan
-    from repro_torch.core.spmd_psp import PSPConfig, external_drive
-    from repro_torch.launch.cluster import run_cluster
-    t_phase = time.perf_counter()
-    cfg = PSPConfig(barrier="pbsp", n_workers=CLUSTER_WORKERS, sample_size=2,
-                    staleness=3, straggler_frac=0.0)
-    plan = make_plan(CLUSTER_PLAN, n_workers=CLUSTER_WORKERS,
-                     ticks=CLUSTER_TICKS)
-    (victim,) = [e.worker for e in plan.events if e.kind == "kill"]
-    work = ROOT / "build" / "phase11"
-    shutil.rmtree(work, ignore_errors=True)
-    res = run_cluster(cfg, CLUSTER_DIM, CLUSTER_TICKS, str(work),
-                      batch=CLUSTER_BATCH, plan=plan,
-                      tick_min_wall=CLUSTER_MIN_WALL, device=dev)
-    epochs = {int(w): e for w, e in res["epochs"].items()}
-    want_epochs = {w: int(w == victim) for w in range(CLUSTER_WORKERS)}
-    kinds = [(kind, w) for _t, kind, w in res["events"]]
-    rec = res["recovery"].get(str(victim), {})
-    if not (res["completed"] and epochs == want_epochs
-            and ("leave", victim) in kinds and ("join", victim) in kinds
-            and "latency_s" in rec):
-        for log in sorted((work / "logs").glob("*.log")):
-            print(f"[11] {log.name}: {log.read_text()[-1500:]}", flush=True)
-        raise AssertionError(f"cluster run: completed {res['completed']}, "
-                             f"epochs {epochs} (want {want_epochs}), events "
-                             f"{res['events']}, recovery {res['recovery']}")
-    events = {}
-    for t, kind, w in res["events"]:
-        lv, jn = events.setdefault(t, ([], []))
-        (lv if kind == "leave" else jn).append(w)
-    _, it = external_drive(cfg, CLUSTER_DIM, CLUSTER_TICKS,
-                           {t: (tuple(lv), tuple(jn))
-                            for t, (lv, jn) in events.items()},
-                           batch=CLUSTER_BATCH, device=dev)
-    for ref, _ in it:
-        pass
-    if not (np.array_equal(ref.server_params["w"].cpu().numpy(),
-                           res["final_params"]["w"])
-            and int(ref.total_pushes) == res["total_pushes"]
-            and ref.alive.cpu().numpy().tolist() == res["alive"]):
-        raise AssertionError("replaying the cluster's events does not "
-                             "reproduce its final params bit for bit")
-    print(f"[11] cluster on the card: {CLUSTER_WORKERS} worker processes, "
-          f"plan {plan.name} (worker {victim} SIGKILLed at tick "
-          f"{plan.events[0].tick}), {CLUSTER_TICKS} ticks at d="
-          f"{CLUSTER_DIM}, batch {CLUSTER_BATCH}, tick_min_wall "
-          f"{CLUSTER_MIN_WALL} s: completed, events {res['events']}, epochs "
-          f"{res['epochs']}; recovery latency (kill → rejoin → first push) "
-          f"{rec['latency_s']:.3f} s (kill {rec['t_kill']:.3f} s, rejoin "
-          f"{rec['t_rejoin']:.3f} s, push {rec['t_push']:.3f} s into the "
-          f"run); {res['total_pushes']} pushes in {res['wall_s']:.2f} s; "
-          f"replayed through external_drive on the card: final params bit "
-          f"for bit; {time.perf_counter() - t_phase:.1f} s into the phase "
-          f"[{card}]", flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-
-
 def counted_sweeps(torch, modules, counts):
     """Wrap ``run_sweep`` in each of ``modules`` so that every call adds
     the ticks it will launch through the tick kernel to
@@ -4076,6 +4089,10 @@ def phase13(np, torch, dev, card):
     counts = {"expect": 0}
     restore = counted_sweeps(torch, (figures, fig45_bounds, sweep_bench),
                              counts)
+    bench_configs = sweep_bench._configs
+    sweep_bench._configs = lambda full: [
+        dataclasses.replace(c, duration=SWEEP_BENCH_DURATION)
+        for c in bench_configs(full)]
     try:
         # (a) the figures at the paper's scale, through the harness's
         # own entries, on the card
@@ -4084,8 +4101,9 @@ def phase13(np, torch, dev, card):
         pt.reset_launch_count()
         res, walls, t_all = {}, {}, time.perf_counter()
         for name, fn, derive in bench_run.BENCHES:
-            if name == "sweep_engine":
-                continue
+            if name in ("sweep_engine", "elastic_churn",
+                        "fig6_adaptive_churn"):
+                continue        # the churn entries run in phase 19
             t0 = time.perf_counter()
             res[name] = fn(full=True, backend="torch", device=dev)
             walls[name] = time.perf_counter() - t0
@@ -4197,6 +4215,7 @@ def phase13(np, torch, dev, card):
                                  f"ticks {counts['expect']}")
     finally:
         restore()
+        sweep_bench._configs = bench_configs
         os.environ.pop("PSP_TICK_IMPL", None)
 
     # (e) one kernel tick at the 100k shape, timed beside its bound
@@ -4298,35 +4317,111 @@ def phase17(np, torch, dev, card):
     return paths
 
 
-def launchers_side_by_side(runs, t_phase):
-    """The reduced launchers ``runs`` ((phase tag, module of
-    repro_torch.launch, argv, what its output must hold), ...) on the
-    card, each in a child interpreter, all started together; fails
-    unless each exits 0 with its output holding what it must.  Each
-    runs torch at one CPU thread: their work is on the card, and their
-    default pools of every core each would oversubscribe the host."""
+def child_run(tag, module, argv, expect, counts_path, t_phase):
+    """One reduced launcher or example (see :func:`lanes_side_by_side`)
+    in a child interpreter on the card; returns (its printed line, its
+    launch counts or None, a failure message or None)."""
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
-    procs = [(tag, module, argv, expect, subprocess.Popen(
-        [sys.executable, "-m", f"repro_torch.launch.{module}", *argv],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)) for tag, module, argv, expect in runs]
-    failed = []
-    for tag, module, argv, expect, proc in procs:
-        try:
-            out, err = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        if proc.returncode != 0 or not all(e in out for e in expect):
-            failed.append(f"launch.{module} {argv} ({proc.returncode}): "
-                          f"{out[-1500:]}{err[-2000:]}")
-            continue
-        print(f"[{tag}] python -m repro_torch.launch.{module} "
-              f"{' '.join(argv)}: {out.strip().splitlines()[-1]}; "
-              f"{time.perf_counter() - t_phase:.1f} s into the phase",
-              flush=True)
-    if failed:
-        raise AssertionError("; ".join(failed))
+    if module.startswith("examples."):
+        counts_path.unlink(missing_ok=True)
+        name = f"repro_torch.{module}"
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), EXAMPLE_CHILD,
+               name, str(counts_path),
+               json.dumps(EXAMPLE_CUTS.get(module, {})), *argv]
+    else:
+        counts_path = None
+        name = f"repro_torch.launch.{module}"
+        cmd = [sys.executable, "-m", name, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if (proc.returncode != 0 or not all(e in out for e in expect)
+            or (counts_path is not None and not counts_path.is_file())):
+        return None, None, (f"{name} {argv} ({proc.returncode}): "
+                            f"{out[-1500:]}{err[-2000:]}")
+    got = (json.loads(counts_path.read_text())
+           if counts_path is not None else None)
+    line = (f"[{tag}] python -m {name} {' '.join(argv)}: "
+            f"{out.strip().splitlines()[-1]}"
+            + (f"; launches {got}" if got is not None else "")
+            + f"; {time.perf_counter() - t0:.1f} s, ended "
+            f"{time.perf_counter() - t_phase:.1f} s into the phase")
+    return line, got, None
+
+
+def lanes_side_by_side(lanes, t_phase):
+    """Reduced launchers and examples on the card, each in a child
+    interpreter: ``lanes`` is a list of lanes, each a list of runs
+    ((phase tag, module of repro_torch.launch or ``examples.<name>``,
+    argv, what its output must hold), ...) started one after another;
+    the lanes run side by side, one thread each.  An example runs
+    through ``chip_smoke.py`` EXAMPLE_CHILD, which writes its kernels'
+    launch counts at its exit.  Each child runs torch at one CPU thread:
+    their work is on the card, and their default pools of every core
+    each would oversubscribe the host.  Returns a function that waits
+    for every lane, prints each run's line, fails unless each exited 0
+    with its output holding what it must (a lane stops at its first
+    failure), and returns the examples' launch counts summed by
+    kernel name."""
+    import threading
+    where = ROOT / "build" / "example_counts"
+    where.mkdir(parents=True, exist_ok=True)
+    results = [[] for _ in lanes]
+
+    def lane(i):
+        for j, run in enumerate(lanes[i]):
+            res = child_run(*run, where / f"{i}_{j}.json", t_phase)
+            results[i].append(res)
+            if res[2] is not None:
+                return
+
+    threads = [threading.Thread(target=lane, args=(i,))
+               for i in range(len(lanes))]
+    for t in threads:
+        t.start()
+
+    def wait():
+        for t in threads:
+            t.join()
+        shutil.rmtree(where, ignore_errors=True)
+        failed, total = [], {}
+        for line, got, fail in itertools.chain(*results):
+            if fail is not None:
+                failed.append(fail)
+                continue
+            print(line, flush=True)
+            for name, n in (got or {}).items():
+                total[name] = total.get(name, 0) + n
+        if failed:
+            raise AssertionError("; ".join(failed))
+        return total
+    return wait
+
+
+def example_child(torch, module, out, cuts, argv) -> int:
+    """An example run in a child interpreter (``python3 chip_smoke.py
+    --example MODULE COUNTS_JSON CUTS_JSON ARGS``): ``MODULE``'s
+    constants named in ``CUTS_JSON`` set (a tick count cut), then its
+    ``main(ARGS)``; then the launch counts of every kernel of the port
+    since the interpreter started (the model kernels and the tick) are
+    written to ``COUNTS_JSON``.  Returns the example's exit code."""
+    import importlib
+    from repro_torch.kernels import psp_tick as pt
+    mod = importlib.import_module(module)
+    for name, value in json.loads(cuts).items():
+        setattr(mod, name, value)
+    sys.argv = [module, *argv]
+    code = mod.main(argv) or 0
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps({**launch_counts(),
+                                     "psp_tick": pt.launch_count()}))
+    return code
 
 
 def frontend_rows(np, cfg, n, seed=FRONTEND_SEED):
@@ -4428,16 +4523,344 @@ def phase18(np, torch, dev, card):
     frontend_loss(np, torch, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    got, *_, t_phase = train_phase(
+    got, *_ = train_phase(
         np, torch, dev, card, FRONTEND_TRAIN_ARCH, 18,
         layers=FRONTEND_TRAIN_LAYERS, ticks=FRONTEND_TRAIN_TICKS,
         warmup=FRONTEND_TRAIN_WARMUP, fall=FRONTEND_TRAIN_FALL,
         leafwise=True)
     paths.append(got)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launchers_side_by_side(REDUCED_LAUNCHERS, t_phase)
     return paths
+
+
+def churn_checks(np, res, ticks):
+    """The churn result's schema (the nine policies of each scenario, the
+    scoreboard of each), every error finite, leaves and joins in every
+    churn run, each run's final error below its first."""
+    from repro_torch.bench import churn_bench as cb
+    keys = {"virtual_time", "error", "alive", "final_error",
+            "final_virtual_time", "mean_alive", "total_pushes", "leaves",
+            "joins"}
+    points = len(range(0, ticks, 10)) + ((ticks - 1) % 10 != 0)
+    if set(res) != set(cb.NINE) | {"stragglers", "adaptive_vs_static"}:
+        raise AssertionError(f"churn result keys {sorted(res)}")
+    scenarios = {"churn": {k: res[k] for k in cb.NINE},
+                 "stragglers": res["stragglers"]}
+    for scenario, runs in scenarios.items():
+        if set(runs) != set(cb.NINE) or set(
+                res["adaptive_vs_static"][scenario]) != set(cb.PARENT):
+            raise AssertionError(f"{scenario}: policies {sorted(runs)}")
+        for name, r in runs.items():
+            trace = [len(r[k]) for k in ("virtual_time", "error", "alive")]
+            if set(r) != keys or trace != [points] * 3:
+                raise AssertionError(f"{scenario}/{name}: keys {sorted(r)}, "
+                                     f"trace lengths {trace}")
+            if not np.isfinite(r["error"]).all():
+                raise AssertionError(f"{scenario}/{name}: non-finite error")
+            if not r["final_error"] < r["error"][0]:
+                raise AssertionError(f"{scenario}/{name}: final error "
+                                     f"{r['final_error']} >= first "
+                                     f"{r['error'][0]}")
+            if scenario == "churn" and not (r["leaves"] > 0
+                                            and r["joins"] > 0):
+                raise AssertionError(f"churn/{name}: {r['leaves']} leaves, "
+                                     f"{r['joins']} joins")
+
+
+def churn_replay(np, torch, dev, scenario, name, ticks=300, workers=8):
+    """One churn-benchmark run held between the card and the CPU: the
+    draws of a seeded ``GeneratorNoise`` and the minibatches recorded once
+    on the host, replayed through ``ReplayNoise`` into ``elastic_drive``
+    on both devices with ``_run_one``'s config; the control plane after
+    every tick (steps, alive, cursors, pushes, now) equal bit for bit,
+    the error trace at the benchmark's reads (every 10th tick and the
+    last) within rtol 1e-5, atol 1e-6 (the script's float32 rule; the
+    first read is 1.0).  Returns the largest absolute error gap."""
+    from repro_torch.bench import churn_bench as cb
+    from repro_torch.core.spmd_psp import (ChurnConfig, GeneratorNoise,
+                                           PSPConfig, ReplayNoise,
+                                           elastic_drive, linear_psp_task)
+    churn = (ChurnConfig(leave_rate=1.5, join_rate=1.5, horizon=60.0,
+                         seed=7) if scenario == "churn" else None)
+    kw = ({"straggler_frac": 0.25} if churn else
+          {"straggler_frac": 0.35, "max_advance": 8})
+    cfg = PSPConfig(barrier=name, n_workers=workers, sample_size=2,
+                    staleness=3, churn=churn, **kw)
+    src = GeneratorNoise(1, "cpu")
+    init = src.init_record(cfg)
+    recs = [src.tick_record(cfg) for _ in range(ticks)]
+    gen = torch.Generator().manual_seed(2)
+    xs = [torch.randn((workers, 16, cb.D), generator=gen)
+          for _ in range(ticks)]
+    w_true = linear_psp_task(cb.D)[0]
+    fields = ("step", "alive", "leave_cursor", "join_cursor",
+              "total_pushes", "now")
+    reads = [t for t in range(ticks) if t % 10 == 0 or t == ticks - 1]
+    planes, errors = {}, {}
+    for d in ("cpu", dev):
+        move = lambda r: {k: v.to(d) for k, v in r.items()}
+        wt = w_true.to(d)
+        _, it = elastic_drive(cfg, cb.D, ticks, device=d,
+                              noise=ReplayNoise(move(init), map(move, recs)),
+                              xs=[x.to(d) for x in xs], w_true=wt)
+        plane, err = [], []
+        for t, (st, _) in enumerate(it):
+            plane.append([getattr(st, f).clone() for f in fields])
+            if t in reads:
+                err.append(torch.linalg.norm(st.server_params["w"] - wt)
+                           / torch.linalg.norm(wt))
+        planes[str(d)] = [torch.stack([p[i] for p in plane]).cpu().numpy()
+                          for i in range(len(fields))]
+        errors[str(d)] = torch.stack(err).cpu().numpy()
+    for f, x, y in zip(fields, planes["cpu"], planes[str(dev)]):
+        if not np.array_equal(x, y):
+            t = int(np.argwhere((x != y).reshape(ticks, -1).any(1))[0, 0])
+            raise AssertionError(f"{scenario}/{name} tick {t}: {f} card "
+                                 f"{y[t]} != CPU {x[t]}")
+    host, card = errors["cpu"], errors[str(dev)]
+    np.testing.assert_allclose(card, host, rtol=1e-5, atol=1e-6)
+    return float(np.max(np.abs(card - host)))
+
+
+def phase19_churn(np, torch, dev, card):
+    """(a) The churn benchmark (``bench.churn_bench.elastic_churn``) at
+    its default scale on the card, Fig 6's reshape from its cached
+    result, :func:`churn_checks`, :func:`churn_replay` on CHURN_REPLAY,
+    and the reference's scoreboard printed."""
+    from repro_torch.bench import churn_bench as cb, figures
+    t0 = time.perf_counter()
+    cb.elastic_churn.cache_clear()
+    res = cb.elastic_churn(full=False, backend="torch", device=dev)
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    fig = figures.fig6_adaptive_churn(full=False, backend="torch",
+                                      device=dev)
+    fig_s = time.perf_counter() - t1
+    if cb.elastic_churn.cache_info().hits != 1:
+        raise AssertionError("fig6_adaptive_churn did not read the cached "
+                             "churn result")
+    churn_checks(np, res, 300)
+    series = sorted(k for k in fig if k != "scoreboard")
+    want = sorted(f"{s}/{m}" for s in ("churn", "stragglers")
+                  for pair in cb.PARENT.items() for m in pair)
+    if series != want or fig["scoreboard"] is not res["adaptive_vs_static"]:
+        raise AssertionError(f"fig6 series {series}")
+    print(f"[19] churn benchmark on the card: 18 runs of 300 ticks, W 8, "
+          f"d {cb.D} (9 policies × churn / stragglers) in {wall:.3f} s = "
+          f"{1e3 * wall / (18 * 300):.4f} ms a tick; Fig 6 reshape from "
+          f"the cache in {fig_s:.4f} s ({len(series)} series); schema, "
+          "finite errors, leaves and joins in every churn run, every "
+          f"final error below its first [{card}]", flush=True)
+    gaps = []
+    for scenario, name in CHURN_REPLAY:
+        gaps.append(churn_replay(np, torch, dev, scenario, name))
+    print(f"[19] card == CPU under replayed draws and minibatches on "
+          f"{list(CHURN_REPLAY)}: the control plane after each of 300 "
+          "ticks bit for bit; the error traces within rtol 1e-5, atol "
+          f"1e-6 (largest gap {max(gaps):.3g})", flush=True)
+    print("[19] the scoreboard (a finding, not a check):", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cb.print_summary(res)
+    for line in buf.getvalue().splitlines():
+        print(f"[19]   {line}", flush=True)
+
+
+def phase19_serve(np, torch, dev, card):
+    """(b) The serve benchmark's body (``bench.serve_bench.open_loop``)
+    at qwen2-0.5b's full width, its depth cut to SERVE_LAYERS, on the
+    reference's default load (SERVE_BENCH) with two full-width snapshots
+    published mid-stream: at least 2 swaps spanning at least 2 versions,
+    0 drops, launches exact.  Returns the launch counts."""
+    from repro_torch.bench import serve_bench as sb
+    from repro_torch.serving import ServeConfig
+    b = SERVE_BENCH
+    cfg = train_config(TRAIN_ARCH, SERVE_LAYERS)
+    scfg = ServeConfig(batch=b["batch"], max_len=256,
+                       max_new_tokens=b["max_new"], seed=0)
+    t0 = time.perf_counter()
+    reset_launch_counts(torch)
+    res, engines = sb.open_loop(cfg, scfg, requests=b["requests"],
+                                rate_rps=b["rate_rps"],
+                                prompt_len=b["prompt_len"],
+                                poll_every=b["poll_every"], seed=0,
+                                device=dev)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    prefills = sum(e.prefill_calls for e in engines)
+    forwards = prefills + sum(e.decode_steps for e in engines)
+    want = {**{k: 0 for k in got},
+            "flash_attention": cfg.n_layers * prefills,
+            "rmsnorm": (2 * cfg.n_layers + 1) * forwards}
+    if got != want:
+        raise AssertionError(f"serve bench launches {got}, want {want}")
+    if not (res["swaps"] >= 2 and len(res["versions_served"]) >= 2
+            and res["dropped"] == 0):
+        raise AssertionError(f"serve bench: {res['swaps']} swaps, versions "
+                             f"{res['versions_served']}, {res['dropped']} "
+                             "dropped")
+    lat = res["latency_s"]
+    print(f"[19] serve bench at full width: {cfg.name}, {cfg.n_layers} "
+          f"layers, {cfg.dtype}, {res['requests']} requests at "
+          f"{res['rate_rps']}/s, batch {res['batch']}, prompt "
+          f"{res['prompt_len']}, {res['max_new_tokens']} new, poll every "
+          f"{b['poll_every']} steps: {res['tokens_per_s']} tokens/s "
+          f"({res['total_tokens']} in {res['wall_s']} s); per token p50 "
+          f"{1e3 * lat['per_token']['p50']:.3f} / p99 "
+          f"{1e3 * lat['per_token']['p99']:.3f} ms, per request "
+          f"{1e3 * lat['per_request']['p50']:.3f} / "
+          f"{1e3 * lat['per_request']['p99']:.3f} ms, first token "
+          f"{1e3 * lat['first_token']['p50']:.3f} / "
+          f"{1e3 * lat['first_token']['p99']:.3f} ms; swaps "
+          f"{res['swaps']}, swap_stall_s {res['swap_stall_s']['events']}, "
+          f"versions {res['versions_served']}, dropped {res['dropped']}, "
+          f"snapshots skipped {res['snapshots_skipped']}; launches "
+          f"flash {got['flash_attention']} = {cfg.n_layers} × {prefills}, "
+          f"RMSNorm {got['rmsnorm']} = {2 * cfg.n_layers + 1} × "
+          f"{forwards}; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return got
+
+
+def phase19_chaos(np, torch, dev, card):
+    """(c) ``bench.chaos_bench``'s two segments at ``chaos_suite
+    (smoke=True)``'s shapes on the card, the cluster's tick floor raised
+    to CHAOS_TICK_MIN_WALL, held to the reference's exit invariants; its
+    faulted cluster run takes phase 11's place with phase 11's checks:
+    exactly the victim respawned and rejoined, and the recorded events
+    replayed through ``external_drive`` on the card give its final
+    params bit for bit.  Returns the serving segment's launch counts."""
+    from repro_torch.bench import chaos_bench as chb
+    from repro_torch.core.spmd_psp import external_drive
+    t0 = time.perf_counter()
+    real, calls = chb.run_cluster, []
+
+    def recorded(cfg, dim, ticks, workdir, **kw):
+        res = real(cfg, dim, ticks, workdir, **kw)
+        calls.append((cfg, dim, ticks, kw, dict(res)))
+        return res
+
+    chb.run_cluster = recorded
+    reset_launch_counts(torch)
+    try:        # chaos_suite(smoke=True), the cluster's tick floor raised
+        res = {"smoke": True,
+               "cluster": chb.cluster_chaos(
+                   workers=3, ticks=24, tick_min_wall=CHAOS_TICK_MIN_WALL,
+                   device=dev),
+               "serving": chb.serving_chaos(requests=10, rate_rps=8.0,
+                                            device=dev)}
+    finally:
+        chb.run_cluster = real
+    torch.cuda.synchronize()
+    got = launch_counts()
+    if not chb.invariants_hold(res):
+        raise AssertionError(f"chaos invariants violated: {res}")
+    if not (got["flash_attention"] > 0 and got["rmsnorm"] > 0):
+        raise AssertionError(f"chaos serving launched {got}")
+    cfg, dim, ticks, kw, faulted = calls[-1]
+    plan = kw["plan"]
+    (kill,) = [e for e in plan.events if e.kind == "kill"]
+    victim = kill.worker
+    epochs = {int(w): e for w, e in faulted["epochs"].items()}
+    kinds = [(kind, w) for _t, kind, w in faulted["events"]]
+    if not (epochs == {w: int(w == victim) for w in range(cfg.n_workers)}
+            and ("leave", victim) in kinds and ("join", victim) in kinds):
+        raise AssertionError(f"chaos cluster: epochs {epochs}, events "
+                             f"{faulted['events']} (victim {victim})")
+    events = {}
+    for t, kind, w in faulted["events"]:
+        lv, jn = events.setdefault(t, ([], []))
+        (lv if kind == "leave" else jn).append(w)
+    _, it = external_drive(cfg, dim, ticks,
+                           {t: (tuple(lv), tuple(jn))
+                            for t, (lv, jn) in events.items()},
+                           batch=kw["batch"], device=dev)
+    for ref, _ in it:
+        pass
+    if not (np.array_equal(ref.server_params["w"].cpu().numpy(),
+                           faulted["final_params"]["w"])
+            and int(ref.total_pushes) == faulted["total_pushes"]
+            and ref.alive.cpu().numpy().tolist() == faulted["alive"]):
+        raise AssertionError("replaying the chaos cluster's events does not "
+                             "reproduce its final params bit for bit")
+    c, s = res["cluster"], res["serving"]
+    print(f"[19] chaos suite (smoke) on the card: cluster {c['workers']} "
+          f"workers × {c['ticks']} ticks (floor {CHAOS_TICK_MIN_WALL} s), "
+          f"d {c['dim']}, plan {c['plan']} "
+          f"(worker {victim} SIGKILLed at tick {kill.tick}): "
+          f"events {c['faulted']['events']}, epochs "
+          f"{c['faulted']['epochs']}, recovery latency "
+          f"{c['recovery_latency_s']} s, goodput "
+          f"{c['faulted']['goodput_pushes_per_s']} pushes/s against "
+          f"{c['nofault']['goodput_pushes_per_s']} without faults (ratio "
+          f"{c['goodput_ratio']}), live restarts {c['live_restarts']}; "
+          "replayed through external_drive on the card: final params bit "
+          f"for bit; serving {s['completed']}/{s['requests']} done, "
+          f"dropped {s['dropped']}, swaps {s['swaps']}, worker restarts "
+          f"{s['worker_restarts']} (readmitted {s['readmitted']}), publish "
+          f"faults {s['publish_faults']}, {s['tokens_per_s']} tokens/s; "
+          f"launches flash {got['flash_attention']}, RMSNorm "
+          f"{got['rmsnorm']}; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return got
+
+
+def phase19_lanes(dirs):
+    """(d)'s lanes: phase 8's launcher runs in order; elastic_train to its
+    checkpoint, then resumed; each other example; the reduced launchers
+    behind the shorter ones (about even lanes)."""
+    fill = lambda run: (*run[:2], [x.format(**dirs) for x in run[2]],
+                        run[3])
+    e, r = {k: fill(v) for k, v in EXAMPLES.items()}, REDUCED_LAUNCHERS
+    return [[fill((8, *run)) for run in LAUNCHER_RUNS],
+            [e["elastic_train"], e["elastic_resume"], r[0]],
+            [e["serve_demo"], r[1], r[4]],
+            [e["train_e2e"], r[2]],
+            [e["barrier_sweep"]],
+            [e["live_serve"], r[3]],
+            [r[5], r[6], r[7]],
+            [r[8], r[9]]]
+
+
+def phase19(np, torch, dev, card):
+    """The reference's remaining entry points on the card: (d) the five
+    examples and the reduced launchers as child interpreters in lanes
+    side by side, started first and run beside (a) the churn benchmark
+    and Fig 6; then (b) the serve benchmark at full width and (c) the
+    chaos suite (in phase 11's place), each alone.  Returns (the
+    kernels' launch counts of each run, the tick's launches in the
+    examples)."""
+    t_phase = time.perf_counter()
+    where = ROOT / "build" / "launchers"
+    shutil.rmtree(where, ignore_errors=True)
+    dirs = {"ck": str(where / "ck"), "snaps": str(where / "snaps"),
+            "elastic": str(where / "elastic")}
+    wait = lanes_side_by_side(phase19_lanes(dirs), t_phase)
+    try:
+        phase19_churn(np, torch, dev, card)
+        print(f"[19] (a) ends {time.perf_counter() - t_phase:.1f} s into "
+              "the phase, beside (d)", flush=True)
+    finally:
+        got = wait()
+        shutil.rmtree(where, ignore_errors=True)
+    ticks = got.pop("psp_tick", 0)
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd", "ssd_scan"):
+        if not got.get(name):
+            raise AssertionError(f"the examples launched no {name}: {got}")
+    if not ticks:
+        raise AssertionError("barrier_sweep's stage 1 launched no tick")
+    print(f"[19] (d) ends {time.perf_counter() - t_phase:.1f} s into the "
+          f"phase; the examples' launches (summed over their child "
+          f"interpreters): {got}, psp_tick {ticks}", flush=True)
+    paths = [got]
+    for part in (phase19_serve, phase19_chaos):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.append(part(np, torch, dev, card))
+        print(f"[19] {part.__name__} ends "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase",
+              flush=True)
+    return paths, ticks
 
 
 def main() -> int:
@@ -4460,6 +4883,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == [LOOP_CHILD]:
         return loop_trainer(torch, torch.device("cuda", 0), sys.argv[2])
+    if sys.argv[1:2] == [EXAMPLE_CHILD]:
+        return example_child(torch, *sys.argv[2:5], sys.argv[5:])
     from repro_torch.core import SimConfig, make_barrier, run_sweep
     from repro_torch.core.vector_sim import VectorSimulator
     from repro_torch.core.vector_sim_torch import ticks_to_run
@@ -4614,10 +5039,9 @@ def main() -> int:
     print(f"[8] starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     paths.append(phase8(np, torch, dev, card))
 
-    # ---- 9.–12. the trainer → server loop, resume, the cluster, mamba2
-    # PSP training
-    for tag, phase in ((9, phase9), (10, phase10), (11, phase11),
-                       (12, phase12)):
+    # ---- 9., 10. and 12. the trainer → server loop, resume, mamba2 PSP
+    # training (11., the cluster, runs in phase 19's chaos suite)
+    for tag, phase in ((9, phase9), (10, phase10), (12, phase12)):
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[{tag}] starts at {time.perf_counter() - t_start:.1f} s",
@@ -4671,6 +5095,16 @@ def main() -> int:
           flush=True)
     paths += phase18(np, torch, dev, card)
     print(f"[18] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 19. the reference's remaining entry points ------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[19] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    more, example_ticks = phase19(np, torch, dev, card)
+    paths += more
+    launches += example_ticks
+    print(f"[19] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -1,4 +1,5 @@
-"""Sweep-engine reproductions of the paper's figures (Figs 1–3).
+"""Sweep-engine reproductions of the paper's figures (Figs 1–3), and
+Fig 6's reshape of the elastic trainer's churn benchmark.
 
 The port's copy of ``benchmarks/figures.py``.  Each function returns a
 dict of series suitable for CSV/JSON dumping; :mod:`repro_torch.bench.run`
@@ -29,6 +30,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from repro_torch.bench import churn_bench
 from repro_torch.configs.psp_linear import PSPLinearConfig
 from repro_torch.core.barriers import make_barrier
 from repro_torch.core.simulator import SimConfig
@@ -36,7 +38,7 @@ from repro_torch.core.vector_sim import run_sweep
 
 __all__ = ["FIVE", "fig1_error", "fig1_error_bands", "fig1_messages",
            "fig1_progress", "fig1_sample_sweep", "fig2_slowness",
-           "fig2_stragglers", "fig3_scalability"]
+           "fig2_stragglers", "fig3_scalability", "fig6_adaptive_churn"]
 
 FIVE = ("bsp", "ssp", "asp", "pbsp", "pssp")
 
@@ -222,4 +224,38 @@ def fig3_scalability(full: bool = False, backend: str = "torch",
             rows.append({"n": n, "progress_pct": float(
                 100.0 * r.mean_progress / base)})
         out[name] = rows
+    return out
+
+
+def fig6_adaptive_churn(full: bool = False, backend: str = "torch",
+                        device=None) -> Dict:
+    """Adaptive-vs-static convergence curves (virtual wall-clock x-axis).
+
+    For each adaptive barrier policy (DSSP / Elastic-BSP / annealed pBSP
+    / annealed pSSP) and its static parent, the normalized-error-vs-
+    virtual-time trace of the elastic trainer under the two
+    :mod:`repro_torch.bench.churn_bench` scenarios (Poisson churn, heavy
+    stragglers).  Series are keyed ``{scenario}/{policy}`` with a
+    ``pair`` field linking each adaptive curve to its parent; the
+    ``adaptive_vs_static`` scoreboard (error at equal virtual time)
+    rides along under ``"scoreboard"``.  Read from the cached
+    :func:`~repro_torch.bench.churn_bench.elastic_churn` result;
+    ``backend`` is ignored, as there.
+    """
+    res = churn_bench.elastic_churn(full=full, backend=backend,
+                                    device=device)
+    out: Dict = {"scoreboard": res["adaptive_vs_static"]}
+    scenarios = {"churn": {k: res[k] for k in churn_bench.NINE},
+                 "stragglers": res["stragglers"]}
+    for scenario, runs in scenarios.items():
+        for name, parent in churn_bench.PARENT.items():
+            for member, role in ((name, "adaptive"), (parent, "static")):
+                r = runs[member]
+                out[f"{scenario}/{member}"] = {
+                    "role": role,
+                    "pair": f"{name} vs {parent}",
+                    "virtual_time": r["virtual_time"],
+                    "error": r["error"],
+                    "final_error": r["final_error"],
+                }
     return out

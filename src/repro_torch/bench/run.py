@@ -7,7 +7,10 @@ runs through :func:`repro_torch.core.run_sweep` on the backend that
 ``--backend`` selects: ``torch`` (the fused tick; on the card unless
 ``--device cpu``) or ``numpy`` (the host grid engine).  The sweep
 benchmark (:mod:`repro_torch.bench.sweep_bench`) times every engine
-whatever ``--backend`` says.
+whatever ``--backend`` says, and the churn benchmark
+(:mod:`repro_torch.bench.churn_bench`: ``elastic_churn`` and its Fig 6
+reshape ``fig6_adaptive_churn``) runs the elastic trainer on the card,
+or on ``--device``'s device, whatever the backend.
 
     PYTHONPATH=src python -m repro_torch.bench.run [--full]
         [--only fig1_progress] [--backend torch|numpy] [--device cpu]
@@ -24,7 +27,7 @@ import os
 import time
 from pathlib import Path
 
-from repro_torch.bench import fig45_bounds, figures, sweep_bench
+from repro_torch.bench import churn_bench, fig45_bounds, figures, sweep_bench
 
 __all__ = ["BENCHES", "OUT_DIR", "main"]
 
@@ -97,6 +100,18 @@ BENCHES = [
          sweep_bench.sweep_speedup(full=full, device=device, out_path=None),
      lambda res: f"speedup={res['summary']['best_speedup_vs_event']:.1f}x "
                  f"max_dev={res['summary']['max_progress_deviation']:.3f}"),
+    # the elastic trainer under Poisson churn: convergence against
+    # virtual wall-clock with a dynamic worker set (on the device; the
+    # backend is ignored)
+    ("elastic_churn", churn_bench.elastic_churn,
+     lambda res: "err@T " + " ".join(
+         f"{k}={res[k]['final_error']:.3f}" for k in ("bsp", "pssp", "asp"))),
+    # the adaptive-vs-static reshape of the same runs (elastic_churn's
+    # result is cached, so the 18 trainer runs are not repeated)
+    ("fig6_adaptive_churn", figures.fig6_adaptive_churn,
+     lambda res: "dominant " + (",".join(
+         name for name, s in res["scoreboard"]["stragglers"].items()
+         if s["dominates"]) or "none") + " (stragglers)"),
 ]
 
 

@@ -195,13 +195,13 @@ def test_run_harness_prints_csv(tmp_path, tiny, capsys):
     with pytest.raises(SystemExit, match="torch backend only"):
         trun.main(["--backend", "numpy", "--device", "cpu",
                    "--out-dir", str(tmp_path)])
-    # the reference harness's entries, less the roofline rows and the
-    # churn figures (not ported yet)
+    # the reference harness's entries, less the roofline rows
     assert [n for n, _, _ in trun.BENCHES] == [
         "fig1_progress", "fig1_sample_sweep", "fig1_error",
         "fig1_error_bands", "fig1_messages", "fig2_stragglers",
         "fig2_slowness", "fig3_scalability", "fig4_mean_bound",
-        "fig5_variance_bound", "sweep_engine"]
+        "fig5_variance_bound", "sweep_engine", "elastic_churn",
+        "fig6_adaptive_churn"]
 
 
 def test_quickstart_prints_what_the_reference_prints(monkeypatch):
