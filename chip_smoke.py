@@ -343,6 +343,25 @@ Phases (any failure exits non-zero before the final line):
     push on an NVIDIA H100 80GB HBM3 at 700 W, past the smoke shape's
     6.4 s after the kill): the reference's exit invariants and phase
     11's checks.
+20. The roofline on the card (``phase20``).  (a) For each of
+    ``ROOF_COMBOS`` (qwen2-0.5b's prefill_32k and train_4k,
+    recurrentgemma-2b's prefill_32k, mamba2-780m's decode_32k; full
+    width and depth, the global batch cut to fit one card): the dry
+    run's count of the step at the cut shape
+    (``repro_torch.launch.dryrun.count_step`` on ``meta``, never timed),
+    then the same step (``launch.steps.dryrun_inputs``, seeded random
+    weights, ``impl="cuda"``) run on the card: once to warm up, then
+    ``reps`` times by CUDA events with the launch counts and the peak
+    memory reset just before.  Printed: the roofline's terms, the best
+    and mean step times, the share max(compute, memory) / best, the peak
+    device memory against the predicted argument and output bytes, and
+    the launches against reps × the count's calls.  The share must be at
+    most ``ROOF_SHARE_MAX`` (1.05: above it the count left work out),
+    the peak at least the argument bytes, the launches equal.  (b)
+    ``bench.roofline_bench.sweep_tick_row`` on the card at the
+    reference's default shape and at the paper's (B 32, P 1000, d 1000,
+    m 8, β 10): the tick's roofline time over the measured sweep at most
+    1.05.
 
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
@@ -425,8 +444,8 @@ paths: the sweep, the serving runs, the training runs, the loop's
 server and trainer, the resumed runs, phase 13's figures, bench and
 100k pair, phase 14's four serving runs and training run, phase 15's
 two serving runs, phase 16's training run, phase 17's and phase 18's
-two serving runs and training run each, and phase 19's serving runs and
-examples), error and times, the
+two serving runs and training run each, phase 19's serving runs and
+examples, and phase 20's steps and sweeps), error and times, the
 ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are
 missing.
@@ -451,11 +470,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor f32 FLOP/s
-#: and dense bf16 tensor-core FLOP/s
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12
 #: H100 L2 cache bytes: timed inputs rotate over more than twice this
 L2_BYTES = 50 * 2 ** 20
 
@@ -884,6 +898,27 @@ EXAMPLES = {
 #: to SWEEP_BENCH_DURATION, to make room for phase 19
 SWEEP_BENCH_DURATION = 5.0
 
+#: phase 20's steps: (arch, input shape, global batch cut to, timed
+#: reps), each at full width and depth
+ROOF_COMBOS = (("qwen2-0.5b", "prefill_32k", 2, 3),
+               ("recurrentgemma-2b", "prefill_32k", 1, 3),
+               ("mamba2-780m", "decode_32k", 128, 10),
+               ("qwen2-0.5b", "train_4k", 2, 3))
+#: a share of the roofline above this means the count left work out
+ROOF_SHARE_MAX = 1.05
+#: phase 20 (b)'s sweep-tick rows: the reference's default shape and
+#: the paper's (B 32, P 1000, d 1000, m 8, β 10)
+ROOF_TICK_ROWS = ({}, {"n_nodes": 1000, "dim": 1000, "rows": 32,
+                       "sample_size": 10, "batch": 8})
+
+
+def roof():
+    """:mod:`repro_torch.roofline`: the card's data-sheet figures
+    (``HW``), ``times_ms`` and the kernels' work formulas
+    (``kernel_cost``), the one definition the dry run reads too."""
+    from repro_torch import roofline
+    from repro_torch.roofline import kernel_cost  # noqa: F401
+    return roofline
 
 
 def smi() -> str:
@@ -1127,17 +1162,15 @@ def time_tick(np, torch, pt, dev, st, shapes, prm, ln, jn, kw):
     n_cand_sm = int(((~s["computing"]) & p["sampled"][:, None]).sum())
     nbytes = {c: sum(pt.tick_bytes(s, r, p, o["fin"], o["start"],
                                    in_place=c)) for c in (True, False)}
-    # a rank-form beta-sample scans the peer axis twice; beta = 1 on an
-    # unmasked row is one gather and one compare
-    scan = 1 if kw["k_max"] == 1 and not kw["masked"] else 2 * P
-    flops = 4 * n_fin * m * d + 2 * n_cand_sm * scan
+    flops = roof().kernel_cost.tick_flops(n_fin, n_cand_sm, m, d, P,
+                                          k_max=kw["k_max"],
+                                          masked=kw["masked"])
+    bound = {c: max(roof().times_ms(flops, nbytes[c], f32=True))
+             for c in (True, False)}
     return {"ms": ms_dev if ms_dev is not None else ms_call,
             "device_time": ms_dev is not None, "call_ms": ms_call,
             "plain_ms": ms_plain, "split": split, "host_us": host_us,
-            "bound_ms": 1e3 * max(nbytes[True] / HBM_BPS,
-                                  flops / F32_FLOPS),
-            "fresh_bound_ms": 1e3 * max(nbytes[False] / HBM_BPS,
-                                        flops / F32_FLOPS),
+            "bound_ms": bound[True], "fresh_bound_ms": bound[False],
             "bytes": nbytes, "flops": flops, "n_fin": n_fin,
             "n_start": n_start}
 
@@ -1514,8 +1547,9 @@ def phase5(np, torch, dev, card):
             "plain": (lambda: rmsnorm_ref(nxt()[0], w, round_scale=True), 50),
             "library": (lambda: F.rms_norm(nxt()[0], (896,), w16, 1e-6), 50),
             "copy of x": (lambda: y.copy_(nxt()[0]), 50)})
-        nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
-        bound = 1e3 * nbytes / HBM_BPS
+        nbytes = roof().kernel_cost.rmsnorm_bytes(rows, 896, x.element_size(),
+                                                  w.element_size())
+        bound = roof().times_ms(0, nbytes)[1]
         print(f"[5] rmsnorm ({rows}, 896) bf16 (the model's form): "
               + rounds_text(ms) + f"; bound {bound:.4f} ms "
               f"({nbytes / 1e6:.3f} MB); inputs rotated over {n_sets} "
@@ -1540,9 +1574,10 @@ def phase5(np, torch, dev, card):
                 *nxt(), return_lse=True), 20),
             "plain": (lambda: attention_ref(*nxt()), 5),
             "library": (lib, 20)})
-        flops = 2 * B * 14 * S * S * 64
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+        kc = roof().kernel_cost
+        flops = kc.attention_flops(B, S, 14, 64)
+        nbytes = kc.attention_bytes(B, S, 14, 2, 64, q.element_size())
+        t_ops, t_bytes = roof().times_ms(flops, nbytes)
         print(f"[5] flash B={B} S={S} H=14 KV=2 hd=64 bf16 causal: "
               + rounds_text(ms)
               + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} "
@@ -1566,15 +1601,6 @@ def phase5(np, torch, dev, card):
              "plain_ms": fms["plain"][0], "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": fms["library"][0]}]
-
-
-def ssd_flops(B, S, nh, ng, hd, N, Q=128):
-    """FLOPs the chunked dual form needs: per (batch, group, chunk) C·Bᵀ
-    (2Q²N, shared by the group's heads); per (batch, head, chunk)
-    scores·(x·dt) (2Q²hd), C·Hᵀ and the state update (2QN·hd each)."""
-    Q = min(Q, S)
-    return B * (S // Q) * (ng * 2 * Q * Q * N
-                           + nh * (2 * Q * Q * hd + 4 * Q * N * hd))
 
 
 def phase5_ssd(np, torch, dev, card):
@@ -1628,11 +1654,10 @@ def phase5_ssd(np, torch, dev, card):
         split = {n: v for key, v in profile_device(
             torch, lambda: ssd_cuda(*nxt()), 20).items()
             for n in SSD_KERNELS if n in key}
-        flops = ssd_flops(B, S, nh, ng, hd, N)
-        nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
-                  + A.numel() * 4 + 2 * Bm.numel() * Bm.element_size()
-                  + B * nh * hd * N * 4)
-        t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+        kc = roof().kernel_cost
+        flops = kc.ssd_flops(B, S, nh, ng, hd, N)
+        nbytes = kc.ssd_bytes(B, S, nh, ng, hd, N, x.element_size())
+        t_ops, t_bytes = roof().times_ms(flops, nbytes)
         print(f"[5] ssd B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
               f"({scan_rows(B, nh, hd, sms)} state rows per scan block): "
               + rounds_text(ms)
@@ -1657,11 +1682,11 @@ def phase5_ssd(np, torch, dev, card):
         "plain": (lambda: ssd_ref(*nxt(), return_states=True), 3)})
     split = {n: v for key, v in profile_device(torch, train, 20).items()
              for n in SSD_KERNELS if n in key}
-    flops = ssd_flops(B, S, nh, ng, hd, N)
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + args[0].numel() * 2 + B * nh * hd * N * 4
-              + B * (S // 128) * nh * (128 + hd * N) * 4)
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    kc = roof().kernel_cost
+    flops = kc.ssd_flops(B, S, nh, ng, hd, N)
+    nbytes = kc.ssd_bytes(B, S, nh, ng, hd, N, args[0].element_size(),
+                          states=True)
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] ssd training forward B={B} S={S} nh={nh} hd={hd} N={N} "
           f"ng={ng} bf16, cum and states out: " + rounds_text(ms_t)
           + "; per launch " + ", ".join(f"{n} {v:.4f} ms"
@@ -1747,8 +1772,7 @@ def phase5_ssd_bwd(np, torch, dev, card):
     """The SSD backward kernels against their plain version over the
     forward's case grid, then timed at mamba2-780m's training shape.
     Returns its JSON entry without ``launches``."""
-    from repro_torch.kernels.ssd_scan import (bwd_bytes, bwd_flops,
-                                              ssd_bwd_cuda, ssd_bwd_ref,
+    from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
                                               ssd_cuda, ssd_ref)
     err = {dt: 0.0 for dt in DTYPES}
     for i, case in enumerate(ssd_bwd_cases()):
@@ -1775,9 +1799,10 @@ def phase5_ssd_bwd(np, torch, dev, card):
     split = {n: v for key, v in profile_device(
         torch, lambda: ssd_bwd_cuda(*nxt()), 20).items()
         for n in SSD_BWD_KERNELS if n in key}
-    flops = bwd_flops(B, S, nh, ng, hd, N)
-    nbytes = bwd_bytes(B, S, nh, ng, hd, N, 2, split=True)
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    kc = roof().kernel_cost
+    flops = kc.ssd_bwd_flops(B, S, nh, ng, hd, N)
+    nbytes = kc.ssd_bwd_bytes(B, S, nh, ng, hd, N, 2, split=True)
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     calls = train_launches(train_config(MAMBA_TRAIN_ARCH,
                                         MAMBA_TRAIN_LAYERS))["ssd_scan_bwd"]
     print(f"[5] ssd backward B={B} S={S} nh={nh} hd={hd} N={N} ng={ng} bf16 "
@@ -1786,7 +1811,8 @@ def phase5_ssd_bwd(np, torch, dev, card):
           + "; per launch " + ", ".join(f"{n} {v:.4f} ms"
                                         for n, v in split.items())
           + f"; bound {max(t_ops, t_bytes):.4f} ms ({flops / 1e9:.3f} GFLOP "
-          f"at the bf16 tensor-core rate, {1e3 * flops / F32_FLOPS:.4f} ms at"
+          f"at the bf16 tensor-core rate, "
+          f"{roof().times_ms(flops, 0, f32=True)[0]:.4f} ms at"
           f" the f32 rate; {nbytes / 1e6:.2f} MB; ssd_scan.bwd_bytes / "
           f"bwd_flops); kernel at {flops / ms['kernel'][0] / 1e9:.2f} "
           f"TFLOP/s; no library call computes it; inputs rotated over "
@@ -2051,11 +2077,11 @@ def phase5_bwd(np, torch, dev, card):
         "plain": (lambda: attention_bwd_ref(*nxt()), 5),
         "library": (lambda: torch.autograd.grad(out, leaves, dout,
                                                 retain_graph=True), 20)})
-    flops = 5 * B * 14 * S * S * 64          # 5 causal products of S·S·hd
-    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, lse,
-                                                          do))
-              + sum(t.numel() * t.element_size() for t in (q, k, v)))
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    kc = roof().kernel_cost
+    flops = kc.attention_flops(B, S, 14, 64, backward=True)
+    nbytes = kc.attention_bytes(B, S, 14, 2, 64, q.element_size(),
+                                backward=True)
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] flash backward B={B} S={S} H=14 KV=2 hd=64 bf16 causal "
           f"(the training shape; "
           f"{train_launches(train_config())['flash_attention_bwd'] * TRAIN_W}"
@@ -2088,9 +2114,9 @@ def phase5_bwd(np, torch, dev, card):
         "plain": (lambda: rmsnorm_bwd_ref(*nxt()), 50),
         "library": (lambda: torch.autograd.grad(y, (xl, wl), g,
                                                 retain_graph=True), 50)})
-    nbytes = (3 * x.numel() * x.element_size() + m.numel() * 4
-              + 2 * D * 4)
-    bound = 1e3 * nbytes / HBM_BPS
+    nbytes = roof().kernel_cost.rmsnorm_bytes(rows, D, x.element_size(),
+                                              backward=True)
+    bound = roof().times_ms(0, nbytes)[1]
     print(f"[5] rmsnorm backward ({rows}, {D}) bf16 (the training shape; "
           f"{train_launches(train_config())['rmsnorm_bwd'] * TRAIN_W} calls "
           "per tick): " + rounds_text(ms)
@@ -2104,13 +2130,6 @@ def phase5_bwd(np, torch, dev, card):
           "plain_ms": ms["plain"][0], "bound_ms": bound, "bound_by": "bytes",
           "library_ms": ms["library"][0]}
     return [fl, rn]
-
-
-def band_pairs(S, window):
-    """The (query, key) pairs a causal window of ``window`` keys sees in
-    a sequence of S: sum over queries i of min(i + 1, window)."""
-    w = min(S, window)
-    return w * (w + 1) // 2 + (S - w) * window
 
 
 def band_forward(np, torch, dev, card, what, B, S, H, KV, hd, w):
@@ -2130,7 +2149,8 @@ def band_forward(np, torch, dev, card, what, B, S, H, KV, hd, w):
     band = ((pos[:, None] >= pos[None, :])
             & (pos[:, None] - pos[None, :] < w))
     rep = lambda t: t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    pairs = band_pairs(S, w)
+    kc = roof().kernel_cost
+    pairs = kc.band_pairs(S, w)
     err = check_close(np, flash_attention_cuda(q, k, v, window=w),
                       attention_ref(q, k, v, window=w), "bfloat16",
                       f"flash at {what}'s prefill shape")
@@ -2141,9 +2161,9 @@ def band_forward(np, torch, dev, card, what, B, S, H, KV, hd, w):
         "plain": (lambda: attention_ref(*nxt(), window=w), 2),
         "library": (lambda: F.scaled_dot_product_attention(
             *lib_in, attn_mask=band), 5)})
-    flops = 4 * B * H * hd * pairs                    # S·Kᵀ and P·V
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    flops = kc.attention_flops(B, S, H, hd, window=w)  # S·Kᵀ and P·V
+    nbytes = kc.attention_bytes(B, S, H, KV, hd, q.element_size())
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] flash forward at {what}'s shape B={B} S={S} H={H} KV={KV} "
           f"hd={hd} bf16 causal window {w} (kernel == plain there, max "
           f"|err| {err:.3g}): " + rounds_text(ms)
@@ -2178,7 +2198,8 @@ def band_backward(np, torch, dev, card, what, B, S, H, KV, hd, w):
     band = ((pos[:, None] >= pos[None, :])
             & (pos[:, None] - pos[None, :] < w))
     rep = lambda t: t.repeat_interleave(G, dim=2).transpose(1, 2)
-    pairs = band_pairs(S, w)
+    kc = roof().kernel_cost
+    pairs = kc.band_pairs(S, w)
     do = flash_inputs(np, torch, B, S, H, KV, hd, "bfloat16", dev, 1)[0]
     o, lse = attention_ref(q, k, v, window=w, return_lse=True)
     err = max(check_bwd(np, g, r, "bfloat16",
@@ -2198,10 +2219,10 @@ def band_backward(np, torch, dev, card, what, B, S, H, KV, hd, w):
         "plain": (lambda: attention_bwd_ref(*nxt(), window=w), 2),
         "library": (lambda: torch.autograd.grad(
             lib_out, leaves, dout, retain_graph=True), 5)})
-    flops = 10 * B * H * hd * pairs                   # five band products
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (q, k, v, o, lse, do, q, k, v))
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    flops = kc.attention_flops(B, S, H, hd, window=w, backward=True)
+    nbytes = kc.attention_bytes(B, S, H, KV, hd, q.element_size(),
+                                backward=True)
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] flash backward at {what}'s training shape B={B} S={S} "
           f"H={H} KV={KV} hd={hd} bf16 causal window {w} (kernel == plain "
           f"there, max |err| {err:.3g}): " + rounds_text(ms)
@@ -2313,10 +2334,12 @@ def rmsnorm_pair(np, torch, dev, card, name, D, rows, bwd_rows):
         "kernel": (lambda: rmsnorm_cuda(nxt()[0], w, round_scale=True), 50),
         "plain": (lambda: rmsnorm_ref(nxt()[0], w, round_scale=True), 50),
         "library": (lambda: F.rms_norm(nxt()[0], (D,), w16, 1e-6), 50)})
-    nbytes = 2 * x.numel() * x.element_size() + D * 4
+    kc = roof().kernel_cost
+    nbytes = kc.rmsnorm_bytes(rows, D, x.element_size(), w.element_size())
     print(f"[5] rmsnorm at {name}'s prefill ({rows}, {D}) bf16 (kernel == "
           f"plain, max |err| {err:.3g}): " + rounds_text(ms)
-          + f"; bound {1e3 * nbytes / HBM_BPS:.4f} ms ({nbytes / 1e6:.3f} "
+          + f"; bound {roof().times_ms(0, nbytes)[1]:.4f} ms "
+          f"({nbytes / 1e6:.3f} "
           f"MB; bytes); library F.rms_norm; inputs rotated over {n_sets} "
           f"copies; SM clock {clocks} [{card}]", flush=True)
     if bwd_rows is None:
@@ -2337,10 +2360,11 @@ def rmsnorm_pair(np, torch, dev, card, name, D, rows, bwd_rows):
         "plain": (lambda: rmsnorm_bwd_ref(*nxt()), 50),
         "library": (lambda: torch.autograd.grad(y, (xl, wl), g,
                                                 retain_graph=True), 50)})
-    nbytes = 3 * x.numel() * x.element_size() + m.numel() * 4 + 2 * D * 4
+    nbytes = kc.rmsnorm_bytes(bwd_rows, D, x.element_size(), backward=True)
     print(f"[5] rmsnorm backward at {name}'s training shape ({bwd_rows}, "
           f"{D}) bf16 (kernel == plain, max |err| {err:.3g}): "
-          + rounds_text(ms) + f"; bound {1e3 * nbytes / HBM_BPS:.4f} ms "
+          + rounds_text(ms)
+          + f"; bound {roof().times_ms(0, nbytes)[1]:.4f} ms "
           f"({nbytes / 1e6:.3f} MB; bytes); library F.rms_norm's backward "
           f"through autograd; inputs rotated over {n_sets} copies; SM clock "
           f"{clocks} [{card}]", flush=True)
@@ -2379,9 +2403,10 @@ def model_flash(np, torch, dev, card, name, H, KV, hd, prefill, train):
         "kernel": (lambda: flash_attention_cuda(*nxt()), 20),
         "plain": (lambda: attention_ref(*nxt()), 5),
         "library": (lib, 20)})
-    flops = 2 * B * H * S * S * hd                 # two causal products
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    kc = roof().kernel_cost
+    flops = kc.attention_flops(B, S, H, hd)        # two causal products
+    nbytes = kc.attention_bytes(B, S, H, KV, hd, q.element_size())
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] flash forward at {name}'s prefill B={B} S={S} "
           f"H={H} KV={KV} hd={hd} bf16 causal (kernel == plain there, max "
           f"|err| {err:.3g}): " + rounds_text(ms)
@@ -2420,10 +2445,10 @@ def model_flash(np, torch, dev, card, name, H, KV, hd, prefill, train):
         "plain": (lambda: attention_bwd_ref(*nxt()), 5),
         "library": (lambda: torch.autograd.grad(out, leaves, dout,
                                                 retain_graph=True), 20)})
-    flops = 5 * B * H * S * S * hd            # five causal products
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (q, k, v, o, lse, do, q, k, v))
-    t_ops, t_bytes = 1e3 * flops / BF16_TC_FLOPS, 1e3 * nbytes / HBM_BPS
+    flops = kc.attention_flops(B, S, H, hd, backward=True)  # five products
+    nbytes = kc.attention_bytes(B, S, H, KV, hd, q.element_size(),
+                                backward=True)
+    t_ops, t_bytes = roof().times_ms(flops, nbytes)
     print(f"[5] flash backward at {name}'s training shape B={B} "
           f"S={S} H={H} KV={KV} hd={hd} bf16 causal (kernel == plain there,"
           f" max |err| {err:.3g}): " + rounds_text(ms)
@@ -2498,7 +2523,7 @@ def phase5_rgemma(np, torch, dev, card):
     entry without ``launches``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
-                                                rglru_scan_ref, scan_bytes)
+                                                rglru_scan_ref)
     err = {dt: 0.0 for dt in DTYPES}
     for i, (B, S, W, with_h0, gated, dt) in enumerate(rglru_cases()):
         x, rp, ip, g, lam, h0 = rglru_inputs(torch, B, S, W, dt, dev, i)
@@ -2524,8 +2549,8 @@ def phase5_rgemma(np, torch, dev, card):
     ms, clocks = event_rounds(torch, {
         "kernel": (lambda: call(rglru_scan_cuda), 20),
         "plain": (lambda: call(rglru_scan_ref), 3)}, queued=True)
-    nbytes = scan_bytes(B, S, W, 2, gated=True)
-    bound = 1e3 * nbytes / HBM_BPS
+    nbytes = roof().kernel_cost.rglru_bytes(B, S, W, 2, gated=True)
+    bound = roof().times_ms(0, nbytes)[1]
     print(f"[5] rglru scan at recurrentgemma-2b's prefill B={B} S={S} W={W} "
           f"bf16, gate fused: " + rounds_text(ms) + f"; bound {bound:.4f} ms "
           f"({nbytes / 1e6:.2f} MB; bytes); kernel at "
@@ -2670,8 +2695,7 @@ def phase5_rgemma_bwd(np, torch, dev, card):
     JSON entry without ``launches``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.rglru_scan import (
-        rglru_scan_bwd_cuda, rglru_scan_bwd_ref, rglru_scan_cuda,
-        scan_bwd_bytes)
+        rglru_scan_bwd_cuda, rglru_scan_bwd_ref, rglru_scan_cuda)
     err = {dt: 0.0 for dt in DTYPES}
     lam_rel = 0.0
     for i, case in enumerate(rglru_bwd_cases()):
@@ -2700,8 +2724,8 @@ def phase5_rgemma_bwd(np, torch, dev, card):
         torch, lambda: (lambda t: rglru_scan_bwd_cuda(
             t[0], t[1], t[2], lam, t[4], t[5], None, t[3]))(nxt()),
         20).items() for n in RGLRU_BWD_KERNELS if n in key}
-    nbytes = scan_bwd_bytes(B, S, W, 2, gated=True)
-    bound = 1e3 * nbytes / HBM_BPS
+    nbytes = roof().kernel_cost.rglru_bwd_bytes(B, S, W, 2, gated=True)
+    bound = roof().times_ms(0, nbytes)[1]
     print(f"[5] rglru backward at recurrentgemma-2b's training shape B={B} "
           f"S={S} W={W} bf16, gated, h_last unused: " + rounds_text(ms)
           + "; per launch (profiler) " + ", ".join(
@@ -3063,7 +3087,7 @@ def moe_split(np, torch, model, cfg, a, tag, card):
         parts = sum(v for k, v in ms.items() if k != "moe_apply")
         flops = 6 * E * cap * D * f
         nbytes = 3 * E * D * f * 2
-        bound = 1e3 * max(flops / BF16_TC_FLOPS, nbytes / HBM_BPS)
+        bound = max(roof().times_ms(flops, nbytes))
         print(f"[{tag}] {cfg.name} MoE layer 0 at the {what} (T {T}, "
               f"capacity {cap} of {E} experts, top {cfg.n_experts_per_token}"
               f", bf16), device ms by queued events: "
@@ -4863,6 +4887,121 @@ def phase19(np, torch, dev, card):
     return paths, ticks
 
 
+def roof_inputs(torch, dev, cfg, shape, args, seed=20):
+    """Real inputs on ``dev`` for :func:`dryrun_inputs`' records at
+    ``shape``: seeded random parameters (the reference's init law),
+    AdamW's zero state, uniform random tokens; a zero cache holding
+    ``seq_len − 1`` tokens."""
+    from repro_torch.models import init_cache, model_defs
+    from repro_torch.models.params import init_params, torch_dtype
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(model_defs(cfg), generator=gen, device=dev,
+                         dtype=torch_dtype(cfg.param_dtype))
+    batch = {k: (torch.randint(0, cfg.vocab_size, a.shape, generator=gen,
+                               device=dev, dtype=a.dtype)
+                 if k == "tokens" else
+                 torch.randn(a.shape, generator=gen, device=dev).to(a.dtype))
+             for k, a in args[-1].items()}
+    if shape.kind == "train":
+        return params, adamw(1e-4).init(params), batch
+    if shape.kind == "prefill":
+        return params, batch
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, dev)
+    cache["length"] = shape.seq_len - 1
+    return params, cache, batch
+
+
+def phase20(np, torch, dev, card):
+    """The roofline on the card (see the module docstring, 20).  Returns
+    (the model kernels' launches, the tick's launches)."""
+    from repro_torch.bench.roofline_bench import sweep_tick_row
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import psp_tick as pt
+    from repro_torch.launch.dryrun import tensor_bytes, count_step
+    from repro_torch.launch.steps import dryrun_inputs, meta_inputs
+    from repro_torch.models.params import per_device_bytes
+    from repro_torch.roofline import model_flops, roofline_report
+    paths = []
+    for arch, shape_name, batch, reps in ROOF_COMBOS:
+        cfg = get_config(arch)
+        full = INPUT_SHAPES[shape_name]
+        shape = dataclasses.replace(full, global_batch=batch)
+        args, step_ref, _ = dryrun_inputs(cfg, shape, None, impl="ref")
+        cost, out, count_s = count_step(step_ref, meta_inputs(args, shape))
+        rep = roofline_report({"flops": cost.flops,
+                               "bytes accessed": cost.bytes_min},
+                              model_flops_total=model_flops(cfg, shape))
+        arg_bytes, out_bytes = per_device_bytes(args), tensor_bytes(out)
+        _, step, _ = dryrun_inputs(cfg, shape, None, impl="cuda")
+        real = roof_inputs(torch, dev, cfg, shape, args)
+        step(*real)                                   # warm-up
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts(torch)
+        times = []
+        for _ in range(reps):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            res = step(*real)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1) / 1e3)
+            del res
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = launch_counts()
+        paths.append(counts)
+        best = min(times)
+        share = max(rep.compute_s, rep.memory_s) / best
+        want = {k: reps * int(v["calls"]) for k, v in cost.kernels.items()}
+        got = {k: n for k, n in counts.items() if n}
+        print(f"[20] {arch} {shape_name} at B {batch} of {full.global_batch}"
+              f" (S {shape.seq_len}, {cfg.n_layers} layers, full width; "
+              f"counted on meta in {count_s:.1f} s on the host): flops "
+              f"{cost.flops:.4e}, bytes {cost.bytes_min:.4e} (naive "
+              f"{cost.bytes:.4e}); compute {1e3 * rep.compute_s:.4f} ms, "
+              f"memory {1e3 * rep.memory_s:.4f} ms, {rep.bottleneck}-bound;"
+              f" measured best {1e3 * best:.4f} ms, mean "
+              f"{1e3 * sum(times) / reps:.4f} ms over {reps} (CUDA events);"
+              f" share {share:.4f}; useful ratio {rep.useful_ratio:.4f}; "
+              f"peak {peak / 1e9:.3f} GB against arguments "
+              f"{arg_bytes / 1e9:.3f} GB + outputs {out_bytes / 1e9:.3f} GB;"
+              f" launches {got} against {reps} x the count's calls "
+              f"{ {k: int(v['calls']) for k, v in cost.kernels.items()} } "
+              f"[{card}]", flush=True)
+        if share > ROOF_SHARE_MAX:
+            raise AssertionError(f"{arch} {shape_name}: the step ran at "
+                                 f"{share:.4f} of its roofline: the count "
+                                 "left work out")
+        if peak < arg_bytes:
+            raise AssertionError(f"{arch} {shape_name}: peak {peak} below "
+                                 f"the argument bytes {arg_bytes}")
+        if got != want:
+            raise AssertionError(f"{arch} {shape_name}: launches {got} "
+                                 f"against the count's {want}")
+        del real
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    pt.reset_launch_count()
+    for kw in ROOF_TICK_ROWS:
+        row = sweep_tick_row(device=dev, **kw)
+        print(f"[20] sweep tick {row['shape']}: flops/tick "
+              f"{row['flops_per_tick']:.4e}, bytes/tick "
+              f"{row['bytes_per_tick']:.4e}; roofline "
+              f"{1e3 * row['roofline_s']:.4f} ms ({row['bottleneck']}) "
+              f"against a measured sweep of {1e3 * row['measured_s']:.4f} ms"
+              f" ({row['measured_tick_us']:.3f} us a tick, CUDA events): "
+              f"share {row['useful_ratio']:.4f} [{card}]", flush=True)
+        if row["useful_ratio"] > ROOF_SHARE_MAX:
+            raise AssertionError(f"sweep tick {row['shape']}: share "
+                                 f"{row['useful_ratio']:.4f}")
+    return paths, pt.launch_count()
+
+
 def main() -> int:
     """Run every phase (see the module docstring); 0 when all passed."""
     try:
@@ -4921,7 +5060,8 @@ def main() -> int:
 
     tt = time_tick(np, torch, pt, dev, st, shapes, prm, ln, jn, kw)
     ms_kernel, ms_plain, bound = tt["ms"], tt["plain_ms"], tt["bound_ms"]
-    nbytes, flops = tt["bytes"], tt["flops"]
+    t_ops, t_bytes = roof().times_ms(tt["flops"], tt["bytes"][True],
+                                     f32=True)
     print_tick_time("[2] paper-shape tick", tt, B * P, card)
     for case in LONG_CASES:
         check_tick_case(np, torch, pt, dev, case, *TICK_LONG, n_ticks=3)
@@ -5105,6 +5245,16 @@ def main() -> int:
     paths += more
     launches += example_ticks
     print(f"[19] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 20. the roofline on the card -------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[20] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    more, roof_ticks = phase20(np, torch, dev, card)
+    paths += more
+    launches += roof_ticks
+    print(f"[20] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 
@@ -5114,8 +5264,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/psp_tick.py:862",
         "launches": launches, "max_abs_err": err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound, "bound_by":
-            "bytes" if nbytes[True] / HBM_BPS >= flops / F32_FLOPS
-            else "operations",
+            "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None}, *entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -539,7 +539,7 @@ def rglru_times(torch, cs, dev, card, rg, libs, nbytes=None):
         if decode:
             continue
         if nbytes is not None:
-            print("  bound " + f"{1e3 * nbytes / cs.HBM_BPS:.4f} ms "
+            print("  bound " + f"{cs.roof().times_ms(0, nbytes)[1]:.4f} ms "
                   f"({nbytes / 1e6:.2f} MB); " + ", ".join(
                       f"{tag} {nbytes / v[0] / 1e6:.1f} GB/s"
                       for tag, v in ms.items()), flush=True)
@@ -622,7 +622,7 @@ def rglru_bwd_times(torch, cs, dev, card, rg, libs, nbytes=None):
           "computes it)] " + cs.rounds_text(ms) + f"; SM clock {clocks}; "
           f"inputs rotated over {n_sets} copies [{card}]", flush=True)
     if nbytes is not None:
-        print("  bound " + f"{1e3 * nbytes / cs.HBM_BPS:.4f} ms "
+        print("  bound " + f"{cs.roof().times_ms(0, nbytes)[1]:.4f} ms "
               f"({nbytes / 1e6:.2f} MB); " + ", ".join(
                   f"{tag} {nbytes / v[0] / 1e6:.1f} GB/s"
                   for tag, v in ms.items()), flush=True)

@@ -15,8 +15,11 @@
 * :mod:`repro_torch.bench.chaos_bench` — recovery and goodput of the
   cluster under a fault plan, and serving under publish faults and a
   decode-worker death
+* :mod:`repro_torch.bench.roofline_bench` — the dry run's roofline
+  table and the sweep tick's roofline row
 * :mod:`repro_torch.bench.run` — the ``name,us_per_call,derived`` CSV
-  harness over the figures and the sweep and churn benchmarks
+  harness over the figures, the sweep and churn benchmarks and the
+  roofline step
 """
 from __future__ import annotations
 

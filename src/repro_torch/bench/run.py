@@ -17,7 +17,12 @@ or on ``--device``'s device, whatever the backend.
 
 ``--full`` runs the paper's setting (1000 nodes, 40 s, β = 1 %); the
 default is a reduced scale of the same structure.  An unknown
-``--only`` name raises.
+``--only`` name raises.  After the benchmarks (or alone with ``--only
+roofline``; ``--skip-roofline`` leaves it out) the roofline step writes
+``roofline.json``: the ``card`` rows of the dry run's records
+(:mod:`repro_torch.bench.roofline_bench`; run
+``python -m repro_torch.launch.dryrun --mesh card`` first) and the sweep
+tick's row on ``--device``'s device.
 """
 from __future__ import annotations
 
@@ -27,9 +32,10 @@ import os
 import time
 from pathlib import Path
 
-from repro_torch.bench import churn_bench, fig45_bounds, figures, sweep_bench
+from repro_torch.bench import (churn_bench, fig45_bounds, figures,
+                               roofline_bench, sweep_bench)
 
-__all__ = ["BENCHES", "OUT_DIR", "main"]
+__all__ = ["BENCHES", "OUT_DIR", "main", "roofline"]
 
 OUT_DIR = str(Path(__file__).resolve().parents[3] / "results"
               / "benchmarks_torch")
@@ -129,8 +135,10 @@ def main(argv=None) -> None:
                          "(default: cuda)")
     ap.add_argument("--out-dir", default=OUT_DIR,
                     help="where each benchmark's JSON goes")
+    ap.add_argument("--skip-roofline", action="store_true",
+                    help="leave out the roofline step")
     a = ap.parse_args(argv)
-    names = [name for name, _, _ in BENCHES]
+    names = [name for name, _, _ in BENCHES] + ["roofline"]
     if a.only is not None and a.only not in names:
         raise SystemExit(f"unknown benchmark {a.only!r}; choose from "
                          + ", ".join(names))
@@ -147,6 +155,30 @@ def main(argv=None) -> None:
         with open(os.path.join(a.out_dir, name + ".json"), "w") as f:
             json.dump(res, f)
         print(f"{name},{us:.0f},{derive(res)}", flush=True)
+    if not a.skip_roofline and a.only in (None, "roofline"):
+        roofline(a.out_dir, a.device)
+
+
+def roofline(out_dir: str, device=None) -> list:
+    """The roofline step: the dry run's ``card`` rows and the sweep
+    tick's row, written to ``roofline.json``; prints the CSV line."""
+    t0 = time.perf_counter()
+    rows = roofline_bench.table("card")
+    if not rows:
+        print("note: no dry-run records (run repro_torch.launch.dryrun "
+              "--mesh card); the roofline table holds the sweep-tick row "
+              "only")
+    rows.append(roofline_bench.sweep_tick_row(device=device))
+    with open(os.path.join(out_dir, "roofline.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    counts = {}
+    for r in rows:
+        if r["status"] == "ok":
+            counts[r["bottleneck"]] = counts.get(r["bottleneck"], 0) + 1
+    us = (time.perf_counter() - t0) * 1e6
+    print(f"roofline,{us:.0f},combos={sum(counts.values())} "
+          f"bottlenecks={counts}", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

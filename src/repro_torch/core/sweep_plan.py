@@ -18,7 +18,8 @@ inputs.  The two free parameters:
 Rows pad up to a multiple of
 :data:`~repro_torch.kernels.psp_tick.DATA_PLANE_BLOCK`; padded rows carry
 a negative horizon and never tick.  The multi-device mesh
-(``resolve_mesh`` / ``parse_mesh`` in the reference) is not ported yet.
+(``parse_mesh``, ``_node_axis_size`` and ``resolve_mesh`` in the
+reference) belongs to the mesh slice, ROADMAP queue 1, item 15b.
 
 Env overrides: ``PSP_TRACE_STRIDE`` forces the record stride (snapped to
 an admissible divisor), ``PSP_SWEEP_CHUNK`` a uniform chunk length.

@@ -7,17 +7,20 @@ order), so both packages see the same tokens; the batches come out as
 int32 tensors on the requested device.  The transition table is
 ``vocab²`` float32 on the host, so only small vocabularies are
 practical (the reference trains ``--reduced``, vocab 512).
-``make_batch_specs`` (dry-run tooling) is not ported.
+:func:`make_batch_specs` gives the dry run's batch as
+:class:`~repro_torch.models.params.Abstract` records (no allocation).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["SyntheticLM"]
+from repro_torch.models.params import abstract
+
+__all__ = ["SyntheticLM", "make_batch_specs"]
 
 
 @dataclasses.dataclass
@@ -57,3 +60,27 @@ class SyntheticLM:
         while True:
             toks = np.stack([self._sample_seq() for _ in range(self.batch)])
             yield {"tokens": torch.from_numpy(toks).to(self.device)}
+
+
+def make_batch_specs(cfg, shape, rules=None,
+                     kind: Optional[str] = None) -> Dict:
+    """The dry run's batch for (arch cfg, InputShape), as
+    :class:`~repro_torch.models.params.Abstract` records with specs
+    under ``rules``.
+
+    train/prefill: ``{"tokens": int32 (B, S − F)[, "embeds": bf16 (B, F,
+    D)]}``, F the config's frontend rows; decode: ``{"tokens": int32 (B,
+    1)}`` (the cache comes from ``models.cache_defs``).
+    """
+    kind = kind or shape.kind
+    B = shape.global_batch
+    if kind == "decode":
+        return {"tokens": abstract((B, 1), torch.int32, ("batch", None),
+                                   rules)}
+    F = cfg.frontend_tokens
+    batch = {"tokens": abstract((B, shape.seq_len - F), torch.int32,
+                                ("batch", None), rules)}
+    if F:
+        batch["embeds"] = abstract((B, F, cfg.d_model), torch.bfloat16,
+                                   ("batch", None, None), rules)
+    return batch

@@ -31,6 +31,11 @@ backward is the backward kernel (``flash_attention_bwd_cuda``,
 ``rmsnorm_bwd_cuda``, ``ssd_bwd_cuda``, ``rglru_scan_bwd_cuda``) or its
 plain version, chosen by the same rule.  Otherwise (serving) they are
 the forward alone, as before.  ``round_scale=False`` has no backward.
+
+Under a :class:`~repro_torch.roofline.dispatch_cost.DispatchCost` each
+of them (and each backward) charges its kernel's formula
+(:mod:`repro_torch.roofline.kernel_cost`) and nothing of what runs
+inside, kernel or plain version alike.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  attention_ref,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
-from repro_torch.kernels.psp_tick import psp_tick_cuda, psp_tick_ref
+from repro_torch.kernels.psp_tick import (psp_tick_cuda, psp_tick_ref,
+                                          tick_bytes)
 from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda,
                                             rglru_scan_bwd_ref,
                                             rglru_scan_cuda, rglru_scan_ref)
@@ -50,6 +56,8 @@ from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
                                           ssd_cuda, ssd_ref)
+from repro_torch.roofline import kernel_cost as kc
+from repro_torch.roofline.dispatch_cost import kernel_region
 
 __all__ = ["IMPLS", "attention", "psp_tick", "rglru_scan", "rmsnorm", "ssd",
            "use_kernel"]
@@ -83,8 +91,21 @@ def psp_tick(state, rand, params, t, leave_n, join_n, *, k_max: int,
     """
     fn = (psp_tick_cuda if use_kernel(impl, state["steps"].device)
           else psp_tick_ref)
-    return fn(state, rand, params, t, leave_n, join_n, k_max=k_max,
-              has_churn=has_churn, masked=masked, adaptive=adaptive)
+    with kernel_region("psp_tick") as cost:
+        if cost is not None:        # the count depends on the tick's data
+            n_cand = int(((~state["computing"])
+                          & params["sampled"][:, None]).sum())
+        new, out = fn(state, rand, params, t, leave_n, join_n, k_max=k_max,
+                      has_churn=has_churn, masked=masked, adaptive=adaptive)
+        if cost is not None:
+            P = state["steps"].shape[1]
+            m, d = rand["X"].shape[1], rand["X"].shape[2]
+            cost.charge("psp_tick", kc.tick_flops(
+                int(out["fin"].sum()), n_cand, m, d, P, k_max=k_max,
+                masked=masked), sum(tick_bytes(
+                    state, rand, params, out["fin"], out["start"],
+                    in_place=True)))
+    return new, out
 
 
 def _records(*xs: torch.Tensor) -> bool:
@@ -107,8 +128,21 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         fn = flash_attention_bwd_cuda if ctx.kernel else attention_bwd_ref
-        dq, dk, dv = fn(*ctx.saved_tensors, do, **ctx.kw)
+        saved = ctx.saved_tensors
+        with kernel_region("flash_attention_bwd", *_attention_cost(
+                saved[0], saved[1], ctx.kw, backward=True)):
+            dq, dk, dv = fn(*saved, do, **ctx.kw)
         return dq, dk, dv, None, None, None, None
+
+
+def _attention_cost(q, k, kw, lse=False, backward=False):
+    """(FLOPs, bytes) of one attention call on q (B, S, H, hd), k (B, S,
+    KV, hd) under ``kw``'s mask."""
+    B, S, H, hd = q.shape
+    return (kc.attention_flops(B, S, H, hd, causal=kw["causal"],
+                               window=kw["window"], backward=backward),
+            kc.attention_bytes(B, S, H, k.shape[2], hd, q.element_size(),
+                               lse=lse, backward=backward))
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -128,7 +162,9 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, w, m = ctx.saved_tensors
         fn = rmsnorm_bwd_cuda if ctx.kernel else rmsnorm_bwd_ref
-        dx, dw = fn(x, w, g, m)
+        with kernel_region("rmsnorm_bwd", 0, kc.rmsnorm_bytes(
+                m.numel(), x.shape[-1], x.element_size(), backward=True)):
+            dx, dw = fn(x, w, g, m)
         return dx, dw.to(w.dtype), None, None
 
 
@@ -153,8 +189,15 @@ class _SSD(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros_like(x)
         fn = ssd_bwd_cuda if ctx.kernel else ssd_bwd_ref
-        dx, ddt, dA, dB, dC = fn(x, dt, A, Bm, Cm, dy, cum, st, dh,
-                                 ctx.chunk)
+        B, S, nh, hd = x.shape
+        ng, N = Bm.shape[2:]
+        with kernel_region(
+                "ssd_scan_bwd",
+                kc.ssd_bwd_flops(B, S, nh, ng, hd, N, ctx.chunk),
+                kc.ssd_bwd_bytes(B, S, nh, ng, hd, N, x.element_size(),
+                                 False, ctx.chunk, dh is not None)):
+            dx, ddt, dA, dB, dC = fn(x, dt, A, Bm, Cm, dy, cum, st, dh,
+                                     ctx.chunk)
         return dx, ddt, dA.to(A.dtype), dB, dC, None, None
 
 
@@ -183,12 +226,16 @@ class _RGLRU(torch.autograd.Function):
         x, r_pre, i_pre, lam, h0, gate, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if ctx.kernel:
-            dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_cuda(
-                x, r_pre, i_pre, lam, dy.contiguous(), states, h0, gate, dh)
-        else:
-            dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_ref(
-                x, r_pre, i_pre, lam, dy, h0, gate, dh)
+        with kernel_region("rglru_scan_bwd", 0, kc.rglru_bwd_bytes(
+                *x.shape, x.element_size(), gate is not None,
+                h0 is not None)):
+            if ctx.kernel:
+                dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_cuda(
+                    x, r_pre, i_pre, lam, dy.contiguous(), states, h0,
+                    gate, dh)
+            else:
+                dx, dr, di, dlam, dh0, dgate = rglru_scan_bwd_ref(
+                    x, r_pre, i_pre, lam, dy, h0, gate, dh)
         return dx, dr, di, dlam.to(lam.dtype), dh0, dgate, None
 
 
@@ -201,10 +248,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :mod:`repro_torch.kernels.flash_attention`); differentiable when
     autograd records."""
     kernel = use_kernel(impl, q.device)
-    if _records(q, k, v):
-        return _Attention.apply(q, k, v, causal, window, softcap, kernel)
-    fn = flash_attention_cuda if kernel else attention_ref
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+    train = _records(q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    with kernel_region("flash_attention",
+                       *_attention_cost(q, k, kw, lse=train)):
+        if train:
+            return _Attention.apply(q, k, v, causal, window, softcap,
+                                    kernel)
+        fn = flash_attention_cuda if kernel else attention_ref
+        return fn(q, k, v, **kw)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -214,14 +266,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     :mod:`repro_torch.kernels.rmsnorm`); the ``round_scale=True`` form is
     differentiable when autograd records."""
     kernel = use_kernel(impl, x.device)
-    if _records(x, w):
-        if not round_scale:
-            raise NotImplementedError("rmsnorm(round_scale=False) has no "
-                                      "backward (the reference model's VJP "
-                                      "is the round_scale=True form's)")
-        return _RMSNorm.apply(x, w, eps, kernel)
-    fn = rmsnorm_cuda if kernel else rmsnorm_ref
-    return fn(x, w, eps, round_scale)
+    train = _records(x, w)
+    if train and not round_scale:
+        raise NotImplementedError("rmsnorm(round_scale=False) has no "
+                                  "backward (the reference model's VJP "
+                                  "is the round_scale=True form's)")
+    D = x.shape[-1]
+    with kernel_region("rmsnorm", 0, kc.rmsnorm_bytes(
+            x.numel() // max(D, 1), D, x.element_size(), w.element_size(),
+            m=train)):
+        if train:
+            return _RMSNorm.apply(x, w, eps, kernel)
+        fn = rmsnorm_cuda if kernel else rmsnorm_ref
+        return fn(x, w, eps, round_scale)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -233,10 +290,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``S % min(chunk, S) == 0`` (see :mod:`repro_torch.kernels.ssd_scan`);
     differentiable when autograd records."""
     kernel = use_kernel(impl, x.device)
-    if _records(x, dt, A, Bm, Cm):
-        return _SSD.apply(x, dt, A, Bm, Cm, chunk, kernel)
-    fn = ssd_cuda if kernel else ssd_ref
-    return fn(x, dt, A, Bm, Cm, chunk)
+    train = _records(x, dt, A, Bm, Cm)
+    B, S, nh, hd = x.shape
+    ng, N = Bm.shape[2:]
+    with kernel_region(
+            "ssd_scan", kc.ssd_flops(B, S, nh, ng, hd, N, chunk),
+            kc.ssd_bytes(B, S, nh, ng, hd, N, x.element_size(),
+                         states=train, chunk=chunk)):
+        if train:
+            return _SSD.apply(x, dt, A, Bm, Cm, chunk, kernel)
+        fn = ssd_cuda if kernel else ssd_ref
+        return fn(x, dt, A, Bm, Cm, chunk)
 
 
 def rglru_scan(x: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
@@ -249,8 +313,10 @@ def rglru_scan(x: torch.Tensor, r_pre: torch.Tensor, i_pre: torch.Tensor,
     :mod:`repro_torch.kernels.rglru_scan`); differentiable when autograd
     records."""
     kernel = use_kernel(impl, x.device)
-    if _records(*(t for t in (x, r_pre, i_pre, lam, h0, gate)
-                  if t is not None)):
-        return _RGLRU.apply(x, r_pre, i_pre, lam, h0, gate, kernel)
-    fn = rglru_scan_cuda if kernel else rglru_scan_ref
-    return fn(x, r_pre, i_pre, lam, h0, gate)
+    with kernel_region("rglru_scan", 0, kc.rglru_bytes(
+            *x.shape, x.element_size(), gate is not None, h0 is not None)):
+        if _records(*(t for t in (x, r_pre, i_pre, lam, h0, gate)
+                      if t is not None)):
+            return _RGLRU.apply(x, r_pre, i_pre, lam, h0, gate, kernel)
+        fn = rglru_scan_cuda if kernel else rglru_scan_ref
+        return fn(x, r_pre, i_pre, lam, h0, gate)

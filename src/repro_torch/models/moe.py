@@ -3,7 +3,7 @@
 The port's counterpart of :mod:`repro.models.moe`, on one device: the
 reference's unsharded path (``moe_apply`` without a mesh), every expert
 local (``first_expert = 0``).  Its expert-parallel ``shard_map`` belongs
-to the multi-device slice (ROADMAP queue 1, item 15).
+to the mesh slice (ROADMAP queue 1, item 15b).
 
 Each step reproduces the reference's, since which tokens are dropped
 changes the outputs:

@@ -9,17 +9,25 @@ are not those of ``jax.random`` (no generator of one framework replays
 the other's); to run both packages on the same weights, carry the
 reference's arrays across with :func:`repro_torch.convert.params_from_jax`.
 
-The logical axes are kept for the sharding slice; one device ignores
+The same description gives the dry run its stand-ins without
+allocating anything: :func:`abstract_params` (one :class:`Abstract`
+record per leaf: shape, dtype, and the spec and per-device shape under a
+rules table), :func:`spec_tree` and :func:`tree_size_bytes`, with
+:func:`per_device_bytes` over such records.  The logical axes are read
+by :mod:`repro_torch.parallel.sharding`; running on one device ignores
 them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamDef", "init_params", "torch_dtype"]
+__all__ = ["Abstract", "ParamDef", "abstract", "abstract_params",
+           "init_params", "map_defs", "per_device_bytes", "spec_tree",
+           "to_meta", "torch_dtype", "tree_size_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +77,103 @@ def init_params(defs: Any, *, generator: Optional[torch.Generator] = None,
     in order) from ``generator``, which must live on ``device``; on the
     ``meta`` device nothing is drawn or allocated.
     """
-    def build(node):
-        if isinstance(node, ParamDef):
-            return _one(node, dtype, device, generator)
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return [build(n) for n in node]
-    return build(defs)
+    return map_defs(lambda d: _one(d, dtype, device, generator), defs)
+
+
+def map_defs(fn: Callable[[ParamDef], Any], defs: Any) -> Any:
+    """``fn`` applied to every :class:`ParamDef` of ``defs`` (dicts in
+    sorted key order, as :func:`init_params` builds them; lists in
+    order)."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: map_defs(fn, defs[k]) for k in sorted(defs)}
+    return [map_defs(fn, d) for d in defs]
+
+
+@dataclasses.dataclass(frozen=True)
+class Abstract:
+    """A leaf the dry run does not allocate: its shape and dtype, and
+    under a rules table its spec and per-device shape (without rules:
+    no spec, the whole shape)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Optional[Tuple] = None
+    shard: Optional[Tuple[int, ...]] = None
+
+    @property
+    def shard_bytes(self) -> int:
+        """Bytes of one device's shard."""
+        return math.prod(self.shard or self.shape) * self.dtype.itemsize
+
+    def meta(self) -> torch.Tensor:
+        """A ``meta`` tensor of this shape and dtype (no storage)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def abstract(shape, dtype: torch.dtype, axes, rules=None) -> Abstract:
+    """One :class:`Abstract` of ``shape`` and ``dtype`` with logical
+    ``axes``, resolved by ``rules`` where given."""
+    from repro_torch.parallel.sharding import shard_shape
+    shape = tuple(int(n) for n in shape)
+    if rules is None:
+        return Abstract(shape, dtype)
+    spec = rules.spec(axes, shape)
+    shard = (shape if rules.mesh is None
+             else shard_shape(spec, shape, rules.mesh))
+    return Abstract(shape, dtype, spec, shard)
+
+
+def abstract_params(defs: Any, dtype: torch.dtype = torch.float32,
+                    rules=None) -> Any:
+    """The :class:`Abstract` tree of ``defs`` (each leaf in its own dtype
+    where the def names one, else ``dtype``), with specs and shard shapes
+    when ``rules`` (:class:`~repro_torch.parallel.sharding.AxisRules`)
+    are given."""
+    return map_defs(lambda d: abstract(
+        d.shape, torch_dtype(d.dtype) if d.dtype else dtype, d.axes, rules),
+        defs)
+
+
+def spec_tree(defs: Any, rules) -> Any:
+    """Each def's spec under ``rules``, in the defs' structure."""
+    return map_defs(lambda d: rules.spec(d.axes, d.shape), defs)
+
+
+def tree_size_bytes(defs: Any, bytes_per_el: int = 4) -> int:
+    """Total parameter bytes of a ParamDef tree at ``bytes_per_el``
+    bytes an element (for memory napkin math)."""
+    total = []
+    map_defs(lambda d: total.append(math.prod(d.shape) * bytes_per_el),
+             defs)
+    return sum(total)
+
+
+def _abstract_leaves(tree: Any):
+    if isinstance(tree, Abstract):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _abstract_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _abstract_leaves(v)
+
+
+def per_device_bytes(tree: Any) -> int:
+    """Bytes one device holds of an :class:`Abstract` tree, from the
+    shard shapes."""
+    return sum(a.shard_bytes for a in _abstract_leaves(tree))
+
+
+def to_meta(tree: Any) -> Any:
+    """An :class:`Abstract` tree as ``meta`` tensors of the same
+    structure (other leaves unchanged)."""
+    if isinstance(tree, Abstract):
+        return tree.meta()
+    if isinstance(tree, dict):
+        return {k: to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_meta(v) for v in tree)
+    return tree
