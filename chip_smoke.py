@@ -91,7 +91,7 @@ Phases (any failure exits non-zero before the final line):
    decode step, flash never; the same teacher-forced checks.
 8. PSP training of qwen2-0.5b at full width, its depth cut to
    ``TRAIN_LAYERS`` = 6 of 24 layers (12 before phase 17 came;
-   225,609,856 f32 params, bf16 compute; phase 9 trains 12), built
+   225,609,856 f32 params, bf16 compute; phase 9 trains as many), built
    from the library calls ``repro_torch.launch.train``
    makes (``init_model``, ``adamw(warmup_cosine(3e-3, 2, 16))``,
    ``psp_init``, ``make_psp_train_step``): W 4, ``pbsp``, β 2, s 3,
@@ -181,7 +181,8 @@ Phases (any failure exits non-zero before the final line):
     20 s) on the card and on the numpy backend: mean progress within
     0.2·p + 1 and final error within a factor of two, row by row.  (c)
     ``bench.sweep_bench`` at its default scale with its horizon cut to
-    ``SWEEP_BENCH_DURATION`` = 5 s (20 before phase 19 came) (the Fig 2
+    ``SWEEP_BENCH_DURATION`` = 2.5 s (5 before phase 21 came, 20 before
+    phase 19) (the Fig 2
     matrix of nine barriers × five fractions, P 100, d 32, through the
     event
     engine, numpy, the plain tick and the kernel, and the 100,000-node
@@ -362,6 +363,32 @@ Phases (any failure exits non-zero before the final line):
     reference's default shape and at the paper's (B 32, P 1000, d 1000,
     m 8, β 10): the tick's roofline time over the measured sweep at most
     1.05.
+21. The device mesh over ``torch.distributed`` (``phase21``).  (a) A
+    one-rank NCCL group in this process (``file://`` rendezvous): phase
+    4's 5 s configs through ``run_sweep(..., mesh=(1, 1))``, every
+    collective called (the server models gathered over ``rows`` each
+    supertick, the traces at the end): steps, errors, server updates,
+    total updates and control messages bit for bit phase 4's ``cuda``
+    run, the tick's launches equal to the ticks.  (b) ``DIST_RANKS``
+    gloo ranks sharing the card, spawned children
+    (``repro_torch.launch.mesh.spawn_host_world``): which calls gloo
+    takes on CUDA tensors (it must take every call the collectives
+    make); the same sweep on the meshes (1, 2) (node-sharded: the
+    gathered CUDA tick) and (2, 1), each rank's traces bit for bit
+    (a)'s and its tick launches equal to the ticks; qwen2-0.5b at full
+    width cut to 2 layers trained under PSP with one worker a rank (W 2,
+    ``pbsp``, β 1, 3 ticks of 2 × 512 tokens), its state, views and
+    metrics bit for bit those of the same run on one rank in the same
+    child; qwen3-moe-30b-a3b at full width cut to 1 layer, its experts
+    split over ``model`` 2 (64 a rank, placed by the rules through
+    ``convert.expert_slice``), a bf16 prefill of 2 × 256 tokens
+    replaying the one-device run's recorded routing: the MoE layer's y
+    within ``DIST_MOE_Y_TOL`` (2⁻⁶) of max |y| and the logits within
+    ``DIST_MOE_TOL`` (5e-2) of max |logit| of the one-device path's, the
+    ranks' kept (token, choice) pairs disjoint and together the
+    one-device path's; then with the sum over ``model`` left out (a
+    planted fault), where y must fail its bound.  Printed: each part's seconds, the world and
+    backend, each rank's collective calls and launches.
 
 Phase 5 also holds the three backward kernels (flash attention's,
 RMSNorm's and the SSD scan's) against their plain versions: flash over
@@ -445,7 +472,8 @@ server and trainer, the resumed runs, phase 13's figures, bench and
 100k pair, phase 14's four serving runs and training run, phase 15's
 two serving runs, phase 16's training run, phase 17's and phase 18's
 two serving runs and training run each, phase 19's serving runs and
-examples, and phase 20's steps and sweeps), error and times, the
+examples, phase 20's steps and sweeps, and phase 21's sweeps, training
+and prefill on every rank), error and times, the
 ``nvidia-smi`` line, and the result line.  Exits non-zero without a
 result when no CUDA device is visible or the port's sources are
 missing.
@@ -648,7 +676,7 @@ DANUBE_PREFILL, DANUBE_TRAIN = (4, 6144), (2, 6144)
 #: phase 12 trains MAMBA_TRAIN_ARCH the same way; both at full width with
 #: the depth cut to TRAIN_LAYERS and MAMBA_TRAIN_LAYERS (of 24 and 48),
 #: so that the script, phase 17 included, keeps inside its time limit
-#: (phase 9 trains qwen2-0.5b at full depth); 12 layers and 24 ticks
+#: (phase 9 trains qwen2-0.5b at LOOP_LAYERS); 12 layers and 24 ticks
 #: before phase 17 came
 TRAIN_ARCH = "qwen2-0.5b"
 MAMBA_TRAIN_ARCH = "mamba2-780m"
@@ -696,7 +724,8 @@ MAMBA_ARGV = ["--arch", "mamba2-780m", "--n-layers", str(MAMBA_SERVE_LAYERS),
 LOOP_CHILD = "--loop-trainer"
 #: the loop's qwen2-0.5b at full width, its depth cut to LOOP_LAYERS of 24
 #: (whole before phase 18 came: cut so that the script keeps inside its
-#: time limit with it)
+#: time limit with it; at 6 layers the server answered its most requests
+#: before the trainer published a second version)
 LOOP_LAYERS = 12
 #: and LOOP_TICKS ticks (8 before phase 18)
 LOOP_TICKS, LOOP_PUBLISH_EVERY, LOOP_KEEP = 6, 2, 2
@@ -895,8 +924,8 @@ EXAMPLES = {
                         f"checkpoint: tick {ELASTIC_TICKS[1]}")),
 }
 #: phase 13's sweep bench at its default scale, its horizon cut from 20 s
-#: to SWEEP_BENCH_DURATION, to make room for phase 19
-SWEEP_BENCH_DURATION = 5.0
+#: to SWEEP_BENCH_DURATION, to make room for phases 19 (5 s) and 21
+SWEEP_BENCH_DURATION = 2.5
 
 #: phase 20's steps: (arch, input shape, global batch cut to, timed
 #: reps), each at full width and depth
@@ -910,6 +939,33 @@ ROOF_SHARE_MAX = 1.05
 #: the paper's (B 32, P 1000, d 1000, m 8, β 10)
 ROOF_TICK_ROWS = ({}, {"n_nodes": 1000, "dim": 1000, "rows": 32,
                        "sample_size": 10, "batch": 8})
+
+
+#: phase 21: the device mesh over torch.distributed.  (a) phase 4's 5 s
+#: sweep on the (1, 1) mesh of a one-rank NCCL group; (b) DIST_RANKS gloo
+#: ranks sharing the card (spawned children): the sweep on each of
+#: DIST_MESHES, DIST_TRAIN_ARCH at full width cut to DIST_TRAIN_LAYERS
+#: layers trained with DIST_TRAIN_W workers (one a rank) for
+#: DIST_TRAIN_TICKS ticks, and DIST_MOE_ARCH at full width cut to
+#: DIST_MOE_LAYERS layer with its experts split over model DIST_RANKS, a
+#: prefill of DIST_MOE_PROMPT (B, S) held to the one-device path on its
+#: recorded routing: the MoE layers' y within DIST_MOE_Y_TOL of max |y|
+#: (two bf16 ulps at the top of y's range: the ranks' bf16 shares are
+#: summed in another order) and the logits within DIST_MOE_TOL of max
+#: |logit| (bf16: above the floor of about 2e-2 that one ulp of the
+#: logits makes), and y's bound shown to fail with the sum over model
+#: left out; every child within DIST_WALL seconds
+DIST_RANKS = 2
+DIST_MESHES = ((1, 2), (2, 1))
+DIST_TRAIN_ARCH, DIST_TRAIN_LAYERS = "qwen2-0.5b", 2
+DIST_TRAIN_W, DIST_TRAIN_TICKS = 2, 3
+DIST_MOE_ARCH, DIST_MOE_LAYERS, DIST_MOE_PROMPT = "qwen3-moe-30b-a3b", 1, \
+    (2, 256)
+DIST_MOE_TOL, DIST_MOE_Y_TOL = 5e-2, 2 ** -6
+DIST_WALL = 600.0
+#: the sweep fields that phase 21 holds bit for bit across meshes
+SWEEP_FIELDS = ("steps", "errors", "server_updates", "total_updates",
+                "control_messages")
 
 
 def roof():
@@ -4202,7 +4258,7 @@ def phase13(np, torch, dev, card):
         t0 = time.perf_counter()
         bench = sweep_bench.sweep_speedup(device=dev)
         print(f"[13] sweep bench ({bench['n_configs']} configs, P "
-              f"{bench['n_nodes']}, {bench['duration_s']:.0f} s) in "
+              f"{bench['n_nodes']}, {bench['duration_s']:g} s) in "
               f"{time.perf_counter() - t0:.1f} s: "
               f"{sweep_bench.summary_line(bench)} [{card}]", flush=True)
         for name, row in bench["engines"].items():
@@ -5002,6 +5058,348 @@ def phase20(np, torch, dev, card):
     return paths, pt.launch_count()
 
 
+def sweep_fields(np, results):
+    """The :data:`SWEEP_FIELDS` of each sweep result, in numpy."""
+    return [{f: np.asarray(getattr(r, f)) for f in SWEEP_FIELDS}
+            for r in results]
+
+
+def same_fields(np, got, want, what):
+    """Raise unless two runs' :func:`sweep_fields` are bit for bit
+    alike."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in SWEEP_FIELDS:
+            if not np.array_equal(a[f], b[f]):
+                raise AssertionError(f"{what}: row {i}'s {f} differs")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows against {len(want)}")
+
+
+def gloo_cuda_calls(torch):
+    """Which raw ``torch.distributed`` calls the collectives use gloo
+    takes on CUDA tensors: {call: None, or the error it raised}."""
+    import torch.distributed as dist
+    x = torch.arange(4, device="cuda", dtype=torch.int32)
+    calls = {f"all_reduce {op}": (lambda op=op: dist.all_reduce(
+        x.clone(), op=getattr(dist.ReduceOp, op))) for op in
+        ("SUM", "MIN", "MAX")}
+    calls["all_reduce SUM uint8"] = lambda: dist.all_reduce(
+        x.to(torch.uint8))
+    calls["all_gather"] = lambda: dist.all_gather(
+        [torch.empty_like(x) for _ in range(dist.get_world_size())], x)
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = None
+        except Exception as e:      # noqa: BLE001 (the finding itself)
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def dist_train(np, torch, dev, mesh):
+    """Phase 21 (b)'s training: DIST_TRAIN_ARCH over ``mesh`` (its
+    ``data`` axis carrying the workers), then the same on one rank
+    (``mesh`` None) in this process; every field of the state and the
+    metrics bit for bit alike.  Returns (seconds, launches, summary)."""
+    from repro_torch.core.spmd_psp import (GeneratorNoise, PSPConfig,
+                                           local_workers, psp_init)
+    from repro_torch.launch.steps import make_psp_train_step
+    from repro_torch.models import init_model
+    from repro_torch.tree import tree_leaves
+    cfg = train_config(DIST_TRAIN_ARCH, DIST_TRAIN_LAYERS)
+    pcfg = PSPConfig(barrier="pbsp", n_workers=DIST_TRAIN_W, sample_size=1,
+                     staleness=3, straggler_frac=0.5)
+    batches = train_batches(torch, dev, cfg.vocab_size, DIST_TRAIN_TICKS,
+                            workers=DIST_TRAIN_W)
+
+    def run(m):
+        opt = psp_optimizer(DIST_TRAIN_TICKS)
+        noise = GeneratorNoise(1, dev)
+        st = psp_init(pcfg, init_model(cfg, seed=0, device=dev).tree(),
+                      opt.init, noise, mesh=m)
+        step = make_psp_train_step(cfg, pcfg, opt, noise, mesh=m)
+        metrics = []
+        for b in batches:
+            st, met = step(st, b)
+            metrics.append(met)
+        torch.cuda.synchronize()
+        return st, metrics
+
+    reset_launch_counts(torch)
+    t0 = time.perf_counter()
+    st, met = run(mesh)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    one, met1 = run(None)
+    mine = local_workers(pcfg, mesh)
+    for f in st._fields:
+        got, want = getattr(st, f), getattr(one, f)
+        if f == "views":
+            want = [v[mine] for v in tree_leaves(want)]
+            got = tree_leaves(got)
+        else:
+            got, want = tree_leaves(got), tree_leaves(want)
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"trainer over the mesh: {f} differs from "
+                                 "one rank's")
+    for a, b in zip(met, met1):
+        if any(not torch.equal(a[k], b[k]) for k in b):
+            raise AssertionError("trainer over the mesh: metrics differ")
+    return secs, counts, (f"workers {mine.start}..{mine.stop - 1}, "
+                          f"{int(st.total_pushes)} pushes, loss "
+                          f"{float(met[-1]['loss']):.4f}")
+
+
+class moe_outputs:
+    """Records each ``moe_apply`` call's y while it is entered: the MoE
+    layers' own outputs, which phase 21 (b) compares."""
+
+    def __init__(self, moe):
+        self.moe, self.ys = moe, []
+
+    def __enter__(self):
+        self.inner = self.moe.moe_apply
+
+        def record(*a, **kw):
+            y, aux = self.inner(*a, **kw)
+            self.ys.append(y.float())
+            return y, aux
+        self.moe.moe_apply = record
+        return self.ys
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.inner
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got − want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+def dist_moe(np, torch, dev, mesh, rank):
+    """Phase 21 (b)'s MoE prefill: DIST_MOE_ARCH on one device with its
+    routing recorded, then with this rank's experts only over ``mesh``
+    (placed by the rules: ``convert.expert_slice``) on that routing; the
+    MoE layers' y within DIST_MOE_Y_TOL and the logits within
+    DIST_MOE_TOL of their max, the ranks' kept (token, choice) pairs
+    disjoint and together the one-device path's.  Then once more with
+    the sum over ``model`` left out (a planted fault): y must fail its
+    bound there.  Returns (seconds, launches, the logits' and y's
+    errors, the fault's y and logits errors, dropped pairs of each
+    layer)."""
+    from repro_torch.convert import expert_slice
+    from repro_torch.models import Model, init_model, moe, prefill
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import make_rules, use_rules
+    cfg = train_config(DIST_MOE_ARCH, DIST_MOE_LAYERS)
+    model = init_model(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, DIST_MOE_PROMPT,
+                           generator=gen, device=dev)
+    with torch.no_grad(), moe.routing() as seen, moe_outputs(moe) as y1:
+        want, _ = prefill(model, tokens)
+    n = mesh.shape["model"]
+    rules = make_rules(cfg, None, mesh)
+    ep = Model(cfg, expert_slice(model.tree(), cfg, rules))
+
+    def run_ep():
+        with torch.no_grad(), use_rules(rules), \
+                moe.routing(seen) as seen_ep, moe_outputs(moe) as ys:
+            got, _ = prefill(ep, tokens)
+        return got, ys, seen_ep
+
+    reset_launch_counts(torch)
+    t0 = time.perf_counter()
+    got, ys, seen_ep = run_ep()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    err = rel_err(torch, got, want)
+    y_err = max(rel_err(torch, a, b) for a, b in zip(ys, y1))
+    if not torch.isfinite(got).all() or err > DIST_MOE_TOL \
+            or y_err > DIST_MOE_Y_TOL or len(ys) != len(y1):
+        raise AssertionError(f"expert-parallel logits off by {err:.4g} of "
+                             f"max |logit| (bound {DIST_MOE_TOL}), y by "
+                             f"{y_err:.4g} of max |y| (bound "
+                             f"{DIST_MOE_Y_TOL})")
+    # the planted fault: each rank keeps its own experts' share of y
+    moe._SumOver.apply = lambda t, axis: t
+    try:
+        bad, bad_ys, _ = run_ep()
+    finally:
+        del moe._SumOver.apply      # back to torch.autograd.Function's
+    fault = (max(rel_err(torch, a, b) for a, b in zip(bad_ys, y1)),
+             rel_err(torch, bad, want))
+    if fault[0] <= DIST_MOE_Y_TOL:
+        raise AssertionError(f"y's bound {DIST_MOE_Y_TOL} misses a missing "
+                             f"sum over model (y off by {fault[0]:.4g})")
+    model_axis = collectives.mesh_axis(mesh, "model")
+    e_loc = cfg.n_experts // n
+    dropped = []
+    for top_i in seen:
+        T = top_i.shape[0]
+        dummy = torch.zeros((T, 1), device=dev)
+        cap = moe.capacity(T, cfg)
+        ok1 = moe.dispatch(dummy, top_i, cap, cfg.n_experts)[2]
+        mine = moe.dispatch(dummy, top_i, cap, cfg.n_experts,
+                            rank * e_loc, e_loc)[2]
+        every = collectives.all_gather(mine[None], model_axis, 0)
+        if not (torch.equal(every.any(0), ok1)
+                and int(every.sum(0).max()) <= 1):
+            raise AssertionError("the ranks' kept tokens are not the "
+                                 "one-device path's")
+        dropped.append(int((~ok1).sum()))
+    if len(seen_ep) != len(seen):
+        raise AssertionError("the expert-parallel prefill routed "
+                             f"{len(seen_ep)} times, not {len(seen)}")
+    return secs, counts, (err, y_err), fault, dropped
+
+
+def dist_rank(short, meshes):
+    """One rank of phase 21 (b), a spawned child sharing the card: which
+    calls gloo takes on CUDA tensors, the sweep of ``short`` on each of
+    ``meshes``, the training and the MoE prefill.  Returns its findings
+    and launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import run_sweep
+    from repro_torch.kernels import psp_tick as pt
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "gloo_cuda": gloo_cuda_calls(torch),
+           "sweeps": {}}
+    os.environ.pop("PSP_TICK_IMPL", None)
+    for mesh in meshes:
+        collectives.reset_call_counts()
+        torch.cuda.synchronize()
+        pt.reset_launch_count()
+        t0 = time.perf_counter()
+        res = run_sweep(short, device=dev, mesh=mesh)
+        out["sweeps"][mesh] = (sweep_fields(np, res), pt.launch_count(),
+                               collectives.call_counts(),
+                               time.perf_counter() - t0)
+    collectives.reset_call_counts()
+    out["train"] = dist_train(np, torch, dev, make_host_mesh(
+        DIST_RANKS, 1, device_type="cuda"))
+    out["train_calls"] = collectives.call_counts()
+    collectives.reset_call_counts()
+    out["moe"] = dist_moe(np, torch, dev, make_host_mesh(
+        1, DIST_RANKS, device_type="cuda"), rank)
+    out["moe_calls"] = collectives.call_counts()
+    return out
+
+
+def phase21(np, torch, dev, card, short, cuda_runs):
+    """The device mesh over torch.distributed (see the module docstring,
+    21).  Returns (the model kernels' launches of each run, the tick's
+    launches)."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import run_sweep
+    from repro_torch.core.vector_sim import VectorSimulator
+    from repro_torch.core.vector_sim_torch import ticks_to_run
+    from repro_torch.kernels import psp_tick as pt
+    from repro_torch.launch.mesh import spawn_host_world
+    from repro_torch.parallel import collectives
+    want = sweep_fields(np, cuda_runs)
+    ticks = ticks_to_run(VectorSimulator(short), (1, 1))
+
+    # (a) one rank over NCCL: the collectives run on the card
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="psp_nccl_")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        os.environ.pop("PSP_TICK_IMPL", None)
+        collectives.reset_call_counts()
+        torch.cuda.synchronize()
+        pt.reset_launch_count()
+        res = run_sweep(short, mesh=(1, 1))
+        launches = pt.launch_count()
+        calls, backend = collectives.call_counts(), dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_fields(np, sweep_fields(np, res), want,
+                "the (1, 1) mesh over NCCL against phase 4's cuda run")
+    if launches != ticks:
+        raise AssertionError(f"(1, 1) mesh: {launches} tick launches for "
+                             f"{ticks} ticks")
+    if backend != "nccl" or not calls:
+        raise AssertionError(f"(1, 1) mesh: backend {backend}, calls "
+                             f"{calls}")
+    print(f"[21] (a) world 1, backend {backend}: phase 4's 5 s sweep on the "
+          f"(1, 1) mesh, {launches} tick launches for {ticks} ticks, "
+          f"collective calls {calls}; steps, errors, server updates, total "
+          f"updates and control messages bit for bit phase 4's cuda run; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+    # (b) two gloo ranks sharing the card, as spawned children
+    t0 = time.perf_counter()
+    ranks = spawn_host_world(DIST_RANKS, dist_rank, short, DIST_MESHES,
+                             backend="gloo", wall=DIST_WALL)
+    paths = []
+    refused = {k: v for k, v in ranks[0]["gloo_cuda"].items() if v}
+    print(f"[21] (b) world {ranks[0]['world']}, backend "
+          f"{ranks[0]['backend']}, one card: gloo takes CUDA tensors for "
+          f"{sorted(set(ranks[0]['gloo_cuda']) - set(refused))}, refuses "
+          f"{refused or 'none'}", flush=True)
+    if refused:
+        raise AssertionError("gloo refuses CUDA tensors for a call the "
+                             "collectives make unstaged")
+    for mesh in DIST_MESHES:
+        for out in ranks:
+            fields, n, calls, secs = out["sweeps"][mesh]
+            same_fields(np, fields, want, f"mesh {mesh} rank {out['rank']}")
+            if n != ticks:
+                raise AssertionError(f"mesh {mesh} rank {out['rank']}: {n} "
+                                     f"tick launches for {ticks} ticks")
+            launches += n
+            print(f"[21] (b) rank {out['rank']}: the sweep on {mesh} "
+                  f"{'(the gathered CUDA tick) ' if mesh[1] > 1 else ''}"
+                  f"bit for bit (a), {n} tick launches, collective calls "
+                  f"{calls}, {secs:.2f} s [{card}]", flush=True)
+    for out in ranks:
+        secs, counts, summary = out["train"]
+        paths.append(counts)
+        print(f"[21] (b) rank {out['rank']}: {DIST_TRAIN_ARCH} at "
+              f"{DIST_TRAIN_LAYERS} layers, W {DIST_TRAIN_W}, "
+              f"{DIST_TRAIN_TICKS} ticks ({summary}) bit for bit one rank's "
+              f"in {secs:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }, collective calls "
+              f"{out['train_calls']} [{card}]", flush=True)
+        secs, counts, (err, y_err), fault, dropped = out["moe"]
+        paths.append(counts)
+        print(f"[21] (b) rank {out['rank']}: {DIST_MOE_ARCH} at "
+              f"{DIST_MOE_LAYERS} layer, experts over model {DIST_RANKS}, "
+              f"prefill {DIST_MOE_PROMPT} in {secs:.2f} s: the MoE layers' "
+              f"y within {y_err:.4g} of max |y| (bound {DIST_MOE_Y_TOL}), "
+              f"logits within {err:.4g} of max |logit| (bound "
+              f"{DIST_MOE_TOL}) of the one-device path, the same kept "
+              f"tokens ({dropped} pairs dropped by layer); without the sum "
+              f"over model (planted) y off by {fault[0]:.4g}, logits by "
+              f"{fault[1]:.4g}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }, collective calls "
+              f"{out['moe_calls']} [{card}]", flush=True)
+    print(f"[21] (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, launches
+
+
 def main() -> int:
     """Run every phase (see the module docstring); 0 when all passed."""
     try:
@@ -5255,6 +5653,16 @@ def main() -> int:
     paths += more
     launches += roof_ticks
     print(f"[20] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 21. the device mesh over torch.distributed ------------------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[21] starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    more, dist_ticks = phase21(np, torch, dev, card, short, runs["cuda"])
+    paths += more
+    launches += dist_ticks
+    print(f"[21] ends at {time.perf_counter() - t_start:.1f} s", flush=True)
     for e in entries:
         e["launches"] = sum(n.get(e["name"], 0) for n in paths)
 

@@ -1,6 +1,6 @@
 """Sweep-engine benchmark: the event engine against the grid engines.
 
-The port's copy of ``benchmarks/sweep_bench.py`` on one device.  It runs
+The port's copy of ``benchmarks/sweep_bench.py``.  It runs
 the same Fig-2-style scenario matrix (nine barrier policies — the five
 static protocols and the four adaptive ones — × five straggler
 fractions, matched seeds) through every engine of the port:
@@ -20,14 +20,20 @@ fractions, matched seeds) through every engine of the port:
 It checks that the engines agree at the distribution level (each grid
 row's largest relative deviation of mean progress from the event rows)
 and records the wall times in the reference's schema (``jax`` → ``torch``,
-``pallas`` → ``cuda``; no mesh fields: one device).  Each grid row
+``pallas`` → ``cuda``), with the reference's mesh fields (``n_devices``,
+``mesh``, ``mesh_axes``) on the tensor rows.  ``--mesh RxN`` runs the
+tensor rows on a ``(rows, nodes)`` mesh of ranks
+(:func:`repro_torch.launch.mesh.spawn_host_world`): gloo ranks on the
+CPU (``--device cpu``, where the reference forces host devices), NCCL
+ranks one a card on GPUs, the mesh bounded by the visible cards; rank
+0's times are recorded.  Without ``--mesh`` a row runs in this process.  Each grid row
 carries a **compile** phase (its first call: kernel load and warm-up)
 apart from its **run** phase (best of 3).  The JSON goes to
 ``results/BENCH_sweep_torch.json`` unless ``--out`` says otherwise; the
 reference's ``BENCH_sweep.json`` is never written.
 
     PYTHONPATH=src python -m repro_torch.bench.sweep_bench [--full]
-        [--device cpu] [--out PATH]
+        [--device cpu] [--mesh RxN] [--out PATH]
 """
 from __future__ import annotations
 
@@ -37,10 +43,11 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.barriers import make_barrier
 from repro_torch.core.simulator import SimConfig, run_simulation
+from repro_torch.core.sweep_plan import parse_mesh, resolve_mesh
 from repro_torch.core.vector_sim import _device, run_sweep
 
 __all__ = ["ADAPTIVE", "FIVE", "FRACS", "NINE", "OUT_PATH",
@@ -96,7 +103,7 @@ def _impl(impl: Optional[str]):
 
 
 def _timed_grid(cfgs, backend: str, device=None, impl: Optional[str] = None,
-                repeats: int = 3):
+                repeats: int = 3, mesh: Optional[Tuple[int, int]] = None):
     """(compile_s, run_s, results) for one grid engine.
 
     The first full-matrix call pays the kernel load and warm-up (the
@@ -104,16 +111,64 @@ def _timed_grid(cfgs, backend: str, device=None, impl: Optional[str] = None,
     *compile* phase.  The *run* phase is the best of ``repeats`` calls;
     ``run_sweep`` returns host arrays, so each call ends synchronized.
     """
+    kw = {} if mesh is None else {"mesh": mesh}
     with _impl(impl):
         t0 = time.perf_counter()
-        run_sweep(cfgs, backend=backend, device=device)
+        run_sweep(cfgs, backend=backend, device=device, **kw)
         first = time.perf_counter() - t0
         best, res = float("inf"), None
         for _ in range(repeats):
             t0 = time.perf_counter()
-            res = run_sweep(cfgs, backend=backend, device=device)
+            res = run_sweep(cfgs, backend=backend, device=device, **kw)
             best = min(best, time.perf_counter() - t0)
     return max(first - best, 0.0), best, res
+
+
+def _grid_rank(cfgs, device_type: str, impl: str, repeats: int,
+               mesh: Tuple[int, int]):
+    """One rank of a tensor row on a mesh: :func:`_timed_grid` on this
+    rank's device."""
+    import torch.distributed as dist
+    device = ("cpu" if device_type == "cpu"
+              else f"cuda:{dist.get_rank()}")
+    return _timed_grid(cfgs, "torch", device, impl, repeats, mesh)
+
+
+def _ranks(device, mesh: Optional[Tuple[int, int]]) -> int:
+    """The ranks a tensor row runs on: the mesh's size (bounded by the
+    visible cards on a GPU), or 1 (in this process) without a mesh."""
+    import torch
+    if mesh is None:
+        return 1
+    n = mesh[0] * mesh[1]
+    if device.type == "cuda":
+        n = min(n, torch.cuda.device_count())
+    return n
+
+
+def _tensor_row(cfgs, device, impl: str, repeats: int,
+                mesh: Optional[Tuple[int, int]]):
+    """(compile_s, run_s, results, mesh fields) of a tensor row: in this
+    process, or on :func:`_ranks` spawned ranks (gloo on the CPU, NCCL on
+    cards), rank 0's times."""
+    from repro_torch.launch.mesh import spawn_host_world
+    n = _ranks(device, mesh)
+    fields = _mesh_fields(len(cfgs), cfgs[0].n_nodes, mesh, n)
+    if mesh is None:
+        return (*_timed_grid(cfgs, "torch", device, impl, repeats), fields)
+    out = spawn_host_world(
+        n, _grid_rank, cfgs, device.type, impl, repeats, mesh,
+        backend="gloo" if device.type == "cpu" else "nccl", wall=3600.0)
+    return (*out[0], fields)
+
+
+def _mesh_fields(B: int, P: int, mesh: Optional[Tuple[int, int]],
+                 available: int) -> Dict:
+    """The reference's mesh fields of a tensor row: the placement the
+    planner resolves for these shapes on ``available`` ranks."""
+    rows, nodes = resolve_mesh(B, P, mesh=mesh, available=available)
+    return {"n_devices": rows * nodes, "mesh": [rows, nodes],
+            "mesh_axes": {"rows": rows, "nodes": nodes}}
 
 
 def hundred_k_row(device=None) -> Dict:
@@ -121,7 +176,8 @@ def hundred_k_row(device=None) -> Dict:
     kernel on a GPU) → one bench row, best of 2.
 
     Throughput is ``node_steps_per_device_sec``: completed node steps
-    across the pair, per second, on the one device.
+    across the pair, per second, on the one device (its mesh fields say
+    ``(1, 1)``).
     """
     import torch
 
@@ -132,7 +188,7 @@ def hundred_k_row(device=None) -> Dict:
     compile_s, best, res = _timed_grid(cfgs, "torch", device, repeats=2)
     kernel = ops.use_kernel(tick_impl(), device)
     steps = int(sum(int(r.steps.sum()) for r in res))
-    return {
+    return {**_mesh_fields(len(cfgs), cfgs[0].n_nodes, None, 1),
         "seconds": best,
         "compile_seconds": compile_s,
         "tick_impl": "cuda" if kernel else "ref",
@@ -148,12 +204,15 @@ def hundred_k_row(device=None) -> Dict:
 
 def sweep_speedup(full: bool = False, device=None,
                   out_path: Optional[str] = OUT_PATH,
-                  repeats: int = 3) -> Dict:
+                  repeats: int = 3,
+                  mesh: Optional[Tuple[int, int]] = None) -> Dict:
     """Time the Fig-2 sweep on every engine and dump the JSON.
 
     ``device`` is the torch rows' device (``None``: the GPU, raising
     when none is visible); the ``cuda`` row runs only on a GPU.
-    ``out_path`` redirects the dump (``None`` skips it).
+    ``mesh`` runs the tensor rows on a ``(rows, nodes)`` mesh of
+    spawned ranks (see the module docstring).  ``out_path`` redirects
+    the dump (``None`` skips it).
     """
     import torch
     device = torch.device(_device(device))
@@ -162,11 +221,12 @@ def sweep_speedup(full: bool = False, device=None,
     compile_t, timings, per_engine = {}, {}, {}
     compile_t["numpy"], timings["numpy"], per_engine["numpy"] = \
         _timed_grid(cfgs, "numpy", repeats=repeats)
-    compile_t["torch"], timings["torch"], per_engine["torch"] = \
-        _timed_grid(cfgs, "torch", device, impl="ref", repeats=repeats)
+    fields = {}
+    compile_t["torch"], timings["torch"], per_engine["torch"], \
+        fields["torch"] = _tensor_row(cfgs, device, "ref", repeats, mesh)
     if on_gpu:
-        compile_t["cuda"], timings["cuda"], per_engine["cuda"] = \
-            _timed_grid(cfgs, "torch", device, impl="cuda", repeats=repeats)
+        compile_t["cuda"], timings["cuda"], per_engine["cuda"], \
+            fields["cuda"] = _tensor_row(cfgs, device, "cuda", repeats, mesh)
     t0 = time.perf_counter()
     ev = [run_simulation(c) for c in cfgs]
     timings["event"] = time.perf_counter() - t0
@@ -187,11 +247,13 @@ def sweep_speedup(full: bool = False, device=None,
 
     engines = {"event": {"seconds": timings["event"]},
                "numpy": row("numpy"),
-               "torch": {**row("torch"), "tick_impl": "ref",
+               "torch": {**row("torch"), **fields["torch"],
+                         "tick_impl": "ref",
                          "throughput_vs_numpy":
                              timings["numpy"] / max(timings["torch"], 1e-9)}}
     if on_gpu:
-        engines["cuda"] = {**row("cuda"), "tick_impl": "cuda",
+        engines["cuda"] = {**row("cuda"), **fields["cuda"],
+                           "tick_impl": "cuda",
                            "throughput_vs_torch_ref":
                                timings["torch"] / max(timings["cuda"],
                                                       1e-9)}
@@ -243,11 +305,15 @@ def main(argv=None) -> None:
                     help="the paper's scale (1000 nodes, 40 s, d 100)")
     ap.add_argument("--device", default=None,
                     help="torch device of the grid rows (default: cuda)")
+    ap.add_argument("--mesh", default=None, type=parse_mesh,
+                    help="RxN rows x nodes mesh of ranks for the tensor "
+                         "rows (gloo on the CPU, NCCL on cards)")
     ap.add_argument("--out", default=OUT_PATH,
                     help="JSON output path (default: "
                          "results/BENCH_sweep_torch.json)")
     a = ap.parse_args(argv)
-    res = sweep_speedup(full=a.full, device=a.device, out_path=a.out)
+    res = sweep_speedup(full=a.full, device=a.device, out_path=a.out,
+                        mesh=a.mesh)
     print(summary_line(res))
 
 

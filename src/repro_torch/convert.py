@@ -24,6 +24,9 @@ it for a whole PSP state, whose views carry the worker axis W in front
 reference's ``init_model`` tree (numpy) into the port's
 :class:`~repro_torch.models.Model` and :func:`params_to_numpy` is the
 inverse, so both packages can compute on the same weights.
+:func:`expert_slice` gives an expert-parallel rank its experts of a
+model tree, placed by the rules (:func:`repro_torch.models.moe.moe_apply`
+with a mesh).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["from_reference_layout", "params_from_jax", "params_to_numpy",
+__all__ = ["expert_slice", "from_reference_layout", "params_from_jax",
+           "params_to_numpy",
            "state_from_reference", "state_to_reference",
            "tick_inputs_to_torch", "to_numpy", "to_reference_layout",
            "to_torch"]
@@ -166,3 +170,47 @@ def _take(a, g: int, axis: int):
     if isinstance(a, torch.Tensor):
         return a.select(axis, g).contiguous()
     return a[(slice(None),) * axis + (g,)]
+
+
+#: the expert leaves of an MoE FFN's parameters (``moe_defs``)
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def expert_slice(tree: Any, cfg, rules) -> Any:
+    """``tree`` with every MoE FFN's expert leaves cut to this rank's
+    E/model experts over the rules' mesh, ``rank · E/model`` onward (the
+    expert-parallel layout of
+    :func:`repro_torch.models.moe.moe_apply`); every other leaf is kept
+    as it is (not copied).  An FFN is a dict holding ``router`` and the
+    expert leaves.
+
+    As the reference lays its experts out: each leaf is placed by its
+    def (:func:`~repro_torch.models.params.place_params` over
+    :func:`~repro_torch.models.moe.moe_defs`), then constrained to
+    ``("experts_w", None, None)`` (:func:`~repro_torch.parallel.sharding.constrain`,
+    as the reference's ``moe_apply`` does before its ``shard_map``:
+    experts over ``model``, the FF dimension whole), and this rank's
+    shard is taken.  Every rank of the mesh calls it.  Where ``model``
+    does not divide E the leaves stay whole.
+    """
+    from repro_torch.models.moe import moe_defs
+    from repro_torch.models.params import place_params
+    from repro_torch.parallel.sharding import constrain, use_rules
+    if rules is None or rules.mesh is None:
+        return tree
+    defs = {k: moe_defs(cfg)[k] for k in _EXPERT_LEAVES}
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "router" in t and all(k in t for k in _EXPERT_LEAVES):
+                placed = place_params({k: t[k] for k in _EXPERT_LEAVES},
+                                      rules, defs)
+                with use_rules(rules):
+                    return {**t, **{k: constrain(
+                        v, ("experts_w", None, None)).to_local()
+                        for k, v in placed.items()}}
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
+    return walk(tree)

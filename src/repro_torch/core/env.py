@@ -40,6 +40,18 @@ REGISTRY: Dict[str, EnvVar] = _reg(
     EnvVar("PSP_TICK_IMPL", "str", "auto",
            "PSP tick dispatch in the port: `auto` (CUDA kernel on CUDA "
            "tensors, plain PyTorch on CPU tensors) | `cuda` | `ref`"),
+    EnvVar("PSP_SWEEP_MESH", "str", None,
+           "`RxN` rows×nodes mesh factorization for torch sweeps "
+           "(beats `PSP_SWEEP_DEVICES`; e.g. `4x2`)"),
+    EnvVar("PSP_SWEEP_DEVICES", "int", None,
+           "rows-axis device count for 1-D sweep placement "
+           "(default: every rank of the process group; `0` = default)"),
+    # registered as the reference has it; the port's sweep bench reads
+    # no variable for its ranks: `--mesh RxN` spawns them
+    EnvVar("PSP_BENCH_HOST_DEVICES", "int", None,
+           "forced host-device count for CPU benchmark runs "
+           "(`0` disables the forced mesh; default: one per core, "
+           "capped at 8)"),
     EnvVar("PSP_TRACE_STRIDE", "int", None,
            "force the sweep trace record stride (snapped down to an "
            "admissible divisor of the measurement cadence)"),

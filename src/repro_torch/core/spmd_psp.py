@@ -38,6 +38,24 @@ plane stays on the device: a tick reads nothing back to the host.
 
 The churn schedules are numpy draws from ``ChurnConfig.seed``, as in the
 reference (:func:`repro_torch.core.vector_sim.sample_churn_schedules`).
+
+Over a mesh of ranks (``mesh=``, a
+:class:`~repro_torch.launch.mesh.HostMesh`), the worker axis W is split
+over the mesh's worker axes
+(:func:`~repro_torch.parallel.sharding.psp_worker_axes`: ``pod`` and
+``data``), as the reference's ``psp_workers`` rule lays it out: each
+rank holds the views of its W/n workers (``n`` the worker shards;
+workers ``idx·W/n …``), computes their losses and gradients on their
+own microbatches, and pulls into those views only.  The control plane
+(steps, clocks, membership, the server model and optimizer state) stays
+replicated: every rank reads the same noise record, as
+:class:`ReplayNoise` and :class:`GeneratorNoise` (same seed) give it,
+and computes it alike.  The server's masked gradient sum all-gathers the
+per-worker masked contributions in worker order and sums them as one
+rank does, so the server gradient — and everything after it — is bit
+for bit that of one rank for any world size.  (An ``all_reduce`` of
+per-rank partial sums would move less, but its result depends on the
+summation order.)
 """
 from __future__ import annotations
 
@@ -52,13 +70,16 @@ from repro_torch.core.barrier_kernel import (BarrierKernel, BarrierPolicy,
                                              churn_joiner, churn_victim,
                                              make_policy)
 from repro_torch.core.barriers import BarrierControl, make_barrier
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import psp_worker_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["ChurnConfig", "GeneratorNoise", "PSPConfig", "PSPState",
            "ReplayNoise", "apply_external_churn", "elastic_drive",
            "external_drive", "linear_psp_state", "linear_psp_task",
-           "make_psp_step_fn", "psp_apply_tick", "psp_init",
-           "psp_train_step", "state_from_tree", "state_to_tree"]
+           "local_workers", "make_psp_step_fn", "psp_apply_tick",
+           "psp_init", "psp_train_step", "state_from_tree",
+           "state_to_tree", "worker_axis"]
 
 Tree = Any
 Record = Dict[str, torch.Tensor]
@@ -246,16 +267,38 @@ def _device(tree: Tree) -> torch.device:
     return tree_leaves(tree)[0].device
 
 
+def worker_axis(mesh) -> Optional[collectives.Axis]:
+    """The mesh's worker axes as one collective axis (None without a
+    mesh or worker axes)."""
+    return collectives.mesh_axis(mesh, psp_worker_axes(mesh))
+
+
+def local_workers(cfg: PSPConfig, mesh=None) -> slice:
+    """The workers whose views this rank holds: all W without a mesh,
+    else its W/n block along the worker axes."""
+    axis = worker_axis(mesh)
+    n = collectives.axis_size(axis)
+    if cfg.n_workers % n:
+        raise ValueError(f"{cfg.n_workers} workers do not split over "
+                         f"{n} worker shards")
+    w_loc = cfg.n_workers // n
+    lo = collectives.axis_index(axis) * w_loc
+    return slice(lo, lo + w_loc)
+
+
 def psp_init(cfg: PSPConfig, params: Tree,
-             opt_init: Callable[[Tree], Tree], noise) -> PSPState:
-    """The initial state: every view a copy of ``params``, the slow flags
-    permuted and the first durations drawn from ``noise.init_record``."""
+             opt_init: Callable[[Tree], Tree], noise,
+             mesh=None) -> PSPState:
+    """The initial state: every view a copy of ``params`` (this rank's
+    workers' views over ``mesh``), the slow flags permuted and the first
+    durations drawn from ``noise.init_record``."""
     from repro_torch.core.vector_sim import sample_churn_schedules
 
     w = cfg.n_workers
+    mine = local_workers(cfg, mesh)
     dev = _device(params)
     views = tree_map(lambda p: p.unsqueeze(0).repeat(
-        (w,) + (1,) * p.dim()), params)
+        (mine.stop - mine.start,) + (1,) * p.dim()), params)
     rec = noise.init_record(cfg)
     n_slow = int(round(cfg.straggler_frac * w))
     slow = torch.arange(w, device=dev) < n_slow
@@ -319,22 +362,28 @@ def _masked_rows(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def _assign_rows(views: Tree, mask: torch.Tensor, params: Tree) -> None:
-    """views[i] ← params wherever mask[i], in place."""
+def _assign_rows(views: Tree, mask: torch.Tensor, params: Tree,
+                 mine: slice = slice(None)) -> None:
+    """views[i] ← params wherever mask[i], in place; the views are
+    workers ``mine`` of the bool[W] ``mask`` (all of them by default)."""
+    mask = mask[mine]
+
     def one(v, p):
         torch.where(_masked_rows(mask, v.dim()), p.unsqueeze(0), v, out=v)
     tree_map(one, views, params)
 
 
 def _membership_update(state: PSPState, leave_sel: torch.Tensor,
-                       join_sel: torch.Tensor) -> PSPState:
+                       join_sel: torch.Tensor,
+                       mine: slice = slice(None)) -> PSPState:
     """Apply bool[W] leave / join selections: leavers freeze; joiners are
-    re-anchored on the server model (in place), restart at the max alive
-    step (after both masks land), complete now and count as pushed."""
+    re-anchored on the server model (in place, the views of workers
+    ``mine``), restart at the max alive step (after both masks land),
+    complete now and count as pushed."""
     alive = (state.alive & ~leave_sel) | join_sel
     fresh = torch.where(alive, state.step,
                         torch.full_like(state.step, _I32_MIN)).amax()
-    _assign_rows(state.views, join_sel, state.server_params)
+    _assign_rows(state.views, join_sel, state.server_params, mine)
     return state._replace(
         step=torch.where(join_sel, fresh, state.step),
         busy_until=torch.where(join_sel, state.now, state.busy_until),
@@ -344,7 +393,8 @@ def _membership_update(state: PSPState, leave_sel: torch.Tensor,
 
 
 def _fire_churn(cfg: PSPConfig, state: PSPState, u_leave: torch.Tensor,
-                u_join: torch.Tensor) -> PSPState:
+                u_join: torch.Tensor, mine: slice = slice(None)
+                ) -> PSPState:
     """Phase 0 of a churn tick: fire the due leave and join (≤ 1 each);
     a leave only while more than two workers are alive, a join only if a
     slot is free; due events are consumed either way."""
@@ -357,7 +407,7 @@ def _fire_churn(cfg: PSPConfig, state: PSPState, u_leave: torch.Tensor,
     due_j = _schedule_due(state.join_times, state.join_cursor, state.now)
     do_j = due_j & (~alive).any()
     join_sel = do_j & (iota == churn_joiner(u_join, alive))
-    state = _membership_update(state, leave_sel, join_sel)
+    state = _membership_update(state, leave_sel, join_sel, mine)
     return state._replace(
         leave_cursor=state.leave_cursor + due_l.to(torch.int32),
         join_cursor=state.join_cursor + due_j.to(torch.int32))
@@ -365,7 +415,8 @@ def _fire_churn(cfg: PSPConfig, state: PSPState, u_leave: torch.Tensor,
 
 def apply_external_churn(cfg: PSPConfig, state: PSPState, *,
                          leave: Tuple[int, ...] = (),
-                         join: Tuple[int, ...] = ()) -> PSPState:
+                         join: Tuple[int, ...] = (),
+                         mesh=None) -> PSPState:
     """Apply observed membership changes (host-driven, between ticks):
     no population floor, several workers at once; leaving a dead worker
     or joining an alive one is a no-op."""
@@ -381,25 +432,30 @@ def apply_external_churn(cfg: PSPConfig, state: PSPState, *,
         return state
     dev = state.alive.device
     return _membership_update(state, torch.from_numpy(leave_sel).to(dev),
-                              torch.from_numpy(join_sel).to(dev))
+                              torch.from_numpy(join_sel).to(dev),
+                              local_workers(cfg, mesh))
 
 
 def psp_apply_tick(cfg: PSPConfig, opt_update: Callable, state: PSPState,
                    compute: Callable[[PSPState], Tuple[torch.Tensor, Tree]],
-                   noise: Record) -> Tuple[PSPState, dict]:
+                   noise: Record, mesh=None) -> Tuple[PSPState, dict]:
     """One tick of PSP with the gradient source abstracted out.
 
     ``compute(state) -> (losses f32[W], grads [W, …] tree)`` runs after
-    the churn phase; ``noise`` is this tick's record.  Returns
+    the churn phase — over ``mesh``, this rank's workers' (``[W/n, …]``,
+    :func:`local_workers`); ``noise`` is this tick's record.  Returns
     (new_state, metrics); ``state`` is consumed (see the module
     docstring).
     """
+    axis = worker_axis(mesh)
+    mine = local_workers(cfg, mesh)
     if cfg.has_churn:
-        state = _fire_churn(cfg, state, noise["leave"], noise["join"])
+        state = _fire_churn(cfg, state, noise["leave"], noise["join"], mine)
     alive = state.alive
 
     # (1) every worker computes on its own (possibly stale) view
     losses, grads = compute(state)
+    losses = collectives.all_gather(losses, axis, 0)
 
     # (2) completions push; departed workers are masked out
     completed = state.busy_until <= state.now
@@ -413,10 +469,14 @@ def psp_apply_tick(cfg: PSPConfig, opt_update: Callable, state: PSPState,
     else:
         scale = None
 
+    mask = push_mask[mine]
+
     def _masked_sum(g):
-        s = torch.where(_masked_rows(push_mask, g.dim()), g,
-                        torch.zeros((), dtype=g.dtype,
-                                    device=g.device)).sum(0)
+        # the masked contributions of every worker, in worker order,
+        # summed as on one rank (see the module docstring)
+        c = torch.where(_masked_rows(mask, g.dim()), g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+        s = collectives.all_gather(c, axis, 0).sum(0)
         return s if scale is None else s * scale
 
     server_grad = tree_map(_masked_sum, grads)
@@ -440,7 +500,7 @@ def psp_apply_tick(cfg: PSPConfig, opt_update: Callable, state: PSPState,
     new_step = state.step + allowed.to(torch.int32)
     new_busy = torch.where(allowed, state.now + next_dur, state.busy_until)
     new_pushed = pushed & ~allowed
-    _assign_rows(state.views, allowed, new_params)
+    _assign_rows(state.views, allowed, new_params, mine)
 
     if cfg.contribution == "mean-alive":
         new_policy = dict(new_policy)
@@ -491,28 +551,31 @@ def psp_apply_tick(cfg: PSPConfig, opt_update: Callable, state: PSPState,
 
 
 def psp_train_step(cfg: PSPConfig, grad_fn: Callable, opt_update: Callable,
-                   state: PSPState, batch: Tree, noise: Record
+                   state: PSPState, batch: Tree, noise: Record, mesh=None
                    ) -> Tuple[PSPState, dict]:
     """One tick of PSP training with in-process gradients.
 
     ``grad_fn(params, microbatch) -> (loss, grads)`` is ONE worker's;
-    it runs in a loop over the W workers, on view ``i`` and microbatch
-    ``batch[i]`` (the leading axis of every leaf of ``batch``), and the
-    W gradients are gathered into ``[W, …]`` buffers.
+    it runs in a loop over the W workers (over ``mesh``, this rank's
+    workers, :func:`local_workers`), on worker ``i``'s view and
+    microbatch ``batch[i]`` (the leading axis W of every leaf of
+    ``batch``), and the gradients are gathered into ``[W, …]`` buffers.
     """
+    mine = local_workers(cfg, mesh)
+
     def compute(st):
-        W = cfg.n_workers
         dev = st.step.device
-        losses = torch.empty(W, dtype=torch.float32, device=dev)
+        losses = torch.empty(mine.stop - mine.start, dtype=torch.float32,
+                             device=dev)
         grads = tree_map(torch.empty_like, st.views)
-        for i in range(W):
+        for i, g_id in enumerate(range(mine.start, mine.stop)):
             loss, g = grad_fn(tree_map(lambda v: v[i], st.views),
-                              tree_map(lambda b: b[i], batch))
+                              tree_map(lambda b: b[g_id], batch))
             losses[i] = loss
             tree_map(lambda buf, gi: buf[i].copy_(gi), grads, g)
         return losses, grads
 
-    return psp_apply_tick(cfg, opt_update, state, compute, noise)
+    return psp_apply_tick(cfg, opt_update, state, compute, noise, mesh)
 
 
 def state_to_tree(state: PSPState) -> dict:
@@ -525,12 +588,13 @@ def state_from_tree(tree: dict) -> PSPState:
     return PSPState(**tree)
 
 
-def make_psp_step_fn(cfg: PSPConfig, grad_fn, opt_update, noise):
+def make_psp_step_fn(cfg: PSPConfig, grad_fn, opt_update, noise,
+                     mesh=None):
     """``step(state, batch)``: :func:`psp_train_step` on the next record
-    of the noise source ``noise``."""
+    of the noise source ``noise`` (over ``mesh`` where given)."""
     def step(state, batch):
         return psp_train_step(cfg, grad_fn, opt_update, state, batch,
-                              noise.tick_record(cfg))
+                              noise.tick_record(cfg), mesh)
     return step
 
 
@@ -563,10 +627,10 @@ def linear_psp_task(dim: int, lr: float = 0.1, seed: int = 0, *,
 
 
 def linear_psp_state(cfg: PSPConfig, dim: int, noise,
-                     device: Any = "cpu") -> PSPState:
+                     device: Any = "cpu", mesh=None) -> PSPState:
     """The initial state of :func:`elastic_drive`'s run (w = 0)."""
     return psp_init(cfg, {"w": torch.zeros(dim, device=device)},
-                    lambda p: None, noise)
+                    lambda p: None, noise, mesh)
 
 
 def _batches(cfg: PSPConfig, w_true: torch.Tensor, batch: int,
@@ -585,7 +649,8 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
                   batch_seed: int = 2, noise=None, xs=None,
                   w_true: Optional[torch.Tensor] = None,
                   device: Any = "cpu", events: Optional[dict] = None,
-                  state: Optional[PSPState] = None, start_tick: int = 0):
+                  state: Optional[PSPState] = None, start_tick: int = 0,
+                  mesh=None):
     """Drive the trainer on the linear task for ``ticks`` ticks.
 
     ``noise`` defaults to :class:`GeneratorNoise` seeded ``init_seed``;
@@ -607,9 +672,9 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
     noise = noise if noise is not None else GeneratorNoise(init_seed, device)
     data = (iter((x, x @ w_true) for x in xs) if xs is not None
             else _batches(cfg, w_true, batch, batch_seed))
-    step = make_psp_step_fn(cfg, grad_fn, opt_update, noise)
+    step = make_psp_step_fn(cfg, grad_fn, opt_update, noise, mesh)
     if state is None:
-        state = linear_psp_state(cfg, dim, noise, device)
+        state = linear_psp_state(cfg, dim, noise, device, mesh)
     for _ in range(start_tick):
         next(data)
 
@@ -618,7 +683,7 @@ def elastic_drive(cfg: PSPConfig, dim: int, ticks: int, *, batch: int = 16,
             if events and t in events:
                 leave, join = events[t]
                 state = apply_external_churn(cfg, state, leave=tuple(leave),
-                                             join=tuple(join))
+                                             join=tuple(join), mesh=mesh)
             state, m = step(state, next(data))
             yield state, m
 

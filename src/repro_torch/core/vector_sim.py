@@ -529,21 +529,21 @@ class VectorSimulator:
         return out
 
 
-    def run(self, device=None) -> List[SimResult]:
+    def run(self, device=None, mesh=None) -> List[SimResult]:
         """Advance the batch over the whole tick grid on its backend.
 
         The numpy backend allocates the host node views and traces here
         (the torch backend keeps its own on the device) and takes no
-        ``device``; the torch backend runs on ``device`` (see
-        :func:`run_sweep`).
+        ``device`` or ``mesh``; the torch backend runs on ``device`` and
+        the ``mesh`` asked for (see :func:`run_sweep`).
         """
         if self.backend == "torch":
             from repro_torch.core import vector_sim_torch
-            return vector_sim_torch.run_batch(self,
-                                              device=_device(device))
-        if device is not None:
+            return vector_sim_torch.run_batch(self, device=_device(device),
+                                              mesh=mesh)
+        if device is not None or mesh is not None:
             raise ValueError("the numpy backend runs on the host; it "
-                             "takes no device")
+                             "takes no device or mesh")
         self.pulled = np.zeros((self.B, self.P, self.d))
         self._trace_err: List[np.ndarray] = []
         self._trace_upd: List[np.ndarray] = []
@@ -575,7 +575,8 @@ def _device(device):
 
 
 def run_sweep(configs: Sequence[SimConfig], *, dt: Optional[float] = None,
-              backend: str = "torch", device=None) -> List[SimResult]:
+              backend: str = "torch", device=None,
+              mesh: Optional[Tuple[int, int]] = None) -> List[SimResult]:
     """Run a batch of simulations on the sweep engine.
 
     Args:
@@ -589,13 +590,19 @@ def run_sweep(configs: Sequence[SimConfig], *, dt: Optional[float] = None,
         (``cuda``), and raises when no GPU is visible; ``"cpu"`` runs the
         plain PyTorch tick.  The numpy backend takes none: passing one
         raises.
+      mesh: the torch backend's ``(rows, nodes)`` placement over the
+        ranks of the initialised process group (default
+        ``PSP_SWEEP_MESH``, else every rank on ``rows``; see
+        :func:`repro_torch.core.sweep_plan.resolve_mesh`); every rank
+        calls ``run_sweep`` with the same configs and gets the same
+        results.  Without a process group it is one device.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; "
                          f"choose from {BACKENDS}")
-    if backend == "numpy" and device is not None:
+    if backend == "numpy" and (device is not None or mesh is not None):
         raise ValueError("the numpy backend runs on the host; it takes "
-                         "no device")
+                         "no device or mesh")
     if backend == "torch":
         device = _device(device)
     key_fn = _group_key if backend == "numpy" else _merge_key
@@ -606,6 +613,6 @@ def run_sweep(configs: Sequence[SimConfig], *, dt: Optional[float] = None,
     for idx in groups.values():
         sim = VectorSimulator([configs[i] for i in idx], dt=dt,
                               backend=backend)
-        for i, res in zip(idx, sim.run(device)):
+        for i, res in zip(idx, sim.run(device, mesh)):
             results[i] = res
     return results  # type: ignore[return-value]

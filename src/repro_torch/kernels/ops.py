@@ -47,8 +47,9 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  attention_ref,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
-from repro_torch.kernels.psp_tick import (psp_tick_cuda, psp_tick_ref,
-                                          tick_bytes)
+from repro_torch.kernels.psp_tick import (NODE_PARAM_KEYS, NODE_STATE_KEYS,
+                                          psp_tick_cuda, psp_tick_ref,
+                                          psp_tick_sharded, tick_bytes)
 from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda,
                                             rglru_scan_bwd_ref,
                                             rglru_scan_cuda, rglru_scan_ref)
@@ -56,11 +57,12 @@ from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import (ssd_bwd_cuda, ssd_bwd_ref,
                                           ssd_cuda, ssd_ref)
+from repro_torch.parallel import collectives
 from repro_torch.roofline import kernel_cost as kc
 from repro_torch.roofline.dispatch_cost import kernel_region
 
-__all__ = ["IMPLS", "attention", "psp_tick", "rglru_scan", "rmsnorm", "ssd",
-           "use_kernel"]
+__all__ = ["IMPLS", "attention", "gather_node_params", "psp_tick",
+           "rglru_scan", "rmsnorm", "ssd", "use_kernel"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -79,33 +81,101 @@ def use_kernel(impl: str, device) -> bool:
     return impl == "cuda"
 
 
+def gather_node_params(params, node_axis):
+    """``params`` with its node-dimensioned entries gathered to full
+    width over ``node_axis`` (what the gathered kernel path takes; a
+    sweep gathers them once and stages the result)."""
+    out = dict(params)
+    for k in NODE_PARAM_KEYS:
+        out[k] = collectives.all_gather(params[k], node_axis, 1)
+    return out
+
+
+def _psp_tick_gathered(state, rand, params, t, leave_n, join_n, *,
+                       k_max: int, has_churn: bool, masked: bool,
+                       adaptive: bool, node_axis):
+    """The kernel path under a node-sharded mesh: gather → full tick →
+    slice.
+
+    The CUDA tick has no collective form, so each node shard gathers
+    the node state to full width, runs
+    :func:`~repro_torch.kernels.psp_tick.psp_tick_cuda` unchanged on it
+    (the same operand shapes as the unsharded call, so the same bits)
+    and keeps its own node slice of the outputs.  ``rand`` and
+    ``params`` come at full width: every rank draws every node's noise
+    (the sweep takes only its rows of it) and the sweep gathers the node
+    params once (:func:`gather_node_params`).  ``w`` (per row) and the
+    gathered ``pulled`` are updated in place; the returned ``pulled`` is
+    this shard's slice of the gathered one.
+    """
+    Pl = state["steps"].shape[1]
+    st = {k: (collectives.all_gather(v, node_axis, 1)
+              if k in NODE_STATE_KEYS else v) for k, v in state.items()}
+    P = st["steps"].shape[1]
+    if rand["dur"].shape[1] != P or params["compute_time"].shape[1] != P:
+        raise ValueError("the gathered kernel tick takes the noise and the "
+                         f"node params at the full width {P}")
+    new, out = _charged_tick(psp_tick_cuda, st, rand, params, t, leave_n,
+                             join_n, k_max=k_max, has_churn=has_churn,
+                             masked=masked, adaptive=adaptive)
+    off = collectives.axis_index(node_axis) * Pl
+    for k in NODE_STATE_KEYS:
+        if k in new:
+            new[k] = new[k][:, off:off + Pl]
+    return new, {**out, "fin": out["fin"][:, off:off + Pl],
+                 "start": out["start"][:, off:off + Pl]}
+
+
+def _charged_tick(fn, state, rand, params, t, leave_n, join_n, **kw):
+    """``fn``'s tick inside the cost region: under a
+    :class:`~repro_torch.roofline.dispatch_cost.DispatchCost` it charges
+    the tick's formula on these (full-width) operands."""
+    with kernel_region("psp_tick") as cost:
+        if cost is not None:        # the count depends on the tick's data
+            n_cand = int(((~state["computing"])
+                          & params["sampled"][:, None]).sum())
+        new, out = fn(state, rand, params, t, leave_n, join_n, **kw)
+        if cost is not None:
+            P = state["steps"].shape[1]
+            m, d = rand["X"].shape[1], rand["X"].shape[2]
+            cost.charge("psp_tick", kc.tick_flops(
+                int(out["fin"].sum()), n_cand, m, d, P, k_max=kw["k_max"],
+                masked=kw["masked"]), sum(tick_bytes(
+                    state, rand, params, out["fin"], out["start"],
+                    in_place=True)))
+    return new, out
+
+
 def psp_tick(state, rand, params, t, leave_n, join_n, *, k_max: int,
              has_churn: bool, masked: bool, adaptive: bool = False,
-             impl: str = "auto"):
+             impl: str = "auto", node_axis=None):
     """One fused PSP sweep-grid tick (see :mod:`repro_torch.kernels.psp_tick`).
 
     Both paths consume the same pre-drawn noise in ``rand``, so a sweep's
     noise stream is independent of ``impl``.  The kernel updates
     ``state["w"]`` and ``state["pulled"]`` in place; the plain version
     never writes its inputs.
+
+    ``node_axis`` (a :class:`~repro_torch.parallel.collectives.Axis`)
+    names the sweep mesh's nodes axis when the caller holds node-sliced
+    ``(B, P_loc)`` state: the plain path is then
+    :func:`~repro_torch.kernels.psp_tick.psp_tick_sharded` (on the
+    shard's noise and params) and the kernel path gathers the state to
+    full width, ticks and slices back (:func:`_psp_tick_gathered`, on
+    full-width noise and params); both equal the unsharded tick on
+    unsharded state.
     """
-    fn = (psp_tick_cuda if use_kernel(impl, state["steps"].device)
-          else psp_tick_ref)
-    with kernel_region("psp_tick") as cost:
-        if cost is not None:        # the count depends on the tick's data
-            n_cand = int(((~state["computing"])
-                          & params["sampled"][:, None]).sum())
-        new, out = fn(state, rand, params, t, leave_n, join_n, k_max=k_max,
-                      has_churn=has_churn, masked=masked, adaptive=adaptive)
-        if cost is not None:
-            P = state["steps"].shape[1]
-            m, d = rand["X"].shape[1], rand["X"].shape[2]
-            cost.charge("psp_tick", kc.tick_flops(
-                int(out["fin"].sum()), n_cand, m, d, P, k_max=k_max,
-                masked=masked), sum(tick_bytes(
-                    state, rand, params, out["fin"], out["start"],
-                    in_place=True)))
-    return new, out
+    kw = dict(k_max=k_max, has_churn=has_churn, masked=masked,
+              adaptive=adaptive)
+    kernel = use_kernel(impl, state["steps"].device)
+    if node_axis is not None:
+        if kernel:
+            return _psp_tick_gathered(state, rand, params, t, leave_n,
+                                      join_n, node_axis=node_axis, **kw)
+        return psp_tick_sharded(state, rand, params, t, leave_n, join_n,
+                                node_axis=node_axis, **kw)
+    return _charged_tick(psp_tick_cuda if kernel else psp_tick_ref, state,
+                         rand, params, t, leave_n, join_n, **kw)
 
 
 def _records(*xs: torch.Tensor) -> bool:

@@ -11,7 +11,9 @@ the new server model into the starters' views.
 Two implementations with one contract:
 
 * :func:`psp_tick_ref` — plain PyTorch, phase by phase as the reference's
-  ``psp_tick_ref``; it runs on any device and is what CPU tensors get.
+  ``psp_tick_ref``; it runs on any device and is what CPU tensors get;
+  :func:`psp_tick_sharded` is the same tick on node-sharded state, its
+  cross-node reductions collectives over the sweep mesh's nodes axis.
 * :func:`psp_tick_cuda` — the hand-written CUDA tick
   (``kernels/csrc/psp_tick.cu``) in five launches: a per-row prologue
   (churn, finishes, row scalars, the finisher lists), the decisions over
@@ -46,10 +48,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import barrier_kernel
+from repro_torch.parallel import collectives
 
-__all__ = ["DATA_PLANE_BLOCK", "POLICY_STATE_KEYS", "STATE_KEYS",
+__all__ = ["DATA_PLANE_BLOCK", "NODE_PARAM_KEYS", "NODE_STATE_KEYS",
+           "POLICY_STATE_KEYS", "STATE_KEYS",
            "TickParams", "launch_count", "psp_tick_cuda", "psp_tick_ref",
-           "reset_launch_count", "stage_params", "tick_bytes"]
+           "psp_tick_sharded", "reset_launch_count", "stage_params",
+           "tick_bytes"]
 
 #: data-plane row-block width of the plain version: the SGD push runs on
 #: fixed blocks of this many scenario rows (batches pad with zero rows), so
@@ -64,10 +69,32 @@ STATE_KEYS = ("steps", "alive", "computing", "event_time", "ready",
 #: adaptive barrier-policy state, present only when ``adaptive``
 POLICY_STATE_KEYS = ("pol_thr", "pol_ema", "pol_beta")
 
+#: state and params entries with a node dimension (axis 1): what a node
+#: shard holds its own slice of under a ``(rows, nodes)`` sweep mesh
+NODE_STATE_KEYS = ("steps", "alive", "computing", "event_time", "ready",
+                   "blocked", "pulled", "pol_ema")
+NODE_PARAM_KEYS = ("compute_time", "valid_slot")
+
 _I32_MAX = torch.iinfo(torch.int32).max
 _I32_MIN = torch.iinfo(torch.int32).min
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def _push_block(X: torch.Tensor, diff: torch.Tensor, fin: torch.Tensor,
+                w: torch.Tensor, lr: torch.Tensor, noise_std: torch.Tensor,
+                mb: torch.Tensor) -> torch.Tensor:
+    """One block of rows' SGD push: the finishers' residuals, their
+    gradient sum and the server update (shapes as
+    :func:`_data_plane_block`'s); returns the new server models."""
+    m = X.shape[1]
+    # a contraction, not the reference's broadcast-multiply: at the paper
+    # shape the broadcast would hold W·P·m·d floats
+    resid = (torch.einsum("kpd,pmd->kpm", diff, X)
+             - noise_std[:, None, None] * mb[None])
+    resid = torch.where(fin[:, :, None], resid, torch.zeros_like(resid))
+    gsum = torch.einsum("kpm,pmd->kd", resid, X) / m
+    return w - lr[:, None] * gsum
 
 
 def _data_plane_block(X: torch.Tensor, diff: torch.Tensor, fin: torch.Tensor,
@@ -87,16 +114,16 @@ def _data_plane_block(X: torch.Tensor, diff: torch.Tensor, fin: torch.Tensor,
     Returns:
       (w', pulled'): updated server models and node views.
     """
-    m = X.shape[1]
-    # a contraction, not the reference's broadcast-multiply: at the paper
-    # shape the broadcast would hold W·P·m·d floats
-    resid = (torch.einsum("kpd,pmd->kpm", diff, X)
-             - noise_std[:, None, None] * mb[None])
-    resid = torch.where(fin[:, :, None], resid, torch.zeros_like(resid))
-    gsum = torch.einsum("kpm,pmd->kd", resid, X) / m
-    w_new = w - lr[:, None] * gsum
+    w_new = _push_block(X, diff, fin, w, lr, noise_std, mb)
     pulled_new = torch.where(start[..., None], w_new[:, None, :], pulled)
     return w_new, pulled_new
+
+
+def _pad_rows(a: torch.Tensor, Bp: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to ``Bp`` rows."""
+    if a.shape[0] == Bp:
+        return a
+    return torch.cat([a, a.new_zeros((Bp - a.shape[0],) + a.shape[1:])])
 
 
 def psp_tick_ref(state: Tensors, rand: Tensors, params: Dict,
@@ -249,9 +276,7 @@ def psp_tick_ref(state: Tensors, rand: Tensors, params: Dict,
     Bp = -(-B // W) * W
 
     def pad(a):
-        if Bp == B:
-            return a
-        return torch.cat([a, a.new_zeros((Bp - B,) + a.shape[1:])])
+        return _pad_rows(a, Bp)
 
     d_p, f_p, s_p = pad(diff), pad(fin), pad(start)
     w_p, pu_p = pad(w), pad(pulled)
@@ -272,6 +297,255 @@ def psp_tick_ref(state: Tensors, rand: Tensors, params: Dict,
                          pol_beta=pol_beta)
     out = {"fin": fin, "start": start, "n_fin": fin.sum(dim=1, dtype=i32),
            "ctrl": ctrl}
+    return new_state, out
+
+
+# --------------------------------------------------------------------------- #
+# node-sharded plain version (collectives over the sweep mesh's nodes axis)
+# --------------------------------------------------------------------------- #
+def _arg_first_max(s: torch.Tensor, gids: torch.Tensor, sentinel: int,
+                   axis) -> torch.Tensor:
+    """Global index of each row's first maximum, across node shards.
+
+    ``s`` (B, P_loc) holds sentinel-masked scores (dead slots −1.0),
+    ``gids`` the shard's global node ids.  Exactly the first argmax over
+    the whole row: the maximum is an exact float32 ``pmax`` and the
+    tie-break takes the lowest global index, so the result does not
+    depend on how the nodes are split.
+    """
+    m = collectives.pmax(s.amax(dim=1), axis)
+    i_loc = torch.where(s == m[:, None], gids[None, :],
+                        torch.full_like(gids, sentinel)[None, :]).amin(dim=1)
+    return collectives.pmin(i_loc, axis)
+
+
+def psp_tick_sharded(state: Tensors, rand: Tensors, params: Dict,
+                     t: float, leave_n: torch.Tensor, join_n: torch.Tensor,
+                     *, k_max: int, has_churn: bool, masked: bool,
+                     adaptive: bool = False, node_axis=None,
+                     ) -> Tuple[Tensors, Tensors]:
+    """One tick on node-sharded state: :func:`psp_tick_ref` with the
+    cross-node reductions as collectives over ``node_axis`` (a
+    :class:`~repro_torch.parallel.collectives.Axis`; None is one shard).
+
+    Every node-dimensioned operand arrives sliced to this rank's
+    contiguous ``P_loc = P / nodes`` node block: the state (``steps`` …
+    ``pulled``, ``pol_ema``), the per-node noise (``dur``, the score
+    rows of its deciding nodes, the churn uniforms, ``X``/``mb``/``u1``)
+    and the per-node params (``compute_time``, ``valid_slot``).
+
+    Every output equals :func:`psp_tick_ref`'s for any nodes-axis size,
+    because each cross-node reduction is one of
+
+    * an exact collective whose result does not depend on the order:
+      ``pmin``/``pmax`` of step counters and event times, integer
+      ``psum`` counts, the first-argmax churn choice
+      (:func:`_arg_first_max`);
+    * a selection over gathered full-width ``steps``/``alive`` (the
+      β-sample's peers), with the shard's own score rows;
+    * the data-plane contraction on gathered full-width operands at the
+      reference's shapes (the one float32 reduction over P); the server
+      model is per row, so every shard computes the same ``w`` and pulls
+      only its own views.
+
+    The nodes axis must divide P exactly (the planner guarantees it).
+    """
+    from repro_torch.core.sampling import _k_smallest
+    steps, alive = state["steps"], state["alive"]
+    computing, blocked = state["computing"], state["blocked"]
+    event_time, ready = state["event_time"], state["ready"]
+    B, Pl = steps.shape
+    dev, f32, i32 = steps.device, torch.float32, torch.int32
+    t = torch.tensor(float(t), dtype=f32, device=dev)
+    eps = torch.tensor(float(params["eps"]), dtype=f32, device=dev)
+    poll = torch.tensor(float(params["poll"]), dtype=f32, device=dev)
+    due = t + eps
+    gids = (collectives.axis_index(node_axis) * Pl
+            + torch.arange(Pl, device=dev))
+    active = t <= params["horizon"] + eps
+
+    def nsum(x):
+        return collectives.psum(x.sum(dim=1, dtype=i32), node_axis)
+
+    def gather(x, dim=1):
+        return collectives.all_gather(x, node_axis, dim)
+
+    # 0. churn, with the row reductions (alive count, victim / joiner
+    #    argmax, freshest step) collective
+    if has_churn:
+        pend_l = state["pend_leave"] + leave_n
+        pend_j = state["pend_join"] + join_n
+        do_l = active & (pend_l > 0) & (nsum(alive) > 2)
+        neg = torch.full_like(rand["leave"], -1.0)
+        victim = _arg_first_max(torch.where(alive, rand["leave"], neg),
+                                gids, _I32_MAX, node_axis)
+        alive = alive & ~(do_l[:, None] & (victim[:, None] == gids))
+        pool = ~alive & params["valid_slot"]
+        do_j = active & (pend_j > 0) & (nsum(pool) > 0)
+        joiner = _arg_first_max(torch.where(pool, rand["join"], neg),
+                                gids, _I32_MAX, node_axis)
+        sel = do_j[:, None] & (joiner[:, None] == gids)
+        alive = alive | sel
+        fresh = collectives.pmax(torch.where(
+            alive, steps, torch.full_like(steps, _I32_MIN)).amax(dim=1),
+            node_axis)
+        steps = torch.where(sel, fresh[:, None], steps)
+        computing = computing & ~sel
+        event_time = torch.where(sel, t, event_time)
+        ready = torch.where(sel, t, ready)
+        blocked = blocked & ~sel
+        pend_leave = torch.where(active, pend_l - (pend_l > 0).to(i32),
+                                 state["pend_leave"])
+        pend_join = torch.where(active, pend_j - (pend_j > 0).to(i32),
+                                state["pend_join"])
+    else:
+        pend_leave, pend_join = state["pend_leave"], state["pend_join"]
+
+    # 1. finishes (elementwise; row_last is an exact float32 max)
+    fin = computing & alive & (event_time <= due) & active[:, None]
+    any_fin = nsum(fin) > 0
+    row_last = collectives.pmax(torch.where(
+        fin, event_time, torch.full_like(event_time, -torch.inf)).amax(1),
+        node_axis)
+    row_unblock = torch.where(any_fin, torch.minimum(row_last, t), t)
+    steps = steps + fin.to(i32)
+    computing = computing & ~fin
+    ready = torch.where(fin, event_time, ready)
+    blocked = blocked & ~fin
+
+    # 2. barrier decisions: the full view's min is a pmin; the β-sample
+    #    reads gathered steps / alive with the shard's own score rows
+    cand = ~computing & alive & (event_time <= due) & active[:, None]
+    steps_full = gather(steps)
+    P = steps_full.shape[1]
+    piota = torch.arange(P, device=dev)
+    stal = torch.broadcast_to(params["staleness"][:, None], (B, Pl))
+    beta_eff = params["beta_clip"][:, None]
+    if adaptive:
+        live = torch.where(alive, state["pol_ema"],
+                           torch.zeros_like(state["pol_ema"]))
+        mx = collectives.pmax(live.amax(dim=1), node_axis)
+        frac = 1.0 - state["pol_ema"] / torch.clamp_min(mx[:, None], 1e-9)
+        slack = torch.floor(params["ebsp_range"][:, None] * frac).to(i32)
+        stal = torch.where(params["is_dssp"][:, None],
+                           state["pol_thr"][:, None],
+                           torch.where(params["is_ebsp"][:, None], slack,
+                                       stal))
+        beta_eff = torch.where(params["is_anneal"], state["pol_beta"],
+                               params["beta_clip"])[:, None]
+    min_alive = collectives.pmin(torch.where(
+        alive, steps, torch.full_like(steps, _I32_MAX)).amin(dim=1),
+        node_axis)
+    pass_fv = steps - min_alive[:, None] <= stal
+    if k_max > 0:
+        if masked:
+            # per deciding node, the k smallest scores over the whole
+            # gathered peer width
+            alive_full = gather(alive)
+            off = (~alive_full[:, None, :]
+                   | (gids[None, :, None] == piota[None, None, :]))
+            sc = torch.where(off, torch.full_like(rand["scores"], 2.0),
+                             rand["scores"])                 # (B, Pl, P)
+            vals, take = _k_smallest(sc, k_max)
+            valid = vals < 1.5
+            peer = torch.gather(
+                torch.broadcast_to(steps_full[:, None, :], (B, Pl, P)),
+                2, take)
+        elif k_max == 1:
+            # one uniform per deciding node, over its P − 1 peers
+            draw = torch.floor(rand["u1"] * max(P - 1, 1)).to(i32)
+            take = torch.clamp_max(draw + (draw >= gids).to(i32), P - 1)
+            peer = steps_full[:, take.long()][:, :, None]
+            valid = torch.broadcast_to(
+                torch.arange(1, device=dev) < P - 1, peer.shape)
+        else:
+            # shared scores: the shard's deciding nodes' rows
+            sc = torch.where(gids[:, None] == piota[None, :],
+                             torch.full_like(rand["scores"], 2.0),
+                             rand["scores"])                 # (Pl, P)
+            _, take = _k_smallest(sc, k_max)
+            peer = steps_full[:, take]                       # (B, Pl, k)
+            valid = torch.broadcast_to(
+                torch.arange(k_max, device=dev) < P - 1, peer.shape)
+        slot = torch.arange(peer.shape[-1], device=dev)
+        valid = valid & (slot < beta_eff[..., None])
+        lag_ok = steps[..., None] - peer <= stal[..., None]
+        pass_sm = torch.all(lag_ok | ~valid, dim=-1)
+        n_sampled = valid.sum(dim=-1, dtype=i32)
+    else:
+        pass_sm = torch.ones((B, Pl), dtype=torch.bool, device=dev)
+        n_sampled = torch.zeros((B, Pl), dtype=i32, device=dev)
+    passed = params["is_asp"][:, None] | torch.where(
+        params["full_view"][:, None], pass_fv, pass_sm)
+    ctrl = collectives.psum(torch.where(
+        cand, n_sampled * params["dist_hops"][:, None],
+        torch.zeros_like(n_sampled)).sum(dim=1, dtype=i32), node_axis)
+
+    # 3. starts / re-polls (elementwise given the row's row_unblock)
+    start = cand & passed
+    t0 = torch.where(blocked & params["full_view"][:, None],
+                     torch.maximum(row_unblock[:, None], ready), ready)
+    dur = barrier_kernel.step_duration(rand["dur"], params["compute_time"])
+    event_time = torch.where(start, t0 + dur, event_time)
+    computing = computing | start
+    fail = cand & ~passed
+    blocked = (blocked | fail) & ~start
+    sm_fail = fail & params["sampled"][:, None]
+    ready = torch.where(sm_fail, ready + poll, ready)
+    event_time = torch.where(sm_fail, ready, event_time)
+
+    # 3b. adaptive-policy updates: the progress gap from exact collectives
+    if adaptive:
+        mxs = collectives.pmax(torch.where(
+            alive, steps, torch.full_like(steps, _I32_MIN)).amax(dim=1),
+            node_axis)
+        mns = collectives.pmin(torch.where(
+            alive, steps, torch.full_like(steps, _I32_MAX)).amin(dim=1),
+            node_axis)
+        gap = torch.where(nsum(alive) > 0, mxs - mns,
+                          torch.zeros_like(mxs))
+        pol_thr = torch.where(
+            params["is_dssp"] & active,
+            torch.minimum(torch.maximum(gap, params["pol_lo"]),
+                          params["staleness"]),
+            state["pol_thr"]).to(i32)
+        pol_beta = torch.where(
+            params["is_anneal"] & active,
+            torch.minimum(torch.maximum(
+                params["beta_lo"] + gap - params["staleness"],
+                params["beta_lo"]), params["beta_clip"]),
+            state["pol_beta"]).to(i32)
+        al = params["ebsp_alpha"][:, None]
+        pol_ema = torch.where(params["is_ebsp"][:, None] & start,
+                              (1.0 - al) * state["pol_ema"] + al * dur,
+                              state["pol_ema"])
+
+    # 4. data plane: the contraction on gathered full-width operands at
+    #    the reference's shapes (a node-sliced partial sum would change
+    #    the reduction order); each shard pulls its own views
+    X = gather(rand["X"], 0)                     # (P, m, d)
+    mbn = gather(rand["mb"], 0)                  # (P, m)
+    fin_full = gather(fin)
+    diff = gather(state["pulled"]) - params["w_true"][:, None, :]
+    W = DATA_PLANE_BLOCK
+    Bp = -(-B // W) * W
+    d_p, f_p = _pad_rows(diff, Bp), _pad_rows(fin_full, Bp)
+    w_p = _pad_rows(state["w"], Bp)
+    lr_p = _pad_rows(params["lr"], Bp)
+    ns_p = _pad_rows(params["noise_std"], Bp)
+    w = torch.cat([_push_block(X, d_p[i:i + W], f_p[i:i + W], w_p[i:i + W],
+                               lr_p[i:i + W], ns_p[i:i + W], mbn)
+                   for i in range(0, Bp, W)])[:B]
+    pulled = torch.where(start[..., None], w[:, None, :], state["pulled"])
+
+    new_state = {"steps": steps, "alive": alive, "computing": computing,
+                 "event_time": event_time, "ready": ready,
+                 "blocked": blocked, "pend_leave": pend_leave,
+                 "pend_join": pend_join, "w": w, "pulled": pulled}
+    if adaptive:
+        new_state.update(pol_thr=pol_thr, pol_ema=pol_ema,
+                         pol_beta=pol_beta)
+    out = {"fin": fin, "start": start, "n_fin": nsum(fin), "ctrl": ctrl}
     return new_state, out
 
 

@@ -72,9 +72,9 @@ OUT_DIR = str(Path(__file__).resolve().parents[3] / "results"
 #: its meshes; on one card the W that ``chip_smoke.py`` phase 8 trains
 PSP_WORKERS = {"single": 16, "multi": 32, "card": 4}
 
-_NO_PARTITION = ("the port does not partition a step over a mesh (GSPMD's "
-                 "partitioning has no counterpart before ROADMAP item "
-                 "15b), so there is no per-device count; a global count "
+_NO_PARTITION = ("the port does not count a step at its per-device shard "
+                 "shapes with each collective charged (ROADMAP item 15c), "
+                 "so there is no per-device count; a global count "
                  "divided by the chips would not be one")
 
 

@@ -20,8 +20,9 @@ detached leaves of the parameter tree, so a worker's view (slices of the
 ``[W, …]`` views) goes straight in without a copy.  ``impl`` picks the
 kernels (``cuda``), their plain versions (``ref``), or by device
 (``auto``).  Buffer donation has no counterpart in torch: the dry run
-records the reference's donated arguments and nothing else.  Placing the
-steps over a mesh of devices is ROADMAP queue 1, item 15b.
+records the reference's donated arguments and nothing else.  Over a mesh
+of ranks, :func:`make_psp_train_step` takes the mesh and splits the
+workers over its worker axes (:mod:`repro_torch.core.spmd_psp`).
 """
 from __future__ import annotations
 
@@ -80,14 +81,17 @@ def make_train_step(cfg, optimizer: Optimizer,
 
 def make_psp_train_step(cfg, psp_cfg: PSPConfig, optimizer: Optimizer,
                         noise, clip_norm: Optional[float] = 1.0,
-                        impl: str = "auto") -> Callable:
+                        impl: str = "auto", mesh=None) -> Callable:
     """``step(state, batch) -> (state, metrics)``: one PSP tick on the
     per-worker microbatches ``batch`` (leading axis W), with the next
     record of the noise source ``noise``
     (:class:`~repro_torch.core.spmd_psp.GeneratorNoise` or
-    :class:`~repro_torch.core.spmd_psp.ReplayNoise`)."""
+    :class:`~repro_torch.core.spmd_psp.ReplayNoise`).  Over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.HostMesh`) each rank computes its
+    workers' gradients and holds their views (the state from
+    ``psp_init(..., mesh=mesh)``)."""
     return make_psp_step_fn(psp_cfg, make_grad_fn(cfg, clip_norm, impl),
-                            optimizer.update, noise)
+                            optimizer.update, noise, mesh)
 
 
 def make_prefill_step(cfg, impl: str = "auto") -> Callable:

@@ -1,9 +1,14 @@
 """Mixture-of-Experts FFN: a top-k router and experts at fixed capacity.
 
-The port's counterpart of :mod:`repro.models.moe`, on one device: the
+The port's counterpart of :mod:`repro.models.moe`: on one device the
 reference's unsharded path (``moe_apply`` without a mesh), every expert
-local (``first_expert = 0``).  Its expert-parallel ``shard_map`` belongs
-to the mesh slice (ROADMAP queue 1, item 15b).
+local (``first_expert = 0``); over a mesh of ranks with a ``model`` axis
+its expert-parallel path (:func:`moe_apply` with ``mesh``), as the
+reference's ``shard_map`` lays it out: each ``model`` rank computes
+E/model experts starting at ``first = rank · E/model`` on its tokens
+(replicated over ``model``, split over ``pod`` × ``data``), at the
+capacity of its local token count, and the outputs are summed over
+``model`` — no all-to-all.  ``aux`` is averaged over the data axes.
 
 Each step reproduces the reference's, since which tokens are dropped
 changes the outputs:
@@ -51,6 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import current_rules
 
 __all__ = ["capacity", "combine", "dispatch", "experts", "moe_apply",
            "moe_defs", "route", "routing", "select"]
@@ -128,11 +135,18 @@ def select(probs: torch.Tensor, k: int
     return top_p / top_p.sum(-1, keepdim=True), top_i
 
 
-def dispatch(x: torch.Tensor, top_i: torch.Tensor, cap: int, n_experts: int
+def dispatch(x: torch.Tensor, top_i: torch.Tensor, cap: int, n_experts: int,
+             first: int = 0, n_local: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tokens to expert rows: (the ``(E, C, D)`` buffer, each pair's slot
     (T, k) in the flattened buffer (E·C where dropped), whether it was
-    kept (T, k))."""
+    kept (T, k)).
+
+    With ``n_local``, only experts ``first … first + n_local − 1`` are
+    this rank's: the buffer is ``(n_local, C, D)`` and a pair sent to
+    another rank's expert counts as not kept here.  A pair's position
+    in its expert's group is over all E experts' groups, so each
+    expert keeps the same tokens as on one device."""
     T, k = top_i.shape
     dev = x.device
     flat_e = top_i.reshape(-1)
@@ -142,6 +156,10 @@ def dispatch(x: torch.Tensor, top_i: torch.Tensor, cap: int, n_experts: int
         se, torch.arange(n_experts, device=dev, dtype=se.dtype))
     pos = torch.arange(T * k, device=dev) - group_start[se]
     ok = pos < cap
+    if n_local is not None:
+        loc = se - first
+        ok = ok & (loc >= 0) & (loc < n_local)
+        se, n_experts = loc, n_local
     slot = torch.where(ok, se * cap + pos, n_experts * cap)
     # back to the (token, choice) layout of top_i, where each token's k
     # copies are rows of one expand: its backward sums them in order,
@@ -180,14 +198,86 @@ def combine(o: torch.Tensor, top_p: torch.Tensor, top_i: torch.Tensor,
     return y
 
 
-def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN on x (B, S, D), weights ``p`` in x's dtype: (y (B, S,
     D), the auxiliary loss f32[]).  Capacity is that of the call's B·S
-    tokens, as in the reference."""
+    tokens, as in the reference.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.HostMesh`; default the
+    current rules' mesh when it is one) with a ``model`` axis of size
+    > 1 that divides E runs the expert-parallel path: x is this rank's
+    tokens (the same on every ``model`` rank of its data row), and the
+    expert leaves of ``p`` are either all E experts or this rank's
+    E/model (:func:`repro_torch.convert.expert_slice`).  Otherwise, or
+    without a mesh, it is the one-device path.
+    """
     B, S, D = x.shape
+    if mesh is None:
+        rules = current_rules()
+        mesh = rules.mesh if rules is not None else None
+    model = _model_ranks(mesh, cfg.n_experts)
     xt = x.reshape(B * S, D)
     top_p, top_i, aux = route(xt, p["router"], cfg)
-    h, slot, ok = dispatch(xt, top_i, capacity(B * S, cfg), cfg.n_experts)
-    o = experts(h, p["w_gate"], p["w_up"], p["w_down"])
-    return combine(o, top_p, top_i, slot, ok).view(B, S, D), aux
+    if not model:
+        h, slot, ok = dispatch(xt, top_i, capacity(B * S, cfg),
+                               cfg.n_experts)
+        o = experts(h, p["w_gate"], p["w_up"], p["w_down"])
+        return combine(o, top_p, top_i, slot, ok).view(B, S, D), aux
+    e_loc = cfg.n_experts // model
+    over = collectives.mesh_axis(mesh, "model")
+    first = collectives.axis_index(over) * e_loc
+    w = {k: (p[k][first:first + e_loc] if p[k].shape[0] == cfg.n_experts
+             else p[k]) for k in ("w_gate", "w_up", "w_down")}
+    # the tokens and weights that reach this rank's experts: their
+    # gradients are this rank's part, summed over `model` (the auxiliary
+    # loss's part, the same on every rank, is not)
+    h, slot, ok = dispatch(_GradSumOver.apply(xt, over), top_i,
+                           capacity(B * S, cfg), cfg.n_experts, first, e_loc)
+    o = experts(h, w["w_gate"], w["w_up"], w["w_down"])
+    y = _SumOver.apply(combine(o, _GradSumOver.apply(top_p, over), top_i,
+                               slot, ok), over)
+    data = collectives.mesh_axis(
+        mesh, [a for a in ("pod", "data") if a in mesh.axis_names])
+    aux = _SumOver.apply(aux, data) / collectives.axis_size(data)
+    return y.view(B, S, D), aux
+
+
+def _model_ranks(mesh, n_experts: int) -> int:
+    """The ``model`` axis size when ``mesh`` is a mesh of ranks whose
+    ``model`` axis (> 1) divides E; else 0 (the one-device path)."""
+    if mesh is None or not hasattr(mesh, "get_group") \
+            or "model" not in mesh.axis_names:
+        return 0
+    model = int(mesh.shape["model"])
+    return model if model > 1 and n_experts % model == 0 else 0
+
+
+class _GradSumOver(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the ranks of
+    an axis: a tensor that is the same on every rank and feeds each
+    rank's share of a sum gets the gradients of every share."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.psum(g.float(), ctx.axis).to(g.dtype), None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a tensor over the ranks of an axis (in float32, back
+    in the input's dtype).  The backward passes the gradient through
+    unchanged: what consumes the sum is the same on every rank of the
+    axis, so each rank's part gets the sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return collectives.psum(t.float(), axis).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None

@@ -14,7 +14,8 @@ allocating anything: :func:`abstract_params` (one :class:`Abstract`
 record per leaf: shape, dtype, and the spec and per-device shape under a
 rules table), :func:`spec_tree` and :func:`tree_size_bytes`, with
 :func:`per_device_bytes` over such records.  The logical axes are read
-by :mod:`repro_torch.parallel.sharding`; running on one device ignores
+by :mod:`repro_torch.parallel.sharding`; :func:`place_params` lays a
+tree over a mesh of ranks by them, and running on one device ignores
 them.
 """
 from __future__ import annotations
@@ -26,8 +27,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 __all__ = ["Abstract", "ParamDef", "abstract", "abstract_params",
-           "init_params", "map_defs", "per_device_bytes", "spec_tree",
-           "to_meta", "torch_dtype", "tree_size_bytes"]
+           "init_params", "map_defs", "per_device_bytes", "place_params",
+           "spec_tree", "to_meta", "torch_dtype", "tree_size_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +140,39 @@ def abstract_params(defs: Any, dtype: torch.dtype = torch.float32,
 def spec_tree(defs: Any, rules) -> Any:
     """Each def's spec under ``rules``, in the defs' structure."""
     return map_defs(lambda d: rules.spec(d.axes, d.shape), defs)
+
+
+def place_params(params: Any, rules, defs: Any) -> Any:
+    """Distribute a parameter tree over the rules' mesh by
+    :func:`spec_tree`: each leaf of ``params`` (this rank's whole value,
+    the same on every rank) becomes a ``DTensor`` laid out by
+    :meth:`~repro_torch.parallel.sharding.AxisRules.sharding` of its def
+    in ``defs`` (the reference places its arrays by the shardings of
+    ``abstract_params``).  Every rank holds the whole value already, so
+    each keeps its own shard and nothing is sent.  A leaf must lie on
+    the mesh's device type (gloo ranks sharing a card make their mesh
+    with ``device_type="cuda"``).  Without a mesh the
+    tree is returned as it is.  The expert-parallel MoE places its
+    experts so (:func:`repro_torch.convert.expert_slice`)."""
+    if rules is None or rules.mesh is None:
+        return params
+    from torch.distributed.tensor import distribute_tensor
+    mesh = rules.mesh.device_mesh
+
+    def one(d: ParamDef, p):
+        if p.device.type != mesh.device_type:      # DTensor would move it
+            raise ValueError(f"a {p.device.type} tensor on a "
+                             f"{mesh.device_type} mesh")
+        return distribute_tensor(p, mesh, rules.sharding(d.axes, d.shape),
+                                 src_data_rank=None)
+
+    def walk(d, p):
+        if isinstance(d, ParamDef):
+            return one(d, p)
+        if isinstance(d, dict):
+            return {k: walk(v, p[k]) for k, v in d.items()}
+        return type(d)(walk(v, q) for v, q in zip(d, p))
+    return walk(defs, params)
 
 
 def tree_size_bytes(defs: Any, bytes_per_el: int = 4) -> int:

@@ -19,9 +19,12 @@ without a process group.  A :data:`PartitionSpec` is a tuple with one
 entry per dimension: ``None`` (replicated) or a tuple of mesh axis
 names, major to minor.
 
-Placing arrays on devices (the reference's ``sweep_mesh``,
-``constrain`` and ``AxisRules.sharding``) needs a process group and
-belongs to the mesh slice (ROADMAP queue 1, item 15b).
+Placing arrays on devices needs a process group: over a
+:class:`~repro_torch.launch.mesh.HostMesh`,
+:meth:`AxisRules.sharding` gives the ``torch.distributed.tensor``
+placements of a spec and :func:`constrain` redistributes a ``DTensor``
+to them; :func:`sweep_mesh` is the sweep engines' ``(rows, nodes)``
+``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = ["AxisRules", "PSP_WORKER_AXES", "PartitionSpec",
-           "SWEEP_NODES_AXIS", "SWEEP_ROWS_AXIS", "current_rules",
-           "make_rules", "psp_worker_axes", "shard_shape", "spec_for",
+           "SWEEP_NODES_AXIS", "SWEEP_ROWS_AXIS", "constrain",
+           "current_rules", "make_rules", "placements",
+           "psp_worker_axes", "shard_shape", "spec_for", "sweep_mesh",
            "use_rules"]
 
 MeshAxes = Tuple[str, ...]
@@ -54,6 +58,29 @@ SWEEP_NODES_AXIS = "nodes"
 #: mesh axes that may carry the SPMD trainer's worker dimension, in
 #: major-to-minor order (a multi-pod worker is a (pod, data-row) pair)
 PSP_WORKER_AXES: MeshAxes = ("pod", "data")
+
+
+def sweep_mesh(rows: int, nodes: int = 1, device_type: Optional[str] = None):
+    """The sweep engines' ``(rows, nodes)`` ``DeviceMesh``: the first
+    ``rows × nodes`` ranks of the initialised process group, rows-major
+    (every rank of the group calls it).  Kept per shape and device type
+    for as long as the default group is the same, so a sweep of many
+    batches makes its groups once."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import device_mesh
+    world = dist.group.WORLD
+    key = (rows, nodes, device_type)
+    hit = _SWEEP_MESHES.get(key)
+    # the entry holds its group, so a later group cannot take its place
+    # unseen
+    if hit is None or hit[0] is not world:
+        hit = _SWEEP_MESHES[key] = (world, device_mesh(
+            device_type, (rows, nodes), (SWEEP_ROWS_AXIS, SWEEP_NODES_AXIS)))
+    return hit[1]
+
+
+#: sweep_mesh's meshes: (rows, nodes, device type) → (group, mesh)
+_SWEEP_MESHES: Dict[tuple, tuple] = {}
 
 
 def psp_worker_axes(mesh) -> MeshAxes:
@@ -101,6 +128,36 @@ class AxisRules:
             used.update(picked)
             out.append(tuple(picked) if picked else None)
         return tuple(out)
+
+    def sharding(self, logical_axes, shape) -> Optional[tuple]:
+        """The ``torch.distributed.tensor`` placements of
+        :meth:`spec` over the mesh (one per mesh dimension), or None
+        without a mesh."""
+        if self.mesh is None:
+            return None
+        return placements(self.spec(logical_axes, shape), self.mesh)
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """A spec as ``DTensor`` placements over ``mesh`` (its
+    ``axis_names`` and ``shape``): ``Shard(i)`` on each mesh dimension
+    that splits tensor dimension ``i``, ``Replicate()`` on the others
+    and on a dimension of one rank (a split over one rank keeps the
+    whole, and redistributing it then moves nothing).  A dimension split
+    over several mesh axes must name them in the mesh's order
+    (``DTensor`` shards major to minor in that order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.axis_names)
+    out = [Replicate()] * len(names)
+    for i, axes in enumerate(spec):
+        pos = [names.index(a) for a in axes or ()]
+        if pos != sorted(pos):
+            raise ValueError(f"dimension {i} splits over {axes}, out of "
+                             f"the mesh's order {names}")
+        for j in pos:
+            if mesh.shape[names[j]] > 1:
+                out[j] = Shard(i)
+    return tuple(out)
 
 
 def shard_shape(spec: PartitionSpec, shape: Sequence[int],
@@ -152,6 +209,22 @@ def spec_for(logical_axes, shape) -> PartitionSpec:
     if rules is None:
         return ()
     return rules.spec(logical_axes, shape)
+
+
+def constrain(x, logical_axes: Sequence[Optional[str]]):
+    """Lay ``x`` out by logical names under the current rules.
+
+    A ``DTensor`` is redistributed to the placements of its spec over
+    the rules' mesh; any tensor is returned unchanged when no rules (or
+    no mesh) are current, and a plain tensor is returned unchanged
+    always (it is this rank's whole value, which no layout changes).
+    """
+    from torch.distributed.tensor import DTensor
+    rules = current_rules()
+    if rules is None or rules.mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          rules.sharding(logical_axes, x.shape))
 
 
 # --------------------------------------------------------------------------- #

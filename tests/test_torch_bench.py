@@ -165,11 +165,16 @@ def test_sweep_bench_schema_on_cpu(tmp_path, monkeypatch):
     grid = {"seconds", "compile_seconds", "speedup_vs_event",
             "amortized_speedup_vs_event", "max_progress_deviation"}
     assert set(res["engines"]["numpy"]) == set(ref["engines"]["numpy"])
-    assert set(res["engines"]["torch"]) == grid | {"tick_impl",
-                                                   "throughput_vs_numpy"}
+    # the reference's mesh fields, on one device without --mesh
     mesh = {"n_devices", "mesh", "mesh_axes"}
+    assert set(res["engines"]["torch"]) == set(ref["engines"]["jax"]) | \
+        {"tick_impl"} == grid | mesh | {"tick_impl", "throughput_vs_numpy"}
     assert set(res["engines"]["torch_100k"]) == \
-        (set(ref["engines"]["jax_100k"]) - mesh) | {"tick_impl"}
+        set(ref["engines"]["jax_100k"]) | {"tick_impl"}
+    for name in ("torch", "torch_100k"):
+        assert {k: res["engines"][name][k] for k in mesh} == \
+            {"n_devices": 1, "mesh": [1, 1],
+             "mesh_axes": {"rows": 1, "nodes": 1}}
     assert res["engines"]["torch"]["tick_impl"] == "ref"
     assert res["engines"]["torch_100k"]["tick_impl"] == "ref"
     assert res["n_configs"] == 18 and res["device"] == "cpu"

@@ -172,7 +172,7 @@ def test_env_overrides_are_typed(monkeypatch):
     with pytest.raises(ValueError, match="PSP_SWEEP_CHUNK"):
         env.get_int("PSP_SWEEP_CHUNK")
     with pytest.raises(KeyError, match="not a registered"):
-        env.get_str("PSP_SWEEP_MESH")
+        env.get_str("PSP_COMPILE_CACHE")
     monkeypatch.setenv("PSP_TICK_IMPL", "")
     assert env.get_str("PSP_TICK_IMPL") == "auto"
 
